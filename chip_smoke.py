@@ -1,5 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: TPC-H q6 at SF1 from
-Parquet through ``spark_rapids_tpu_torch``, with K1 checked on the card.
+Parquet, and the join + group-by query at the reference's full size,
+through ``spark_rapids_tpu_torch``, with K1, K3 and K4 checked on the
+card.
 
     python3 chip_smoke.py
 
@@ -7,14 +9,24 @@ Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every CUDA source under spark_rapids_tpu_torch/csrc/ with nvcc
      (one process per source, in parallel) into build/kernels/;
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's batch shape, at a ragged length, and with nulls and NaN;
-     each timed with CUDA events beside its bound;
-  4. the slice: q6 SF1 (6,001,215 rows, seed 0, 8 snappy files, row
-     groups of 1 << 20) written to .bench_cache/lineitem_torch/, run
-     through collect_arrow with device page decode off, its revenue held
-     to a pyarrow + numpy oracle (rel 1e-9), K1's launches held to the
-     batch count, and rows/s as the median of 3 runs after a warm-up.
+  3. each kernel against its plain PyTorch version on the card: K1 at the
+     q6 batch shape, at a ragged length, and with nulls and NaN; K3 at
+     the join + group-by path's sort shapes (2^17, 2^21, 2^23 pairs), at
+     a ragged length and on all-equal, sorted, reverse and duplicated
+     keys, exactly; K4 at the path's gather shapes, at a ragged length,
+     with nulls, dead rows and 1- to 8-byte columns, bit for bit; each
+     timed with CUDA events beside its bound, its plain version and the
+     library call;
+  4. q6 SF1 (6,001,215 rows, seed 0, 8 snappy files, row groups of
+     1 << 20) written to .bench_cache/lineitem_torch/, run through
+     collect_arrow with device page decode off, its revenue held to a
+     pyarrow + numpy oracle (rel 1e-9), K1's launches held to the batch
+     count, and rows/s as the median of 3 runs after a warm-up;
+  5. the join + group-by query (2^23 lineitem rows in 4 batches, 2^17
+     orders, seed 1): its 12 monthly revenues held to a numpy oracle
+     (rel 1e-9), K3's and K4's launches held to the counts the plan
+     implies, and rows/s as the median of 3 runs after a warm-up, with
+     each operator's opTime.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}. The script imports neither jax nor the
 JAX package.
@@ -37,6 +49,10 @@ ENGINE_RTOL = 1e-9
 # the TPU kernel K1 replaces, as file:line
 K1_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:58"
 K1_SOURCE = "spark_rapids_tpu_torch/csrc/masked_product_sum.cu"
+K3_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:156"
+K3_SOURCE = "spark_rapids_tpu_torch/csrc/bitonic_sort.cu"
+K4_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:259"
+K4_SOURCE = "spark_rapids_tpu_torch/csrc/gather.cu"
 
 
 def log(*a):
@@ -92,6 +108,41 @@ def phase_kernels(device):
             f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}, {t['bytes']} B)")
     return times
+
+
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_sort_gather(device):
+    """K3 and K4 against their plain versions, then timed."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    k3_recs, k4_recs = kc.check_k3(device), kc.check_k4(device)
+    for rec in k3_recs:
+        log(f"[k3] {rec}")
+    for rec in k4_recs:
+        log(f"[k4] {rec}")
+    k3 = kc.time_k3(device)
+    for n, t in k3.items():
+        # each pair is read and written once; the compares count at the
+        # card's scalar rate
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["compares"])
+        log(f"[k3] sort_pairs at {n} pairs: kernel {t['ms']:.6f} ms, plain "
+            f"{t['plain_ms']:.6f} ms, torch.sort {t['library_ms']:.6f} ms, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
+            f"{t['bytes']} B)")
+    k4 = kc.time_k4(device)
+    k4["bound_ms"], k4["bound_by"] = _bound(k4["bytes"], 0)
+    log(f"[k4] gather_rows at the probe's {k4['rows']} rows x 2 int32 "
+        f"columns: kernel {k4['ms']:.6f} ms, plain {k4['plain_ms']:.6f} ms,"
+        f" index_select {k4['library_ms']:.6f} ms, bound "
+        f"{k4['bound_ms']:.6f} ms ({k4['bound_by']}, {k4['bytes']} B)")
+    errs = (max(r["max_abs_err"] for r in k3_recs),
+            max(r["max_abs_err"] for r in k4_recs))
+    return k3, k4, errs
 
 
 def phase_slice(device):
@@ -157,12 +208,77 @@ def phase_slice(device):
     return launches
 
 
+def phase_join(device):
+    import numpy as np
+    from spark_rapids_tpu_torch import join_groupby as jg
+    from spark_rapids_tpu_torch.exec.base import ExecCtx, collect_arrow
+    from spark_rapids_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    plan, li, orders = jg.build_plan(device=device)
+    want = jg.host_oracle(li, orders)
+    torch.cuda.synchronize()
+    log(f"[join] {jg.N_LI} lineitem rows in batches of {jg.BATCH_ROWS}, "
+        f"{jg.N_ORD} orders: data on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    n_batches = -(-jg.N_LI // jg.BATCH_ROWS)
+    # K3: the build key's presort, one sort a partial aggregate, one for
+    # the final (each key set is one word: live + null + 32 bits)
+    want_k3 = 1 + n_batches + 1
+    # K4: the build's sorted-key gather; per stream batch the probe's
+    # gather of the build columns, the partial's permutation of keys and
+    # values, and its gather of each segment's first key; the final's
+    # permutation and its segment starts
+    want_k4 = 1 + 3 * n_batches + 2
+
+    def run():
+        ctx = ExecCtx(device=device)
+        t = time.perf_counter()
+        out = collect_arrow(plan, ctx)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, ctx
+
+    run()  # warm-up
+    counters = (ck.sort_pairs, ck.gather_rows, ck.sort_keys, ck.gather,
+                ck.filter_product_sum, ck.masked_product_sum)
+    for c in counters:
+        c.launches = 0
+    out, secs, ctx = run()
+    launches = {c.__name__: c.launches for c in counters}
+    times = [secs] + [run()[1] for _ in range(2)]
+    months = out.column("o_month").to_pylist()
+    got = out.column("revenue").to_pylist()
+    rels = [abs(g - want[m]) / abs(want[m]) for m, g in zip(months, got)]
+    for m, g, r in zip(months, got, rels):
+        log(f"[join] month {m:2d} revenue {g!r} oracle {want[m]!r} "
+            f"rel_err {r:.3e}")
+    if months != list(range(1, 13)) or not all(
+            np.isfinite(g) for g in got) or not max(rels) <= ENGINE_RTOL:
+        raise AssertionError(f"join + group-by: months {months}, rel "
+                             f"errors {rels}")
+    log(f"[join] launches in one query: {launches}; expected "
+        f"sort_pairs {want_k3}, gather_rows {want_k4}")
+    if launches != {"sort_pairs": want_k3, "gather_rows": want_k4,
+                    "sort_keys": 0, "gather": 0, "filter_product_sum": 0,
+                    "masked_product_sum": 0}:
+        raise AssertionError(f"launches {launches}")
+    med = statistics.median(times)
+    log(f"[join] join + group-by: {jg.N_LI / med:.1f} rows/s (median of "
+        f"{[round(t, 6) for t in times]} s)")
+    metrics = {label: {k: m.value for k, m in ms.items()}
+               for label, ms in ctx.metrics.items()}
+    log("[join] metrics " + json.dumps(metrics, sort_keys=True))
+    return launches
+
+
 def main():
     name, count, smi = phase_card()
     device = torch.device("cuda", 0)
     phase_build()
     times = phase_kernels(device)
+    k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     launches = phase_slice(device)
+    join_launches = phase_join(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]
@@ -172,12 +288,28 @@ def main():
     log(f"[k1-contract] masked_product_sum: ms={c['ms']!r} "
         f"plain_ms={c['plain_ms']!r} bound_ms={c['bound_ms']!r} "
         f"max_abs_err={c['max_abs_err']!r}; not on the main path")
+    main_sort = k3[1 << 21]
     log(json.dumps({"kernels": [{
         "name": "masked_product_sum (engine edition, filter_product_sum)",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-        "bound_by": e["bound_by"], "library_ms": None}]}))
+        "bound_by": e["bound_by"], "library_ms": None}, {
+        "name": "bitonic_sort (engine edition, sort_pairs)",
+        "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+        "launches": join_launches["sort_pairs"], "max_abs_err": k3_err,
+        "ms": main_sort["ms"], "plain_ms": main_sort["plain_ms"],
+        "bound_ms": main_sort["bound_ms"],
+        "bound_by": main_sort["bound_by"],
+        "library_ms": main_sort["library_ms"], "shape": "2^21 pairs",
+        "by_shape": {str(n): t for n, t in k3.items()}}, {
+        "name": "gather (engine edition, gather_rows)",
+        "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
+        "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
+        "shape": "2^21 rows x 2 int32 columns from 2^17"}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

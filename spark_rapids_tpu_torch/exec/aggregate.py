@@ -1,10 +1,20 @@
-"""Aggregation operator, ungrouped.
+"""Aggregation operator, global and grouped.
 
-Counterpart of ``spark_rapids_tpu/exec/aggregate.py:59-265,476-515``
+Counterpart of ``spark_rapids_tpu/exec/aggregate.py:39-265,476-515``
 (``TpuHashAggregateExec``): a partial pass per input batch, then the
-partials are merged and evaluated. Only the global (no-key) aggregate is
-ported; the grouped path needs ``ops/sort_keys.py`` and
-``ops/segments.py`` and waits for a later slice.
+partials are concatenated, merged and evaluated.
+
+The grouped path is the reference's sort-based one (``_segment_starts``,
+``_group_and_gather``, ``_partial``, ``_final``): each batch's rows are
+sorted by their key lanes (**K3**, ``ops/sort_keys.sorted_segments``),
+keys and values are permuted in one **K4** launch, each segment is
+reduced (``ops/segments.py``), and one more K4 launch gathers every
+segment's first key. A partial keeps its batch's capacity and marks its
+groups with a lazy selection, so no count is read back until the final
+aggregate's output, whose group count sizes the result. The partials
+meet in ``concat_batches_bounded``. The reference's memory manager and
+its bounded rolling merge (``_merge_bounded``) wait for ROADMAP item 14:
+the port always merges in one final pass.
 
 When the operators fused below the aggregate are q6's shape — a filter
 on an AND of column-vs-literal comparisons, then a project of
@@ -16,13 +26,14 @@ eager code.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import datatypes as dt
-from ..columnar.batch import GpuBatch
+from ..columnar.batch import GpuBatch, bucket_rows, row_mask
 from ..columnar.column import GpuColumnVector, torch_dtype
 from ..expr.aggregates import GLOBAL_LANES, AggregateFunction, Sum
 from ..expr.arithmetic import Multiply
@@ -31,10 +42,16 @@ from ..expr.base import Alias, BoundReference, Expression, Literal, \
 from ..expr.predicates import (And, EqualTo, GreaterThan,
                                GreaterThanOrEqual, LessThan,
                                LessThanOrEqual)
+from ..ops.concat import concat_batches_bounded
 from ..ops.cuda_kernels import (MAX_LEAVES, MAX_SLOTS, FilterProductSum,
                                 Leaf, filter_product_sum)
+from ..ops.gather import gather_columns, shrink_batch
+from ..ops.segments import segment_starts_sorted
+from ..ops.sort_keys import (check_key_type, normalize_float_key_col,
+                             sorted_segments)
 from .base import ExecCtx, GpuExec, UnaryExec, fused_batches
-from .basic import GpuFilterExec, GpuProjectExec
+from .basic import GpuFilterExec, GpuProjectExec, bind_all, \
+    output_schema_for
 
 __all__ = ["GpuHashAggregateExec"]
 
@@ -42,6 +59,11 @@ _LEAF_OPS = {EqualTo: "=", LessThan: "<", LessThanOrEqual: "<=",
              GreaterThan: ">", GreaterThanOrEqual: ">="}
 _FLIPPED = {"=": "=", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
 _KERNEL_COLUMN_TYPES = (dt.FloatType, dt.IntegerType, dt.DateType)
+
+
+def _segment_starts(seg: torch.Tensor) -> torch.Tensor:
+    """``starts[g]``: the first sorted position of segment g."""
+    return segment_starts_sorted(seg, seg.shape[0])
 
 
 def _unalias(e: Expression) -> Tuple[AggregateFunction, str]:
@@ -124,25 +146,27 @@ def _lane0_column(cols: List[GpuColumnVector]) -> GpuColumnVector:
 
 
 class GpuHashAggregateExec(UnaryExec):
-    """Ungrouped aggregation with partial and final phases."""
+    """Sort-based aggregation with partial and final phases; without
+    group keys, the global aggregate."""
 
     def __init__(self, group_exprs: Sequence[Expression],
                  agg_exprs: Sequence[Expression], child: GpuExec):
         super().__init__(child)
-        if group_exprs:
-            raise NotImplementedError(
-                "grouped aggregation is not ported yet; only the global "
-                "aggregate runs on the device")
+        self.group_exprs = bind_all(group_exprs, child.output_schema)
+        for e in self.group_exprs:
+            check_key_type(e.dtype)
         self.aggs: List[AggregateFunction] = []
         self.agg_names: List[str] = []
         for e in agg_exprs:
             fn, name = _unalias(bind_expr(e, child.output_schema))
             self.aggs.append(fn)
             self.agg_names.append(name)
-        self._schema = dt.Schema([dt.StructField(n, a.dtype, a.nullable)
-                                  for a, n in zip(self.aggs,
-                                                  self.agg_names)])
-        bfields = []
+        gfields = list(output_schema_for(self.group_exprs).fields)
+        self._schema = dt.Schema(
+            gfields + [dt.StructField(n, a.dtype, a.nullable)
+                       for a, n in zip(self.aggs, self.agg_names)])
+        # partial buffers: the group keys, then each aggregate's lanes
+        bfields = list(gfields)
         self._buf_slices: List[Tuple[int, int]] = []
         for i, a in enumerate(self.aggs):
             bf = a.buffer_fields
@@ -156,10 +180,60 @@ class GpuHashAggregateExec(UnaryExec):
         return self._schema
 
     def describe(self):
+        g = ", ".join(map(repr, self.group_exprs))
         a = ", ".join(f"{type(x).__name__.lower()}"
                       f"({', '.join(map(repr, x.children))})"
                       for x in self.aggs)
-        return f"HashAggregateExec [keys=[] aggs=[{a}]]"
+        return f"HashAggregateExec [keys=[{g}] aggs=[{a}]]"
+
+    # --- grouped phases ---------------------------------------------------
+
+    def _group_and_gather(self, key_cols, extra_cols, live):
+        """Sort by the keys; returns (sorted key cols, sorted extra col
+        lists, seg, sorted_live, num_groups, out_live). Keys and extras
+        move in one K4 launch."""
+        perm, seg, num_groups, sorted_live = sorted_segments(key_cols,
+                                                             live)
+        flat = list(key_cols) + [c for cols in extra_cols for c in cols]
+        moved = gather_columns(flat, perm, sorted_live)
+        skeys = moved[:len(key_cols)]
+        sextras, at = [], len(key_cols)
+        for cols in extra_cols:
+            sextras.append(moved[at:at + len(cols)])
+            at += len(cols)
+        out_live = row_mask(live.shape[0], num_groups, live.device)
+        return skeys, sextras, seg, sorted_live, num_groups, out_live
+
+    def _partial_grouped(self, batch: GpuBatch, ectx) -> GpuBatch:
+        live = batch.live_mask()
+        key_cols = [normalize_float_key_col(e.eval_gpu(batch, ectx))
+                    for e in self.group_exprs]
+        val_cols = [[c.eval_gpu(batch, ectx) for c in a.children]
+                    for a in self.aggs]
+        skeys, svals, seg, sorted_live, _, out_live = \
+            self._group_and_gather(key_cols, val_cols, live)
+        out_cols = gather_columns(skeys, _segment_starts(seg), out_live)
+        for a, sv in zip(self.aggs, svals):
+            out_cols.extend(a.update_device(sv, seg, sorted_live, out_live))
+        # the groups are the prefix out_live marks; their count stays on
+        # the device
+        return GpuBatch(out_cols, self._partial_schema, live.shape[0],
+                        selection=out_live)
+
+    def _final_grouped(self, pbatch: GpuBatch) -> GpuBatch:
+        nkeys = len(self.group_exprs)
+        buf_cols = [pbatch.columns[lo:hi] for lo, hi in self._buf_slices]
+        skeys, sbufs, seg, sorted_live, num_groups, out_live = \
+            self._group_and_gather(pbatch.columns[:nkeys], buf_cols,
+                                   pbatch.live_mask())
+        out_cols = gather_columns(skeys, _segment_starts(seg), out_live)
+        for a, sb in zip(self.aggs, sbufs):
+            out_cols.append(a.evaluate_device(
+                a.merge_device(sb, seg, sorted_live, out_live)))
+        # the query's one readback: the result's row count
+        n = int(num_groups)
+        return shrink_batch(GpuBatch(out_cols, self._schema, n),
+                            bucket_rows(n))
 
     def _partial(self, batch: GpuBatch, ectx) -> GpuBatch:
         live = batch.live_mask()
@@ -188,6 +262,8 @@ class GpuHashAggregateExec(UnaryExec):
         return GpuBatch(cols, self.child.output_schema, 0)
 
     def fused_chain_fn(self, chain, ctx: ExecCtx):
+        if self.group_exprs:
+            return None
         plan = _filter_product_sum_plan(chain, self.aggs)
         if plan is None:
             return None
@@ -206,8 +282,19 @@ class GpuHashAggregateExec(UnaryExec):
         return run
 
     def execute(self, ctx: ExecCtx):
+        op_time = ctx.metric(self, "opTime")
+        if self.group_exprs:
+            partials = list(fused_batches(
+                self, ctx, tail_fn=self._partial_grouped, metric=op_time))
+            if not partials:
+                return
+            t0 = time.perf_counter()
+            out = self._final_grouped(concat_batches_bounded(partials))
+            op_time.value += time.perf_counter() - t0
+            yield out
+            return
         partials = list(fused_batches(self, ctx, tail_fn=self._partial,
-                                      metric=ctx.metric(self, "opTime")))
+                                      metric=op_time))
         if not partials:
             partials = [self._partial(self._empty_child_batch(ctx.device),
                                       ctx.eval_ctx)]

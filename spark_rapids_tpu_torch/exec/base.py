@@ -1,13 +1,15 @@
 """Physical operator layer.
 
-Counterpart of ``spark_rapids_tpu/exec/base.py:80-160,290-450,486-592,
+Counterpart of ``spark_rapids_tpu/exec/base.py:80-200,290-450,486-592,
 595-718``: ``GpuMetric``, a slim ``ExecCtx``, ``GpuExec`` with
 ``LeafExec``/``UnaryExec``, the two batch sources, ``fused_batches`` and
 ``collect_arrow``. Every operator's ``execute(ctx)`` yields device
 ``GpuBatch``es on ``ctx.device``.
 
-The slim ``ExecCtx`` carries the conf, the eval ctx, the device and the
-metrics. It has no memory manager (split-and-retry, spill), no tracer,
+The slim ``ExecCtx`` carries the conf, the eval ctx, the device, the
+metrics and the deferred device checks (a flag on the device, raised at
+the query's download rather than read back when it is made). It has no
+memory manager (split-and-retry, spill), no tracer,
 no flight recorder and no per-operator metrics collector: those are
 later slices (``memory.py`` and ``obs/`` in the JAX package). The
 reference's ``execute_cpu`` oracle path waits for the planner slice.
@@ -15,7 +17,7 @@ reference's ``execute_cpu`` oracle path waits for the planner slice.
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 import torch
@@ -86,11 +88,39 @@ class ExecCtx:
         self.metrics: Dict[str, Dict[str, GpuMetric]] = {}
         self.stage_fusion = self.conf.get(STAGE_FUSION)
 
+        self.deferred_checks: List[Tuple[torch.Tensor, str]] = []
+
     def metric(self, node: "GpuExec", name: str) -> GpuMetric:
         m = self.metrics.setdefault(node.node_label(), {})
         if name not in m:
             m[name] = GpuMetric(name)
         return m[name]
+
+    # --- deferred device-side checks --------------------------------------
+    # A predicate that lives on the device (a bool scalar, True means
+    # violated) is recorded instead of read back, and raised at the
+    # query's download, before any result reaches the caller. The join's
+    # build_unique hint probe uses it.
+
+    def add_deferred_check(self, flag: torch.Tensor, message: str) -> None:
+        self.deferred_checks.append((flag, message))
+
+    def discard_deferred(self) -> None:
+        """Drop pending checks unread: the query failed before its
+        download, and a reused ctx must not report its flags."""
+        self.deferred_checks = []
+
+    def check_deferred(self) -> None:
+        """Read the pending checks (one copy for all) and clear them;
+        raise if any is violated."""
+        checks, self.deferred_checks = self.deferred_checks, []
+        if not checks:
+            return
+        flags = torch.stack([f.reshape(()) for f, _ in checks]).cpu()
+        bad = [msg for (_, msg), v in zip(checks, flags.tolist()) if v]
+        if bad:
+            raise RuntimeError(
+                "deferred device checks failed:\n  " + "\n  ".join(bad))
 
 
 class GpuExec:
@@ -261,8 +291,13 @@ class DeviceBatchSourceExec(LeafExec):
 def collect_arrow(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
         -> pa.Table:
     """Run the plan on the device and download the result as one Arrow
-    table."""
+    table; the deferred device checks are read at the download."""
     ctx = ctx or ExecCtx()
-    batches = [device_to_arrow(b) for b in plan.execute(ctx)]
+    try:
+        batches = [device_to_arrow(b) for b in plan.execute(ctx)]
+    except BaseException:
+        ctx.discard_deferred()
+        raise
+    ctx.check_deferred()
     return pa.Table.from_batches(batches,
                                  schema=arrow_schema(plan.output_schema))

@@ -1,12 +1,21 @@
-"""Aggregate functions, ungrouped.
+"""Aggregate functions: ``Sum`` and ``Count``.
 
-Counterpart of ``spark_rapids_tpu/expr/aggregates.py:41-200``: the
-update -> merge -> evaluate contract of ``Sum`` and ``Count`` for the
-global (no-key) aggregate, the reference's ``seg is None`` path. As
-there, a partial buffer is ``GLOBAL_LANES`` wide with the value in lane
-0. Sum of a float accumulates in float64 (Spark's result type) and is
-null when no row contributed (``_sum_lanes``, ``:124``; ``Sum._acc``,
-``:161``). Grouped reduction, the other functions and decimals wait
+Counterpart of ``spark_rapids_tpu/expr/aggregates.py:41-258``: the
+update -> merge -> evaluate contract of ``Sum`` and ``Count``, in two
+forms.
+
+- Global (no key), the reference's ``seg is None`` path: ``update``,
+  ``merge`` and ``evaluate`` over a live mask. As there, a partial
+  buffer is ``GLOBAL_LANES`` wide with the value in lane 0.
+- Grouped: ``update_device``, ``merge_device`` and ``evaluate_device``
+  over ``(seg, sorted_live, out_live)``, the rows already sorted by key,
+  reducing per sorted segment with ``ops/segments.seg_reduce_sorted``;
+  the buffers are as long as the segment ids, with ``out_live`` marking
+  the groups.
+
+Sum of a float accumulates in float64 (Spark's result type) and is null
+when no row contributed (``_sum_lanes``, ``:124``; ``Sum._acc``,
+``:161``). The other functions (Min/Max/Average, ...) and decimals wait
 for a later slice.
 """
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch
 
 from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector
+from ..ops.segments import seg_reduce_sorted
 from .base import Expression
 
 __all__ = ["AggregateFunction", "Sum", "Count", "GLOBAL_LANES"]
@@ -58,6 +68,25 @@ class AggregateFunction(Expression):
 
     def evaluate(self, bufs: List[GpuColumnVector]) -> GpuColumnVector:
         return bufs[0]
+
+    def update_device(self, vals: List[GpuColumnVector], seg: torch.Tensor,
+                      sorted_live: torch.Tensor, out_live: torch.Tensor) \
+            -> List[GpuColumnVector]:
+        raise NotImplementedError
+
+    def merge_device(self, bufs: List[GpuColumnVector], seg: torch.Tensor,
+                     sorted_live: torch.Tensor, out_live: torch.Tensor) \
+            -> List[GpuColumnVector]:
+        raise NotImplementedError
+
+    def evaluate_device(self, bufs: List[GpuColumnVector]) \
+            -> GpuColumnVector:
+        return bufs[0]
+
+
+def _seg_count(valid: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    return seg_reduce_sorted(valid.to(torch.int64), seg, seg.shape[0],
+                             "sum")
 
 
 class Sum(AggregateFunction):
@@ -102,6 +131,20 @@ class Sum(AggregateFunction):
     def merge(self, bufs, live):
         return [self.buffer(*self._sum_lanes(bufs[0], live))]
 
+    def _seg_sum_lanes(self, col, seg, sorted_live, out_live):
+        valid = _masked(col, sorted_live)
+        zero = torch.zeros((), dtype=self._acc(), device=seg.device)
+        s = seg_reduce_sorted(torch.where(valid, col.data.to(self._acc()),
+                                          zero), seg, seg.shape[0], "sum")
+        cnt = _seg_count(valid, seg)
+        return [GpuColumnVector(self.dtype, s, (cnt > 0) & out_live)]
+
+    def update_device(self, vals, seg, sorted_live, out_live):
+        return self._seg_sum_lanes(vals[0], seg, sorted_live, out_live)
+
+    def merge_device(self, bufs, seg, sorted_live, out_live):
+        return self._seg_sum_lanes(bufs[0], seg, sorted_live, out_live)
+
 
 class Count(AggregateFunction):
     """count(expr) counts non-null rows; count(*) (no child) counts rows."""
@@ -131,3 +174,15 @@ class Count(AggregateFunction):
                            torch.zeros((), dtype=torch.int64,
                                        device=live.device))
         return [GpuColumnVector(dt.INT64, _lane0(data.sum(), torch.int64))]
+
+    def update_device(self, vals, seg, sorted_live, out_live):
+        valid = _masked(vals[0], sorted_live) if vals else sorted_live
+        return [GpuColumnVector(dt.INT64, _seg_count(valid, seg), out_live)]
+
+    def merge_device(self, bufs, seg, sorted_live, out_live):
+        data = torch.where(_masked(bufs[0], sorted_live), bufs[0].data,
+                           torch.zeros((), dtype=torch.int64,
+                                       device=seg.device))
+        return [GpuColumnVector(
+            dt.INT64, seg_reduce_sorted(data, seg, seg.shape[0], "sum"),
+            out_live)]

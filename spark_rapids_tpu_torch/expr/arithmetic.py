@@ -1,11 +1,11 @@
-"""Binary arithmetic: ``Multiply``.
+"""Binary arithmetic: ``Subtract`` and ``Multiply``.
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py:58-165``. Spark
 semantics for the fixed-width lanes: the result keeps the operands' type
 (float32 x float32 stays float32, rounded once per product); integers
 wrap two's-complement (Java overflow), as torch's integer ops do.
-Decimals, ``Add``/``Subtract``/``Divide`` and the ANSI checks wait for a
-later slice.
+Decimals, ``Add``/``Divide`` and the ANSI checks wait for a later
+slice.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector, and_validity
 from .base import Expression
 
-__all__ = ["BinaryArithmetic", "Multiply"]
+__all__ = ["BinaryArithmetic", "Subtract", "Multiply"]
 
 
 class BinaryArithmetic(Expression):
@@ -53,6 +53,14 @@ class BinaryArithmetic(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} {self.symbol} {self.children[1]!r})"
+
+
+class Subtract(BinaryArithmetic):
+    symbol = "-"
+
+    @staticmethod
+    def _compute(l, r):
+        return l - r
 
 
 class Multiply(BinaryArithmetic):

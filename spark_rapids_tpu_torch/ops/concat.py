@@ -1,0 +1,47 @@
+"""Device batch concatenation.
+
+Counterpart of ``concat_batches_bounded``
+(``spark_rapids_tpu/ops/concat.py:148``): the output capacity is the
+bucketed sum of the input capacities, so nothing is read back to size it.
+Where the reference compacts each input and gathers the live rows into a
+prefix, the port copies every input whole, one after the other, and
+carries the inputs' live rows as the output's lazy selection: the
+consumers (the final aggregate's sort, the join's build presort) read
+the live mask and put the dead rows last. No row moves, no gather runs.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..columnar.batch import GpuBatch, bucket_rows
+
+__all__ = ["concat_batches_bounded"]
+
+
+def _padded_cat(parts: List[torch.Tensor], cap: int) -> torch.Tensor:
+    out = torch.cat(parts)
+    if out.shape[0] == cap:
+        return out
+    padded = torch.zeros(cap, dtype=out.dtype, device=out.device)
+    padded[:out.shape[0]] = out
+    return padded
+
+
+def concat_batches_bounded(batches: List[GpuBatch]) -> GpuBatch:
+    """Concatenate batches of one schema without a size readback."""
+    if len(batches) == 1:
+        return batches[0]
+    first = batches[0]
+    cap = bucket_rows(sum(b.capacity for b in batches))
+    cols = []
+    for ci, c0 in enumerate(first.columns):
+        parts = [b.columns[ci] for b in batches]
+        data = _padded_cat([p.data for p in parts], cap)
+        validity = None
+        if any(p.validity is not None for p in parts):
+            validity = _padded_cat([p.valid_mask() for p in parts], cap)
+        cols.append(type(c0)(c0.dtype, data, validity))
+    live = _padded_cat([b.live_mask() for b in batches], cap)
+    return GpuBatch(cols, first.schema, cap, selection=live)

@@ -1,5 +1,6 @@
-"""K1 on the H100: the q6 filter -> product -> sum chain as one CUDA kernel.
+"""The port's CUDA kernels and their plain PyTorch versions.
 
+K1 on the H100: the q6 filter -> product -> sum chain as one CUDA kernel.
 Counterpart of ``spark_rapids_tpu/ops/pallas_kernels.py:33-84``
 (``masked_product_sum_xla`` and ``masked_product_sum_pallas``). The
 kernel is ``csrc/masked_product_sum.cu``; its source note gives its
@@ -15,10 +16,29 @@ bound and design. Two editions of one template:
   comparisons and a float32 sum, exactly ``masked_product_sum_xla``, for
   any ``n``. It returns the sum and the count.
 
-Each wrapper takes its plain PyTorch version (``filter_product_sum_torch``,
-``masked_product_sum_torch``) only for tensors on the CPU; a CUDA tensor
-gets the kernel or an exception. Each keeps a plain integer ``launches``
-count, raised by one where it launches the kernel.
+K3, ``csrc/bitonic_sort.cu``, replaces ``sort_pallas`` (``:156``):
+
+- ``sort_pairs`` (engine edition): ``(uint64 key, int32 payload)`` pairs
+  of any length, ordered on ``(key, payload)`` with keys unsigned. Keys
+  travel as ``int64`` tensors holding the uint64 bits. The payload
+  defaults to the row position, which makes the sort stable.
+- ``sort_keys`` (K3-contract edition): float32 or int32 keys of any
+  length in ``sort_xla``'s order (``jax.lax.sort``: NaNs last and equal,
+  ``-0.0 == 0.0``); ``-0.0`` comes back as ``0.0`` and a NaN as the
+  canonical NaN.
+
+K4, ``csrc/gather.cu``, replaces ``gather_pallas`` (``:259``):
+
+- ``gather_rows`` (engine edition): up to 16 fixed-width columns of 1, 2,
+  4 or 8 bytes in one launch, ``out[i] = live[i] ? col[idx[i]] : 0`` and
+  ``out_valid[i] = live[i] & valid[idx[i]]``, bit for bit.
+- ``gather`` (K4-contract edition): ``gather_xla``, ``table[idx]``, for a
+  4-byte table and any length.
+
+Each wrapper takes its plain PyTorch version (the ``*_torch`` functions)
+only for tensors on the CPU; a CUDA tensor gets the kernel or an
+exception. Each keeps a plain integer ``launches`` count, raised by one
+where it launches its kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +53,10 @@ import torch
 __all__ = ["Leaf", "FilterProductSum", "Q6_SPEC", "OPS",
            "filter_product_sum", "filter_product_sum_torch",
            "masked_product_sum", "masked_product_sum_torch",
-           "MAX_SLOTS", "MAX_LEAVES"]
+           "MAX_SLOTS", "MAX_LEAVES", "sort_pairs", "sort_pairs_torch",
+           "sort_keys", "sort_keys_torch", "gather_rows",
+           "gather_rows_torch", "gather", "gather_torch",
+           "MAX_GATHER_COLS", "MAX_SORT_PAIRS"]
 
 MAX_SLOTS = 4
 MAX_LEAVES = 8
@@ -278,3 +301,366 @@ def masked_product_sum(q, p, d, s) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 masked_product_sum.launches = 0
+
+
+# --- K3: the bitonic sort ---------------------------------------------------
+
+MAX_SORT_PAIRS = 1 << 30
+_I64_MIN = -(1 << 63)
+_I32_MIN = -(1 << 31)
+_KEY_SENTINEL = -1  # the uint64 bits 0xffff...ff as int64
+_PAY_SENTINEL = (1 << 31) - 1
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def sort_pairs_torch(keys: torch.Tensor,
+                     payload: Optional[torch.Tensor] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: the same bitonic network
+    (``_sort_kernel``'s ``(-1, 2, stride)`` compare-exchange step) over
+    the pairs padded to a power of two, so it gives the kernel's output
+    exactly. Returns ``(sorted keys, payloads)``."""
+    n = keys.shape[0]
+    dev = keys.device
+    if payload is None:
+        payload = torch.arange(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys.clone(), payload.clone()
+    size_n = _next_pow2(n)
+    # flipping the sign bit makes signed int64 order the uint64 order
+    k = torch.full((size_n,), _KEY_SENTINEL ^ _I64_MIN, dtype=torch.int64,
+                   device=dev)
+    k[:n] = keys ^ _I64_MIN
+    p = torch.full((size_n,), _PAY_SENTINEL, dtype=torch.int32, device=dev)
+    p[:n] = payload
+    size = 2
+    while size <= size_n:
+        stride = size // 2
+        while stride >= 1:
+            k2, p2 = k.view(-1, 2, stride), p.view(-1, 2, stride)
+            ka, kb, pa, pb = k2[:, 0], k2[:, 1], p2[:, 0], p2[:, 1]
+            lo = torch.arange(size_n // (2 * stride), device=dev) \
+                * (2 * stride)
+            asc = ((lo & size) == 0)[:, None]
+            tie = ka == kb
+            gt = (ka > kb) | (tie & (pa > pb))
+            lt = (kb > ka) | (tie & (pb > pa))
+            swap = torch.where(asc, gt, lt)
+            k = torch.stack([torch.where(swap, kb, ka),
+                             torch.where(swap, ka, kb)], 1).reshape(-1)
+            p = torch.stack([torch.where(swap, pb, pa),
+                             torch.where(swap, pa, pb)], 1).reshape(-1)
+            stride //= 2
+        size *= 2
+    return k[:n] ^ _I64_MIN, p[:n]
+
+
+def _sort_library():
+    from ._build import load
+    lib = load("bitonic_sort")
+    if not getattr(lib, "_spark_ready", False):
+        lib.spark_sort_tile.argtypes = []
+        lib.spark_sort_tile.restype = ctypes.c_int
+        lib.spark_sort_pairs.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p]
+        lib.spark_sort_pairs.restype = ctypes.c_int
+        lib._spark_ready = True
+    return lib
+
+
+def _check_sort_inputs(keys: torch.Tensor,
+                       payload: Optional[torch.Tensor]) -> None:
+    if keys.dtype != torch.int64 or keys.dim() != 1 \
+            or not keys.is_contiguous():
+        raise ValueError("sort keys must be a contiguous 1-D int64 tensor "
+                         f"(uint64 bits), got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    if keys.shape[0] > MAX_SORT_PAIRS:
+        raise ValueError(f"at most {MAX_SORT_PAIRS} pairs, got "
+                         f"{keys.shape[0]}")
+    if payload is not None:
+        if payload.dtype != torch.int32 or payload.dim() != 1 \
+                or payload.shape[0] != keys.shape[0] \
+                or not payload.is_contiguous():
+            raise ValueError("the payload must be a contiguous 1-D int32 "
+                             "tensor as long as the keys")
+        if payload.device != keys.device:
+            raise ValueError(f"keys on {keys.device}, payload on "
+                             f"{payload.device}")
+
+
+def _sort_launch(keys: torch.Tensor, payload: Optional[torch.Tensor]) \
+        -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch the sort; None when there is nothing to sort."""
+    n = keys.shape[0]
+    if n == 0:
+        return None
+    lib = _sort_library()
+    size_n = _next_pow2(n)
+    keys_out = torch.empty(size_n, dtype=torch.int64, device=keys.device)
+    pay_out = torch.empty(size_n, dtype=torch.int32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = lib.spark_sort_pairs(
+        keys.data_ptr(), None if payload is None else payload.data_ptr(),
+        n, keys_out.data_ptr(), pay_out.data_ptr(), size_n, stream)
+    if err != 0:
+        raise RuntimeError(f"bitonic_sort kernel launch failed: "
+                           f"cudaError {err}")
+    return keys_out[:n], pay_out[:n]
+
+
+def sort_pairs(keys: torch.Tensor, payload: Optional[torch.Tensor] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """Engine edition: sort ``(key, payload)`` pairs, keys unsigned; the
+    payload defaults to the position. A CPU input takes the plain
+    version; a CUDA input launches the kernel."""
+    if _on_cpu([keys, payload]):
+        return sort_pairs_torch(keys, payload)
+    _check_sort_inputs(keys, payload)
+    out = _sort_launch(keys, payload)
+    if out is None:  # empty: nothing to launch
+        return keys.clone(), torch.empty(0, dtype=torch.int32,
+                                         device=keys.device)
+    sort_pairs.launches += 1
+    return out
+
+
+sort_pairs.launches = 0
+
+
+def _orderable_words(keys: torch.Tensor) -> torch.Tensor:
+    """float32 / int32 keys -> int64 words whose unsigned order is
+    ``jax.lax.sort``'s order (floats canonicalised first)."""
+    if keys.dtype == torch.float32:
+        k = torch.where(keys == 0, torch.zeros_like(keys), keys)
+        k = torch.where(torch.isnan(k), torch.full_like(k, math.nan), k)
+        bits = k.view(torch.int32)
+        o = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    elif keys.dtype == torch.int32:
+        o = keys
+    else:
+        raise ValueError(f"sort_keys takes float32 or int32 keys, got "
+                         f"{keys.dtype}")
+    return (o ^ _I32_MIN).to(torch.int64) & 0xFFFFFFFF
+
+
+def _from_orderable_words(words: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    o = (words ^ (1 << 31)).to(torch.int32)
+    if dtype == torch.int32:
+        return o
+    return torch.where(o < 0, o ^ 0x7FFFFFFF, o).view(torch.float32)
+
+
+def sort_keys_torch(keys: torch.Tensor) -> torch.Tensor:
+    """``sort_xla`` in plain PyTorch, by the same network."""
+    if keys.dim() != 1:
+        raise ValueError("sort_keys takes a 1-D tensor")
+    words, _ = sort_pairs_torch(_orderable_words(keys))
+    return _from_orderable_words(words, keys.dtype)
+
+
+def sort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """K3-contract edition: ``sort_xla(keys)`` for float32 or int32 keys
+    of any length."""
+    if _on_cpu([keys]):
+        return sort_keys_torch(keys)
+    if keys.dim() != 1:
+        raise ValueError("sort_keys takes a 1-D tensor")
+    words = _orderable_words(keys).contiguous()
+    out = _sort_launch(words, None)
+    if out is None:
+        return keys.clone()
+    sort_keys.launches += 1
+    return _from_orderable_words(out[0], keys.dtype)
+
+
+sort_keys.launches = 0
+
+
+# --- K4: the row gather -----------------------------------------------------
+
+MAX_GATHER_COLS = 16
+
+
+class _GatherArgs(ctypes.Structure):
+    """Mirror of ``GatherArgs`` in the CUDA source."""
+    _fields_ = [("src", ctypes.c_void_p * MAX_GATHER_COLS),
+                ("dst", ctypes.c_void_p * MAX_GATHER_COLS),
+                ("src_valid", ctypes.c_void_p * MAX_GATHER_COLS),
+                ("dst_valid", ctypes.c_void_p * MAX_GATHER_COLS),
+                ("width", ctypes.c_int32 * MAX_GATHER_COLS),
+                ("n_cols", ctypes.c_int32),
+                ("pad_", ctypes.c_int32),
+                ("idx", ctypes.c_void_p),
+                ("live", ctypes.c_void_p),
+                ("n", ctypes.c_int64),
+                ("table_rows", ctypes.c_int64)]
+
+
+def _gather_library():
+    from ._build import load
+    lib = load("gather")
+    if not getattr(lib, "_spark_ready", False):
+        lib.spark_gather_args_size.argtypes = []
+        lib.spark_gather_args_size.restype = ctypes.c_int
+        lib.spark_gather_max_cols.argtypes = []
+        lib.spark_gather_max_cols.restype = ctypes.c_int
+        lib.spark_gather_launch.argtypes = [ctypes.c_void_p,
+                                            ctypes.c_void_p]
+        lib.spark_gather_launch.restype = ctypes.c_int
+        if lib.spark_gather_args_size() != ctypes.sizeof(_GatherArgs) \
+                or lib.spark_gather_max_cols() != MAX_GATHER_COLS:
+            raise RuntimeError(
+                f"GatherArgs is {lib.spark_gather_args_size()} bytes in "
+                f"the CUDA source but {ctypes.sizeof(_GatherArgs)} in "
+                "ctypes")
+        lib._spark_ready = True
+    return lib
+
+
+def _gather_live(live: Optional[torch.Tensor], n: int, table_rows: int,
+                 device) -> Optional[torch.Tensor]:
+    """The live mask both versions use: an empty table has no row to
+    gather, so every output row is dead."""
+    if table_rows == 0 and n:
+        return torch.zeros(n, dtype=torch.bool, device=device)
+    return live
+
+
+def gather_rows_torch(cols: Sequence[torch.Tensor],
+                      valids: Sequence[Optional[torch.Tensor]],
+                      idx: torch.Tensor,
+                      live: Optional[torch.Tensor] = None) \
+        -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+    """The kernel's function in plain PyTorch (indexing): ``(outputs,
+    output validities)``; a validity is None where both the source's
+    and ``live`` are None."""
+    table_rows = cols[0].shape[0]
+    live = _gather_live(live, idx.shape[0], table_rows, idx.device)
+    j = idx.long().clamp(0, max(table_rows - 1, 0))
+    outs, out_valids = [], []
+    for c, v in zip(cols, valids):
+        g = c[j] if table_rows else torch.zeros(idx.shape[0], dtype=c.dtype,
+                                                device=c.device)
+        if live is not None:
+            g = torch.where(live, g, torch.zeros_like(g))
+        outs.append(g)
+        if v is None:
+            out_valids.append(live)
+        else:
+            ov = v[j] if table_rows else torch.zeros_like(g, dtype=torch.bool)
+            out_valids.append(ov if live is None else ov & live)
+    return outs, out_valids
+
+
+def _check_gather_inputs(cols, valids, idx, live) -> None:
+    if not cols or len(valids) != len(cols):
+        raise ValueError(f"need at least one column, each with a validity "
+                         f"entry; got {len(cols)}/{len(valids)}")
+    device = idx.device
+    table_rows = cols[0].shape[0]
+    if idx.dtype != torch.int32 or idx.dim() != 1 \
+            or not idx.is_contiguous():
+        raise ValueError("indices must be a contiguous 1-D int32 tensor")
+    n = idx.shape[0]
+    for t in list(cols) + list(valids) + [live]:
+        if t is not None and t.device != device:
+            raise ValueError(f"all inputs must be on {device}, one is on "
+                             f"{t.device}")
+    for c in cols:
+        if c.dim() != 1 or c.shape[0] != table_rows \
+                or not c.is_contiguous() \
+                or c.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"columns must be contiguous 1-D of length "
+                             f"{table_rows} with 1, 2, 4 or 8 byte "
+                             f"elements, got {c.dtype} {tuple(c.shape)}")
+    for v in valids:
+        if v is not None and (v.dtype != torch.bool or v.dim() != 1
+                              or v.shape[0] != table_rows
+                              or not v.is_contiguous()):
+            raise ValueError("validities must be contiguous bool tensors "
+                             "as long as the columns")
+    if live is not None and (live.dtype != torch.bool or live.dim() != 1
+                             or live.shape[0] != n
+                             or not live.is_contiguous()):
+        raise ValueError("live must be a contiguous bool tensor as long as "
+                         "the indices")
+
+
+def _gather_launch(cols, valids, idx, live, counter) \
+        -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+    n = idx.shape[0]
+    device = idx.device
+    table_rows = cols[0].shape[0]
+    live = _gather_live(live, n, table_rows, device)
+    outs = [torch.empty(n, dtype=c.dtype, device=device) for c in cols]
+    out_valids = [live if v is None else
+                  torch.empty(n, dtype=torch.bool, device=device)
+                  for v in valids]
+    if n == 0:
+        return outs, out_valids
+    lib = _gather_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for lo in range(0, len(cols), MAX_GATHER_COLS):
+        args = _GatherArgs()
+        for k, c in enumerate(cols[lo:lo + MAX_GATHER_COLS]):
+            v = valids[lo + k]
+            args.src[k] = c.data_ptr() if table_rows else None
+            args.dst[k] = outs[lo + k].data_ptr()
+            args.width[k] = c.element_size()
+            if v is not None:
+                args.src_valid[k] = v.data_ptr() if table_rows else None
+                args.dst_valid[k] = out_valids[lo + k].data_ptr()
+        args.n_cols = len(cols[lo:lo + MAX_GATHER_COLS])
+        args.idx = idx.data_ptr()
+        args.live = None if live is None else live.data_ptr()
+        args.n = n
+        args.table_rows = table_rows
+        err = lib.spark_gather_launch(ctypes.addressof(args), stream)
+        if err != 0:
+            raise RuntimeError(f"gather kernel launch failed: cudaError "
+                               f"{err}")
+        counter.launches += 1
+    return outs, out_valids
+
+
+def gather_rows(cols: Sequence[torch.Tensor],
+                valids: Sequence[Optional[torch.Tensor]],
+                idx: torch.Tensor, live: Optional[torch.Tensor] = None) \
+        -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+    """Engine edition: gather every column (and its validity) by ``idx``
+    in one launch, zero where ``live`` is False. A CPU input takes the
+    plain version; a CUDA input launches the kernel."""
+    if _on_cpu(list(cols) + list(valids) + [idx, live]):
+        return gather_rows_torch(cols, valids, idx, live)
+    _check_gather_inputs(cols, valids, idx, live)
+    return _gather_launch(list(cols), list(valids), idx, live, gather_rows)
+
+
+gather_rows.launches = 0
+
+
+def gather_torch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``gather_xla`` in plain PyTorch."""
+    return gather_rows_torch([table], [None], idx)[0][0]
+
+
+def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K4-contract edition: ``gather_xla(table, idx)`` for a table of a
+    4-byte type and int32 indices of any length."""
+    if _on_cpu([table, idx]):
+        return gather_torch(table, idx)
+    if table.element_size() != 4:
+        raise ValueError(f"gather takes a table of a 4-byte type, got "
+                         f"{table.dtype}")
+    _check_gather_inputs([table], [None], idx, None)
+    return _gather_launch([table], [None], idx, None, gather)[0][0]
+
+
+gather.launches = 0

@@ -8,10 +8,23 @@ tolerance and raises on the first disagreement; ``chip_smoke.py`` and the
 ``gpu``-marked test call it, and ``time_k1`` times both editions with
 CUDA events.
 
+K3 (``check_k3``/``time_k3``) runs at the join + group-by path's sort
+shapes (2^17 pairs for the build presort, 2^21 for each partial, 2^23
+for the final), at a ragged 1,000,003, and on all-equal, sorted,
+reverse-sorted and heavily duplicated keys; K4 (``check_k4``/``time_k4``)
+at the path's gather shapes (the probe's 2^21 rows from a 2^17-row build,
+the group-by's 2^21-row permutation), at a ragged length, and with
+nulls, dead rows, out-of-range indices and 1-, 2-, 4- and 8-byte
+columns. Each timing runs back to back on the device over inputs that
+cycle through copies larger than L2, in turns (plain, kernel, kernel,
+plain), beside the library call that computes the same function.
+
 Tolerances: the engine edition sums float64 in another order than the
 plain version, so its sum must agree to rel 1e-9; the K1-contract
 edition sums float32, held to rel 1e-3 as ``tests/test_exec.py:198``
-holds the Pallas edition; counts must be equal.
+holds the Pallas edition; counts must be equal. K3 and K4 must match
+their plain versions exactly: K3 runs the same network on the same
+pairs, and K4 copies bits.
 """
 from __future__ import annotations
 
@@ -24,7 +37,9 @@ import torch
 from . import cuda_kernels as ck
 
 __all__ = ["K1Case", "k1_cases", "check_k1", "time_k1", "ENGINE_RTOL",
-           "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS"]
+           "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
+           "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
+           "time_k4"]
 
 ENGINE_RTOL = 1e-9
 CONTRACT_RTOL = 1e-3
@@ -207,3 +222,268 @@ def time_k1(device, reps: int = 100) -> Dict[str, Dict[str, float]]:
         "contract": {"ms": min(ck1, ck2), "plain_ms": min(cp1, cp2),
                      "bytes": contract[0].bytes_read() + 12},
     }
+
+
+# --- K3 and K4 --------------------------------------------------------------
+
+K3_SHAPES = (1 << 17, 1 << 21, 1 << 23)  # build presort, partial, final
+K4_PROBE_ROWS = 1 << 21
+K4_BUILD_ROWS = 1 << 17
+_RAGGED = 1_000_003
+_I64_MIN = -(1 << 63)
+
+
+def _max_abs_diff(pairs) -> float:
+    """The largest absolute difference over ``(got, want)`` tensor pairs,
+    in float64 (uint64 keys shifted into the signed range first)."""
+    worst = 0.0
+    for a, b in pairs:
+        if a is None or b is None:
+            continue
+        if a.dtype == torch.int64:
+            a, b = a ^ _I64_MIN, b ^ _I64_MIN
+        if a.numel():
+            d = (a.double() - b.double()).abs().nan_to_num(0.0)
+            worst = max(worst, d.max().item())
+    return worst
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(a.contiguous().view(torch.uint8),
+                        b.contiguous().view(torch.uint8))
+
+
+def k3_cases(device, seed: int = 1) -> List[Dict]:
+    """Engine-edition inputs: ``{"name", "keys", "payload"}``; keys are
+    uint64 bits in int64."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def rand64(n):
+        return rng.integers(_I64_MIN, (1 << 63) - 1, n, dtype=np.int64,
+                            endpoint=True)
+
+    def packed(n):
+        """The group-by's words: live bit, null bit, a month lane."""
+        live = rng.random(n) < 0.9
+        month = rng.integers(1, 13, n).astype(np.int64) + (1 << 31)
+        return (((~live).astype(np.int64) << 33)
+                | (live.astype(np.int64) << 32) | month)
+
+    n = K3_SHAPES[1]
+    cases = [{"name": f"random_2^{s.bit_length() - 1}",
+              "keys": t(rand64(s)), "payload": None} for s in K3_SHAPES]
+    cases += [
+        {"name": "groupby_words_2^21", "keys": t(packed(n)),
+         "payload": None},
+        {"name": "ragged", "keys": t(rand64(_RAGGED)), "payload": None},
+        {"name": "all_equal", "keys": t(np.full(n, 42, np.int64)),
+         "payload": None},
+        {"name": "sorted", "keys": t(np.arange(n, dtype=np.int64)),
+         "payload": None},
+        {"name": "reverse", "keys": t(np.arange(n, 0, -1, dtype=np.int64)),
+         "payload": None},
+        {"name": "heavy_dup", "keys": t(rng.integers(0, 16, n)),
+         "payload": None},
+        {"name": "payload_ragged", "keys": t(rng.integers(0, 1000, _RAGGED)),
+         "payload": t(rng.integers(0, 1 << 20, _RAGGED).astype(np.int32))},
+    ]
+    return cases
+
+
+def check_k3(device) -> List[Dict]:
+    """Both editions of K3 against their plain versions (exact), and the
+    engine edition against ``torch.sort(stable=True)`` where the payload
+    is the position; raises on the first disagreement."""
+    out = []
+    for case in k3_cases(device):
+        keys, pay = case["keys"], case["payload"]
+        got_k, got_p = ck.sort_pairs(keys, pay)
+        want_k, want_p = ck.sort_pairs_torch(keys, pay)
+        rec = {"case": case["name"], "n": keys.shape[0],
+               "keys_equal": torch.equal(got_k, want_k),
+               "payload_equal": torch.equal(got_p, want_p)}
+        if pay is None:
+            lib_k, lib_p = torch.sort(keys ^ _I64_MIN, stable=True)
+            rec["library_equal"] = torch.equal(got_k, lib_k ^ _I64_MIN) \
+                and torch.equal(got_p.long(), lib_p)
+        rec["max_abs_err"] = _max_abs_diff([(got_k, want_k),
+                                            (got_p, want_p)])
+        if not all(v for k, v in rec.items() if k.endswith("_equal")):
+            raise AssertionError(f"K3 engine edition disagrees: {rec}")
+        out.append(rec)
+    rng = np.random.default_rng(2)
+    for name, keys in (
+            ("contract_f32_2^21", rng.uniform(-1e6, 1e6, 1 << 21)
+             .astype(np.float32)),
+            ("contract_i32_ragged", rng.integers(-10**6, 10**6, _RAGGED)
+             .astype(np.int32))):
+        if keys.dtype == np.float32:
+            keys[rng.random(keys.shape[0]) < 0.01] = np.nan
+            keys[rng.random(keys.shape[0]) < 0.01] = -0.0
+        k = torch.from_numpy(keys).to(device)
+        got, want = ck.sort_keys(k), ck.sort_keys_torch(k)
+        rec = {"case": name, "n": k.shape[0],
+               "keys_equal": _same_bits(got, want),
+               "max_abs_err": _max_abs_diff([(got, want)])}
+        if not rec["keys_equal"]:
+            raise AssertionError(f"K3 contract edition disagrees: {rec}")
+        out.append(rec)
+    return out
+
+
+def _cycle(make, count: int) -> List:
+    return [make() for _ in range(count)]
+
+
+def _copies_for(nbytes: int, l2_bytes: int = 50 << 20) -> int:
+    return max(2, -(-2 * l2_bytes // max(1, nbytes)))
+
+
+def _turns(plain, kernel, items, reps: int, plain_reps: int):
+    """(kernel ms, plain ms), in turns plain, kernel, kernel, plain."""
+    p1 = _time_ms(plain, items, plain_reps)
+    k1 = _time_ms(kernel, items, reps)
+    k2 = _time_ms(kernel, items, reps)
+    p2 = _time_ms(plain, items, plain_reps)
+    return min(k1, k2), min(p1, p2)
+
+
+def time_k3(device, reps: int = 20) -> Dict[int, Dict[str, float]]:
+    """Per shape of the path: device ms of the engine edition, its plain
+    version and ``torch.sort(stable=True)`` on the same keys (payload the
+    position), and the bytes the sort must move (8 B a key in, 12 B a
+    pair out)."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for n in K3_SHAPES:
+        copies = _cycle(lambda: torch.from_numpy(rng.integers(
+            _I64_MIN, (1 << 63) - 1, n, dtype=np.int64)).to(device),
+            _copies_for(n * 8))
+        ms, plain_ms = _turns(ck.sort_pairs_torch, ck.sort_pairs, copies,
+                              reps, 2)
+        lib = _time_ms(lambda k: torch.sort(k, stable=True), copies, reps)
+        out[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                  "bytes": n * (8 + 12),
+                  "compares": n * (n.bit_length() - 1)}
+    return out
+
+
+def k4_cases(device, seed: int = 4) -> List[Dict]:
+    """Engine-edition inputs: ``{"name", "cols", "valids", "idx",
+    "live"}``."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    b, n = K4_BUILD_ROWS, K4_PROBE_ROWS
+    build = [t(np.arange(b, dtype=np.int32)),
+             t(rng.integers(1, 13, b).astype(np.int32))]
+    perm = rng.permutation(n).astype(np.int32)
+    widths_rows = 1 << 16
+    widths = [t(rng.random(widths_rows) < 0.5),
+              t(rng.integers(-128, 128, widths_rows).astype(np.int8)),
+              t(rng.integers(-2**15, 2**15, widths_rows).astype(np.int16)),
+              t(rng.standard_normal(widths_rows).astype(np.float32)),
+              t(rng.integers(-2**62, 2**62, widths_rows)),
+              t(rng.standard_normal(widths_rows))]
+    dead_idx = rng.integers(0, b, n).astype(np.int32)
+    dead_live = rng.random(n) < 0.5
+    dead_idx[~dead_live] = rng.integers(-2**31, 2**31 - 1,
+                                        int((~dead_live).sum()))
+    return [
+        {"name": "probe_2^21", "cols": build, "valids": [None, None],
+         "idx": t(rng.integers(0, b, n).astype(np.int32)),
+         "live": t(rng.random(n) < 0.9)},
+        {"name": "groupby_perm_2^21",
+         "cols": [t(rng.integers(1, 13, n).astype(np.int32)),
+                  t(rng.uniform(0, 1e5, n).astype(np.float32))],
+         "valids": [t(rng.random(n) < 0.9), None], "idx": t(perm),
+         "live": t(rng.random(n) < 0.9)},
+        {"name": "ragged", "cols": build, "valids": [None, None],
+         "idx": t(rng.integers(0, b, _RAGGED).astype(np.int32)),
+         "live": None},
+        {"name": "nulls", "cols": build,
+         "valids": [t(rng.random(b) < 0.95), t(rng.random(b) < 0.8)],
+         "idx": t(rng.integers(0, b, n).astype(np.int32)),
+         "live": t(rng.random(n) < 0.9)},
+        {"name": "dead_rows_out_of_range", "cols": build,
+         "valids": [None, t(rng.random(b) < 0.8)], "idx": t(dead_idx),
+         "live": t(dead_live)},
+        {"name": "widths_1_2_4_8", "cols": widths,
+         "valids": [t(rng.random(widths_rows) < 0.9)] + [None] * 5,
+         "idx": t(rng.integers(-5, widths_rows + 5, n).astype(np.int32)),
+         "live": t(rng.random(n) < 0.7)},
+    ]
+
+
+def check_k4(device) -> List[Dict]:
+    """Both editions of K4 against their plain versions, bit for bit;
+    raises on the first disagreement."""
+    out = []
+    for case in k4_cases(device):
+        got, got_v = ck.gather_rows(case["cols"], case["valids"],
+                                    case["idx"], case["live"])
+        want, want_v = ck.gather_rows_torch(case["cols"], case["valids"],
+                                            case["idx"], case["live"])
+        same = all(_same_bits(a, b) for a, b in zip(got, want))
+        same_v = all((a is None and b is None) or (
+            a is not None and b is not None and _same_bits(a, b))
+            for a, b in zip(got_v, want_v))
+        rec = {"case": case["name"], "n": case["idx"].shape[0],
+               "columns": len(case["cols"]), "data_equal": same,
+               "validity_equal": same_v,
+               "max_abs_err": _max_abs_diff(list(zip(got, want))
+                                            + list(zip(got_v, want_v)))}
+        if not (same and same_v):
+            raise AssertionError(f"K4 engine edition disagrees: {rec}")
+        out.append(rec)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal(K4_BUILD_ROWS)
+                             .astype(np.float32)).to(device)
+    idx = torch.from_numpy(rng.integers(0, K4_BUILD_ROWS, _RAGGED)
+                           .astype(np.int32)).to(device)
+    got, want = ck.gather(table, idx), ck.gather_torch(table, idx)
+    same = _same_bits(got, want)
+    rec = {"case": "contract_f32_ragged", "n": _RAGGED, "columns": 1,
+           "data_equal": same, "validity_equal": True,
+           "max_abs_err": _max_abs_diff([(got, want)])}
+    if not same:
+        raise AssertionError(f"K4 contract edition disagrees: {rec}")
+    out.append(rec)
+    return out
+
+
+def time_k4(device, reps: int = 50) -> Dict[str, float]:
+    """Device ms at the probe's shape (2^21 rows gathering the two int32
+    build columns of 2^17 rows, 90% live): the engine edition, its plain
+    version, and ``torch.index_select`` of the same rows from the two
+    columns stacked (no live mask), with the bytes the gather must
+    move."""
+    rng = np.random.default_rng(6)
+    b, n = K4_BUILD_ROWS, K4_PROBE_ROWS
+    cols = [torch.arange(b, dtype=torch.int32, device=device),
+            torch.from_numpy(rng.integers(1, 13, b).astype(np.int32))
+            .to(device)]
+    stacked = torch.stack(cols, 1).contiguous()
+
+    def make():
+        return (torch.from_numpy(rng.integers(0, b, n).astype(np.int32))
+                .to(device),
+                torch.from_numpy(rng.random(n) < 0.9).to(device))
+
+    items = _cycle(make, _copies_for(n * (4 + 1 + 8)))
+    ms, plain_ms = _turns(
+        lambda it: ck.gather_rows_torch(cols, [None, None], *it),
+        lambda it: ck.gather_rows(cols, [None, None], *it), items, reps,
+        reps)
+    lib = _time_ms(lambda it: torch.index_select(stacked, 0, it[0]), items,
+                   reps)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+            "bytes": n * (4 + 1 + 8) + b * 8, "rows": n}

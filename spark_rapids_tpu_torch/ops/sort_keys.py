@@ -1,0 +1,259 @@
+"""Sort-key normalisation and multi-key permutations.
+
+Counterpart of ``spark_rapids_tpu/ops/sort_keys.py:39-285``, the
+fixed-width part. As there, every key column becomes an orderable lane
+(floats through the IEEE total-order bit trick with Spark's NaN and
+``-0.0`` semantics), behind a live lane that puts padding last and a
+null lane per key. Where the reference hands the lanes to one
+``jax.lax.sort``, the port packs them into uint64 words, most significant
+first (live bit, then per key a null bit and the value lane with its
+sign bit flipped, so that unsigned order is Spark's order), and sorts the
+words with **K3** (``cuda_kernels.sort_pairs``) with the row position as
+payload. A key set wider than 64 bits is sorted word by word, least
+significant word first; each pass sorts ``(word, current position)``
+pairs, which keeps it stable, and **K4** (``gather_rows``) carries the
+other words and the permutation along. A single int32 key is one pass
+(1 + 1 + 32 bits).
+
+String, nested and decimal keys wait for a later slice: they raise
+``NotImplementedError``, never fall back.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import torch
+
+from .. import datatypes as dt
+from ..columnar.column import GpuColumnVector
+from . import cuda_kernels as ck
+from .gather import inclusive_int_cumsum
+
+__all__ = ["SortSpec", "canonicalize_floats", "normalize_float_key_col",
+           "check_key_type", "orderable_int", "key_lane_width",
+           "key_lane_bits", "unsigned_lane", "pack_words", "sort_packed",
+           "sort_permutation", "sorted_segments", "segment_ids_for_keys"]
+
+_I64_MIN = -(1 << 63)
+_WIDTHS = {torch.bool: 1, torch.int8: 8, torch.int16: 16, torch.int32: 32,
+           torch.int64: 64, torch.float32: 32, torch.float64: 64}
+_FIXED_WIDTH = (dt.BooleanType, dt.ByteType, dt.ShortType, dt.IntegerType,
+                dt.LongType, dt.FloatType, dt.DoubleType, dt.DateType,
+                dt.TimestampType)
+
+
+@dataclasses.dataclass(frozen=True)
+class SortSpec:
+    """Per-key direction and null placement (Spark's defaults: ascending
+    nulls first; descending nulls last)."""
+    ascending: bool = True
+    nulls_first: bool = True
+
+
+def canonicalize_floats(d: torch.Tensor) -> torch.Tensor:
+    """``-0.0`` -> ``0.0`` and any NaN -> the canonical NaN (Spark's
+    NormalizeFloatingNumbers)."""
+    d = torch.where(d == 0, torch.zeros_like(d), d)
+    return torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+
+
+def normalize_float_key_col(col: GpuColumnVector) -> GpuColumnVector:
+    """Float key normalisation at column level, for every place a key
+    value is compared or emitted (group keys, join keys)."""
+    if not dt.is_floating(col.dtype):
+        return col
+    return GpuColumnVector(col.dtype, canonicalize_floats(col.data),
+                           col.validity)
+
+
+def check_key_type(t: dt.DataType) -> None:
+    """Raise for a key type the port cannot order yet."""
+    if not isinstance(t, _FIXED_WIDTH):
+        raise NotImplementedError(
+            f"{t.simple_string()} sort/group/join keys are not ported yet: "
+            "string keys (string_order_ranks) and decimal keys wait for a "
+            "later slice (ROADMAP item 8)")
+
+
+def orderable_int(col: GpuColumnVector) -> torch.Tensor:
+    """The data lane as a signed integer lane whose ascending order is
+    Spark's ascending order (nulls are the null lane's business). Floats:
+    ``-0.0 == 0.0`` and every NaN equal and largest."""
+    t = col.dtype
+    check_key_type(t)
+    d = col.data
+    if isinstance(t, dt.BooleanType):
+        return d.to(torch.int8)
+    if dt.is_floating(t):
+        bits_t, flip = (torch.int32, 0x7FFFFFFF) \
+            if d.dtype == torch.float32 else (torch.int64, (1 << 63) - 1)
+        bits = canonicalize_floats(d).view(bits_t)
+        # positives keep their bits; negatives map to bits ^ INT_MAX,
+        # which is ~bits + INT_MIN, so they land ascending below +0.0
+        return torch.where(bits < 0, bits ^ flip, bits)
+    return d
+
+
+def key_lane_width(col: GpuColumnVector) -> int:
+    """Bits of a key's value lane."""
+    check_key_type(col.dtype)
+    if isinstance(col.dtype, dt.BooleanType):
+        return 1
+    return _WIDTHS[col.data.dtype]
+
+
+def key_lane_bits(col: GpuColumnVector) -> Tuple[torch.Tensor, int]:
+    """``(lane, width)``: the orderable lane as an unsigned ``width``-bit
+    value held in int64 (the sign bit flipped), so unsigned order is
+    Spark's order."""
+    width = key_lane_width(col)
+    return unsigned_lane(orderable_int(col), width), width
+
+
+def unsigned_lane(v: torch.Tensor, width: int) -> torch.Tensor:
+    """A signed ``width``-bit orderable lane as the unsigned value of the
+    same order (the sign bit flipped), held in int64."""
+    v = v.to(torch.int64)
+    if width == 1:
+        return v & 1
+    if width == 64:
+        return v ^ _I64_MIN
+    return v + (1 << (width - 1))
+
+
+def _mask(bits: int) -> int:
+    return -1 if bits == 64 else (1 << bits) - 1
+
+
+def _shr(v: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    if s == 0:
+        return v
+    return (v >> s) & _mask(64 - s)
+
+
+def pack_words(lanes: Sequence[Tuple[torch.Tensor, int]]) \
+        -> List[torch.Tensor]:
+    """Concatenate ``(lane, width)`` bit fields, most significant first,
+    into uint64 words (int64 tensors), most significant word first. The
+    last word holds the remaining bits right-aligned; the lexicographic
+    order of the words is the order of the whole bit string."""
+    n = lanes[0][0].shape[0]
+    device = lanes[0][0].device
+    words: List[torch.Tensor] = []
+    cur = torch.zeros(n, dtype=torch.int64, device=device)
+    used = 0
+    for v, width in lanes:
+        left = width
+        while left:
+            take = min(left, 64 - used)
+            part = _shr(v, left - take) & _mask(take)
+            cur = part if used == 0 else (cur << take) | part
+            used += take
+            left -= take
+            if used == 64:
+                words.append(cur)
+                cur = torch.zeros(n, dtype=torch.int64, device=device)
+                used = 0
+    if used:
+        words.append(cur)
+    return words
+
+
+def sort_packed(words: Sequence[torch.Tensor]) \
+        -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``(words in sorted order, perm)``: a stable sort by the words,
+    lexicographic and unsigned, with K3 one pass a word, least
+    significant first."""
+    cur = list(words)
+    perm = None
+    for k in reversed(range(len(cur))):
+        skey, pos = ck.sort_pairs(cur[k].contiguous())
+        rest = [i for i in range(len(cur)) if i != k]
+        carried = [cur[i] for i in rest] + ([] if perm is None else [perm])
+        if carried:
+            moved, _ = ck.gather_rows(carried, [None] * len(carried), pos)
+            for i, m in zip(rest, moved):
+                cur[i] = m
+            perm = pos if perm is None else moved[-1]
+        else:
+            perm = pos
+        cur[k] = skey
+    return cur, perm
+
+
+def _null_rank_lane(validity, n: int, device, spec: SortSpec) \
+        -> Tuple[torch.Tensor, int]:
+    """Null placement, independent of direction: a one-bit lane."""
+    if validity is None:
+        valid = torch.ones(n, dtype=torch.int64, device=device)
+    else:
+        valid = validity.to(torch.int64)
+    return (valid if spec.nulls_first else 1 - valid), 1
+
+
+def _key_lanes(key_cols: Sequence[GpuColumnVector],
+               specs: Sequence[SortSpec],
+               live: torch.Tensor) -> List[Tuple[torch.Tensor, int]]:
+    """Orderable lanes, most significant first: the live lane (padding
+    always last), then per key a null lane and a value lane."""
+    n = live.shape[0]
+    lanes = [((~live).to(torch.int64), 1)]
+    for col, spec in zip(key_cols, specs):
+        vals, width = key_lane_bits(col)
+        if col.validity is not None:
+            # computed expressions leave garbage under nulls, and
+            # null == null must hold for ordering and grouping
+            vals = torch.where(col.validity, vals, torch.zeros_like(vals))
+        if not spec.ascending:
+            vals = ~vals & _mask(width)
+        lanes.append(_null_rank_lane(col.validity, n, live.device, spec))
+        lanes.append((vals, width))
+    return lanes
+
+
+def sort_permutation(key_cols: Sequence[GpuColumnVector],
+                     specs: Sequence[SortSpec],
+                     live: torch.Tensor) -> torch.Tensor:
+    """Stable permutation ordering rows by the keys, padding rows
+    last."""
+    _, perm = sort_packed(pack_words(_key_lanes(key_cols, specs, live)))
+    return perm
+
+
+def sorted_segments(key_cols: Sequence[GpuColumnVector],
+                    live: torch.Tensor):
+    """``(perm, seg, num_groups, sorted_live)``: rows permuted so equal
+    keys are adjacent (live rows first), int32 segment ids over the
+    sorted order, the device count of live groups, and the live mask in
+    sorted order (read off the live bit of the sorted words, no
+    gather)."""
+    n = live.shape[0]
+    specs = [SortSpec()] * len(key_cols)
+    words, perm = sort_packed(pack_words(_key_lanes(key_cols, specs, live)))
+    boundary = torch.zeros(n, dtype=torch.bool, device=live.device)
+    if n:
+        boundary[0] = True
+    for w in words:
+        boundary[1:] |= w[1:] != w[:-1]
+    seg = inclusive_int_cumsum(boundary) - 1
+    # the live lane is the top bit of the first word
+    sorted_live = (_shr(words[0], _first_word_bits(key_cols) - 1) & 1) == 0
+    num_groups = torch.where(sorted_live, seg + 1,
+                             torch.zeros_like(seg)).max() if n else \
+        torch.zeros((), dtype=torch.int32, device=live.device)
+    return perm, seg, num_groups, sorted_live
+
+
+def _first_word_bits(key_cols: Sequence[GpuColumnVector]) -> int:
+    """Bits used in the first word: the live bit sits at its top."""
+    return min(64, 1 + sum(1 + key_lane_width(c) for c in key_cols))
+
+
+def segment_ids_for_keys(key_cols: Sequence[GpuColumnVector],
+                         live: torch.Tensor):
+    """``(perm, seg_ids_sorted, num_groups)`` with Spark's grouping
+    equality: null == null, NaN == NaN, ``-0.0 == 0.0``."""
+    perm, seg, num_groups, _ = sorted_segments(key_cols, live)
+    return perm, seg, num_groups

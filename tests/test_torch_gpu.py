@@ -1,7 +1,10 @@
 """Card-only checks of the port: K1's two editions against their plain
 versions at the main path's shape, at a ragged length and with nulls and
-NaN, and q6 through the engine with one K1 launch per batch. Run on a
-machine with a CUDA device: ``python -m pytest tests/test_torch_gpu.py``;
+NaN, and q6 through the engine with one K1 launch per batch; K3 and K4
+against their plain versions (exactly, bit for bit) at the join +
+group-by path's shapes and edge cases, and a small join + group-by
+through the engine with the launches its plan implies. Run on a machine
+with a CUDA device: ``python -m pytest tests/test_torch_gpu.py``;
 elsewhere they skip."""
 import pytest
 import torch
@@ -45,3 +48,33 @@ def test_q6_on_the_card_launches_k1_per_batch(cuda_device, tmp_path):
     assert abs(revenue - want) <= 1e-9 * max(1.0, abs(want))
     # 33,334 rows a file in batches of 1 << 15: two batches each
     assert ck.filter_product_sum.launches - before == 6
+
+
+def test_k3_editions_match_plain_versions(cuda_device):
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    recs = kc.check_k3(cuda_device)
+    assert all(r["max_abs_err"] == 0.0 for r in recs)
+    assert {r["n"] for r in recs} >= set(kc.K3_SHAPES) | {1_000_003}
+
+
+def test_k4_editions_match_plain_versions(cuda_device):
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    recs = kc.check_k4(cuda_device)
+    assert all(r["data_equal"] and r["validity_equal"] for r in recs)
+
+
+def test_join_groupby_on_the_card_launches_k3_and_k4(cuda_device):
+    from spark_rapids_tpu_torch import join_groupby as jg
+    from spark_rapids_tpu_torch.exec.base import ExecCtx, collect_arrow
+    from spark_rapids_tpu_torch.ops import cuda_kernels as ck
+    plan, li, orders = jg.build_plan(1 << 16, 1 << 10, 1 << 14,
+                                     device=cuda_device)
+    sorts, gathers = ck.sort_pairs.launches, ck.gather_rows.launches
+    got = collect_arrow(plan, ExecCtx(device=cuda_device)).to_pydict()
+    want = jg.host_oracle(li, orders)
+    assert got["o_month"] == list(range(1, 13))
+    for m, g in zip(got["o_month"], got["revenue"]):
+        assert abs(g - want[m]) <= 1e-9 * abs(want[m])
+    # 4 stream batches: presort + 4 partials + final; 1 + 3 x 4 + 2
+    assert ck.sort_pairs.launches - sorts == 6
+    assert ck.gather_rows.launches - gathers == 15

@@ -26,9 +26,16 @@ def _forbidden(name):
     return top in ("jax", "jaxlib", "spark_rapids_tpu", "bench")
 
 
+JOIN_GROUPBY_MODULES = [
+    "ops/sort_keys.py", "ops/segments.py", "ops/gather.py",
+    "ops/concat.py", "ops/join.py", "exec/joins.py", "join_groupby.py"]
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10
+    for rel in JOIN_GROUPBY_MODULES:
+        assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -70,3 +77,11 @@ def test_q6_trace_needs_a_card():
     if not q6_trace.torch.cuda.is_available():
         with pytest.raises(SystemExit):
             q6_trace.trace_q6()
+
+
+def test_join_trace_needs_a_card():
+    from spark_rapids_tpu_torch.tools import join_trace
+    if not join_trace.torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            join_trace.trace_join()
+    assert join_trace._union_us([(0, 2), (1, 3), (5, 6)]) == 4
