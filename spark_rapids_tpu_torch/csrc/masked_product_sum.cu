@@ -30,11 +30,15 @@
 // gives the same bits on every run. The ragged tail needs no padding: the
 // loop stops at row_count.
 //
+// The leaf comparisons are in filter_leaves.cuh, shared with K2.
+//
 // Plain C interface for ctypes; every launch goes on the caller's stream and
 // the entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "filter_leaves.cuh"
 
 extern "C" {
 
@@ -65,46 +69,11 @@ constexpr int kSlots = 4;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
 
-enum ColType : int32_t { kF32 = 0, kI32 = 1 };
-enum Op : int32_t { kLt = 0, kLe = 1, kGt = 2, kGe = 3, kEq = 4 };
-
-__device__ __forceinline__ double pick(double v0, double v1, double v2,
-                                       double v3, int s) {
-  return s == 0 ? v0 : s == 1 ? v1 : s == 2 ? v2 : v3;
-}
-
-__device__ __forceinline__ bool is_nan(double x) { return x != x; }
-
-// float32 and int32 values are exact in double, so comparing there gives the
-// column type's own result.
-template <bool NanGreatest>
-__device__ __forceinline__ bool compare(double x, int op, double b) {
-  if (NanGreatest) {
-    const bool xn = is_nan(x), bn = is_nan(b);
-    const bool lt = !xn && (bn || x < b);
-    const bool gt = !bn && (xn || b < x);
-    const bool eq = (x == b) || (xn && bn);
-    switch (op) {
-      case kLt: return lt;
-      case kLe: return lt || eq;
-      case kGt: return gt;
-      case kGe: return gt || eq;
-      default: return eq;
-    }
-  }
-  switch (op) {
-    case kLt: return x < b;
-    case kLe: return x <= b;
-    case kGt: return x > b;
-    case kGe: return x >= b;
-    default: return x == b;
-  }
-}
+using leaves::compare;
+using leaves::pick;
 
 __device__ __forceinline__ double load(const FpsArgs& a, int k, int64_t i) {
-  if (a.col_type[k] == kF32)
-    return (double)__ldg(static_cast<const float*>(a.col[k]) + i);
-  return (double)__ldg(static_cast<const int32_t*>(a.col[k]) + i);
+  return leaves::load(a.col[k], a.col_type[k], i);
 }
 
 template <bool NanGreatest>

@@ -21,8 +21,15 @@ on an AND of column-vs-literal comparisons, then a project of
 ``a * b`` over float32 columns, summed — the partial pass for a whole
 batch is one launch of K1's engine edition
 (``ops/cuda_kernels.filter_product_sum``), counted by the
-``kernelDispatches`` metric. Every other chain runs the operators'
-eager code.
+``kernelDispatches`` metric. The same chain grouped by one integer key
+that the project passes straight from a scan column, where the scan's
+row-group statistics bound that column to at most ``FUSED_AGG_GROUPS``
+values, is one launch of K2's engine edition a batch
+(``filter_product_group_sum``): its partial has one slot a key value and
+one for the null key, in the layout ``_partial_grouped`` gives, so the
+final merges it unchanged. K2 counts the rows whose key falls outside
+the statistics' range; the query raises at its download if there is one.
+Every other chain runs the operators' eager code.
 """
 from __future__ import annotations
 
@@ -43,8 +50,9 @@ from ..expr.predicates import (And, EqualTo, GreaterThan,
                                GreaterThanOrEqual, LessThan,
                                LessThanOrEqual)
 from ..ops.concat import concat_batches_bounded
-from ..ops.cuda_kernels import (MAX_LEAVES, MAX_SLOTS, FilterProductSum,
-                                Leaf, filter_product_sum)
+from ..ops.cuda_kernels import (FUSED_AGG_GROUPS, MAX_LEAVES, MAX_SLOTS,
+                                FilterProductSum, Leaf,
+                                filter_product_group_sum, filter_product_sum)
 from ..ops.gather import gather_columns, shrink_batch
 from ..ops.segments import segment_starts_sorted
 from ..ops.sort_keys import (check_key_type, normalize_float_key_col,
@@ -59,6 +67,7 @@ _LEAF_OPS = {EqualTo: "=", LessThan: "<", LessThanOrEqual: "<=",
              GreaterThan: ">", GreaterThanOrEqual: ">="}
 _FLIPPED = {"=": "=", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
 _KERNEL_COLUMN_TYPES = (dt.FloatType, dt.IntegerType, dt.DateType)
+_KERNEL_KEY_TYPES = (dt.IntegerType, dt.LongType)
 
 
 def _segment_starts(seg: torch.Tensor) -> torch.Tensor:
@@ -261,9 +270,68 @@ class GpuHashAggregateExec(UnaryExec):
                 for f in self.child.output_schema]
         return GpuBatch(cols, self.child.output_schema, 0)
 
+    def _grouped_kernel_fn(self, chain, ctx: ExecCtx):
+        """K2's engine edition as the partial pass, or None when the chain
+        is not K1's shape grouped by one integer scan column whose
+        statistics span at most ``FUSED_AGG_GROUPS`` values."""
+        plan = _filter_product_sum_plan(chain, self.aggs)
+        if plan is None or len(self.group_exprs) != 1 \
+                or not isinstance(self.group_exprs[0], BoundReference):
+            return None
+        passed = chain[1].exprs[self.group_exprs[0].ordinal]
+        if isinstance(passed, Alias):
+            passed = passed.child
+        scan = chain[0].child
+        if not isinstance(passed, BoundReference) \
+                or not isinstance(passed.dtype, _KERNEL_KEY_TYPES) \
+                or not hasattr(scan, "column_bounds"):
+            return None
+        name = scan.output_schema.fields[passed.ordinal].name
+        bounds = scan.column_bounds(name)
+        if bounds is None or bounds[1] - bounds[0] + 1 > FUSED_AGG_GROUPS:
+            return None
+        base, groups = bounds[0], bounds[1] - bounds[0] + 1
+        ordinals, spec = plan
+        dispatches = ctx.metric(self, "kernelDispatches")
+        message = (f"column {name}: a row holds a key outside "
+                   f"[{bounds[0]}, {bounds[1]}], the range its row-group "
+                   "statistics give")
+        key_type = torch_dtype(passed.dtype)
+        slots = {}
+
+        def key_column(device) -> GpuColumnVector:
+            """``base + g`` for each group, then the null key's slot."""
+            if device not in slots:
+                keys = torch.arange(base, base + groups + 1, dtype=key_type,
+                                    device=device)
+                keys[groups] = 0
+                valid = torch.ones(groups + 1, dtype=torch.bool,
+                                   device=device)
+                valid[groups] = False
+                slots[device] = GpuColumnVector(passed.dtype, keys, valid)
+            return slots[device]
+
+        def run(batch: GpuBatch, ectx) -> GpuBatch:
+            cols = [batch.columns[o] for o in ordinals]
+            key = batch.columns[passed.ordinal]
+            sums, nonnull, rows, outside = filter_product_group_sum(
+                [c.data for c in cols], [c.validity for c in cols],
+                batch.selection, batch.row_count, spec, key.data,
+                key.validity, base, groups)
+            dispatches.value += 1
+            ctx.add_deferred_check(outside, message)
+            buf = GpuColumnVector(self.aggs[0].dtype, sums, nonnull > 0)
+            # Spark keeps a group whose sum is null: a group is live when
+            # a row passed into it
+            return GpuBatch([key_column(sums.device), buf],
+                            self._partial_schema, groups + 1,
+                            selection=rows > 0)
+
+        return run
+
     def fused_chain_fn(self, chain, ctx: ExecCtx):
         if self.group_exprs:
-            return None
+            return self._grouped_kernel_fn(chain, ctx)
         plan = _filter_product_sum_plan(chain, self.aggs)
         if plan is None:
             return None

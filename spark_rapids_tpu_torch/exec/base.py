@@ -97,10 +97,10 @@ class ExecCtx:
         return m[name]
 
     # --- deferred device-side checks --------------------------------------
-    # A predicate that lives on the device (a bool scalar, True means
-    # violated) is recorded instead of read back, and raised at the
-    # query's download, before any result reaches the caller. The join's
-    # build_unique hint probe uses it.
+    # A predicate that lives on the device (a bool or integer scalar,
+    # nonzero means violated) is recorded instead of read back, and raised
+    # at the query's download, before any result reaches the caller. The
+    # join's build_unique hint probe and K2's key-range count use it.
 
     def add_deferred_check(self, flag: torch.Tensor, message: str) -> None:
         self.deferred_checks.append((flag, message))
@@ -116,7 +116,8 @@ class ExecCtx:
         checks, self.deferred_checks = self.deferred_checks, []
         if not checks:
             return
-        flags = torch.stack([f.reshape(()) for f, _ in checks]).cpu()
+        flags = torch.stack([f.reshape(()).to(torch.int64)
+                             for f, _ in checks]).cpu()
         bad = [msg for (_, msg), v in zip(checks, flags.tolist()) if v]
         if bad:
             raise RuntimeError(
@@ -184,10 +185,13 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
 
     Where the reference jits the chain into one XLA program per batch,
     the port asks the consumer for a kernel of the chain's shape
-    (``fused_chain_fn``; q6's filter -> product -> sum is K1) and runs it
-    as one launch per batch. Any other chain runs its operators' eager
-    torch code in turn. The route is decided by the chain's shape before
-    the first batch, never by a failure. With
+    (``fused_chain_fn``; q6's filter -> product -> sum is K1, the same
+    grouped over a small keyspace K2) and runs it as one launch per batch.
+    Any other chain runs its operators' eager torch code in turn. The
+    route is decided by the chain's shape before the first batch, never
+    by a failure. When the chain's leaf is a scan that decodes on the
+    device (``fused_scan_execute``), the scan runs the chain right after
+    each batch's K5 decode, on the same stream. With
     ``spark.rapids.sql.stageFusion.enabled`` off every operator runs on
     its own."""
     node = consumer.children[0]
@@ -212,12 +216,26 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
             for f in fns:
                 b = f(b, ectx)
             return b
-    for b in node.execute(ctx):
+
+    def timed(b, ectx):
         t0 = time.perf_counter()
-        out = run(b, ctx.eval_ctx)
+        out = run(b, ectx)
         if metric is not None:
             metric.value += time.perf_counter() - t0
-        yield out
+        return out
+
+    # scan-rooted splice: a leaf that decodes on the device runs the chain
+    # right after each batch's decode; it declines with None when that
+    # path is off
+    scan_fused = getattr(node, "fused_scan_execute", None)
+    gen = None if scan_fused is None or not ctx.stage_fusion \
+        else scan_fused(ctx, timed)
+    if gen is None:
+        gen = (timed(b, ctx.eval_ctx) for b in node.execute(ctx))
+    try:
+        yield from gen
+    finally:
+        gen.close()
 
 
 class LeafExec(GpuExec):

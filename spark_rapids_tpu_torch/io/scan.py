@@ -17,9 +17,24 @@ is written again only after its last copy's event has completed (the
 hazard ``io/parquet_device.py:1049-1073`` documents for the JAX path).
 
 Device page decode (``spark.rapids.sql.format.parquet.deviceDecode.
-enabled``, the reference's default) is the next slice: this scan raises
-unless it is off. Column pruning, row-group pushdown, Hive partition
-columns and the ORC/CSV/JSON/Hive-text formats wait too.
+enabled``, the reference's default) is the counterpart of ``:611-1084``
+(``_use_device_decode``, ``_device_rg_tasks``, ``_plan_row_group``,
+``_assemble_device_batch``, ``_coalesced_groups``, ``_merge_planned``,
+``_execute_device_decode`` and ``fused_scan_execute``): a pool plans each
+row group's column chunks on the host (``parquet_plan.plan_chunk``: page
+walk, decompression, run headers), consecutive row groups coalesce into
+batches, and the feeder thread lays each batch out in one blob
+(``ops/parquet_decode.BatchLayout``) in pinned staging and copies its
+encoded part to the device on the side stream. The consumer's stream
+waits on the copy's event and launches **K5** (``decode_batch``) once a
+batch; with a fused chain above the scan (``fused_scan_execute``), the
+chain's kernel (K1 or K2) follows on the same stream with no host sync.
+A chunk outside the decode envelope goes to pyarrow on the host, chosen
+by its encoding before any decode, and is counted by reason
+(``fallbackChunks``). The scan refuses string columns: the port's
+columnar layer holds fixed-width types only. Column pruning, row-group
+pushdown, Hive partition columns and the ORC/CSV/JSON/Hive-text formats
+wait.
 """
 from __future__ import annotations
 
@@ -27,7 +42,7 @@ import concurrent.futures
 import queue
 import threading
 import time
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -40,9 +55,13 @@ from ..columnar.batch import GpuBatch, bucket_rows
 from ..columnar.column import GpuColumnVector, torch_dtype
 from ..config import (MAX_PARTITION_BYTES, PARQUET_DEVICE_DECODE,
                       PARQUET_MULTITHREADED_THREADS, PARQUET_READER_TYPE,
-                      SCAN_PREFETCH_BATCHES)
+                      SCAN_COALESCE_TARGET_BYTES, SCAN_INFLIGHT_BATCHES,
+                      SCAN_PREFETCH_BATCHES, SCAN_STAGE_FUSION,
+                      SCAN_UPLOAD_THREADS)
 from ..exec.base import ExecCtx, LeafExec
+from ..ops.parquet_decode import BatchLayout, decode_batch
 from ..pipeline import pipelined_map
+from .parquet_plan import HostFallback, merge_chunk_plans, plan_chunk
 
 __all__ = ["FileSplit", "GpuFileScanExec", "plan_splits"]
 
@@ -189,30 +208,40 @@ class _StagedUpload:
         """Copy one batch's host lanes to the device; returns
         ``(blob, event, offsets)``; ``event`` is None on the CPU."""
         offsets, size = _layout(schema, [v for _, v in lanes], capacity)
+        blob, event = self.stage_blob(
+            size, size, lambda host: _fill(host, schema, lanes, offsets,
+                                           capacity))
+        return blob, event, offsets
+
+    def stage_blob(self, prefix: int, total: int, fill):
+        """A device blob of ``total`` bytes whose first ``prefix`` bytes
+        ``fill(host uint8 array)`` writes on the host and one copy moves
+        to the device; the rest is left for the device to write. Returns
+        ``(blob, event)``; ``event`` is None on the CPU."""
         if not self.cuda:
-            host = np.empty(size, np.uint8)
-            _fill(host, schema, lanes, offsets, capacity)
-            return torch.from_numpy(host), None, offsets
+            host = np.zeros(total, np.uint8)
+            fill(host[:prefix])
+            return torch.from_numpy(host), None
         k = self._next
         self._next = (k + 1) % len(self._ring)
         slot = self._ring[k]
-        if slot is None or slot[0].numel() < size:
+        if slot is None or slot[0].numel() < prefix:
             if slot is not None:
                 slot[1].synchronize()  # its last copy may still read it
-            slot = [torch.empty(size, dtype=torch.uint8, pin_memory=True),
-                    None]
+            slot = [torch.empty(max(prefix, 1), dtype=torch.uint8,
+                                pin_memory=True), None]
             self._ring[k] = slot
         elif slot[1] is not None:
             slot[1].synchronize()  # reuse only after its copy completed
         pinned = slot[0]
-        _fill(pinned.numpy(), schema, lanes, offsets, capacity)
+        fill(pinned.numpy()[:prefix])
         with torch.cuda.stream(self.stream):
-            blob = torch.empty(size, dtype=torch.uint8, device=self.device)
-            blob.copy_(pinned[:size], non_blocking=True)
+            blob = torch.empty(total, dtype=torch.uint8, device=self.device)
+            blob[:prefix].copy_(pinned[:prefix], non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
         slot[1] = event
-        return blob, event, offsets
+        return blob, event
 
     def hand_over(self, blob: torch.Tensor, event) -> None:
         """Make the consumer's stream wait for the copy, and tell the
@@ -238,6 +267,8 @@ class GpuFileScanExec(LeafExec):
         if schema is None:
             schema = engine_schema(pq.ParquetFile(self.paths[0]).schema_arrow)
         self._schema = schema
+        self._bounds = {}
+        self._pf_local = threading.local()
 
     @property
     def output_schema(self):
@@ -305,12 +336,299 @@ class GpuFileScanExec(LeafExec):
                     if f is not None:
                         f.cancel()
 
+    def column_bounds(self, name: str) -> Optional[Tuple[int, int]]:
+        """``(min, max)`` of an integer column over every row group the
+        scan reads, from the footers' row-group statistics (the ones
+        ``_rg_may_match``, ``spark_rapids_tpu/io/scan.py:172``, reads);
+        None when a row group lacks them. Read once, before the first
+        batch; the grouped aggregate sizes K2's keyspace with it."""
+        if name not in self._bounds:
+            self._bounds[name] = self._read_bounds(name)
+        return self._bounds[name]
+
+    def _read_bounds(self, name: str) -> Optional[Tuple[int, int]]:
+        lo = hi = None
+        for path in self.paths:
+            md = pq.ParquetFile(path).metadata
+            names = [md.schema.column(i).name for i in range(md.num_columns)]
+            if name not in names:
+                return None
+            ci = names.index(name)
+            for g in range(md.num_row_groups):
+                st = md.row_group(g).column(ci).statistics
+                if st is None or not st.has_min_max \
+                        or not isinstance(st.min, int) \
+                        or not isinstance(st.max, int):
+                    return None
+                lo = st.min if lo is None else min(lo, st.min)
+                hi = st.max if hi is None else max(hi, st.max)
+        return None if lo is None else (lo, hi)
+
+    # --- device page decode ------------------------------------------------
+
+    def _use_device_decode(self, conf) -> bool:
+        return (conf.get(PARQUET_DEVICE_DECODE)
+                and conf.get(PARQUET_READER_TYPE) != "COALESCING")
+
+    def _device_rg_tasks(self, conf) -> List[Tuple[str, int]]:
+        """(path, row group) work list, in split order."""
+        return [(s.path, g) for s in plan_splits(
+            self.paths, conf.get(MAX_PARTITION_BYTES)) for g in s.row_groups]
+
+    def _thread_pf(self, path: str) -> "pq.ParquetFile":
+        """Per-(thread, path) ParquetFile: one footer parse per pool
+        thread, and no file handle shared across threads."""
+        cache = getattr(self._pf_local, "cache", None)
+        if cache is None:
+            cache = self._pf_local.cache = {}
+        pf = cache.get(path)
+        if pf is None:
+            pf = cache[path] = pq.ParquetFile(path)
+        return pf
+
+    def _plan_row_group(self, path: str, g: int):
+        """Host side of one row group on the reader pool: ``(rows, plans
+        by column, pyarrow batch of the fallback columns or None, the
+        fallback reasons)``."""
+        pf = self._thread_pf(path)
+        md = pf.metadata
+        rg = md.row_group(g)
+        name_to_ci = {md.schema.column(i).name: i
+                      for i in range(md.num_columns)}
+        plans: Dict[str, object] = {}
+        host_cols: List[str] = []
+        reasons: List[str] = []
+        with open(path, "rb") as f:
+            for fld in self._schema.fields:
+                ci = name_to_ci.get(fld.name)
+                if ci is None:
+                    continue  # a column the file lacks: nulls at assembly
+                try:
+                    plans[fld.name] = plan_chunk(
+                        f, rg.column(ci), pf.schema.column(ci), fld.dtype,
+                        pf.schema_arrow.field(fld.name).type)
+                except HostFallback as hf:
+                    host_cols.append(fld.name)
+                    reasons.append(hf.reason)
+        host_rb = None
+        if host_cols:
+            t = pf.read_row_group(g, columns=host_cols)
+            host_rb = t.combine_chunks().to_batches()[0] if t.num_rows \
+                else None
+        return rg.num_rows, plans, host_rb, tuple(reasons)
+
+    @staticmethod
+    def _decoded_estimate(item) -> int:
+        """Decoded bytes one planned row group will occupy on the device:
+        the coalescer's currency."""
+        plans, host_rb = item[1], item[2]
+        est = host_rb.nbytes if host_rb is not None else 0
+        for plan in plans.values():
+            est += plan.n_rows * np.dtype(plan.lane).itemsize
+        return est
+
+    @staticmethod
+    def _coalesce_compatible(a, b) -> bool:
+        """May two consecutive planned row groups merge into one batch?
+        The same device columns of the same lane and DELTA shape, and the
+        same fallback schema; dictionaries and sizes may differ."""
+        if set(a[1]) != set(b[1]):
+            return False
+        ha, hb = a[2], b[2]
+        if (ha is None) != (hb is None) \
+                or (ha is not None and not ha.schema.equals(hb.schema)):
+            return False
+        return all(x.lane == b[1][k].lane and x.is_delta == b[1][k].is_delta
+                   for k, x in a[1].items())
+
+    def _coalesced_groups(self, planned, target_bytes: int, max_rows: int):
+        """Group consecutive planned row groups toward ``target_bytes``
+        of decoded output and at most ``max_rows`` rows, in split order;
+        ``target_bytes <= 0`` keeps one row group a batch."""
+        group: List = []
+        rows = est = 0
+        for item in planned:
+            if group and (rows + item[0] > max_rows
+                          or not self._coalesce_compatible(group[0], item)):
+                yield group
+                group, rows, est = [], 0, 0
+            group.append(item)
+            rows += item[0]
+            est += self._decoded_estimate(item)
+            if target_bytes <= 0 or est >= target_bytes \
+                    or rows >= max_rows:
+                yield group
+                group, rows, est = [], 0, 0
+        if group:
+            yield group
+
+    @staticmethod
+    def _merge_planned(group):
+        """One batch from a coalesced group: each column's plans merged,
+        the fallback batches concatenated, the reasons kept."""
+        if len(group) == 1:
+            return group[0]
+        n_rows = sum(g[0] for g in group)
+        plans = {k: merge_chunk_plans([g[1][k] for g in group])
+                 for k in group[0][1]}
+        host_rbs = [g[2] for g in group if g[2] is not None]
+        host_rb = _concat(host_rbs) if host_rbs else None
+        return n_rows, plans, host_rb, tuple(r for g in group for r in g[3])
+
+    def _host_columns(self, host_rb, plans, n_rows: int):
+        """Host lanes of every field that is not decoded on the device:
+        pyarrow's decode of a fallback chunk, or nulls for a column the
+        file lacks."""
+        host = {}
+        for f in self._schema.fields:
+            if f.name in plans:
+                continue
+            idx = -1 if host_rb is None \
+                else host_rb.schema.get_field_index(f.name)
+            if idx < 0:
+                host[f.name] = (np.zeros(n_rows, f.dtype.np_dtype),
+                                np.zeros(n_rows, np.bool_))
+                continue
+            col = host_rb.column(idx)
+            target = dt.to_arrow(f.dtype)
+            host[f.name] = host_lanes(col if col.type == target
+                                      else col.cast(target), f.dtype)
+        return host
+
+    def _batch_layout(self, group) -> Tuple[BatchLayout, Tuple[str, ...]]:
+        """The blob layout of one coalesced group, and its fallback
+        reasons."""
+        n_rows, plans, host_rb, reasons = self._merge_planned(group)
+        return BatchLayout(self._schema, bucket_rows(max(n_rows, 1)), n_rows,
+                           plans, self._host_columns(host_rb, plans,
+                                                     n_rows)), reasons
+
+    def batch_layouts(self, conf) -> List[BatchLayout]:
+        """Every batch's blob layout, as the device-decode path plans and
+        coalesces them, planned serially (for the kernel checks)."""
+        planned = (self._plan_row_group(p, g)
+                   for p, g in self._device_rg_tasks(conf))
+        return [self._batch_layout(group)[0]
+                for group in self._coalesced_groups(
+                    planned, conf.get(SCAN_COALESCE_TARGET_BYTES),
+                    max(1, conf.batch_size_rows))]
+
+    def fused_scan_execute(self, ctx: ExecCtx, chain):
+        """Scan-rooted fusion (``exec.base.fused_batches``): batches of
+        ``chain(batch, eval_ctx)``, each launched on the scan's stream
+        right after the batch's K5 decode; None when the device-decode
+        path or scan fusion is off, and the caller runs the chain over
+        ``execute``. The reference also declines under memory pressure
+        (``spark_rapids_tpu/io/scan.py:906-908``); that waits for the
+        port's memory manager (ROADMAP item 14)."""
+        if not self._use_device_decode(ctx.conf) \
+                or not ctx.conf.get(SCAN_STAGE_FUSION):
+            return None
+        return self._execute_device_decode(ctx, chain)
+
+    def _execute_device_decode(self, ctx: ExecCtx, chain=None):
+        for f in self._schema.fields:
+            torch_dtype(f.dtype)  # raises for what the device cannot hold
+        conf = ctx.conf
+        rows = ctx.metric(self, "numOutputRows")
+        scan_t = ctx.metric(self, "scanTime")
+        asm_t = ctx.metric(self, "assembleTime")
+        up_t = ctx.metric(self, "uploadTime")
+        wait_t = ctx.metric(self, "uploadWaitTime")
+        enc_m = ctx.metric(self, "encodedBytes")
+        dec_m = ctx.metric(self, "decodedBytes")
+        dev_m = ctx.metric(self, "deviceChunks")
+        fb_m = ctx.metric(self, "fallbackChunks")
+        # scanPrograms counts the batches that launched K5 (or ran a chain
+        # without it), fusedDispatches those whose chain ran right after
+        # K5 on the same stream
+        programs_m = ctx.metric(self, "scanPrograms")
+        fused_m = ctx.metric(self, "fusedDispatches")
+        tasks = self._device_rg_tasks(conf)
+        if not tasks:
+            return
+        nthreads = max(1, conf.get(PARQUET_MULTITHREADED_THREADS))
+        depth = nthreads + max(0, conf.get(SCAN_PREFETCH_BATCHES))
+        window = max(1, conf.get(SCAN_INFLIGHT_BATCHES))
+        # the staging ring has one writer: one feeder thread, or none
+        threads = min(1, conf.get(SCAN_UPLOAD_THREADS))
+        uploader = _StagedUpload(ctx.device, slots=window + 1)
+        pool = concurrent.futures.ThreadPoolExecutor(
+            nthreads, thread_name_prefix="scan-plan")
+
+        def planned():
+            pending: List = []
+            it = iter(tasks)
+
+            def topup():
+                while len(pending) < depth:
+                    try:
+                        p, g = next(it)
+                    except StopIteration:
+                        return
+                    pending.append(pool.submit(self._plan_row_group, p, g))
+            topup()
+            while pending:
+                t0 = time.perf_counter()
+                item = pending.pop(0).result()
+                scan_t.value += time.perf_counter() - t0
+                topup()
+                yield item
+
+        def assemble(group):
+            t0 = time.perf_counter()
+            # counted before the merge: one count per planned chunk
+            dev_chunks = sum(len(g[1]) for g in group)
+            layout, reasons = self._batch_layout(group)
+            t1 = time.perf_counter()
+            blob, event = uploader.stage_blob(
+                layout.prefix_bytes, layout.total_bytes, layout.fill)
+            return (blob, event, layout, dev_chunks, reasons, t1 - t0,
+                    time.perf_counter() - t1)
+
+        groups = self._coalesced_groups(planned(),
+                                        conf.get(SCAN_COALESCE_TARGET_BYTES),
+                                        max(1, conf.batch_size_rows))
+        gen = pipelined_map(assemble, groups, threads=threads, window=window)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    (blob, event, layout, dev_chunks, reasons, asm_s,
+                     up_s) = next(gen)
+                except StopIteration:
+                    break
+                wait_t.value += time.perf_counter() - t0
+                asm_t.value += asm_s
+                up_t.value += up_s
+                enc_m.value += layout.encoded_bytes()
+                dec_m.value += layout.decoded_bytes()
+                dev_m.value += dev_chunks
+                fb_m.value += len(reasons)
+                for r in reasons:
+                    ctx.metric(self, f"fallbackChunks.{r}").value += 1
+                rows.value += layout.n_rows
+                uploader.hand_over(blob, event)
+                batch = GpuBatch(decode_batch(blob, layout), self._schema,
+                                 layout.n_rows)
+                decoded = bool(layout.device_names)
+                if decoded or chain is not None:
+                    programs_m.value += 1
+                if chain is not None:
+                    if decoded:
+                        fused_m.value += 1
+                    batch = chain(batch, ctx.eval_ctx)
+                yield batch
+        finally:
+            gen.close()
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    # --- host decode ---------------------------------------------------------
+
     def execute(self, ctx: ExecCtx):
-        if ctx.conf.get(PARQUET_DEVICE_DECODE):
-            raise NotImplementedError(
-                "device page decode is not ported yet: set "
-                "spark.rapids.sql.format.parquet.deviceDecode.enabled="
-                "false to scan through the host decoder")
+        if self._use_device_decode(ctx.conf):
+            yield from self._execute_device_decode(ctx)
+            return
         rows = ctx.metric(self, "numOutputRows")
         scan_t = ctx.metric(self, "scanTime")
         asm_t = ctx.metric(self, "assembleTime")

@@ -3,11 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repo root, named by a hash of
-its source and flags, so an edit rebuilds and an unchanged source is
-reused. A lock file serialises builds across processes. Nothing builds
-at import: the first call that needs a kernel builds it, and
-``build_all`` builds every source at once, one ``nvcc`` each, in
-parallel.
+its source, the shared headers and the flags, so an edit rebuilds and an
+unchanged source is reused. A lock file serialises builds across
+processes. Nothing builds at import: the first call that needs a kernel
+builds it, and ``build_all`` builds every source at once, one ``nvcc``
+each, in parallel.
 
 This module has no counterpart in the JAX package, where XLA compiled
 the Pallas kernels.
@@ -53,8 +53,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is, once built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` is, once built; the key
+    covers the shared headers (``csrc/*.cuh``) too."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

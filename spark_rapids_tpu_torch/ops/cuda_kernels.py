@@ -35,6 +35,20 @@ K4, ``csrc/gather.cu``, replaces ``gather_pallas`` (``:259``):
 - ``gather`` (K4-contract edition): ``gather_xla``, ``table[idx]``, for a
   4-byte table and any length.
 
+K2, ``csrc/fused_filter_agg.cu``, replaces ``fused_filter_agg_pallas``
+(``:225``):
+
+- ``filter_product_group_sum`` (engine edition): K1's leaf spec over the
+  same columns plus an int32 or int64 key, a base and a group count of
+  at most ``FUSED_AGG_GROUPS``; per group (and one more slot for the null
+  key) the float64 sum of ``a * b``, its non-null count and the count of
+  passing rows, and the count of passing rows whose key lies outside the
+  groups. The grouped aggregate launches it once per batch where the
+  scan's statistics bound the key to 8 values.
+- ``fused_filter_agg`` (K2-contract edition): ``fused_filter_agg_xla``,
+  q6's constants, IEEE comparisons and float32 sums over the keys 0..7,
+  for any length.
+
 Each wrapper takes its plain PyTorch version (the ``*_torch`` functions)
 only for tensors on the CPU; a CUDA tensor gets the kernel or an
 exception. Each keeps a plain integer ``launches`` count, raised by one
@@ -56,7 +70,9 @@ __all__ = ["Leaf", "FilterProductSum", "Q6_SPEC", "OPS",
            "MAX_SLOTS", "MAX_LEAVES", "sort_pairs", "sort_pairs_torch",
            "sort_keys", "sort_keys_torch", "gather_rows",
            "gather_rows_torch", "gather", "gather_torch",
-           "MAX_GATHER_COLS", "MAX_SORT_PAIRS"]
+           "MAX_GATHER_COLS", "MAX_SORT_PAIRS", "FUSED_AGG_GROUPS",
+           "filter_product_group_sum", "filter_product_group_sum_torch",
+           "fused_filter_agg", "fused_filter_agg_torch"]
 
 MAX_SLOTS = 4
 MAX_LEAVES = 8
@@ -664,3 +680,220 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather.launches = 0
+
+
+# --- K2: filter -> product -> sum per group ---------------------------------
+
+FUSED_AGG_GROUPS = 8
+_GROUP_SLOTS = FUSED_AGG_GROUPS + 1  # and the null key's slot
+_KEY_TYPES = {torch.int32: 0, torch.int64: 1}
+
+
+def fused_filter_agg_torch(key, q, p, d, s) -> torch.Tensor:
+    """``fused_filter_agg_xla`` in plain PyTorch: q6's mask in IEEE order,
+    ``p * d`` where it holds, summed in float32 per key ``g`` in 0..7."""
+    keep = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    cols = [q, p, d, s]
+    for leaf in Q6_SPEC.leaves:
+        keep &= _compare(cols[leaf.slot].to(torch.float64), leaf.op,
+                         leaf.bound, nan_greatest=False)
+    vals = torch.where(keep, p * d, torch.zeros((), dtype=torch.float32,
+                                                device=q.device))
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    return torch.stack([torch.where(key == g, vals, zero).sum(
+        dtype=torch.float32) for g in range(FUSED_AGG_GROUPS)])
+
+
+def filter_product_group_sum_torch(
+        cols: Sequence[torch.Tensor], valids: Sequence[Optional[torch.Tensor]],
+        selection: Optional[torch.Tensor], row_count: int,
+        spec: FilterProductSum, key: torch.Tensor,
+        key_valid: Optional[torch.Tensor], base: int, groups: int) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The engine edition's function in plain PyTorch: per slot (the
+    groups ``base .. base + groups - 1``, then the null key) the float64
+    sum of ``a * b`` over the passing rows whose product is non-null,
+    their count, and the count of passing rows; and the count of passing
+    rows whose key is outside the groups."""
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    keep = torch.arange(n, device=dev) < row_count
+    if selection is not None:
+        keep &= selection
+    for leaf in spec.leaves:
+        v = valids[leaf.slot]
+        if v is not None:
+            keep &= v
+        keep &= _compare(cols[leaf.slot].to(torch.float64), leaf.op,
+                         leaf.bound, nan_greatest=True)
+    prod_ok = torch.ones(n, dtype=torch.bool, device=dev)
+    for slot in (spec.a_slot, spec.b_slot):
+        if valids[slot] is not None:
+            prod_ok &= valids[slot]
+    prod = (cols[spec.a_slot] * cols[spec.b_slot]).to(torch.float64)
+    g = key.to(torch.int64) - base
+    in_range = (g >= 0) & (g < groups)
+    null_key = torch.zeros(n, dtype=torch.bool, device=dev) \
+        if key_valid is None else ~key_valid
+    slot = torch.where(null_key, torch.full_like(g, groups),
+                       torch.where(in_range, g, torch.full_like(g, -1)))
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    sums, nonnull, rows = [], [], []
+    for q in range(groups + 1):
+        m = keep & (slot == q)
+        sums.append(torch.where(m & prod_ok, prod, zero).sum())
+        nonnull.append((m & prod_ok).sum(dtype=torch.int64))
+        rows.append(m.sum(dtype=torch.int64))
+    oor = (keep & (slot < 0)).sum(dtype=torch.int64)
+    return torch.stack(sums), torch.stack(nonnull), torch.stack(rows), oor
+
+
+class _FfaArgs(ctypes.Structure):
+    """Mirror of ``FfaArgs`` in the CUDA source."""
+    _fields_ = [("col", ctypes.c_void_p * MAX_SLOTS),
+                ("valid", ctypes.c_void_p * MAX_SLOTS),
+                ("sel", ctypes.c_void_p),
+                ("key", ctypes.c_void_p),
+                ("key_valid", ctypes.c_void_p),
+                ("row_count", ctypes.c_int64),
+                ("base", ctypes.c_int64),
+                ("col_type", ctypes.c_int32 * MAX_SLOTS),
+                ("key_type", ctypes.c_int32),
+                ("groups", ctypes.c_int32),
+                ("n_leaves", ctypes.c_int32),
+                ("a_slot", ctypes.c_int32),
+                ("b_slot", ctypes.c_int32),
+                ("pad_", ctypes.c_int32),
+                ("leaf", _Leaf * MAX_LEAVES)]
+
+
+def _ffa_library():
+    from ._build import load
+    lib = load("fused_filter_agg")
+    if not getattr(lib, "_spark_ready", False):
+        for fn in (lib.spark_ffa_args_size, lib.spark_ffa_max_blocks,
+                   lib.spark_ffa_group_slots):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib.spark_ffa_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] + [ctypes.c_void_p] * 5
+        lib.spark_ffa_launch.restype = ctypes.c_int
+        if lib.spark_ffa_args_size() != ctypes.sizeof(_FfaArgs) \
+                or lib.spark_ffa_group_slots() != _GROUP_SLOTS:
+            raise RuntimeError(
+                f"FfaArgs is {lib.spark_ffa_args_size()} bytes in the CUDA "
+                f"source but {ctypes.sizeof(_FfaArgs)} in ctypes")
+        lib._spark_ready = True
+    return lib
+
+
+def _check_key(key, key_valid, n, groups, device):
+    if key.dtype not in _KEY_TYPES or key.dim() != 1 \
+            or key.shape[0] != n or not key.is_contiguous() \
+            or key.device != device:
+        raise ValueError(f"the key must be a contiguous 1-D int32 or int64 "
+                         f"tensor of length {n} on {device}")
+    if key_valid is not None and (
+            key_valid.dtype != torch.bool or key_valid.shape != key.shape
+            or not key_valid.is_contiguous()
+            or key_valid.device != device):
+        raise ValueError("the key's validity must be a contiguous bool "
+                         "tensor as long as the key")
+    if not 1 <= groups <= FUSED_AGG_GROUPS:
+        raise ValueError(f"groups must be 1..{FUSED_AGG_GROUPS}, got "
+                         f"{groups}")
+
+
+def _ffa_launch(edition: int, cols, valids, selection, row_count: int,
+                spec: FilterProductSum, key, key_valid, base: int,
+                groups: int, acc: torch.dtype):
+    lib = _ffa_library()
+    device = cols[0].device
+    args = _FfaArgs()
+    for k, c in enumerate(cols):
+        args.col[k] = c.data_ptr()
+        args.col_type[k] = _COL_TYPES[c.dtype]
+        v = valids[k]
+        args.valid[k] = None if v is None else v.data_ptr()
+    args.sel = None if selection is None else selection.data_ptr()
+    args.key = key.data_ptr()
+    args.key_valid = None if key_valid is None else key_valid.data_ptr()
+    args.key_type = _KEY_TYPES[key.dtype]
+    args.row_count = row_count
+    args.base = base
+    args.groups = groups
+    args.n_leaves = len(spec.leaves)
+    args.a_slot, args.b_slot = spec.a_slot, spec.b_slot
+    for j, leaf in enumerate(spec.leaves):
+        args.leaf[j] = _Leaf(float(leaf.bound), leaf.slot, OPS[leaf.op])
+    per_block = _THREADS * _ROWS_PER_THREAD
+    blocks = max(1, min(lib.spark_ffa_max_blocks(),
+                        -(-row_count // per_block)))
+
+    def empty(count, dtype):
+        return torch.empty(count, dtype=dtype, device=device)
+
+    parts = (empty(blocks * _GROUP_SLOTS, acc),
+             empty(blocks * _GROUP_SLOTS, torch.int64),
+             empty(blocks * _GROUP_SLOTS, torch.int64),
+             empty(blocks, torch.int64))
+    outs = (empty(_GROUP_SLOTS, acc), empty(_GROUP_SLOTS, torch.int64),
+            empty(_GROUP_SLOTS, torch.int64), empty((), torch.int64))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.spark_ffa_launch(
+        ctypes.addressof(args), edition, *[t.data_ptr() for t in parts],
+        blocks, *[t.data_ptr() for t in outs], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_filter_agg kernel launch failed: "
+                           f"cudaError {err}")
+    return outs
+
+
+def filter_product_group_sum(
+        cols: Sequence[torch.Tensor], valids: Sequence[Optional[torch.Tensor]],
+        selection: Optional[torch.Tensor], row_count: int,
+        spec: FilterProductSum, key: torch.Tensor,
+        key_valid: Optional[torch.Tensor], base: int, groups: int) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's engine edition: ``(sums float64[groups + 1], non-null counts,
+    row counts, out-of-range count)`` as ``filter_product_group_sum_torch``
+    defines them. A CPU input takes the plain version; a CUDA input
+    launches the kernel."""
+    if _on_cpu(list(cols) + list(valids) + [selection, key, key_valid]):
+        return filter_product_group_sum_torch(
+            cols, valids, selection, row_count, spec, key, key_valid, base,
+            groups)
+    _check_inputs(cols, valids, selection, row_count, spec, cols[0].device)
+    _check_key(key, key_valid, cols[0].shape[0], groups, cols[0].device)
+    sums, nonnull, rows, oor = _ffa_launch(
+        _ENGINE, cols, valids, selection, row_count, spec, key, key_valid,
+        base, groups, torch.float64)
+    filter_product_group_sum.launches += 1
+    k = groups + 1
+    return sums[:k], nonnull[:k], rows[:k], oor
+
+
+filter_product_group_sum.launches = 0
+
+
+def fused_filter_agg(key, q, p, d, s) -> torch.Tensor:
+    """K2-contract edition: ``fused_filter_agg_xla``'s float32 sums over
+    the 8 groups, for an int32 key and any length."""
+    cols = [q, p, d, s]
+    if _on_cpu(cols + [key]):
+        return fused_filter_agg_torch(key, q, p, d, s)
+    if not (q.dtype == p.dtype == d.dtype == torch.float32
+            and s.dtype == torch.int32 and key.dtype == torch.int32):
+        raise ValueError("fused_filter_agg takes an int32 key, float32 q, "
+                         "p, d and int32 s")
+    _check_inputs(cols, [None] * 4, None, q.shape[0], Q6_SPEC, q.device)
+    _check_key(key, None, q.shape[0], FUSED_AGG_GROUPS, q.device)
+    sums = _ffa_launch(_CONTRACT, cols, [None] * 4, None, q.shape[0],
+                       Q6_SPEC, key, None, 0, FUSED_AGG_GROUPS,
+                       torch.float32)[0]
+    fused_filter_agg.launches += 1
+    return sums[:FUSED_AGG_GROUPS]
+
+
+fused_filter_agg.launches = 0

@@ -19,16 +19,30 @@ columns. Each timing runs back to back on the device over inputs that
 cycle through copies larger than L2, in turns (plain, kernel, kernel,
 plain), beside the library call that computes the same function.
 
+K5 (``check_k5``/``time_k5``) decodes Parquet files written from a seed:
+a q6 row group (750,152 rows, the four q6 columns and l_linenumber), a
+row group with nulls, DELTA pages, v2 pages, booleans and an all-null
+column, and a coalesced batch of row groups whose dictionaries differ.
+K2 (``check_k2``/``time_k2``) runs both editions at a q6 batch with a
+line-number key, at a ragged length, with nulls, NaN, a selection, null
+and out-of-range keys, with every row in one group and with every group.
+
 Tolerances: the engine edition sums float64 in another order than the
 plain version, so its sum must agree to rel 1e-9; the K1-contract
 edition sums float32, held to rel 1e-3 as ``tests/test_exec.py:198``
 holds the Pallas edition; counts must be equal. K3 and K4 must match
 their plain versions exactly: K3 runs the same network on the same
-pairs, and K4 copies bits.
+pairs, and K4 copies bits. K5 must match bit for bit (it copies and
+shifts bits). K2's engine edition sums float64 per group in another
+order: rel 1e-9, counts equal; its contract edition sums float32: rel
+1e-3 of the group's sum (or of 1 where that is smaller), as
+``bench.py:767`` holds the Pallas edition.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -39,7 +53,8 @@ from . import cuda_kernels as ck
 __all__ = ["K1Case", "k1_cases", "check_k1", "time_k1", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
-           "time_k4"]
+           "time_k4", "k5_layouts", "check_k5", "time_k5", "k2_cases",
+           "check_k2", "time_k2"]
 
 ENGINE_RTOL = 1e-9
 CONTRACT_RTOL = 1e-3
@@ -487,3 +502,237 @@ def time_k4(device, reps: int = 50) -> Dict[str, float]:
                    reps)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
             "bytes": n * (4 + 1 + 8) + b * 8, "rows": n}
+
+
+# --- K5 and K2 --------------------------------------------------------------
+
+def _write(directory: str, name: str, arrays: Dict, **kw) -> str:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    path = os.path.join(directory, name)
+    pq.write_table(pa.table(arrays), path, **kw)
+    return path
+
+
+def k5_layouts(directory: str, seed: int = 7) -> Dict[str, list]:
+    """``{case: [(scan, BatchLayout), ...]}`` over Parquet files written
+    into ``directory``: the q6 row group (the four q6 columns alone, as
+    q6 scans them, and with l_linenumber), nulls + DELTA + v2 pages, and
+    a coalesced batch of row groups with differing dictionaries."""
+    import pyarrow as pa
+    from .. import tpch
+    from ..columnar.arrow_bridge import engine_schema
+    from ..config import RapidsConf
+    from ..io.scan import GpuFileScanExec
+    rng = np.random.default_rng(seed)
+    q6 = tpch.write_lineitem(
+        tpch.gen_lineitem(MAIN_ROWS, seed=0, linenumber=True),
+        os.path.join(directory, "q6"), n_files=1)
+    n = 300_000
+    mixed = _write(directory, "mixed.parquet", {
+        "null_dict": pa.array(rng.integers(0, 50, n).astype(np.int32),
+                              mask=rng.random(n) < 0.25),
+        "delta64": pa.array(rng.integers(-1000, 1000, n).cumsum(),
+                            mask=rng.random(n) < 0.2),
+        "delta32": pa.array((rng.integers(-100, 100, n).cumsum()
+                             % 1_000_000).astype(np.int32)),
+        "flag": pa.array(rng.random(n) < 0.5),
+        "plain_f64": pa.array(rng.standard_normal(n),
+                              mask=rng.random(n) < 0.1),
+        "all_null": pa.array([None] * n, type=pa.int64()),
+    }, row_group_size=n, compression="zstd", data_page_version="2.0",
+        data_page_size=16 << 10, use_dictionary=["null_dict", "flag",
+                                                  "all_null"],
+        column_encoding={"delta64": "DELTA_BINARY_PACKED",
+                         "delta32": "DELTA_BINARY_PACKED",
+                         "plain_f64": "PLAIN"})
+    m = 240_000
+    grp = np.arange(m) // 40_000
+    coalesced = _write(directory, "coalesced.parquet", {
+        "dict_i32": pa.array((rng.integers(0, 7, m) + grp * 1000)
+                             .astype(np.int32)),
+        "dict_f32": pa.array((rng.integers(0, 5, m) + grp * 0.5)
+                             .astype(np.float32),
+                             mask=rng.random(m) < 0.05),
+        "rle": pa.array(np.sort(rng.integers(0, 5, m)).astype(np.int64)),
+        "date": pa.array(rng.integers(8000, 9000, m).astype(np.int32))
+        .cast(pa.date32()),
+    }, row_group_size=40_000, compression="snappy")
+    one_batch = RapidsConf({"spark.rapids.sql.scan.coalesceTargetBytes":
+                            "1g"})
+    out = {}
+    for case, path, schema, conf in (
+            ("q6_batch", q6[0], tpch.LINEITEM_SCHEMA, RapidsConf()),
+            ("q6_by_linenumber_batch", q6[0], tpch.LINEITEM_GROUPED_SCHEMA,
+             RapidsConf()),
+            ("nulls_delta_v2", mixed, None, RapidsConf()),
+            ("coalesced", coalesced, None, one_batch)):
+        import pyarrow.parquet as pq
+        if schema is None:
+            schema = engine_schema(pq.ParquetFile(path).schema_arrow)
+        scan = GpuFileScanExec([path], schema=schema)
+        out[case] = [(scan, lay) for lay in scan.batch_layouts(conf)]
+    return out
+
+
+def _blob(layout, device) -> torch.Tensor:
+    host = np.zeros(layout.total_bytes, np.uint8)
+    layout.fill(host[:layout.prefix_bytes])
+    return torch.from_numpy(host).to(device)
+
+
+def check_k5(device) -> List[Dict]:
+    """K5 against its plain version on the same blobs, bit for bit;
+    raises on the first disagreement."""
+    from .parquet_decode import decode_batch, decode_batch_torch
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        for case, items in k5_layouts(d).items():
+            for scan, layout in items:
+                blob = _blob(layout, device)
+                plain = blob.clone()
+                got = decode_batch(blob, layout)
+                decode_batch_torch(plain, layout)
+                want = layout.columns(plain)
+                same = all(_same_bits(a.data, b.data) for a, b in
+                           zip(got, want))
+                same_v = all(
+                    (a.validity is None and b.validity is None)
+                    or _same_bits(a.validity, b.validity)
+                    for a, b in zip(got, want))
+                rec = {"case": case, "rows": layout.n_rows,
+                       "columns": len(layout.device_names),
+                       "scan_jobs": len(layout.jobs),
+                       "data_equal": same, "validity_equal": same_v,
+                       "max_abs_err": _max_abs_diff(
+                           [(a.data, b.data) for a, b in zip(got, want)
+                            if a.data.dtype != torch.bool])}
+                if not (same and same_v):
+                    raise AssertionError(f"K5 disagrees: {rec}")
+                out.append(rec)
+    return out
+
+
+def time_k5(device, reps: int = 50) -> Dict[str, float]:
+    """Device ms of K5 and its plain version at a q6 batch (the four q6
+    columns of 750,152 rows), over blobs that cycle past L2, with the
+    bytes K5 must move (encoded in, decoded out)."""
+    from .parquet_decode import decode_batch, decode_batch_torch
+    with tempfile.TemporaryDirectory() as d:
+        (scan, layout), = k5_layouts(d)["q6_batch"]
+    nbytes = layout.encoded_bytes() + layout.decoded_bytes()
+    blobs = [_blob(layout, device)
+             for _ in range(_copies_for(layout.total_bytes))]
+    ms, plain_ms = _turns(lambda b: decode_batch_torch(b, layout),
+                          lambda b: decode_batch(b, layout), blobs, reps, 5)
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "rows": layout.n_rows, "encoded_bytes": layout.encoded_bytes(),
+            "decoded_bytes": layout.decoded_bytes()}
+
+
+@dataclasses.dataclass
+class K2Case:
+    """K1's inputs plus a key: the engine edition's ``(base, groups)``
+    and the contract edition's int32 key in 0..7 (``None``: not run)."""
+    k1: K1Case
+    key: torch.Tensor
+    key_valid: Optional[torch.Tensor]
+    base: int
+    groups: int
+    contract_key: Optional[torch.Tensor]
+
+    def bytes_read(self) -> int:
+        return self.k1.bytes_read() + self.k1.row_count * (
+            self.key.element_size()
+            + (0 if self.key_valid is None else 1))
+
+
+def k2_cases(device, seed: int = 8) -> List[K2Case]:
+    from ..tpch import _linenumbers
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    main, ragged, nulls = k1_cases(device, seed)
+    n = MAIN_CAPACITY
+    line = _linenumbers(n, seed)
+    ragged_key = rng.integers(0, 8, ragged.cols[0].shape[0]).astype(np.int32)
+    null_key = rng.integers(-2, 10, n)  # some outside [0, 8)
+    every = rng.integers(0, 8, n).astype(np.int32)
+    return [
+        K2Case(dataclasses.replace(main, name="q6_batch_linenumber"),
+               t(line), None, 1, 7, t(line - 1)),
+        K2Case(dataclasses.replace(ragged, name="ragged"), t(ragged_key),
+               None, 0, 8, t(ragged_key)),
+        K2Case(dataclasses.replace(nulls, name="nulls_nan_outside"),
+               t(null_key), t(rng.random(n) > 0.03), 0, 8, None),
+        K2Case(dataclasses.replace(main, name="one_group"),
+               t(np.full(n, 5, np.int64)), None, 5, 1,
+               t(np.full(n, 5, np.int32))),
+        K2Case(dataclasses.replace(main, name="every_group"), t(every),
+               None, 0, 8, t(every)),
+    ]
+
+
+def _k2_engine(c: K2Case, plain: bool = False):
+    fn = ck.filter_product_group_sum_torch if plain \
+        else ck.filter_product_group_sum
+    k1 = c.k1
+    return fn(k1.cols, k1.valids, k1.selection, k1.row_count, k1.spec,
+              c.key, c.key_valid, c.base, c.groups)
+
+
+def _group_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double().cpu(), want.double().cpu()
+    return ((g - w).abs() / w.abs().clamp(min=1.0)).max().item()
+
+
+def check_k2(device) -> List[Dict]:
+    """Both editions of K2 against their plain versions; raises on the
+    first disagreement."""
+    out = []
+    for c in k2_cases(device):
+        s, nn, rows, oor = _k2_engine(c)
+        ps, pnn, prows, poor = _k2_engine(c, plain=True)
+        rec = {"case": c.k1.name, "edition": "engine",
+               "rows": c.k1.row_count, "groups": c.groups,
+               "rel_err": _group_rel(s, ps),
+               "max_abs_err": (s - ps).abs().max().item(),
+               "counts_equal": torch.equal(nn, pnn)
+               and torch.equal(rows, prows),
+               "outside": oor.item(), "plain_outside": poor.item()}
+        if not (rec["counts_equal"] and rec["outside"]
+                == rec["plain_outside"] and rec["rel_err"] <= ENGINE_RTOL):
+            raise AssertionError(f"K2 engine edition disagrees: {rec}")
+        out.append(rec)
+        if c.contract_key is None:
+            continue
+        cols = [x[:c.k1.row_count].contiguous() for x in c.k1.cols]
+        key = c.contract_key[:c.k1.row_count].contiguous()
+        got = ck.fused_filter_agg(key, *cols)
+        want = ck.fused_filter_agg_torch(key, *cols)
+        rec = {"case": c.k1.name, "edition": "contract",
+               "rows": c.k1.row_count, "groups": ck.FUSED_AGG_GROUPS,
+               "rel_err": _group_rel(got, want),
+               "max_abs_err": (got - want).abs().max().item()}
+        if not rec["rel_err"] <= CONTRACT_RTOL:
+            raise AssertionError(f"K2 contract edition disagrees: {rec}")
+        out.append(rec)
+    return out
+
+
+def time_k2(device, reps: int = 100) -> Dict[str, float]:
+    """Device ms of K2's engine edition and its plain version at a q6
+    batch grouped by line number (1..7), over inputs that cycle past L2,
+    with the bytes it must read."""
+    c = k2_cases(device)[0]
+    copies = [dataclasses.replace(c, k1=k, key=c.key.clone())
+              for k in _copies_past_l2(c.k1)]
+    ms, plain_ms = _turns(lambda x: _k2_engine(x, plain=True), _k2_engine,
+                          copies, reps, reps)
+    out_bytes = (c.groups + 1) * 24 + 8
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bytes": c.bytes_read() + out_bytes, "rows": c.k1.row_count,
+            "ops": c.k1.row_count * (len(c.k1.spec.leaves) + 3)}

@@ -1,0 +1,406 @@
+"""K5: Parquet page decode on the device, and its plain PyTorch version.
+
+Counterpart of ``spark_rapids_tpu/io/parquet_device.py:953-1046``
+(``_expand`` and ``_decode_device``), the XLA program that expands a
+column chunk's run table into values: RLE runs, bit-packed runs read
+through a two-word funnel shift (with the 64-bit PLAIN case),
+dictionary runs and the merged group's dictionary base in meta bits 16+,
+DELTA prefix sums restarted at each page, and definition levels expanded
+through a dense -> row gather.
+
+- ``expand_runs_torch`` and ``decode_chunk_torch`` are the plain
+  versions, line for line the reference's arithmetic. torch has no
+  unsigned 64-bit shifts or compares on the CPU, so the uint64 lanes are
+  int64 tensors holding the same bits: ``(hi << 32) | lo`` may come out
+  negative, and an arithmetic ``>>`` then shifts in copies of bit 63,
+  which the width mask clears as long as shift + width <= 64 (true for
+  every width up to 32; 64-bit PLAIN values take their own branch).
+- ``BatchLayout`` places one row-group batch in one byte blob: a table of
+  column descriptors and scan jobs, each device column's encoded parts
+  (packed words, run table, dictionary, definition words and runs), the
+  host-decoded columns, then, past the part the host fills and uploads,
+  the decoded output columns in ``GpuBatch`` layout and the scans'
+  scratch.
+- ``decode_batch`` is the wrapper: a blob on the CPU takes the plain
+  version; a blob on a CUDA device launches ``csrc/parquet_decode.cu``
+  once for every device column of the batch (``decode_batch.launches``
+  counts those calls).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import datatypes as dt
+from ..columnar.column import GpuColumnVector, torch_dtype
+
+if TYPE_CHECKING:  # the io package imports this module
+    from ..io.parquet_plan import ChunkPlan
+
+__all__ = ["expand_runs_torch", "decode_chunk_torch", "BatchLayout",
+           "decode_batch", "decode_batch_torch", "SCAN_TILE"]
+
+_U32 = 0xFFFFFFFF
+_ALIGN = 16
+SCAN_TILE = 1024  # elements a block scans; the CUDA source's kScanThreads
+
+# column descriptor and scan job, mirrors of K5Col and K5Job in the CUDA
+# source; every offset is in bytes from the start of the blob, -1 = none
+_COL = np.dtype([(f, "<i8") for f in (
+    "words", "n_words", "runs", "n_runs", "dict", "n_dict", "def_words",
+    "n_def_words", "def_runs", "n_def_runs", "out", "valid", "n_rows",
+    "dense", "delta")] + [(f, "<i4") for f in (
+        "lane_bytes", "out_bytes", "flags", "pad_")])
+_JOB = np.dtype([(f, "<i8") for f in (
+    "col", "kind", "n", "vals", "flags", "sums", "sflags", "n_blocks")])
+_HAS_NULLS, _DELTA, _BOOL = 1, 2, 4
+_JOB_VALID, _JOB_DELTA = 0, 1
+
+
+# --- plain PyTorch versions --------------------------------------------------
+
+def _mask_bits(width: torch.Tensor) -> torch.Tensor:
+    """``(1 << width) - 1`` as int64 bits; all ones for width >= 64."""
+    low = (torch.ones_like(width) << width.clamp(max=63)) - 1
+    return torch.where(width >= 64, torch.full_like(width, -1), low)
+
+
+def expand_runs_torch(words: torch.Tensor, tab: torch.Tensor,
+                      idx: torch.Tensor, delta: bool = False) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_expand``: the run table ``tab`` (int64 ``[r, 4]``: dense start,
+    meta, value, bit offset) over the packed ``words`` (int64 tensor of
+    uint32 values) at dense positions ``idx``. Returns the raw uint64 bits
+    (as int64) and an is-dictionary-index flag (0/1). With ``delta`` the
+    bits are DELTA contributions, prefix-summed and restarted at every
+    RLE run (each page's first value)."""
+    starts = tab[:, 0].contiguous()
+    rid = (torch.searchsorted(starts, idx, right=True) - 1).clamp(
+        0, tab.shape[0] - 1)
+    meta = tab[rid, 1]
+    width = meta & 0xFF
+    is_rle = ((meta >> 8) & 1) == 1
+    is_dict = (meta >> 9) & 1
+    is_ident = ((meta >> 10) & 1) == 1
+    is_delta = ((meta >> 11) & 1) == 1
+    off = idx - starts[rid]
+    bitpos = tab[rid, 3] + off * width
+    widx = (bitpos >> 5).clamp(0, words.shape[0] - 2)
+    lo = words[widx]
+    hi = words[widx + 1]
+    sh = bitpos & 31
+    window = (hi << 32) | lo
+    bits = (window >> sh) & _mask_bits(width)
+    # 64-bit PLAIN values sit on word pairs; a region that starts on an
+    # odd word reads the next pair
+    hi2 = words[(widx + 2).clamp(0, words.shape[0] - 1)]
+    full64 = torch.where(sh == 0, window, (hi2 << 32) | hi)
+    bits = torch.where(width >= 64, full64, bits)
+    raw = tab[rid, 2]
+    bits = torch.where(is_rle, raw, bits)
+    bits = torch.where(is_ident, raw + off, bits)
+    bits = torch.where(is_delta, bits + raw, bits)
+    bits = bits + (meta >> 16)
+    if delta:
+        run_rle = ((tab[:, 1] >> 8) & 1) == 1
+        page_start = torch.cummax(
+            torch.where(run_rle, starts, torch.full_like(starts, -1)),
+            0).values[rid]
+        csum = torch.cumsum(bits, 0)
+        before = csum[(page_start - 1).clamp(0, idx.shape[0] - 1)]
+        bits = csum - torch.where(page_start > 0, before,
+                                  torch.zeros_like(before))
+    return bits, is_dict
+
+
+def _low32(bits: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 lanes as int32 (two's complement)."""
+    low = bits & _U32
+    return torch.where(low >= 1 << 31, low - (1 << 32), low).to(torch.int32)
+
+
+def decode_chunk_torch(words: torch.Tensor, tab: torch.Tensor,
+                       dict_arr: torch.Tensor, def_words: torch.Tensor,
+                       def_tab: torch.Tensor, n_rows: int, cap: int,
+                       delta: bool = False) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_decode_device``: ``(values[cap]`` in the dictionary's lane dtype,
+    ``validity[cap])``; null and padding rows hold 0."""
+    dev = words.device
+    i = torch.arange(cap, dtype=torch.int64, device=dev)
+    def_bits, _ = expand_runs_torch(def_words, def_tab, i)
+    valid = ((def_bits & 1) != 0) & (i < n_rows)
+    # dense index of each valid row into the value stream
+    didx = torch.cumsum(valid.to(torch.int64), 0) - 1
+    bits, is_dict = expand_runs_torch(words, tab, i, delta=delta)
+    lane = dict_arr.dtype
+    if lane == torch.bool:
+        vals = (bits & 1) != 0
+    elif dict_arr.element_size() == 8:
+        vals = bits.view(lane)
+    else:
+        vals = _low32(bits).view(lane)
+    k = _low32(bits).to(torch.int64).clamp(0, dict_arr.shape[0] - 1)
+    vals = torch.where(is_dict == 1, dict_arr[k], vals)
+    out = vals[didx.clamp(0, cap - 1)]
+    out = torch.where(valid, out, torch.zeros((), dtype=lane, device=dev))
+    return out, valid
+
+
+# --- the blob ---------------------------------------------------------------
+
+def _round_up(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _lane_bytes(plan: ChunkPlan) -> int:
+    return np.dtype(plan.lane).itemsize
+
+
+class BatchLayout:
+    """One row-group batch in one byte blob.
+
+    The prefix, which the host fills (``fill``) and copies to the device,
+    holds the column descriptors, the scan jobs, every device column's
+    encoded parts and the host-decoded columns (padded to ``capacity``).
+    The suffix exists only on the device: the decoded columns (data, then
+    a validity where the chunk has nulls) and the scans' scratch. A chunk
+    with nulls needs a prefix count of its valid rows (its dense index)
+    and a DELTA chunk a prefix sum of its deltas: each is a scan job.
+    ``host`` maps a field to its host lanes ``(values, validity or
+    None)``; every other field must be in ``plans``."""
+
+    def __init__(self, schema: dt.Schema, capacity: int, n_rows: int,
+                 plans: Dict[str, ChunkPlan],
+                 host: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]):
+        self.schema = schema
+        self.capacity = capacity
+        self.n_rows = n_rows
+        self.plans = plans
+        self.host = host
+        self.device_names = [f.name for f in schema.fields
+                             if f.name in plans]
+        cap = capacity
+        off = 0
+
+        def take(nbytes: int) -> int:
+            nonlocal off
+            start = off
+            off = _round_up(off + nbytes)
+            return start
+
+        n_dev = len(self.device_names)
+        self.desc = np.zeros(n_dev, _COL)
+        self.desc_off = take(self.desc.nbytes)
+        jobs = []
+        for j, name in enumerate(self.device_names):
+            plan = plans[name]
+            if plan.has_nulls:
+                jobs.append((j, _JOB_VALID, plan.n_rows))
+            if plan.is_delta and plan.n_valid:
+                jobs.append((j, _JOB_DELTA, plan.n_valid))
+        self.jobs = np.zeros(len(jobs), _JOB)
+        self.jobs_off = take(self.jobs.nbytes)
+        self._parts: List[Tuple[int, np.ndarray]] = []
+        for j, name in enumerate(self.device_names):
+            plan = plans[name]
+            d = self.desc[j]
+            # an empty dictionary (an all-null chunk) still gets the one
+            # entry the clamped gather reads, as the reference's padding
+            # gives it
+            dictionary = plan.dictionary if plan.dictionary.shape[0] \
+                else np.zeros(1, plan.lane)
+            for key, arr in (("words", plan.packed), ("runs", plan.runs),
+                             ("dict", dictionary),
+                             ("def_words", plan.def_packed),
+                             ("def_runs", plan.def_runs)):
+                arr = np.ascontiguousarray(arr)
+                d[key] = take(arr.nbytes)
+                d["n_" + key] = arr.shape[0]
+                self._parts.append((int(d[key]), arr))
+            d["n_rows"] = plan.n_rows
+            d["lane_bytes"] = _lane_bytes(plan)
+            d["flags"] = (_HAS_NULLS if plan.has_nulls else 0) \
+                | (_DELTA if plan.is_delta else 0) \
+                | (_BOOL if plan.lane == np.bool_ else 0)
+        # host-decoded columns: data then validity, as GpuBatch holds them
+        self._host_slots: Dict[str, Tuple[int, Optional[int]]] = {}
+        for f in schema.fields:
+            if f.name in plans:
+                continue
+            values, valid = host[f.name]
+            data_off = take(cap * f.dtype.np_dtype.itemsize)
+            valid_off = None if valid is None else take(cap)
+            self._host_slots[f.name] = (data_off, valid_off)
+        self.prefix_bytes = off
+        # device-only suffix: decoded columns, then the scans' scratch
+        for j, name in enumerate(self.device_names):
+            d = self.desc[j]
+            width = schema[name].dtype.np_dtype.itemsize
+            d["out_bytes"] = width
+            d["out"] = take(cap * width)
+            d["valid"] = take(cap) if plans[name].has_nulls else -1
+            d["dense"] = d["delta"] = -1
+        self.max_job_n = 0
+        for k, (col, kind, n) in enumerate(jobs):
+            blocks = -(-n // SCAN_TILE)
+            job = self.jobs[k]
+            job["col"], job["kind"], job["n"] = col, kind, n
+            job["n_blocks"] = blocks
+            job["vals"] = take(8 * n)
+            job["flags"] = take(n)
+            job["sums"] = take(8 * blocks)
+            job["sflags"] = take(blocks)
+            self.desc[col]["dense" if kind == _JOB_VALID else "delta"] = \
+                job["vals"]
+            self.max_job_n = max(self.max_job_n, n)
+        self.total_bytes = max(off, _ALIGN)
+
+    def encoded_bytes(self) -> int:
+        """Bytes of encoded parts the device decode reads."""
+        return sum(arr.nbytes for _, arr in self._parts)
+
+    def decoded_bytes(self) -> int:
+        """Bytes of decoded columns the device decode writes."""
+        return int(sum(self.n_rows * d["out_bytes"]
+                       + (self.n_rows if d["valid"] >= 0 else 0)
+                       for d in self.desc))
+
+    def fill(self, host: np.ndarray) -> None:
+        """Write the prefix (``prefix_bytes`` of uint8) on the host."""
+        host[self.desc_off:self.desc_off + self.desc.nbytes] = \
+            self.desc.view(np.uint8)
+        host[self.jobs_off:self.jobs_off + self.jobs.nbytes] = \
+            self.jobs.view(np.uint8)
+        for start, arr in self._parts:
+            host[start:start + arr.nbytes] = arr.reshape(-1).view(np.uint8)
+        cap = self.capacity
+        for name, (data_off, valid_off) in self._host_slots.items():
+            values, valid = self.host[name]
+            np_t = self.schema[name].dtype.np_dtype
+            n = len(values)
+            data = host[data_off:data_off + cap * np_t.itemsize].view(np_t)
+            data[:n] = values
+            data[n:] = 0
+            if valid_off is not None:
+                v = host[valid_off:valid_off + cap].view(np.bool_)
+                v[:n] = valid
+                v[n:] = False
+
+    def columns(self, blob: torch.Tensor) -> List[GpuColumnVector]:
+        """Typed views of every field's column in the blob, in schema
+        order."""
+        cap = self.capacity
+        slots = {name: (int(d["out"]), int(d["valid"]))
+                 for name, d in zip(self.device_names, self.desc)}
+        cols = []
+        for f in self.schema.fields:
+            if f.name in slots:
+                data_off, valid_off = slots[f.name]
+                valid_off = None if valid_off < 0 else valid_off
+            else:
+                data_off, valid_off = self._host_slots[f.name]
+            width = f.dtype.np_dtype.itemsize
+            data = blob[data_off:data_off + cap * width].view(
+                torch_dtype(f.dtype))
+            validity = None if valid_off is None else \
+                blob[valid_off:valid_off + cap].view(torch.bool)
+            cols.append(GpuColumnVector(f.dtype, data, validity))
+        return cols
+
+
+# --- the wrapper -------------------------------------------------------------
+
+def _view(blob: torch.Tensor, off: int, n: int, dtype: torch.dtype) \
+        -> torch.Tensor:
+    size = torch.empty((), dtype=dtype).element_size()
+    return blob[off:off + n * size].view(dtype)
+
+
+def decode_batch_torch(blob: torch.Tensor, layout: BatchLayout) -> None:
+    """``decode_batch``'s plain version: each device column decoded with
+    ``decode_chunk_torch`` from its encoded parts in the blob into its
+    output slot."""
+    cap = layout.capacity
+    for name, d in zip(layout.device_names, layout.desc):
+        plan = layout.plans[name]
+        lane = torch.from_numpy(np.empty(0, plan.lane)).dtype
+
+        def words(key):
+            return _view(blob, int(d[key]), int(d["n_" + key]),
+                         torch.int32).to(torch.int64) & _U32
+
+        def table(key):
+            return _view(blob, int(d[key]), 4 * int(d["n_" + key]),
+                         torch.int64).reshape(-1, 4)
+
+        if lane == torch.bool:
+            dict_arr = torch.zeros(1, dtype=torch.bool, device=blob.device)
+        else:
+            dict_arr = _view(blob, int(d["dict"]), int(d["n_dict"]), lane)
+        vals, valid = decode_chunk_torch(
+            words("words"), table("runs"), dict_arr, words("def_words"),
+            table("def_runs"), int(d["n_rows"]), cap, delta=plan.is_delta)
+        out_t = torch_dtype(layout.schema[name].dtype)
+        _view(blob, int(d["out"]), cap, out_t).copy_(vals.to(out_t))
+        if d["valid"] >= 0:
+            _view(blob, int(d["valid"]), cap, torch.bool).copy_(valid)
+
+
+def _library():
+    from ._build import load
+    lib = load("parquet_decode")
+    if not getattr(lib, "_spark_ready", False):
+        for fn in (lib.spark_k5_col_size, lib.spark_k5_job_size,
+                   lib.spark_k5_scan_tile):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib.spark_k5_decode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        lib.spark_k5_decode.restype = ctypes.c_int
+        if (lib.spark_k5_col_size(), lib.spark_k5_job_size(),
+                lib.spark_k5_scan_tile()) != (_COL.itemsize, _JOB.itemsize,
+                                              SCAN_TILE):
+            raise RuntimeError(
+                "K5Col/K5Job in the CUDA source do not match the layout: "
+                f"{lib.spark_k5_col_size()}/{lib.spark_k5_job_size()} "
+                f"bytes against {_COL.itemsize}/{_JOB.itemsize}")
+        lib._spark_ready = True
+    return lib
+
+
+def decode_batch(blob: torch.Tensor, layout: BatchLayout) \
+        -> List[GpuColumnVector]:
+    """Decode every device column of the batch into its slot of the blob
+    and return all the batch's columns. A blob on the CPU takes the plain
+    version; on a CUDA device it launches K5 on the current stream."""
+    if blob.dtype != torch.uint8 or blob.dim() != 1 \
+            or blob.shape[0] < layout.total_bytes:
+        raise ValueError(f"the blob must be a 1-D uint8 tensor of at least "
+                         f"{layout.total_bytes} bytes")
+    if layout.device_names:
+        if blob.device.type == "cpu":
+            decode_batch_torch(blob, layout)
+        elif blob.device.type == "cuda":
+            if blob.data_ptr() % _ALIGN:
+                raise ValueError("the blob must be 16-byte aligned")
+            lib = _library()
+            stream = torch.cuda.current_stream(blob.device).cuda_stream
+            err = lib.spark_k5_decode(
+                blob.data_ptr(), layout.desc_off, len(layout.device_names),
+                layout.jobs_off, len(layout.jobs), layout.capacity,
+                layout.max_job_n, stream)
+            if err != 0:
+                raise RuntimeError(f"parquet_decode kernel launch failed: "
+                                   f"cudaError {err}")
+            decode_batch.launches += 1
+        else:
+            raise ValueError(f"unsupported device {blob.device}")
+    return layout.columns(blob)
+
+
+decode_batch.launches = 0

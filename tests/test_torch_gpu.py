@@ -78,3 +78,64 @@ def test_join_groupby_on_the_card_launches_k3_and_k4(cuda_device):
     # 4 stream batches: presort + 4 partials + final; 1 + 3 x 4 + 2
     assert ck.sort_pairs.launches - sorts == 6
     assert ck.gather_rows.launches - gathers == 15
+
+
+def test_k5_matches_plain_version(cuda_device):
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    recs = kc.check_k5(cuda_device)
+    assert all(r["data_equal"] and r["validity_equal"] for r in recs)
+    assert any(r["scan_jobs"] for r in recs)
+
+
+def test_k2_editions_match_plain_versions(cuda_device):
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    recs = kc.check_k2(cuda_device)
+    assert {r["edition"] for r in recs} == {"engine", "contract"}
+    assert all(r["counts_equal"] for r in recs if r["edition"] == "engine")
+
+
+def _device_decode_query(cuda_device, tmp_path, grouped):
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.exec.base import ExecCtx, collect_arrow
+    from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
+    from spark_rapids_tpu_torch.ops import cuda_kernels as ck
+    from spark_rapids_tpu_torch.ops.parquet_decode import decode_batch
+    paths = tpch.write_lineitem(
+        tpch.gen_lineitem(100_000, linenumber=grouped), str(tmp_path),
+        n_files=3, row_group_size=1 << 14)
+    conf = RapidsConf({"spark.rapids.sql.batchSizeRows": str(1 << 15)})
+    build = tpch.build_q6_by_linenumber if grouped else tpch.build_q6
+    schema = tpch.LINEITEM_GROUPED_SCHEMA if grouped \
+        else tpch.LINEITEM_SCHEMA
+    counters = (decode_batch, ck.filter_product_sum,
+                ck.filter_product_group_sum)
+    before = [c.launches for c in counters]
+    got = collect_arrow(build(GpuFileScanExec(paths, schema=schema)),
+                        ExecCtx(conf, cuda_device))
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    return paths, got, launches
+
+
+def test_q6_device_decode_on_the_card(cuda_device, tmp_path):
+    from spark_rapids_tpu_torch import tpch
+    paths, got, (k5, k1, k2) = _device_decode_query(cuda_device, tmp_path,
+                                                    False)
+    want, _ = tpch.host_q6(paths)
+    revenue = got.column("revenue")[0].as_py()
+    assert abs(revenue - want) <= 1e-9 * max(1.0, abs(want))
+    # about 33,333 rows a file in row groups of 16,384, 16,384 and ~566,
+    # coalesced in order into batches of at most 32,768 rows: 5
+    assert (k5, k1, k2) == (5, 5, 0)
+
+
+def test_q6_by_linenumber_on_the_card(cuda_device, tmp_path):
+    from spark_rapids_tpu_torch import tpch
+    paths, got, (k5, k1, k2) = _device_decode_query(cuda_device, tmp_path,
+                                                    True)
+    want = tpch.host_q6_by_linenumber(paths)
+    keys = got.column("l_linenumber").to_pylist()
+    assert keys == list(range(1, 8))
+    for k, g in zip(keys, got.column("revenue").to_pylist()):
+        assert abs(g - want[k]) <= 1e-9 * abs(want[k])
+    assert (k5, k1, k2) == (5, 0, 5)
