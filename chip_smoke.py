@@ -11,18 +11,24 @@ Phases, any failure exits non-zero before the result line:
   2. build every CUDA source under spark_rapids_tpu_torch/csrc/ with nvcc
      (one process per source, in parallel) into build/kernels/;
   3. each kernel against its plain PyTorch version on the card: K1 at the
-     q6 batch shape, at a ragged length, and with nulls and NaN; K3 at
-     the join + group-by path's sort shapes (2^17, 2^21, 2^23 pairs), at
-     a ragged length and on all-equal, sorted, reverse and duplicated
-     keys, exactly; K4 at the path's gather shapes, at a ragged length,
-     with nulls, dead rows and 1- to 8-byte columns, bit for bit; each
-     timed with CUDA events beside its bound, its plain version and the
-     library call; K5 (Parquet page decode) bit for bit at a q6 row
-     group, with nulls, DELTA and v2 pages, and on a coalesced batch of
-     differing dictionaries; K2's two editions at a q6 batch keyed by
-     line number, at a ragged length, with nulls, NaN and out-of-range
-     keys, with every row in one group and with every group; each timed
-     beside its bound and plain version;
+     q6 batch shape, at a ragged length, and with nulls and NaN; K3
+     (the radix sort) on random keys at the join + group-by path's sort
+     shapes (2^17, 2^21, 2^23 pairs), on the path's own key words, at a
+     ragged length, on all-equal, sorted, reverse and duplicated keys,
+     keys whose only varying bit is the sign bit or whose only varying
+     digit is the top one, 1-bit keys, month words with 90% dead rows
+     and negative payloads, exactly against its plain version and
+     torch.sort; K4 at the path's gather shapes, at a ragged length,
+     with nulls, dead rows, 1- to 8-byte columns mixed and of one width,
+     bit for bit; each timed with CUDA events beside its bound, its
+     plain version and the library call (K3 on random keys and on the
+     path's words, K4 at the probe and at the group-by permutation); K5
+     (Parquet page decode)
+     bit for bit at a q6 row group, with nulls, DELTA and v2 pages, and
+     on a coalesced batch of differing dictionaries; K2's two editions
+     at a q6 batch keyed by line number, at a ragged length, with nulls,
+     NaN and out-of-range keys, with every row in one group and with
+     every group; each timed beside its bound and plain version;
   4. q6 SF1 (6,001,215 rows, seed 0, 8 snappy files, row groups of
      1 << 20) written to .bench_cache/lineitem_torch/, run through
      collect_arrow with device page decode off, its revenue held to a
@@ -67,7 +73,7 @@ ENGINE_RTOL = 1e-9
 K1_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:58"
 K1_SOURCE = "spark_rapids_tpu_torch/csrc/masked_product_sum.cu"
 K3_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:156"
-K3_SOURCE = "spark_rapids_tpu_torch/csrc/bitonic_sort.cu"
+K3_SOURCE = "spark_rapids_tpu_torch/csrc/radix_sort.cu"
 K4_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:259"
 K4_SOURCE = "spark_rapids_tpu_torch/csrc/gather.cu"
 K2_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:225"
@@ -176,20 +182,23 @@ def phase_sort_gather(device):
     for rec in k4_recs:
         log(f"[k4] {rec}")
     k3 = kc.time_k3(device)
-    for n, t in k3.items():
-        # each pair is read and written once; the compares count at the
-        # card's scalar rate
-        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["compares"])
-        log(f"[k3] sort_pairs at {n} pairs: kernel {t['ms']:.6f} ms, plain "
+    for name, t in k3.items():
+        # each key is read and each pair written once; the eight digit
+        # extractions a key count at the card's scalar rate
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["ops"])
+        log(f"[k3] sort_pairs on {name} ({t['n']} pairs, {t['passes']} "
+            f"digit passes): kernel {t['ms']:.6f} ms, plain "
             f"{t['plain_ms']:.6f} ms, torch.sort {t['library_ms']:.6f} ms, "
             f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
             f"{t['bytes']} B)")
     k4 = kc.time_k4(device)
-    k4["bound_ms"], k4["bound_by"] = _bound(k4["bytes"], 0)
-    log(f"[k4] gather_rows at the probe's {k4['rows']} rows x 2 int32 "
-        f"columns: kernel {k4['ms']:.6f} ms, plain {k4['plain_ms']:.6f} ms,"
-        f" index_select {k4['library_ms']:.6f} ms, bound "
-        f"{k4['bound_ms']:.6f} ms ({k4['bound_by']}, {k4['bytes']} B)")
+    for name, t in k4.items():
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], 0)
+        log(f"[k4] gather_rows at {name} ({t['rows']} rows from "
+            f"{t['table_rows']}): kernel {t['ms']:.6f} ms, plain "
+            f"{t['plain_ms']:.6f} ms, index_select {t['library_ms']:.6f} "
+            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
+            f"{t['bytes']} B)")
     errs = (max(r["max_abs_err"] for r in k3_recs),
             max(r["max_abs_err"] for r in k4_recs))
     return k3, k4, errs
@@ -441,7 +450,8 @@ def main():
     log(f"[k1-contract] masked_product_sum: ms={c['ms']!r} "
         f"plain_ms={c['plain_ms']!r} bound_ms={c['bound_ms']!r} "
         f"max_abs_err={c['max_abs_err']!r}; not on the main path")
-    main_sort = k3[1 << 21]
+    main_sort = k3["partial_2^21"]
+    probe = k4["probe_2^21_from_2^17"]
     log(json.dumps({"kernels": [{
         "name": "masked_product_sum (engine edition, filter_product_sum)",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
@@ -450,21 +460,23 @@ def main():
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None,
         "launches_q6_device_decode": dd_launches["filter_product_sum"]}, {
-        "name": "bitonic_sort (engine edition, sort_pairs)",
+        "name": "radix_sort (engine edition, sort_pairs)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
         "launches": join_launches["sort_pairs"], "max_abs_err": k3_err,
         "ms": main_sort["ms"], "plain_ms": main_sort["plain_ms"],
         "bound_ms": main_sort["bound_ms"],
         "bound_by": main_sort["bound_by"],
-        "library_ms": main_sort["library_ms"], "shape": "2^21 pairs",
-        "by_shape": {str(n): t for n, t in k3.items()}}, {
+        "library_ms": main_sort["library_ms"],
+        "shape": "a partial aggregate's month words, 2^21 pairs",
+        "by_shape": k3}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
-        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-        "library_ms": k4["library_ms"],
-        "shape": "2^21 rows x 2 int32 columns from 2^17"}, {
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": probe["library_ms"],
+        "shape": "2^21 rows x 2 int32 columns from 2^17",
+        "by_shape": k4}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],

@@ -16,12 +16,14 @@ bound and design. Two editions of one template:
   comparisons and a float32 sum, exactly ``masked_product_sum_xla``, for
   any ``n``. It returns the sum and the count.
 
-K3, ``csrc/bitonic_sort.cu``, replaces ``sort_pallas`` (``:156``):
+K3, ``csrc/radix_sort.cu``, replaces ``sort_pallas`` (``:156``), as an
+LSD radix sort that skips every 8-bit digit in which all keys agree:
 
 - ``sort_pairs`` (engine edition): ``(uint64 key, int32 payload)`` pairs
-  of any length, ordered on ``(key, payload)`` with keys unsigned. Keys
-  travel as ``int64`` tensors holding the uint64 bits. The payload
-  defaults to the row position, which makes the sort stable.
+  of any length, ordered on ``(key, payload)`` with keys unsigned and
+  payloads signed. Keys travel as ``int64`` tensors holding the uint64
+  bits. The payload defaults to the row position, which makes the sort
+  stable. ``sort_passes_torch`` names the digit slots it sorts by.
 - ``sort_keys`` (K3-contract edition): float32 or int32 keys of any
   length in ``sort_xla``'s order (``jax.lax.sort``: NaNs last and equal,
   ``-0.0 == 0.0``); ``-0.0`` comes back as ``0.0`` and a NaN as the
@@ -68,7 +70,8 @@ __all__ = ["Leaf", "FilterProductSum", "Q6_SPEC", "OPS",
            "filter_product_sum", "filter_product_sum_torch",
            "masked_product_sum", "masked_product_sum_torch",
            "MAX_SLOTS", "MAX_LEAVES", "sort_pairs", "sort_pairs_torch",
-           "sort_keys", "sort_keys_torch", "gather_rows",
+           "sort_keys", "sort_keys_torch", "sort_passes_torch",
+           "gather_rows",
            "gather_rows_torch", "gather", "gather_torch",
            "MAX_GATHER_COLS", "MAX_SORT_PAIRS", "FUSED_AGG_GROUPS",
            "filter_product_group_sum", "filter_product_group_sum_torch",
@@ -319,69 +322,83 @@ def masked_product_sum(q, p, d, s) -> Tuple[torch.Tensor, torch.Tensor]:
 masked_product_sum.launches = 0
 
 
-# --- K3: the bitonic sort ---------------------------------------------------
+# --- K3: the radix sort -----------------------------------------------------
 
 MAX_SORT_PAIRS = 1 << 30
 _I64_MIN = -(1 << 63)
 _I32_MIN = -(1 << 31)
-_KEY_SENTINEL = -1  # the uint64 bits 0xffff...ff as int64
-_PAY_SENTINEL = (1 << 31) - 1
+_PAY_DIGITS = 4
+_KEY_DIGITS = 8
+_BINS = 256
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+def _digit(keys: torch.Tensor, payload: torch.Tensor, slot: int) \
+        -> torch.Tensor:
+    """The 8-bit digit of digit slot ``slot`` as int64: slots 0..3 are the
+    payload's digits (sign bit flipped, so unsigned order is signed
+    order), 4..11 the key's, least significant first. torch has no uint64
+    shifts on the CPU; an arithmetic shift then ``& 0xFF`` is exact for
+    every digit."""
+    if slot < _PAY_DIGITS:
+        return ((payload.to(torch.int64) - _I32_MIN) >> (8 * slot)) & 0xFF
+    return (keys >> (8 * (slot - _PAY_DIGITS))) & 0xFF
+
+
+def _sort_slots(with_payload: bool) -> range:
+    """The digit slots a sort passes over, in order: the payload's four
+    digits when one is given, then the key's eight."""
+    return range(0 if with_payload else _PAY_DIGITS,
+                 _PAY_DIGITS + _KEY_DIGITS)
+
+
+def sort_passes_torch(keys: torch.Tensor,
+                      payload: Optional[torch.Tensor] = None) -> List[int]:
+    """The digit slots the kernel sorts by, in order: those in which not
+    all ``n`` pairs fall into one bin. Every other digit is constant, so
+    its stable pass would be the identity and is skipped."""
+    n = keys.shape[0]
+    return [s for s in _sort_slots(payload is not None)
+            if n and torch.bincount(_digit(keys, payload, s),
+                                    minlength=_BINS).max().item() < n]
 
 
 def sort_pairs_torch(keys: torch.Tensor,
                      payload: Optional[torch.Tensor] = None) \
         -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch: the same bitonic network
-    (``_sort_kernel``'s ``(-1, 2, stride)`` compare-exchange step) over
-    the pairs padded to a power of two, so it gives the kernel's output
-    exactly. Returns ``(sorted keys, payloads)``."""
+    """The kernel's function in plain PyTorch, by its passes: for each
+    non-trivial digit slot, least significant first, a stable scatter to
+    the digit's bucket offset (``bincount``) plus the pair's rank within
+    its bucket (a stable argsort of the digit). Returns ``(sorted keys,
+    payloads)``."""
     n = keys.shape[0]
     dev = keys.device
-    if payload is None:
-        payload = torch.arange(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return keys.clone(), payload.clone()
-    size_n = _next_pow2(n)
-    # flipping the sign bit makes signed int64 order the uint64 order
-    k = torch.full((size_n,), _KEY_SENTINEL ^ _I64_MIN, dtype=torch.int64,
-                   device=dev)
-    k[:n] = keys ^ _I64_MIN
-    p = torch.full((size_n,), _PAY_SENTINEL, dtype=torch.int32, device=dev)
-    p[:n] = payload
-    size = 2
-    while size <= size_n:
-        stride = size // 2
-        while stride >= 1:
-            k2, p2 = k.view(-1, 2, stride), p.view(-1, 2, stride)
-            ka, kb, pa, pb = k2[:, 0], k2[:, 1], p2[:, 0], p2[:, 1]
-            lo = torch.arange(size_n // (2 * stride), device=dev) \
-                * (2 * stride)
-            asc = ((lo & size) == 0)[:, None]
-            tie = ka == kb
-            gt = (ka > kb) | (tie & (pa > pb))
-            lt = (kb > ka) | (tie & (pb > pa))
-            swap = torch.where(asc, gt, lt)
-            k = torch.stack([torch.where(swap, kb, ka),
-                             torch.where(swap, ka, kb)], 1).reshape(-1)
-            p = torch.stack([torch.where(swap, pb, pa),
-                             torch.where(swap, pa, pb)], 1).reshape(-1)
-            stride //= 2
-        size *= 2
-    return k[:n] ^ _I64_MIN, p[:n]
+    k = keys
+    p = torch.arange(n, dtype=torch.int32, device=dev) if payload is None \
+        else payload
+    for slot in sort_passes_torch(keys, payload):
+        d = _digit(k, p, slot)
+        counts = torch.bincount(d, minlength=_BINS)
+        offsets = torch.cumsum(counts, 0) - counts
+        order = torch.sort(d, stable=True).indices
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(n, device=dev) - offsets[d[order]]
+        dst = offsets[d] + rank
+        k_next, p_next = torch.empty_like(k), torch.empty_like(p)
+        k_next[dst], p_next[dst] = k, p
+        k, p = k_next, p_next
+    return (k.clone() if k is keys else k,
+            p.clone() if p is payload else p)
 
 
 def _sort_library():
     from ._build import load
-    lib = load("bitonic_sort")
+    lib = load("radix_sort")
     if not getattr(lib, "_spark_ready", False):
-        lib.spark_sort_tile.argtypes = []
-        lib.spark_sort_tile.restype = ctypes.c_int
+        lib.spark_sort_work_bytes.argtypes = [ctypes.c_int64]
+        lib.spark_sort_work_bytes.restype = ctypes.c_int64
         lib.spark_sort_pairs.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p]
         lib.spark_sort_pairs.restype = ctypes.c_int
@@ -412,22 +429,30 @@ def _check_sort_inputs(keys: torch.Tensor,
 
 def _sort_launch(keys: torch.Tensor, payload: Optional[torch.Tensor]) \
         -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """Launch the sort; None when there is nothing to sort."""
+    """Launch the sort; None when there is nothing to sort. The output,
+    the alternate buffer the passes ping-pong through and the workspace
+    (histograms, plan, tile status words) come from the caching
+    allocator."""
     n = keys.shape[0]
     if n == 0:
         return None
     lib = _sort_library()
-    size_n = _next_pow2(n)
-    keys_out = torch.empty(size_n, dtype=torch.int64, device=keys.device)
-    pay_out = torch.empty(size_n, dtype=torch.int32, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    dev = keys.device
+    keys_out = torch.empty(n, dtype=torch.int64, device=dev)
+    pay_out = torch.empty(n, dtype=torch.int32, device=dev)
+    keys_alt = torch.empty(n, dtype=torch.int64, device=dev)
+    pay_alt = torch.empty(n, dtype=torch.int32, device=dev)
+    work = torch.empty(lib.spark_sort_work_bytes(n), dtype=torch.uint8,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.spark_sort_pairs(
         keys.data_ptr(), None if payload is None else payload.data_ptr(),
-        n, keys_out.data_ptr(), pay_out.data_ptr(), size_n, stream)
+        n, keys_out.data_ptr(), pay_out.data_ptr(), keys_alt.data_ptr(),
+        pay_alt.data_ptr(), work.data_ptr(), work.numel(), stream)
     if err != 0:
-        raise RuntimeError(f"bitonic_sort kernel launch failed: "
+        raise RuntimeError(f"radix_sort kernel launch failed: "
                            f"cudaError {err}")
-    return keys_out[:n], pay_out[:n]
+    return keys_out, pay_out
 
 
 def sort_pairs(keys: torch.Tensor, payload: Optional[torch.Tensor] = None) \
@@ -474,7 +499,7 @@ def _from_orderable_words(words: torch.Tensor,
 
 
 def sort_keys_torch(keys: torch.Tensor) -> torch.Tensor:
-    """``sort_xla`` in plain PyTorch, by the same network."""
+    """``sort_xla`` in plain PyTorch, by the kernel's passes."""
     if keys.dim() != 1:
         raise ValueError("sort_keys takes a 1-D tensor")
     words, _ = sort_pairs_torch(_orderable_words(keys))

@@ -8,16 +8,22 @@ tolerance and raises on the first disagreement; ``chip_smoke.py`` and the
 ``gpu``-marked test call it, and ``time_k1`` times both editions with
 CUDA events.
 
-K3 (``check_k3``/``time_k3``) runs at the join + group-by path's sort
-shapes (2^17 pairs for the build presort, 2^21 for each partial, 2^23
-for the final), at a ragged 1,000,003, and on all-equal, sorted,
-reverse-sorted and heavily duplicated keys; K4 (``check_k4``/``time_k4``)
-at the path's gather shapes (the probe's 2^21 rows from a 2^17-row build,
-the group-by's 2^21-row permutation), at a ragged length, and with
-nulls, dead rows, out-of-range indices and 1-, 2-, 4- and 8-byte
-columns. Each timing runs back to back on the device over inputs that
-cycle through copies larger than L2, in turns (plain, kernel, kernel,
-plain), beside the library call that computes the same function.
+K3 (``check_k3``/``time_k3``) runs on random 64-bit keys at the join +
+group-by path's sort shapes (2^17 pairs for the build presort, 2^21 for
+each partial, 2^23 for the final), on the path's own key words at those
+shapes (``path_words``), at a ragged 1,000,003, on all-equal, sorted,
+reverse-sorted and heavily duplicated keys, on keys whose only varying
+bit is the sign bit or whose only varying digit is the top one, on 1-bit
+compaction keys, on month words with 90% dead rows, and with negative and
+duplicate payloads. K4 (``check_k4``/``time_k4``) runs at the path's
+gather shapes (the probe's 2^21 rows from a 2^17-row build, the
+group-by's 2^21-row permutation), at a ragged length, and with nulls,
+dead rows, out-of-range indices, 1-, 2-, 4- and 8-byte columns mixed,
+and three columns of one width (1, 2 and 8 bytes) with indices and live
+flags off alignment. Each timing runs back to back on the device over
+inputs that cycle through copies larger than L2, in turns (plain,
+kernel, kernel, plain), beside the library call that computes the same
+function.
 
 K5 (``check_k5``/``time_k5``) decodes Parquet files written from a seed:
 a q6 row group (750,152 rows, the four q6 columns and l_linenumber), a
@@ -31,8 +37,9 @@ Tolerances: the engine edition sums float64 in another order than the
 plain version, so its sum must agree to rel 1e-9; the K1-contract
 edition sums float32, held to rel 1e-3 as ``tests/test_exec.py:198``
 holds the Pallas edition; counts must be equal. K3 and K4 must match
-their plain versions exactly: K3 runs the same network on the same
-pairs, and K4 copies bits. K5 must match bit for bit (it copies and
+their plain versions exactly: K3's plain version runs the same digit
+passes on the same pairs (and K3 must also equal ``torch.sort``), and
+K4 copies bits. K5 must match bit for bit (it copies and
 shifts bits). K2's engine edition sums float64 per group in another
 order: rel 1e-9, counts equal; its contract edition sums float32: rel
 1e-3 of the group's sum (or of 1 where that is smaller), as
@@ -53,6 +60,7 @@ from . import cuda_kernels as ck
 __all__ = ["K1Case", "k1_cases", "check_k1", "time_k1", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
+           "path_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
            "time_k4", "k5_layouts", "check_k5", "time_k5", "k2_cases",
            "check_k2", "time_k2"]
 
@@ -246,6 +254,7 @@ K4_PROBE_ROWS = 1 << 21
 K4_BUILD_ROWS = 1 << 17
 _RAGGED = 1_000_003
 _I64_MIN = -(1 << 63)
+_I32_MIN = -(1 << 31)
 
 
 def _max_abs_diff(pairs) -> float:
@@ -269,6 +278,50 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
                         b.contiguous().view(torch.uint8))
 
 
+def _month_words(months: np.ndarray, live: np.ndarray, device) \
+        -> torch.Tensor:
+    """The group-by's sort words for one int32 key, built by the engine's
+    own ``_key_lanes`` and ``pack_words``: live bit, null bit, the
+    sign-flipped lane. A dead row is null with a zero lane, as the join
+    and the aggregate leave it."""
+    from .. import datatypes as dt
+    from ..columnar.column import GpuColumnVector
+    from . import sort_keys as tsk
+    live_t = torch.from_numpy(np.ascontiguousarray(live)).to(device)
+    col = GpuColumnVector(dt.INT32, torch.from_numpy(np.where(
+        live, months, 0).astype(np.int32)).to(device), live_t)
+    (words,) = tsk.pack_words(tsk._key_lanes([col], [tsk.SortSpec()],
+                                             live_t))
+    return words.contiguous()
+
+
+def path_words(device, n_ord: int = 1 << 17, batch: int = 1 << 21,
+               batches: int = 4, seed: int = 9) -> Dict[str, torch.Tensor]:
+    """The words the join + group-by path sorts, at its sizes: the build
+    presort of the ``n_ord`` order keys (``0 .. n_ord - 1``, all
+    eligible), a partial aggregate's month words (every row live), and
+    the final's month words over the ``batches`` partials concatenated
+    (12 live rows at the head of each partial's capacity, the rest
+    dead)."""
+    from .sort_keys import pack_words, unsigned_lane
+    rng = np.random.default_rng(seed)
+    # ops/join.unique_build_probe: an eligibility bit, then the key's lane
+    keys = torch.arange(n_ord, dtype=torch.int32, device=device)
+    (presort,) = pack_words([(torch.zeros_like(keys, dtype=torch.int64), 1),
+                             (unsigned_lane(keys, 32), 32)])
+    partial = _month_words(rng.integers(1, 13, batch).astype(np.int32),
+                           np.ones(batch, bool), device)
+    live = np.zeros(batch * batches, bool)
+    months = np.zeros(batch * batches, np.int32)
+    for b in range(batches):
+        live[b * batch:b * batch + 12] = True
+        months[b * batch:b * batch + 12] = rng.permutation(12) + 1
+    final = _month_words(months, live, device)
+    return {f"presort_2^{n_ord.bit_length() - 1}": presort.contiguous(),
+            f"partial_2^{batch.bit_length() - 1}": partial,
+            f"final_2^{(batch * batches).bit_length() - 1}": final}
+
+
 def k3_cases(device, seed: int = 1) -> List[Dict]:
     """Engine-edition inputs: ``{"name", "keys", "payload"}``; keys are
     uint64 bits in int64."""
@@ -289,9 +342,18 @@ def k3_cases(device, seed: int = 1) -> List[Dict]:
         return (((~live).astype(np.int64) << 33)
                 | (live.astype(np.int64) << 32) | month)
 
-    n = K3_SHAPES[1]
+    def shifted(bits, shift, n):
+        """Keys whose only varying bits are ``bits`` random bits at
+        ``shift``, over a constant low pattern."""
+        v = rng.integers(0, 1 << bits, n).astype(np.uint64) \
+            << np.uint64(shift)
+        return (v | np.uint64(0x5A5A)).view(np.int64)
+
+    n, big = K3_SHAPES[1], K3_SHAPES[2]
     cases = [{"name": f"random_2^{s.bit_length() - 1}",
               "keys": t(rand64(s)), "payload": None} for s in K3_SHAPES]
+    cases += [{"name": name, "keys": words, "payload": None}
+              for name, words in path_words(dev).items()]
     cases += [
         {"name": "groupby_words_2^21", "keys": t(packed(n)),
          "payload": None},
@@ -306,26 +368,56 @@ def k3_cases(device, seed: int = 1) -> List[Dict]:
          "payload": None},
         {"name": "payload_ragged", "keys": t(rng.integers(0, 1000, _RAGGED)),
          "payload": t(rng.integers(0, 1 << 20, _RAGGED).astype(np.int32))},
+        {"name": "sign_bit_only_2^21", "keys": t(shifted(1, 63, n)),
+         "payload": None},
+        {"name": "top_digit_only_2^21", "keys": t(shifted(8, 56, n)),
+         "payload": None},
+        {"name": "compaction_1bit_2^21",
+         "keys": t((rng.random(n) < 0.3).astype(np.int64)),
+         "payload": None},
+        {"name": "month_words_2^23_90pct_dead",
+         "keys": _month_words(rng.integers(1, 13, big).astype(np.int32),
+                              rng.random(big) < 0.1, dev),
+         "payload": None},
+        {"name": "payload_negative_dup_ragged",
+         "keys": t(shifted(3, 60, _RAGGED)),
+         "payload": t(rng.integers(-40, 40, _RAGGED).astype(np.int32))},
+        {"name": "payload_negative_2^21", "keys": t(rand64(n)),
+         "payload": t(rng.integers(_I32_MIN, 1 << 31, n)
+                      .astype(np.int32))},
     ]
     return cases
 
 
+def library_sort_pairs(keys: torch.Tensor,
+                       payload: Optional[torch.Tensor]):
+    """``(keys, payloads)`` ordered on (key unsigned, payload signed) by
+    ``torch.sort(stable=True)``: by the payload first, then stably by the
+    key; the payload is the position when none is given."""
+    if payload is None:
+        k, p = torch.sort(keys ^ _I64_MIN, stable=True)
+        return k ^ _I64_MIN, p.to(torch.int32)
+    p, order = torch.sort(payload, stable=True)
+    k, order2 = torch.sort(keys[order] ^ _I64_MIN, stable=True)
+    return k ^ _I64_MIN, p[order2]
+
+
 def check_k3(device) -> List[Dict]:
-    """Both editions of K3 against their plain versions (exact), and the
-    engine edition against ``torch.sort(stable=True)`` where the payload
-    is the position; raises on the first disagreement."""
+    """Both editions of K3 against their plain versions, and the engine
+    edition against ``torch.sort(stable=True)`` (``library_sort_pairs``),
+    all exact; raises on the first disagreement."""
     out = []
     for case in k3_cases(device):
         keys, pay = case["keys"], case["payload"]
         got_k, got_p = ck.sort_pairs(keys, pay)
         want_k, want_p = ck.sort_pairs_torch(keys, pay)
+        lib_k, lib_p = library_sort_pairs(keys, pay)
         rec = {"case": case["name"], "n": keys.shape[0],
+               "passes": ck.sort_passes_torch(keys, pay),
                "keys_equal": torch.equal(got_k, want_k),
-               "payload_equal": torch.equal(got_p, want_p)}
-        if pay is None:
-            lib_k, lib_p = torch.sort(keys ^ _I64_MIN, stable=True)
-            rec["library_equal"] = torch.equal(got_k, lib_k ^ _I64_MIN) \
-                and torch.equal(got_p.long(), lib_p)
+               "payload_equal": torch.equal(got_p, want_p),
+               "library_equal": torch.equal(got_k, lib_k)
+               and torch.equal(got_p, lib_p)}
         rec["max_abs_err"] = _max_abs_diff([(got_k, want_k),
                                             (got_p, want_p)])
         if not all(v for k, v in rec.items() if k.endswith("_equal")):
@@ -368,23 +460,37 @@ def _turns(plain, kernel, items, reps: int, plain_reps: int):
     return min(k1, k2), min(p1, p2)
 
 
-def time_k3(device, reps: int = 20) -> Dict[int, Dict[str, float]]:
-    """Per shape of the path: device ms of the engine edition, its plain
-    version and ``torch.sort(stable=True)`` on the same keys (payload the
-    position), and the bytes the sort must move (8 B a key in, 12 B a
-    pair out)."""
+# Bytes a sort must move: each key read once (8 B) and each pair written
+# once (12 B); the payload, where one is given, adds its 4 B read
+SORT_BYTES_PER_PAIR = 8 + 12
+
+
+def time_k3(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
+    """Device ms of the engine edition, its plain version and
+    ``torch.sort(stable=True)`` on the same keys (payload the position),
+    with the bytes the sort must move (``SORT_BYTES_PER_PAIR``) and the
+    digit passes the keys need: on random 64-bit keys at each shape of
+    the path (``random_2^k``), and on the path's own words
+    (``path_words``: build presort, partial, final)."""
     rng = np.random.default_rng(3)
-    out = {}
+    sets = {}
     for n in K3_SHAPES:
-        copies = _cycle(lambda: torch.from_numpy(rng.integers(
-            _I64_MIN, (1 << 63) - 1, n, dtype=np.int64)).to(device),
+        sets[f"random_2^{n.bit_length() - 1}"] = _cycle(
+            lambda: torch.from_numpy(rng.integers(
+                _I64_MIN, (1 << 63) - 1, n, dtype=np.int64)).to(device),
             _copies_for(n * 8))
+    for name, words in path_words(device).items():
+        sets[name] = _cycle(words.clone, _copies_for(words.numel() * 8))
+    out = {}
+    for name, copies in sets.items():
+        n = copies[0].shape[0]
         ms, plain_ms = _turns(ck.sort_pairs_torch, ck.sort_pairs, copies,
                               reps, 2)
         lib = _time_ms(lambda k: torch.sort(k, stable=True), copies, reps)
-        out[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-                  "bytes": n * (8 + 12),
-                  "compares": n * (n.bit_length() - 1)}
+        out[name] = {"n": n, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib, "bytes": n * SORT_BYTES_PER_PAIR,
+                     "passes": len(ck.sort_passes_torch(copies[0])),
+                     "ops": n * 8}
     return out
 
 
@@ -408,6 +514,25 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
               t(rng.standard_normal(widths_rows).astype(np.float32)),
               t(rng.integers(-2**62, 2**62, widths_rows)),
               t(rng.standard_normal(widths_rows))]
+    def same_width(dtype):
+        """Three columns of one width: the templated kernel at widths 1, 2
+        and 8, at a ragged length, with indices and live flags that start
+        off alignment (the scalar loads) and out-of-range indices."""
+        if dtype == np.float64:
+            cols = [t(rng.standard_normal(widths_rows)) for _ in range(3)]
+        else:
+            info = np.iinfo(dtype)
+            cols = [t(rng.integers(info.min, info.max, widths_rows,
+                                   endpoint=True).astype(dtype))
+                    for _ in range(3)]
+        idx = t(rng.integers(-5, widths_rows + 5, _RAGGED + 1)
+                .astype(np.int32))[1:]
+        live = t(rng.random(_RAGGED + 1) < 0.8)[1:]
+        return {"name": f"same_width_{np.dtype(dtype).itemsize}_unaligned",
+                "cols": cols,
+                "valids": [None, t(rng.random(widths_rows) < 0.9), None],
+                "idx": idx, "live": live}
+
     dead_idx = rng.integers(0, b, n).astype(np.int32)
     dead_live = rng.random(n) < 0.5
     dead_idx[~dead_live] = rng.integers(-2**31, 2**31 - 1,
@@ -435,7 +560,7 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
          "valids": [t(rng.random(widths_rows) < 0.9)] + [None] * 5,
          "idx": t(rng.integers(-5, widths_rows + 5, n).astype(np.int32)),
          "live": t(rng.random(n) < 0.7)},
-    ]
+    ] + [same_width(d) for d in (np.int8, np.int16, np.float64)]
 
 
 def check_k4(device) -> List[Dict]:
@@ -475,33 +600,57 @@ def check_k4(device) -> List[Dict]:
     return out
 
 
-def time_k4(device, reps: int = 50) -> Dict[str, float]:
-    """Device ms at the probe's shape (2^21 rows gathering the two int32
-    build columns of 2^17 rows, 90% live): the engine edition, its plain
-    version, and ``torch.index_select`` of the same rows from the two
-    columns stacked (no live mask), with the bytes the gather must
-    move."""
+def time_k4(device, reps: int = 50) -> Dict[str, Dict[str, float]]:
+    """Device ms of the engine edition, its plain version and
+    ``torch.index_select`` of the same rows from the columns stacked (no
+    live mask, no validity), with the bytes the gather must move, at two
+    shapes of the path: the probe (2^21 rows gathering the two int32
+    build columns of 2^17 rows, 90% live) and the partial aggregate's
+    permutation (2^21 rows of an int32 key with validity and a float32
+    value, by a permutation, 90% live); and at the probe with one column,
+    which shows how the time grows with the random sectors a row."""
     rng = np.random.default_rng(6)
     b, n = K4_BUILD_ROWS, K4_PROBE_ROWS
-    cols = [torch.arange(b, dtype=torch.int32, device=device),
-            torch.from_numpy(rng.integers(1, 13, b).astype(np.int32))
-            .to(device)]
-    stacked = torch.stack(cols, 1).contiguous()
 
-    def make():
-        return (torch.from_numpy(rng.integers(0, b, n).astype(np.int32))
-                .to(device),
-                torch.from_numpy(rng.random(n) < 0.9).to(device))
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    items = _cycle(make, _copies_for(n * (4 + 1 + 8)))
-    ms, plain_ms = _turns(
-        lambda it: ck.gather_rows_torch(cols, [None, None], *it),
-        lambda it: ck.gather_rows(cols, [None, None], *it), items, reps,
-        reps)
-    lib = _time_ms(lambda it: torch.index_select(stacked, 0, it[0]), items,
-                   reps)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-            "bytes": n * (4 + 1 + 8) + b * 8, "rows": n}
+    shapes = {
+        # one column: the random L2 sectors a row halve
+        "probe_1col_2^21_from_2^17": (
+            [t(np.arange(b, dtype=np.int32))], [None],
+            lambda: t(rng.integers(0, b, n).astype(np.int32))),
+        "probe_2^21_from_2^17": (
+            [t(np.arange(b, dtype=np.int32)),
+             t(rng.integers(1, 13, b).astype(np.int32))], [None, None],
+            lambda: t(rng.integers(0, b, n).astype(np.int32))),
+        "groupby_perm_2^21": (
+            [t(rng.integers(1, 13, n).astype(np.int32)),
+             t(rng.uniform(0, 1e5, n).astype(np.float32))],
+            [t(rng.random(n) < 0.9), None],
+            lambda: t(rng.permutation(n).astype(np.int32))),
+    }
+    out = {}
+    for name, (cols, valids, make_idx) in shapes.items():
+        rows = cols[0].shape[0]
+        stacked = torch.stack([c.view(torch.int32) for c in cols],
+                              1).contiguous()
+        per_row = 4 + 1 + sum(c.element_size() for c in cols) + sum(
+            1 for v in valids if v is not None)
+        items = _cycle(lambda: (make_idx(), t(rng.random(n) < 0.9)),
+                       _copies_for(n * per_row))
+        ms, plain_ms = _turns(
+            lambda it: ck.gather_rows_torch(cols, valids, *it),
+            lambda it: ck.gather_rows(cols, valids, *it), items, reps,
+            reps)
+        lib = _time_ms(lambda it: torch.index_select(stacked, 0, it[0]),
+                       items, reps)
+        source = rows * (sum(c.element_size() for c in cols)
+                         + sum(1 for v in valids if v is not None))
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                     "bytes": n * per_row + source, "rows": n,
+                     "table_rows": rows}
+    return out
 
 
 # --- K5 and K2 --------------------------------------------------------------

@@ -8,8 +8,10 @@ warm up, then once under ``torch.profiler`` (CPU and CUDA activity).
 Prints one JSON line: the wall time, the device's busy time (the union
 of the intervals in which a kernel or a copy ran on the device, so
 nothing counts twice) and its idle share of the wall time, the device
-time of K3 (``sort_tiles``, ``merge_global``, ``merge_tiles``) and of K4
-(``gather_rows``) with their kernel launches (one K3 sort is several),
+time of K3 (``radix_histogram``, ``radix_plan``, ``radix_pass``; the
+workspace memset of each sort is not counted) and of K4
+(``gather_rows_fast``, ``gather_rows_any``) with their kernel launches
+(one K3 sort is several),
 and the largest other device operations by name. With ``--out`` it
 also writes the Chrome trace there. It needs a CUDA device.
 """
@@ -25,8 +27,8 @@ import torch
 from .. import join_groupby as jg
 from ..exec.base import ExecCtx, collect_arrow
 
-_FAMILIES = {"K3": ("sort_tiles", "merge_global", "merge_tiles"),
-             "K4": ("gather_rows",)}
+_FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
+             "K4": ("gather_rows_fast", "gather_rows_any")}
 
 
 def _family(name: str):

@@ -1,8 +1,8 @@
 """Card-only checks of the port: K1's two editions against their plain
 versions at the main path's shape, at a ragged length and with nulls and
 NaN, and q6 through the engine with one K1 launch per batch; K3 and K4
-against their plain versions (exactly, bit for bit) at the join +
-group-by path's shapes and edge cases, and a small join + group-by
+against their plain versions (exactly, bit for bit; K3 also against
+``torch.sort``) at the join + group-by path's shapes and edge cases, and a small join + group-by
 through the engine with the launches its plan implies. Run on a machine
 with a CUDA device: ``python -m pytest tests/test_torch_gpu.py``;
 elsewhere they skip."""
@@ -55,6 +55,12 @@ def test_k3_editions_match_plain_versions(cuda_device):
     recs = kc.check_k3(cuda_device)
     assert all(r["max_abs_err"] == 0.0 for r in recs)
     assert {r["n"] for r in recs} >= set(kc.K3_SHAPES) | {1_000_003}
+    engine = {r["case"]: r for r in recs if "library_equal" in r}
+    assert all(r["library_equal"] for r in engine.values())
+    # the skip rule: one pass where one digit varies, none for equal keys
+    assert engine["sign_bit_only_2^21"]["passes"] == [11]
+    assert engine["all_equal"]["passes"] == []
+    assert engine["partial_2^21"]["passes"] == [4]
 
 
 def test_k4_editions_match_plain_versions(cuda_device):

@@ -1,4 +1,4 @@
-"""K3 (bitonic sort) and K4 (gather): their plain PyTorch versions
+"""K3 (the radix sort) and K4 (gather): their plain PyTorch versions
 against the JAX package on the CPU, the wrappers' routing and input
 checks, and the port's ``ops/sort_keys.py``, ``ops/segments.py`` and
 ``ops/gather.py`` against their JAX counterparts.
