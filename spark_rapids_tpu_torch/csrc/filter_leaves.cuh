@@ -43,6 +43,33 @@ __device__ __forceinline__ bool compare(double x, int op, double b) {
   }
 }
 
+// A leaf as an interval test: for a non-NaN x, r = x < b ? 0 : x == b ? 1 : 2
+// indexes `mask` (bit 0 lt, bit 1 eq, bit 2 gt of op); a NaN x takes
+// `nanpass`. A NaN bound compares every x as 2, so its mask's bit 2 holds
+// the answer for a non-NaN x. code = slot | mask << 4 | nanpass << 7.
+template <bool NanGreatest>
+__device__ __forceinline__ int leaf_code(int slot, int op, double b) {
+  const int mask = op == kLt ? 1 : op == kLe ? 3 : op == kGt ? 4
+                 : op == kGe ? 6 : 2;
+  const bool bn = is_nan(b);
+  int m = mask, nanpass = 0;
+  if (NanGreatest) {
+    // a NaN x is the greatest value, and equal to a NaN bound; a NaN
+    // bound is greater than every other x
+    nanpass = bn ? (mask >> 1) & 1 : (mask >> 2) & 1;
+    if (bn) m = (mask & 1) << 2;
+  } else if (bn) {
+    m = 0;  // IEEE: every comparison with NaN is false
+  }
+  return slot | (m << 4) | (nanpass << 7);
+}
+
+__device__ __forceinline__ bool leaf_passes(double x, double b, int code) {
+  if (is_nan(x)) return (code >> 7) & 1;
+  const int r = x < b ? 0 : (x == b ? 1 : 2);
+  return (code >> (4 + r)) & 1;
+}
+
 __device__ __forceinline__ double load(const void* col, int32_t type,
                                        int64_t i) {
   if (type == kF32) return (double)__ldg(static_cast<const float*>(col) + i);

@@ -51,6 +51,10 @@ K2, ``csrc/fused_filter_agg.cu``, replaces ``fused_filter_agg_pallas``
   q6's constants, IEEE comparisons and float32 sums over the keys 0..7,
   for any length.
 
+Each K2 call is one launch: the last block to finish sums the blocks'
+partials, counted with a ticket that the wrapper keeps, with the
+partials, in one workspace per (device, stream).
+
 Each wrapper takes its plain PyTorch version (the ``*_torch`` functions)
 only for tensors on the CPU; a CUDA tensor gets the kernel or an
 exception. Each keeps a plain integer ``launches`` count, raised by one
@@ -788,7 +792,7 @@ class _FfaArgs(ctypes.Structure):
                 ("n_leaves", ctypes.c_int32),
                 ("a_slot", ctypes.c_int32),
                 ("b_slot", ctypes.c_int32),
-                ("pad_", ctypes.c_int32),
+                ("aligned", ctypes.c_int32),
                 ("leaf", _Leaf * MAX_LEAVES)]
 
 
@@ -797,20 +801,43 @@ def _ffa_library():
     lib = load("fused_filter_agg")
     if not getattr(lib, "_spark_ready", False):
         for fn in (lib.spark_ffa_args_size, lib.spark_ffa_max_blocks,
-                   lib.spark_ffa_group_slots):
+                   lib.spark_ffa_group_slots, lib.spark_ffa_counts):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         lib.spark_ffa_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] + [ctypes.c_void_p] * 5
+            ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
         lib.spark_ffa_launch.restype = ctypes.c_int
         if lib.spark_ffa_args_size() != ctypes.sizeof(_FfaArgs) \
-                or lib.spark_ffa_group_slots() != _GROUP_SLOTS:
+                or lib.spark_ffa_group_slots() != _GROUP_SLOTS \
+                or lib.spark_ffa_counts() != _FFA_COUNTS:
             raise RuntimeError(
                 f"FfaArgs is {lib.spark_ffa_args_size()} bytes in the CUDA "
                 f"source but {ctypes.sizeof(_FfaArgs)} in ctypes")
         lib._spark_ready = True
     return lib
+
+
+_FFA_COUNTS = 2 * _GROUP_SLOTS + 1  # non-null, rows, outside
+_ffa_workspaces = {}
+
+
+def _ffa_workspace(lib, device: torch.device, stream) -> Tuple:
+    """The partials and the ticket counter of ``stream`` on ``device``,
+    made once (the counter zeroed) and reset to 0 by each launch's last
+    block. Launches on one stream run in order; two streams never share
+    a counter."""
+    key = (device.index, stream.cuda_stream)
+    ws = _ffa_workspaces.get(key)
+    if ws is None:
+        blocks = lib.spark_ffa_max_blocks()
+        with torch.cuda.stream(stream):
+            ws = (torch.empty(blocks * _GROUP_SLOTS, dtype=torch.float64,
+                              device=device),
+                  torch.empty(blocks * _FFA_COUNTS, dtype=torch.int64,
+                              device=device),
+                  torch.zeros(1, dtype=torch.int32, device=device))
+        _ffa_workspaces[key] = ws
+    return ws
 
 
 def _check_key(key, key_valid, n, groups, device):
@@ -852,23 +879,23 @@ def _ffa_launch(edition: int, cols, valids, selection, row_count: int,
     args.a_slot, args.b_slot = spec.a_slot, spec.b_slot
     for j, leaf in enumerate(spec.leaves):
         args.leaf[j] = _Leaf(float(leaf.bound), leaf.slot, OPS[leaf.op])
-    per_block = _THREADS * _ROWS_PER_THREAD
-    blocks = max(1, min(lib.spark_ffa_max_blocks(),
-                        -(-row_count // per_block)))
+    # the 4-row loop wants 16-byte columns and key, 4-byte masks
+    wide = list(cols) + [key]
+    masks = [t for t in list(valids) + [selection, key_valid]
+             if t is not None]
+    args.aligned = int(all(t.data_ptr() % 16 == 0 for t in wide)
+                       and all(t.data_ptr() % 4 == 0 for t in masks))
 
     def empty(count, dtype):
         return torch.empty(count, dtype=dtype, device=device)
 
-    parts = (empty(blocks * _GROUP_SLOTS, acc),
-             empty(blocks * _GROUP_SLOTS, torch.int64),
-             empty(blocks * _GROUP_SLOTS, torch.int64),
-             empty(blocks, torch.int64))
     outs = (empty(_GROUP_SLOTS, acc), empty(_GROUP_SLOTS, torch.int64),
             empty(_GROUP_SLOTS, torch.int64), empty((), torch.int64))
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(device)
+    work = _ffa_workspace(lib, device, stream)
     err = lib.spark_ffa_launch(
-        ctypes.addressof(args), edition, *[t.data_ptr() for t in parts],
-        blocks, *[t.data_ptr() for t in outs], stream)
+        ctypes.addressof(args), edition, *[t.data_ptr() for t in work],
+        *[t.data_ptr() for t in outs], stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_filter_agg kernel launch failed: "
                            f"cudaError {err}")

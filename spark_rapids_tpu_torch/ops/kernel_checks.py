@@ -28,10 +28,19 @@ function.
 K5 (``check_k5``/``time_k5``) decodes Parquet files written from a seed:
 a q6 row group (750,152 rows, the four q6 columns and l_linenumber), a
 row group with nulls, DELTA pages, v2 pages, booleans and an all-null
-column, and a coalesced batch of row groups whose dictionaries differ.
-K2 (``check_k2``/``time_k2``) runs both editions at a q6 batch with a
-line-number key, at a ragged length, with nulls, NaN, a selection, null
-and out-of-range keys, with every row in one group and with every group.
+column, a coalesced batch of row groups whose dictionaries differ, and
+alternating values, a dictionary of 100,000 entries and 64-bit PLAIN
+columns (``k5_shapes_file``); and the hand-made run tables of
+``k5_tile_layouts``, which walk its tiles at their edges (the CPU tests
+hold ``decode_tiles_torch`` to the reference on the same tables).
+``time_k5`` counts the bytes K5 moves: the encoded parts in, and every
+column out up to the capacity. K2 (``check_k2``/``time_k2``) runs both
+editions at a q6 batch with a line-number key, at a ragged length, with
+nulls, NaN, a selection, null and out-of-range keys, with every row in
+one group and with every group, with columns, key and masks off
+16-byte alignment (the scalar loop), with int64 keys, at 1, 3 and 5
+rows, and checks that two launches on one input, and launches on two
+streams at once, give the same bits.
 
 Tolerances: the engine edition sums float64 in another order than the
 plain version, so its sum must agree to rel 1e-9; the K1-contract
@@ -55,14 +64,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..io.parquet_plan import _META_DELTA, _META_DICT, _META_IDENT, \
+    _META_RLE
 from . import cuda_kernels as ck
 
 __all__ = ["K1Case", "k1_cases", "check_k1", "time_k1", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
            "path_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
-           "time_k4", "k5_layouts", "check_k5", "time_k5", "k2_cases",
-           "check_k2", "time_k2"]
+           "time_k4", "k5_layouts", "k5_shapes_file", "k5_tile_layouts",
+           "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2"]
 
 ENGINE_RTOL = 1e-9
 CONTRACT_RTOL = 1e-3
@@ -663,6 +674,25 @@ def _write(directory: str, name: str, arrays: Dict, **kw) -> str:
     return path
 
 
+def k5_shapes_file(directory: str, n: int, seed: int = 7) -> str:
+    """A Parquet file of ``n`` rows in one row group whose columns take
+    K5's other shapes: alternating values, a dictionary of 100,000
+    entries (past the kernel's shared-memory budget), and 64-bit PLAIN
+    int64 and float64."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-1 << 31, 1 << 31, 100_000).astype(np.int32)
+    return _write(directory, "shapes.parquet", {
+        "alternating": pa.array(np.where(np.arange(n) % 2, 7, -3)
+                                .astype(np.int32)),
+        "big_dict": pa.array(np.concatenate([
+            pool, rng.choice(pool, max(n - pool.shape[0], 0))])[:n]),
+        "plain_i64": pa.array(rng.integers(-1 << 60, 1 << 60, n)),
+        "plain_f64": pa.array(rng.standard_normal(n)),
+    }, row_group_size=n, compression="snappy",
+        use_dictionary=["alternating", "big_dict"])
+
+
 def k5_layouts(directory: str, seed: int = 7) -> Dict[str, list]:
     """``{case: [(scan, BatchLayout), ...]}`` over Parquet files written
     into ``directory``: the q6 row group (the four q6 columns alone, as
@@ -715,12 +745,208 @@ def k5_layouts(directory: str, seed: int = 7) -> Dict[str, list]:
             ("q6_by_linenumber_batch", q6[0], tpch.LINEITEM_GROUPED_SCHEMA,
              RapidsConf()),
             ("nulls_delta_v2", mixed, None, RapidsConf()),
-            ("coalesced", coalesced, None, one_batch)):
+            ("coalesced", coalesced, None, one_batch),
+            ("shapes", k5_shapes_file(directory, 300_000, seed), None,
+             RapidsConf())):
         import pyarrow.parquet as pq
         if schema is None:
             schema = engine_schema(pq.ParquetFile(path).schema_arrow)
         scan = GpuFileScanExec([path], schema=schema)
         out[case] = [(scan, lay) for lay in scan.batch_layouts(conf)]
+    return out
+
+
+
+
+def _tile_plan(n_rows: int, lane, runs, words, dictionary=None,
+               def_runs=None, def_words=None, n_valid=None,
+               is_delta=False):
+    """A hand-made ``ChunkPlan``: a run table (rows of dense start, meta,
+    value, bit offset) over ``words``; every row valid unless
+    ``def_runs`` say otherwise."""
+    from ..io.parquet_plan import ChunkPlan
+    runs = np.asarray(runs, np.int64).reshape(-1, 4)
+    words = np.asarray(words, np.uint32)
+    lane = np.dtype(lane)
+    dictionary = np.zeros(0, lane) if dictionary is None \
+        else np.asarray(dictionary, lane)
+    if def_runs is None:
+        def_runs = [(0, 1 | _META_RLE, 1, 0)]
+        def_words = np.zeros(2, np.uint32)
+    def_runs = np.asarray(def_runs, np.int64).reshape(-1, 4)
+    def_words = np.asarray(def_words, np.uint32)
+    n_valid = n_rows if n_valid is None else n_valid
+    nbytes = words.nbytes + runs.nbytes + dictionary.nbytes \
+        + def_words.nbytes + def_runs.nbytes
+    return ChunkPlan(n_rows, lane, dictionary, words, runs, def_words,
+                     def_runs, n_valid, nbytes, is_delta=is_delta)
+
+
+def _def_levels(rng, valid: np.ndarray):
+    """Definition-level runs and words for ``valid``: RLE runs where a
+    stretch of 8 rows agrees, bit-packed groups of 8 elsewhere."""
+    runs, bits = [], []
+    for g0 in range(0, valid.shape[0], 8):
+        grp = valid[g0:g0 + 8]
+        if grp.all() or not grp.any():
+            runs.append((g0, 1 | _META_RLE, int(grp[0]), 0))
+        else:
+            runs.append((g0, 1, 0, 8 * len(bits)))
+            bits.append(int(np.packbits(np.pad(grp, (0, 8 - grp.shape[0])),
+                                        bitorder="little")[0]))
+    raw = np.asarray(bits + [0] * 8, np.uint8)
+    raw = np.pad(raw, (0, -raw.shape[0] % 4))
+    return runs, raw.view(np.uint32)
+
+
+def _packed(rng, n_words: int) -> np.ndarray:
+    """Random words, every third with its top bit set."""
+    w = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    w[::3] |= np.uint32(1 << 31)
+    return w
+
+
+def k5_tile_layouts(seed: int = 11) -> Dict[str, "BatchLayout"]:
+    """``{case: BatchLayout}`` over hand-made run tables that walk K5's
+    tiles (4096 rows) at their edges: RLE runs of length 1 across whole
+    tiles, runs straddling two and three tiles, widths 0 to 64 (64-bit
+    PLAIN from an odd word), tables of 1 and 2 words, a tile whose first
+    rows are null, an all-null column, DELTA pages with nulls, identity
+    runs, row counts at and one off a tile's edge, merged dictionaries
+    whose base differs per run, a dictionary past the shared-memory
+    budget, and an int32 lane under an int64 column."""
+    from .. import datatypes as dt
+    from ..columnar.batch import bucket_rows
+    from .parquet_decode import BatchLayout, TILE_ROWS
+    rng = np.random.default_rng(seed)
+    T = TILE_ROWS
+    out = {}
+
+    def layout(name, n_rows, cols):
+        schema = dt.Schema([(c, t) for c, (t, _) in cols.items()])
+        out[name] = BatchLayout(schema, bucket_rows(max(n_rows, 1)), n_rows,
+                                {c: p for c, (_, p) in cols.items()}, {})
+
+    def ints(n, hi=1 << 31):
+        return rng.integers(-hi, hi, n).astype(np.int32)
+
+    # RLE runs of length 1 over two and a half tiles, and bit-packed
+    # groups of 8 between RLE runs of 1
+    n = 2 * T + 1000
+    dict8 = ints(8)
+    mixed, start, bit = [], 0, 0
+    while start < n:
+        mixed.append((start, 5 | _META_DICT, 0, bit))
+        mixed.append((start + 8, 5 | _META_RLE | _META_DICT,
+                      int(rng.integers(0, 8)),
+                      0))
+        start, bit = start + 9, bit + 40
+    layout("rle_runs_of_one", n, {
+        "ones": (dt.INT32, _tile_plan(n, np.int32, [
+            (i, 3 | _META_RLE | _META_DICT, int(rng.integers(0, 8)), 0)
+            for i in range(n)], np.zeros(2, np.uint32), dict8)),
+        "mixed": (dt.INT32, _tile_plan(n, np.int32, mixed,
+                                       _packed(rng, bit // 32 + 3),
+                                       ints(32)))})
+    # one RLE run over three tiles, then a 12-bit run across two
+    n = 5 * T + 17
+    layout("straddling_runs", n, {
+        "v": (dt.INT32, _tile_plan(n, np.int32, [
+            (0, 12 | _META_RLE | _META_DICT, 4000, 0),
+            (2 * T + 5, 12 | _META_DICT, 0, 64),
+            (4 * T + 100, 12 | _META_RLE | _META_DICT, 17, 0)],
+            _packed(rng, (2 * T * 12 + 64) // 32 + 40), ints(4096)))})
+    # one column per width; 64-bit PLAIN starting on an odd word
+    n = 3 * T - 3
+    cols = {}
+    for w in (0, 1, 7, 8, 12):
+        cols[f"dict_w{w}"] = (dt.INT32, _tile_plan(
+            n, np.int32, [(0, w | _META_DICT, 0, 3)],
+            _packed(rng, n * w // 32 + 3), ints(1 << w)))
+    for w in (31, 32):
+        cols[f"plain_w{w}"] = (dt.INT32, _tile_plan(
+            n, np.int32, [(0, w, 0, 32 * (w == 31))],
+            _packed(rng, n * w // 32 + 4)))
+    cols["bool_w1"] = (dt.BOOL, _tile_plan(n, np.bool_, [(0, 1, 0, 5)],
+                                           _packed(rng, n // 32 + 3)))
+    cols["plain_w64_odd"] = (dt.INT64, _tile_plan(
+        n, np.int64, [(0, 64, 0, 32 * 7)], _packed(rng, 2 * n + 10)))
+    cols["plain_f64_odd"] = (dt.FLOAT64, _tile_plan(
+        n, np.float64, [(0, 100, 0, 32 * 3), (T + 9, 64, 0, 32 * 2 * T)],
+        _packed(rng, 2 * n + 10)))
+    cols["lane32_as_int64"] = (dt.INT64, _tile_plan(
+        n, np.int32, [(0, 9 | _META_DICT, 0, 0)],
+        _packed(rng, n * 9 // 32 + 3),
+        ints(512)))
+    layout("widths", n, cols)
+    # tables of one and two words, read through the reference's clamps
+    for n_words in (1, 2):
+        n = 300
+        layout(f"n_words_{n_words}", n, {
+            "v": (dt.INT32, _tile_plan(n, np.int32, [
+                (0, 7 | _META_DICT, 0, 3),
+                (100, 7 | _META_RLE | _META_DICT, 9, 0),
+                (150, 13 | _META_DICT, 0, 40)], _packed(rng, n_words),
+                ints(1 << 13))),
+            "p": (dt.INT32, _tile_plan(n, np.int32, [(0, 32, 0, 0)],
+                                       _packed(rng, n_words)))})
+    # nulls: the second tile starts with 700 null rows; an all-null column
+    n = 3 * T + 11
+    valid = rng.random(n) < 0.7
+    valid[T:T + 700] = False
+    valid[2 * T - 40:2 * T + 3] = True
+    def_runs, def_words = _def_levels(rng, valid)
+    nv = int(valid.sum())
+    dnull_runs, dnull_words = _def_levels(rng, np.zeros(n, bool))
+    layout("nulls", n, {
+        "v": (dt.INT32, _tile_plan(
+            n, np.int32, [(0, 6 | _META_DICT, 0, 0),
+                          (nv // 2, 6 | _META_RLE | _META_DICT,
+                                                 33, 0),
+                          (nv // 2 + 3, 6 | _META_DICT, 0, 6 * (nv // 2))],
+            _packed(rng, nv * 6 // 32 + 3), ints(64), def_runs, def_words,
+            nv)),
+        "all_null": (dt.INT64, _tile_plan(
+            n, np.int64, [(0, 1 | _META_RLE | _META_DICT, 0, 0)],
+            np.zeros(2, np.uint32), None, dnull_runs, dnull_words, 0))})
+    # DELTA pages (first value, then deltas with negative minima), with
+    # nulls; identity runs
+    delta_runs, start = [], 0
+    for page in range(6):
+        delta_runs.append((start, _META_RLE,
+                           int(rng.integers(-1 << 40, 1 << 40)),
+                           0))
+        delta_runs.append((start + 1, 9 | _META_DELTA, -300, 64 * 32 * page))
+        delta_runs.append((start + 700, 13 | _META_DELTA, -4096,
+                           64 * 32 * page + 32 * 40))
+        start += 1500
+    layout("delta_identity", n, {
+        "d": (dt.INT64, _tile_plan(n, np.int64, delta_runs,
+                                   _packed(rng, 64 * 6 + 600), None,
+                                   def_runs, def_words, nv, is_delta=True)),
+        "ident": (dt.INT32, _tile_plan(n, np.int32, [
+            (0, _META_IDENT, 5, 0), (T - 3, _META_IDENT, 1 << 20, 0),
+            (T + 2, 4 | _META_DICT, 0, 0)], _packed(rng, n // 8 + 3),
+            ints(16)))})
+    # row counts at, one below and one above a tile's edge
+    for n in (T - 1, T, T + 1):
+        layout(f"rows_{n}", n, {"v": (dt.INT32, _tile_plan(
+            n, np.int32, [(0, 10 | _META_DICT, 0, 0)],
+            _packed(rng, n * 10 // 32 + 3), ints(1024)))})
+    # merged row groups: every run its own dictionary base (meta 16+);
+    # and a dictionary of 100,000 entries, past the shared-memory budget
+    n = 2 * T + 500
+    merged, start, bit = [], 0, 0
+    for g in range(40):
+        merged.append((start, 4 | _META_DICT | (g * 16 << 16), 0, bit))
+        start, bit = start + 230, bit + 230 * 4 + 32
+    layout("merged_dictionaries", n, {
+        "v": (dt.INT32, _tile_plan(n, np.int32, merged,
+                                   _packed(rng, bit // 32 + 3),
+                                   ints(40 * 16))),
+        "big_dict": (dt.INT32, _tile_plan(
+            n, np.int32, [(0, 17 | _META_DICT, 0, 0)],
+            _packed(rng, n * 17 // 32 + 3), ints(100_000)))})
     return out
 
 
@@ -731,12 +957,15 @@ def _blob(layout, device) -> torch.Tensor:
 
 
 def check_k5(device) -> List[Dict]:
-    """K5 against its plain version on the same blobs, bit for bit;
-    raises on the first disagreement."""
+    """K5 against its plain version on the same blobs, bit for bit, on
+    the Parquet batches of ``k5_layouts`` and the hand-made run tables of
+    ``k5_tile_layouts``; raises on the first disagreement."""
     from .parquet_decode import decode_batch, decode_batch_torch
     out = []
     with tempfile.TemporaryDirectory() as d:
-        for case, items in k5_layouts(d).items():
+        cases = list(k5_layouts(d).items()) + [
+            (name, [(None, lay)]) for name, lay in k5_tile_layouts().items()]
+        for case, items in cases:
             for scan, layout in items:
                 blob = _blob(layout, device)
                 plain = blob.clone()
@@ -765,18 +994,21 @@ def check_k5(device) -> List[Dict]:
 def time_k5(device, reps: int = 50) -> Dict[str, float]:
     """Device ms of K5 and its plain version at a q6 batch (the four q6
     columns of 750,152 rows), over blobs that cycle past L2, with the
-    bytes K5 must move (encoded in, decoded out)."""
+    bytes K5 must move: the encoded parts in, and every column out up to
+    the capacity (padding rows hold 0)."""
     from .parquet_decode import decode_batch, decode_batch_torch
     with tempfile.TemporaryDirectory() as d:
         (scan, layout), = k5_layouts(d)["q6_batch"]
-    nbytes = layout.encoded_bytes() + layout.decoded_bytes()
+    nbytes = layout.encoded_bytes() + layout.written_bytes()
     blobs = [_blob(layout, device)
              for _ in range(_copies_for(layout.total_bytes))]
     ms, plain_ms = _turns(lambda b: decode_batch_torch(b, layout),
                           lambda b: decode_batch(b, layout), blobs, reps, 5)
     return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "rows": layout.n_rows, "encoded_bytes": layout.encoded_bytes(),
-            "decoded_bytes": layout.decoded_bytes()}
+            "rows": layout.n_rows, "capacity": layout.capacity,
+            "columns": len(layout.device_names),
+            "encoded_bytes": layout.encoded_bytes(),
+            "written_bytes": layout.written_bytes()}
 
 
 @dataclasses.dataclass
@@ -810,6 +1042,29 @@ def k2_cases(device, seed: int = 8) -> List[K2Case]:
     ragged_key = rng.integers(0, 8, ragged.cols[0].shape[0]).astype(np.int32)
     null_key = rng.integers(-2, 10, n)  # some outside [0, 8)
     every = rng.integers(0, 8, n).astype(np.int32)
+
+    def shifted(case, name, shift_bytes):
+        """The case's columns and masks copied to ``shift_bytes`` past a
+        16-byte boundary, which sends the kernel to its scalar loop."""
+        return dataclasses.replace(
+            case, name=name, cols=[_offset(c, shift_bytes) for c in case.cols],
+            valids=[None if v is None else _offset(v, shift_bytes)
+                    for v in case.valids],
+            selection=None if case.selection is None
+            else _offset(case.selection, shift_bytes))
+
+    # eight rows, most of which pass q6's leaves (rows 2 and 6 fail)
+    eight = [t(np.array(v, dt)) for v, dt in (
+        ([10, 20, 5, 23, 1, 30, 2, 3], np.float32),
+        ([1000, 2500.5, 333, 4096, 7, 1.25, 900, 12], np.float32),
+        ([0.06, 0.05, 0.08, 0.07, 0.06, 0.05, 0.06, 0.07], np.float32),
+        ([9000, 8766, 9100, 9130, 8800, 9000, 9131, 8999], np.int32))]
+
+    def short(rows):
+        return dataclasses.replace(main, name=f"rows_{rows}", cols=eight,
+                                   row_count=rows)
+
+    line64 = line.astype(np.int64)
     return [
         K2Case(dataclasses.replace(main, name="q6_batch_linenumber"),
                t(line), None, 1, 7, t(line - 1)),
@@ -822,7 +1077,26 @@ def k2_cases(device, seed: int = 8) -> List[K2Case]:
                t(np.full(n, 5, np.int32))),
         K2Case(dataclasses.replace(main, name="every_group"), t(every),
                None, 0, 8, t(every)),
-    ]
+        K2Case(shifted(main, "columns_key_at_4B", 4),
+               _offset(t(line), 4), None, 1, 7, _offset(t(line - 1), 4)),
+        K2Case(dataclasses.replace(main, name="int64_key"), t(line64),
+               None, 1, 7, None),
+        K2Case(dataclasses.replace(main, name="int64_key_at_8B"),
+               _offset(t(line64), 8), None, 1, 7, None),
+        K2Case(shifted(nulls, "masks_at_1B", 1), _offset(t(null_key), 1),
+               _offset(t(rng.random(n) > 0.03), 1), 0, 8, None),
+    ] + [K2Case(short(r), t(np.arange(8, dtype=np.int32) % 3), None, 0,
+                8, t(np.arange(8, dtype=np.int32) % 3)) for r in (1, 3, 5)]
+
+
+def _offset(x: torch.Tensor, shift_bytes: int) -> torch.Tensor:
+    """A copy of ``x`` that starts ``shift_bytes // element size``
+    elements into a fresh buffer: its data lies that many whole elements
+    past a 16-byte boundary (a 1-byte shift moves only 1-byte masks)."""
+    k = shift_bytes // x.element_size()
+    buf = torch.empty(x.shape[0] + k, dtype=x.dtype, device=x.device)
+    buf[k:].copy_(x)
+    return buf[k:]
 
 
 def _k2_engine(c: K2Case, plain: bool = False):
@@ -869,6 +1143,49 @@ def check_k2(device) -> List[Dict]:
         if not rec["rel_err"] <= CONTRACT_RTOL:
             raise AssertionError(f"K2 contract edition disagrees: {rec}")
         out.append(rec)
+    return out + _k2_repeats(device)
+
+
+def _k2_same(a, b) -> bool:
+    return all(_same_bits(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(a, b))
+
+
+def _k2_repeats(device) -> List[Dict]:
+    """Two launches on one input give the same bits; and launches on two
+    streams at once (each stream its own ticket counter) give each
+    stream's input the bits that one stream alone gives it."""
+    cases = k2_cases(device)
+    main, nulls = cases[0], cases[2]
+    first, second = _k2_engine(main), _k2_engine(main)
+    out = [{"case": "two_launches", "edition": "engine",
+            "rows": main.k1.row_count, "groups": main.groups,
+            "rel_err": 0.0 if _k2_same(first, second) else float("inf"),
+            "max_abs_err": (first[0] - second[0]).abs().max().item(),
+            "counts_equal": _k2_same(first[1:], second[1:]),
+            "outside": first[3].item(), "plain_outside": second[3].item()}]
+    want = (first, _k2_engine(nulls))
+    torch.cuda.synchronize(device)
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    got = ([], [])
+    for _ in range(16):
+        for k, (st, c) in enumerate(zip(streams, (main, nulls))):
+            with torch.cuda.stream(st):
+                got[k].append(_k2_engine(c))
+    torch.cuda.synchronize(device)
+    same = all(_k2_same(g, w) for k, w in enumerate(want) for g in got[k])
+    out.append({"case": "two_streams", "edition": "engine",
+                "rows": main.k1.row_count + nulls.k1.row_count,
+                "groups": main.groups, "rel_err": 0.0 if same
+                else float("inf"),
+                "max_abs_err": max((g[0] - w[0]).abs().max().item()
+                                   for k, w in enumerate(want)
+                                   for g in got[k]),
+                "counts_equal": same, "outside": 0, "plain_outside": 0})
+    for rec in out:
+        if not rec["counts_equal"] or rec["rel_err"] != 0.0:
+            raise AssertionError(f"K2 gives other bits on another run: "
+                                 f"{rec}")
     return out
 
 

@@ -25,6 +25,12 @@ through a dense -> row gather.
   version; a blob on a CUDA device launches ``csrc/parquet_decode.cu``
   once for every device column of the batch (``decode_batch.launches``
   counts those calls).
+- ``decode_tiles_torch`` runs the kernel's decomposition in plain torch:
+  tiles of ``TILE_ROWS`` rows, padding tiles, one 256-way search of the
+  run table a tile, windows of at most ``RUN_WINDOW`` run records, and
+  the staged span of packed words each window covers, read through its
+  offsets. It computes what ``decode_batch_torch`` computes, so the CPU
+  tests hold the kernel's tile walk to the reference.
 """
 from __future__ import annotations
 
@@ -41,11 +47,17 @@ if TYPE_CHECKING:  # the io package imports this module
     from ..io.parquet_plan import ChunkPlan
 
 __all__ = ["expand_runs_torch", "decode_chunk_torch", "BatchLayout",
-           "decode_batch", "decode_batch_torch", "SCAN_TILE"]
+           "decode_batch", "decode_batch_torch", "decode_tiles_torch",
+           "SCAN_TILE", "TILE_ROWS", "RUN_WINDOW"]
 
 _U32 = 0xFFFFFFFF
 _ALIGN = 16
 SCAN_TILE = 1024  # elements a block scans; the CUDA source's kScanThreads
+TILE_ROWS = 4096  # rows a decode block takes; kTileRows
+RUN_WINDOW = 128  # run records a window holds; kWindow
+_WORD_PAD = 8     # staged words beyond a tile of 32-bit values; kWordCap
+_NO_RUN = (1 << 63) - 1  # the start after the last run; kNoRun
+_THREADS = 256    # threads a decode block; kThreads
 
 # column descriptor and scan job, mirrors of K5Col and K5Job in the CUDA
 # source; every offset is in bytes from the start of the blob, -1 = none
@@ -264,9 +276,17 @@ class BatchLayout:
         return sum(arr.nbytes for _, arr in self._parts)
 
     def decoded_bytes(self) -> int:
-        """Bytes of decoded columns the device decode writes."""
+        """Bytes of decoded live rows (the scan's ``decodedBytes``)."""
         return int(sum(self.n_rows * d["out_bytes"]
                        + (self.n_rows if d["valid"] >= 0 else 0)
+                       for d in self.desc))
+
+    def written_bytes(self) -> int:
+        """Bytes the device decode writes: every device column up to the
+        capacity (padding rows must hold 0), and its validity where the
+        chunk has nulls."""
+        return int(sum(self.capacity * (d["out_bytes"]
+                                        + (1 if d["valid"] >= 0 else 0))
                        for d in self.desc))
 
     def fill(self, host: np.ndarray) -> None:
@@ -350,12 +370,289 @@ def decode_batch_torch(blob: torch.Tensor, layout: BatchLayout) -> None:
             _view(blob, int(d["valid"]), cap, torch.bool).copy_(valid)
 
 
+# --- the kernel's decomposition in plain torch ------------------------------
+
+def _first_run(starts: np.ndarray, lo: int) -> int:
+    """The tile's one search of the run table, as the block makes it:
+    256 probes a step narrow the count of starts at or before ``lo``.
+    Returns the run holding ``lo`` (run 0 where no run starts at or
+    before it)."""
+    a, b = 0, starts.shape[0]
+    probes = np.arange(1, _THREADS + 1, dtype=np.int64)
+    while a < b:
+        step = -(-(b - a) // _THREADS)
+        q = a + probes * step - 1
+        n = int(((q < b) & (starts[np.minimum(q, b - 1)] <= lo)).sum())
+        a, b = a + n * step, min(b, a + (n + 1) * step - 1)
+    return max(a - 1, 0)
+
+
+def _word0(bitpos: torch.Tensor, n_words: int) -> torch.Tensor:
+    """The first word the funnel shift reads, clamped as the reference's
+    gather clamps (a table of one word reads that word twice)."""
+    return (bitpos >> 5).clamp(0, max(n_words - 2, 0))
+
+
+class _Window:
+    """A block's window: the run records from ``wa`` that start at or
+    before ``hi`` (at most ``RUN_WINDOW``, at least one), the packed
+    words they cover over ``[lo, hi]``, staged as a slice where the span
+    fits ``word_cap`` words, and each run's 32-bit form: ``fast`` where
+    the caller needs only the low 32 bits of its values (``narrow``, or
+    dictionary indices) and its words are staged and need none of the
+    reference's clamps; ``c32`` the constant added to every value and
+    ``relz`` the staged bit of ``d = lo``."""
+
+    def __init__(self, tab: torch.Tensor, words: torch.Tensor, wa: int,
+                 first: bool, lo: int, hi: int, word_cap: int,
+                 narrow: bool):
+        rec = tab[wa:wa + RUN_WINDOW]
+        inside = rec[:, 0] <= hi
+        inside[0] = True
+        wn = int(inside.sum())
+        self.wa, self.wn, self.lo = wa, wn, lo
+        self.start, self.meta = rec[:wn, 0].contiguous(), rec[:wn, 1]
+        self.raw, self.bit = rec[:wn, 2], rec[:wn, 3]
+        self.next = int(tab[wa + wn, 0]) if wa + wn < tab.shape[0] \
+            else _NO_RUN
+        n_words = words.shape[0]
+        nxt = torch.tensor([self.next], dtype=torch.int64)
+        ends = torch.cat([self.start[1:], nxt])
+        first_d = self.start.clamp(min=lo)
+        if first:
+            first_d[0] = lo
+        last_d = torch.minimum(ends - 1, torch.tensor(hi))
+        meta, width = self.meta, self.meta & 0xFF
+        rle, ident = ((meta >> 8) & 1) == 1, ((meta >> 10) & 1) == 1
+        packed = ~rle & ~ident & (width > 0)
+        uses = packed & (first_d <= last_d)
+        b0 = self.bit + (first_d - self.start) * width
+        b1 = self.bit + (last_d - self.start) * width
+        unclamped = ~uses | ((b0 >= 0) & ((b1 >> 5) <= n_words - 2))
+        self.staged = False
+        self.wbase = 0
+        self.words = words
+        if bool(uses.any()):
+            w_lo = _word0(b0, n_words)[uses].min().item() & ~3
+            w_hi = (_word0(b1, n_words) + torch.where(width >= 64, 2, 1)) \
+                .clamp(max=n_words - 1)[uses].max().item()
+            if w_hi - w_lo < word_cap:
+                self.staged, self.wbase = True, w_lo
+                self.words = words[w_lo:w_hi + 1].clone()
+        is_dict = ((meta >> 9) & 1) == 1
+        delta = ((meta >> 11) & 1) == 1
+        self.fast = (is_dict | narrow) & ~delta & (~packed | (
+            (width <= 32) & unclamped & self.staged))
+        base = (meta >> 16) & _U32
+        self.c32 = torch.where(rle, self.raw + base, torch.where(
+            ident, self.raw - self.start + lo + base, base)) & _U32
+        self.relz = self.bit + (lo - self.start) * width - 32 * self.wbase
+
+    def _read(self, idx: torch.Tensor, need: torch.Tensor) -> torch.Tensor:
+        """Words ``idx`` where ``need``, through the staged slice's
+        offsets; a read outside the slice is a fault of the span."""
+        at = idx - self.wbase
+        bad = need & ((at < 0) | (at >= self.words.shape[0]))
+        if bool(bad.any()):
+            raise AssertionError("a word outside the staged span")
+        return torch.where(need, self.words[at.clamp(
+            0, self.words.shape[0] - 1)], torch.zeros_like(at))
+
+    def expand(self, d: torch.Tensor, n_words: int):
+        """``_expand`` at dense positions ``d`` that this window holds:
+        ``(bits, is_dict, run_start, fast)``; a fast row's bits are the
+        32-bit form's (the low 32 bits of the reference's)."""
+        j = (torch.searchsorted(self.start, d, right=True) - 1).clamp(min=0)
+        meta = self.meta[j]
+        width = meta & 0xFF
+        is_rle = ((meta >> 8) & 1) == 1
+        is_ident = ((meta >> 10) & 1) == 1
+        fast = self.fast[j]
+        off = d - self.start[j]
+        bitpos = self.bit[j] + off * width
+        need = ~is_rle & ~is_ident & (width > 0)
+        slow = need & ~fast
+        i0 = _word0(bitpos, n_words)
+        w0 = self._read(i0, slow)
+        w1 = self._read((i0 + 1).clamp(max=n_words - 1), slow)
+        w2 = self._read((i0 + 2).clamp(max=n_words - 1), slow & (width >= 64))
+        sh = bitpos & 31
+        # __funnelshift_r(w0, w1, sh) for widths up to 32, else the
+        # 64-bit window (and the word pair at 64)
+        funnel = ((w0 >> sh) | (w1 << (32 - sh))) & _U32
+        window = (w1 << 32) | w0
+        bits = torch.where(width <= 32, funnel, window >> sh) \
+            & _mask_bits(width)
+        bits = torch.where(width >= 64, torch.where(
+            sh == 0, window, (w2 << 32) | w1), bits)
+        bits = torch.where(need, bits, torch.zeros_like(bits))
+        raw = self.raw[j]
+        bits = torch.where(is_rle, raw, bits)
+        bits = torch.where(is_ident, raw + off, bits)
+        bits = torch.where(((meta >> 11) & 1) == 1, bits + raw, bits)
+        bits = bits + (meta >> 16)
+        # the 32-bit form: the run's constant, plus the offset (identity)
+        # or one funnel shift of two staged words at a 32-bit bit offset
+        dl = d - self.lo
+        r = self.relz[j] + dl * width
+        packed = need & fast
+        f0 = self._read((r >> 5) + self.wbase, packed)
+        f1 = self._read((r >> 5) + 1 + self.wbase, packed)
+        sh32 = r & 31
+        fun32 = ((f0 >> sh32) | (f1 << (32 - sh32))) & _U32 & _mask_bits(width)
+        v32 = self.c32[j] + torch.where(is_ident, dl, torch.zeros_like(dl)) \
+            + torch.where(packed, fun32, torch.zeros_like(fun32))
+        bits = torch.where(fast, v32 & _U32, bits)
+        return bits, ((meta >> 9) & 1) == 1, is_rle & (off == 0), fast
+
+
+def _expand_tile(tab: torch.Tensor, words: torch.Tensor, d: torch.Tensor,
+                 lo: int, hi: int, word_cap: int, narrow: bool,
+                 stats: Dict[str, int]):
+    """One tile's expansion at increasing dense positions ``d`` in
+    ``[lo, hi]``: the search, then window after window until every
+    position is decoded."""
+    stats["searches"] += 1
+    wa, first = _first_run(tab[:, 0].numpy(), lo), True
+    bits = torch.zeros_like(d)
+    is_dict = torch.zeros(d.shape, dtype=torch.bool)
+    run_start = torch.zeros(d.shape, dtype=torch.bool)
+    pending = torch.ones(d.shape, dtype=torch.bool)
+    while True:
+        w = _Window(tab, words, wa, first, lo, hi, word_cap, narrow)
+        stats["windows"] += 1
+        stats["staged" if w.staged else "unstaged"] += 1
+        take = pending & (d < w.next)
+        b, k, r, fast = w.expand(d[take], words.shape[0])
+        bits[take], is_dict[take], run_start[take] = b, k, r
+        stats["fast_rows"] += int(fast.sum())
+        stats["rows"] += int(take.sum())
+        pending &= ~take
+        if not bool(pending.any()):
+            return bits, is_dict, run_start
+        wa, first = wa + w.wn, False
+
+
+def _expand_tiles(tab, words, n: int, tile_rows: int, word_cap: int,
+                  narrow: bool, stats) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``k5_scan_fill``: the table expanded at 0..n-1, a tile at a time:
+    ``(bits, run_start)``."""
+    bits = torch.zeros(n, dtype=torch.int64)
+    run_start = torch.zeros(n, dtype=torch.bool)
+    for t0 in range(0, n, tile_rows):
+        t1 = min(t0 + tile_rows, n)
+        d = torch.arange(t0, t1, dtype=torch.int64)
+        b, _, r = _expand_tile(tab, words, d, t0, t1 - 1, word_cap, narrow,
+                               stats)
+        bits[t0:t1], run_start[t0:t1] = b, r
+    return bits, run_start
+
+
+def _segmented_sum(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """The inclusive scan restarted at every flagged element (uint64
+    wrapping, as int64 bits)."""
+    csum = torch.cumsum(vals, 0)
+    pos = torch.arange(vals.shape[0])
+    seg = torch.cummax(torch.where(flags, pos, torch.full_like(pos, -1)),
+                       0).values
+    before = csum[(seg - 1).clamp(min=0)]
+    return csum - torch.where(seg > 0, before, torch.zeros_like(before))
+
+
+def decode_tiles_torch(blob: torch.Tensor, layout: BatchLayout,
+                       tile_rows: int = TILE_ROWS) -> Dict[str, int]:
+    """K5's decomposition in plain torch, on a blob on the CPU: each
+    device column decoded tile by tile into its slot, as the kernel
+    walks it (see the CUDA source's header). Returns counts of the walk:
+    tiles, padding tiles, searches, windows, windows whose words were
+    staged or not (read from the table, or none needed), and expanded
+    rows, all and in the 32-bit form."""
+    stats = dict.fromkeys(("tiles", "padding_tiles", "searches", "windows",
+                           "staged", "unstaged", "rows", "fast_rows"), 0)
+    cap = layout.capacity
+    word_cap = tile_rows + _WORD_PAD
+    for name, d in zip(layout.device_names, layout.desc):
+        plan = layout.plans[name]
+        lane = torch.from_numpy(np.empty(0, plan.lane)).dtype
+        n_rows = int(d["n_rows"])
+
+        def words(key):
+            return _view(blob, int(d[key]), int(d["n_" + key]),
+                         torch.int32).to(torch.int64) & _U32
+
+        def table(key):
+            return _view(blob, int(d[key]), 4 * int(d["n_" + key]),
+                         torch.int64).reshape(-1, 4)
+
+        if lane == torch.bool:
+            dict_arr = torch.zeros(1, dtype=torch.bool)
+        else:
+            dict_arr = _view(blob, int(d["dict"]), int(d["n_dict"]), lane)
+        tab, vwords = table("runs"), words("words")
+        dense = deltas = None
+        if plan.has_nulls:  # scan job 0: valid rows through each row
+            bits, _ = _expand_tiles(table("def_runs"), words("def_words"),
+                                    n_rows, tile_rows, word_cap, True, stats)
+            dense = torch.cumsum(bits & 1, 0)
+        if plan.is_delta and plan.n_valid:  # scan job 1
+            bits, starts = _expand_tiles(tab, vwords, plan.n_valid,
+                                         tile_rows, word_cap, False, stats)
+            deltas = _segmented_sum(bits, starts)
+        out_t = torch_dtype(layout.schema[name].dtype)
+        out = _view(blob, int(d["out"]), cap, out_t)
+        vout = _view(blob, int(d["valid"]), cap, torch.bool) \
+            if d["valid"] >= 0 else None
+        for t0 in range(0, cap, tile_rows):
+            t1 = min(t0 + tile_rows, cap)
+            stats["tiles"] += 1
+            out[t0:t1] = 0
+            if vout is not None:
+                vout[t0:t1] = False
+            if t0 >= n_rows:
+                stats["padding_tiles"] += 1
+                continue
+            live = torch.arange(t0, min(t1, n_rows), dtype=torch.int64)
+            if dense is None:
+                valid = torch.ones(live.shape, dtype=torch.bool)
+                dpos, lo, hi = live, t0, int(live[-1])
+            else:
+                prev = torch.cat([dense[:1] * 0, dense])[live]
+                valid = dense[live] != prev
+                dpos = dense[live] - 1
+                lo = int(prev[0])
+                hi = int(dense[live[-1]]) - 1
+            dpos = dpos[valid]
+            if deltas is not None:
+                bits = deltas[dpos]
+                is_dict = torch.zeros(dpos.shape, dtype=torch.bool)
+            elif hi >= lo and tab.shape[0]:
+                bits, is_dict, _ = _expand_tile(
+                    tab, vwords, dpos, lo, hi, word_cap,
+                    np.dtype(plan.lane).itemsize <= 4, stats)
+            else:
+                bits = torch.zeros_like(dpos)
+                is_dict = torch.zeros(dpos.shape, dtype=torch.bool)
+            if lane == torch.bool:
+                vals = (bits & 1) != 0
+            elif dict_arr.element_size() == 8:
+                vals = bits.view(lane)
+            else:
+                vals = _low32(bits).view(lane)
+            k = _low32(bits).to(torch.int64).clamp(0, dict_arr.shape[0] - 1)
+            vals = torch.where(is_dict, dict_arr[k], vals)
+            rows = live[valid]
+            out[rows] = vals.to(out_t)
+            if vout is not None:
+                vout[rows] = True
+    return stats
+
+
 def _library():
     from ._build import load
     lib = load("parquet_decode")
     if not getattr(lib, "_spark_ready", False):
         for fn in (lib.spark_k5_col_size, lib.spark_k5_job_size,
-                   lib.spark_k5_scan_tile):
+                   lib.spark_k5_scan_tile, lib.spark_k5_tile_rows):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         lib.spark_k5_decode.argtypes = [
@@ -363,12 +660,14 @@ def _library():
             ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         lib.spark_k5_decode.restype = ctypes.c_int
         if (lib.spark_k5_col_size(), lib.spark_k5_job_size(),
-                lib.spark_k5_scan_tile()) != (_COL.itemsize, _JOB.itemsize,
-                                              SCAN_TILE):
+                lib.spark_k5_scan_tile(), lib.spark_k5_tile_rows()) != (
+                    _COL.itemsize, _JOB.itemsize, SCAN_TILE, TILE_ROWS):
             raise RuntimeError(
-                "K5Col/K5Job in the CUDA source do not match the layout: "
-                f"{lib.spark_k5_col_size()}/{lib.spark_k5_job_size()} "
-                f"bytes against {_COL.itemsize}/{_JOB.itemsize}")
+                "K5Col/K5Job or the tiles in the CUDA source do not match "
+                f"the layout: {lib.spark_k5_col_size()}/"
+                f"{lib.spark_k5_job_size()} bytes, tiles of "
+                f"{lib.spark_k5_tile_rows()} rows against {_COL.itemsize}/"
+                f"{_JOB.itemsize}, {TILE_ROWS}")
         lib._spark_ready = True
     return lib
 
@@ -386,8 +685,9 @@ def decode_batch(blob: torch.Tensor, layout: BatchLayout) \
         if blob.device.type == "cpu":
             decode_batch_torch(blob, layout)
         elif blob.device.type == "cuda":
-            if blob.data_ptr() % _ALIGN:
-                raise ValueError("the blob must be 16-byte aligned")
+            if blob.data_ptr() % _ALIGN or layout.capacity % 4:
+                raise ValueError("the blob must be 16-byte aligned and the "
+                                 "capacity a multiple of 4")
             lib = _library()
             stream = torch.cuda.current_stream(blob.device).cuda_stream
             err = lib.spark_k5_decode(

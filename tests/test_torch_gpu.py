@@ -91,6 +91,9 @@ def test_k5_matches_plain_version(cuda_device):
     recs = kc.check_k5(cuda_device)
     assert all(r["data_equal"] and r["validity_equal"] for r in recs)
     assert any(r["scan_jobs"] for r in recs)
+    # the Parquet shapes and the hand-made tile walks ran too
+    assert {"shapes", "rle_runs_of_one", "widths", "nulls",
+            "delta_identity"} <= {r["case"] for r in recs}
 
 
 def test_k2_editions_match_plain_versions(cuda_device):
@@ -98,6 +101,10 @@ def test_k2_editions_match_plain_versions(cuda_device):
     recs = kc.check_k2(cuda_device)
     assert {r["edition"] for r in recs} == {"engine", "contract"}
     assert all(r["counts_equal"] for r in recs if r["edition"] == "engine")
+    # the scalar loop, int64 keys, a few rows, and the same bits again
+    assert {"columns_key_at_4B", "int64_key_at_8B", "masks_at_1B",
+            "rows_1", "rows_3", "rows_5", "two_launches",
+            "two_streams"} <= {r["case"] for r in recs}
 
 
 def _device_decode_query(cuda_device, tmp_path, grouped):
