@@ -10,8 +10,15 @@ Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build every CUDA source under spark_rapids_tpu_torch/csrc/ with nvcc
      (one process per source, in parallel) into build/kernels/;
-  3. each kernel against its plain PyTorch version on the card: K1 at the
-     q6 batch shape, at a ragged length, and with nulls and NaN; K3
+  3. each kernel against its plain PyTorch version on the card: K1's two
+     editions at the q6 batch shape, at a ragged length, with nulls and
+     NaN, with columns and masks off alignment, at 0, 1, 3 and 5 rows, at
+     a block's and a full grid round's rows +- 1, at 2^23 rows, with int32
+     columns in other slots, twice on one input and on two streams at
+     once (the same bits), and every op against bounds on and off the
+     float32 and int32 grids over columns of each bound's neighbours;
+     both editions timed, and the engine edition timed from 0 to 2^23
+     rows beside a one-cycle kernel; K3
      (the radix sort) on random keys at the join + group-by path's sort
      shapes (2^17, 2^21, 2^23 pairs), on the path's own key words, at a
      ragged length, on all-equal, sorted, reverse and duplicated keys,
@@ -55,7 +62,9 @@ Phases, any failure exits non-zero before the result line:
      7 revenues against a numpy oracle (rel 1e-9), 8 K5 and 8 K2
      launches, no K1, the final's one K3 sort and two K4 gathers, the
      scan's counters (deviceChunks 40, fallbackChunks 0), rows/s and
-     opTime.
+     opTime;
+  8. K1's kernels a call, counted in a profiler trace of one call (1),
+     after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}. The script imports neither jax nor the
 JAX package.
@@ -123,24 +132,40 @@ def phase_kernels(device):
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     recs = kc.check_k1(device)
     for rec in recs:
-        log(f"[k1] {rec['edition']:8s} {rec['case']:9s} sum={rec['sum']!r} "
+        log(f"[k1] {rec['edition']:8s} {rec['case']:18s} "
+            f"rows={rec['rows']} sum={rec['sum']!r} "
             f"plain={rec['plain_sum']!r} rel_err={rec['rel_err']:.3e} "
             f"count={rec['count']} plain_count={rec['plain_count']}")
     times = kc.time_k1(device)
-    case = kc.k1_cases(device)[0]
+    log(f"[k1] geometry {kc.k1_geometry(device)}")
+    sweep = kc.time_k1_sweep(device)
+    log(f"[k1] engine edition by live rows (ms): {sweep['ms_by_rows']}; "
+        f"a one-cycle kernel: {sweep['empty_launch_ms']:.6f} ms")
+    case = kc.k1_base_cases(device)[0]
     ops = case.row_count * (len(case.spec.leaves) + 2)
     for edition, t in times.items():
-        bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
-        t["bound_ms"] = max(bytes_ms, ops_ms)
-        t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], ops)
         t["max_abs_err"] = max(abs(r["sum"] - r["plain_sum"])
                                for r in recs if r["edition"] == edition)
+        t.update(sweep)
         log(f"[k1] {edition} edition at {case.row_count} live rows of "
-            f"{kc.MAIN_CAPACITY}: kernel {t['ms']:.6f} ms, plain "
-            f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']}, {t['bytes']} B)")
+            f"{kc.MAIN_CAPACITY}: kernel {t['ms']:.6f} ms, "
+            f"plain {t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}, {t['bytes']} B; "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it)")
     return times
+
+
+def phase_k1_kernels_per_call(device):
+    """K1's kernels a call, from a profiler trace of one call. It runs
+    after the timed phases: a trace leaves the profiler's hooks in the
+    process, which slows every later launch."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    per_call = kc.k1_kernels_per_call(device)
+    log(f"[k1] kernels a call (profiler, main batch): {per_call}")
+    if per_call != 1:
+        raise AssertionError(f"K1 launches {per_call} kernels a call, not 1")
+    return per_call
 
 
 def phase_decode_group(device):
@@ -452,6 +477,7 @@ def main():
     join_launches = phase_join(device)
     dd_launches = phase_q6_device_decode(device, paths)
     ln_launches = phase_q6_by_linenumber(device)
+    per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]
@@ -459,8 +485,9 @@ def main():
         raise AssertionError(f"the smoke test loaded {loaded}")
     e, c = times["engine"], times["contract"]
     log(f"[k1-contract] masked_product_sum: ms={c['ms']!r} "
-        f"plain_ms={c['plain_ms']!r} bound_ms={c['bound_ms']!r} "
-        f"max_abs_err={c['max_abs_err']!r}; not on the main path")
+        f"plain_ms={c['plain_ms']!r} "
+        f"bound_ms={c['bound_ms']!r} max_abs_err={c['max_abs_err']!r}; "
+        f"not on the main path")
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     log(json.dumps({"kernels": [{
@@ -470,6 +497,10 @@ def main():
         "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None,
+        "kernels_per_call": per_call, "form": "(a) registers",
+        "bound_share": e["bound_ms"] / e["ms"],
+        "ms_by_rows": e["ms_by_rows"],
+        "empty_launch_ms": e["empty_launch_ms"],
         "launches_q6_device_decode": dd_launches["filter_product_sum"]}, {
         "name": "radix_sort (engine edition, sort_pairs)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,

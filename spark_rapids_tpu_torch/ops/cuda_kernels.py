@@ -4,7 +4,8 @@ K1 on the H100: the q6 filter -> product -> sum chain as one CUDA kernel.
 Counterpart of ``spark_rapids_tpu/ops/pallas_kernels.py:33-84``
 (``masked_product_sum_xla`` and ``masked_product_sum_pallas``). The
 kernel is ``csrc/masked_product_sum.cu``; its source note gives its
-bound and design. Two editions of one template:
+bound (the bytes it reads: 12.0 MB, 3.6 us at 3.35 TB/s, at a q6 batch)
+and design. Two editions of one template:
 
 - ``filter_product_sum`` (engine edition): up to four float32/int32/date
   columns with optional validity, ``row_count`` and an optional selection
@@ -15,6 +16,12 @@ bound and design. Two editions of one template:
 - ``masked_product_sum`` (K1-contract edition): q6's constants, IEEE
   comparisons and a float32 sum, exactly ``masked_product_sum_xla``, for
   any ``n``. It returns the sum and the count.
+
+Each K1 call is one launch over a grid sized to the card that requests
+every byte of the batch before it filters any: each thread issues its
+16-byte loads at once. As K2 does, the last block to finish sums the
+blocks' partials, counted with a ticket kept with the partials in one
+workspace per (device, stream).
 
 K3, ``csrc/radix_sort.cu``, replaces ``sort_pallas`` (``:156``), as an
 LSD radix sort that skips every 8-bit digit in which all keys agree:
@@ -51,9 +58,7 @@ K2, ``csrc/fused_filter_agg.cu``, replaces ``fused_filter_agg_pallas``
   q6's constants, IEEE comparisons and float32 sums over the keys 0..7,
   for any length.
 
-Each K2 call is one launch: the last block to finish sums the blocks'
-partials, counted with a ticket that the wrapper keeps, with the
-partials, in one workspace per (device, stream).
+Each K2 call is one launch, finished as K1's is.
 
 Each wrapper takes its plain PyTorch version (the ``*_torch`` functions)
 only for tensors on the CPU; a CUDA tensor gets the kernel or an
@@ -85,8 +90,6 @@ MAX_SLOTS = 4
 MAX_LEAVES = 8
 OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "=": 4}
 _COL_TYPES = {torch.float32: 0, torch.int32: 1}
-_THREADS = 256
-_ROWS_PER_THREAD = 4
 _ENGINE, _CONTRACT = 0, 1
 
 
@@ -182,7 +185,7 @@ class _Args(ctypes.Structure):
                 ("n_leaves", ctypes.c_int32),
                 ("a_slot", ctypes.c_int32),
                 ("b_slot", ctypes.c_int32),
-                ("pad_", ctypes.c_int32),
+                ("aligned", ctypes.c_int32),
                 ("leaf", _Leaf * MAX_LEAVES)]
 
 
@@ -190,13 +193,14 @@ def _library():
     from ._build import load
     lib = load("masked_product_sum")
     if not getattr(lib, "_spark_ready", False):
-        lib.spark_fps_args_size.argtypes = []
-        lib.spark_fps_args_size.restype = ctypes.c_int
-        lib.spark_fps_max_blocks.argtypes = []
-        lib.spark_fps_max_blocks.restype = ctypes.c_int
-        lib.spark_fps_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        for fn in (lib.spark_fps_args_size, lib.spark_fps_max_blocks,
+                   lib.spark_fps_block_rows, lib.spark_fps_ahead):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        lib.spark_fps_grid.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        lib.spark_fps_grid.restype = ctypes.c_int
+        lib.spark_fps_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] \
+            + [ctypes.c_void_p] * 6
         lib.spark_fps_launch.restype = ctypes.c_int
         if lib.spark_fps_args_size() != ctypes.sizeof(_Args):
             raise RuntimeError(
@@ -204,6 +208,25 @@ def _library():
                 f"source but {ctypes.sizeof(_Args)} in ctypes")
         lib._spark_ready = True
     return lib
+
+
+_workspaces = {}
+
+
+def _stream_workspace(kind: str, device: torch.device, stream,
+                      make) -> Tuple:
+    """The workspace of one kernel (``kind``) on ``stream`` of ``device``,
+    made once by ``make()`` on that stream: block partials and a ticket
+    counter, made zero and reset to 0 by each launch's last block.
+    Launches on one stream run in order; two streams never share a
+    counter."""
+    key = (kind, device.index, stream.cuda_stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        with torch.cuda.stream(stream):
+            ws = make()
+        _workspaces[key] = ws
+    return ws
 
 
 def _check_inputs(cols, valids, selection, row_count, spec, device):
@@ -241,6 +264,15 @@ def _check_inputs(cols, valids, selection, row_count, spec, device):
             raise ValueError(f"bad leaf {leaf}")
 
 
+def _aligned(cols, masks) -> int:
+    """1 where every column lies at 16 bytes and every mask at 4: the
+    kernel's 16-byte and 4-byte loads; other inputs take its scalar
+    loop."""
+    return int(all(t.data_ptr() % 16 == 0 for t in cols)
+               and all(t.data_ptr() % 4 == 0 for t in masks
+                       if t is not None))
+
+
 def _launch(edition: int, cols, valids, selection, row_count: int,
             spec: FilterProductSum, acc: torch.dtype):
     lib = _library()
@@ -257,18 +289,19 @@ def _launch(edition: int, cols, valids, selection, row_count: int,
     args.a_slot, args.b_slot = spec.a_slot, spec.b_slot
     for j, leaf in enumerate(spec.leaves):
         args.leaf[j] = _Leaf(float(leaf.bound), leaf.slot, OPS[leaf.op])
-    per_block = _THREADS * _ROWS_PER_THREAD
-    blocks = max(1, min(lib.spark_fps_max_blocks(),
-                        -(-row_count // per_block)))
-    part_sum = torch.empty(blocks, dtype=acc, device=device)
-    part_cnt = torch.empty(blocks, dtype=torch.int64, device=device)
+    args.aligned = _aligned(cols, list(valids) + [selection])
+    stream = torch.cuda.current_stream(device)
+    blocks = lib.spark_fps_max_blocks()
+    work = _stream_workspace("k1", device, stream, lambda: (
+        torch.empty(blocks, dtype=torch.float64, device=device),
+        torch.empty(blocks, dtype=torch.int64, device=device),
+        torch.zeros(1, dtype=torch.int32, device=device)))
+    # the engine keeps the outputs as the batch's partial buffer
     out_sum = torch.empty((), dtype=acc, device=device)
     out_cnt = torch.empty((), dtype=torch.int64, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.spark_fps_launch(
-        ctypes.addressof(args), edition, part_sum.data_ptr(),
-        part_cnt.data_ptr(), blocks, out_sum.data_ptr(),
-        out_cnt.data_ptr(), stream)
+        ctypes.addressof(args), edition, *[t.data_ptr() for t in work], out_sum.data_ptr(),
+        out_cnt.data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_product_sum kernel launch failed: "
                            f"cudaError {err}")
@@ -818,26 +851,6 @@ def _ffa_library():
 
 
 _FFA_COUNTS = 2 * _GROUP_SLOTS + 1  # non-null, rows, outside
-_ffa_workspaces = {}
-
-
-def _ffa_workspace(lib, device: torch.device, stream) -> Tuple:
-    """The partials and the ticket counter of ``stream`` on ``device``,
-    made once (the counter zeroed) and reset to 0 by each launch's last
-    block. Launches on one stream run in order; two streams never share
-    a counter."""
-    key = (device.index, stream.cuda_stream)
-    ws = _ffa_workspaces.get(key)
-    if ws is None:
-        blocks = lib.spark_ffa_max_blocks()
-        with torch.cuda.stream(stream):
-            ws = (torch.empty(blocks * _GROUP_SLOTS, dtype=torch.float64,
-                              device=device),
-                  torch.empty(blocks * _FFA_COUNTS, dtype=torch.int64,
-                              device=device),
-                  torch.zeros(1, dtype=torch.int32, device=device))
-        _ffa_workspaces[key] = ws
-    return ws
 
 
 def _check_key(key, key_valid, n, groups, device):
@@ -892,7 +905,12 @@ def _ffa_launch(edition: int, cols, valids, selection, row_count: int,
     outs = (empty(_GROUP_SLOTS, acc), empty(_GROUP_SLOTS, torch.int64),
             empty(_GROUP_SLOTS, torch.int64), empty((), torch.int64))
     stream = torch.cuda.current_stream(device)
-    work = _ffa_workspace(lib, device, stream)
+    blocks = lib.spark_ffa_max_blocks()
+    work = _stream_workspace("k2", device, stream, lambda: (
+        torch.empty(blocks * _GROUP_SLOTS, dtype=torch.float64,
+                    device=device),
+        torch.empty(blocks * _FFA_COUNTS, dtype=torch.int64, device=device),
+        torch.zeros(1, dtype=torch.int32, device=device)))
     err = lib.spark_ffa_launch(
         ctypes.addressof(args), edition, *[t.data_ptr() for t in work],
         *[t.data_ptr() for t in outs], stream.cuda_stream)

@@ -1,12 +1,29 @@
 """Each kernel against its plain PyTorch version, on the card.
 
-K1's two editions run on inputs made with numpy from a seed, at the q6
-main path's batch shape (capacity ``1 << 20``, 750,152 live rows: SF1's
-6,001,215 rows over 8 files), at a ragged length, and with nulls, a
-selection and NaNs. ``check_k1`` holds each result to the stated
-tolerance and raises on the first disagreement; ``chip_smoke.py`` and the
-``gpu``-marked test call it, and ``time_k1`` times both editions with
-CUDA events.
+K1's two editions run on inputs made with numpy from a seed: at
+the q6 main path's batch shape (capacity ``1 << 20``, 750,152 live rows:
+SF1's 6,001,215 rows over 8 files), at a ragged length, with nulls, a
+selection and NaNs, with columns 1, 2 and 3 elements off 16-byte
+alignment and masks and a selection 1, 2, 3 and 4 bytes off it (the
+scalar loop), at 0, 1, 3 and 5 live rows, at a block's rows and a full
+round of the card's grid, each +- 1, at 2^23 rows (more groups than
+the grid's threads x groups a thread), with int32 columns in other slots
+than the ship date's, with bounds off the float32 and int32 grids, an
+`=` leaf and infinite and NaN bounds; and twice on one input and on two
+streams at once, which must give the same bits. ``check_k1_bounds``
+sweeps the kernel's folding of a column's leaves into one interval
+(``filter_leaves.cuh``): every op against bounds on and off the float32
+and int32 grids, past FLT_MAX and the int32 range, +-0, +-inf and NaN,
+alone and in pairs on one column, in both editions and both alignments,
+over columns holding each bound's float32 or integer neighbours (+-1
+and +-2 steps), +-0, +-inf, NaN, FLT_MAX, the denormals and the int32
+ends, each count equal to the plain version's. ``check_k1`` holds each
+result to the stated tolerance and raises on the first disagreement;
+``chip_smoke.py`` and the ``gpu``-marked test call it, ``time_k1`` times
+both editions with CUDA events, ``time_k1_sweep`` times
+the engine edition from 0 to 2^23 rows beside an empty launch (the fixed
+cost and the stream rate), and ``k1_kernels_per_call`` counts the
+kernels one call launches in a profiler trace.
 
 K3 (``check_k3``/``time_k3``) runs on random 64-bit keys at the join +
 group-by path's sort shapes (2^17 pairs for the build presort, 2^21 for
@@ -57,9 +74,10 @@ order: rel 1e-9, counts equal; its contract edition sums float32: rel
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,7 +86,11 @@ from ..io.parquet_plan import _META_DELTA, _META_DICT, _META_IDENT, \
     _META_RLE
 from . import cuda_kernels as ck
 
-__all__ = ["K1Case", "k1_cases", "check_k1", "time_k1", "ENGINE_RTOL",
+__all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
+           "k1_bound_specs", "k1_bound_columns", "check_k1_bounds",
+           "time_k1",
+           "time_k1_sweep", "K1_SWEEP_ROWS", "k1_geometry",
+           "k1_kernels_per_call", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
            "path_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
@@ -91,13 +113,16 @@ _NAN_SPEC = ck.FilterProductSum(
 @dataclasses.dataclass
 class K1Case:
     """Inputs for both editions: columns (quantity, price, discount,
-    shipdate), masks, live rows, and the engine edition's spec."""
+    shipdate, or another order with its spec), masks, live rows, the
+    engine edition's spec, and whether the contract edition (fixed q6
+    slots and types) runs on the live prefix."""
     name: str
     cols: List[torch.Tensor]
     valids: List[Optional[torch.Tensor]]
     selection: Optional[torch.Tensor]
     row_count: int
     spec: ck.FilterProductSum
+    contract: bool = True
 
     def bytes_read(self) -> int:
         """Bytes the engine edition must read: each used column, mask
@@ -116,13 +141,43 @@ def _columns(rng, n: int) -> List[np.ndarray]:
     return [qty, price, disc, ship]
 
 
-def k1_cases(device, seed: int = 0) -> List[K1Case]:
-    rng = np.random.default_rng(seed)
-    dev = torch.device(device)
+# q6's leaves over (ship date, price, discount, quantity): int32 columns in
+# slots 0 and 3, the quantity's leaf on an int32 column
+_INT_SLOTS_SPEC = ck.FilterProductSum(
+    leaves=(ck.Leaf(0, ">=", 8766), ck.Leaf(0, "<", 9131),
+            ck.Leaf(2, ">=", float(np.float32(0.05))),
+            ck.Leaf(2, "<=", float(np.float32(0.07))),
+            ck.Leaf(3, "<", 24)),
+    a_slot=1, b_slot=2)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+_OFF_GRID_SPEC = ck.FilterProductSum(
+    leaves=(ck.Leaf(3, ">", 8765.5), ck.Leaf(3, "<=", 9130.7),
+            ck.Leaf(2, ">=", 0.05), ck.Leaf(2, "<", 0.0700000001),
+            ck.Leaf(0, "<=", 23.5)),
+    a_slot=1, b_slot=2)
+_EQUAL_SPEC = ck.FilterProductSum(
+    leaves=(ck.Leaf(0, "=", 10.0), ck.Leaf(3, ">=", float("-inf")),
+            ck.Leaf(2, "<=", float("inf")), ck.Leaf(1, "<", float("nan"))),
+    a_slot=1, b_slot=2)
+
+
+def k1_geometry(device) -> Dict[str, int]:
+    """A block's rows in the grid's size, the blocks of a launch at the
+    main batch on ``device``, and the rows the whole grid asks for at
+    once (blocks x block rows x groups a thread)."""
+    lib = ck._library()
+    with torch.cuda.device(device):
+        block = lib.spark_fps_block_rows()
+        blocks = lib.spark_fps_grid(0, MAIN_ROWS)
+        if blocks < 0:
+            raise RuntimeError(f"K1 grid query failed: cudaError "
+                               f"{-blocks}")
+        return {"block_rows": block, "blocks": blocks,
+                "round_rows": blocks * block * lib.spark_fps_ahead()}
+
+
+def _k1_base(rng, t) -> List[K1Case]:
     main = _columns(rng, MAIN_CAPACITY)
     ragged_n = 1_000_003
     ragged = _columns(rng, ragged_n)
@@ -142,6 +197,83 @@ def k1_cases(device, seed: int = 0) -> List[K1Case]:
     ]
 
 
+def _to(device):
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return t
+
+
+def k1_base_cases(device, seed: int = 0) -> List[K1Case]:
+    """The main batch, a ragged length, and nulls, a selection and NaN
+    (K2's cases build on these three)."""
+    return _k1_base(np.random.default_rng(seed), _to(device))
+
+
+def k1_cases(device, seed: int = 0,
+             edge_rows: Sequence[int] = ()) -> List[K1Case]:
+    """``k1_base_cases``, then the alignments, short batches, the
+    ``edge_rows`` lengths (with masks), bounds off the grids, 2^23 rows
+    and int32 columns in other slots."""
+    rng = np.random.default_rng(seed)
+    t = _to(device)
+    cases = _k1_base(rng, t)
+    main_case, nulls_case = cases[0], cases[2]
+    # off alignment: the columns by 1-3 elements, the masks by 1-4 bytes
+    for k in (1, 2, 3):
+        cases.append(dataclasses.replace(
+            main_case, name=f"columns_at_{4 * k}B",
+            cols=[_offset(c, 4 * k) for c in main_case.cols]))
+    for b in (1, 2, 3, 4):
+        cases.append(dataclasses.replace(
+            nulls_case, name=f"masks_at_{b}B",
+            valids=[None if v is None else _offset(v, b)
+                    for v in nulls_case.valids],
+            selection=_offset(nulls_case.selection, b)))
+    # eight rows, most of which pass q6's leaves (rows 2 and 6 fail)
+    eight = [t(np.array(v, dt)) for v, dt in (
+        ([10, 20, 5, 23, 1, 30, 2, 3], np.float32),
+        ([1000, 2500.5, 333, 4096, 7, 1.25, 900, 12], np.float32),
+        ([0.06, 0.05, 0.08, 0.07, 0.06, 0.05, 0.06, 0.07], np.float32),
+        ([9000, 8766, 9100, 9130, 8800, 9000, 9131, 8999], np.int32))]
+    cases += [dataclasses.replace(main_case, name=f"rows_{r}", cols=eight,
+                                  row_count=r) for r in (0, 1, 3, 5)]
+    if edge_rows:
+        n = max(edge_rows)
+        edge = _columns(rng, n)
+        edge[0][rng.random(n) < 0.01] = np.nan
+        cols = [t(c) for c in edge]
+        valids = [None, t(rng.random(n) > 0.05), None,
+                  t(rng.random(n) > 0.02)]
+        sel = t(rng.random(n) > 0.1)
+        for r in sorted(set(edge_rows)):
+            cases.append(K1Case(
+                f"length_{r}", [c[:r] for c in cols],
+                [None if v is None else v[:r] for v in valids], sel[:r], r,
+                _NAN_SPEC))
+    # bounds off the float32 grid and fractional bounds on the int32 ship
+    # date; an `=` leaf, infinite bounds and a NaN bound (which every
+    # non-NaN value is below, in Spark's order)
+    cases.append(dataclasses.replace(
+        nulls_case, name="bounds_off_grid", spec=_OFF_GRID_SPEC,
+        contract=False))
+    cases.append(dataclasses.replace(
+        nulls_case, name="equal_inf_nan_bounds", spec=_EQUAL_SPEC,
+        contract=False))
+    big = 1 << 23
+    cases.append(K1Case("rows_2^23", [t(c) for c in _columns(rng, big)],
+                        [None] * 4, None, big, ck.Q6_SPEC))
+    qty, price, disc, ship = _columns(rng, MAIN_CAPACITY)
+    cases.append(K1Case(
+        "int32_slots_0_3",
+        [t(ship), t(price), t(disc), t(qty.astype(np.int32))],
+        [None, None, t(rng.random(MAIN_CAPACITY) > 0.05), None], None,
+        MAIN_ROWS, _INT_SLOTS_SPEC, contract=False))
+    return cases
+
+
 def _rel(got: float, want: float) -> float:
     return abs(got - want) / max(1.0, abs(want))
 
@@ -152,18 +284,31 @@ def _contract_inputs(case: K1Case) -> List[torch.Tensor]:
     return [c[:case.row_count].contiguous() for c in case.cols]
 
 
+def _k1_engine(case: K1Case):
+    return ck.filter_product_sum(case.cols, case.valids, case.selection,
+                                 case.row_count, case.spec)
+
+
 def check_k1(device) -> List[Dict]:
     """Run both editions on every case; raise on a disagreement. Returns
-    one record per (case, edition). Kernel launches made here do not
-    touch the main path's counts: the callers reset those after."""
+    one record per (case, edition), then the repeat checks' and the
+    bound sweep's. Kernel launches made here do not touch the main
+    path's counts: the callers reset those after."""
+    geometry = k1_geometry(device)
+    edge_rows = [n + d for n in (geometry["block_rows"],
+                                 geometry["round_rows"])
+                 for d in (-1, 0, 1)]
     out = []
-    for case in k1_cases(device):
-        s, c = ck.filter_product_sum(case.cols, case.valids, case.selection,
-                                     case.row_count, case.spec)
+    for case in k1_cases(device, edge_rows=edge_rows):
         ps, pc = ck.filter_product_sum_torch(case.cols, case.valids,
                                              case.selection,
                                              case.row_count, case.spec)
+        if case.contract:
+            q, p, d, sd = _contract_inputs(case)
+            cps, cpc = ck.masked_product_sum_torch(q, p, d, sd)
+        s, c = _k1_engine(case)
         rec = {"case": case.name, "edition": "engine",
+               "rows": case.row_count,
                "sum": s.item(), "plain_sum": ps.item(),
                "count": c.item(), "plain_count": pc.item()}
         rec["rel_err"] = _rel(rec["sum"], rec["plain_sum"])
@@ -171,17 +316,191 @@ def check_k1(device) -> List[Dict]:
                 or not rec["rel_err"] <= ENGINE_RTOL:
             raise AssertionError(f"K1 engine edition disagrees: {rec}")
         out.append(rec)
-        q, p, d, sd = _contract_inputs(case)
+        if not case.contract:
+            continue
         s, c = ck.masked_product_sum(q, p, d, sd)
-        ps, pc = ck.masked_product_sum_torch(q, p, d, sd)
         rec = {"case": case.name, "edition": "contract",
-               "sum": s.item(), "plain_sum": ps.item(),
-               "count": c.item(), "plain_count": pc.item()}
+               "rows": case.row_count,
+               "sum": s.item(), "plain_sum": cps.item(),
+               "count": c.item(), "plain_count": cpc.item()}
         rec["rel_err"] = _rel(rec["sum"], rec["plain_sum"])
         if rec["count"] != rec["plain_count"] \
                 or not rec["rel_err"] <= CONTRACT_RTOL:
             raise AssertionError(f"K1 contract edition disagrees: {rec}")
         out.append(rec)
+    return out + _k1_repeats(device) + check_k1_bounds(device)
+
+
+def _stream_repeats(run, a, b, device):
+    """``run`` on ``a`` twice in a row, then on ``a`` and ``b`` on two
+    streams at once, 16 times each. Returns the first two outputs and,
+    for ``a`` and ``b``, the output one stream alone gave and the
+    outputs of the two-stream runs."""
+    first, second = run(a), run(a)
+    want = (first, run(b))
+    torch.cuda.synchronize(device)
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    got = ([], [])
+    for _ in range(16):
+        for k, (st, c) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(st):
+                got[k].append(run(c))
+    torch.cuda.synchronize(device)
+    return first, second, list(zip(want, got))
+
+
+def _k1_repeats(device) -> List[Dict]:
+    """In each edition: two launches on one input give the same bits; and
+    launches on two streams at once (each stream its own ticket counter)
+    give each stream's input the bits that one stream alone gives it."""
+    main, _, nulls = k1_base_cases(device)
+    out = []
+    for edition, run in (
+            ("engine", _k1_engine),
+            ("contract",
+             lambda c: ck.masked_product_sum(*_contract_inputs(c)))):
+        first, second, pairs = _stream_repeats(run, main, nulls, device)
+        for name, same in (
+                ("two_launches", _same_outputs(first, second)),
+                ("two_streams", all(_same_outputs(g, w)
+                                    for w, gs in pairs for g in gs))):
+            rec = {"case": name, "edition": edition,
+                   "rows": main.row_count, "same_bits": same,
+                   "sum": first[0].item(), "plain_sum": first[0].item(),
+                   "count": first[1].item(),
+                   "plain_count": first[1].item(), "rel_err": 0.0}
+            if not same:
+                raise AssertionError(f"K1 gives other bits on another "
+                                     f"run: {rec}")
+            out.append(rec)
+    return out
+
+
+_FLT_MAX = float(np.finfo(np.float32).max)
+_F32_TINY = float(np.finfo(np.float32).smallest_subnormal)
+# leaf bounds on a float32 column: on the float32 grid and between two of
+# its values, past FLT_MAX (below and above the float32 rounding limit),
+# +-0, a denormal, +-inf and NaN
+K1_F32_BOUNDS = (0.0, -0.0, 1.0, -1.0, 24.0, 23.5, float(np.float32(0.05)),
+                 0.05, 0.07, 0.1, -0.1, _F32_TINY, 1e-45, 16777217.0,
+                 -16777217.0, _FLT_MAX, -_FLT_MAX, 3.4028235e38,
+                 -3.4028235e38, 1e39, -1e39, 1e300, math.inf, -math.inf,
+                 math.nan)
+# leaf bounds on an int32 column: integers and fractions, the int32 ends
+# and past them, +-0, +-inf and NaN
+K1_I32_BOUNDS = (8766.0, 8765.5, 9130.7, 0.0, -0.0, -0.5, 0.5, -1.0,
+                 2147483647.0, 2147483646.5, 2147483647.5, 2147483648.0,
+                 3e9, -2147483648.0, -2147483647.5, -2147483648.5,
+                 -2147483649.0, -3e9, 1e300, math.inf, -math.inf, math.nan)
+_BOUND_SLOT = {"f32": 0, "i32": 3}  # the tested column of each kind
+_BOUND_PAIRS = 150  # random pairs of leaves on one column, of each kind
+
+
+def _f32_steps(x: float, steps: int = 3) -> List[float]:
+    """float32(x) and the float32 values up to ``steps`` ulps either
+    side of it."""
+    with np.errstate(over="ignore"):
+        f = np.float32(x)
+        out, up, down = [f], f, f
+        for _ in range(steps):
+            up = np.nextafter(up, np.float32(np.inf))
+            down = np.nextafter(down, np.float32(-np.inf))
+            out += [up, down]
+    return [float(v) for v in out]
+
+
+def k1_bound_columns(seed: int = 11) -> List[np.ndarray]:
+    """q6-shaped columns for the bound sweep: slot 0 a float32 column
+    holding each of ``K1_F32_BOUNDS``' float32 neighbours (float32 of the
+    bound, +-1..3 ulps), +-0, +-inf, NaN, +-FLT_MAX, the least denormals
+    and +-1; slot 3 an int32 column holding each of ``K1_I32_BOUNDS``'
+    integer neighbours (floor and ceil, +-1 and +-2, inside int32), the
+    int32 ends and 0 and +-1; slots 1 and 2 a price and a discount whose
+    products sum exactly even in float32. Each value appears at least
+    once, in shuffled order, so 4-row groups mix them."""
+    rng = np.random.default_rng(seed)
+    fvals = [0.0, -0.0, math.inf, -math.inf, math.nan, _FLT_MAX, -_FLT_MAX,
+             _F32_TINY, -_F32_TINY, 1.0, -1.0]
+    for b in K1_F32_BOUNDS:
+        if not math.isnan(b):
+            fvals += _f32_steps(b)
+    f = np.unique(np.array(fvals, np.float32).view(np.uint32)) \
+        .view(np.float32)
+    ivals = {_I32_MIN, _I32_MIN + 1, (1 << 31) - 1, (1 << 31) - 2, 0, 1, -1}
+    for b in K1_I32_BOUNDS:
+        if math.isfinite(b) and abs(b) < 1e10:
+            for base in (math.floor(b), math.ceil(b)):
+                ivals |= {v for v in range(base - 2, base + 3)
+                          if _I32_MIN <= v < 1 << 31}
+    i = np.array(sorted(ivals), np.int64).astype(np.int32)
+    n = max(len(f), len(i)) * 2 + 3  # whole groups and a scalar tail
+    price = (1 + np.arange(n) % 7).astype(np.float32)
+    disc = np.full(n, 0.5, np.float32)
+    return [rng.permutation(np.resize(f, n)), price, disc,
+            rng.permutation(np.resize(i, n))]
+
+
+def k1_bound_specs(seed: int = 12) -> List[ck.FilterProductSum]:
+    """Every op against every bound of its column's kind, alone; then
+    ``_BOUND_PAIRS`` random pairs of such leaves on one column of each
+    kind (whose intervals meet, nest or miss)."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for kind, bounds in (("f32", K1_F32_BOUNDS), ("i32", K1_I32_BOUNDS)):
+        leaves = [ck.Leaf(_BOUND_SLOT[kind], op, b)
+                  for op in ck.OPS for b in bounds]
+        specs += [(leaf,) for leaf in leaves]
+        for _ in range(_BOUND_PAIRS):
+            j, k = rng.integers(0, len(leaves), 2)
+            specs.append((leaves[j], leaves[k]))
+    return [ck.FilterProductSum(leaves=s, a_slot=1, b_slot=2)
+            for s in specs]
+
+
+def check_k1_bounds(device) -> List[Dict]:
+    """The kernel's folding of a column's leaves into one float32 or
+    int32 interval, swept: each of ``k1_bound_specs`` over
+    ``k1_bound_columns``, in both editions (Spark's order with a float64
+    sum, IEEE with a float32 sum), with the columns 16-byte aligned and
+    one element past it (the scalar loop). Every count must equal the
+    plain version's and every sum agree to the edition's tolerance.
+    Returns one record per (edition, alignment)."""
+    host = [torch.from_numpy(c) for c in k1_bound_columns()]
+    cols = [c.to(device) for c in host]
+    n = cols[0].shape[0]
+    specs = k1_bound_specs()
+    out = []
+    for edition, code, nan_greatest, acc, rtol in (
+            ("engine", ck._ENGINE, True, torch.float64, ENGINE_RTOL),
+            ("contract", ck._CONTRACT, False, torch.float32,
+             CONTRACT_RTOL)):
+        want = [ck.filter_product_sum_torch(host, [None] * 4, None, n, spec,
+                                            nan_greatest, acc)
+                for spec in specs]
+        for shift in (0, 4):
+            at = [_offset(c, shift) for c in cols] if shift else cols
+            got = [ck._launch(code, at, [None] * 4, None, n, spec, acc)
+                   for spec in specs]
+            sums = torch.stack([s for s, _ in got]).double().cpu()
+            counts = torch.stack([c for _, c in got]).cpu()
+            worst = 0.0
+            for k, (spec, (ws, wc)) in enumerate(zip(specs, want)):
+                rel = _rel(sums[k].item(), ws.item())
+                worst = max(worst, rel)
+                if counts[k].item() != wc.item() or not rel <= rtol:
+                    raise AssertionError(
+                        f"K1 {edition} edition disagrees on {spec.leaves} "
+                        f"at {shift} B off alignment: sum {sums[k].item()!r}"
+                        f" plain {ws.item()!r}, count {counts[k].item()} "
+                        f"plain {wc.item()}")
+            out.append({
+                "case": f"bounds_sweep_at_{shift}B", "edition": edition,
+                "rows": n, "specs": len(specs),
+                "sum": sums.sum().item(),
+                "plain_sum": sum(ws.item() for ws, _ in want),
+                "count": int(counts.sum()),
+                "plain_count": sum(int(wc) for _, wc in want),
+                "rel_err": worst})
     return out
 
 
@@ -219,43 +538,84 @@ def _time_ms(fn, copies: List[K1Case], reps: int) -> float:
 
 
 def time_k1(device, reps: int = 100) -> Dict[str, Dict[str, float]]:
-    """Device milliseconds per call of each edition and its plain version
-    at the main path's batch shape, reading device memory (the inputs
-    cycle through copies larger than L2), timed with CUDA events in
-    turns (plain, kernel, kernel, plain)."""
-    case = k1_cases(device)[0]
+    """Device milliseconds per call of each edition and of
+    its plain version at the main path's batch shape, reading device
+    memory (the inputs cycle through copies larger than L2), timed with
+    CUDA events in turns (plain, kernel, kernel, plain)."""
+    case = k1_base_cases(device)[0]
     copies = _copies_past_l2(case)
     contract = [dataclasses.replace(c, cols=_contract_inputs(c))
                 for c in copies]
-
-    def engine(c):
-        return ck.filter_product_sum(c.cols, c.valids, c.selection,
-                                     c.row_count, c.spec)
 
     def engine_plain(c):
         return ck.filter_product_sum_torch(c.cols, c.valids, c.selection,
                                            c.row_count, c.spec)
 
-    def contract_k(c):
-        return ck.masked_product_sum(*c.cols)
-
     def contract_plain(c):
         return ck.masked_product_sum_torch(*c.cols)
 
-    p1 = _time_ms(engine_plain, copies, reps)
-    k1 = _time_ms(engine, copies, reps)
-    k2 = _time_ms(engine, copies, reps)
-    p2 = _time_ms(engine_plain, copies, reps)
-    cp1 = _time_ms(contract_plain, contract, reps)
-    ck1 = _time_ms(contract_k, contract, reps)
-    ck2 = _time_ms(contract_k, contract, reps)
-    cp2 = _time_ms(contract_plain, contract, reps)
-    return {
-        "engine": {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                   "bytes": case.bytes_read() + 16},
-        "contract": {"ms": min(ck1, ck2), "plain_ms": min(cp1, cp2),
-                     "bytes": contract[0].bytes_read() + 12},
-    }
+    out = {}
+    for edition, items, plain in (("engine", copies, engine_plain),
+                                  ("contract", contract, contract_plain)):
+        kernel = _k1_engine if edition == "engine" \
+            else lambda c: ck.masked_product_sum(*c.cols)
+        p1 = _time_ms(plain, items, reps)
+        ms = min(_time_ms(kernel, items, reps),
+                 _time_ms(kernel, items, reps))
+        p2 = _time_ms(plain, items, reps)
+        out[edition] = {"ms": ms, "plain_ms": min(p1, p2),
+                        "bytes": items[0].bytes_read()
+                        + (16 if edition == "engine" else 12)}
+    return out
+
+
+K1_SWEEP_ROWS = (0, 1 << 16, 1 << 18, MAIN_ROWS, 1 << 21, 1 << 23)
+
+
+def time_k1_sweep(device, reps: int = 100) -> Dict[str, object]:
+    """What a K1 call costs beyond its bytes: device ms of the engine
+    edition on q6 columns at each of ``K1_SWEEP_ROWS``
+    live rows, over inputs that cycle past L2, and of a one-cycle kernel
+    launched the same way (``torch.cuda._sleep(1)``), the card's launch
+    cadence. The rise from 0 rows gives the stream rate; the time at 0
+    rows the launch's fixed cost."""
+    rng = np.random.default_rng(5)
+    by_rows = {}
+    for rows in K1_SWEEP_ROWS:
+        cols = [torch.from_numpy(c).to(device)
+                for c in _columns(rng, max(rows, 16))]
+        case = K1Case("sweep", cols, [None] * 4, None, rows, ck.Q6_SPEC)
+        copies = [dataclasses.replace(case, cols=[c.clone() for c in cols])
+                  for _ in range(min(64, _copies_for(case.bytes_read())))]
+        by_rows[rows] = min(_time_ms(_k1_engine, copies, reps)
+                            for _ in range(2))
+    empty = min(_time_ms(lambda _: torch.cuda._sleep(1), [None], reps)
+                for _ in range(2))
+    return {"ms_by_rows": by_rows, "empty_launch_ms": empty,
+            "bytes_per_row": 16}
+
+
+def k1_kernels_per_call(device) -> int:
+    """Kernels one engine-edition call at the main batch launches,
+    counted from a ``torch.profiler`` trace of that call:
+    the device activities whose name holds ``fps_``, K1's kernel
+    prefix. The trace leaves the profiler's hooks in the process, which
+    slows every later launch: call it after any timing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(fn) -> int:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(device)
+        return sum(e.count for e in prof.key_averages() if "fps_" in e.key)
+
+    case = k1_base_cases(device)[0]
+    _k1_engine(case)  # warm-up: the library and the workspace
+    torch.cuda.synchronize(device)
+    # a process's first trace can miss its kernels: one trace to start
+    # the tracer, then the count
+    kernels(lambda: _k1_engine(case))
+    return kernels(lambda: _k1_engine(case))
 
 
 # --- K3 and K4 --------------------------------------------------------------
@@ -1036,7 +1396,7 @@ def k2_cases(device, seed: int = 8) -> List[K2Case]:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    main, ragged, nulls = k1_cases(device, seed)
+    main, ragged, nulls = k1_base_cases(device, seed)
     n = MAIN_CAPACITY
     line = _linenumbers(n, seed)
     ragged_key = rng.integers(0, 8, ragged.cols[0].shape[0]).astype(np.int32)
@@ -1146,7 +1506,7 @@ def check_k2(device) -> List[Dict]:
     return out + _k2_repeats(device)
 
 
-def _k2_same(a, b) -> bool:
+def _same_outputs(a, b) -> bool:
     return all(_same_bits(x.reshape(-1), y.reshape(-1))
                for x, y in zip(a, b))
 
@@ -1157,30 +1517,20 @@ def _k2_repeats(device) -> List[Dict]:
     stream's input the bits that one stream alone gives it."""
     cases = k2_cases(device)
     main, nulls = cases[0], cases[2]
-    first, second = _k2_engine(main), _k2_engine(main)
+    first, second, pairs = _stream_repeats(_k2_engine, main, nulls, device)
     out = [{"case": "two_launches", "edition": "engine",
             "rows": main.k1.row_count, "groups": main.groups,
-            "rel_err": 0.0 if _k2_same(first, second) else float("inf"),
+            "rel_err": 0.0 if _same_outputs(first, second) else float("inf"),
             "max_abs_err": (first[0] - second[0]).abs().max().item(),
-            "counts_equal": _k2_same(first[1:], second[1:]),
+            "counts_equal": _same_outputs(first[1:], second[1:]),
             "outside": first[3].item(), "plain_outside": second[3].item()}]
-    want = (first, _k2_engine(nulls))
-    torch.cuda.synchronize(device)
-    streams = [torch.cuda.Stream(device) for _ in range(2)]
-    got = ([], [])
-    for _ in range(16):
-        for k, (st, c) in enumerate(zip(streams, (main, nulls))):
-            with torch.cuda.stream(st):
-                got[k].append(_k2_engine(c))
-    torch.cuda.synchronize(device)
-    same = all(_k2_same(g, w) for k, w in enumerate(want) for g in got[k])
+    same = all(_same_outputs(g, w) for w, gs in pairs for g in gs)
     out.append({"case": "two_streams", "edition": "engine",
                 "rows": main.k1.row_count + nulls.k1.row_count,
                 "groups": main.groups, "rel_err": 0.0 if same
                 else float("inf"),
                 "max_abs_err": max((g[0] - w[0]).abs().max().item()
-                                   for k, w in enumerate(want)
-                                   for g in got[k]),
+                                   for w, gs in pairs for g in gs),
                 "counts_equal": same, "outside": 0, "plain_outside": 0})
     for rec in out:
         if not rec["counts_equal"] or rec["rel_err"] != 0.0:

@@ -10,8 +10,9 @@ reference), ``q6_host_decode`` with pyarrow on the host, and
 ``q6_by_linenumber`` is q6's revenue grouped by line number; ``--conf``
 sets further engine settings. Prints the
 wall time, the device time by kernel and copy name, the device busy and
-idle shares of the wall time, and the device time and launches of K1,
-K2 and K5, as one JSON line; with ``--out`` it also writes the Chrome
+idle shares of the wall time, and the device time and kernel launches
+of K1, K2 and K5 (one kernel a call each; q6 gives 8 of K1 and of K5),
+as one JSON line; with ``--out`` it also writes the Chrome
 trace there. Busy time sums the device activities, so copies
 on the side stream that overlap a kernel count twice: the idle share is
 a lower bound. It needs a CUDA device.
@@ -83,8 +84,10 @@ def trace_q6(out_dir=None, query: str = "q6", settings=None) -> dict:
     kernels = {}
     for label, prefix in _KERNELS.items():
         mine = {k: v for k, v in by_name.items() if prefix in k}
-        us = sum(v["device_us"] for v in mine.values())
-        kernels[label] = {"device_us_total": us, "by_kernel": mine}
+        kernels[label] = {
+            "device_us_total": sum(v["device_us"] for v in mine.values()),
+            "launches": sum(v["calls"] for v in mine.values()),
+            "by_kernel": mine}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir,

@@ -1,6 +1,7 @@
-"""Card-only checks of the port: K1's two editions against their plain
-versions at the main path's shape, at a ragged length and with nulls and
-NaN, and q6 through the engine with one K1 launch per batch; K3 and K4
+"""Card-only checks of the port: K1's two editions against
+their plain versions at the main path's shape, its edge cases and every
+bound's neighbours (``kernel_checks.check_k1``), one kernel a call, and
+q6 through the engine with one K1 launch per batch; K3 and K4
 against their plain versions (exactly, bit for bit; K3 also against
 ``torch.sort``) at the join + group-by path's shapes and edge cases, and a small join + group-by
 through the engine with the launches its plan implies. Run on a machine
@@ -23,9 +24,21 @@ def cuda_device():
 def test_k1_editions_match_plain_versions(cuda_device):
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     recs = kc.check_k1(cuda_device)
-    assert {(r["case"], r["edition"]) for r in recs} == {
-        (c, e) for c in ("main", "ragged", "nulls_nan")
-        for e in ("engine", "contract")}
+    cases = {c.name for c in kc.k1_cases("cpu")}
+    assert {"main", "ragged", "nulls_nan", "columns_at_4B", "masks_at_1B",
+            "rows_0", "rows_5", "rows_2^23", "int32_slots_0_3"} <= cases
+    got = {(r["case"], r["edition"]) for r in recs}
+    # every case in both editions (the contract where its slots fit),
+    # the edges of the card's geometry, the same bits again, and the
+    # bound sweep at both alignments
+    assert {(c, "engine") for c in cases} <= got
+    assert (("main", "contract") in got
+            and ("int32_slots_0_3", "contract") not in got)
+    assert any(c.startswith("length_") for c, e in got)
+    assert {(name, e) for e in ("engine", "contract")
+            for name in ("two_launches", "two_streams", "bounds_sweep_at_0B",
+                         "bounds_sweep_at_4B")} <= got
+    assert kc.k1_kernels_per_call(cuda_device) == 1
 
 
 def test_q6_on_the_card_launches_k1_per_batch(cuda_device, tmp_path):
