@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: TPC-H q6 at SF1 from
 Parquet (host decode, then device page decode), the join + group-by
-query at the reference's full size, and q6's revenue by line number at
-SF1, through ``spark_rapids_tpu_torch``, with K1 to K5 checked on the
-card.
+query at the reference's full size, q6's revenue by line number at
+SF1, and NDS q3 and q55 from SQL text over Parquet files, through
+``spark_rapids_tpu_torch``, with K1 to K5 checked on the card.
 
     python3 chip_smoke.py
 
@@ -27,14 +27,19 @@ Phases, any failure exits non-zero before the result line:
      and negative payloads, exactly against its plain version and
      torch.sort; K4 at the path's gather shapes, at a ragged length,
      with nulls, dead rows, 1- to 8-byte columns mixed and of one width,
-     bit for bit; each timed with CUDA events beside its bound, its
+     and at the NDS join's shape (item's columns and string starts and
+     lengths, 32,768 rows, into a 2^20-row batch), bit for bit, and the
+     string gather at that shape against pyarrow's take; each timed with CUDA events beside its bound, its
      plain version and the library call (K3 on random keys and on the
      path's words, K4 at the probe and at the group-by permutation); K5
      (Parquet page decode)
      bit for bit at a q6 row group, with nulls, DELTA and v2 pages, on a
      coalesced batch of differing dictionaries, on alternating values, a
-     dictionary of 100,000 entries and 64-bit PLAIN columns, and on the
-     hand-made run tables that walk its tiles at their edges
+     dictionary of 100,000 entries and 64-bit PLAIN columns, on the NDS
+     path's batches (2^20 store_sales rows from two row groups, every
+     column; item with its dictionary string column, offsets and chars
+     compared), every batch read from a file also against pyarrow, and
+     on the hand-made run tables that walk its tiles at their edges
      (kernel_checks.k5_tile_layouts); K2's two editions at a q6 batch
      keyed by line number, at a ragged length, with nulls, NaN and
      out-of-range keys, with every row in one group and with every
@@ -63,7 +68,20 @@ Phases, any failure exits non-zero before the result line:
      launches, no K1, the final's one K3 sort and two K4 gathers, the
      scan's counters (deviceChunks 40, fallbackChunks 0), rows/s and
      opTime;
-  8. K1's kernels a call, counted in a profiler trace of one call (1),
+  8. NDS q3 and q55 from SQL text (``nds.SQL_QUERIES``) over the
+     reference bench's tables at 2^22 store_sales rows (seed 42, snappy,
+     row groups of 2^19, written to .bench_cache/nds_torch_n4194304/),
+     through GpuSession.sql, GpuOverrides and PhysicalPlan.collect with
+     device page decode on: at spark.sql.shuffle.partitions 1 a warm-up
+     and 3 timed runs each (rows/s = store_sales rows over the median
+     wall of collect, and ms a query in collect; planning, sql +
+     apply, is timed apart), then each query once more at 16 partitions
+     (the Murmur3 exchange and the adaptive reader). Every result is held
+     to the numpy/pyarrow oracle (ints exact, sums rel 1e-9), every scan
+     to deviceChunks = row groups x columns and 0 fallback chunks. After
+     the timed runs one more run of each query and partition count
+     counts the K3, K4 and K5 launches, held to what the plan implies;
+  9. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -213,6 +231,7 @@ def phase_sort_gather(device):
     """K3 and K4 against their plain versions, then timed."""
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     k3_recs, k4_recs = kc.check_k3(device), kc.check_k4(device)
+    k4_recs.append(kc.check_string_gather(device))
     for rec in k3_recs:
         log(f"[k3] {rec}")
     for rec in k4_recs:
@@ -466,6 +485,162 @@ def phase_q6_by_linenumber(device):
     return launches
 
 
+NDS_SALES = 1 << 22
+NDS_QUERIES = ("q3", "q55")
+# the joins' build keys (int64) and the group and sort keys of each
+# query, as packed sort-key bits: a live bit, then a null bit and the
+# value lane per key (ops/sort_keys.py)
+NDS_SHAPE = {"q3": {"builds": 2, "agg_bits": 1 + 33 + 33,
+                    "sort_bits": 1 + 33 + 65 + 33},
+             "q55": {"builds": 1, "agg_bits": 1 + 33,
+                     "sort_bits": 1 + 65 + 33}}
+
+
+def _sort_launches(bits):
+    """K3 and K4 launches of one multi-word sort (ops/sort_keys.
+    sort_packed): a K3 pass a word, and a K4 carry of the other words and
+    the permutation after each pass once there are two words or more."""
+    words = -(-bits // 64)
+    return words, (words if words > 1 else 0)
+
+
+def _nds_expected(q, metrics):
+    """The launches one run of ``q`` implies. K5: one a scan batch. Each
+    unique-build join presorts its int64 key (two K3 words, two K4
+    carries, one K4 gather of the sorted key) and gathers its build
+    columns into each store_sales batch (one K4, strings included). The
+    grouped aggregate sorts each partial and the final (K3 words, K4
+    carries, one K4 of keys and values, one of segment starts); the
+    ORDER BY sorts once and gathers once."""
+    shape = NDS_SHAPE[q]
+    scans = [m for label, m in metrics.items()
+             if label.startswith("FileScanExec")]
+    ss_batches = max(m["scanPrograms"] for m in scans)
+    partials = sum(m.get("numPartials", 0) for m in metrics.values())
+    agg_k3, agg_k4 = _sort_launches(shape["agg_bits"])
+    sort_k3, sort_k4 = _sort_launches(shape["sort_bits"])
+    b = shape["builds"]
+    return {"decode_batch": sum(m["scanPrograms"] for m in scans),
+            "sort_pairs": 2 * b + (partials + 1) * agg_k3 + sort_k3,
+            "gather_rows": 3 * b + b * ss_batches
+            + (partials + 1) * (agg_k4 + 2) + sort_k4 + 1}
+
+
+def _check_nds(q, out, want, metrics, row_groups):
+    """The rows against the oracle (ints exact, sums rel 1e-9) and every
+    scan's chunk counters."""
+    from spark_rapids_tpu_torch import nds
+    import numpy as np
+    floats = nds.FLOAT_COLUMNS[q]
+    if out.column_names != want.column_names \
+            or out.num_rows != want.num_rows or out.num_rows == 0:
+        raise AssertionError(f"{q}: {out.num_rows} rows {out.column_names}"
+                             f", oracle {want.num_rows} "
+                             f"{want.column_names}")
+    worst = 0.0
+    for c in out.column_names:
+        g, w = out.column(c).to_pylist(), want.column(c).to_pylist()
+        if c in floats:
+            rels = [abs(a - b) / max(abs(b), 1e-300) for a, b in zip(g, w)]
+            worst = max(rels)
+            if not all(np.isfinite(g)) or worst > ENGINE_RTOL:
+                raise AssertionError(f"{q}: {c} rel errors {rels}")
+        elif g != w:
+            raise AssertionError(f"{q}: column {c} {g} vs oracle {w}")
+    scans = {label: m for label, m in metrics.items()
+             if label.startswith("FileScanExec")}
+    got = sorted((m["deviceChunks"], m["fallbackChunks"])
+                 for m in scans.values())
+    need = sorted((n, 0) for n in row_groups)
+    if got != need:
+        raise AssertionError(f"{q}: scan chunks {got}, expected {need}")
+    return worst
+
+
+def phase_nds(device):
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.tools.nds_trace import counters, nds_paths
+
+    t0 = time.perf_counter()
+    tables = nds.gen_tables(NDS_SALES)
+    paths = nds_paths(NDS_SALES)
+    log(f"[nds] {NDS_SALES} store_sales rows: tables and files ready in "
+        f"{time.perf_counter() - t0:.3f} s")
+    # device chunks a table: its row groups x its columns
+    chunks = {}
+    for k, p in paths.items():
+        md = pq.ParquetFile(p).metadata
+        chunks[k] = md.num_row_groups * md.num_columns
+    reads = {"q3": ("store_sales", "date_dim", "item"),
+             "q55": ("store_sales", "item")}
+    plans, summary = {}, {}
+    for q in NDS_QUERIES:
+        want = nds.oracle(q, tables)
+        for parts in (1, 16):
+            s = nds.session_over_files(
+                paths, {"spark.sql.shuffle.partitions": str(parts)}, device)
+            # planning (GpuSession.sql + GpuOverrides.apply), timed apart
+            # from the collect below
+            plan_times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                pp = GpuOverrides(s.conf, device).apply(
+                    s.sql(nds.SQL_QUERIES[q])._node)
+                plan_times.append(time.perf_counter() - t)
+            plans[q, parts] = (pp, s.conf)
+
+            def run():
+                ctx = ExecCtx(s.conf, device)
+                t = time.perf_counter()
+                out = pp.collect(ctx)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t, ctx
+
+            run()  # warm-up
+            n_runs = 3 if parts == 1 else 1
+            runs = [run() for _ in range(n_runs)]
+            times = [r[1] for r in runs]
+            out, _, ctx = runs[0]
+            metrics = _metrics(ctx)
+            rel = _check_nds(q, out, want, metrics,
+                             [chunks[k] for k in reads[q]])
+            med = statistics.median(times)
+            plan_med = statistics.median(plan_times)
+            summary[f"{q}_p{parts}"] = {
+                "rows_per_s": NDS_SALES / med, "ms": med * 1e3,
+                "times_s": times, "max_rel_err": rel,
+                "plan_ms": plan_med * 1e3, "plan_times_s": plan_times}
+            log(f"[nds] {q} partitions={parts}: {NDS_SALES / med:.1f} "
+                f"rows/s, {med * 1e3:.3f} ms a query in collect (median "
+                f"of {[round(t, 6) for t in times]} s); planning "
+                f"(sql + apply) {plan_med * 1e3:.3f} ms (median of "
+                f"{[round(t, 6) for t in plan_times]} s); {out.num_rows} "
+                f"rows equal to the oracle (max rel err {rel:.3e})")
+            log(f"[nds] {q} partitions={parts} metrics "
+                + json.dumps(metrics, sort_keys=True))
+    # counted after every timed run: one more run each
+    launches = {}
+    wrappers = counters()
+    for (q, parts), (pp, conf) in plans.items():
+        ctx = ExecCtx(conf, device)
+        for c in wrappers.values():
+            c.launches = 0
+        pp.collect(ctx)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in wrappers.values()}
+        want = _nds_expected(q, _metrics(ctx))
+        log(f"[nds] {q} partitions={parts} launches {got}, the plan "
+            f"implies {want}")
+        if got != want:
+            raise AssertionError(f"{q} p{parts}: launches {got}, "
+                                 f"expected {want}")
+        launches[f"{q}_p{parts}"] = got
+    return summary, launches
+
+
 def main():
     name, count, smi = phase_card()
     device = torch.device("cuda", 0)
@@ -477,6 +652,7 @@ def main():
     join_launches = phase_join(device)
     dd_launches = phase_q6_device_decode(device, paths)
     ln_launches = phase_q6_by_linenumber(device)
+    nds_summary, nds_launches = phase_nds(device)
     per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -488,6 +664,7 @@ def main():
         f"plain_ms={c['plain_ms']!r} "
         f"bound_ms={c['bound_ms']!r} max_abs_err={c['max_abs_err']!r}; "
         f"not on the main path")
+    log("[nds] " + json.dumps(nds_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     log(json.dumps({"kernels": [{
@@ -497,7 +674,7 @@ def main():
         "max_abs_err": e["max_abs_err"],
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None,
-        "kernels_per_call": per_call, "form": "(a) registers",
+        "kernels_per_call": per_call,
         "bound_share": e["bound_ms"] / e["ms"],
         "ms_by_rows": e["ms_by_rows"],
         "empty_launch_ms": e["empty_launch_ms"],
@@ -510,7 +687,9 @@ def main():
         "bound_by": main_sort["bound_by"],
         "library_ms": main_sort["library_ms"],
         "shape": "a partial aggregate's month words, 2^21 pairs",
-        "by_shape": k3}, {
+        "by_shape": k3,
+        "launches_nds": {k: v["sort_pairs"]
+                         for k, v in nds_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -518,7 +697,9 @@ def main():
         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
         "library_ms": probe["library_ms"],
         "shape": "2^21 rows x 2 int32 columns from 2^17",
-        "by_shape": k4}, {
+        "by_shape": k4,
+        "launches_nds": {k: v["gather_rows"]
+                         for k, v in nds_launches.items()}}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -526,7 +707,9 @@ def main():
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"], "library_ms": None,
         "shape": "a q6 batch: 750,152 rows x 4 columns",
-        "launches_q6_by_linenumber": ln_launches["decode_batch"]}, {
+        "launches_q6_by_linenumber": ln_launches["decode_batch"],
+        "launches_nds": {k: v["decode_batch"]
+                         for k, v in nds_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -2,8 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/columnar/arrow_bridge.py:25-180,268-296``:
 pyarrow RecordBatches are the host currency, torch tensors the device
-currency. Fixed-width types only (bool, int8-int64, float32/64, date,
-timestamp), with nulls; strings, decimals and nested types wait.
+currency. Fixed-width types (bool, int8-int64, float32/64, date,
+timestamp) and strings/binary (Arrow's int32 offsets and bytes), with
+nulls; decimals and nested types wait (ROADMAP item 2).
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ import pyarrow.compute as pc
 import torch
 
 from .. import datatypes as dt
-from .batch import GpuBatch, bucket_rows
-from .column import GpuColumnVector, torch_dtype
+from .batch import GpuBatch, bucket_bytes, bucket_rows
+from .column import GpuColumnVector, is_string_like, torch_dtype
 
 __all__ = ["arrow_to_device", "device_to_arrow", "arrow_schema",
-           "engine_schema", "host_lanes", "column_from_host"]
+           "engine_schema", "host_lanes", "column_from_host",
+           "string_parts", "string_column_from_host"]
 
 
 def engine_schema(arrow_schema: pa.Schema) -> dt.Schema:
@@ -59,6 +61,38 @@ def host_lanes(arr, t: dt.DataType) \
     return values, valid
 
 
+def string_parts(arr) -> Tuple[np.ndarray, np.ndarray,
+                                Optional[np.ndarray]]:
+    """``(offsets int32 (n + 1,) from 0, chars uint8, bool validity or
+    None)`` of a host string or binary array: its Arrow buffers, rebased
+    when the array is a slice."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if pa.types.is_large_string(arr.type) or pa.types.is_large_binary(
+            arr.type):
+        arr = arr.cast(pa.binary() if pa.types.is_large_binary(arr.type)
+                       else pa.string())
+    n = len(arr)
+    bufs = arr.buffers()
+    offs = np.frombuffer(bufs[1], dtype=np.int32,
+                         count=arr.offset + n + 1)[arr.offset:]
+    base, end = int(offs[0]), int(offs[-1])
+    chars = np.frombuffer(bufs[2], dtype=np.uint8)[base:end] \
+        if bufs[2] is not None else np.zeros(0, np.uint8)
+    valid = None
+    if arr.null_count:
+        valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+    return (offs - base).astype(np.int32), chars, valid
+
+
+def string_column_from_host(t: dt.DataType, arr, capacity: int,
+                            device: torch.device) -> GpuColumnVector:
+    """A device string column from a host string array."""
+    offs, chars, valid = string_parts(arr)
+    return GpuColumnVector.from_string_parts(
+        t, offs, chars, valid, capacity, bucket_bytes(len(chars)), device)
+
+
 def column_from_host(t: dt.DataType, values: np.ndarray,
                      valid: Optional[np.ndarray], capacity: int,
                      device: torch.device) -> GpuColumnVector:
@@ -85,6 +119,10 @@ def arrow_to_device(rb: pa.RecordBatch, schema: Optional[dt.Schema],
     cols = []
     for i in range(rb.num_columns):
         t = schema[i].dtype
+        if is_string_like(t):
+            cols.append(string_column_from_host(t, rb.column(i), cap,
+                                                device))
+            continue
         values, valid = host_lanes(rb.column(i), t)
         cols.append(column_from_host(t, values, valid, cap, device))
     return GpuBatch(cols, schema, n)
@@ -100,6 +138,25 @@ def _column_to_arrow(t: dt.DataType, values: np.ndarray,
     return pa.array(values, dt.to_arrow(t), mask=mask)
 
 
+def _string_to_arrow(t: dt.DataType, c: GpuColumnVector, n: int,
+                     keep: Optional[np.ndarray]) -> pa.Array:
+    offs = c.offsets[:n + 1].cpu().numpy()
+    base, end = (int(offs[0]), int(offs[-1])) if n else (0, 0)
+    chars = c.chars[base:end].cpu().numpy()
+    offs = (offs - base).astype(np.int32)
+    valid = None if c.validity is None else c.validity[:n].cpu().numpy()
+    bitmap = None
+    nulls = 0
+    if valid is not None and not valid.all():
+        bitmap = pa.py_buffer(np.packbits(valid, bitorder="little"))
+        nulls = int(n - valid.sum())
+    atype = dt.to_arrow(t)
+    arr = pa.Array.from_buffers(atype, n, [bitmap, pa.py_buffer(offs),
+                                           pa.py_buffer(chars)],
+                                null_count=nulls)
+    return arr if keep is None else arr.filter(pa.array(keep))
+
+
 def device_to_arrow(batch: GpuBatch) -> pa.RecordBatch:
     """Download the live rows of a batch, compacting a lazy selection on
     the host."""
@@ -109,6 +166,9 @@ def device_to_arrow(batch: GpuBatch) -> pa.RecordBatch:
         keep = batch.selection[:n].cpu().numpy()
     arrays = []
     for c in batch.columns:
+        if c.is_string_like:
+            arrays.append(_string_to_arrow(c.dtype, c, n, keep))
+            continue
         values = c.data[:n].cpu().numpy()
         valid = None if c.validity is None else \
             c.validity[:n].cpu().numpy()

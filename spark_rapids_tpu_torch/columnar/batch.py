@@ -15,7 +15,7 @@ import torch
 from ..datatypes import Schema
 from .column import GpuColumnVector
 
-__all__ = ["GpuBatch", "bucket_rows", "row_mask"]
+__all__ = ["GpuBatch", "bucket_rows", "bucket_bytes", "row_mask"]
 
 _MIN_CAPACITY = 128
 
@@ -23,6 +23,15 @@ _MIN_CAPACITY = 128
 def bucket_rows(n: int, minimum: int = _MIN_CAPACITY) -> int:
     """Capacity bucket: the next power of two >= n (>= minimum), the
     same padding as the reference."""
+    cap = minimum
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
+def bucket_bytes(n: int, minimum: int = 1 << 10) -> int:
+    """Power-of-two byte capacity of at least ``minimum``: a string
+    column's chars bucket (``spark_rapids_tpu/columnar/batch.py:38``)."""
     cap = minimum
     while cap < n:
         cap <<= 1
@@ -56,7 +65,14 @@ class GpuBatch:
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].data.device
+        return self.columns[0].device
+
+    def device_size_bytes(self) -> int:
+        """Bytes the batch's columns hold on the device."""
+        n = sum(c.device_size_bytes() for c in self.columns)
+        if self.selection is not None:
+            n += self.selection.numel()
+        return n
 
     def live_mask(self) -> torch.Tensor:
         m = row_mask(self.capacity, self.row_count, self.device)

@@ -4,16 +4,20 @@ Counterpart of ``spark_rapids_tpu/columnar/column.py:34``
 (``TpuColumnVector``): a SQL column whose buffers are torch tensors on
 the engine's device.
 
-Layout (Arrow-compatible, the same padding as the reference):
-  - ``data``     — shape ``(capacity,)`` of the type's lane dtype; rows at
-    and past the batch ``row_count`` are padding.
+Layout (Arrow-compatible, the same padding as the reference,
+``:7-12``):
+  - fixed-width types: ``data`` — shape ``(capacity,)`` of the type's
+    lane dtype; rows at and past the batch ``row_count`` are padding.
+  - strings and binary: ``offsets`` — int32 ``(capacity + 1,)``,
+    monotone through the padding; ``chars`` — uint8
+    ``(char_capacity,)``, the bytes past the last offset are padding.
+    ``data`` is None.
   - ``validity`` — bool ``(capacity,)`` SQL-null mask (True = valid), or
     ``None`` when every live row is valid. The reference always carries
     the mask; leaving it out lets a column without nulls cost no mask
     bytes in a kernel that reads it.
 
-Fixed-width types only; strings and nested types wait for a later
-slice.
+Decimals and nested types wait for a later slice (ROADMAP item 2).
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import datatypes as dt
 from ..datatypes import DataType
 
-__all__ = ["GpuColumnVector", "torch_dtype", "and_validity"]
+__all__ = ["GpuColumnVector", "torch_dtype", "and_validity",
+           "is_string_like"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -45,6 +51,11 @@ def torch_dtype(t: DataType) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(t.np_dtype)]
 
 
+def is_string_like(t: DataType) -> bool:
+    """Strings and binary: the (offsets, chars) layout."""
+    return isinstance(t, (dt.StringType, dt.BinaryType))
+
+
 def and_validity(a: Optional[torch.Tensor],
                  b: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """AND of two validity masks where ``None`` means all valid."""
@@ -56,38 +67,99 @@ def and_validity(a: Optional[torch.Tensor],
 
 
 class GpuColumnVector:
-    """One fixed-width column: ``dtype``, ``data`` and ``validity``."""
+    """One column: ``dtype``, ``data`` (fixed width) or ``offsets`` and
+    ``chars`` (strings), and ``validity``."""
 
-    __slots__ = ("dtype", "data", "validity")
+    __slots__ = ("dtype", "data", "validity", "offsets", "chars")
 
-    def __init__(self, dtype: DataType, data: torch.Tensor,
-                 validity: Optional[torch.Tensor] = None):
+    def __init__(self, dtype: DataType, data: Optional[torch.Tensor],
+                 validity: Optional[torch.Tensor] = None,
+                 offsets: Optional[torch.Tensor] = None,
+                 chars: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
+        self.offsets = offsets
+        self.chars = chars
 
     @classmethod
     def nulls(cls, dtype: DataType, capacity: int,
               device: torch.device) -> "GpuColumnVector":
+        valid = torch.zeros(capacity, dtype=torch.bool, device=device)
+        if is_string_like(dtype):
+            return cls(dtype, None, valid,
+                       torch.zeros(capacity + 1, dtype=torch.int32,
+                                   device=device),
+                       torch.zeros(0, dtype=torch.uint8, device=device))
         return cls(dtype,
                    torch.zeros(capacity, dtype=torch_dtype(dtype),
-                               device=device),
-                   torch.zeros(capacity, dtype=torch.bool, device=device))
+                               device=device), valid)
+
+    @classmethod
+    def from_string_parts(cls, dtype: DataType, offsets: np.ndarray,
+                          chars: np.ndarray, validity: Optional[np.ndarray],
+                          capacity: int, char_capacity: int,
+                          device: torch.device) -> "GpuColumnVector":
+        """A string column from host parts (``:74-89``): ``offsets``
+        int32 ``(n + 1,)``, ``chars`` uint8, ``validity`` bool ``(n,)`` or
+        None; padded to ``capacity`` rows and ``char_capacity`` bytes,
+        the offsets held at their last value through the padding."""
+        n = len(offsets) - 1
+        if char_capacity < len(chars):
+            raise ValueError(f"{len(chars)} chars over a capacity of "
+                             f"{char_capacity}")
+        obuf = np.empty(capacity + 1, dtype=np.int32)
+        obuf[:n + 1] = offsets
+        obuf[n + 1:] = offsets[-1] if n >= 0 else 0
+        cbuf = np.zeros(char_capacity, dtype=np.uint8)
+        cbuf[:len(chars)] = chars
+        vt = None
+        if validity is not None:
+            vbuf = np.zeros(capacity, dtype=np.bool_)
+            vbuf[:n] = validity
+            vt = torch.from_numpy(vbuf).to(device)
+        return cls(dtype, None, vt, torch.from_numpy(obuf).to(device),
+                   torch.from_numpy(cbuf).to(device))
+
+    @property
+    def is_string_like(self) -> bool:
+        return self.offsets is not None
 
     @property
     def capacity(self) -> int:
-        return self.data.shape[0]
+        if self.data is not None:
+            return self.data.shape[0]
+        return self.offsets.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return (self.data if self.data is not None
+                else self.offsets).device
+
+    def lengths(self) -> torch.Tensor:
+        """Byte length of each string row (int32)."""
+        return self.offsets[1:] - self.offsets[:-1]
+
+    def arrays(self):
+        """The tensors backing this column."""
+        return [a for a in (self.data, self.validity, self.offsets,
+                            self.chars) if a is not None]
+
+    def device_size_bytes(self) -> int:
+        """Bytes the column holds on the device, chars included."""
+        return sum(a.numel() * a.element_size() for a in self.arrays())
 
     def valid_mask(self) -> torch.Tensor:
         """The validity as a tensor (all True when it is ``None``)."""
         if self.validity is None:
             return torch.ones(self.capacity, dtype=torch.bool,
-                              device=self.data.device)
+                              device=self.device)
         return self.validity
 
     def with_validity(self, validity: Optional[torch.Tensor]) \
             -> "GpuColumnVector":
-        return GpuColumnVector(self.dtype, self.data, validity)
+        return GpuColumnVector(self.dtype, self.data, validity,
+                               self.offsets, self.chars)
 
     def __repr__(self):
         return (f"GpuColumnVector({self.dtype.simple_string()}, "

@@ -195,6 +195,9 @@ class GpuHashAggregateExec(UnaryExec):
                       for x in self.aggs)
         return f"HashAggregateExec [keys=[{g}] aggs=[{a}]]"
 
+    def expressions(self):
+        return list(self.group_exprs) + list(self.aggs)
+
     # --- grouped phases ---------------------------------------------------
 
     def _group_and_gather(self, key_cols, extra_cols, live):
@@ -354,6 +357,7 @@ class GpuHashAggregateExec(UnaryExec):
         if self.group_exprs:
             partials = list(fused_batches(
                 self, ctx, tail_fn=self._partial_grouped, metric=op_time))
+            ctx.metric(self, "numPartials").value += len(partials)
             if not partials:
                 return
             t0 = time.perf_counter()

@@ -16,6 +16,7 @@ reference's ``execute_cpu`` oracle path waits for the planner slice.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -162,6 +163,24 @@ class GpuExec:
 
     def execute(self, ctx: ExecCtx) -> Iterator[GpuBatch]:
         raise NotImplementedError(type(self).__name__)
+
+    def expressions(self) -> List:
+        """The operator's bound expressions, for the planner's per-
+        expression checks."""
+        return []
+
+    def with_new_children(self, children: Sequence["GpuExec"]) \
+            -> "GpuExec":
+        """A copy of this operator over new children of the same output
+        schemas (the planner inserts readers this way), with its own
+        metric label."""
+        if list(children) == list(self.children):
+            return self
+        c = copy.copy(self)
+        GpuExec._label_counter += 1
+        c._label_id = GpuExec._label_counter
+        c.children = tuple(children)
+        return c
 
     def tree_string(self, indent: int = 0) -> str:
         lines = [("  " * indent) + self.describe()]

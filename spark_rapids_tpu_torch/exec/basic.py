@@ -46,6 +46,9 @@ class GpuProjectExec(UnaryExec):
     def describe(self):
         return f"ProjectExec [{', '.join(map(repr, self.exprs))}]"
 
+    def expressions(self):
+        return list(self.exprs)
+
     def _run(self, batch: GpuBatch, ectx) -> GpuBatch:
         cols = [e.eval_gpu(batch, ectx) for e in self.exprs]
         return GpuBatch(cols, self._schema, batch.row_count,
@@ -72,6 +75,9 @@ class GpuFilterExec(UnaryExec):
 
     def describe(self):
         return f"FilterExec [{self.condition!r}]"
+
+    def expressions(self):
+        return [self.condition]
 
     def _run(self, batch: GpuBatch, ectx) -> GpuBatch:
         pred = self.condition.eval_gpu(batch, ectx)

@@ -1,0 +1,143 @@
+"""Shuffle exchange.
+
+Counterpart of ``spark_rapids_tpu/exec/exchange.py:82-436``
+(``ShuffleStageHandle``, ``TpuShuffleExchangeExec``) over the local
+transport. The map side streams the child's batches through
+``fused_batches`` with a per-batch tail:
+
+- one partition (``_single_tail``, ``:196``): the batch is the
+  partition, and no partition id is computed;
+- several (``_split``, ``:173``): one partition-id computation a batch
+  (Spark's Murmur3, ``ops/hash.py``), then one selection view a
+  partition that shares the batch's buffers, so an n-way split costs the
+  ids and n masks, not n compactions. With AQE on, the tail also counts
+  each partition's live rows on the device for the adaptive reader's
+  statistics.
+
+Batches come out partition-major, in map order within a partition.
+``GpuCoalesceBatchesExec`` is not ported: the planner inserts it only
+over a CPU island, and the port has none. The broadcast exchange and the
+collective transport wait for ROADMAP item 17, the host-file transports
+for item 16, range and round-robin partitioning for item 10.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from typing import List, Optional
+
+import torch
+
+from ..config import ADAPTIVE_ENABLED, SHUFFLE_MODE
+from ..shuffle.partitioner import Partitioning
+from ..shuffle.transport import LocalShuffleTransport, ShuffleTransport
+from .base import ExecCtx, GpuExec, UnaryExec, fused_batches
+
+__all__ = ["GpuShuffleExchangeExec", "ShuffleStageHandle"]
+
+_shuffle_ids = itertools.count()
+
+
+class ShuffleStageHandle:
+    """The reduce side of a written shuffle stage: read partitions, ask
+    for statistics, release the store."""
+
+    def __init__(self, transport: ShuffleTransport, sid: int, n: int):
+        self.transport = transport
+        self.sid = sid
+        self.num_partitions = n
+
+    def partition_stats(self) -> Optional[List[int]]:
+        return self.transport.partition_stats(self.sid)
+
+    def read(self, p: int):
+        yield from self.transport.read_partition(self.sid, p)
+
+    def close(self):
+        self.transport.unregister_shuffle(self.sid)
+
+
+class GpuShuffleExchangeExec(UnaryExec):
+    """Repartition the child's output by a ``Partitioning``."""
+
+    def __init__(self, partitioning: Partitioning, child: GpuExec,
+                 transport: Optional[ShuffleTransport] = None):
+        super().__init__(child)
+        self.partitioning = partitioning.bind(child.output_schema)
+        self.transport = transport
+
+    def describe(self):
+        return (f"ShuffleExchangeExec [{type(self.partitioning).__name__} "
+                f"n={self.partitioning.num_partitions}]")
+
+    def expressions(self):
+        return list(getattr(self.partitioning, "key_exprs", []))
+
+    def _resolve_transport(self, ctx: ExecCtx) -> ShuffleTransport:
+        if self.transport is not None:
+            return self.transport
+        mode = ctx.conf.get(SHUFFLE_MODE)
+        if mode != "LOCAL":
+            raise NotImplementedError(
+                f"spark.rapids.shuffle.mode={mode} is not ported yet: the "
+                "host-file shuffle waits for ROADMAP item 16, the "
+                "collective one for item 17")
+        return LocalShuffleTransport()
+
+    def _single_tail(self, batch, ectx):
+        """One partition: the whole batch, no ids."""
+        return batch, None, None
+
+    def _split_tail(self, batch, ectx, count: bool):
+        """Partition ids once, then one selection view a partition; with
+        ``count``, each partition's live rows (a device tensor)."""
+        n = self.partitioning.num_partitions
+        pids = self.partitioning.partition_ids(batch, ectx)
+        views = [batch.with_selection(pids == p) for p in range(n)]
+        counts = None
+        if count:
+            routed = torch.where(batch.live_mask(), pids.to(torch.int64),
+                                 torch.full_like(pids, n, dtype=torch.int64))
+            counts = torch.bincount(routed, minlength=n + 1)[:n]
+        return batch, views, counts
+
+    def materialize(self, ctx: ExecCtx) -> ShuffleStageHandle:
+        """The map side: write every partition of every batch, and
+        return the handle the reduce side reads."""
+        transport = self._resolve_transport(ctx)
+        record = ctx.conf.get(ADAPTIVE_ENABLED)
+        n = self.partitioning.num_partitions
+        sid = next(_shuffle_ids)
+        transport.register_shuffle(sid, n)
+        ctx.metric(self, "numPartitions").set(n)
+        batches_m = ctx.metric(self, "numInputBatches")
+        write_t = ctx.metric(self, "writeTime")
+        if n == 1:
+            tail = self._single_tail
+        else:
+            def tail(batch, ectx):
+                return self._split_tail(batch, ectx, record)
+        for map_id, (batch, views, counts) in enumerate(fused_batches(
+                self, ctx, tail_fn=tail,
+                metric=ctx.metric(self, "opTime"))):
+            batches_m += 1
+            t0 = time.perf_counter()
+            writer = transport.writer(sid, map_id)
+            if views is None:
+                writer.write(0, batch)
+            else:
+                for p, view in enumerate(views):
+                    writer.write(p, view)
+                if counts is not None:
+                    writer.record_counts(counts, batch.device_size_bytes())
+            writer.close()
+            write_t.value += time.perf_counter() - t0
+        return ShuffleStageHandle(transport, sid, n)
+
+    def execute(self, ctx: ExecCtx):
+        handle = self.materialize(ctx)
+        try:
+            for p in range(handle.num_partitions):
+                yield from handle.read(p)
+        finally:
+            handle.close()

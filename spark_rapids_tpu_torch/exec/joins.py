@@ -14,7 +14,11 @@ With ``build_unique_hint`` the build is trusted to have unique keys and,
 under ``spark.rapids.sql.join.verifyUniqueHint`` (default on), the
 presort's duplicate flag becomes a deferred check that raises at the
 query's download. Without the hint the build is analysed first (one
-readback per build). Where the reference would take its staged join (a
+readback per build). A build side with string columns (an inner or
+left-outer join gathers them) reads back its longest string once per
+build, as the reference's analysis does (``exec/joins.py:290-310``):
+a stream batch's gathered chars get the batch's capacity times that
+length. Where the reference would take its staged join (a
 duplicated build key, another join type, no keys) or its union lookup
 (several keys), the port raises ``NotImplementedError``: those wait for
 ROADMAP item 9.
@@ -27,7 +31,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import datatypes as dt
-from ..columnar.batch import GpuBatch
+from ..columnar.batch import GpuBatch, bucket_bytes
 from ..columnar.column import GpuColumnVector, torch_dtype
 from ..config import JOIN_VERIFY_UNIQUE_HINT
 from ..expr.base import Expression, bind_expr
@@ -58,6 +62,11 @@ def _join_output_schema(left: dt.Schema, right: dt.Schema,
 def _and_sel(batch: GpuBatch, mask: torch.Tensor) -> torch.Tensor:
     """Selection for an output sharing ``batch``'s row layout."""
     return mask if batch.selection is None else batch.selection & mask
+
+
+# the most chars a gathered string column may hold: its offsets and the
+# char positions of ops/strings.assemble_strings are int32
+MAX_STRING_CHARS = (1 << 31) - 1
 
 
 def _staged(what: str) -> NotImplementedError:
@@ -127,6 +136,11 @@ class _BaseJoinExec(GpuExec):
         return (f"{self.pretty_name()} [{self.join_type}] "
                 f"keys={list(zip(self.left_keys, self.right_keys))}{c}")
 
+    def expressions(self):
+        out = list(self.left_keys) + list(self.right_keys)
+        return out + ([self.condition] if self.condition is not None
+                      else [])
+
     def _build_right(self, ctx: ExecCtx) -> Optional[GpuBatch]:
         """The build side as one batch (bounded concat, no readback), an
         empty batch where the join type still emits stream rows, or None
@@ -140,6 +154,22 @@ class _BaseJoinExec(GpuExec):
                     _EMPTY_CAPACITY, dtype=torch_dtype(f.dtype),
                     device=ctx.device)) for f in self.right.output_schema]
         return GpuBatch(cols, self.right.output_schema, 0)
+
+    def _string_maxlens(self, rbatch: GpuBatch) -> list:
+        """The longest string of each build column the join gathers
+        (0 for the others): one readback, only when there is one."""
+        if self.join_type in ("left_semi", "left_anti"):
+            return []
+        strs = [c for c in rbatch.columns if c.is_string_like]
+        if not strs:
+            return [0] * len(rbatch.columns)
+        live = rbatch.live_mask()
+        found = torch.stack([
+            torch.where(live, c.lengths(), torch.zeros_like(c.lengths()))
+            .max() for c in strs]).cpu().tolist()
+        it = iter(found)
+        return [next(it) if c.is_string_like else 0
+                for c in rbatch.columns]
 
     def _probe_build(self, rbatch: GpuBatch, ctx: ExecCtx):
         """Presort the build key once: ``(rk_sorted, perm, n_elig)``."""
@@ -163,7 +193,7 @@ class _BaseJoinExec(GpuExec):
         return rk_sorted, perm, n_elig
 
     def _join_batch(self, lbatch: GpuBatch, rbatch: GpuBatch, probe,
-                    ectx) -> GpuBatch:
+                    maxlens, ectx) -> GpuBatch:
         """One stream batch: output capacity = stream capacity, the
         emitted rows marked by the selection."""
         jt = self.join_type
@@ -178,8 +208,18 @@ class _BaseJoinExec(GpuExec):
         if jt == "left_anti":
             return GpuBatch(lbatch.columns, self._schema, lbatch.row_count,
                             selection=_and_sel(lbatch, live_l & ~matched))
+        caps = [bucket_bytes(lbatch.capacity * max(m, 1))
+                if c.is_string_like else 0
+                for c, m in zip(rbatch.columns, maxlens)]
+        if max(caps, default=0) > MAX_STRING_CHARS:
+            raise NotImplementedError(
+                f"{self.node_label()} would gather {max(caps)} chars of a "
+                f"string column into one batch of {lbatch.capacity} rows, "
+                f"past the int32 offsets' {MAX_STRING_CHARS}; splitting "
+                "the stream batch waits for the memory manager (ROADMAP "
+                "item 14)")
         out_cols = list(lbatch.columns) \
-            + gather_columns(rbatch.columns, ridx, matched)
+            + gather_columns(rbatch.columns, ridx, matched, caps)
         if jt == "inner":
             sel = matched
             if self.condition is not None:
@@ -203,14 +243,17 @@ class _BaseJoinExec(GpuExec):
             op_time.value += time.perf_counter() - t0
             return
         probe = self._probe_build(rbatch, ctx)
+        maxlens = self._string_maxlens(rbatch)
         op_time.value += time.perf_counter() - t0
         for lbatch in self.left.execute(ctx):
             t0 = time.perf_counter()
-            out = self._join_batch(lbatch, rbatch, probe, ctx.eval_ctx)
+            out = self._join_batch(lbatch, rbatch, probe, maxlens,
+                                   ctx.eval_ctx)
             op_time.value += time.perf_counter() - t0
             yield out
 
 
 class GpuShuffledHashJoinExec(_BaseJoinExec):
     """Shuffled hash join (``GpuShuffledHashJoinExec``): the local join
-    core; the exchange below it waits for ROADMAP item 10."""
+    core. SQL's comma joins plan it with no exchange below, as the
+    reference's compiler does."""

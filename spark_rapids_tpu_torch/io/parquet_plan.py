@@ -14,8 +14,9 @@ meta, value, bit offset); the payload bytes stay opaque and cross to the
 device as uint32 words. The device half is ``ops/parquet_decode.py``
 (plain PyTorch) and ``csrc/parquet_decode.cu`` (K5). Anything outside the
 envelope raises ``HostFallback`` with a bounded reason and the scan
-decodes that chunk with pyarrow. The BYTE_ARRAY planning is kept, but the
-port's scan refuses string columns until its columnar layer holds them.
+decodes that chunk with pyarrow. A BYTE_ARRAY chunk's plan decodes to
+its index stream into a string store (``ChunkPlan.str_dict``) that the
+scan stages beside it; the scan builds the string column from both.
 """
 from __future__ import annotations
 
@@ -26,20 +27,11 @@ import numpy as np
 import pyarrow as pa
 
 from .. import datatypes as dt
-from ..columnar.batch import bucket_rows
+from ..columnar.batch import bucket_bytes, bucket_rows
 
 __all__ = ["plan_chunk", "merge_chunk_plans", "ChunkPlan", "HostFallback",
            "encoded_nbytes", "parse_page_header", "FALLBACK_REASONS",
            "STR_EXPANSION_CAP"]
-
-
-def bucket_bytes(n: int, minimum: int = 1 << 10) -> int:
-    """Power-of-two byte capacity of at least ``minimum``: the string
-    output bound's bucket (``spark_rapids_tpu/columnar/batch.py:38``)."""
-    cap = minimum
-    while cap < n:
-        cap <<= 1
-    return cap
 
 
 # string-expansion device cap shared by plan_chunk's per-chunk guard and

@@ -9,7 +9,8 @@ COALESCING) and scan metrics (``numOutputRows``, ``scanTime``,
 
 The upload: pyarrow decodes a batch on the host; a feeder thread
 (``pipelined_map``) unpacks its validity bitmaps to bool and lays every
-column, padded to the batch capacity, into one pinned staging buffer;
+column, padded to the batch capacity, into one pinned staging buffer
+(``ops/parquet_decode.BatchLayout`` with no device-decoded column);
 one ``non_blocking`` copy on a side CUDA stream moves it to the device
 and records an event. The consumer's stream waits on that event, and
 ``record_stream`` hands the device buffer over to it. A staging buffer
@@ -31,10 +32,12 @@ batch; with a fused chain above the scan (``fused_scan_execute``), the
 chain's kernel (K1 or K2) follows on the same stream with no host sync.
 A chunk outside the decode envelope goes to pyarrow on the host, chosen
 by its encoding before any decode, and is counted by reason
-(``fallbackChunks``). The scan refuses string columns: the port's
-columnar layer holds fixed-width types only. Column pruning, row-group
-pushdown, Hive partition columns and the ORC/CSV/JSON/Hive-text formats
-wait.
+(``fallbackChunks``). String columns decode on either path: pyarrow's
+buffers on the host path, K5's index stream into the staged string
+store on the device path (``ops/parquet_decode.BatchLayout``). Decimal
+and nested columns raise ``NotImplementedError`` (ROADMAP item 2).
+Column pruning, row-group pushdown, Hive partition columns and the
+ORC/CSV/JSON/Hive-text formats wait (ROADMAP items 5 and 12).
 """
 from __future__ import annotations
 
@@ -50,9 +53,10 @@ import pyarrow.parquet as pq
 import torch
 
 from .. import datatypes as dt
-from ..columnar.arrow_bridge import arrow_schema, engine_schema, host_lanes
+from ..columnar.arrow_bridge import (arrow_schema, engine_schema,
+                                     host_lanes, string_parts)
 from ..columnar.batch import GpuBatch, bucket_rows
-from ..columnar.column import GpuColumnVector, torch_dtype
+from ..columnar.column import is_string_like, torch_dtype
 from ..config import (MAX_PARTITION_BYTES, PARQUET_DEVICE_DECODE,
                       PARQUET_MULTITHREADED_THREADS, PARQUET_READER_TYPE,
                       SCAN_COALESCE_TARGET_BYTES, SCAN_INFLIGHT_BATCHES,
@@ -61,12 +65,10 @@ from ..config import (MAX_PARTITION_BYTES, PARQUET_DEVICE_DECODE,
 from ..exec.base import ExecCtx, LeafExec
 from ..ops.parquet_decode import BatchLayout, decode_batch
 from ..pipeline import pipelined_map
-from .parquet_plan import HostFallback, merge_chunk_plans, plan_chunk
+from .parquet_plan import (STR_EXPANSION_CAP, HostFallback,
+                           merge_chunk_plans, plan_chunk)
 
 __all__ = ["FileSplit", "GpuFileScanExec", "plan_splits"]
-
-_ALIGN = 8
-
 
 class FileSplit:
     """A unit of scan work: one file, optionally restricted to a
@@ -140,56 +142,24 @@ def _align(rb: pa.RecordBatch, target: pa.Schema) -> pa.RecordBatch:
     return pa.RecordBatch.from_arrays(cols, schema=target)
 
 
-def _round_up(n: int) -> int:
-    return -(-n // _ALIGN) * _ALIGN
+def _check_types(schema: dt.Schema) -> None:
+    """Raise for a field the scan cannot read yet: decimals and nested
+    types."""
+    for f in schema.fields:
+        if isinstance(f.dtype, dt.DecimalType):
+            raise NotImplementedError(
+                f"column {f.name}: decimal columns are not ported yet "
+                "(ROADMAP item 2)")
+        if not is_string_like(f.dtype):
+            torch_dtype(f.dtype)
 
 
-def _layout(schema: dt.Schema, valids, capacity: int) \
-        -> Tuple[List[Tuple[int, Optional[int]]], int]:
-    """Byte offsets ``(data, validity or None)`` of each column in the
-    staging blob, and the blob's size."""
-    offsets, off = [], 0
-    for f, valid in zip(schema.fields, valids):
-        data_off = off
-        off = _round_up(off + capacity * f.dtype.np_dtype.itemsize)
-        valid_off = None
-        if valid is not None:
-            valid_off = off
-            off = _round_up(off + capacity)
-        offsets.append((data_off, valid_off))
-    return offsets, off
-
-
-def _fill(blob: np.ndarray, schema: dt.Schema, lanes, offsets,
-          capacity: int) -> None:
-    """Write each column's lanes, zero-padded to ``capacity``, into the
-    host blob."""
-    for f, (values, valid), (data_off, valid_off) in zip(
-            schema.fields, lanes, offsets):
-        n = len(values)
-        width = f.dtype.np_dtype.itemsize
-        data = blob[data_off:data_off + capacity * width].view(
-            f.dtype.np_dtype)
-        data[:n] = values
-        data[n:] = 0
-        if valid_off is not None:
-            v = blob[valid_off:valid_off + capacity].view(np.bool_)
-            v[:n] = valid
-            v[n:] = False
-
-
-def _blob_columns(blob: torch.Tensor, schema: dt.Schema, offsets,
-                  capacity: int) -> List[GpuColumnVector]:
-    """Typed column views into one device blob."""
-    cols = []
-    for f, (data_off, valid_off) in zip(schema.fields, offsets):
-        width = f.dtype.np_dtype.itemsize
-        data = blob[data_off:data_off + capacity * width].view(
-            torch_dtype(f.dtype))
-        validity = None if valid_off is None else \
-            blob[valid_off:valid_off + capacity].view(torch.bool)
-        cols.append(GpuColumnVector(f.dtype, data, validity))
-    return cols
+def _host_field(col, f: dt.StructField):
+    """Host lanes of one decoded column: ``(values, validity or None)``,
+    or ``(offsets, chars, validity or None)`` for a string field."""
+    if is_string_like(f.dtype):
+        return string_parts(col)
+    return host_lanes(col, f.dtype)
 
 
 class _StagedUpload:
@@ -203,15 +173,6 @@ class _StagedUpload:
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self._ring: List[Optional[list]] = [None] * slots
         self._next = 0
-
-    def stage(self, schema: dt.Schema, lanes, capacity: int):
-        """Copy one batch's host lanes to the device; returns
-        ``(blob, event, offsets)``; ``event`` is None on the CPU."""
-        offsets, size = _layout(schema, [v for _, v in lanes], capacity)
-        blob, event = self.stage_blob(
-            size, size, lambda host: _fill(host, schema, lanes, offsets,
-                                           capacity))
-        return blob, event, offsets
 
     def stage_blob(self, prefix: int, total: int, fill):
         """A device blob of ``total`` bytes whose first ``prefix`` bytes
@@ -424,7 +385,8 @@ class GpuFileScanExec(LeafExec):
         plans, host_rb = item[1], item[2]
         est = host_rb.nbytes if host_rb is not None else 0
         for plan in plans.values():
-            est += plan.n_rows * np.dtype(plan.lane).itemsize
+            est += plan.n_rows * np.dtype(plan.lane).itemsize \
+                + plan.str_char_cap
         return est
 
     @staticmethod
@@ -444,21 +406,26 @@ class GpuFileScanExec(LeafExec):
     def _coalesced_groups(self, planned, target_bytes: int, max_rows: int):
         """Group consecutive planned row groups toward ``target_bytes``
         of decoded output and at most ``max_rows`` rows, in split order;
-        ``target_bytes <= 0`` keeps one row group a batch."""
+        ``target_bytes <= 0`` keeps one row group a batch. A merged
+        string store stays under the expansion cap (``merge_chunk_plans``
+        sums the groups' bounds)."""
         group: List = []
-        rows = est = 0
+        rows = est = str_bound = 0
         for item in planned:
+            bound = max((p.str_bound for p in item[1].values()), default=0)
             if group and (rows + item[0] > max_rows
+                          or str_bound + bound > STR_EXPANSION_CAP
                           or not self._coalesce_compatible(group[0], item)):
                 yield group
-                group, rows, est = [], 0, 0
+                group, rows, est, str_bound = [], 0, 0, 0
             group.append(item)
             rows += item[0]
+            str_bound += bound
             est += self._decoded_estimate(item)
             if target_bytes <= 0 or est >= target_bytes \
                     or rows >= max_rows:
                 yield group
-                group, rows, est = [], 0, 0
+                group, rows, est, str_bound = [], 0, 0, 0
         if group:
             yield group
 
@@ -486,13 +453,18 @@ class GpuFileScanExec(LeafExec):
             idx = -1 if host_rb is None \
                 else host_rb.schema.get_field_index(f.name)
             if idx < 0:
-                host[f.name] = (np.zeros(n_rows, f.dtype.np_dtype),
-                                np.zeros(n_rows, np.bool_))
+                if is_string_like(f.dtype):
+                    host[f.name] = (np.zeros(n_rows + 1, np.int32),
+                                    np.zeros(0, np.uint8),
+                                    np.zeros(n_rows, np.bool_))
+                else:
+                    host[f.name] = (np.zeros(n_rows, f.dtype.np_dtype),
+                                    np.zeros(n_rows, np.bool_))
                 continue
             col = host_rb.column(idx)
             target = dt.to_arrow(f.dtype)
-            host[f.name] = host_lanes(col if col.type == target
-                                      else col.cast(target), f.dtype)
+            host[f.name] = _host_field(col if col.type == target
+                                       else col.cast(target), f)
         return host
 
     def _batch_layout(self, group) -> Tuple[BatchLayout, Tuple[str, ...]]:
@@ -527,8 +499,7 @@ class GpuFileScanExec(LeafExec):
         return self._execute_device_decode(ctx, chain)
 
     def _execute_device_decode(self, ctx: ExecCtx, chain=None):
-        for f in self._schema.fields:
-            torch_dtype(f.dtype)  # raises for what the device cannot hold
+        _check_types(self._schema)
         conf = ctx.conf
         rows = ctx.metric(self, "numOutputRows")
         scan_t = ctx.metric(self, "scanTime")
@@ -626,6 +597,7 @@ class GpuFileScanExec(LeafExec):
     # --- host decode ---------------------------------------------------------
 
     def execute(self, ctx: ExecCtx):
+        _check_types(self._schema)
         if self._use_device_decode(ctx.conf):
             yield from self._execute_device_decode(ctx)
             return
@@ -641,14 +613,14 @@ class GpuFileScanExec(LeafExec):
         def upload(rb):
             t0 = time.perf_counter()
             rb = _align(rb, target)
-            lanes = [host_lanes(rb.column(i), f.dtype)
-                     for i, f in enumerate(self._schema.fields)]
-            capacity = bucket_rows(rb.num_rows)
+            layout = BatchLayout(
+                self._schema, bucket_rows(rb.num_rows), rb.num_rows, {},
+                {f.name: _host_field(rb.column(i), f)
+                 for i, f in enumerate(self._schema.fields)})
             t1 = time.perf_counter()
-            blob, event, offsets = uploader.stage(self._schema, lanes,
-                                                  capacity)
-            return (blob, event, offsets, capacity, rb.num_rows, t1 - t0,
-                    time.perf_counter() - t1)
+            blob, event = uploader.stage_blob(
+                layout.prefix_bytes, layout.total_bytes, layout.fill)
+            return blob, event, layout, t1 - t0, time.perf_counter() - t1
 
         def timed_source():
             t0 = time.perf_counter()
@@ -664,15 +636,15 @@ class GpuFileScanExec(LeafExec):
             while True:
                 t0 = time.perf_counter()
                 try:
-                    blob, event, offsets, cap, n, asm_s, up_s = next(gen)
+                    blob, event, layout, asm_s, up_s = next(gen)
                 except StopIteration:
                     break
                 wait_t.value += time.perf_counter() - t0
                 asm_t.value += asm_s
                 up_t.value += up_s
                 uploader.hand_over(blob, event)
-                rows.value += n
-                yield GpuBatch(_blob_columns(blob, self._schema, offsets,
-                                             cap), self._schema, n)
+                rows.value += layout.n_rows
+                yield GpuBatch(layout.columns(blob), self._schema,
+                               layout.n_rows)
         finally:
             gen.close()

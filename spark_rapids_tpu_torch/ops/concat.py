@@ -8,6 +8,8 @@ prefix, the port copies every input whole, one after the other, and
 carries the inputs' live rows as the output's lazy selection: the
 consumers (the final aggregate's sort, the join's build presort) read
 the live mask and put the dead rows last. No row moves, no gather runs.
+A string column's chars are concatenated whole and its rows re-packed
+from their shifted starts and lengths, with no readback.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import List
 import torch
 
 from ..columnar.batch import GpuBatch, bucket_rows
+from ..columnar.column import GpuColumnVector
+from .strings import assemble_strings, string_row_parts
 
 __all__ = ["concat_batches_bounded"]
 
@@ -29,6 +33,27 @@ def _padded_cat(parts: List[torch.Tensor], cap: int) -> torch.Tensor:
     return padded
 
 
+def _concat_strings(parts: List[GpuColumnVector], cap: int) \
+        -> GpuColumnVector:
+    """String columns end to end: the chars of every input side by side,
+    each input's starts shifted by the char capacities before it (sizes
+    the host knows), then the rows re-packed from their starts and
+    lengths (``ops/strings.assemble_strings``); padding rows are empty."""
+    starts, lengths, base = [], [], 0
+    for p in parts:
+        s, n = string_row_parts(p)
+        starts.append(s + base)
+        lengths.append(n)
+        base += p.chars.shape[0]
+    raw = GpuColumnVector(parts[0].dtype, None, None,
+                          None, torch.cat([p.chars for p in parts]))
+    validity = None
+    if any(p.validity is not None for p in parts):
+        validity = _padded_cat([p.valid_mask() for p in parts], cap)
+    return assemble_strings(raw, _padded_cat(starts, cap),
+                            _padded_cat(lengths, cap), validity, base)
+
+
 def concat_batches_bounded(batches: List[GpuBatch]) -> GpuBatch:
     """Concatenate batches of one schema without a size readback."""
     if len(batches) == 1:
@@ -38,6 +63,9 @@ def concat_batches_bounded(batches: List[GpuBatch]) -> GpuBatch:
     cols = []
     for ci, c0 in enumerate(first.columns):
         parts = [b.columns[ci] for b in batches]
+        if c0.is_string_like:
+            cols.append(_concat_strings(parts, cap))
+            continue
         data = _padded_cat([p.data for p in parts], cap)
         validity = None
         if any(p.validity is not None for p in parts):

@@ -1,10 +1,12 @@
 """Row gather and stream compaction.
 
-Counterpart of ``spark_rapids_tpu/ops/gather.py:23-60,98-265``, fixed-width
-columns only. Every data and validity gather goes through **K4**
-(``cuda_kernels.gather_rows``): one launch moves all the columns of a
-``gather_columns`` call, where the reference packs them into one int32
-matrix for a single XLA row gather. ``compaction_indices`` is the
+Counterpart of ``spark_rapids_tpu/ops/gather.py:23-60,98-265``, for
+fixed-width and string columns. Every data and validity gather goes
+through **K4** (``cuda_kernels.gather_rows``): one launch moves all the
+columns of a ``gather_columns`` call, where the reference packs them into
+one int32 matrix for a single XLA row gather. A string column rides that
+launch as its start offsets and lengths, and its characters are copied
+after it (``ops/strings.assemble_strings``). ``compaction_indices`` is the
 reference's sort of ``(dropped?, position)``, on **K3**.
 
 The port's batch keeps its row count on the host, so a compaction that
@@ -22,6 +24,7 @@ import torch
 from ..columnar.batch import GpuBatch, row_mask
 from ..columnar.column import GpuColumnVector
 from . import cuda_kernels as ck
+from .strings import assemble_strings, string_row_parts
 
 __all__ = ["inclusive_int_cumsum", "exclusive_cumsum", "compaction_indices",
            "gather_column", "gather_columns", "gather_batch",
@@ -51,20 +54,38 @@ def compaction_indices(keep: torch.Tensor) \
 
 def gather_columns(columns: Sequence[GpuColumnVector],
                    indices: torch.Tensor,
-                   out_live: Optional[torch.Tensor]) \
+                   out_live: Optional[torch.Tensor],
+                   char_capacities: Optional[Sequence[int]] = None) \
         -> List[GpuColumnVector]:
     """Reorder columns by row indices in one K4 launch. ``out_live``
     (need not be a prefix: the join gathers build rows into match
     positions) zeroes dead output rows and clears their validity; None
-    means every output row is live."""
+    means every output row is live. A string column's output holds
+    ``char_capacities[i]`` bytes, by default its input's: enough for any
+    gather that takes each source row at most once."""
     if not columns:
         return []
-    datas, valids = ck.gather_rows([c.data for c in columns],
-                                   [c.validity for c in columns],
-                                   indices.to(torch.int32).contiguous(),
-                                   out_live)
-    return [GpuColumnVector(c.dtype, d, v)
-            for c, d, v in zip(columns, datas, valids)]
+    datas, valids = [], []
+    for c in columns:
+        if c.is_string_like:
+            datas.extend(string_row_parts(c))
+            valids.extend([c.validity, None])
+        else:
+            datas.append(c.data)
+            valids.append(c.validity)
+    gd, gv = ck.gather_rows(datas, valids,
+                            indices.to(torch.int32).contiguous(), out_live)
+    out, at = [], 0
+    for i, c in enumerate(columns):
+        if c.is_string_like:
+            cap = c.chars.shape[0] if char_capacities is None \
+                else char_capacities[i]
+            out.append(assemble_strings(c, gd[at], gd[at + 1], gv[at], cap))
+            at += 2
+        else:
+            out.append(GpuColumnVector(c.dtype, gd[at], gv[at]))
+            at += 1
+    return out
 
 
 def gather_column(col: GpuColumnVector, indices: torch.Tensor,
@@ -97,9 +118,12 @@ def shrink_batch(batch: GpuBatch, new_cap: int) -> GpuBatch:
         raise ValueError("compact before shrinking")
     if new_cap >= batch.capacity:
         return batch
-    cols = [GpuColumnVector(c.dtype, c.data[:new_cap],
+    cols = [GpuColumnVector(c.dtype,
+                            None if c.data is None else c.data[:new_cap],
                             None if c.validity is None
-                            else c.validity[:new_cap])
+                            else c.validity[:new_cap],
+                            None if c.offsets is None
+                            else c.offsets[:new_cap + 1], c.chars)
             for c in batch.columns]
     return GpuBatch(cols, batch.schema, batch.row_count)
 

@@ -36,8 +36,11 @@ duplicate payloads. K4 (``check_k4``/``time_k4``) runs at the path's
 gather shapes (the probe's 2^21 rows from a 2^17-row build, the
 group-by's 2^21-row permutation), at a ragged length, and with nulls,
 dead rows, out-of-range indices, 1-, 2-, 4- and 8-byte columns mixed,
-and three columns of one width (1, 2 and 8 bytes) with indices and live
-flags off alignment. Each timing runs back to back on the device over
+three columns of one width (1, 2 and 8 bytes) with indices and live
+flags off alignment, and the NDS join's shape: the ``item`` build's
+six columns, its string as starts and lengths (32,768 rows), gathered
+into a 2^20-row ``store_sales`` batch. ``check_string_gather`` holds
+``gather_strings`` at that shape to pyarrow's ``take``. Each timing runs back to back on the device over
 inputs that cycle through copies larger than L2, in turns (plain,
 kernel, kernel, plain), beside the library call that computes the same
 function.
@@ -47,9 +50,15 @@ a q6 row group (750,152 rows, the four q6 columns and l_linenumber), a
 row group with nulls, DELTA pages, v2 pages, booleans and an all-null
 column, a coalesced batch of row groups whose dictionaries differ, and
 alternating values, a dictionary of 100,000 entries and 64-bit PLAIN
-columns (``k5_shapes_file``); and the hand-made run tables of
-``k5_tile_layouts``, which walk its tiles at their edges (the CPU tests
-hold ``decode_tiles_torch`` to the reference on the same tables).
+columns (``k5_shapes_file``), and the NDS path's own batches
+(``nds_layouts``: a 2^20-row ``store_sales`` batch coalesced from two
+row groups of int64, int32 and float64 columns, and the 32,768-row
+``item`` batch with its dictionary string column decoded to store
+indices); and the hand-made run tables of ``k5_tile_layouts``, which
+walk its tiles at their edges (the CPU tests hold ``decode_tiles_torch``
+to the reference on the same tables). Every column is compared whole,
+a string column's offsets and chars too, and every batch read from a
+file is also held to pyarrow's reading of the same rows.
 ``time_k5`` counts the bytes K5 moves: the encoded parts in, and every
 column out up to the capacity. K2 (``check_k2``/``time_k2``) runs both
 editions at a q6 batch with a line-number key, at a ragged length, with
@@ -93,8 +102,9 @@ __all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
            "k1_kernels_per_call", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
-           "path_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
-           "time_k4", "k5_layouts", "k5_shapes_file", "k5_tile_layouts",
+           "check_string_gather", "path_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
+           "time_k4", "k5_layouts", "k5_shapes_file", "nds_layouts",
+           "k5_tile_layouts",
            "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2"]
 
 ENGINE_RTOL = 1e-9
@@ -623,6 +633,8 @@ def k1_kernels_per_call(device) -> int:
 K3_SHAPES = (1 << 17, 1 << 21, 1 << 23)  # build presort, partial, final
 K4_PROBE_ROWS = 1 << 21
 K4_BUILD_ROWS = 1 << 17
+NDS_ITEM_ROWS = 32_768  # nds.gen_tables' item at 2^22 store_sales rows
+NDS_BATCH_ROWS = 1 << 20  # a store_sales batch: two row groups of 2^19
 _RAGGED = 1_000_003
 _I64_MIN = -(1 << 63)
 _I32_MIN = -(1 << 31)
@@ -904,6 +916,14 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
                 "valids": [None, t(rng.random(widths_rows) < 0.9), None],
                 "idx": idx, "live": live}
 
+    # the NDS join: item's build columns, its string as starts and
+    # lengths, gathered into a store_sales batch
+    items, stream = NDS_ITEM_ROWS, NDS_BATCH_ROWS
+    lens = rng.integers(0, 12, items).astype(np.int32)
+    join = [t(np.arange(items, dtype=np.int64))] + [
+        t(rng.integers(1, 100, items).astype(np.int32)) for _ in range(3)
+    ] + [t(rng.uniform(0.5, 300, items)),
+         t((np.cumsum(lens) - lens).astype(np.int32)), t(lens)]
     dead_idx = rng.integers(0, b, n).astype(np.int32)
     dead_live = rng.random(n) < 0.5
     dead_idx[~dead_live] = rng.integers(-2**31, 2**31 - 1,
@@ -931,7 +951,60 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
          "valids": [t(rng.random(widths_rows) < 0.9)] + [None] * 5,
          "idx": t(rng.integers(-5, widths_rows + 5, n).astype(np.int32)),
          "live": t(rng.random(n) < 0.7)},
+        {"name": "nds_join_item_strings_2^20", "cols": join,
+         "valids": [None] * 5 + [t(rng.random(items) < 0.95), None],
+         "idx": t(rng.integers(0, items, stream).astype(np.int32)),
+         "live": t(rng.random(stream) < 0.3)},
     ] + [same_width(d) for d in (np.int8, np.int16, np.float64)]
+
+
+def check_string_gather(device, seed: int = 6) -> Dict:
+    """``gather_strings`` (K4 on starts and lengths, then offsets and
+    chars in torch) at the NDS join's shape, an ``item`` string column
+    of 32,768 rows with nulls and empty strings gathered into a 2^20-row
+    batch with dead rows, against pyarrow's ``take`` of the same rows:
+    offsets, chars and validity; raises on a disagreement."""
+    import pyarrow as pa
+    from .. import datatypes as dt
+    from ..columnar.arrow_bridge import string_column_from_host
+    from ..columnar.batch import bucket_bytes
+    from .strings import gather_strings
+    rng = np.random.default_rng(seed)
+    items, n = NDS_ITEM_ROWS, NDS_BATCH_ROWS
+    words = ["Electronics", "Home", "Sports", "", "Jewelry", "Müsic"]
+    src = pa.array(rng.choice(words, items).tolist(),
+                   mask=rng.random(items) < 0.05)
+    col = string_column_from_host(dt.STRING, src, items, device)
+    idx = rng.integers(0, items, n).astype(np.int32)
+    live = rng.random(n) < 0.3
+    longest = max(len(w.encode()) for w in words)
+    got = gather_strings(col, torch.from_numpy(idx).to(device),
+                         bucket_bytes(n * longest),
+                         torch.from_numpy(live).to(device))
+    want = src.take(pa.array(idx)).to_pylist()
+    want = [w if keep else "" for w, keep in zip(want, live)]
+    lens = np.array([len(w.encode()) if w else 0 for w in want])
+    offsets = np.zeros(n + 1, np.int32)
+    offsets[1:] = np.cumsum(lens)
+    chars = np.frombuffer("".join(w or "" for w in want).encode(), np.uint8)
+    valid = np.array([w is not None for w in src.take(pa.array(idx))
+                      .to_pylist()]) & live
+    g_chars = got.chars.cpu().numpy()
+    rec = {"case": "gather_strings_nds_join_2^20", "n": n,
+           "columns": 1,
+           "offsets_equal": bool(np.array_equal(
+               got.offsets.cpu().numpy(), offsets)),
+           "chars_equal": bool(np.array_equal(g_chars[:chars.shape[0]],
+                                              chars)
+                               and not g_chars[chars.shape[0]:].any()),
+           "validity_equal": bool(np.array_equal(
+               got.validity.cpu().numpy() & live, valid)),
+           "max_abs_err": 0.0}
+    if not (rec["offsets_equal"] and rec["chars_equal"]
+            and rec["validity_equal"]):
+        raise AssertionError(f"gather_strings disagrees with pyarrow: "
+                             f"{rec}")
+    return rec
 
 
 def check_k4(device) -> List[Dict]:
@@ -1053,11 +1126,38 @@ def k5_shapes_file(directory: str, n: int, seed: int = 7) -> str:
         use_dictionary=["alternating", "big_dict"])
 
 
+def nds_layouts(directory: str) -> Dict[str, list]:
+    """``{case: [(scan, BatchLayout), ...]}`` at the NDS path's shapes:
+    ``nds.gen_tables`` at 2^22 ``store_sales`` rows (seed 42), written
+    as the path writes them, with ``store_sales`` cut to its first 2^20
+    rows (two row groups, which the scan coalesces into one batch) and
+    ``item`` whole (32,768 rows, ``i_category`` a dictionary string
+    column), every column read."""
+    import pyarrow.parquet as pq
+    from .. import nds
+    from ..columnar.arrow_bridge import engine_schema
+    from ..config import RapidsConf
+    from ..io.scan import GpuFileScanExec
+    tables = nds.gen_tables(1 << 22)
+    paths = nds.write_tables(
+        {"store_sales": tables["store_sales"].slice(0, NDS_BATCH_ROWS),
+         "item": tables["item"]}, os.path.join(directory, "nds"))
+    out = {}
+    for name in ("store_sales", "item"):
+        path = paths[name]
+        scan = GpuFileScanExec([path], schema=engine_schema(
+            pq.ParquetFile(path).schema_arrow))
+        out[f"nds_{name}_batch"] = [
+            (scan, lay) for lay in scan.batch_layouts(RapidsConf())]
+    return out
+
+
 def k5_layouts(directory: str, seed: int = 7) -> Dict[str, list]:
     """``{case: [(scan, BatchLayout), ...]}`` over Parquet files written
     into ``directory``: the q6 row group (the four q6 columns alone, as
-    q6 scans them, and with l_linenumber), nulls + DELTA + v2 pages, and
-    a coalesced batch of row groups with differing dictionaries."""
+    q6 scans them, and with l_linenumber), nulls + DELTA + v2 pages, a
+    coalesced batch of row groups with differing dictionaries, 64-bit
+    and large-dictionary shapes, and ``nds_layouts``."""
     import pyarrow as pa
     from .. import tpch
     from ..columnar.arrow_bridge import engine_schema
@@ -1113,6 +1213,7 @@ def k5_layouts(directory: str, seed: int = 7) -> Dict[str, list]:
             schema = engine_schema(pq.ParquetFile(path).schema_arrow)
         scan = GpuFileScanExec([path], schema=schema)
         out[case] = [(scan, lay) for lay in scan.batch_layouts(conf)]
+    out.update(nds_layouts(directory))
     return out
 
 
@@ -1316,38 +1417,83 @@ def _blob(layout, device) -> torch.Tensor:
     return torch.from_numpy(host).to(device)
 
 
+def _same_or_none(a: Optional[torch.Tensor],
+                  b: Optional[torch.Tensor]) -> bool:
+    return (a is None and b is None) or (
+        a is not None and b is not None and _same_bits(a, b))
+
+
+def _reads_own_schema(scan) -> bool:
+    """Whether the scan reads one file with the file's own schema (q6's
+    scans read float64 columns as float32)."""
+    import pyarrow.parquet as pq
+    from ..columnar.arrow_bridge import engine_schema
+    return scan is not None and len(scan.paths) == 1 and engine_schema(
+        pq.ParquetFile(scan.paths[0]).schema_arrow) == scan.output_schema
+
+
+def _equals_file(scan, batches) -> bool:
+    """Whether the decoded batches hold, in order, the rows pyarrow
+    reads from the scan's file."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    got = pa.Table.from_batches(batches)
+    return got.equals(pq.read_table(scan.paths[0]).cast(got.schema))
+
+
 def check_k5(device) -> List[Dict]:
     """K5 against its plain version on the same blobs, bit for bit, on
     the Parquet batches of ``k5_layouts`` and the hand-made run tables of
-    ``k5_tile_layouts``; raises on the first disagreement."""
+    ``k5_tile_layouts``: every column to its capacity, a string column's
+    offsets and chars as well as its store indices. Every case read from
+    a file is also held to pyarrow's reading of it. Raises on the first
+    disagreement."""
+    from ..columnar.arrow_bridge import device_to_arrow
+    from ..columnar.batch import GpuBatch
     from .parquet_decode import decode_batch, decode_batch_torch
     out = []
     with tempfile.TemporaryDirectory() as d:
         cases = list(k5_layouts(d).items()) + [
             (name, [(None, lay)]) for name, lay in k5_tile_layouts().items()]
         for case, items in cases:
-            for scan, layout in items:
+            scan = items[0][0]
+            batches = [] if _reads_own_schema(scan) else None
+            for _, layout in items:
                 blob = _blob(layout, device)
                 plain = blob.clone()
                 got = decode_batch(blob, layout)
                 decode_batch_torch(plain, layout)
                 want = layout.columns(plain)
-                same = all(_same_bits(a.data, b.data) for a, b in
+                same = all(_same_or_none(a.data, b.data) for a, b in
                            zip(got, want))
-                same_v = all(
-                    (a.validity is None and b.validity is None)
-                    or _same_bits(a.validity, b.validity)
-                    for a, b in zip(got, want))
+                same_v = all(_same_or_none(a.validity, b.validity)
+                             for a, b in zip(got, want))
+                same_s = all(_same_or_none(a.offsets, b.offsets)
+                             and _same_or_none(a.chars, b.chars)
+                             for a, b in zip(got, want))
                 rec = {"case": case, "rows": layout.n_rows,
                        "columns": len(layout.device_names),
+                       "string_columns": sum(c.is_string_like
+                                             for c in got),
                        "scan_jobs": len(layout.jobs),
                        "data_equal": same, "validity_equal": same_v,
+                       "strings_equal": same_s,
                        "max_abs_err": _max_abs_diff(
                            [(a.data, b.data) for a, b in zip(got, want)
-                            if a.data.dtype != torch.bool])}
-                if not (same and same_v):
+                            if a.data is not None
+                            and a.data.dtype != torch.bool])}
+                if not (same and same_v and same_s):
                     raise AssertionError(f"K5 disagrees: {rec}")
                 out.append(rec)
+                if batches is not None:
+                    batches.append(device_to_arrow(
+                        GpuBatch(got, layout.schema, layout.n_rows)))
+            if batches is not None:
+                out[-1]["pyarrow_equal"] = _equals_file(scan, batches)
+                if not out[-1]["pyarrow_equal"]:
+                    raise AssertionError(
+                        f"K5's {case} batches differ from pyarrow's "
+                        f"reading of the file: {out[-1]}")
     return out
 
 

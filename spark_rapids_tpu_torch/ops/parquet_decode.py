@@ -25,6 +25,13 @@ through a dense -> row gather.
   version; a blob on a CUDA device launches ``csrc/parquet_decode.cu``
   once for every device column of the batch (``decode_batch.launches``
   counts those calls).
+- A string column (BYTE_ARRAY) decodes, through the same K5 launch, to
+  its index stream into the chunk's string store, which the blob stages
+  beside the encoded parts (``:1183-1188``). ``BatchLayout.columns``
+  then builds the column in torch as ``:1242-1265`` does: each row's
+  length from the store's offsets, the offsets by a cumulative sum, and
+  the chars copied from the store (``ops/strings.assemble_strings``)
+  into the plan's host-known char capacity.
 - ``decode_tiles_torch`` runs the kernel's decomposition in plain torch:
   tiles of ``TILE_ROWS`` rows, padding tiles, one 256-way search of the
   run table a tile, windows of at most ``RUN_WINDOW`` run records, and
@@ -41,7 +48,8 @@ import numpy as np
 import torch
 
 from .. import datatypes as dt
-from ..columnar.column import GpuColumnVector, torch_dtype
+from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
+from .strings import assemble_strings
 
 if TYPE_CHECKING:  # the io package imports this module
     from ..io.parquet_plan import ChunkPlan
@@ -183,7 +191,10 @@ class BatchLayout:
     with nulls needs a prefix count of its valid rows (its dense index)
     and a DELTA chunk a prefix sum of its deltas: each is a scan job.
     ``host`` maps a field to its host lanes ``(values, validity or
-    None)``; every other field must be in ``plans``."""
+    None)``, or ``(offsets, chars, validity or None)`` for a string
+    field; every other field must be in ``plans``. A string field in
+    ``plans`` decodes to int32 indices into its store (offsets, then
+    chars), staged in the prefix."""
 
     def __init__(self, schema: dt.Schema, capacity: int, n_rows: int,
                  plans: Dict[str, ChunkPlan],
@@ -217,6 +228,9 @@ class BatchLayout:
         self.jobs = np.zeros(len(jobs), _JOB)
         self.jobs_off = take(self.jobs.nbytes)
         self._parts: List[Tuple[int, np.ndarray]] = []
+        # a string column's store: (offsets at, entries + 1, chars at,
+        # bytes, the decoded chars' capacity)
+        self._str: Dict[str, Tuple[int, int, int, int, int]] = {}
         for j, name in enumerate(self.device_names):
             plan = plans[name]
             d = self.desc[j]
@@ -233,25 +247,39 @@ class BatchLayout:
                 d[key] = take(arr.nbytes)
                 d["n_" + key] = arr.shape[0]
                 self._parts.append((int(d[key]), arr))
+            if plan.str_dict is not None:
+                offs, chars = plan.str_dict
+                self._str[name] = (take(offs.nbytes), offs.shape[0],
+                                   take(chars.nbytes), chars.shape[0],
+                                   plan.str_char_cap)
+                self._parts.append((self._str[name][0], offs))
+                self._parts.append((self._str[name][2], chars))
             d["n_rows"] = plan.n_rows
             d["lane_bytes"] = _lane_bytes(plan)
             d["flags"] = (_HAS_NULLS if plan.has_nulls else 0) \
                 | (_DELTA if plan.is_delta else 0) \
                 | (_BOOL if plan.lane == np.bool_ else 0)
         # host-decoded columns: data then validity, as GpuBatch holds them
-        self._host_slots: Dict[str, Tuple[int, Optional[int]]] = {}
+        self._host_slots: Dict[str, Tuple] = {}
         for f in schema.fields:
             if f.name in plans:
                 continue
-            values, valid = host[f.name]
-            data_off = take(cap * f.dtype.np_dtype.itemsize)
-            valid_off = None if valid is None else take(cap)
-            self._host_slots[f.name] = (data_off, valid_off)
+            lanes = host[f.name]
+            valid = lanes[-1]
+            if is_string_like(f.dtype):
+                offs, chars, _ = lanes
+                char_cap = max(len(chars), 1)
+                slot = (take((cap + 1) * 4), take(char_cap), char_cap)
+            else:
+                slot = (take(cap * f.dtype.np_dtype.itemsize),)
+            self._host_slots[f.name] = slot + (
+                None if valid is None else take(cap),)
         self.prefix_bytes = off
         # device-only suffix: decoded columns, then the scans' scratch
         for j, name in enumerate(self.device_names):
             d = self.desc[j]
-            width = schema[name].dtype.np_dtype.itemsize
+            width = _lane_bytes(plans[name]) if name in self._str \
+                else schema[name].dtype.np_dtype.itemsize
             d["out_bytes"] = width
             d["out"] = take(cap * width)
             d["valid"] = take(cap) if plans[name].has_nulls else -1
@@ -276,10 +304,13 @@ class BatchLayout:
         return sum(arr.nbytes for _, arr in self._parts)
 
     def decoded_bytes(self) -> int:
-        """Bytes of decoded live rows (the scan's ``decodedBytes``)."""
+        """Bytes of decoded live rows (the scan's ``decodedBytes``); a
+        string column counts its offsets and its char capacity."""
         return int(sum(self.n_rows * d["out_bytes"]
                        + (self.n_rows if d["valid"] >= 0 else 0)
-                       for d in self.desc))
+                       for d in self.desc)
+                   + sum(4 * (self.n_rows + 1) + s[4]
+                         for s in self._str.values()))
 
     def written_bytes(self) -> int:
         """Bytes the device decode writes: every device column up to the
@@ -298,13 +329,25 @@ class BatchLayout:
         for start, arr in self._parts:
             host[start:start + arr.nbytes] = arr.reshape(-1).view(np.uint8)
         cap = self.capacity
-        for name, (data_off, valid_off) in self._host_slots.items():
-            values, valid = self.host[name]
-            np_t = self.schema[name].dtype.np_dtype
-            n = len(values)
-            data = host[data_off:data_off + cap * np_t.itemsize].view(np_t)
-            data[:n] = values
-            data[n:] = 0
+        for name, slot in self._host_slots.items():
+            lanes = self.host[name]
+            valid, valid_off = lanes[-1], slot[-1]
+            if len(lanes) == 3:
+                offs, chars, _ = lanes
+                n = len(offs) - 1
+                o = host[slot[0]:slot[0] + (cap + 1) * 4].view(np.int32)
+                o[:n + 1] = offs
+                o[n + 1:] = offs[-1]
+                c = host[slot[1]:slot[1] + slot[2]]
+                c[:len(chars)] = chars
+                c[len(chars):] = 0
+            else:
+                values = lanes[0]
+                np_t = self.schema[name].dtype.np_dtype
+                n = len(values)
+                data = host[slot[0]:slot[0] + cap * np_t.itemsize].view(np_t)
+                data[:n] = values
+                data[n:] = 0
             if valid_off is not None:
                 v = host[valid_off:valid_off + cap].view(np.bool_)
                 v[:n] = valid
@@ -318,9 +361,20 @@ class BatchLayout:
                  for name, d in zip(self.device_names, self.desc)}
         cols = []
         for f in self.schema.fields:
+            if f.name in self._str:
+                cols.append(self._string_column(blob, f, *slots[f.name]))
+                continue
             if f.name in slots:
                 data_off, valid_off = slots[f.name]
                 valid_off = None if valid_off < 0 else valid_off
+            elif is_string_like(f.dtype):
+                o_off, c_off, char_cap, valid_off = self._host_slots[f.name]
+                cols.append(GpuColumnVector(
+                    f.dtype, None, None if valid_off is None else
+                    blob[valid_off:valid_off + cap].view(torch.bool),
+                    blob[o_off:o_off + (cap + 1) * 4].view(torch.int32),
+                    blob[c_off:c_off + char_cap]))
+                continue
             else:
                 data_off, valid_off = self._host_slots[f.name]
             width = f.dtype.np_dtype.itemsize
@@ -330,6 +384,37 @@ class BatchLayout:
                 blob[valid_off:valid_off + cap].view(torch.bool)
             cols.append(GpuColumnVector(f.dtype, data, validity))
         return cols
+
+
+    def out_dtype(self, name: str) -> torch.dtype:
+        """The dtype K5 writes for a device column: the field's lane, or
+        int32 store indices for a string column."""
+        if name in self._str:
+            return torch.int32
+        return torch_dtype(self.schema[name].dtype)
+
+    def _string_column(self, blob: torch.Tensor, f: dt.StructField,
+                       out_off: int, valid_off: int) -> GpuColumnVector:
+        """A decoded string column from its index stream and its staged
+        store: the store's length of each valid row (null and padding
+        rows 0), the offsets by a cumulative sum, the chars copied into
+        the plan's char capacity."""
+        cap = self.capacity
+        so_off, so_n, sc_off, sc_n, char_cap = self._str[f.name]
+        idx = blob[out_off:out_off + cap * 4].view(torch.int32)
+        valid = None if valid_off < 0 else \
+            blob[valid_off:valid_off + cap].view(torch.bool)
+        store_offs = blob[so_off:so_off + so_n * 4].view(torch.int32)
+        k = idx.long().clamp_(0, max(so_n - 2, 0))
+        starts = store_offs[k]
+        lengths = store_offs[k + 1] - starts
+        live = torch.arange(cap, device=blob.device) < self.n_rows
+        if valid is not None:
+            live = live & valid
+        lengths = torch.where(live, lengths, torch.zeros_like(lengths))
+        store = GpuColumnVector(f.dtype, None, None, None,
+                                blob[sc_off:sc_off + sc_n])
+        return assemble_strings(store, starts, lengths, valid, char_cap)
 
 
 # --- the wrapper -------------------------------------------------------------
@@ -364,7 +449,7 @@ def decode_batch_torch(blob: torch.Tensor, layout: BatchLayout) -> None:
         vals, valid = decode_chunk_torch(
             words("words"), table("runs"), dict_arr, words("def_words"),
             table("def_runs"), int(d["n_rows"]), cap, delta=plan.is_delta)
-        out_t = torch_dtype(layout.schema[name].dtype)
+        out_t = layout.out_dtype(name)
         _view(blob, int(d["out"]), cap, out_t).copy_(vals.to(out_t))
         if d["valid"] >= 0:
             _view(blob, int(d["valid"]), cap, torch.bool).copy_(valid)
@@ -598,7 +683,7 @@ def decode_tiles_torch(blob: torch.Tensor, layout: BatchLayout,
             bits, starts = _expand_tiles(tab, vwords, plan.n_valid,
                                          tile_rows, word_cap, False, stats)
             deltas = _segmented_sum(bits, starts)
-        out_t = torch_dtype(layout.schema[name].dtype)
+        out_t = layout.out_dtype(name)
         out = _view(blob, int(d["out"]), cap, out_t)
         vout = _view(blob, int(d["valid"]), cap, torch.bool) \
             if d["valid"] >= 0 else None

@@ -1,0 +1,272 @@
+"""Session and DataFrame: the user's entry point.
+
+Counterpart of ``spark_rapids_tpu/session.py:130-150,215-505``
+(``_analyze``, ``GroupedData``, ``DataFrame``, ``TpuSession``): a user
+builds DataFrame transformations or registers tables and writes SQL;
+the session builds the operator tree, ``GpuOverrides`` plans it, and the
+plan runs on the session's device (``cuda:0`` unless the caller passes
+``device="cpu"``) and returns a pyarrow Table.
+
+A grouped aggregation is planned as Spark plans it: a hash exchange over
+``spark.sql.shuffle.partitions`` partitions, then the aggregate. The
+analyzer's implicit numeric widening needs ``Cast``, which waits for
+ROADMAP item 13, so mixed numeric types raise. ``union``, ``sample``,
+``explode``, ``cache``, ``write`` and ``pivot`` raise
+``NotImplementedError`` naming their items; the process cluster, the
+query lifecycle and EXPLAIN ANALYZE wait for items 16, 14 and 15.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Union
+
+import pyarrow as pa
+
+from . import datatypes as dt
+from .config import CASE_SENSITIVE, SHUFFLE_PARTITIONS, RapidsConf
+from .exec.base import GpuExec, HostBatchSourceExec, resolve_device
+from .expr.base import Expression, UnresolvedColumn, bind_expr
+
+__all__ = ["GpuSession", "DataFrame", "GroupedData"]
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item "
+                               f"{item})")
+
+
+def _analyze(e: Expression) -> Expression:
+    """The analyzer slice the typed expressions expect: a binary
+    comparison or arithmetic over two numeric types needs a widening
+    cast, which is not ported (``Cast``, ROADMAP item 13)."""
+    from .expr.arithmetic import BinaryArithmetic
+    from .expr.predicates import BinaryComparison
+
+    def coerce(node):
+        if isinstance(node, (BinaryComparison, BinaryArithmetic)) \
+                and len(node.children) == 2:
+            left, right = node.children
+            try:
+                lt, rt = left.dtype, right.dtype
+            except TypeError:
+                return node
+            if lt != rt and dt.is_numeric(lt) and dt.is_numeric(rt):
+                raise _unported(
+                    f"the implicit cast between {lt.simple_string()} and "
+                    f"{rt.simple_string()} in {node!r}", 13)
+        return node
+
+    return e.transform(coerce)
+
+
+def _as_expr(c) -> Expression:
+    if isinstance(c, Expression):
+        return c
+    if isinstance(c, str):
+        return UnresolvedColumn(c)
+    raise TypeError(f"not a column: {c!r}")
+
+
+class GroupedData:
+    def __init__(self, df: "DataFrame", keys: List[Expression]):
+        self._df = df
+        self._keys = keys
+
+    def agg(self, *agg_exprs) -> "DataFrame":
+        """Exchange by the grouping keys (``spark.sql.shuffle.partitions``
+        partitions, the plan shape Spark produces), then aggregate."""
+        from .exec.aggregate import GpuHashAggregateExec
+        from .exec.exchange import GpuShuffleExchangeExec
+        from .shuffle.partitioner import HashPartitioning
+        df = self._df
+        child = df._node
+        if self._keys:
+            n = df._session.conf.get(SHUFFLE_PARTITIONS)
+            child = GpuShuffleExchangeExec(HashPartitioning(self._keys, n),
+                                           child)
+        return DataFrame(GpuHashAggregateExec(self._keys, list(agg_exprs),
+                                              child), df._session)
+
+    def pivot(self, pivot_col, values=None):
+        raise _unported("pivot (If, CaseWhen)", 13)
+
+
+class DataFrame:
+    def __init__(self, node: GpuExec, session: "GpuSession"):
+        self._node = node
+        self._session = session
+
+    @property
+    def schema(self) -> dt.Schema:
+        return self._node.output_schema
+
+    def _bind(self, e) -> Expression:
+        bound = bind_expr(_as_expr(e), self._node.output_schema,
+                          case_sensitive=self._session.conf.get(
+                              CASE_SENSITIVE), validate=False)
+        analyzed = _analyze(bound)
+        analyzed.transform(lambda n: (n.validate(), n)[1])
+        return analyzed
+
+    def _plan(self):
+        from .planner import GpuOverrides
+        return GpuOverrides(self._session.conf,
+                            self._session.device).apply(self._node)
+
+    def explain(self, mode: str = "ALL") -> str:
+        return self._plan().explain(mode)
+
+    # --- transformations --------------------------------------------------
+    def select(self, *cols) -> "DataFrame":
+        from .exec.basic import GpuProjectExec
+        return DataFrame(GpuProjectExec([self._bind(c) for c in cols],
+                                        self._node), self._session)
+
+    def filter(self, cond) -> "DataFrame":
+        from .exec.basic import GpuFilterExec
+        return DataFrame(GpuFilterExec(self._bind(cond), self._node),
+                         self._session)
+
+    def group_by(self, *keys) -> GroupedData:
+        return GroupedData(self, [self._bind(k) for k in keys])
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None, build_unique: bool = False) -> "DataFrame":
+        """Equi-join through the shuffled hash join: ``on`` is column
+        name(s) both sides share, or ``(left, right)`` pairs.
+        ``build_unique`` declares the right side's keys unique (checked
+        at the download under ``spark.rapids.sql.join.verifyUniqueHint``).
+        A join without keys needs the nested-loop join (ROADMAP item
+        9)."""
+        from .exec.joins import GpuShuffledHashJoinExec
+        how = {"left": "left_outer", "right": "right_outer",
+               "outer": "full_outer", "full": "full_outer",
+               "semi": "left_semi", "anti": "left_anti"}.get(how, how)
+        if on is None:
+            raise _unported("a join without equi-keys (the nested-loop "
+                            "join)", 9)
+        if isinstance(on, str):
+            on = [on]
+        cs = self._session.conf.get(CASE_SENSITIVE)
+        lkeys, rkeys = [], []
+        for k in on:
+            lk = _as_expr(k if not isinstance(k, tuple) else k[0])
+            rk = _as_expr(k if not isinstance(k, tuple) else k[1])
+            lk = bind_expr(lk, self._node.output_schema, case_sensitive=cs)
+            rk = bind_expr(rk, other._node.output_schema,
+                           case_sensitive=cs)
+            if lk.dtype != rk.dtype and dt.is_numeric(lk.dtype) \
+                    and dt.is_numeric(rk.dtype):
+                raise _unported(
+                    f"joining {lk.dtype.simple_string()} to "
+                    f"{rk.dtype.simple_string()} keys (Cast)", 13)
+            lkeys.append(lk)
+            rkeys.append(rk)
+        return DataFrame(GpuShuffledHashJoinExec(
+            lkeys, rkeys, how, self._node, other._node, condition,
+            build_unique_hint=build_unique), self._session)
+
+    def order_by(self, *cols, ascending: Union[bool, Sequence[bool]] =
+                 True) -> "DataFrame":
+        from .exec.sort import GpuSortExec, SortOrder
+        if isinstance(ascending, bool):
+            ascending = [ascending] * len(cols)
+        orders = [SortOrder(_as_expr(c), asc)
+                  for c, asc in zip(cols, ascending)]
+        return DataFrame(GpuSortExec(orders, self._node), self._session)
+
+    def limit(self, n: int) -> "DataFrame":
+        from .exec.sort import GpuGlobalLimitExec
+        return DataFrame(GpuGlobalLimitExec(n, self._node), self._session)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        raise _unported("union (TpuUnionExec)", 13)
+
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        raise _unported("sample (TpuSampleExec)", 13)
+
+    def explode(self, column, outer: bool = False,
+                position: bool = False) -> "DataFrame":
+        raise _unported("explode (TpuGenerateExec)", 13)
+
+    def cache(self) -> "DataFrame":
+        raise _unported("cache (the spill catalog)", 14)
+
+    def write(self, path: str, fmt: str = "parquet", partition_by=None):
+        raise _unported("write (io/write.py)", 13)
+
+    # --- actions ----------------------------------------------------------
+    def collect(self) -> pa.Table:
+        return self._plan().collect()
+
+
+class GpuSession:
+    """The SparkSession analog: a conf, a device, DataFrame constructors and
+    a temp-view catalog for ``sql``."""
+
+    def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
+                 device=None):
+        if isinstance(conf, dict):
+            conf = RapidsConf(conf)
+        self.conf = conf or RapidsConf()
+        self.device = resolve_device(device)
+        self._tables: Dict[str, DataFrame] = {}
+
+    # --- SQL --------------------------------------------------------------
+    def register_table(self, name: str, df) -> DataFrame:
+        """A DataFrame (or anything ``create_dataframe`` takes) as a temp
+        view for ``sql``; names resolve case-insensitively."""
+        if not isinstance(df, DataFrame):
+            df = self.create_dataframe(df)
+        self._tables[name.lower()] = df
+        return df
+
+    def table(self, name: str) -> DataFrame:
+        df = self._tables.get(name.lower())
+        if df is None:
+            raise KeyError(f"table or view {name!r} is not registered")
+        return df
+
+    def _catalog_node(self, name: str):
+        """The SQL compiler's hook: a registered view's node, or None."""
+        df = self._tables.get(name.lower())
+        return df._node if df is not None else None
+
+    def sql(self, text: str) -> Union[DataFrame, str]:
+        """Compile one SQL statement into a DataFrame over the same
+        planner path. ``EXPLAIN [FORMATTED] <query>`` returns the plan's
+        text without running it; ``EXPLAIN ANALYZE`` waits for the
+        operator metrics of ROADMAP item 15. Parse and analysis errors
+        raise ``SqlParseError`` / ``SqlAnalysisError``."""
+        from .sql import sql_to_plan
+        node, stmt = sql_to_plan(text, self)
+        if stmt.explain:
+            if stmt.analyze:
+                raise _unported("EXPLAIN ANALYZE (per-operator metrics)",
+                                15)
+            from .planner import GpuOverrides
+            pp = GpuOverrides(self.conf, self.device).apply(node)
+            if stmt.formatted:
+                return pp.root.tree_string()
+            return pp.explain("ALL")
+        return DataFrame(node, self)
+
+    # --- constructors -----------------------------------------------------
+    def create_dataframe(self, data) -> DataFrame:
+        """From a pyarrow Table or RecordBatch, or a ``{name: list}``
+        dict."""
+        if isinstance(data, dict):
+            data = pa.table(data)
+        if isinstance(data, pa.Table):
+            rbs = data.combine_chunks().to_batches()
+            schema = data.schema
+        elif isinstance(data, pa.RecordBatch):
+            rbs, schema = [data], data.schema
+        else:
+            raise TypeError(f"cannot build a DataFrame from {type(data)}")
+        from .columnar.arrow_bridge import engine_schema
+        return DataFrame(HostBatchSourceExec(
+            rbs, schema=engine_schema(schema)), self)
+
+    def read_parquet(self, paths, schema=None) -> DataFrame:
+        from .io.scan import GpuFileScanExec
+        return DataFrame(GpuFileScanExec(paths, schema=schema), self)

@@ -1,0 +1,134 @@
+"""SQL function registry: name -> expression constructor.
+
+Counterpart of ``spark_rapids_tpu/sql/functions.py``. The names are the
+reference's, so the compiler tells aggregates, window and scalar
+functions apart as the reference does; the constructors map onto the
+port's expressions. ``sum`` and ``count`` are ported. Every other name
+raises ``SqlAnalysisError(..., "unsupported_feature")`` naming the
+ROADMAP item it waits for: Min/Max/Average and the other aggregates
+item 8, the scalar and window functions item 13. An unknown name is
+``unknown_function``, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+from . import ast as A
+from .errors import SqlAnalysisError
+
+__all__ = ["SCALAR_FUNCTIONS", "AGGREGATE_FUNCTIONS",
+           "WINDOW_FUNCTIONS", "is_aggregate_name", "build_scalar",
+           "build_aggregate", "build_window", "dialect_function_names"]
+
+
+def _err(msg, node: A.Node, detail: str, sql: str = ""):
+    return SqlAnalysisError(msg, sql, node.loc, detail)
+
+
+def _arity(name, node, args, lo, hi=None, sql=""):
+    hi = lo if hi is None else hi
+    if not (lo <= len(args) <= hi):
+        want = str(lo) if lo == hi else f"{lo}..{hi}"
+        raise _err(f"{name}() takes {want} argument(s), got "
+                   f"{len(args)}", node, "bad_arity", sql)
+
+
+def _unported(item: int) -> Callable:
+    def build(node, args, sql):
+        raise _err(f"{node.name}() is not ported yet (ROADMAP item "
+                   f"{item})", node, "unsupported_feature", sql)
+    return build
+
+
+_SCALAR_NAMES = (
+    "abs", "sqrt", "cbrt", "exp", "ln", "log", "log10", "log2", "pow",
+    "power", "sin", "cos", "tan", "asin", "acos", "atan", "atan2",
+    "floor", "ceil", "ceiling", "sign", "signum", "round", "bround",
+    "isnan", "length", "char_length", "upper", "ucase", "lower", "lcase",
+    "substring", "substr", "concat", "trim", "ltrim", "rtrim", "replace",
+    "locate", "lpad", "rpad", "repeat", "reverse", "startswith",
+    "endswith", "contains", "coalesce", "nullif", "least", "greatest",
+    "if", "year", "month", "day", "dayofmonth", "quarter", "dayofweek",
+    "weekday", "dayofyear", "last_day", "hour", "minute", "second",
+    "date_add", "date_sub", "datediff", "add_months", "months_between",
+    "trunc", "unix_timestamp", "from_unixtime")
+_AGG_WAITING = ("min", "max", "avg", "mean", "first", "last", "stddev",
+                "stddev_samp", "stddev_pop", "variance", "var_samp",
+                "var_pop", "collect_list", "collect_set",
+                "approx_percentile")
+_WINDOW_NAMES = ("row_number", "rank", "dense_rank", "percent_rank",
+                 "ntile", "lag", "lead")
+
+
+def _build_sum(node, args, sql):
+    from ..expr.aggregates import Sum
+    _arity("sum", node, args, 1, 1, sql)
+    return Sum(args[0])
+
+
+def _build_count(node, args, sql):
+    from ..expr.aggregates import Count
+    if node.star:
+        return Count()
+    _arity("count", node, args, 1, 1, sql)
+    if isinstance(node.args[0], A.Lit) and node.args[0].value is not None:
+        return Count()  # count(1) counts rows
+    return Count(args[0])
+
+
+SCALAR_FUNCTIONS: Dict[str, Callable] = {n: _unported(13)
+                                         for n in _SCALAR_NAMES}
+AGGREGATE_FUNCTIONS: Dict[str, Callable] = dict(
+    {n: _unported(8) for n in _AGG_WAITING}, sum=_build_sum,
+    count=_build_count)
+WINDOW_FUNCTIONS: Dict[str, Callable] = {n: _unported(13)
+                                         for n in _WINDOW_NAMES}
+
+
+def is_aggregate_name(name: str) -> bool:
+    return name in AGGREGATE_FUNCTIONS
+
+
+def _no_distinct(node: A.Func, sql: str):
+    if node.distinct:
+        raise _err(f"{node.name}(DISTINCT ...) is not in the dialect "
+                   "subset", node, "unsupported_feature", sql)
+
+
+def _build(table: Dict[str, Callable], kind: str, node: A.Func,
+           args: List, sql: str):
+    _no_distinct(node, sql)
+    b = table.get(node.name)
+    if b is None:
+        if kind == "scalar" and (node.name in AGGREGATE_FUNCTIONS
+                                 or node.name in WINDOW_FUNCTIONS):
+            other = "aggregate" if node.name in AGGREGATE_FUNCTIONS \
+                else "window"
+            raise _err(f"{other} function {node.name}() is not valid "
+                       "here", node, "misplaced_function", sql)
+        what = "function" if kind == "scalar" else f"{kind} function"
+        raise _err(f"unknown {what} {node.name}()", node,
+                   "unknown_function", sql)
+    try:
+        return b(node, args, sql)
+    except (TypeError, ValueError) as e:
+        raise _err(f"{node.name}(): {e}", node, "bad_arguments",
+                   sql) from e
+
+
+def build_scalar(node: A.Func, args: List, sql: str):
+    return _build(SCALAR_FUNCTIONS, "scalar", node, args, sql)
+
+
+def build_aggregate(node: A.Func, args: List, sql: str):
+    return _build(AGGREGATE_FUNCTIONS, "aggregate", node, args, sql)
+
+
+def build_window(node: A.Func, args: List, sql: str):
+    return _build(WINDOW_FUNCTIONS, "window", node, args, sql)
+
+
+def dialect_function_names() -> Dict[str, List[str]]:
+    return {"scalar": sorted(SCALAR_FUNCTIONS),
+            "aggregate": sorted(AGGREGATE_FUNCTIONS),
+            "window": sorted(WINDOW_FUNCTIONS)}

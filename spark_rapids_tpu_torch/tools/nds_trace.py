@@ -1,0 +1,128 @@
+"""Where an NDS query's time goes on the card: one traced run from SQL.
+
+    python3 -m spark_rapids_tpu_torch.tools.nds_trace [--query q3|q55]
+        [--partitions N] [--n-sales N] [--out DIR]
+
+Writes the NDS tables as ``chip_smoke.py`` phase 8 does (``nds.gen_tables``,
+seed 42, snappy, row groups of 2^19; default 2^22 ``store_sales`` rows,
+into ``.bench_cache/nds_torch_n<N>/``), compiles the query's SQL text
+through ``GpuSession.sql`` and ``GpuOverrides``, runs it once to warm up,
+then once under ``torch.profiler`` (CPU and CUDA activity). Prints one
+JSON line: the wall time, the device's busy time (the union of the
+intervals in which a kernel or a copy ran, so nothing counts twice) and
+its idle share, the device time and kernel launches of K3
+(``radix_histogram``, ``radix_plan``, ``radix_pass``), K4
+(``gather_rows_*``) and K5 (``k5_*``), the wrappers' launch counts in the
+traced run, and the largest other device operations. With ``--out`` it
+also writes the Chrome trace there. It needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from .. import nds
+from .join_trace import _union_us
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
+             "K4": ("gather_rows_fast", "gather_rows_any"),
+             "K5": ("k5_",)}
+
+
+def _family(name: str):
+    for fam, parts in _FAMILIES.items():
+        if any(p in name for p in parts):
+            return fam
+    return None
+
+
+def nds_paths(n_sales: int):
+    """The NDS files at ``n_sales`` rows, written once under
+    ``.bench_cache/``."""
+    return nds.write_tables(nds.gen_tables(n_sales), os.path.join(
+        _ROOT, ".bench_cache", f"nds_torch_n{n_sales}"))
+
+
+def counters():
+    """The launch counters of K3, K4 and K5's wrappers."""
+    from ..ops import cuda_kernels as ck
+    from ..ops.parquet_decode import decode_batch
+    return {"K3": ck.sort_pairs, "K4": ck.gather_rows, "K5": decode_batch}
+
+
+def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
+              n_sales: int = 1 << 22) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("nds_trace needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..exec.base import ExecCtx
+    from ..planner import GpuOverrides
+    device = torch.device("cuda", 0)
+    s = nds.session_over_files(nds_paths(n_sales), {
+        "spark.sql.shuffle.partitions": str(partitions)}, device)
+    pp = GpuOverrides(s.conf, device).apply(
+        s.sql(nds.SQL_QUERIES[query])._node)
+    pp.collect(ExecCtx(s.conf, device))  # warm-up
+    torch.cuda.synchronize()
+    wrappers = counters()
+    for c in wrappers.values():
+        c.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = pp.collect(ExecCtx(s.conf, device))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    intervals, by_name = [], {}
+    fams = {f: {"device_us": 0.0, "kernel_launches": 0,
+                "wrapper_launches": wrappers[f].launches}
+            for f in _FAMILIES}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        a, b = evt.time_range.start, evt.time_range.end
+        intervals.append((a, b))
+        rec = by_name.setdefault(evt.name, {"device_us": 0.0, "calls": 0})
+        rec["device_us"] += b - a
+        rec["calls"] += 1
+        fam = _family(evt.name)
+        if fam:
+            fams[fam]["device_us"] += b - a
+            fams[fam]["kernel_launches"] += 1
+    busy = _union_us(intervals)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            out_dir, f"nds_{query}_p{partitions}_trace.json"))
+    others = sorted(((k, v) for k, v in by_name.items()
+                     if _family(k) is None),
+                    key=lambda kv: -kv[1]["device_us"])[:12]
+    return {"query": query, "partitions": partitions, "n_sales": n_sales,
+            "rows": out.num_rows, "device": torch.cuda.get_device_name(0),
+            "wall_us": wall_us, "device_busy_us": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "kernels": fams, "top_other_device_ops": dict(others)}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--query", default="q3", choices=("q3", "q55"))
+    ap.add_argument("--partitions", type=int, default=1)
+    ap.add_argument("--n-sales", type=int, default=1 << 22)
+    ap.add_argument("--out", default=None,
+                    help="directory for the Chrome trace")
+    args = ap.parse_args()
+    print(json.dumps(trace_nds(args.out, args.query, args.partitions,
+                               args.n_sales)))
+
+
+if __name__ == "__main__":
+    main()

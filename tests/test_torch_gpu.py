@@ -4,8 +4,9 @@ bound's neighbours (``kernel_checks.check_k1``), one kernel a call, and
 q6 through the engine with one K1 launch per batch; K3 and K4
 against their plain versions (exactly, bit for bit; K3 also against
 ``torch.sort``) at the join + group-by path's shapes and edge cases, and a small join + group-by
-through the engine with the launches its plan implies. Run on a machine
-with a CUDA device: ``python -m pytest tests/test_torch_gpu.py``;
+through the engine with the launches its plan implies; NDS q3 and q55
+from SQL on the card against the CPU. Run on a machine with a CUDA
+device: ``python -m pytest tests/test_torch_gpu.py``;
 elsewhere they skip."""
 import pytest
 import torch
@@ -102,11 +103,23 @@ def test_join_groupby_on_the_card_launches_k3_and_k4(cuda_device):
 def test_k5_matches_plain_version(cuda_device):
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     recs = kc.check_k5(cuda_device)
-    assert all(r["data_equal"] and r["validity_equal"] for r in recs)
+    assert all(r["data_equal"] and r["validity_equal"]
+               and r["strings_equal"] for r in recs)
     assert any(r["scan_jobs"] for r in recs)
-    # the Parquet shapes and the hand-made tile walks ran too
-    assert {"shapes", "rle_runs_of_one", "widths", "nulls",
+    # the Parquet shapes, the NDS path's batches (a string column among
+    # them, held to pyarrow too) and the hand-made tile walks ran
+    assert {"shapes", "nds_store_sales_batch", "nds_item_batch",
+            "rle_runs_of_one", "widths", "nulls",
             "delta_identity"} <= {r["case"] for r in recs}
+    assert any(r["string_columns"] for r in recs)
+    assert all(r["pyarrow_equal"] for r in recs if "pyarrow_equal" in r)
+
+
+def test_string_gather_at_the_join_shape(cuda_device):
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    rec = kc.check_string_gather(cuda_device)
+    assert rec["offsets_equal"] and rec["chars_equal"] \
+        and rec["validity_equal"]
 
 
 def test_k2_editions_match_plain_versions(cuda_device):
@@ -165,3 +178,42 @@ def test_q6_by_linenumber_on_the_card(cuda_device, tmp_path):
     for k, g in zip(keys, got.column("revenue").to_pylist()):
         assert abs(g - want[k]) <= 1e-9 * abs(want[k])
     assert (k5, k1, k2) == (5, 0, 5)
+
+
+@pytest.mark.parametrize("parts", [1, 16])
+def test_nds_sql_on_the_card_matches_the_cpu(cuda_device, tmp_path, parts):
+    """q3 and q55 from SQL over Parquet on the card: the CPU run's rows
+    (ints exact, sums rel 1e-12), the oracle's, and Murmur3 partition
+    ids and string gathers equal to the CPU's bit for bit."""
+    import math
+
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.columnar import arrow_to_device
+    from spark_rapids_tpu_torch.ops.hash import hash_columns
+    from spark_rapids_tpu_torch.ops.strings import gather_strings
+    tables = nds.gen_tables(1 << 14)
+    paths = nds.write_tables(tables, str(tmp_path))
+    conf = {"spark.sql.shuffle.partitions": str(parts)}
+    for q in ("q3", "q55"):
+        rows = [nds.session_over_files(paths, conf, dev)
+                .sql(nds.SQL_QUERIES[q]).collect()
+                for dev in (cuda_device, "cpu")]
+        want = nds.oracle(q, tables)
+        for name in want.column_names:
+            a, b, c = (t.column(name).to_pylist() for t in rows + [want])
+            if name in nds.FLOAT_COLUMNS[q]:
+                assert all(math.isclose(x, y, rel_tol=1e-12)
+                           for x, y in zip(a, b + c))
+            else:
+                assert a == b == c
+    rb = tables["item"].combine_chunks().to_batches()[0]
+    host, card = (arrow_to_device(rb, None, d) for d in ("cpu", cuda_device))
+    assert torch.equal(hash_columns(card.columns).cpu(),
+                       hash_columns(host.columns))
+    s = rb.schema.get_field_index("i_category")
+    idx = torch.randint(0, rb.num_rows, (host.capacity,),
+                        generator=torch.Generator().manual_seed(parts))
+    a = gather_strings(host.columns[s], idx, 1 << 20)
+    b = gather_strings(card.columns[s], idx.to(cuda_device), 1 << 20)
+    assert torch.equal(a.offsets, b.offsets.cpu())
+    assert torch.equal(a.chars, b.chars.cpu())

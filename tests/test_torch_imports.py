@@ -31,12 +31,18 @@ JOIN_GROUPBY_MODULES = [
     "ops/concat.py", "ops/join.py", "exec/joins.py", "join_groupby.py"]
 DECODE_MODULES = ["io/parquet_plan.py", "ops/parquet_decode.py",
                   "ops/kernel_checks.py"]
+SQL_MODULES = [
+    "ops/strings.py", "ops/hash.py", "shuffle/partitioner.py",
+    "shuffle/transport.py", "exec/exchange.py", "exec/aqe.py",
+    "exec/sort.py", "planner.py", "session.py", "sql/__init__.py",
+    "sql/errors.py", "sql/ast.py", "sql/lexer.py", "sql/parser.py",
+    "sql/functions.py", "sql/compiler.py", "nds.py", "tools/nds_trace.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10
-    for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES:
+    for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES + SQL_MODULES:
         assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:
@@ -87,3 +93,18 @@ def test_join_trace_needs_a_card():
         with pytest.raises(SystemExit):
             join_trace.trace_join()
     assert join_trace._union_us([(0, 2), (1, 3), (5, 6)]) == 4
+
+
+def test_nds_trace_needs_a_card():
+    from spark_rapids_tpu_torch.tools import nds_trace
+    if not nds_trace.torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            nds_trace.trace_nds()
+
+
+def test_sql_modules_import_without_a_card():
+    import importlib
+    for rel in SQL_MODULES:
+        importlib.import_module("spark_rapids_tpu_torch."
+                                + rel[:-3].replace("/", ".")
+                                .replace(".__init__", ""))

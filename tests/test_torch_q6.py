@@ -108,8 +108,9 @@ def test_q6_matches_host_oracle(fileset):
 
 def test_device_decode_is_refused(fileset):
     """Device page decode, the reference's default, is no longer refused:
-    it gives the host-decode revenue. What it still refuses is a string
-    column, which the port's columnar layer does not hold yet."""
+    it gives the host-decode revenue. Nor is a string column any more: a
+    string field the files lack reads as nulls beside the same revenue,
+    while a decimal field is still refused."""
     paths, want, want_rows = fileset
     ctx = TCtx(TConf(), device="cpu")
     plan = tpch.build_q6(GpuFileScanExec(paths, schema=_schema(tdt)))
@@ -118,6 +119,15 @@ def test_device_decode_is_refused(fileset):
     assert _scan_rows(ctx) == want_rows
     strings = tdt.Schema(list(_schema(tdt).fields)
                          + [tdt.StructField("s", tdt.STRING, True)])
-    with pytest.raises(NotImplementedError, match="string"):
-        tcollect(tpch.build_q6(GpuFileScanExec(paths, schema=strings)),
+    scan = tcollect(GpuFileScanExec(paths, schema=strings),
+                    TCtx(TConf(), device="cpu"))
+    assert scan.column("s").null_count == scan.num_rows == sum(want_rows)
+    got = tcollect(tpch.build_q6(GpuFileScanExec(paths, schema=strings)),
+                   TCtx(TConf(), device="cpu")).column("revenue")[0].as_py()
+    assert _close(got, want), (got, want)
+    decimals = tdt.Schema(list(_schema(tdt).fields)
+                          + [tdt.StructField("d", tdt.DecimalType(9, 2),
+                                             True)])
+    with pytest.raises(NotImplementedError, match="decimal"):
+        tcollect(tpch.build_q6(GpuFileScanExec(paths, schema=decimals)),
                  TCtx(TConf(), device="cpu"))
