@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: TPC-H q6 at SF1 from
 Parquet (host decode, then device page decode), the join + group-by
 query at the reference's full size, q6's revenue by line number at
-SF1, and NDS q3 and q55 from SQL text over Parquet files, through
-``spark_rapids_tpu_torch``, with K1 to K5 checked on the card.
+SF1, and the 15 NDS queries the port runs from SQL text over Parquet
+files (``nds.PORTED_QUERIES``), through ``spark_rapids_tpu_torch``, with
+K1 to K5 checked on the card.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,9 @@ Phases, any failure exits non-zero before the result line:
      both editions timed, and the engine edition timed from 0 to 2^23
      rows beside a one-cycle kernel; K3
      (the radix sort) on random keys at the join + group-by path's sort
-     shapes (2^17, 2^21, 2^23 pairs), on the path's own key words, at a
+     shapes (2^17, 2^21, 2^23 pairs), on the path's own key words, on a
+     string-rank refinement's words (item.i_category gathered into a
+     2^20-row store_sales batch: pass 0's word, pass 1's two), at a
      ragged length, on all-equal, sorted, reverse and duplicated keys,
      keys whose only varying bit is the sign bit or whose only varying
      digit is the top one, 1-bit keys, month words with 90% dead rows
@@ -68,19 +71,23 @@ Phases, any failure exits non-zero before the result line:
      launches, no K1, the final's one K3 sort and two K4 gathers, the
      scan's counters (deviceChunks 40, fallbackChunks 0), rows/s and
      opTime;
-  8. NDS q3 and q55 from SQL text (``nds.SQL_QUERIES``) over the
-     reference bench's tables at 2^22 store_sales rows (seed 42, snappy,
-     row groups of 2^19, written to .bench_cache/nds_torch_n4194304/),
-     through GpuSession.sql, GpuOverrides and PhysicalPlan.collect with
-     device page decode on: at spark.sql.shuffle.partitions 1 a warm-up
-     and 3 timed runs each (rows/s = store_sales rows over the median
-     wall of collect, and ms a query in collect; planning, sql +
-     apply, is timed apart), then each query once more at 16 partitions
-     (the Murmur3 exchange and the adaptive reader). Every result is held
-     to the numpy/pyarrow oracle (ints exact, sums rel 1e-9), every scan
-     to deviceChunks = row groups x columns and 0 fallback chunks. After
-     the timed runs one more run of each query and partition count
-     counts the K3, K4 and K5 launches, held to what the plan implies;
+  8. the NDS queries the port runs from SQL text (``nds.SQL_QUERIES``:
+     q3, q42, q52, q55, q96, q_topn, q7, q_pivot, q_customer_age,
+     q_price_band, q_cte, q_having, q_in_between, q_agg_expr, q_not_or)
+     over the reference bench's tables at 2^22 store_sales rows (seed 42,
+     snappy, row groups of 2^19, written to
+     .bench_cache/nds_torch_n4194304/), through GpuSession.sql,
+     GpuOverrides and PhysicalPlan.collect with device page decode on: at
+     spark.sql.shuffle.partitions 1 a warm-up and 3 timed runs each
+     (rows/s = store_sales rows over the median wall of collect, and ms a
+     query in collect; planning, sql + apply, is timed apart), then each
+     query once more at 16 partitions (the Murmur3 exchange and the
+     adaptive reader). Every result is held to the numpy/pyarrow oracle
+     (ints and strings exact, floats rel 1e-9, row order exact), every
+     scan to deviceChunks = row groups x columns and 0 fallback chunks.
+     After the timed runs one more run of each query and partition count
+     counts the K3, K4 and K5 launches, held to what the plan implies
+     (``_nds_expected``: operator by operator, string ranks included);
   9. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
@@ -486,14 +493,22 @@ def phase_q6_by_linenumber(device):
 
 
 NDS_SALES = 1 << 22
-NDS_QUERIES = ("q3", "q55")
-# the joins' build keys (int64) and the group and sort keys of each
-# query, as packed sort-key bits: a live bit, then a null bit and the
-# value lane per key (ops/sort_keys.py)
-NDS_SHAPE = {"q3": {"builds": 2, "agg_bits": 1 + 33 + 33,
-                    "sort_bits": 1 + 33 + 65 + 33},
-             "q55": {"builds": 1, "agg_bits": 1 + 33,
-                     "sort_bits": 1 + 65 + 33}}
+# rows of a string-keyed sort, as far as the rank words depend on them
+# (ops/sort_keys.rank_pass_words: only whether there are more than one);
+# every such sort of the corpus ranks a batch or several groups' partials
+NDS_RANKED_ROWS = 2
+
+
+def _lane_bits(t):
+    """Bits of a sort key's value lane (ops/sort_keys.py): a string
+    key's is its 32-bit rank."""
+    import numpy as np
+    from spark_rapids_tpu_torch import datatypes as dt
+    if isinstance(t, (dt.StringType, dt.BinaryType)):
+        return 32
+    if isinstance(t, dt.BooleanType):
+        return 1
+    return 8 * np.dtype(t.np_dtype).itemsize
 
 
 def _sort_launches(bits):
@@ -504,33 +519,148 @@ def _sort_launches(bits):
     return words, (words if words > 1 else 0)
 
 
-def _nds_expected(q, metrics):
-    """The launches one run of ``q`` implies. K5: one a scan batch. Each
-    unique-build join presorts its int64 key (two K3 words, two K4
-    carries, one K4 gather of the sorted key) and gathers its build
-    columns into each store_sales batch (one K4, strings included). The
-    grouped aggregate sorts each partial and the final (K3 words, K4
-    carries, one K4 of keys and values, one of segment starts); the
-    ORDER BY sorts once and gathers once."""
-    shape = NDS_SHAPE[q]
-    scans = [m for label, m in metrics.items()
-             if label.startswith("FileScanExec")]
-    ss_batches = max(m["scanPrograms"] for m in scans)
-    partials = sum(m.get("numPartials", 0) for m in metrics.values())
-    agg_k3, agg_k4 = _sort_launches(shape["agg_bits"])
-    sort_k3, sort_k4 = _sort_launches(shape["sort_bits"])
-    b = shape["builds"]
-    return {"decode_batch": sum(m["scanPrograms"] for m in scans),
-            "sort_pairs": 2 * b + (partials + 1) * agg_k3 + sort_k3,
-            "gather_rows": 3 * b + b * ss_batches
-            + (partials + 1) * (agg_k4 + 2) + sort_k4 + 1}
+def _rank_launches(longest):
+    """K3 and K4 launches of one string key's ranks (ops/sort_keys.
+    string_order_ranks_multi), by the engine's own rule: rank_pass_count
+    refinement passes, fixed before the first, each a sort of
+    rank_pass_words words (a K3 pass a word, and a K4 carry a word when
+    there are two or more)."""
+    from spark_rapids_tpu_torch.ops.sort_keys import (rank_pass_count,
+                                                      rank_pass_words)
+    k3 = k4 = 0
+    for p in range(rank_pass_count(longest)):
+        words = rank_pass_words(p, NDS_RANKED_ROWS)
+        k3, k4 = k3 + words, k4 + (words if words > 1 else 0)
+    return k3, k4
 
 
-def _check_nds(q, out, want, metrics, row_groups):
-    """The rows against the oracle (ints exact, sums rel 1e-9) and every
+def _keyed_sort(exprs, longest):
+    """K3 and K4 launches of one sort by the key expressions
+    (ops/sort_keys._key_lanes: a live bit, then a null bit and a value
+    lane a key), string ranks included."""
+    from spark_rapids_tpu_torch import datatypes as dt
+    k3, k4 = _sort_launches(1 + sum(1 + _lane_bits(e.dtype)
+                                    for e in exprs))
+    for e in exprs:
+        if isinstance(e.dtype, (dt.StringType, dt.BinaryType)):
+            r3, r4 = _rank_launches(longest[e.name])
+            k3, k4 = k3 + r3, k4 + r4
+    return k3, k4
+
+
+def _nds_expected(root, metrics, longest):
+    """The launches one run of the plan under ``root`` implies, walked
+    operator by operator. K5: one a scan batch. A unique-build join
+    presorts its build key (live bit + lane; without the hint it sorts it
+    once more to count duplicates: live bit, null bit, lane), gathers
+    the sorted key once, and gathers its build columns into each stream
+    batch (one K4, strings included). The grouped aggregate sorts each
+    partial and the final by its keys, then gathers keys and values once
+    and the segment starts once (two K4). ORDER BY sorts once and gathers
+    once. A string key adds its ranks' passes to each sort (the longest
+    string of its column, ``longest[name]``, fixes their number). A node
+    the plan reaches by several paths (a view's scan that a CTE's two
+    uses share) runs once a path, and its metrics sum those runs."""
+    from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
+    from spark_rapids_tpu_torch.exec.basic import (GpuFilterExec,
+                                                   GpuProjectExec)
+    from spark_rapids_tpu_torch.exec.joins import _BaseJoinExec
+    from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
+                                                  GpuSortExec)
+    from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
+    out = {"decode_batch": 0, "sort_pairs": 0, "gather_rows": 0}
+    uses = _node_uses(root)
+
+    def m(node, key):
+        """The node's metric for one of its runs."""
+        total = metrics[node.node_label()][key]
+        if total % uses[id(node)]:
+            raise AssertionError(f"{node.describe()}: {key} {total} over "
+                                 f"{uses[id(node)]} runs")
+        return total // uses[id(node)]
+
+    def batches(node):
+        if isinstance(node, GpuFileScanExec):
+            return m(node, "scanPrograms")
+        if isinstance(node, (GpuFilterExec, GpuProjectExec)):
+            return batches(node.child)
+        if isinstance(node, _BaseJoinExec):
+            return batches(node.left)
+        if isinstance(node, (GpuHashAggregateExec, GpuSortExec,
+                             GpuGlobalLimitExec)):
+            return 1
+        raise AssertionError(f"no batch count for {node.describe()}")
+
+    def add(k3, k4, times=1):
+        out["sort_pairs"] += k3 * times
+        out["gather_rows"] += k4 * times
+
+    def walk(node):
+        if isinstance(node, GpuFileScanExec):
+            out["decode_batch"] += m(node, "scanPrograms")
+        elif isinstance(node, _BaseJoinExec):
+            w = _lane_bits(node.right_keys[0].dtype)
+            if not node.build_unique_hint:
+                add(*_sort_launches(2 + w))
+            k3, k4 = _sort_launches(1 + w)
+            add(k3, k4 + 1)
+            if node.join_type in ("inner", "left_outer"):
+                add(0, batches(node.left))
+        elif isinstance(node, GpuHashAggregateExec) and node.group_exprs:
+            k3, k4 = _keyed_sort(node.group_exprs, longest)
+            add(k3, k4 + 2, times=m(node, "numPartials") + 1)
+        elif isinstance(node, GpuSortExec):
+            k3, k4 = _keyed_sort([o.child for o in node.orders], longest)
+            add(k3, k4 + 1)
+        for c in node.children:
+            walk(c)
+
+    walk(root)
+    return out
+
+
+def _node_uses(root):
+    """How many paths from ``root`` reach each node (by id)."""
+    uses = {}
+
+    def walk(node):
+        uses[id(node)] = uses.get(id(node), 0) + 1
+        for c in node.children:
+            walk(c)
+
+    walk(root)
+    return uses
+
+
+def _nds_longest(want):
+    """The longest string each string column of the query's output holds
+    (bytes), from the oracle's rows: the L that fixes the rank passes of
+    a sort or grouped aggregate keyed by that column
+    (ops/sort_keys.py: L is the longest string among the rows the sort
+    is given, dead ones included). It assumes this of the plan: every
+    row that reaches a string-keyed sort or aggregate, dead or not, holds
+    one of the values the output shows in that column or none longer,
+    and every batch and the final hold a row of the longest. That holds
+    where a filter on the string's table runs before the join that
+    gathers it (the join gives an unmatched row length 0), where a CASE
+    of literals makes the key and all its literals are output, and where
+    no HAVING or LIMIT drops groups after the sort; a plan that breaks it
+    shows as a launch count that disagrees. A string key that the output
+    does not show has no entry, and its lookup fails."""
+    import pyarrow as pa
+    return {f.name: max((len(v.encode())
+                         for v in want.column(f.name).to_pylist()
+                         if v is not None), default=0)
+            for f in want.schema
+            if pa.types.is_string(f.type) or pa.types.is_large_string(f.type)}
+
+
+def _check_nds(q, out, want, metrics, need_chunks):
+    """The rows against the oracle (ints and strings exact, floats rel
+    1e-9, nulls where the oracle has them, row order exact) and every
     scan's chunk counters."""
+    import math
     from spark_rapids_tpu_torch import nds
-    import numpy as np
     floats = nds.FLOAT_COLUMNS[q]
     if out.column_names != want.column_names \
             or out.num_rows != want.num_rows or out.num_rows == 0:
@@ -540,21 +670,45 @@ def _check_nds(q, out, want, metrics, row_groups):
     worst = 0.0
     for c in out.column_names:
         g, w = out.column(c).to_pylist(), want.column(c).to_pylist()
-        if c in floats:
-            rels = [abs(a - b) / max(abs(b), 1e-300) for a, b in zip(g, w)]
-            worst = max(rels)
-            if not all(np.isfinite(g)) or worst > ENGINE_RTOL:
-                raise AssertionError(f"{q}: {c} rel errors {rels}")
-        elif g != w:
-            raise AssertionError(f"{q}: column {c} {g} vs oracle {w}")
-    scans = {label: m for label, m in metrics.items()
-             if label.startswith("FileScanExec")}
-    got = sorted((m["deviceChunks"], m["fallbackChunks"])
-                 for m in scans.values())
-    need = sorted((n, 0) for n in row_groups)
+        if c not in floats:
+            if g != w:
+                raise AssertionError(f"{q}: column {c} {g} vs oracle {w}")
+            continue
+        for a, b in zip(g, w):
+            if a is None or b is None:
+                if a is not b:
+                    raise AssertionError(f"{q}: {c} {g} vs oracle {w}")
+                continue
+            rel = abs(a - b) / max(abs(b), 1e-300)
+            worst = max(worst, rel)
+            if not math.isfinite(a) or rel > ENGINE_RTOL:
+                raise AssertionError(f"{q}: {c} {a!r} vs oracle {b!r} "
+                                     f"(rel {rel:.3e})")
+    scans = [m for label, m in metrics.items()
+             if label.startswith("FileScanExec")]
+    got = sorted((m["deviceChunks"], m["fallbackChunks"]) for m in scans)
+    need = sorted((n, 0) for n in need_chunks)
     if got != need:
         raise AssertionError(f"{q}: scan chunks {got}, expected {need}")
     return worst
+
+
+def _scan_chunks_needed(root, chunks):
+    """Device chunks each scan of the plan must read: its file's row
+    groups x columns, once a path that reaches it."""
+    from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
+    need, seen = [], {}
+
+    def walk(node):
+        if isinstance(node, GpuFileScanExec):
+            seen.setdefault(id(node), [node, 0])[1] += 1
+        for c in node.children:
+            walk(c)
+
+    walk(root)
+    for node, runs in seen.values():
+        need.append(runs * sum(chunks[p] for p in node.paths))
+    return need
 
 
 def phase_nds(device):
@@ -569,16 +723,15 @@ def phase_nds(device):
     paths = nds_paths(NDS_SALES)
     log(f"[nds] {NDS_SALES} store_sales rows: tables and files ready in "
         f"{time.perf_counter() - t0:.3f} s")
-    # device chunks a table: its row groups x its columns
+    # device chunks a file: its row groups x its columns
     chunks = {}
-    for k, p in paths.items():
+    for p in paths.values():
         md = pq.ParquetFile(p).metadata
-        chunks[k] = md.num_row_groups * md.num_columns
-    reads = {"q3": ("store_sales", "date_dim", "item"),
-             "q55": ("store_sales", "item")}
-    plans, summary = {}, {}
-    for q in NDS_QUERIES:
+        chunks[p] = md.num_row_groups * md.num_columns
+    plans, summary, longest = {}, {}, {}
+    for q in nds.PORTED_QUERIES:
         want = nds.oracle(q, tables)
+        longest[q] = _nds_longest(want)
         for parts in (1, 16):
             s = nds.session_over_files(
                 paths, {"spark.sql.shuffle.partitions": str(parts)}, device)
@@ -606,7 +759,7 @@ def phase_nds(device):
             out, _, ctx = runs[0]
             metrics = _metrics(ctx)
             rel = _check_nds(q, out, want, metrics,
-                             [chunks[k] for k in reads[q]])
+                             _scan_chunks_needed(pp.root, chunks))
             med = statistics.median(times)
             plan_med = statistics.median(plan_times)
             summary[f"{q}_p{parts}"] = {
@@ -631,7 +784,7 @@ def phase_nds(device):
         pp.collect(ctx)
         torch.cuda.synchronize()
         got = {c.__name__: c.launches for c in wrappers.values()}
-        want = _nds_expected(q, _metrics(ctx))
+        want = _nds_expected(pp.root, _metrics(ctx), longest[q])
         log(f"[nds] {q} partitions={parts} launches {got}, the plan "
             f"implies {want}")
         if got != want:
@@ -688,6 +841,9 @@ def main():
         "library_ms": main_sort["library_ms"],
         "shape": "a partial aggregate's month words, 2^21 pairs",
         "by_shape": k3,
+        "shape_string_rank": "a string-rank pass's words, 2^20 pairs",
+        "string_rank": {k: v for k, v in k3.items()
+                        if k.startswith("string_rank")},
         "launches_nds": {k: v["sort_pairs"]
                          for k, v in nds_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",

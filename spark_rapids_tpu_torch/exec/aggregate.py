@@ -9,7 +9,10 @@ The grouped path is the reference's sort-based one (``_segment_starts``,
 sorted by their key lanes (**K3**, ``ops/sort_keys.sorted_segments``),
 keys and values are permuted in one **K4** launch, each segment is
 reduced (``ops/segments.py``), and one more K4 launch gathers every
-segment's first key. A partial keeps its batch's capacity and marks its
+segment's first key. A string key sorts by its rank lane
+(``ops/sort_keys.string_order_ranks``: refinement passes on K3), and its
+column rides the K4 launches as two int32 lanes (starts, lengths). A
+partial keeps its batch's capacity and marks its
 groups with a lazy selection, so no count is read back until the final
 aggregate's output, whose group count sizes the result. The partials
 meet in ``concat_batches_bounded``. The reference's memory manager and

@@ -32,7 +32,7 @@ import torch
 
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch, bucket_bytes
-from ..columnar.column import GpuColumnVector, torch_dtype
+from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
 from ..config import JOIN_VERIFY_UNIQUE_HINT
 from ..expr.base import Expression, bind_expr
 from ..ops.concat import concat_batches_bounded
@@ -105,6 +105,9 @@ class _BaseJoinExec(GpuExec):
                     f"join key type mismatch: {lk.dtype.simple_string()} "
                     f"vs {rk.dtype.simple_string()}")
             check_key_type(lk.dtype)
+            if is_string_like(lk.dtype):
+                raise _staged("a join on a string key (ranks over both "
+                              "sides, string_order_ranks_multi)")
         self._schema = _join_output_schema(left.output_schema,
                                            right.output_schema, join_type)
         # a condition sees both sides even when the output is left-only

@@ -5,7 +5,8 @@ Counterpart of ``spark_rapids_tpu/exec/sort.py:34-70,114-192,356-424``
 ``TpuGlobalLimitExec``). A sort normalises its keys into orderable lanes
 with Spark's direction and null placement and sorts them with **K3**
 (``ops/sort_keys.sort_permutation``: packed uint64 words, one radix sort
-a word), then moves the rows with one **K4** gather
+a word; a string key by its rank, itself refined by K3 sorts), then
+moves the rows with one **K4** gather
 (``ops/gather.gather_batch``; a string column rides the same launch). A
 global sort first concatenates the child's batches with no readback
 (``concat_batches_bounded``); the sorted batch's row count is read back

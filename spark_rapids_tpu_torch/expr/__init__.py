@@ -1,12 +1,20 @@
 from .base import (Expression, BoundReference, UnresolvedColumn, Literal,
                    Alias, EvalCtx, ExprError, bind_expr, infer_literal_type)
-from .arithmetic import Multiply, Subtract
-from .predicates import (EqualTo, LessThan, LessThanOrEqual, GreaterThan,
-                         GreaterThanOrEqual, And)
-from .aggregates import Sum, Count
+from .arithmetic import (Add, Subtract, Multiply, Divide, IntegralDivide,
+                         Remainder, Pmod, UnaryMinus, Abs)
+from .cast import Cast
+from .conditional import If, CaseWhen, Coalesce, Least, Greatest, NullIf
+from .predicates import (EqualTo, EqualNullSafe, LessThan, LessThanOrEqual,
+                         GreaterThan, GreaterThanOrEqual, And, Or, Not,
+                         IsNull, IsNotNull, IsNaN, In)
+from .aggregates import Sum, Count, Min, Max, Average
 
 __all__ = ["Expression", "BoundReference", "UnresolvedColumn", "Literal",
            "Alias", "EvalCtx", "ExprError", "bind_expr",
-           "infer_literal_type", "Multiply", "Subtract", "EqualTo", "LessThan",
+           "infer_literal_type", "Add", "Subtract", "Multiply", "Divide",
+           "IntegralDivide", "Remainder", "Pmod", "UnaryMinus", "Abs",
+           "Cast", "If", "CaseWhen", "Coalesce", "Least", "Greatest",
+           "NullIf", "EqualTo", "EqualNullSafe", "LessThan",
            "LessThanOrEqual", "GreaterThan", "GreaterThanOrEqual", "And",
-           "Sum", "Count"]
+           "Or", "Not", "IsNull", "IsNotNull", "IsNaN", "In", "Sum",
+           "Count", "Min", "Max", "Average"]

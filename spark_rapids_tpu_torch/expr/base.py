@@ -4,7 +4,8 @@ Counterpart of ``spark_rapids_tpu/expr/base.py:37-305``. Every
 expression evaluates eagerly over a ``GpuBatch`` with ``eval_gpu(batch,
 ctx)`` and returns a ``GpuColumnVector`` (data lane + validity lane).
 The reference's ``eval_cpu`` (the pyarrow oracle and per-expression CPU
-fallback) waits for the planner slice.
+fallback) waits for the planner slice. A string literal evaluates to its
+bytes once a row, as the reference's does (``:186-200``).
 
 Expressions are constructed type-resolved: these classes require
 already-coerced children.
@@ -19,7 +20,7 @@ import torch
 
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch
-from ..columnar.column import GpuColumnVector, torch_dtype
+from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
 
 __all__ = ["EvalCtx", "ExprError", "Expression", "BoundReference",
            "UnresolvedColumn", "Literal", "Alias", "bind_expr",
@@ -153,10 +154,27 @@ class Literal(Expression):
     def nullable(self):
         return self.value is None
 
+    @property
+    def string_bytes(self) -> Optional[bytes]:
+        """A string or binary literal's bytes (None for other types)."""
+        if self.value is None or not is_string_like(self._dtype):
+            return None
+        return self.value.encode() if isinstance(self.value, str) \
+            else bytes(self.value)
+
     def eval_gpu(self, batch, ctx):
         cap = batch.capacity
         if self.value is None:
             return GpuColumnVector.nulls(self._dtype, cap, batch.device)
+        raw = self.string_bytes
+        if raw is not None:
+            # the value once a row: cap x len(raw) chars, no readback
+            offsets = torch.arange(cap + 1, dtype=torch.int32,
+                                   device=batch.device) * len(raw)
+            one = torch.frombuffer(bytearray(raw), dtype=torch.uint8) \
+                if raw else torch.zeros(0, dtype=torch.uint8)
+            chars = one.to(batch.device).repeat(cap)
+            return GpuColumnVector(self._dtype, None, None, offsets, chars)
         data = torch.full((cap,), self.lane_value,
                           dtype=torch_dtype(self._dtype),
                           device=batch.device)
@@ -203,6 +221,10 @@ def infer_literal_type(value) -> dt.DataType:
         return dt.TIMESTAMP
     if isinstance(value, datetime.date):
         return dt.DATE
+    if isinstance(value, str):
+        return dt.STRING
+    if isinstance(value, (bytes, bytearray)):
+        return dt.BINARY
     raise TypeError(f"cannot infer a device literal type for {value!r}")
 
 

@@ -4,9 +4,10 @@ The port's copy of ``spark_rapids_tpu/tools/nds.py``'s ``gen_tables``
 (``:27``), ``register_frames`` (``:91``), ``build_query_sql`` and
 ``SQL_QUERIES`` (``:867``, every text, as data), plus ``write_tables``,
 the writer ``bench_nds_from_files`` uses (``bench.py:266-278``: snappy,
-row groups of 2^19), and an oracle in numpy and pyarrow for the queries
-the port runs from SQL (q3, q42, q52, q55; the reference's oracle uses
-pandas, which the card's machine does not have).
+row groups of 2^19), and an oracle in numpy and pyarrow for the 15
+queries the port runs from SQL (``PORTED_QUERIES``; the reference's
+oracle, ``tools/nds.py``'s ``*_pd`` functions, uses pandas, which the
+card's machine does not have).
 
     from spark_rapids_tpu_torch import nds
     paths = nds.write_tables(nds.gen_tables(1 << 14), "nds_files")
@@ -26,7 +27,8 @@ import pyarrow as pa
 
 __all__ = ["gen_tables", "write_tables", "register_frames",
            "session_over_files", "build_query_sql", "SQL_QUERIES",
-           "oracle", "FLOAT_COLUMNS"]
+           "PORTED_QUERIES", "UNPORTED_QUERIES", "oracle",
+           "FLOAT_COLUMNS"]
 
 ROW_GROUP_SIZE = 1 << 19
 _MANIFEST = "manifest.json"
@@ -402,10 +404,24 @@ ORDER BY d_year
 
 # --- oracle ------------------------------------------------------------------
 
-# the output columns holding float sums (compared at a relative tolerance;
-# every other column exactly)
+# the queries the port runs from SQL, and the ROADMAP item each of the
+# others waits for
+PORTED_QUERIES = ("q3", "q42", "q52", "q55", "q96", "q_topn", "q7",
+                  "q_pivot", "q_customer_age", "q_price_band", "q_cte",
+                  "q_having", "q_in_between", "q_agg_expr", "q_not_or")
+UNPORTED_QUERIES = {"q_rank": 13, "q_rownum": 13, "q_rolling": 13,
+                    "q_union": 13, "q_percentile": 8, "q97": 9,
+                    "q_like": 13}
+
+# the output columns holding float sums and averages (compared at a
+# relative tolerance; every other column exactly)
 FLOAT_COLUMNS = {"q3": ("sum_agg",), "q42": ("s",), "q52": ("ext_price",),
-                 "q55": ("rev",)}
+                 "q55": ("rev",), "q96": (), "q_topn": ("profit",),
+                 "q7": ("avg_q", "avg_p"), "q_pivot": ("1", "2", "3", "4"),
+                 "q_customer_age": ("profit",), "q_price_band": ("rev",),
+                 "q_cte": ("rev", "prev_rev"), "q_having": ("rev",),
+                 "q_in_between": ("rev",), "q_agg_expr": ("bulk_share",),
+                 "q_not_or": ()}
 
 
 def _np(table: pa.Table, name: str) -> np.ndarray:
@@ -502,10 +518,194 @@ def _q55(tables):
                      "rev": pa.array(s[order])})
 
 
-_ORACLES = {"q3": _q3, "q42": _q42, "q52": _q52, "q55": _q55}
+def _groups(keys: List[np.ndarray]):
+    """``(the distinct key tuples as columns, ascending, and each row's
+    group)``: integer keys, or one string key (byte order)."""
+    if len(keys) == 1 and keys[0].dtype == object:
+        uniq, inv = np.unique(keys[0], return_inverse=True)
+        return [uniq], inv.reshape(-1)
+    stacked = np.stack([k.astype(np.int64) for k in keys], axis=1)
+    uniq, inv = np.unique(stacked, axis=0, return_inverse=True)
+    return [uniq[:, i] for i in range(len(keys))], inv.reshape(-1)
+
+
+def _sums(inv: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    return np.bincount(inv, weights=vals, minlength=n)
+
+
+def _counts(inv: np.ndarray, n: int) -> np.ndarray:
+    return np.bincount(inv, minlength=n).astype(np.int64)
+
+
+def _dim(tables, table: str, key: str, keys: np.ndarray,
+         keep=None) -> np.ndarray:
+    """The row of ``table`` each key joins (-1: none, or filtered)."""
+    t = tables[table]
+    mask = np.ones(t.num_rows, bool) if keep is None else keep(t)
+    return _lookup(keys, _np(t, key), mask)
+
+
+def _ss(tables, name: str) -> np.ndarray:
+    return _np(tables["store_sales"], name)
+
+
+def _q7(tables):
+    ok, _, irow = _star(tables, lambda dd: _np(dd, "d_year") == 2001,
+                        lambda it: np.ones(it.num_rows, bool))
+    cat = _np(tables["item"], "i_category_id")[irow[ok]]
+    (c,), inv = _groups([cat])
+    cnt = _counts(inv, len(c))
+    q = _sums(inv, _ss(tables, "ss_quantity")[ok].astype(np.float64),
+              len(c))
+    p = _sums(inv, _ss(tables, "ss_sales_price")[ok], len(c))
+    return pa.table({"i_category_id": pa.array(c.astype(np.int32)),
+                     "avg_q": pa.array(q / cnt), "avg_p": pa.array(p / cnt)})
+
+
+def _q96(tables):
+    qty = _ss(tables, "ss_quantity")
+    ok = (qty >= 40) & (qty <= 60)
+    ok &= _dim(tables, "store", "s_store_sk", _ss(tables, "ss_store_sk")) \
+        >= 0
+    ok &= _dim(tables, "date_dim", "d_date_sk",
+               _ss(tables, "ss_sold_date_sk"),
+               lambda dd: _np(dd, "d_qoy") == 2) >= 0
+    return pa.table({"cnt": pa.array([int(ok.sum())], pa.int64())})
+
+
+def _q_topn(tables):
+    drow = _dim(tables, "date_dim", "d_date_sk",
+                _ss(tables, "ss_sold_date_sk"),
+                lambda dd: _np(dd, "d_qoy") == 4)
+    ok = drow >= 0
+    (item,), inv = _groups([_ss(tables, "ss_item_sk")[ok]])
+    profit = _sums(inv, _ss(tables, "ss_net_profit")[ok], len(item))
+    order = np.lexsort((item, -profit))[:25]
+    return pa.table({"ss_item_sk": pa.array(item[order].astype(np.int64)),
+                     "profit": pa.array(profit[order])})
+
+
+def _q_pivot(tables):
+    drow = _dim(tables, "date_dim", "d_date_sk",
+                _ss(tables, "ss_sold_date_sk"))
+    ok = drow >= 0
+    dd = tables["date_dim"]
+    (year,), inv = _groups([_np(dd, "d_year")[drow[ok]]])
+    qoy = _np(dd, "d_qoy")[drow[ok]]
+    vals = _ss(tables, "ss_ext_sales_price")[ok]
+    out = {"d_year": pa.array(year.astype(np.int32))}
+    for q in range(1, 5):
+        hit = qoy == q
+        s = _sums(inv[hit], vals[hit], len(year))
+        n = _counts(inv[hit], len(year))
+        out[str(q)] = pa.array(s, mask=n == 0)
+    return pa.table(out)
+
+
+def _q_customer_age(tables):
+    crow = _dim(tables, "customer", "c_customer_sk",
+                _ss(tables, "ss_customer_sk"))
+    ok = crow >= 0
+    birth = _np(tables["customer"], "c_birth_year").astype(np.int64)
+    (decade,), inv = _groups([(birth // 10 * 10)[crow[ok]]])
+    return pa.table({
+        "decade": pa.array(decade.astype(np.int64)),
+        "profit": pa.array(_sums(inv, _ss(tables, "ss_net_profit")[ok],
+                                 len(decade))),
+        "n": pa.array(_counts(inv, len(decade)))})
+
+
+def _q_price_band(tables):
+    irow = _dim(tables, "item", "i_item_sk", _ss(tables, "ss_item_sk"))
+    ok = irow >= 0
+    price = _np(tables["item"], "i_current_price")
+    band = np.where(price < 10.0, "low",
+                    np.where(price < 100.0, "mid", "high")).astype(object)
+    (b,), inv = _groups([band[irow[ok]]])
+    return pa.table({
+        "band": pa.array(b.tolist(), pa.string()),
+        "rev": pa.array(_sums(inv, _ss(tables, "ss_ext_sales_price")[ok],
+                              len(b)))})
+
+
+def _q_cte(tables):
+    drow = _dim(tables, "date_dim", "d_date_sk",
+                _ss(tables, "ss_sold_date_sk"))
+    ok = drow >= 0
+    (year,), inv = _groups([_np(tables["date_dim"], "d_year")[drow[ok]]])
+    rev = _sums(inv, _ss(tables, "ss_ext_sales_price")[ok], len(year))
+    prev = {int(y) + 1: r for y, r in zip(year, rev)}
+    keep = [i for i, y in enumerate(year) if int(y) in prev]
+    return pa.table({
+        "d_year": pa.array(year[keep].astype(np.int32)),
+        "rev": pa.array(rev[keep]),
+        "prev_rev": pa.array([prev[int(year[i])] for i in keep],
+                             pa.float64())})
+
+
+def _q_having(tables):
+    irow = _dim(tables, "item", "i_item_sk", _ss(tables, "ss_item_sk"))
+    ok = irow >= 0
+    (brand,), inv = _groups([_np(tables["item"], "i_brand_id")[irow[ok]]])
+    n = _counts(inv, len(brand))
+    rev = _sums(inv, _ss(tables, "ss_ext_sales_price")[ok], len(brand))
+    keep = n > 250
+    return pa.table({"i_brand_id": pa.array(brand[keep].astype(np.int32)),
+                     "n": pa.array(n[keep]), "rev": pa.array(rev[keep])})
+
+
+def _q_in_between(tables):
+    qty = _ss(tables, "ss_quantity")
+    ok = (qty >= 20) & (qty <= 40)
+    ok &= _dim(tables, "date_dim", "d_date_sk",
+               _ss(tables, "ss_sold_date_sk"),
+               lambda dd: _np(dd, "d_year") == 2000) >= 0
+    cats = np.asarray(tables["item"].column("i_category").to_pylist(),
+                      dtype=object)
+    irow = _dim(tables, "item", "i_item_sk", _ss(tables, "ss_item_sk"),
+                lambda it: np.isin(cats, ["Books", "Music", "Sports"]))
+    ok &= irow >= 0
+    (c,), inv = _groups([cats[irow[ok]]])
+    return pa.table({
+        "i_category": pa.array(c.tolist(), pa.string()),
+        "rev": pa.array(_sums(inv, _ss(tables, "ss_ext_sales_price")[ok],
+                              len(c)))})
+
+
+def _q_agg_expr(tables):
+    srow = _dim(tables, "store", "s_store_sk", _ss(tables, "ss_store_sk"))
+    ok = srow >= 0
+    states = np.asarray(tables["store"].column("s_state").to_pylist(),
+                        dtype=object)
+    (st,), inv = _groups([states[srow[ok]]])
+    ext = _ss(tables, "ss_ext_sales_price")[ok]
+    bulk = np.where(_ss(tables, "ss_quantity")[ok] >= 50, ext, 0.0)
+    share = _sums(inv, bulk, len(st)) / _sums(inv, ext, len(st))
+    return pa.table({"s_state": pa.array(st.tolist(), pa.string()),
+                     "bulk_share": pa.array(share)})
+
+
+def _q_not_or(tables):
+    def keep(dd):
+        moy = _np(dd, "d_moy")
+        return ~((moy == 1) | (moy == 12))
+    drow = _dim(tables, "date_dim", "d_date_sk",
+                _ss(tables, "ss_sold_date_sk"), keep)
+    ok = (drow >= 0) & (_ss(tables, "ss_net_profit") > 0.0)
+    (year,), inv = _groups([_np(tables["date_dim"], "d_year")[drow[ok]]])
+    return pa.table({"d_year": pa.array(year.astype(np.int32)),
+                     "n": pa.array(_counts(inv, len(year)))})
+
+
+_ORACLES = {"q3": _q3, "q42": _q42, "q52": _q52, "q55": _q55, "q96": _q96,
+            "q_topn": _q_topn, "q7": _q7, "q_pivot": _q_pivot,
+            "q_customer_age": _q_customer_age,
+            "q_price_band": _q_price_band, "q_cte": _q_cte,
+            "q_having": _q_having, "q_in_between": _q_in_between,
+            "q_agg_expr": _q_agg_expr, "q_not_or": _q_not_or}
 
 
 def oracle(name: str, tables: Dict[str, pa.Table]) -> pa.Table:
     """The query's rows from numpy and pyarrow over the same tables (in
-    memory, or read back from the Parquet files)."""
+    memory, or read back from the Parquet files), in its output order."""
     return _ORACLES[name](tables)

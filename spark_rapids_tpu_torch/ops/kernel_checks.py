@@ -52,9 +52,10 @@ column, a coalesced batch of row groups whose dictionaries differ, and
 alternating values, a dictionary of 100,000 entries and 64-bit PLAIN
 columns (``k5_shapes_file``), and the NDS path's own batches
 (``nds_layouts``: a 2^20-row ``store_sales`` batch coalesced from two
-row groups of int64, int32 and float64 columns, and the 32,768-row
-``item`` batch with its dictionary string column decoded to store
-indices); and the hand-made run tables of ``k5_tile_layouts``, which
+row groups of int64, int32 and float64 columns, the 32,768-row
+``item`` and 25-row ``store`` batches with their dictionary string
+columns decoded to store indices, and the 65,536-row ``customer``
+batch); and the hand-made run tables of ``k5_tile_layouts``, which
 walk its tiles at their edges (the CPU tests hold ``decode_tiles_torch``
 to the reference on the same tables). Every column is compared whole,
 a string column's offsets and chars too, and every batch read from a
@@ -705,6 +706,41 @@ def path_words(device, n_ord: int = 1 << 17, batch: int = 1 << 21,
             f"final_2^{(batch * batches).bit_length() - 1}": final}
 
 
+def string_rank_words(device, n: int = NDS_BATCH_ROWS) \
+        -> Dict[str, torch.Tensor]:
+    """The words a string-rank refinement sorts (``ops/sort_keys.
+    string_order_ranks_multi``) over ``item.i_category`` gathered into a
+    ``store_sales`` batch of ``n`` rows by its ``ss_item_sk`` (the NDS
+    tables at 2^22 rows, seed 42), built by the engine's own
+    ``_window_key`` and ``pack_words``: pass 0's one word (the live bit,
+    bytes 0-6), and pass 1's two (the dense rank after pass 0 in
+    ``bit_length(n)`` bits, bytes 7-13). ``Electronics`` (11 bytes) needs
+    both passes."""
+    from .. import datatypes as dt
+    from .. import nds
+    from ..columnar.column import GpuColumnVector
+    from . import sort_keys as tsk
+    tables = nds.gen_tables(1 << 22)
+    cats = np.asarray(tables["item"].column("i_category").to_pylist(),
+                      dtype=object)
+    keys = tables["store_sales"].column("ss_item_sk").to_numpy()[:n]
+    raw = [c.encode() for c in cats[keys]]
+    offsets = np.zeros(n + 1, np.int32)
+    offsets[1:] = np.cumsum([len(r) for r in raw])
+    chars = np.frombuffer(b"".join(raw), np.uint8)
+    col = GpuColumnVector.from_string_parts(
+        dt.STRING, offsets, chars, None, n, len(chars), torch.device(device))
+    live = torch.zeros(n, dtype=torch.int64, device=device)
+    (pass0,) = tsk.pack_words([(live, 1), (tsk._window_key(col, 0), 63)])
+    rank = torch.unique(pass0, return_inverse=True)[1].to(torch.int64)
+    hi, lo = tsk.pack_words([(rank, n.bit_length()),
+                             (tsk._window_key(col, 1), 63)])
+    e = n.bit_length() - 1
+    return {f"string_rank_pass0_2^{e}": pass0.contiguous(),
+            f"string_rank_pass1_hi_2^{e}": hi.contiguous(),
+            f"string_rank_pass1_lo_2^{e}": lo.contiguous()}
+
+
 def k3_cases(device, seed: int = 1) -> List[Dict]:
     """Engine-edition inputs: ``{"name", "keys", "payload"}``; keys are
     uint64 bits in int64."""
@@ -737,6 +773,8 @@ def k3_cases(device, seed: int = 1) -> List[Dict]:
               "keys": t(rand64(s)), "payload": None} for s in K3_SHAPES]
     cases += [{"name": name, "keys": words, "payload": None}
               for name, words in path_words(dev).items()]
+    cases += [{"name": name, "keys": words, "payload": None}
+              for name, words in string_rank_words(dev).items()]
     cases += [
         {"name": "groupby_words_2^21", "keys": t(packed(n)),
          "payload": None},
@@ -853,8 +891,9 @@ def time_k3(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
     ``torch.sort(stable=True)`` on the same keys (payload the position),
     with the bytes the sort must move (``SORT_BYTES_PER_PAIR``) and the
     digit passes the keys need: on random 64-bit keys at each shape of
-    the path (``random_2^k``), and on the path's own words
-    (``path_words``: build presort, partial, final)."""
+    the path (``random_2^k``), on the path's own words
+    (``path_words``: build presort, partial, final), and on a string-rank
+    pass's words (``string_rank_words``)."""
     rng = np.random.default_rng(3)
     sets = {}
     for n in K3_SHAPES:
@@ -862,7 +901,8 @@ def time_k3(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
             lambda: torch.from_numpy(rng.integers(
                 _I64_MIN, (1 << 63) - 1, n, dtype=np.int64)).to(device),
             _copies_for(n * 8))
-    for name, words in path_words(device).items():
+    for name, words in {**path_words(device),
+                        **string_rank_words(device)}.items():
         sets[name] = _cycle(words.clone, _copies_for(words.numel() * 8))
     out = {}
     for name, copies in sets.items():
@@ -1130,9 +1170,10 @@ def nds_layouts(directory: str) -> Dict[str, list]:
     """``{case: [(scan, BatchLayout), ...]}`` at the NDS path's shapes:
     ``nds.gen_tables`` at 2^22 ``store_sales`` rows (seed 42), written
     as the path writes them, with ``store_sales`` cut to its first 2^20
-    rows (two row groups, which the scan coalesces into one batch) and
-    ``item`` whole (32,768 rows, ``i_category`` a dictionary string
-    column), every column read."""
+    rows (two row groups, which the scan coalesces into one batch), and
+    ``item`` (32,768 rows, ``i_category`` a dictionary string column),
+    ``store`` (25 rows, ``s_state`` a dictionary string column) and
+    ``customer`` (65,536 rows) whole, every column read."""
     import pyarrow.parquet as pq
     from .. import nds
     from ..columnar.arrow_bridge import engine_schema
@@ -1141,9 +1182,10 @@ def nds_layouts(directory: str) -> Dict[str, list]:
     tables = nds.gen_tables(1 << 22)
     paths = nds.write_tables(
         {"store_sales": tables["store_sales"].slice(0, NDS_BATCH_ROWS),
-         "item": tables["item"]}, os.path.join(directory, "nds"))
+         "item": tables["item"], "store": tables["store"],
+         "customer": tables["customer"]}, os.path.join(directory, "nds"))
     out = {}
-    for name in ("store_sales", "item"):
+    for name in ("store_sales", "item", "store", "customer"):
         path = paths[name]
         scan = GpuFileScanExec([path], schema=engine_schema(
             pq.ParquetFile(path).schema_arrow))

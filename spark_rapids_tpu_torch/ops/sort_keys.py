@@ -1,22 +1,44 @@
 """Sort-key normalisation and multi-key permutations.
 
-Counterpart of ``spark_rapids_tpu/ops/sort_keys.py:39-285``, the
-fixed-width part. As there, every key column becomes an orderable lane
-(floats through the IEEE total-order bit trick with Spark's NaN and
-``-0.0`` semantics), behind a live lane that puts padding last and a
-null lane per key. Where the reference hands the lanes to one
-``jax.lax.sort``, the port packs them into uint64 words, most significant
-first (live bit, then per key a null bit and the value lane with its
-sign bit flipped, so that unsigned order is Spark's order), and sorts the
-words with **K3** (``cuda_kernels.sort_pairs``) with the row position as
-payload. A key set wider than 64 bits is sorted word by word, least
-significant word first; each pass sorts ``(word, current position)``
-pairs, which keeps it stable, and **K4** (``gather_rows``) carries the
-other words and the permutation along. A single int32 key is one pass
-(1 + 1 + 32 bits).
+Counterpart of ``spark_rapids_tpu/ops/sort_keys.py:39-285``. As there,
+every key column becomes an orderable lane (floats through the IEEE
+total-order bit trick with Spark's NaN and ``-0.0`` semantics), behind a
+live lane that puts padding last and a null lane per key. Where the
+reference hands the lanes to one ``jax.lax.sort``, the port packs them
+into uint64 words, most significant first (live bit, then per key a null
+bit and the value lane with its sign bit flipped, so that unsigned order
+is Spark's order), and sorts the words with **K3**
+(``cuda_kernels.sort_pairs``) with the row position as payload. A key
+set wider than 64 bits is sorted word by word, least significant word
+first; each pass sorts ``(word, current position)`` pairs, which keeps
+it stable, and **K4** (``gather_rows``) carries the other words and the
+permutation along. A single int32 key is one pass (1 + 1 + 32 bits).
 
-String, nested and decimal keys wait for a later slice: they raise
-``NotImplementedError``, never fall back.
+A string key orders by its dense rank among the live, non-null rows
+(``string_order_ranks``, ``:148``; null and dead rows rank INT32_MAX), a
+32-bit value lane. The ranks refine pass by pass: each pass sorts
+``(rank, the next 7-byte window)`` with ``sort_packed`` on K3, the window
+packed 9 bits a byte (past the end 0, a byte b as b + 1, so a shorter
+prefix comes first: 63 bits, a non-negative int64), splits the ties
+where the sorted words change, and takes the new ranks back to row order
+by an inverse permutation (one scatter). **The trip count** is fixed on
+the host before the first pass: ``ceil(L / 7)`` passes, L the longest
+string among the column's rows, live or not (one readback a column a
+sort; every live row is among them, so no live string is cut short, and
+the count does not depend on which rows a view keeps). The reference
+loops in ``jax.lax.while_loop`` until the longest live string is
+consumed or every rank is distinct; further passes leave distinct ranks
+as they are, so the ranks are the same. Pass 0's ranks are the live bit
+alone, so its key is one 64-bit word (one K3 launch); a later pass packs
+``bit_length(n)`` rank bits with the window into two words (two K3
+launches and two K4 carries), one word when ``n <= 1``
+(``rank_pass_words``, which the engine's packing and the launch counts
+of ``chip_smoke.py`` share). The passes run inside a
+``torch.profiler.record_function("string_ranks")`` range, which
+``tools/nds_trace.py`` reads.
+
+Nested and decimal keys raise ``NotImplementedError`` naming their
+ROADMAP item, and never fall back.
 """
 from __future__ import annotations
 
@@ -26,16 +48,22 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import datatypes as dt
-from ..columnar.column import GpuColumnVector
+from ..columnar.column import GpuColumnVector, is_string_like
 from . import cuda_kernels as ck
 from .gather import inclusive_int_cumsum
+from .strings import gather_window
 
 __all__ = ["SortSpec", "canonicalize_floats", "normalize_float_key_col",
            "check_key_type", "orderable_int", "key_lane_width",
            "key_lane_bits", "unsigned_lane", "pack_words", "sort_packed",
-           "sort_permutation", "sorted_segments", "segment_ids_for_keys"]
+           "rank_pass_count", "rank_pass_words", "string_order_ranks_multi",
+           "string_order_ranks", "sort_permutation", "sorted_segments",
+           "segment_ids_for_keys"]
 
 _I64_MIN = -(1 << 63)
+_I32_MAX = (1 << 31) - 1
+_RANK_WINDOW = 7   # bytes a refinement pass reads: 7 x 9 bits = 63
+_RANK_BITS = 32    # a string key's value lane
 _WIDTHS = {torch.bool: 1, torch.int8: 8, torch.int16: 16, torch.int32: 32,
            torch.int64: 64, torch.float32: 32, torch.float64: 64}
 _FIXED_WIDTH = (dt.BooleanType, dt.ByteType, dt.ShortType, dt.IntegerType,
@@ -69,11 +97,17 @@ def normalize_float_key_col(col: GpuColumnVector) -> GpuColumnVector:
 
 def check_key_type(t: dt.DataType) -> None:
     """Raise for a key type the port cannot order yet."""
-    if not isinstance(t, _FIXED_WIDTH):
+    if not (isinstance(t, _FIXED_WIDTH) or is_string_like(t)):
         raise NotImplementedError(
             f"{t.simple_string()} sort/group/join keys are not ported yet: "
-            "string keys (string_order_ranks) and decimal keys wait for a "
-            "later slice (ROADMAP item 8)")
+            "decimal keys wait for ROADMAP item 2, nested ones for item 8")
+
+
+def _check_fixed(t: dt.DataType) -> None:
+    check_key_type(t)
+    if is_string_like(t):
+        raise TypeError("a string key orders by string_order_ranks, not "
+                        "by its data lane")
 
 
 def orderable_int(col: GpuColumnVector) -> torch.Tensor:
@@ -81,7 +115,7 @@ def orderable_int(col: GpuColumnVector) -> torch.Tensor:
     Spark's ascending order (nulls are the null lane's business). Floats:
     ``-0.0 == 0.0`` and every NaN equal and largest."""
     t = col.dtype
-    check_key_type(t)
+    _check_fixed(t)
     d = col.data
     if isinstance(t, dt.BooleanType):
         return d.to(torch.int8)
@@ -96,8 +130,10 @@ def orderable_int(col: GpuColumnVector) -> torch.Tensor:
 
 
 def key_lane_width(col: GpuColumnVector) -> int:
-    """Bits of a key's value lane."""
+    """Bits of a key's value lane (a string key's is its rank)."""
     check_key_type(col.dtype)
+    if is_string_like(col.dtype):
+        return _RANK_BITS
     if isinstance(col.dtype, dt.BooleanType):
         return 1
     return _WIDTHS[col.data.dtype]
@@ -183,6 +219,68 @@ def sort_packed(words: Sequence[torch.Tensor]) \
     return cur, perm
 
 
+def rank_pass_count(max_len: int) -> int:
+    """Refinement passes for strings of at most ``max_len`` bytes."""
+    return -(-max_len // _RANK_WINDOW)
+
+
+def _rank_pass_bits(pass_index: int, n: int) -> int:
+    """Rank bits a refinement pass packs before its 63 window bits: the
+    live bit alone in pass 0, else enough for ``n`` distinct ranks."""
+    return 1 if pass_index == 0 else max(1, n.bit_length())
+
+
+def rank_pass_words(pass_index: int, n: int) -> int:
+    """K3 words of refinement pass ``pass_index`` over ``n`` rows (the
+    K4 carries of a pass: this, when it is above one, else none)."""
+    return -(-(_rank_pass_bits(pass_index, n) + 63) // 64)
+
+
+def _window_key(col: GpuColumnVector, chunk: int) -> torch.Tensor:
+    """Bytes ``7 chunk .. 7 chunk + 6`` of each string as one
+    non-negative int64, 9 bits a byte: past the end 0, byte b as b + 1."""
+    w = gather_window(col.offsets, col.chars, chunk,
+                      _RANK_WINDOW).to(torch.int64) + 1
+    key = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
+    for b in range(_RANK_WINDOW):
+        key = (key << 9) | w[:, b]
+    return key
+
+
+def string_order_ranks_multi(cols: Sequence[GpuColumnVector],
+                             lives: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Dense order ranks over the columns' rows one after another:
+    ``rank[i] < rank[j]`` iff ``bytes(i) < bytes(j)``, unsigned and
+    byte-wise; equal strings share a rank, across columns too. Rows
+    outside ``lives`` rank INT32_MAX. int32, ``sum(capacities)`` long.
+    The trip count is the module docstring's."""
+    with torch.profiler.record_function("string_ranks"):
+        live = torch.cat([lv for lv in lives])
+        n = live.shape[0]
+        lens = torch.cat([c.lengths() for c in cols])
+        passes = rank_pass_count(int(lens.max()) if n else 0)
+        rank = (~live).to(torch.int64)
+        for chunk in range(passes):
+            key = torch.cat([_window_key(c, chunk) for c in cols])
+            words, perm = sort_packed(pack_words(
+                [(rank, _rank_pass_bits(chunk, n)), (key, 63)]))
+            boundary = torch.zeros(n, dtype=torch.bool, device=live.device)
+            boundary[0] = True
+            for w in words:
+                boundary[1:] |= w[1:] != w[:-1]
+            rank = torch.empty_like(rank)
+            rank[perm.long()] = (inclusive_int_cumsum(boundary) - 1) \
+                .to(torch.int64)
+        return torch.where(live, rank,
+                           torch.full_like(rank, _I32_MAX)).to(torch.int32)
+
+
+def string_order_ranks(col: GpuColumnVector,
+                       live: torch.Tensor) -> torch.Tensor:
+    """The one-column case of ``string_order_ranks_multi``."""
+    return string_order_ranks_multi([col], [live])
+
+
 def _null_rank_lane(validity, n: int, device, spec: SortSpec) \
         -> Tuple[torch.Tensor, int]:
     """Null placement, independent of direction: a one-bit lane."""
@@ -201,7 +299,12 @@ def _key_lanes(key_cols: Sequence[GpuColumnVector],
     n = live.shape[0]
     lanes = [((~live).to(torch.int64), 1)]
     for col, spec in zip(key_cols, specs):
-        vals, width = key_lane_bits(col)
+        if is_string_like(col.dtype):
+            ranked = live if col.validity is None else live & col.validity
+            vals = string_order_ranks(col, ranked).to(torch.int64)
+            width = _RANK_BITS
+        else:
+            vals, width = key_lane_bits(col)
         if col.validity is not None:
             # computed expressions leave garbage under nulls, and
             # null == null must hold for ordering and grouping

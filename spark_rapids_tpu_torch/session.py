@@ -9,8 +9,8 @@ plan runs on the session's device (``cuda:0`` unless the caller passes
 
 A grouped aggregation is planned as Spark plans it: a hash exchange over
 ``spark.sql.shuffle.partitions`` partitions, then the aggregate. The
-analyzer's implicit numeric widening needs ``Cast``, which waits for
-ROADMAP item 13, so mixed numeric types raise. ``union``, ``sample``,
+analyzer widens mixed numeric operands with ``Cast`` (``_analyze``), as
+the reference's does. ``union``, ``sample``,
 ``explode``, ``cache``, ``write`` and ``pivot`` raise
 ``NotImplementedError`` naming their items; the process cluster, the
 query lifecycle and EXPLAIN ANALYZE wait for items 16, 14 and 15.
@@ -35,10 +35,12 @@ def _unported(what: str, item: int) -> NotImplementedError:
 
 
 def _analyze(e: Expression) -> Expression:
-    """The analyzer slice the typed expressions expect: a binary
-    comparison or arithmetic over two numeric types needs a widening
-    cast, which is not ported (``Cast``, ROADMAP item 13)."""
-    from .expr.arithmetic import BinaryArithmetic
+    """The analyzer slice the typed expressions expect (the reference's
+    ``_analyze``, ``session.py:89``, Catalyst's TypeCoercion): a binary
+    comparison or arithmetic over two numeric types casts both to their
+    common type, and ``/`` over integral operands to double."""
+    from .expr.arithmetic import BinaryArithmetic, Divide
+    from .expr.cast import Cast
     from .expr.predicates import BinaryComparison
 
     def coerce(node):
@@ -49,13 +51,30 @@ def _analyze(e: Expression) -> Expression:
                 lt, rt = left.dtype, right.dtype
             except TypeError:
                 return node
-            if lt != rt and dt.is_numeric(lt) and dt.is_numeric(rt):
-                raise _unported(
-                    f"the implicit cast between {lt.simple_string()} and "
-                    f"{rt.simple_string()} in {node!r}", 13)
+            if lt == rt and not isinstance(node, Divide):
+                return node
+            if dt.is_numeric(lt) and dt.is_numeric(rt):
+                t = dt.common_type(lt, rt)
+                if isinstance(node, Divide) and dt.is_integral(t):
+                    t = dt.FLOAT64  # Spark's `/` is fractional
+                new = [c if c.dtype == t else Cast(c, t)
+                       for c in (left, right)]
+                if new[0] is not left or new[1] is not right:
+                    return node.with_children(new)
         return node
 
     return e.transform(coerce)
+
+
+def coerce_join_keys(lk: Expression, rk: Expression):
+    """Join keys of two numeric types, both cast to their common type."""
+    from .expr.cast import Cast
+    if lk.dtype != rk.dtype and dt.is_numeric(lk.dtype) \
+            and dt.is_numeric(rk.dtype):
+        t = dt.common_type(lk.dtype, rk.dtype)
+        lk = lk if lk.dtype == t else Cast(lk, t)
+        rk = rk if rk.dtype == t else Cast(rk, t)
+    return lk, rk
 
 
 def _as_expr(c) -> Expression:
@@ -87,7 +106,7 @@ class GroupedData:
                                               child), df._session)
 
     def pivot(self, pivot_col, values=None):
-        raise _unported("pivot (If, CaseWhen)", 13)
+        raise _unported("pivot (PivotedData)", 13)
 
 
 class DataFrame:
@@ -154,11 +173,7 @@ class DataFrame:
             lk = bind_expr(lk, self._node.output_schema, case_sensitive=cs)
             rk = bind_expr(rk, other._node.output_schema,
                            case_sensitive=cs)
-            if lk.dtype != rk.dtype and dt.is_numeric(lk.dtype) \
-                    and dt.is_numeric(rk.dtype):
-                raise _unported(
-                    f"joining {lk.dtype.simple_string()} to "
-                    f"{rk.dtype.simple_string()} keys (Cast)", 13)
+            lk, rk = coerce_join_keys(lk, rk)
             lkeys.append(lk)
             rkeys.append(rk)
         return DataFrame(GpuShuffledHashJoinExec(

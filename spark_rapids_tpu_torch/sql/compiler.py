@@ -25,11 +25,11 @@ lowering. Responsibilities:
 Every failure raises ``SqlAnalysisError`` with a source location and a
 stable ``detail`` code (``unknown_column``, ``ambiguous_column``,
 ``unknown_function``, ``missing_aggregation``, ...). A construct whose
-expression or operator the port does not have yet (OR, NOT, IN, LIKE,
-CASE, CAST, IS NULL, the other arithmetic, string literals, NOT
-BETWEEN, UNION, windows, joins without equi-keys, SELECT without FROM)
-raises ``SqlAnalysisError(..., "unsupported_feature")`` naming its
-ROADMAP item when a query reaches it; it never runs another way.
+expression or operator the port does not have yet (LIKE, ``||``, a
+CAST from or to string, decimal, date or timestamp, UNION, windows,
+joins without equi-keys, SELECT without FROM) raises
+``SqlAnalysisError(..., "unsupported_feature")`` naming its ROADMAP item
+when a query reaches it; it never runs another way.
 """
 from __future__ import annotations
 
@@ -182,9 +182,6 @@ class SqlCompiler:
         return self.resolve(rel, node, grouped)
 
     def _c_lit(self, node: A.Lit, rel, subst, grouped):
-        if isinstance(node.value, (str, bytes)):
-            raise self.unported("a string literal (string expressions)",
-                                node)
         try:
             return Literal(node.value)
         except TypeError as e:
@@ -195,33 +192,37 @@ class SqlCompiler:
                        "or inside count(*)", node, "misplaced_star")
 
     def _c_unary(self, node: A.Unary, rel, subst, grouped):
+        child = self._compile(node.operand, rel, subst, grouped)
         if node.op == "NOT":
-            raise self.unported("NOT (the Not expression)", node)
-        raise self.unported("unary minus (UnaryMinus)", node)
+            from ..expr.predicates import Not
+            return Not(child)
+        from ..expr.arithmetic import UnaryMinus
+        return UnaryMinus(child)
 
     def _c_binary(self, node: A.Binary, rel, subst, grouped):
-        from ..expr.arithmetic import Multiply, Subtract
-        from ..expr.predicates import (And, EqualTo, GreaterThan,
-                                       GreaterThanOrEqual, LessThan,
-                                       LessThanOrEqual)
+        from ..expr.arithmetic import (Add, Divide, IntegralDivide,
+                                       Multiply, Remainder, Subtract)
+        from ..expr.predicates import (And, EqualNullSafe, EqualTo,
+                                       GreaterThan, GreaterThanOrEqual,
+                                       LessThan, LessThanOrEqual, Not, Or)
         table = {
-            "AND": And, "=": EqualTo,
+            "OR": Or, "AND": And,
+            "=": EqualTo, "<=>": EqualNullSafe,
             "<": LessThan, "<=": LessThanOrEqual,
             ">": GreaterThan, ">=": GreaterThanOrEqual,
-            "-": Subtract, "*": Multiply,
+            "+": Add, "-": Subtract, "*": Multiply, "/": Divide,
+            "%": Remainder, "DIV": IntegralDivide,
         }
-        waiting = {"OR": "Or", "<>": "Not", "<=>": "EqualNullSafe",
-                   "+": "Add", "/": "Divide", "%": "Remainder",
-                   "DIV": "IntegralDivide", "||": "ConcatStrings"}
-        if node.op in waiting:
-            raise self.unported(
-                f"operator {node.op} ({waiting[node.op]})", node)
+        if node.op == "||":
+            raise self.unported("operator || (ConcatStrings)", node)
+        l, r = self._retype_nulls(
+            self._kids((node.left, node.right), rel, subst, grouped))
+        if node.op == "<>":
+            return Not(EqualTo(l, r))
         cls = table.get(node.op)
         if cls is None:
             raise self.err(f"operator {node.op!r} is not supported",
                            node, "unsupported_feature")
-        l, r = self._retype_nulls(
-            self._kids((node.left, node.right), rel, subst, grouped))
         return cls(l, r)
 
     _UNIFY_ARGS = frozenset(("coalesce", "least", "greatest", "nullif"))
@@ -240,12 +241,18 @@ class SqlCompiler:
         return F.build_scalar(node, args, self.sql)
 
     def _c_caste(self, node: A.CastE, rel, subst, grouped):
+        from ..expr.cast import Cast, cast_supported
         child = self._compile(node.operand, rel, subst, grouped)
         t = self._parse_type(node.type_name)
         if isinstance(child, Literal) and child.value is None \
                 and isinstance(child.dtype, dt.NullType):
             return Literal(None, t)
-        raise self.unported("CAST (expr/cast.py)", node)
+        if not cast_supported(child.dtype, t):
+            raise self.unported(
+                f"CAST from {child.dtype.simple_string()} to "
+                f"{t.simple_string()} (string, decimal, date and "
+                "timestamp casts)", node)
+        return Cast(child, t)
 
     def _parse_type(self, tn: A.TypeName) -> dt.DataType:
         simple = {
@@ -270,12 +277,35 @@ class SqlCompiler:
         raise self.err(f"unknown type {tn.name!r}", tn, "unknown_type")
 
     def _c_casee(self, node: A.CaseE, rel, subst, grouped):
-        raise self.unported("CASE WHEN (CaseWhen)", node)
+        from ..expr.conditional import CaseWhen
+        branches = []
+        for c_ast, v_ast in node.whens:
+            if node.operand is not None:
+                c_ast = A.Binary(op="=", left=node.operand, right=c_ast,
+                                 loc=c_ast.loc)
+            c = self._compile(c_ast, rel, subst, grouped)
+            v = self._compile(v_ast, rel, subst, grouped)
+            branches.append((c, v))
+        els = self._compile(node.else_, rel, subst, grouped) \
+            if node.else_ is not None else None
+        values = [v for _, v in branches] + \
+            ([els] if els is not None else [])
+        values = self._unify_branch_types(values, node)
+        branches = [(c, values[i]) for i, (c, _) in enumerate(branches)]
+        els = values[len(branches)] if els is not None else None
+        for c, _ in branches:
+            if not isinstance(c.dtype, dt.BooleanType):
+                raise self.err("CASE WHEN condition must be boolean",
+                               node, "type_error")
+        return CaseWhen(branches, els)
 
     def _unify_branch_types(self, values: List[Expression],
                             node: A.Node) -> List[Expression]:
-        """Common result type across branches: NULL literals adopt it;
-        types must match, since a numeric widening needs ``Cast``."""
+        """Common result type across CASE branches (and the arguments of
+        coalesce, least, greatest, nullif and if's values): NULL
+        literals adopt it, numerics widen by ``Cast``, anything else
+        must match exactly."""
+        from ..expr.cast import Cast
         typed = [v.dtype for v in values
                  if not isinstance(v.dtype, dt.NullType)]
         if not typed:
@@ -285,34 +315,53 @@ class SqlCompiler:
             if t == common:
                 continue
             if dt.is_numeric(t) and dt.is_numeric(common):
-                raise self.unported(
-                    f"widening {t.simple_string()} and "
-                    f"{common.simple_string()} (Cast)", node)
-            raise self.err(
-                f"CASE branches have incompatible types "
-                f"{common.simple_string()} vs {t.simple_string()}",
-                node, "type_error")
-        return [Literal(None, common) if isinstance(v.dtype, dt.NullType)
-                else v for v in values]
+                common = dt.common_type(t, common)
+            else:
+                raise self.err(
+                    f"CASE branches have incompatible types "
+                    f"{common.simple_string()} vs {t.simple_string()}",
+                    node, "type_error")
+        out = []
+        for v in values:
+            if isinstance(v.dtype, dt.NullType):
+                out.append(Literal(None, common))
+            elif v.dtype != common:
+                out.append(Cast(v, common))
+            else:
+                out.append(v)
+        return out
 
     def _c_ine(self, node: A.InE, rel, subst, grouped):
-        raise self.unported("IN (In, Or)", node)
+        from ..expr.predicates import EqualTo, In, Not, Or
+        operand = self._compile(node.operand, rel, subst, grouped)
+        if all(isinstance(i, A.Lit) for i in node.items):
+            e = In(operand, tuple(i.value for i in node.items))
+        else:
+            e = None
+            for item in node.items:
+                rhs = self._retype_nulls(
+                    [operand,
+                     self._compile(item, rel, subst, grouped)])[1]
+                cmp = EqualTo(operand, rhs)
+                e = cmp if e is None else Or(e, cmp)
+        return Not(e) if node.negated else e
 
     def _c_between(self, node: A.Between, rel, subst, grouped):
         from ..expr.predicates import (And, GreaterThanOrEqual,
-                                       LessThanOrEqual)
-        if node.negated:
-            raise self.unported("NOT BETWEEN (Not)", node)
+                                       LessThanOrEqual, Not)
         x = self._compile(node.operand, rel, subst, grouped)
         lo = self._compile(node.low, rel, subst, grouped)
         hi = self._compile(node.high, rel, subst, grouped)
-        return And(GreaterThanOrEqual(x, lo), LessThanOrEqual(x, hi))
+        e = And(GreaterThanOrEqual(x, lo), LessThanOrEqual(x, hi))
+        return Not(e) if node.negated else e
 
     def _c_likee(self, node: A.LikeE, rel, subst, grouped):
-        raise self.unported("LIKE (Like)", node)
+        raise self.unported("LIKE (Like, ops/regex.py)", node)
 
     def _c_isnulle(self, node: A.IsNullE, rel, subst, grouped):
-        raise self.unported("IS [NOT] NULL (IsNull, IsNotNull)", node)
+        from ..expr.predicates import IsNotNull, IsNull
+        child = self._compile(node.operand, rel, subst, grouped)
+        return IsNotNull(child) if node.negated else IsNull(child)
 
     def _c_over(self, node: A.Over, rel, subst, grouped):
         raise self.err("window expressions are only allowed in the "
@@ -405,17 +454,14 @@ class SqlCompiler:
         return lkeys, rkeys, residual
 
     def _coerce_keys(self, lk, rk, node):
-        if lk.dtype != rk.dtype:
-            if dt.is_numeric(lk.dtype) and dt.is_numeric(rk.dtype):
-                raise self.unported(
-                    f"joining {lk.dtype.simple_string()} to "
-                    f"{rk.dtype.simple_string()} keys (Cast)", node)
-            else:
-                raise self.err(
-                    f"join key types differ: "
-                    f"{lk.dtype.simple_string()} vs "
-                    f"{rk.dtype.simple_string()}", node, "type_error")
-        return lk, rk
+        from ..session import coerce_join_keys
+        if lk.dtype != rk.dtype and not (dt.is_numeric(lk.dtype)
+                                         and dt.is_numeric(rk.dtype)):
+            raise self.err(
+                f"join key types differ: "
+                f"{lk.dtype.simple_string()} vs "
+                f"{rk.dtype.simple_string()}", node, "type_error")
+        return coerce_join_keys(lk, rk)
 
     def _compile_join(self, jr: A.JoinRel, env: Dict, uniq: set) -> Rel:
         from ..exec.joins import GpuShuffledHashJoinExec

@@ -3,16 +3,23 @@
 Counterpart of ``spark_rapids_tpu/sql/functions.py``. The names are the
 reference's, so the compiler tells aggregates, window and scalar
 functions apart as the reference does; the constructors map onto the
-port's expressions. ``sum`` and ``count`` are ported. Every other name
-raises ``SqlAnalysisError(..., "unsupported_feature")`` naming the
-ROADMAP item it waits for: Min/Max/Average and the other aggregates
-item 8, the scalar and window functions item 13. An unknown name is
-``unknown_function``, as in the reference.
+port's expressions. Ported: the aggregates ``sum``, ``count``, ``min``,
+``max``, ``avg`` and ``mean``; the scalar functions ``if``,
+``coalesce``, ``nullif``, ``least``, ``greatest``, ``abs`` and
+``isnan``. Every other name raises
+``SqlAnalysisError(..., "unsupported_feature")`` naming the ROADMAP item
+it waits for: the other aggregates item 8, the other scalar and the
+window functions item 13. An unknown name is ``unknown_function``, as in
+the reference.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+from ..expr.aggregates import Average, Count, Max, Min, Sum
+from ..expr.arithmetic import Abs
+from ..expr.conditional import Coalesce, Greatest, If, Least, NullIf
+from ..expr.predicates import IsNaN
 from . import ast as A
 from .errors import SqlAnalysisError
 
@@ -52,7 +59,7 @@ _SCALAR_NAMES = (
     "weekday", "dayofyear", "last_day", "hour", "minute", "second",
     "date_add", "date_sub", "datediff", "add_months", "months_between",
     "trunc", "unix_timestamp", "from_unixtime")
-_AGG_WAITING = ("min", "max", "avg", "mean", "first", "last", "stddev",
+_AGG_WAITING = ("first", "last", "stddev",
                 "stddev_samp", "stddev_pop", "variance", "var_samp",
                 "var_pop", "collect_list", "collect_set",
                 "approx_percentile")
@@ -60,14 +67,21 @@ _WINDOW_NAMES = ("row_number", "rank", "dense_rank", "percent_rank",
                  "ntile", "lag", "lead")
 
 
-def _build_sum(node, args, sql):
-    from ..expr.aggregates import Sum
-    _arity("sum", node, args, 1, 1, sql)
-    return Sum(args[0])
+def _simple(cls, lo: int, hi=None):
+    """A builder of ``cls`` over ``lo..hi`` arguments (``hi`` None:
+    exactly ``lo``; -1: ``lo`` or more)."""
+    def build(node, args, sql):
+        if hi == -1:
+            if len(args) < lo:
+                raise _err(f"{node.name}() takes at least {lo} "
+                           "arguments", node, "bad_arity", sql)
+        else:
+            _arity(node.name, node, args, lo, hi, sql)
+        return cls(*args)
+    return build
 
 
 def _build_count(node, args, sql):
-    from ..expr.aggregates import Count
     if node.star:
         return Count()
     _arity("count", node, args, 1, 1, sql)
@@ -76,11 +90,16 @@ def _build_count(node, args, sql):
     return Count(args[0])
 
 
-SCALAR_FUNCTIONS: Dict[str, Callable] = {n: _unported(13)
-                                         for n in _SCALAR_NAMES}
+SCALAR_FUNCTIONS: Dict[str, Callable] = dict(
+    {n: _unported(13) for n in _SCALAR_NAMES},
+    coalesce=_simple(Coalesce, 1, -1), nullif=_simple(NullIf, 2),
+    least=_simple(Least, 2, -1), greatest=_simple(Greatest, 2, -1),
+    abs=_simple(Abs, 1), isnan=_simple(IsNaN, 1),
+    **{"if": _simple(If, 3)})
 AGGREGATE_FUNCTIONS: Dict[str, Callable] = dict(
-    {n: _unported(8) for n in _AGG_WAITING}, sum=_build_sum,
-    count=_build_count)
+    {n: _unported(8) for n in _AGG_WAITING},
+    sum=_simple(Sum, 1), count=_build_count, min=_simple(Min, 1),
+    max=_simple(Max, 1), avg=_simple(Average, 1), mean=_simple(Average, 1))
 WINDOW_FUNCTIONS: Dict[str, Callable] = {n: _unported(13)
                                          for n in _WINDOW_NAMES}
 

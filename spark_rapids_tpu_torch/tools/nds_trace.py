@@ -1,7 +1,9 @@
 """Where an NDS query's time goes on the card: one traced run from SQL.
 
-    python3 -m spark_rapids_tpu_torch.tools.nds_trace [--query q3|q55]
+    python3 -m spark_rapids_tpu_torch.tools.nds_trace [--query NAME]
         [--partitions N] [--n-sales N] [--out DIR]
+
+``NAME`` is any query the port runs from SQL (``nds.PORTED_QUERIES``).
 
 Writes the NDS tables as ``chip_smoke.py`` phase 8 does (``nds.gen_tables``,
 seed 42, snappy, row groups of 2^19; default 2^22 ``store_sales`` rows,
@@ -13,8 +15,13 @@ intervals in which a kernel or a copy ran, so nothing counts twice) and
 its idle share, the device time and kernel launches of K3
 (``radix_histogram``, ``radix_plan``, ``radix_pass``), K4
 (``gather_rows_*``) and K5 (``k5_*``), the wrappers' launch counts in the
-traced run, and the largest other device operations. With ``--out`` it
-also writes the Chrome trace there. It needs a CUDA device.
+traced run, and the largest other device operations. The K3 and K4
+kernels launched inside ``sort_keys.string_order_ranks_multi`` (the
+string keys' refinement passes, a ``record_function("string_ranks")``
+range) are reported apart under ``string_ranks``: a kernel counts there
+when it runs within the device-side span the profiler gives that range
+(the span itself is left out of the busy time). With ``--out`` it also writes
+the Chrome trace there. It needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from .join_trace import _union_us
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+_RANGE = "string_ranks"  # sort_keys.string_order_ranks_multi's range
 _FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
              "K4": ("gather_rows_fast", "gather_rows_any"),
              "K5": ("k5_",)}
@@ -54,6 +62,27 @@ def counters():
     from ..ops import cuda_kernels as ck
     from ..ops.parquet_decode import decode_batch
     return {"K3": ck.sort_pairs, "K4": ck.gather_rows, "K5": decode_batch}
+
+
+def _rank_share(device_events):
+    """Device us and kernels of K3 and K4 inside the ``string_ranks``
+    ranges, from ``(start, end, name)`` device events. The profiler
+    gives a ``record_function`` range a device-side event of its name
+    that spans the kernels launched inside it; the engine launches on
+    one stream, in order, so the kernels that run within such a span
+    are the range's. ``spans`` counts those events (0: this profiler
+    records none, and nothing is attributed)."""
+    spans = [(a, b) for a, b, name in device_events if name == _RANGE]
+    out = {"spans": len(spans), "K3_device_us": 0.0,
+           "K3_kernel_launches": 0, "K4_device_us": 0.0,
+           "K4_kernel_launches": 0}
+    for a, b, name in device_events:
+        fam = _family(name)
+        if fam in ("K3", "K4") and any(sa <= a and b <= sb
+                                       for sa, sb in spans):
+            out[f"{fam}_device_us"] += b - a
+            out[f"{fam}_kernel_launches"] += 1
+    return out
 
 
 def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
@@ -81,7 +110,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
         out = pp.collect(ExecCtx(s.conf, device))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    intervals, by_name = [], {}
+    intervals, by_name, device_events = [], {}, []
     fams = {f: {"device_us": 0.0, "kernel_launches": 0,
                 "wrapper_launches": wrappers[f].launches}
             for f in _FAMILIES}
@@ -89,6 +118,9 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
         if evt.device_type != DeviceType.CUDA:
             continue
         a, b = evt.time_range.start, evt.time_range.end
+        device_events.append((a, b, evt.name))
+        if evt.name == _RANGE:
+            continue  # a span over kernels, not device work of its own
         intervals.append((a, b))
         rec = by_name.setdefault(evt.name, {"device_us": 0.0, "calls": 0})
         rec["device_us"] += b - a
@@ -109,12 +141,14 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
             "rows": out.num_rows, "device": torch.cuda.get_device_name(0),
             "wall_us": wall_us, "device_busy_us": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
-            "kernels": fams, "top_other_device_ops": dict(others)}
+            "kernels": fams,
+            "string_ranks": _rank_share(device_events),
+            "top_other_device_ops": dict(others)}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", default="q3", choices=("q3", "q55"))
+    ap.add_argument("--query", default="q3", choices=nds.PORTED_QUERIES)
     ap.add_argument("--partitions", type=int, default=1)
     ap.add_argument("--n-sales", type=int, default=1 << 22)
     ap.add_argument("--out", default=None,

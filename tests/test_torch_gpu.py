@@ -4,8 +4,9 @@ bound's neighbours (``kernel_checks.check_k1``), one kernel a call, and
 q6 through the engine with one K1 launch per batch; K3 and K4
 against their plain versions (exactly, bit for bit; K3 also against
 ``torch.sort``) at the join + group-by path's shapes and edge cases, and a small join + group-by
-through the engine with the launches its plan implies; NDS q3 and q55
-from SQL on the card against the CPU. Run on a machine with a CUDA
+through the engine with the launches its plan implies; every NDS query
+the port runs from SQL on the card against the CPU, and string ranks on
+the card against the CPU's. Run on a machine with a CUDA
 device: ``python -m pytest tests/test_torch_gpu.py``;
 elsewhere they skip."""
 import pytest
@@ -109,8 +110,8 @@ def test_k5_matches_plain_version(cuda_device):
     # the Parquet shapes, the NDS path's batches (a string column among
     # them, held to pyarrow too) and the hand-made tile walks ran
     assert {"shapes", "nds_store_sales_batch", "nds_item_batch",
-            "rle_runs_of_one", "widths", "nulls",
-            "delta_identity"} <= {r["case"] for r in recs}
+            "nds_store_batch", "nds_customer_batch", "rle_runs_of_one",
+            "widths", "nulls", "delta_identity"} <= {r["case"] for r in recs}
     assert any(r["string_columns"] for r in recs)
     assert all(r["pyarrow_equal"] for r in recs if "pyarrow_equal" in r)
 
@@ -182,19 +183,21 @@ def test_q6_by_linenumber_on_the_card(cuda_device, tmp_path):
 
 @pytest.mark.parametrize("parts", [1, 16])
 def test_nds_sql_on_the_card_matches_the_cpu(cuda_device, tmp_path, parts):
-    """q3 and q55 from SQL over Parquet on the card: the CPU run's rows
-    (ints exact, sums rel 1e-12), the oracle's, and Murmur3 partition
-    ids and string gathers equal to the CPU's bit for bit."""
+    """Every query the port runs from SQL over Parquet on the card: the
+    CPU run's rows (ints and strings exact, floats rel 1e-12), the
+    oracle's, and Murmur3 partition ids, string gathers and string ranks
+    equal to the CPU's bit for bit."""
     import math
 
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.columnar import arrow_to_device
     from spark_rapids_tpu_torch.ops.hash import hash_columns
+    from spark_rapids_tpu_torch.ops.sort_keys import string_order_ranks
     from spark_rapids_tpu_torch.ops.strings import gather_strings
     tables = nds.gen_tables(1 << 14)
     paths = nds.write_tables(tables, str(tmp_path))
     conf = {"spark.sql.shuffle.partitions": str(parts)}
-    for q in ("q3", "q55"):
+    for q in nds.PORTED_QUERIES:
         rows = [nds.session_over_files(paths, conf, dev)
                 .sql(nds.SQL_QUERIES[q]).collect()
                 for dev in (cuda_device, "cpu")]
@@ -202,10 +205,11 @@ def test_nds_sql_on_the_card_matches_the_cpu(cuda_device, tmp_path, parts):
         for name in want.column_names:
             a, b, c = (t.column(name).to_pylist() for t in rows + [want])
             if name in nds.FLOAT_COLUMNS[q]:
-                assert all(math.isclose(x, y, rel_tol=1e-12)
-                           for x, y in zip(a, b + c))
+                assert all(x is y if x is None or y is None else
+                           math.isclose(x, y, rel_tol=1e-12)
+                           for x, y in zip(a + a, b + c)), (q, name)
             else:
-                assert a == b == c
+                assert a == b == c, (q, name)
     rb = tables["item"].combine_chunks().to_batches()[0]
     host, card = (arrow_to_device(rb, None, d) for d in ("cpu", cuda_device))
     assert torch.equal(hash_columns(card.columns).cpu(),
@@ -217,3 +221,7 @@ def test_nds_sql_on_the_card_matches_the_cpu(cuda_device, tmp_path, parts):
     b = gather_strings(card.columns[s], idx.to(cuda_device), 1 << 20)
     assert torch.equal(a.offsets, b.offsets.cpu())
     assert torch.equal(a.chars, b.chars.cpu())
+    live = torch.rand(a.capacity, generator=torch.Generator()
+                      .manual_seed(parts)) < 0.9
+    assert torch.equal(string_order_ranks(a, live),
+                       string_order_ranks(b, live.to(cuda_device)).cpu())

@@ -346,8 +346,25 @@ def test_gather_columns_and_compaction_match_reference():
 
 
 def test_string_keys_raise_not_fall_back():
-    col = GpuColumnVector(tdt.STRING, torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="string"):
+    """A string key orders by its rank lane now (the permutation matches
+    the reference's); a decimal key raises and never falls back."""
+    from spark_rapids_tpu.columnar import arrow_to_device
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import \
+        arrow_to_device as t_arrow_to_device
+    import pyarrow as pa
+    words = ["b", "", "abcdefgh", "abcdefg", None, "a", "b", "\xff"]
+    rb = pa.record_batch({"s": pa.array(words)})
+    jcol, tcol = arrow_to_device(rb).columns[0], \
+        t_arrow_to_device(rb, None, torch.device("cpu")).columns[0]
+    live = np.arange(jcol.capacity) < len(words)
+    want = jsk.sort_permutation([jcol], [jsk.SortSpec()], jnp.asarray(live))
+    got = tsk.sort_permutation([tcol], [tsk.SortSpec()],
+                               torch.from_numpy(live))
+    assert np.array_equal(got.numpy()[:len(words)],
+                          np.asarray(want)[:len(words)])
+    col = GpuColumnVector(tdt.DecimalType(9, 2),
+                          torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="decimal"):
         tsk.sort_permutation([col], [tsk.SortSpec()],
                              torch.ones(4, dtype=torch.bool))
 

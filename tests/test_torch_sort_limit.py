@@ -124,6 +124,14 @@ def test_local_limit_over_batches_matches_reference(limit):
 
 
 def test_string_sort_keys_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        GpuSortExec([SortOrder(tcol("s"))],
-                    HostBatchSourceExec(_batches(5)))
+    """String sort keys order by their ranks now (ascending and
+    descending, nulls first and last, under a lazy selection), as the
+    reference does; a decimal key still raises, naming its item."""
+    for order in ([("s", True, None), ("row", True, None)],
+                  [("s", False, True), ("k", True, False),
+                   ("row", False, None)]):
+        _same(*_plans(_batches(5), order, True))
+    dec = pa.table({"d": pa.array([1, 2], pa.decimal128(5, 1))})
+    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+        GpuSortExec([SortOrder(tcol("d"))],
+                    HostBatchSourceExec(dec.to_batches()))

@@ -1,0 +1,124 @@
+"""The dual-run assert: one SQL text through the JAX package's
+``TpuSession`` and through the port's ``GpuSession(device="cpu")`` over
+the same Parquet files with the same conf, the Arrow outputs compared.
+
+    from torch_dual_run import dual_run, assert_same_rows
+    port, ref = dual_run(sql, paths, {"spark.sql.shuffle.partitions": "16"})
+
+``assert_same_rows`` holds the port to the reference:
+
+- column names and Arrow types equal;
+- integers, booleans, strings and nulls equal bit for bit;
+- floats within a relative ``FLOAT_RTOL`` = 1e-9 (a sum's order of
+  additions differs between the packages), NaN equal to NaN;
+- the row order exact where the query orders its output (its outermost
+  ORDER BY), else the rows compared as sorted multisets.
+
+``dual_run`` also holds the scans' ``deviceChunks`` and
+``fallbackChunks`` of both runs equal.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import pyarrow as pa
+
+FLOAT_RTOL = 1e-9
+
+
+def scan_chunks(metrics) -> list:
+    """Sorted ``(deviceChunks, fallbackChunks)`` of every scan, from
+    either package's ctx metrics."""
+    return sorted((m["deviceChunks"].value, m["fallbackChunks"].value)
+                  for label, m in metrics.items()
+                  if label.startswith("FileScanExec"))
+
+
+def run_reference(sql: str, paths: Dict[str, str],
+                  conf: Optional[dict] = None) -> Tuple[pa.Table, list]:
+    """The JAX package's rows and scan counters."""
+    from spark_rapids_tpu.exec.base import ExecCtx
+    from spark_rapids_tpu.planner import TpuOverrides
+    from spark_rapids_tpu.session import TpuSession
+    from spark_rapids_tpu.tools import nds as jnds
+    s = TpuSession(conf=dict(conf or {}))
+    jnds.register_frames(s, {k: s.read_parquet(p) for k, p in paths.items()})
+    pp = TpuOverrides(s.conf).apply(s.sql(sql)._node)
+    ctx = ExecCtx(s.conf)
+    return pp.collect(ctx), scan_chunks(ctx.metrics)
+
+
+def run_port(sql: str, paths: Dict[str, str],
+             conf: Optional[dict] = None) -> Tuple[pa.Table, list]:
+    """The port's rows and scan counters, on the CPU."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    s = nds.session_over_files(paths, conf, device="cpu")
+    pp = GpuOverrides(s.conf, s.device).apply(s.sql(sql)._node)
+    ctx = ExecCtx(s.conf, "cpu")
+    return pp.collect(ctx), scan_chunks(ctx.metrics)
+
+
+def is_ordered(sql: str) -> bool:
+    """The query orders its output: its outermost ORDER BY."""
+    from spark_rapids_tpu_torch.sql import parse_statement
+    return bool(parse_statement(sql).query.order_by)
+
+
+def _key(v):
+    if v is None:
+        return (0, "")
+    if isinstance(v, float) and math.isnan(v):
+        return (2, "")
+    return (1, repr(v) if not isinstance(v, (int, float)) else v)
+
+
+def _sorted_rows(t: pa.Table):
+    rows = list(zip(*[t.column(c).to_pylist() for c in t.column_names]))
+    return sorted(rows, key=lambda r: tuple(_key(v) for v in r))
+
+
+def _same_value(a, b, is_float: bool) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if is_float:
+        if math.isnan(a) or math.isnan(b):
+            return math.isnan(a) and math.isnan(b)
+        return a == b or math.isclose(a, b, rel_tol=FLOAT_RTOL)
+    return type(a) is type(b) and a == b
+
+
+def assert_same_rows(got: pa.Table, want: pa.Table, ordered: bool,
+                     label: str = "") -> None:
+    """The port's table against the reference's (module docstring)."""
+    assert got.column_names == want.column_names, \
+        (label, got.column_names, want.column_names)
+    assert got.schema.types == want.schema.types, \
+        (label, got.schema.types, want.schema.types)
+    assert got.num_rows == want.num_rows, (label, got.num_rows,
+                                           want.num_rows)
+    floats = [pa.types.is_floating(t) for t in got.schema.types]
+    if ordered:
+        g = list(zip(*[got.column(c).to_pylist()
+                       for c in got.column_names]))
+        w = list(zip(*[want.column(c).to_pylist()
+                       for c in want.column_names]))
+    else:
+        g, w = _sorted_rows(got), _sorted_rows(want)
+    for i, (gr, wr) in enumerate(zip(g, w)):
+        for name, a, b, f in zip(got.column_names, gr, wr, floats):
+            assert _same_value(a, b, f), (label, i, name, a, b)
+
+
+def dual_run(sql: str, paths: Dict[str, str],
+             conf: Optional[dict] = None) -> Tuple[pa.Table, pa.Table]:
+    """Run ``sql`` through both packages and hold the port to the
+    reference: rows (``assert_same_rows``) and scan counters. Returns
+    ``(port's table, reference's table)``."""
+    got, got_chunks = run_port(sql, paths, conf)
+    want, want_chunks = run_reference(sql, paths, conf)
+    assert_same_rows(got, want, is_ordered(sql), label=sql.strip()[:60])
+    assert got_chunks == want_chunks, (got_chunks, want_chunks)
+    return got, want
