@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: TPC-H q6 at SF1 from
 Parquet (host decode, then device page decode), the join + group-by
 query at the reference's full size, q6's revenue by line number at
-SF1, and the 15 NDS queries the port runs from SQL text over Parquet
+SF1, and the 19 NDS queries the port runs from SQL text over Parquet
 files (``nds.PORTED_QUERIES``), through ``spark_rapids_tpu_torch``, with
 K1 to K5 checked on the card.
 
@@ -73,7 +73,8 @@ Phases, any failure exits non-zero before the result line:
      opTime;
   8. the NDS queries the port runs from SQL text (``nds.SQL_QUERIES``:
      q3, q42, q52, q55, q96, q_topn, q7, q_pivot, q_customer_age,
-     q_price_band, q_cte, q_having, q_in_between, q_agg_expr, q_not_or)
+     q_price_band, q_cte, q_having, q_in_between, q_agg_expr, q_not_or,
+     q_rank, q_rownum, q_rolling, q_union)
      over the reference bench's tables at 2^22 store_sales rows (seed 42,
      snappy, row groups of 2^19, written to
      .bench_cache/nds_torch_n4194304/), through GpuSession.sql,
@@ -557,16 +558,24 @@ def _nds_expected(root, metrics, longest):
     batch (one K4, strings included). The grouped aggregate sorts each
     partial and the final by its keys, then gathers keys and values once
     and the segment starts once (two K4). ORDER BY sorts once and gathers
-    once. A string key adds its ranks' passes to each sort (the longest
-    string of its column, ``longest[name]``, fixes their number). A node
-    the plan reaches by several paths (a view's scan that a CTE's two
-    uses share) runs once a path, and its metrics sum those runs."""
+    once. A window (``exec/window.py``) sorts once by its partition and
+    order keys, then gathers the rows and its computed arguments in one
+    K4, and one K4 more for each lag, lead, min and max. A union runs
+    each child in turn: its batches are theirs. A string key adds its
+    ranks' passes to each sort (the longest string of its column,
+    ``longest[name]``, fixes their number). A node the plan reaches by
+    several paths (a view's scan that a CTE's two uses, or a union's two
+    sides, share) runs once a path, and its metrics sum those runs."""
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
     from spark_rapids_tpu_torch.exec.basic import (GpuFilterExec,
                                                    GpuProjectExec)
     from spark_rapids_tpu_torch.exec.joins import _BaseJoinExec
+    from spark_rapids_tpu_torch.exec.misc import GpuUnionExec
     from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
                                                   GpuSortExec)
+    from spark_rapids_tpu_torch.exec.window import GpuWindowExec
+    from spark_rapids_tpu_torch.expr.aggregates import Max, Min
+    from spark_rapids_tpu_torch.expr.window import Lag, Lead
     from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
     out = {"decode_batch": 0, "sort_pairs": 0, "gather_rows": 0}
     uses = _node_uses(root)
@@ -587,8 +596,10 @@ def _nds_expected(root, metrics, longest):
         if isinstance(node, _BaseJoinExec):
             return batches(node.left)
         if isinstance(node, (GpuHashAggregateExec, GpuSortExec,
-                             GpuGlobalLimitExec)):
+                             GpuGlobalLimitExec, GpuWindowExec)):
             return 1
+        if isinstance(node, GpuUnionExec):
+            return sum(batches(c) for c in node.children)
         raise AssertionError(f"no batch count for {node.describe()}")
 
     def add(k3, k4, times=1):
@@ -612,6 +623,12 @@ def _nds_expected(root, metrics, longest):
         elif isinstance(node, GpuSortExec):
             k3, k4 = _keyed_sort([o.child for o in node.orders], longest)
             add(k3, k4 + 1)
+        elif isinstance(node, GpuWindowExec):
+            k3, k4 = _keyed_sort(node.part_exprs
+                                 + [o.child for o in node.orders], longest)
+            gathers = sum(isinstance(we.func, (Lag, Lead, Min, Max))
+                          for we in node.win_exprs)
+            add(k3, k4 + 1 + gathers)
         for c in node.children:
             walk(c)
 
@@ -644,9 +661,14 @@ def _nds_longest(want):
     where a filter on the string's table runs before the join that
     gathers it (the join gives an unmatched row length 0), where a CASE
     of literals makes the key and all its literals are output, and where
-    no HAVING or LIMIT drops groups after the sort; a plan that breaks it
-    shows as a launch count that disagrees. A string key that the output
-    does not show has no entry, and its lookup fails."""
+    no HAVING or LIMIT drops groups after the sort. A window keyed by the
+    column keeps it too when a filter on its rank or row number drops rows
+    after the window's sort (q_rank's ``rk <= 3``, q_rownum's ``rn = 1``):
+    every partition has a row of rank 1, so the output still shows every
+    value of the PARTITION BY key, though only some of its rows. A plan
+    that breaks the assumption shows as a launch count that disagrees. A
+    string key that the output does not show has no entry, and its lookup
+    fails."""
     import pyarrow as pa
     return {f.name: max((len(v.encode())
                          for v in want.column(f.name).to_pylist()
@@ -844,6 +866,8 @@ def main():
         "shape_string_rank": "a string-rank pass's words, 2^20 pairs",
         "string_rank": {k: v for k, v in k3.items()
                         if k.startswith("string_rank")},
+        "shape_window": "a window sort's words, 2^15 pairs",
+        "window": {k: v for k, v in k3.items() if k.startswith("window")},
         "launches_nds": {k: v["sort_pairs"]
                          for k, v in nds_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",

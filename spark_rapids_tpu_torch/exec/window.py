@@ -1,0 +1,526 @@
+"""Window operator.
+
+Counterpart of ``spark_rapids_tpu/exec/window.py:156-641``
+(``TpuWindowExec``, its device pass ``_window_batch``), run eagerly on
+tensors: one sorted, segmented pass a window spec.
+
+  1. the rows sort once by (partition keys, order keys) through
+     ``ops/sort_keys.sorted_key_words``: **K3** a packed word, a string
+     key by its rank (``string_order_ranks``, itself K3 passes), float
+     partition keys normalised. The reference sorts its lanes with the
+     row index as the last key; K3's LSD radix sort is stable, so the
+     order is the same, live rows first;
+  2. partition and peer changes are read off the sorted words (the
+     partition's bits are a prefix of each row's bit string); segment and
+     peer bounds are ``torch.cummax`` and a flipped ``torch.cummin`` of
+     the change positions;
+  3. the rows, and every window argument that is not already a column,
+     move into sorted order in one **K4** launch (``gather_columns``);
+  4. a function at a time:
+     - ranking (row_number, rank, dense_rank, percent_rank, ntile) is
+       index arithmetic over the bounds;
+     - lag and lead are clamped gathers (K4, one a function);
+     - count, sum and avg over any rows or range frame are a prefix
+       difference of one ``cumsum`` over the batch;
+     - min and max take the frame's lexicographic argmin of (invalid
+       flag, orderable value, position), then gather the value there
+       (K4): a segmented running scan for frames bounded by a segment or
+       peer edge on one side (``_argmin_scan``, a log-depth doubling scan
+       where the reference uses ``jax.lax.associative_scan``), and the
+       sparse-table range argmin (``_sparse_argmin_query``) for rows
+       frames bounded on both sides, its depth capped by the frame's
+       width, and for RANGE literal offsets. The reference also has an
+       ``(n, width)`` windowed gather for rows frames up to 1024 wide;
+       the sparse table answers those frames with the same row (the key
+       tuple ends in the position, so the argmin is unique) in memory
+       that grows with log2 of the width, not with the width.
+     RANGE literal offsets become index bounds by a ``torch.searchsorted``
+     over an int64 compound key (``_range_literal_bound``).
+
+``execute`` concatenates the child's batches (``ops/concat.py``) and makes
+one pass, inside a ``torch.profiler.record_function("window")`` range,
+which ``tools/nds_trace.py`` reads. The reference's out-of-core path
+(``_execute_bucketed``, which buckets whole partitions by hash and spills
+them) waits for the memory manager, ROADMAP item 14.
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import datatypes as dt
+from ..columnar.batch import GpuBatch, row_mask
+from ..columnar.column import GpuColumnVector, torch_dtype
+from ..expr.aggregates import Average, Count, Max, Min, Sum
+from ..expr.base import Alias, BoundReference, Expression, bind_expr
+from ..expr.window import (DenseRank, NTile, PercentRank, Rank, RowNumber,
+                           WindowExpression, _OffsetFunction)
+from ..ops.concat import concat_batches_bounded
+from ..ops.gather import gather_column, gather_columns
+from ..ops.sort_keys import (SortSpec, change_flags, check_key_type,
+                             normalize_float_key_col, orderable_int,
+                             sorted_key_words)
+from .base import ExecCtx, GpuExec, UnaryExec
+from .sort import SortOrder
+
+__all__ = ["GpuWindowExec"]
+
+_I64 = torch.int64
+_SENTINEL = (1 << 63) - 1
+
+
+def _prefix_masks(widths: Sequence[int], prefix: int) -> List[int]:
+    """For each word ``pack_words`` makes of lanes of ``widths``, the
+    int64 mask of its bits that lie in the first ``prefix`` bits of the
+    row's bit string (the last word holds its bits right-aligned)."""
+    total = sum(widths)
+    n_words = -(-total // 64)
+    masks = []
+    for j in range(n_words):
+        bits = 64 if j < n_words - 1 or total % 64 == 0 else total % 64
+        c = max(0, min(prefix - 64 * j, bits))
+        m = ((1 << bits) - 1) ^ ((1 << (bits - c)) - 1)
+        masks.append(m - (1 << 64) if m >= 1 << 63 else m)
+    return masks
+
+
+def _scan_max(x: torch.Tensor) -> torch.Tensor:
+    return torch.cummax(x, 0).values
+
+
+def _scan_min_rev(x: torch.Tensor) -> torch.Tensor:
+    """Running minimum from the end (``cummin(reverse=True)``)."""
+    return torch.flip(torch.cummin(torch.flip(x, [0]), 0).values, [0])
+
+
+def _lex_lt(a, b) -> torch.Tensor:
+    """Elementwise lexicographic ``a < b`` over tuples of lanes."""
+    lt = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
+    eq = torch.ones(a[0].shape, dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        lt = lt | (eq & (x < y))
+        eq = eq & (x == y)
+    return lt
+
+
+def _lex_select(keys, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Of positions a and b, the one whose key tuple is lexicographically
+    smaller (ties keep a)."""
+    lt = _lex_lt([k[b] for k in keys], [k[a] for k in keys])
+    return torch.where(lt, b, a)
+
+
+def _argmin_scan(keys, reset: torch.Tensor, reverse: bool = False):
+    """Segmented running lexicographic minimum over a tuple of key lanes,
+    restarting where ``reset`` is True in scan direction (segment-end
+    flags with ``reverse``). The reference's ``associative_scan`` as a
+    log-depth doubling scan: ceil(log2 n) steps, each combining position
+    i with i - 2^k under the same ``comb`` (the segmented min, whose later
+    operand wins where it starts a segment). The first lane is an explicit
+    invalid flag (0 = a candidate), so no sentinel meets a real extreme
+    value."""
+    ks = [torch.flip(k, [0]) for k in keys] if reverse else list(keys)
+    f = torch.flip(reset, [0]) if reverse else reset
+    n = f.shape[0]
+    d = 1
+    while d < n:
+        ak = [k[:-d] for k in ks]
+        bk = [k[d:] for k in ks]
+        bf = f[d:]
+        take_a = ~bf & _lex_lt(ak, bk)
+        ks = [torch.cat([k[:d], torch.where(take_a, x, y)])
+              for k, x, y in zip(ks, ak, bk)]
+        f = torch.cat([f[:d], f[:-d] | bf])
+        d *= 2
+    return [torch.flip(k, [0]) for k in ks] if reverse else ks
+
+
+def _floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """Exact floor(log2 x) of positive integers below 2^53 (``clz`` in
+    the reference): ``frexp`` gives x = m 2^e with m in [0.5, 1)."""
+    _, e = torch.frexp(x.to(torch.float64))
+    return e.to(_I64) - 1
+
+
+def _sparse_argmin_query(keys, lo, hi, nonempty, cap: int,
+                         max_len: Optional[int] = None):
+    """Range lexicographic argmin over per-row spans [lo, hi]: doubling
+    tables T[k][i] = the position of the minimum of [i, i + 2^k), each
+    frame answered by the two power-of-two covers [lo, lo + 2^k) and
+    [hi - 2^k + 1, hi] with k = floor(log2(len)). An empty frame gives
+    the sentinel in every lane. ``max_len`` (a rows frame's width) caps
+    the depth."""
+    device = lo.device
+    pos0 = torch.arange(cap, dtype=_I64, device=device)
+    levels = [pos0]
+    K = max(1, (max(cap, 2) - 1).bit_length())
+    if max_len is not None:
+        K = min(K, max(1, (max(max_len, 2) - 1).bit_length()))
+    for k in range(1, K + 1):
+        half = 1 << (k - 1)
+        prev = levels[-1]
+        b = prev[torch.clamp(pos0 + half, 0, cap - 1)]
+        levels.append(_lex_select(keys, prev, b))
+    flat = torch.stack(levels).reshape(-1)
+    length = torch.clamp(hi - lo + 1, min=1)
+    k = torch.clamp(_floor_log2(length), 0, K)
+    t_lo = flat[k * cap + lo]
+    t_hi = flat[k * cap + torch.clamp(hi - (torch.ones_like(k) << k) + 1,
+                                      0, cap - 1)]
+    win = _lex_select(keys, t_lo, t_hi)
+    return [torch.where(nonempty, kl[win], torch.full_like(kl, _SENTINEL))
+            for kl in keys]
+
+
+class GpuWindowExec(UnaryExec):
+    """Computes the window expressions of one partition and order spec;
+    output = the child's columns (in sorted order) + one column a window
+    expression."""
+
+    def __init__(self, window_exprs: Sequence[Expression], child: GpuExec):
+        super().__init__(child)
+        self.win_exprs: List[WindowExpression] = []
+        self.win_names: List[str] = []
+        for e in window_exprs:
+            bound = bind_expr(e, child.output_schema)
+            if isinstance(bound, Alias):
+                name, we = bound.name, bound.child
+            else:
+                we, name = bound, None
+            if not isinstance(we, WindowExpression):
+                raise TypeError(f"not a window expression: {e!r}")
+            if name is None:
+                name = we.func.pretty_name().lower()
+            self.win_exprs.append(we)
+            self.win_names.append(name)
+        if not self.win_exprs:
+            raise ValueError("window exec needs at least one expression")
+        sig = self.win_exprs[0].spec_signature()
+        for we in self.win_exprs[1:]:
+            if we.spec_signature() != sig:
+                raise ValueError(
+                    "one GpuWindowExec handles one window spec; plan one "
+                    f"exec a spec ({sig!r} vs {we.spec_signature()!r})")
+        self.part_exprs = list(self.win_exprs[0].partition_by)
+        self.orders: List[SortOrder] = self.win_exprs[0].order_by
+        for e in self.part_exprs + [o.child for o in self.orders]:
+            check_key_type(e.dtype)
+        wfields = [dt.StructField(n, we.dtype, we.nullable)
+                   for we, n in zip(self.win_exprs, self.win_names)]
+        self._schema = dt.Schema(list(child.output_schema.fields) + wfields)
+        # the arguments gathered into sorted order beside the rows: each
+        # distinct expression that is not a plain column, once
+        self._args: List[Expression] = list({
+            repr(a): a for we in self.win_exprs
+            for a in self._arg_exprs(we.func)
+            if not isinstance(a, BoundReference)}.values())
+
+    @staticmethod
+    def _arg_exprs(f: Expression) -> List[Expression]:
+        if isinstance(f, _OffsetFunction):
+            return [f.child]
+        if isinstance(f, (Count, Sum, Average, Min, Max)):
+            return list(f.children)
+        return []
+
+    @property
+    def output_schema(self):
+        return self._schema
+
+    def describe(self):
+        ws = "; ".join(f"{we!r} AS {n}"
+                       for we, n in zip(self.win_exprs, self.win_names))
+        return f"WindowExec [{ws}]"
+
+    def expressions(self):
+        return list(self.win_exprs)
+
+    # --- the device pass -------------------------------------------------
+
+    def _window_batch(self, batch: GpuBatch, ectx) -> GpuBatch:
+        live = batch.live_mask()
+        cap = batch.capacity
+        device = batch.device
+        n_live = batch.row_count if batch.selection is None \
+            else int(live.sum())
+        pkeys = [normalize_float_key_col(e.eval_gpu(batch, ectx))
+                 for e in self.part_exprs]
+        okeys = [o.child.eval_gpu(batch, ectx) for o in self.orders]
+        specs = [SortSpec()] * len(pkeys) + [o.spec for o in self.orders]
+        widths, words, perm = sorted_key_words(pkeys + okeys, specs, live)
+        # the live lane and a (null, value) pair a partition key
+        npl = 1 + 2 * len(pkeys)
+        part_flag = change_flags(words,
+                                 _prefix_masks(widths, sum(widths[:npl])))
+        peer_flag = change_flags(words) \
+            if len(widths) > npl else part_flag
+        end_flag = torch.cat([part_flag[1:],
+                              torch.ones(1, dtype=torch.bool,
+                                         device=device)])
+        sorted_live = row_mask(cap, n_live, device)
+        pos = torch.arange(cap, dtype=_I64, device=device)
+        capv = torch.full((1,), cap, dtype=_I64, device=device)
+        seg_start = _scan_max(torch.where(part_flag, pos, -1))
+        seg_end = torch.cat([_scan_min_rev(
+            torch.where(part_flag, pos, cap))[1:], capv]) - 1
+        peer_start = _scan_max(torch.where(peer_flag, pos, -1))
+        peer_end = torch.cat([_scan_min_rev(
+            torch.where(peer_flag, pos, cap))[1:], capv]) - 1
+        seg_rows = seg_end - seg_start + 1
+
+        # the rows and the computed arguments in sorted order: one K4
+        args = [a.eval_gpu(batch, ectx) for a in self._args]
+        moved = gather_columns(list(batch.columns) + args, perm,
+                               sorted_live)
+        ncols = len(batch.columns)
+        sorted_cols = moved[:ncols]
+        sorted_args = {repr(a): c for a, c in zip(self._args,
+                                                  moved[ncols:])}
+
+        def sgather(expr: Expression) -> GpuColumnVector:
+            if isinstance(expr, BoundReference):
+                return sorted_cols[expr.ordinal]
+            return sorted_args[repr(expr)]
+
+        def valid_of(col: GpuColumnVector) -> torch.Tensor:
+            return col.valid_mask() & sorted_live
+
+        def range_literal_bound(delta: int, side: str) -> torch.Tensor:
+            """Frame bound for RANGE <delta> PRECEDING/FOLLOWING: a
+            searchsorted over the compound key (segment << 33 | region
+            << 32 | orderable 32-bit value), ascending over the live rows
+            by construction, padded with INT64_MAX past them. NULL order
+            values form their own band where the sort put them, and a
+            null row takes its peer bounds (Spark: a null row's frame is
+            the null rows)."""
+            ok_col = okeys[0]
+            t = ok_col.dtype
+            if len(okeys) != 1 or not self.orders[0].ascending \
+                    or t.np_dtype is None \
+                    or np.dtype(t.np_dtype).itemsize > 4 \
+                    or dt.is_floating(t):
+                raise NotImplementedError(
+                    "RANGE literal offsets need one ascending integer or "
+                    "date order key of at most 32 bits on the device; "
+                    "others run only in the reference's CPU path (ROADMAP "
+                    "item 12)")
+            permi = perm.long()
+            sval = ok_col.data[permi]
+            snull = ~ok_col.valid_mask()[permi]
+            lane_t = sval.dtype
+            bias = 1 << 31
+
+            def enc32(vals):
+                return orderable_int(GpuColumnVector(t, vals)).to(_I64) \
+                    + bias
+            val_region = 1 if self.orders[0].nulls_first else 0
+            region = snull.to(_I64) ^ val_region
+            base = seg_start << 33
+            comp = torch.where(sorted_live, base + (region << 32)
+                               + enc32(sval),
+                               torch.full_like(base, _SENTINEL))
+            # saturating offset arithmetic in the key's type
+            info = torch.iinfo(lane_t)
+            tv = torch.clamp(sval.to(_I64) + int(delta), info.min,
+                             info.max).to(lane_t)
+            q = base + (val_region << 32) + enc32(tv)
+            if side == "lo":
+                b = torch.searchsorted(comp, q, right=False)
+                return torch.where(snull, peer_start, b)
+            b = torch.searchsorted(comp, q, right=True) - 1
+            return torch.where(snull, peer_end, b)
+
+        def frame_bounds(fr):
+            if fr.frame_type == "rows":
+                lo = seg_start if fr.lower is None \
+                    else torch.maximum(seg_start, pos + fr.lower)
+                hi = seg_end if fr.upper is None \
+                    else torch.minimum(seg_end, pos + fr.upper)
+            else:  # range: value offsets (0 = the peer group)
+                lo = (seg_start if fr.lower is None else
+                      peer_start if fr.lower == 0 else
+                      torch.maximum(seg_start,
+                                    range_literal_bound(fr.lower, "lo")))
+                hi = (seg_end if fr.upper is None else
+                      peer_end if fr.upper == 0 else
+                      torch.minimum(seg_end,
+                                    range_literal_bound(fr.upper, "hi")))
+            return lo, hi
+
+        def prefix_frame(contrib, lo, hi, empty):
+            """Frame totals by inclusive prefix difference, valid for any
+            [lo, hi] inside one segment."""
+            loc = torch.clamp(lo, 0, cap - 1)
+            hic = torch.clamp(hi, 0, cap - 1)
+            p = torch.cumsum(contrib, 0)
+            total = p[hic] - p[loc] + contrib[loc]
+            return torch.where(empty, torch.zeros_like(total), total)
+
+        def argmin_frame(keys, fr, lo, hi):
+            """Every key lane's value at each row's frame minimum,
+            lexicographic over ``keys`` (first lane the invalid flag, last
+            the position)."""
+            loc = torch.clamp(lo, 0, cap - 1)
+            hic = torch.clamp(hi, 0, cap - 1)
+            if fr.frame_type == "range":
+                if fr.lower is None:  # [seg_start, hi]
+                    return [r[hic] for r in _argmin_scan(keys, part_flag)]
+                if fr.upper is None:  # [lo, seg_end]
+                    return [r[loc] for r in
+                            _argmin_scan(keys, end_flag, reverse=True)]
+                if fr.lower == 0 and fr.upper == 0:  # the peer group
+                    return [r[hic] for r in _argmin_scan(keys, peer_flag)]
+                return _sparse_argmin_query(keys, loc, hic, hi >= lo, cap)
+            if fr.lower is None:
+                return [r[hic] for r in _argmin_scan(keys, part_flag)]
+            if fr.upper is None:
+                return [r[loc] for r in
+                        _argmin_scan(keys, end_flag, reverse=True)]
+            return _sparse_argmin_query(keys, loc, hic, hi >= lo, cap,
+                                        max_len=fr.upper - fr.lower + 1)
+
+        def int32_col(data):
+            return GpuColumnVector(dt.INT32, data.to(torch.int32),
+                                   sorted_live)
+
+        win_cols: List[GpuColumnVector] = []
+        for we in self.win_exprs:
+            f = we.func
+            fr = we.frame
+            if isinstance(f, RowNumber):
+                win_cols.append(int32_col(pos - seg_start + 1))
+                continue
+            if isinstance(f, Rank):
+                win_cols.append(int32_col(peer_start - seg_start + 1))
+                continue
+            if isinstance(f, DenseRank):
+                peer_ord = torch.cumsum(peer_flag.to(_I64), 0)
+                win_cols.append(int32_col(
+                    peer_ord - peer_ord[torch.clamp(seg_start, 0, cap - 1)]
+                    + 1))
+                continue
+            if isinstance(f, PercentRank):
+                rank = (peer_start - seg_start).to(torch.float64)
+                den = torch.clamp(seg_rows - 1, min=1).to(torch.float64)
+                pr = torch.where(seg_rows > 1, rank / den,
+                                 torch.zeros_like(rank))
+                win_cols.append(GpuColumnVector(dt.FLOAT64, pr,
+                                                sorted_live))
+                continue
+            if isinstance(f, NTile):
+                n = f.buckets
+                r = pos - seg_start
+                q = seg_rows // n
+                rem = seg_rows % n
+                thr = rem * (q + 1)
+                qd = torch.clamp(q, min=1)
+                bucket = torch.where(
+                    r < thr, r // torch.clamp(q + 1, min=1),
+                    torch.where(q > 0, rem + (r - thr) // qd, r))
+                win_cols.append(int32_col(bucket + 1))
+                continue
+            if isinstance(f, _OffsetFunction):
+                scol = sgather(f.child)
+                src = pos + f.direction * f.offset
+                ok = (src >= seg_start) & (src <= seg_end) & sorted_live
+                out = gather_column(scol, torch.clamp(src, 0, cap - 1), ok)
+                if f.default is not None:
+                    dcol = f.default.eval_gpu(batch, ectx)
+                    out = GpuColumnVector(
+                        out.dtype, torch.where(ok, out.data, dcol.data),
+                        torch.where(ok, out.valid_mask(),
+                                    dcol.valid_mask() & sorted_live))
+                win_cols.append(out)
+                continue
+            # --- aggregates over the frame ---------------------------------
+            lo, hi = frame_bounds(fr)
+            empty = (lo > hi) | ~sorted_live
+            if isinstance(f, Count):
+                if f.children:
+                    contrib = valid_of(sgather(f.children[0])).to(_I64)
+                else:
+                    contrib = sorted_live.to(_I64)
+                win_cols.append(GpuColumnVector(
+                    dt.INT64, prefix_frame(contrib, lo, hi, empty),
+                    sorted_live))
+                continue
+            if isinstance(f, (Sum, Average)):
+                vcol = sgather(f.children[0])
+                valid = valid_of(vcol)
+                if dt.is_floating(f.children[0].dtype):
+                    # NaN and inf poison a prefix difference: scan the
+                    # finite part and exact counts of the specials, and
+                    # rebuild the IEEE result a frame (any NaN, or both
+                    # infinities, is NaN; else +-inf)
+                    d = vcol.data.to(torch.float64)
+                    nan_c = prefix_frame((torch.isnan(d) & valid).to(_I64),
+                                         lo, hi, empty)
+                    pinf_c = prefix_frame(((d == float("inf")) & valid)
+                                          .to(_I64), lo, hi, empty)
+                    ninf_c = prefix_frame(((d == float("-inf")) & valid)
+                                          .to(_I64), lo, hi, empty)
+                    fin = torch.where(valid & torch.isfinite(d), d,
+                                      torch.zeros_like(d))
+                    s = prefix_frame(fin, lo, hi, empty)
+                    s = torch.where(
+                        (nan_c > 0) | ((pinf_c > 0) & (ninf_c > 0)),
+                        torch.full_like(s, float("nan")),
+                        torch.where(pinf_c > 0,
+                                    torch.full_like(s, float("inf")),
+                                    torch.where(ninf_c > 0,
+                                                torch.full_like(
+                                                    s, float("-inf")), s)))
+                else:
+                    # int64 wrap-around addition is associative and
+                    # invertible: prefix differences stay exact through
+                    # overflow (Java long semantics)
+                    contrib = torch.where(valid, vcol.data.to(_I64),
+                                          torch.zeros((), dtype=_I64,
+                                                      device=device))
+                    s = prefix_frame(contrib, lo, hi, empty)
+                    if isinstance(f, Average):
+                        s = s.to(torch.float64)
+                cnt = prefix_frame(valid.to(_I64), lo, hi, empty)
+                ok = (cnt > 0) & ~empty & sorted_live
+                if isinstance(f, Sum):
+                    win_cols.append(GpuColumnVector(
+                        f.dtype, s.to(torch_dtype(f.dtype)), ok))
+                else:
+                    den = torch.where(cnt > 0, cnt, torch.ones_like(cnt)) \
+                        .to(torch.float64)
+                    win_cols.append(GpuColumnVector(dt.FLOAT64, s / den,
+                                                    ok))
+                continue
+            if isinstance(f, (Min, Max)):
+                vcol = sgather(f.children[0])
+                valid = valid_of(vcol)
+                lane = orderable_int(GpuColumnVector(vcol.dtype, vcol.data)) \
+                    .to(_I64)
+                if isinstance(f, Max):
+                    lane = ~lane
+                inv, _, bt = argmin_frame(
+                    [(~valid).to(_I64), lane, pos], fr, lo, hi)
+                found = (inv == 0) & ~empty & sorted_live
+                win_cols.append(gather_column(
+                    vcol, torch.clamp(bt, 0, cap - 1), found))
+                continue
+            raise NotImplementedError(
+                f"window function {f!r} is not ported yet (ROADMAP item "
+                "8)")  # the planner's gate refuses it first
+
+        return GpuBatch(sorted_cols + win_cols, self._schema, n_live)
+
+    def execute(self, ctx: ExecCtx):
+        batches = list(self.child.execute(ctx))
+        if not batches:
+            return
+        op_time = ctx.metric(self, "opTime")
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("window"):
+            out = self._window_batch(concat_batches_bounded(batches),
+                                     ctx.eval_ctx)
+        op_time.value += time.perf_counter() - t0
+        yield out

@@ -4,7 +4,7 @@ The port's copy of ``spark_rapids_tpu/tools/nds.py``'s ``gen_tables``
 (``:27``), ``register_frames`` (``:91``), ``build_query_sql`` and
 ``SQL_QUERIES`` (``:867``, every text, as data), plus ``write_tables``,
 the writer ``bench_nds_from_files`` uses (``bench.py:266-278``: snappy,
-row groups of 2^19), and an oracle in numpy and pyarrow for the 15
+row groups of 2^19), and an oracle in numpy and pyarrow for the 19
 queries the port runs from SQL (``PORTED_QUERIES``; the reference's
 oracle, ``tools/nds.py``'s ``*_pd`` functions, uses pandas, which the
 card's machine does not have).
@@ -408,10 +408,9 @@ ORDER BY d_year
 # others waits for
 PORTED_QUERIES = ("q3", "q42", "q52", "q55", "q96", "q_topn", "q7",
                   "q_pivot", "q_customer_age", "q_price_band", "q_cte",
-                  "q_having", "q_in_between", "q_agg_expr", "q_not_or")
-UNPORTED_QUERIES = {"q_rank": 13, "q_rownum": 13, "q_rolling": 13,
-                    "q_union": 13, "q_percentile": 8, "q97": 9,
-                    "q_like": 13}
+                  "q_having", "q_in_between", "q_agg_expr", "q_not_or",
+                  "q_rank", "q_rownum", "q_rolling", "q_union")
+UNPORTED_QUERIES = {"q_percentile": 8, "q97": 9, "q_like": 13}
 
 # the output columns holding float sums and averages (compared at a
 # relative tolerance; every other column exactly)
@@ -421,7 +420,8 @@ FLOAT_COLUMNS = {"q3": ("sum_agg",), "q42": ("s",), "q52": ("ext_price",),
                  "q_customer_age": ("profit",), "q_price_band": ("rev",),
                  "q_cte": ("rev", "prev_rev"), "q_having": ("rev",),
                  "q_in_between": ("rev",), "q_agg_expr": ("bulk_share",),
-                 "q_not_or": ()}
+                 "q_not_or": (), "q_rank": ("rev",), "q_rownum": ("rev",),
+                 "q_rolling": ("rev", "avg7"), "q_union": ("profit",)}
 
 
 def _np(table: pa.Table, name: str) -> np.ndarray:
@@ -697,12 +697,121 @@ def _q_not_or(tables):
                      "n": pa.array(_counts(inv, len(year)))})
 
 
+def _item_revenue(tables, key: str):
+    """Every item's category and ``key`` column with the sum of
+    ``ss_ext_sales_price`` a (category, key) group: ``(categories
+    (object), keys, revenues)``, unordered."""
+    irow = _dim(tables, "item", "i_item_sk", _ss(tables, "ss_item_sk"))
+    ok = irow >= 0
+    it = tables["item"]
+    cats = np.asarray(it.column("i_category").to_pylist(), dtype=object)
+    (c_codes, keys), inv = _groups(
+        [np.unique(cats, return_inverse=True)[1].reshape(-1)[irow[ok]],
+         _np(it, key)[irow[ok]]])
+    rev = _sums(inv, _ss(tables, "ss_ext_sales_price")[ok], len(keys))
+    return np.unique(cats)[c_codes], keys, rev
+
+
+def _partition_order(part: np.ndarray, rev: np.ndarray,
+                     key: np.ndarray) -> np.ndarray:
+    """Rows ordered by partition, then ``rev`` descending, then ``key``
+    ascending: the windows' sort, by one ``np.lexsort``."""
+    _, pcode = np.unique(part, return_inverse=True)
+    return np.lexsort((key, -rev, pcode.reshape(-1)))
+
+
+def _q_rank(tables):
+    cat, brand, rev = _item_revenue(tables, "i_brand_id")
+    order = _partition_order(cat, rev, brand)
+    cat, brand, rev = cat[order], brand[order], rev[order]
+    # RANK(): one plus the rows of the partition before the row's first
+    # peer (equal rev and brand)
+    rk = np.empty(len(cat), np.int64)
+    start = 0
+    for i in range(len(cat)):
+        if i == 0 or cat[i] != cat[i - 1]:
+            start = i
+        peer = i > start and rev[i] == rev[i - 1] \
+            and brand[i] == brand[i - 1]
+        rk[i] = rk[i - 1] if peer else i - start + 1
+    keep = np.flatnonzero(rk <= 3)
+    keep = keep[np.lexsort((brand[keep], rk[keep],
+                            np.unique(cat[keep],
+                                      return_inverse=True)[1].reshape(-1)))]
+    return pa.table({
+        "i_category": pa.array(cat[keep].tolist(), pa.string()),
+        "i_brand_id": pa.array(brand[keep].astype(np.int32)),
+        "rev": pa.array(rev[keep]),
+        "rk": pa.array(rk[keep].astype(np.int32))})
+
+
+def _q_rownum(tables):
+    cat, item, rev = _item_revenue(tables, "i_item_sk")
+    order = _partition_order(cat, rev, item)
+    cat, item, rev = cat[order], item[order], rev[order]
+    # ROW_NUMBER() = 1: each partition's first row in that order
+    first = np.flatnonzero(np.r_[True, cat[1:] != cat[:-1]])
+    return pa.table({
+        "i_category": pa.array(cat[first].tolist(), pa.string()),
+        "i_item_sk": pa.array(item[first].astype(np.int64)),
+        "rev": pa.array(rev[first])})
+
+
+def _q_rolling(tables):
+    (store, date), inv = _groups([_ss(tables, "ss_store_sk"),
+                                  _ss(tables, "ss_sold_date_sk")])
+    rev = _sums(inv, _ss(tables, "ss_ext_sales_price"), len(store))
+    # an explicit 7-day window a (store, day): the days d - 6 .. d that
+    # have a row, summed in a dense (store, day) grid
+    stores, s_code = np.unique(store, return_inverse=True)
+    d32 = date.astype(np.int32).astype(np.int64)
+    lo_day = int(d32.min())
+    span = int(d32.max()) - lo_day + 1
+    grid = np.zeros((len(stores), span + 6))
+    have = np.zeros((len(stores), span + 6), bool)
+    grid[s_code, d32 - lo_day + 6] = rev
+    have[s_code, d32 - lo_day + 6] = True
+    total = np.zeros(len(store))
+    count = np.zeros(len(store), np.int64)
+    for back in range(7):
+        col = d32 - lo_day + 6 - back
+        total += grid[s_code, col]
+        count += have[s_code, col]
+    return pa.table({"ss_store_sk": pa.array(store.astype(np.int64)),
+                     "ss_sold_date_sk": pa.array(date.astype(np.int64)),
+                     "rev": pa.array(rev),
+                     "avg7": pa.array(total / count)})
+
+
+def _q_union(tables):
+    states = np.asarray(tables["store"].column("s_state").to_pylist(),
+                        dtype=object)
+    qtr, st, profit = [], [], []
+    for q in (1, 2):
+        ok = _dim(tables, "date_dim", "d_date_sk",
+                  _ss(tables, "ss_sold_date_sk"),
+                  lambda dd: _np(dd, "d_qoy") == q) >= 0
+        srow = _dim(tables, "store", "s_store_sk",
+                    _ss(tables, "ss_store_sk"))
+        ok &= srow >= 0
+        (g,), inv = _groups([states[srow[ok]]])
+        qtr += [q] * len(g)
+        st += g.tolist()
+        profit += _sums(inv, _ss(tables, "ss_net_profit")[ok],
+                        len(g)).tolist()
+    return pa.table({"qtr": pa.array(qtr, pa.int32()),
+                     "s_state": pa.array(st, pa.string()),
+                     "profit": pa.array(profit, pa.float64())})
+
+
 _ORACLES = {"q3": _q3, "q42": _q42, "q52": _q52, "q55": _q55, "q96": _q96,
             "q_topn": _q_topn, "q7": _q7, "q_pivot": _q_pivot,
             "q_customer_age": _q_customer_age,
             "q_price_band": _q_price_band, "q_cte": _q_cte,
             "q_having": _q_having, "q_in_between": _q_in_between,
-            "q_agg_expr": _q_agg_expr, "q_not_or": _q_not_or}
+            "q_agg_expr": _q_agg_expr, "q_not_or": _q_not_or,
+            "q_rank": _q_rank, "q_rownum": _q_rownum,
+            "q_rolling": _q_rolling, "q_union": _q_union}
 
 
 def oracle(name: str, tables: Dict[str, pa.Table]) -> pa.Table:

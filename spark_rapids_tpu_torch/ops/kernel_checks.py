@@ -103,7 +103,8 @@ __all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
            "k1_kernels_per_call", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
-           "check_string_gather", "path_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
+           "check_string_gather", "path_words", "string_rank_words",
+           "window_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
            "time_k4", "k5_layouts", "k5_shapes_file", "nds_layouts",
            "k5_tile_layouts",
            "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2"]
@@ -741,6 +742,75 @@ def string_rank_words(device, n: int = NDS_BATCH_ROWS) \
             f"string_rank_pass1_lo_2^{e}": lo.contiguous()}
 
 
+NDS_STORES, NDS_DAYS = 25, 730  # nds.gen_tables' store and date_dim
+
+
+def _window_inputs(device, seed: int = 13):
+    """Columns shaped like the window inputs of phase 8 (the NDS tables
+    at 2^22 rows), in their grouped aggregate's output order (sorted by
+    the group keys, live rows first): q_rolling's (ss_store_sk,
+    ss_sold_date_sk, rev, d32) for every store and day, 18,250 rows in a
+    capacity of 2^15; and q_rownum's (i_category, i_item_sk, rev) for
+    every item, 32,768 rows, the category one of six strings."""
+    from .. import datatypes as dt
+    from ..columnar.batch import bucket_rows
+    from ..columnar.column import GpuColumnVector
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    n = NDS_STORES * NDS_DAYS
+    cap = bucket_rows(n)
+    store = np.zeros(cap, np.int64)
+    day = np.zeros(cap, np.int64)
+    store[:n] = np.repeat(np.arange(NDS_STORES), NDS_DAYS)
+    day[:n] = np.tile(np.arange(NDS_DAYS), NDS_STORES)
+    rev = rng.uniform(0, 2e6, cap)
+    live = np.arange(cap) < n
+    rolling = {"live": torch.from_numpy(live).to(dev), "cols": [
+        GpuColumnVector(dt.INT64, torch.from_numpy(store).to(dev)),
+        GpuColumnVector(dt.INT64, torch.from_numpy(day).to(dev)),
+        GpuColumnVector(dt.FLOAT64, torch.from_numpy(rev).to(dev)),
+        GpuColumnVector(dt.INT32, torch.from_numpy(day.astype(np.int32))
+                        .to(dev))]}
+    items = NDS_ITEM_ROWS
+    names = np.array(["Books", "Electronics", "Home", "Jewelry", "Music",
+                      "Sports"], dtype=object)
+    cats = np.sort(rng.choice(names, items))
+    raw = [c.encode() for c in cats]
+    offsets = np.zeros(items + 1, np.int32)
+    offsets[1:] = np.cumsum([len(r) for r in raw])
+    chars = np.frombuffer(b"".join(raw), np.uint8)
+    rownum = {"live": torch.ones(items, dtype=torch.bool, device=dev),
+              "cols": [GpuColumnVector.from_string_parts(
+                  dt.STRING, offsets, chars, None, items, len(chars), dev),
+                  GpuColumnVector(dt.INT64, torch.from_numpy(
+                      rng.permutation(items).astype(np.int64)).to(dev)),
+                  GpuColumnVector(dt.FLOAT64, torch.from_numpy(
+                      rng.uniform(0, 1e6, items)).to(dev))]}
+    return rolling, rownum
+
+
+def window_words(device) -> Dict[str, torch.Tensor]:
+    """The words the window sorts of phase 8 hand K3, built by the
+    engine's own ``_key_lanes`` and ``pack_words`` over
+    ``_window_inputs``: q_rolling's (ss_store_sk, d32), two words, and
+    q_rownum's (i_category's rank, rev descending, i_item_sk), three."""
+    from .sort_keys import SortSpec, _key_lanes, pack_words
+    rolling, rownum = _window_inputs(device)
+    out = {}
+    for name, inp, keys, specs in (
+            ("q_rolling", rolling, [rolling["cols"][0],
+                                    rolling["cols"][3]],
+             [SortSpec(), SortSpec()]),
+            ("q_rownum", rownum, [rownum["cols"][0], rownum["cols"][2],
+                                  rownum["cols"][1]],
+             [SortSpec(), SortSpec(False, False), SortSpec()])):
+        words = pack_words(_key_lanes(keys, specs, inp["live"]))
+        e = inp["live"].shape[0].bit_length() - 1
+        for i, w in enumerate(words):
+            out[f"window_{name}_word{i}_2^{e}"] = w.contiguous()
+    return out
+
+
 def k3_cases(device, seed: int = 1) -> List[Dict]:
     """Engine-edition inputs: ``{"name", "keys", "payload"}``; keys are
     uint64 bits in int64."""
@@ -775,6 +845,8 @@ def k3_cases(device, seed: int = 1) -> List[Dict]:
               for name, words in path_words(dev).items()]
     cases += [{"name": name, "keys": words, "payload": None}
               for name, words in string_rank_words(dev).items()]
+    cases += [{"name": name, "keys": words, "payload": None}
+              for name, words in window_words(dev).items()]
     cases += [
         {"name": "groupby_words_2^21", "keys": t(packed(n)),
          "payload": None},
@@ -892,8 +964,9 @@ def time_k3(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
     with the bytes the sort must move (``SORT_BYTES_PER_PAIR``) and the
     digit passes the keys need: on random 64-bit keys at each shape of
     the path (``random_2^k``), on the path's own words
-    (``path_words``: build presort, partial, final), and on a string-rank
-    pass's words (``string_rank_words``)."""
+    (``path_words``: build presort, partial, final), on a string-rank
+    pass's words (``string_rank_words``) and on the window sorts' words
+    (``window_words``)."""
     rng = np.random.default_rng(3)
     sets = {}
     for n in K3_SHAPES:
@@ -901,8 +974,8 @@ def time_k3(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
             lambda: torch.from_numpy(rng.integers(
                 _I64_MIN, (1 << 63) - 1, n, dtype=np.int64)).to(device),
             _copies_for(n * 8))
-    for name, words in {**path_words(device),
-                        **string_rank_words(device)}.items():
+    for name, words in {**path_words(device), **string_rank_words(device),
+                        **window_words(device)}.items():
         sets[name] = _cycle(words.clone, _copies_for(words.numel() * 8))
     out = {}
     for name, copies in sets.items():
@@ -964,6 +1037,11 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
         t(rng.integers(1, 100, items).astype(np.int32)) for _ in range(3)
     ] + [t(rng.uniform(0.5, 300, items)),
          t((np.cumsum(lens) - lens).astype(np.int32)), t(lens)]
+    rolling, _ = _window_inputs(dev)
+    wcap = rolling["live"].shape[0]
+    wperm = torch.from_numpy(np.r_[rng.permutation(NDS_STORES * NDS_DAYS),
+                                   np.arange(NDS_STORES * NDS_DAYS, wcap)]
+                             .astype(np.int32)).to(dev)
     dead_idx = rng.integers(0, b, n).astype(np.int32)
     dead_live = rng.random(n) < 0.5
     dead_idx[~dead_live] = rng.integers(-2**31, 2**31 - 1,
@@ -995,6 +1073,10 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
          "valids": [None] * 5 + [t(rng.random(items) < 0.95), None],
          "idx": t(rng.integers(0, items, stream).astype(np.int32)),
          "live": t(rng.random(stream) < 0.3)},
+        # the window's gather of q_rolling's rows into sorted order
+        {"name": "window_q_rolling_2^15",
+         "cols": [c.data for c in rolling["cols"]],
+         "valids": [None] * 4, "idx": wperm, "live": rolling["live"]},
     ] + [same_width(d) for d in (np.int8, np.int16, np.float64)]
 
 
@@ -1091,38 +1173,57 @@ def time_k4(device, reps: int = 50) -> Dict[str, Dict[str, float]]:
     shapes of the path: the probe (2^21 rows gathering the two int32
     build columns of 2^17 rows, 90% live) and the partial aggregate's
     permutation (2^21 rows of an int32 key with validity and a float32
-    value, by a permutation, 90% live); and at the probe with one column,
-    which shows how the time grows with the random sectors a row."""
+    value, by a permutation, 90% live); at the probe with one column,
+    which shows how the time grows with the random sectors a row; and at
+    the window's gather of q_rolling's rows (``_window_inputs``: four
+    columns of 2^15 rows by a permutation of its 18,250 live rows, the
+    live prefix as the mask)."""
     rng = np.random.default_rng(6)
     b, n = K4_BUILD_ROWS, K4_PROBE_ROWS
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    def live90():
+        return t(rng.random(n) < 0.9)
+
+    # name: (columns, validities, indices, live mask, output rows)
     shapes = {
         # one column: the random L2 sectors a row halve
         "probe_1col_2^21_from_2^17": (
             [t(np.arange(b, dtype=np.int32))], [None],
-            lambda: t(rng.integers(0, b, n).astype(np.int32))),
+            lambda: t(rng.integers(0, b, n).astype(np.int32)), live90, n),
         "probe_2^21_from_2^17": (
             [t(np.arange(b, dtype=np.int32)),
              t(rng.integers(1, 13, b).astype(np.int32))], [None, None],
-            lambda: t(rng.integers(0, b, n).astype(np.int32))),
+            lambda: t(rng.integers(0, b, n).astype(np.int32)), live90, n),
         "groupby_perm_2^21": (
             [t(rng.integers(1, 13, n).astype(np.int32)),
              t(rng.uniform(0, 1e5, n).astype(np.float32))],
             [t(rng.random(n) < 0.9), None],
-            lambda: t(rng.permutation(n).astype(np.int32))),
+            lambda: t(rng.permutation(n).astype(np.int32)), live90, n),
     }
+    # the window's gather of q_rolling's four columns by its permutation
+    rolling, _ = _window_inputs(device)
+    wcols = [c.data for c in rolling["cols"]]
+    wn = NDS_STORES * NDS_DAYS
+    shapes["window_q_rolling_2^15"] = (
+        wcols, [None] * 4,
+        lambda: t(np.r_[rng.permutation(wn),
+                        np.arange(wn, wcols[0].shape[0])].astype(np.int32)),
+        lambda: rolling["live"], wcols[0].shape[0])
     out = {}
-    for name, (cols, valids, make_idx) in shapes.items():
+    for name, (cols, valids, make_idx, make_live, n_out) in shapes.items():
         rows = cols[0].shape[0]
-        stacked = torch.stack([c.view(torch.int32) for c in cols],
-                              1).contiguous()
+        stacked = torch.stack([c.view(torch.int32) for c in cols
+                               if c.element_size() == 4]
+                              + [c.view(torch.int32).view(-1, 2)[:, i]
+                                 for c in cols if c.element_size() == 8
+                                 for i in (0, 1)], 1).contiguous()
         per_row = 4 + 1 + sum(c.element_size() for c in cols) + sum(
             1 for v in valids if v is not None)
-        items = _cycle(lambda: (make_idx(), t(rng.random(n) < 0.9)),
-                       _copies_for(n * per_row))
+        items = _cycle(lambda: (make_idx(), make_live()),
+                       _copies_for(n_out * per_row))
         ms, plain_ms = _turns(
             lambda it: ck.gather_rows_torch(cols, valids, *it),
             lambda it: ck.gather_rows(cols, valids, *it), items, reps,
@@ -1132,7 +1233,7 @@ def time_k4(device, reps: int = 50) -> Dict[str, Dict[str, float]]:
         source = rows * (sum(c.element_size() for c in cols)
                          + sum(1 for v in valids if v is not None))
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-                     "bytes": n * per_row + source, "rows": n,
+                     "bytes": n_out * per_row + source, "rows": n_out,
                      "table_rows": rows}
     return out
 

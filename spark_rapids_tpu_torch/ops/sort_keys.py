@@ -43,7 +43,7 @@ ROADMAP item, and never fall back.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,8 +57,9 @@ __all__ = ["SortSpec", "canonicalize_floats", "normalize_float_key_col",
            "check_key_type", "orderable_int", "key_lane_width",
            "key_lane_bits", "unsigned_lane", "pack_words", "sort_packed",
            "rank_pass_count", "rank_pass_words", "string_order_ranks_multi",
-           "string_order_ranks", "sort_permutation", "sorted_segments",
-           "segment_ids_for_keys"]
+           "string_order_ranks", "change_flags", "sorted_key_words",
+           "sort_permutation",
+           "sorted_segments", "segment_ids_for_keys"]
 
 _I64_MIN = -(1 << 63)
 _I32_MAX = (1 << 31) - 1
@@ -264,10 +265,7 @@ def string_order_ranks_multi(cols: Sequence[GpuColumnVector],
             key = torch.cat([_window_key(c, chunk) for c in cols])
             words, perm = sort_packed(pack_words(
                 [(rank, _rank_pass_bits(chunk, n)), (key, 63)]))
-            boundary = torch.zeros(n, dtype=torch.bool, device=live.device)
-            boundary[0] = True
-            for w in words:
-                boundary[1:] |= w[1:] != w[:-1]
+            boundary = change_flags(words)
             rank = torch.empty_like(rank)
             rank[perm.long()] = (inclusive_int_cumsum(boundary) - 1) \
                 .to(torch.int64)
@@ -316,13 +314,43 @@ def _key_lanes(key_cols: Sequence[GpuColumnVector],
     return lanes
 
 
+def change_flags(words: Sequence[torch.Tensor],
+                 masks: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Boundaries of sorted words: True at row 0 and where a row's words,
+    each under its int64 mask (-1, all bits, by default; 0 skips the
+    word), differ from the row before."""
+    n = words[0].shape[0]
+    flag = torch.zeros(n, dtype=torch.bool, device=words[0].device)
+    if n:
+        flag[0] = True
+    for j, w in enumerate(words):
+        m = -1 if masks is None else masks[j]
+        if m == 0:
+            continue
+        d = w[1:] ^ w[:-1]
+        if m != -1:
+            d = d & m
+        flag[1:] |= d != 0
+    return flag
+
+
+def sorted_key_words(key_cols: Sequence[GpuColumnVector],
+                     specs: Sequence[SortSpec], live: torch.Tensor) \
+        -> Tuple[List[int], List[torch.Tensor], torch.Tensor]:
+    """``(lane widths, words in sorted order, perm)``: the keys' lanes
+    (``_key_lanes``: the live bit, then a null bit and a value lane a
+    key), packed and sorted stably; padding rows last."""
+    lanes = _key_lanes(key_cols, specs, live)
+    words, perm = sort_packed(pack_words(lanes))
+    return [w for _, w in lanes], words, perm
+
+
 def sort_permutation(key_cols: Sequence[GpuColumnVector],
                      specs: Sequence[SortSpec],
                      live: torch.Tensor) -> torch.Tensor:
     """Stable permutation ordering rows by the keys, padding rows
     last."""
-    _, perm = sort_packed(pack_words(_key_lanes(key_cols, specs, live)))
-    return perm
+    return sorted_key_words(key_cols, specs, live)[2]
 
 
 def sorted_segments(key_cols: Sequence[GpuColumnVector],
@@ -333,25 +361,15 @@ def sorted_segments(key_cols: Sequence[GpuColumnVector],
     sorted order (read off the live bit of the sorted words, no
     gather)."""
     n = live.shape[0]
-    specs = [SortSpec()] * len(key_cols)
-    words, perm = sort_packed(pack_words(_key_lanes(key_cols, specs, live)))
-    boundary = torch.zeros(n, dtype=torch.bool, device=live.device)
-    if n:
-        boundary[0] = True
-    for w in words:
-        boundary[1:] |= w[1:] != w[:-1]
-    seg = inclusive_int_cumsum(boundary) - 1
+    widths, words, perm = sorted_key_words(
+        key_cols, [SortSpec()] * len(key_cols), live)
+    seg = inclusive_int_cumsum(change_flags(words)) - 1
     # the live lane is the top bit of the first word
-    sorted_live = (_shr(words[0], _first_word_bits(key_cols) - 1) & 1) == 0
+    sorted_live = (_shr(words[0], min(64, sum(widths)) - 1) & 1) == 0
     num_groups = torch.where(sorted_live, seg + 1,
                              torch.zeros_like(seg)).max() if n else \
         torch.zeros((), dtype=torch.int32, device=live.device)
     return perm, seg, num_groups, sorted_live
-
-
-def _first_word_bits(key_cols: Sequence[GpuColumnVector]) -> int:
-    """Bits used in the first word: the live bit sits at its top."""
-    return min(64, 1 + sum(1 + key_lane_width(c) for c in key_cols))
 
 
 def segment_ids_for_keys(key_cols: Sequence[GpuColumnVector],

@@ -4,12 +4,13 @@ Counterpart of ``spark_rapids_tpu/planner.py:45-160,404-540``
 (``NodeMeta``, ``PhysicalPlan``, ``TpuOverrides``): wrap every node in a
 ``NodeMeta``, tag each bottom-up (the master switch
 ``spark.rapids.sql.enabled``, the per-operator and per-expression
-switches ``spark.rapids.sql.exec.<Name>`` / ``.expression.<Name>``),
-then rebuild the tree with the
-adaptive reader over every shuffle exchange while
-``spark.sql.adaptive.enabled`` is on. ``PhysicalPlan.collect`` runs the
-root on the device and downloads Arrow; ``explain`` renders the
-placement.
+switches ``spark.rapids.sql.exec.<Name>`` / ``.expression.<Name>``, and
+each expression's device gate ``gpu_supported``, the reference's
+``tpu_supported``, which names the ROADMAP item a window the device
+cannot compute waits for), then rebuild the tree with the adaptive
+reader over every shuffle exchange while ``spark.sql.adaptive.enabled``
+is on. ``PhysicalPlan.collect`` runs the root on the device and
+downloads Arrow; ``explain`` renders the placement.
 
 The port has no CPU path: a node tagged off the device raises
 ``NotImplementedError`` with its reasons instead of falling back. The
@@ -69,6 +70,11 @@ class NodeMeta:
                     self.reasons.append(
                         f"expression {e!r} has been disabled by "
                         f"spark.rapids.sql.expression.{ename}")
+                    continue
+                gate = getattr(e, "gpu_supported", None)
+                reason = gate() if gate is not None else None
+                if reason:
+                    self.reasons.append(f"expression {e!r}: {reason}")
 
     def explain_lines(self, mode: str, depth: int = 0) -> List[str]:
         pad = "  " * depth

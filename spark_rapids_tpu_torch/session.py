@@ -10,7 +10,7 @@ plan runs on the session's device (``cuda:0`` unless the caller passes
 A grouped aggregation is planned as Spark plans it: a hash exchange over
 ``spark.sql.shuffle.partitions`` partitions, then the aggregate. The
 analyzer widens mixed numeric operands with ``Cast`` (``_analyze``), as
-the reference's does. ``union``, ``sample``,
+the reference's does. ``union`` is UNION ALL; ``sample``,
 ``explode``, ``cache``, ``write`` and ``pivot`` raise
 ``NotImplementedError`` naming their items; the process cluster, the
 query lifecycle and EXPLAIN ANALYZE wait for items 16, 14 and 15.
@@ -194,7 +194,10 @@ class DataFrame:
         return DataFrame(GpuGlobalLimitExec(n, self._node), self._session)
 
     def union(self, other: "DataFrame") -> "DataFrame":
-        raise _unported("union (TpuUnionExec)", 13)
+        """UNION ALL by position; the column types must agree."""
+        from .exec.misc import GpuUnionExec
+        return DataFrame(GpuUnionExec([self._node, other._node]),
+                         self._session)
 
     def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
         raise _unported("sample (TpuSampleExec)", 13)

@@ -20,16 +20,21 @@ lowering. Responsibilities:
   conjuncts become shuffled-hash-join keys over a greedy join order,
   the rest stays a residual filter;
 - honor ``/*+ UNIQUE(alias...) */`` hints by setting the join's
-  ``build_unique_hint`` (the session API's ``build_unique=`` analog).
+  ``build_unique_hint`` (the session API's ``build_unique=`` analog);
+- lower window expressions into one ``GpuWindowExec`` a distinct
+  (partition, order) spec between the aggregation and the projection,
+  and UNION ALL into ``GpuUnionExec`` with numeric widening and ORDER BY
+  by output name or position.
 
 Every failure raises ``SqlAnalysisError`` with a source location and a
 stable ``detail`` code (``unknown_column``, ``ambiguous_column``,
 ``unknown_function``, ``missing_aggregation``, ...). A construct whose
 expression or operator the port does not have yet (LIKE, ``||``, a
-CAST from or to string, decimal, date or timestamp, UNION, windows,
-joins without equi-keys, SELECT without FROM) raises
+CAST from or to string, decimal, date or timestamp, joins without
+equi-keys, SELECT without FROM) raises
 ``SqlAnalysisError(..., "unsupported_feature")`` naming its ROADMAP item
-when a query reaches it; it never runs another way.
+when a query reaches it; it never runs another way. UNION DISTINCT is
+outside the dialect, as in the reference (``unsupported_feature``).
 """
 from __future__ import annotations
 
@@ -377,13 +382,97 @@ class SqlCompiler:
                 # named like a catalog table shadows it
                 env[name.lower()] = (cq, dict(env))
         if isinstance(q.body, A.SetOp):
-            return self._compile_setop(q.body, env)
+            rel = self._compile_setop(q.body, env)
+            return self._order_limit_by_name(rel, q.order_by, q.limit)
         return self.compile_select(q.body, env, q.order_by, q.limit)
 
     def _compile_setop(self, op: A.SetOp, env: Dict) -> Rel:
-        raise self.unported("UNION (TpuUnionExec)", op)
+        """UNION ALL, flattened: the sides' widths must agree, their types
+        position by position, numeric ones widened by a ``Cast`` under a
+        project."""
+        from ..exec.basic import GpuProjectExec
+        from ..exec.misc import GpuUnionExec
+        from ..expr.cast import Cast
+        parts: List[Rel] = []
 
+        def flatten(n):
+            if isinstance(n, A.SetOp):
+                if not n.all:
+                    raise self.err(
+                        "UNION DISTINCT is not in the dialect subset; "
+                        "use UNION ALL (wrap in SELECT DISTINCT for "
+                        "dedup)", n, "unsupported_feature")
+                flatten(n.left)
+                flatten(n.right)
+            elif isinstance(n, A.Query):
+                parts.append(self.compile_query(n, env))
+            else:
+                parts.append(self.compile_select(n, env, (), None))
 
+        flatten(op)
+        width = len(parts[0].schema.fields)
+        for p in parts[1:]:
+            if len(p.schema.fields) != width:
+                raise self.err(
+                    f"UNION sides have different widths "
+                    f"({width} vs {len(p.schema.fields)})", op,
+                    "union_mismatch")
+        common = list(parts[0].schema.types)
+        for p in parts[1:]:
+            for i, t in enumerate(p.schema.types):
+                if t == common[i]:
+                    continue
+                if dt.is_numeric(t) and dt.is_numeric(common[i]):
+                    common[i] = dt.common_type(t, common[i])
+                else:
+                    raise self.err(
+                        f"UNION column {i + 1} has incompatible types "
+                        f"{common[i].simple_string()} vs "
+                        f"{t.simple_string()}", op, "union_mismatch")
+        nodes = []
+        names = parts[0].schema.names
+        for p in parts:
+            if list(p.schema.types) == common:
+                nodes.append(p.node)
+                continue
+            exprs = []
+            for i, f in enumerate(p.schema.fields):
+                e = p.ref(i)
+                if f.dtype != common[i]:
+                    e = Cast(e, common[i])
+                exprs.append(Alias(e, names[i]))
+            nodes.append(GpuProjectExec(exprs, p.node))
+        return Rel(GpuUnionExec(nodes), [None] * width)
+
+    def _order_limit_by_name(self, rel: Rel, order_items, limit) -> Rel:
+        """ORDER BY and LIMIT over a set operation's result: its output
+        columns by name or position only."""
+        from ..exec.sort import GpuGlobalLimitExec, GpuSortExec, SortOrder
+        node = rel.node
+        if order_items:
+            orders = []
+            for oi in order_items:
+                if isinstance(oi.expr, A.Lit) \
+                        and isinstance(oi.expr.value, int):
+                    pos = oi.expr.value
+                    if not (1 <= pos <= len(rel.schema.fields)):
+                        raise self.err(f"ORDER BY position {pos} out "
+                                       "of range", oi.expr,
+                                       "unknown_column")
+                    ref = rel.ref(pos - 1)
+                elif isinstance(oi.expr, A.Col):
+                    ref = self.resolve(rel, oi.expr)
+                else:
+                    raise self.err(
+                        "ORDER BY over UNION supports output columns "
+                        "and positions only", oi.expr,
+                        "unsupported_feature")
+                orders.append(SortOrder(ref, oi.ascending,
+                                        oi.nulls_first))
+            node = GpuSortExec(orders, node)
+        if limit is not None:
+            node = GpuGlobalLimitExec(limit, node)
+        return Rel(node, rel.quals)
 
     # --- FROM --------------------------------------------------------------
     def _lookup_table(self, t: A.Table, env: Dict) -> Rel:
@@ -647,8 +736,9 @@ class SqlCompiler:
             [ast for ast, _, _ in items if ast is not None]
             + [oi.expr for oi in order_items])
         if over_asts:
-            raise self.unported("window functions (exec/window.py)",
-                                over_asts[0])
+            rel, wsubst = self._compile_windows(over_asts, rel, subst,
+                                                grouped)
+            subst = subst + wsubst
 
         # SELECT list
         out_exprs: List[Expression] = []
@@ -830,7 +920,73 @@ class SqlCompiler:
             subst.append((a, len(key_refs) + k))
         return out, subst
 
+    def _compile_windows(self, over_asts: List[A.Over], rel: Rel,
+                         subst, grouped):
+        """One ``GpuWindowExec`` a distinct (partition, order) spec, each
+        over the one before; returns the relation and the substitution of
+        every OVER node by its output column."""
+        from ..exec.sort import SortOrder
+        from ..exec.window import GpuWindowExec
+        from ..expr.window import WindowExpression, WindowFrame
 
+        groups: List[Tuple[Tuple, List[A.Over]]] = []
+        for o in over_asts:
+            key = (o.partition_by, o.order_by)
+            for gk, lst in groups:
+                if gk == key:
+                    lst.append(o)
+                    break
+            else:
+                groups.append((key, [o]))
+        wsubst: List[Tuple[A.Node, int]] = []
+        for _, overs in groups:
+            spec = overs[0]
+            part = [self.compile_expr(p, rel, subst, grouped)
+                    for p in spec.partition_by]
+            orders = [SortOrder(
+                self.compile_expr(oi.expr, rel, subst, grouped),
+                oi.ascending, oi.nulls_first)
+                for oi in spec.order_by]
+            aliases = []
+            base = len(rel.schema.fields)
+            for k, o in enumerate(overs):
+                fn_ast = o.func
+                args = self._retype_nulls(
+                    [self.compile_expr(a, rel, subst, grouped)
+                     for a in fn_ast.args])
+                if fn_ast.name in F.WINDOW_FUNCTIONS:
+                    fn = F.build_window(fn_ast, args, self.sql)
+                elif F.is_aggregate_name(fn_ast.name) or fn_ast.star:
+                    fn = F.build_aggregate(
+                        fn_ast, args if not fn_ast.star else [],
+                        self.sql)
+                else:
+                    raise self.err(
+                        f"unknown window function {fn_ast.name}()",
+                        fn_ast, "unknown_function")
+                frame = None
+                if o.frame is not None:
+                    try:
+                        frame = WindowFrame(o.frame.frame_type,
+                                            o.frame.lower,
+                                            o.frame.upper)
+                    except ValueError as e:
+                        raise self.err(str(e), o.frame,
+                                       "type_error") from e
+                we = WindowExpression(fn, part, orders, frame)
+                try:
+                    we.validate()
+                except (TypeError, ValueError) as e:
+                    raise self.err(str(e), o, "type_error") from e
+                aliases.append(Alias(we, f"__w{len(wsubst) + k}"))
+            try:
+                node = GpuWindowExec(aliases, rel.node)
+            except (TypeError, ValueError) as e:
+                raise self.err(str(e), overs[0], "type_error") from e
+            rel = Rel(node, rel.quals + [None] * len(aliases))
+            for k, o in enumerate(overs):
+                wsubst.append((o, base + k))
+        return rel, wsubst
 
     def _distinct(self, rel: Rel) -> Rel:
         from ..config import SHUFFLE_PARTITIONS

@@ -6,11 +6,13 @@ functions apart as the reference does; the constructors map onto the
 port's expressions. Ported: the aggregates ``sum``, ``count``, ``min``,
 ``max``, ``avg`` and ``mean``; the scalar functions ``if``,
 ``coalesce``, ``nullif``, ``least``, ``greatest``, ``abs`` and
-``isnan``. Every other name raises
+``isnan``; every window function of the reference (``row_number``,
+``rank``, ``dense_rank``, ``percent_rank``, ``ntile``, ``lag``,
+``lead``). Every other name raises
 ``SqlAnalysisError(..., "unsupported_feature")`` naming the ROADMAP item
-it waits for: the other aggregates item 8, the other scalar and the
-window functions item 13. An unknown name is ``unknown_function``, as in
-the reference.
+it waits for: the other aggregates item 8, the other scalar functions
+item 13. An unknown name is ``unknown_function``, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from ..expr.aggregates import Average, Count, Max, Min, Sum
 from ..expr.arithmetic import Abs
 from ..expr.conditional import Coalesce, Greatest, If, Least, NullIf
 from ..expr.predicates import IsNaN
+from ..expr.window import (DenseRank, Lag, Lead, NTile, PercentRank, Rank,
+                           RowNumber)
 from . import ast as A
 from .errors import SqlAnalysisError
 
@@ -63,8 +67,6 @@ _AGG_WAITING = ("first", "last", "stddev",
                 "stddev_samp", "stddev_pop", "variance", "var_samp",
                 "var_pop", "collect_list", "collect_set",
                 "approx_percentile")
-_WINDOW_NAMES = ("row_number", "rank", "dense_rank", "percent_rank",
-                 "ntile", "lag", "lead")
 
 
 def _simple(cls, lo: int, hi=None):
@@ -78,6 +80,33 @@ def _simple(cls, lo: int, hi=None):
         else:
             _arity(node.name, node, args, lo, hi, sql)
         return cls(*args)
+    return build
+
+
+def _lit_arg(name, node: A.Func, i, types, what, sql=""):
+    """The i-th AST argument, required to be a literal of given types."""
+    a = node.args[i]
+    if not isinstance(a, A.Lit) or not isinstance(a.value, types) \
+            or isinstance(a.value, bool):
+        raise _err(f"{name}() argument {i + 1} must be a {what} "
+                   "literal", node, "literal_required", sql)
+    return a.value
+
+
+def _build_ntile(node, args, sql):
+    _arity("ntile", node, args, 1, 1, sql)
+    return NTile(_lit_arg("ntile", node, 0, int, "integer", sql))
+
+
+def _build_offset(cls):
+    def build(node, args, sql):
+        name = node.name
+        _arity(name, node, args, 1, 3, sql)
+        offset = 1
+        if len(node.args) >= 2:
+            offset = _lit_arg(name, node, 1, int, "integer", sql)
+        default = args[2] if len(args) == 3 else None
+        return cls(args[0], offset, default)
     return build
 
 
@@ -100,8 +129,11 @@ AGGREGATE_FUNCTIONS: Dict[str, Callable] = dict(
     {n: _unported(8) for n in _AGG_WAITING},
     sum=_simple(Sum, 1), count=_build_count, min=_simple(Min, 1),
     max=_simple(Max, 1), avg=_simple(Average, 1), mean=_simple(Average, 1))
-WINDOW_FUNCTIONS: Dict[str, Callable] = {n: _unported(13)
-                                         for n in _WINDOW_NAMES}
+WINDOW_FUNCTIONS: Dict[str, Callable] = {
+    "row_number": _simple(RowNumber, 0), "rank": _simple(Rank, 0),
+    "dense_rank": _simple(DenseRank, 0),
+    "percent_rank": _simple(PercentRank, 0), "ntile": _build_ntile,
+    "lag": _build_offset(Lag), "lead": _build_offset(Lead)}
 
 
 def is_aggregate_name(name: str) -> bool:

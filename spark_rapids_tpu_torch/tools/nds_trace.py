@@ -20,7 +20,11 @@ kernels launched inside ``sort_keys.string_order_ranks_multi`` (the
 string keys' refinement passes, a ``record_function("string_ranks")``
 range) are reported apart under ``string_ranks``: a kernel counts there
 when it runs within the device-side span the profiler gives that range
-(the span itself is left out of the busy time). With ``--out`` it also writes
+(the span itself is left out of the busy time). The window operator's
+pass (``exec/window.py``, a ``record_function("window")`` range: its
+sort, string ranks included, its gathers and its torch ops) is reported
+the same way under ``window``, with the device time of all its
+operations and its largest operations by name. With ``--out`` it also writes
 the Chrome trace there. It needs a CUDA device.
 """
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .join_trace import _union_us
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _RANGE = "string_ranks"  # sort_keys.string_order_ranks_multi's range
+_WINDOW = "window"       # exec/window.GpuWindowExec's pass
 _FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
              "K4": ("gather_rows_fast", "gather_rows_any"),
              "K5": ("k5_",)}
@@ -64,15 +69,15 @@ def counters():
     return {"K3": ck.sort_pairs, "K4": ck.gather_rows, "K5": decode_batch}
 
 
-def _rank_share(device_events):
-    """Device us and kernels of K3 and K4 inside the ``string_ranks``
+def _rank_share(device_events, range_name: str = _RANGE):
+    """Device us and kernels of K3 and K4 inside the ``range_name``
     ranges, from ``(start, end, name)`` device events. The profiler
     gives a ``record_function`` range a device-side event of its name
     that spans the kernels launched inside it; the engine launches on
     one stream, in order, so the kernels that run within such a span
     are the range's. ``spans`` counts those events (0: this profiler
     records none, and nothing is attributed)."""
-    spans = [(a, b) for a, b, name in device_events if name == _RANGE]
+    spans = [(a, b) for a, b, name in device_events if name == range_name]
     out = {"spans": len(spans), "K3_device_us": 0.0,
            "K3_kernel_launches": 0, "K4_device_us": 0.0,
            "K4_kernel_launches": 0}
@@ -82,6 +87,27 @@ def _rank_share(device_events):
                                        for sa, sb in spans):
             out[f"{fam}_device_us"] += b - a
             out[f"{fam}_kernel_launches"] += 1
+    return out
+
+
+def _window_share(device_events, top: int = 10):
+    """``_rank_share`` of the window passes' ranges, plus the device us
+    of every operation inside them (their union: the window's torch ops,
+    its K3 and K4) and, under ``top_ops``, the ``top`` largest of them
+    by name (device us and calls)."""
+    out = _rank_share(device_events, _WINDOW)
+    spans = [(a, b) for a, b, name in device_events if name == _WINDOW]
+    inside = [(a, b, name) for a, b, name in device_events
+              if name not in (_RANGE, _WINDOW)
+              and any(sa <= a and b <= sb for sa, sb in spans)]
+    out["device_us"] = _union_us([(a, b) for a, b, _ in inside])
+    by_name = {}
+    for a, b, name in inside:
+        rec = by_name.setdefault(name, {"device_us": 0.0, "calls": 0})
+        rec["device_us"] += b - a
+        rec["calls"] += 1
+    out["top_ops"] = dict(sorted(by_name.items(),
+                                 key=lambda kv: -kv[1]["device_us"])[:top])
     return out
 
 
@@ -119,7 +145,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
             continue
         a, b = evt.time_range.start, evt.time_range.end
         device_events.append((a, b, evt.name))
-        if evt.name == _RANGE:
+        if evt.name in (_RANGE, _WINDOW):
             continue  # a span over kernels, not device work of its own
         intervals.append((a, b))
         rec = by_name.setdefault(evt.name, {"device_us": 0.0, "calls": 0})
@@ -143,6 +169,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
             "kernels": fams,
             "string_ranks": _rank_share(device_events),
+            "window": _window_share(device_events),
             "top_other_device_ops": dict(others)}
 
 

@@ -1,13 +1,14 @@
 """The NDS corpus from SQL on the CPU: every query the port runs
 (``nds.PORTED_QUERIES``: q3, q42, q52, q55, q96, q_topn, q7, q_pivot,
 q_customer_age, q_price_band, q_cte, q_having, q_in_between, q_agg_expr,
-q_not_or) at ``spark.sql.shuffle.partitions`` 1 and 16, over Parquet
+q_not_or, q_rank, q_rownum, q_rolling, q_union) at
+``spark.sql.shuffle.partitions`` 1 and 16, over Parquet
 files of ``n_sales = 1 << 14`` written to a temporary directory, held to
 the JAX package through the dual-run assert (``torch_dual_run``: names
 and Arrow types equal, ints, strings and nulls exact, floats rel 1e-9,
 row order exact where the query orders it, the scans' chunk counters
 equal) and to the port's numpy/pyarrow oracle (``nds.oracle``, the same
-tolerance). The other seven raise ``SqlAnalysisError
+tolerance). The other three raise ``SqlAnalysisError
 ("unsupported_feature")`` or ``NotImplementedError`` naming their ROADMAP
 item, and never run another way."""
 import pytest

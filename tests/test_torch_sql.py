@@ -130,7 +130,8 @@ def test_the_plan_has_the_exchange_and_the_adaptive_reader(paths):
 
 # the construct each query's first raise names; q7, q_pivot,
 # q_in_between, q_not_or and q_customer_age's constructs (avg, CASE, IN,
-# NOT, CAST) are ported, and those queries now compile and run
+# NOT, CAST), and q_union's, q_rank's, q_rownum's and q_rolling's (UNION
+# ALL, windows) are ported, and those queries now compile and run
 UNPORTED = {
     "q_like": "LIKE", "q7": "avg", "q_pivot": "CASE",
     "q_union": "UNION", "q_rank": "window", "q_in_between": "IN (",
@@ -175,7 +176,7 @@ def test_errors_keep_the_reference_slugs(paths):
 def test_unported_dataframe_methods_raise(paths):
     s = GpuSession(device="cpu")
     df = s.read_parquet(paths["item"])
-    for call in (lambda: df.union(df), lambda: df.sample(0.5),
+    for call in (lambda: df.sample(0.5),
                  lambda: df.explode("i_category"), lambda: df.cache(),
                  lambda: df.write("/nonexistent")):
         with pytest.raises(NotImplementedError, match="ROADMAP item"):
