@@ -1,9 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: TPC-H q6 at SF1 from
 Parquet (host decode, then device page decode), the join + group-by
 query at the reference's full size, q6's revenue by line number at
-SF1, and the 19 NDS queries the port runs from SQL text over Parquet
-files (``nds.PORTED_QUERIES``), through ``spark_rapids_tpu_torch``, with
-K1 to K5 checked on the card.
+SF1, and the 22 NDS queries from SQL text over Parquet files
+(``nds.PORTED_QUERIES``), through ``spark_rapids_tpu_torch``, with K1 to
+K6 checked on the card.
 
     python3 chip_smoke.py
 
@@ -49,7 +49,13 @@ Phases, any failure exits non-zero before the result line:
      group, with columns, key and masks off alignment, with int64 keys,
      at 1, 3 and 5 rows, twice on one input and on two streams at once
      (the same bits each time); each timed beside its bound and plain
-     version;
+     version; K6 (the regex automaton) bit for bit on q_like's item
+     batch (32,768 strings, '%o%s%', also against Python's re), on 2^20
+     rows of 20-120 bytes of text with multi-byte characters and
+     newlines under a LIKE pattern and an RLIKE alternation, and on the
+     edges (the empty string, a null row, rows inside an inherited chars
+     buffer, an empty buffer, always- and empty-only patterns), timed
+     beside its bound and plain version;
   4. q6 SF1 (6,001,215 rows, seed 0, 8 snappy files, row groups of
      1 << 20) written to .bench_cache/lineitem_torch/, run through
      collect_arrow with device page decode off, its revenue held to a
@@ -71,10 +77,10 @@ Phases, any failure exits non-zero before the result line:
      launches, no K1, the final's one K3 sort and two K4 gathers, the
      scan's counters (deviceChunks 40, fallbackChunks 0), rows/s and
      opTime;
-  8. the NDS queries the port runs from SQL text (``nds.SQL_QUERIES``:
-     q3, q42, q52, q55, q96, q_topn, q7, q_pivot, q_customer_age,
-     q_price_band, q_cte, q_having, q_in_between, q_agg_expr, q_not_or,
-     q_rank, q_rownum, q_rolling, q_union)
+  8. the 22 NDS queries from SQL text (``nds.SQL_QUERIES``: q3, q42,
+     q52, q55, q96, q_topn, q7, q_pivot, q_customer_age, q_price_band,
+     q_cte, q_having, q_in_between, q_agg_expr, q_not_or, q_rank,
+     q_rownum, q_rolling, q_union, q_percentile, q97, q_like)
      over the reference bench's tables at 2^22 store_sales rows (seed 42,
      snappy, row groups of 2^19, written to
      .bench_cache/nds_torch_n4194304/), through GpuSession.sql,
@@ -87,8 +93,9 @@ Phases, any failure exits non-zero before the result line:
      (ints and strings exact, floats rel 1e-9, row order exact), every
      scan to deviceChunks = row groups x columns and 0 fallback chunks.
      After the timed runs one more run of each query and partition count
-     counts the K3, K4 and K5 launches, held to what the plan implies
-     (``_nds_expected``: operator by operator, string ranks included);
+     counts the K3, K4, K5 and K6 launches, held to what the plan
+     implies (``_nds_expected``: operator by operator, string ranks
+     included);
   9. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
@@ -121,6 +128,8 @@ K2_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:225"
 K2_SOURCE = "spark_rapids_tpu_torch/csrc/fused_filter_agg.cu"
 K5_REPLACES = "spark_rapids_tpu/io/parquet_device.py:1015"
 K5_SOURCE = "spark_rapids_tpu_torch/csrc/parquet_decode.cu"
+K6_REPLACES = "spark_rapids_tpu/ops/regex.py:378"
+K6_SOURCE = "spark_rapids_tpu_torch/csrc/regex_match.cu"
 
 
 def log(*a):
@@ -226,6 +235,26 @@ def phase_decode_group(device):
         f"ms, bound {k2['bound_ms']:.6f} ms ({k2['bound_by']}, "
         f"{k2['bytes']} B)")
     return k5, k2
+
+
+def phase_regex(device):
+    """K6 against its plain version, then timed."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    cases = kc.k6_cases(device)
+    recs = kc.check_k6(device, cases)
+    for rec in recs:
+        log(f"[k6] {rec}")
+    k6 = kc.time_k6(device, cases)
+    for name, t in k6.items():
+        # operations: at least three a byte read (the class lookup's
+        # AND, the accept test, a follow step); the bytes bound it
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"],
+                                              3 * t["chars_read"])
+        log(f"[k6] regex_match on {name} ({t['rows']} rows, "
+            f"{t['positions']} positions, {t['pattern']!r}): kernel "
+            f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {t['bytes']} B)")
+    return k6, max(r["max_abs_err"] for r in recs)
 
 
 def _bound(nbytes, ops):
@@ -549,23 +578,50 @@ def _keyed_sort(exprs, longest):
     return k3, k4
 
 
-def _nds_expected(root, metrics, longest):
+def _union_sort(keys, longest):
+    """K3 and K4 launches of ``ops/join.union_group_ids`` over both
+    sides: one sort of a live bit and, a key, a validity bit and its
+    lane, string keys ranked over both sides first."""
+    from spark_rapids_tpu_torch import datatypes as dt
+    k3, k4 = _sort_launches(1 + sum(1 + _lane_bits(e.dtype) for e in keys))
+    for e in keys:
+        if isinstance(e.dtype, (dt.StringType, dt.BinaryType)):
+            r3, r4 = _rank_launches(longest[e.name])
+            k3, k4 = k3 + r3, k4 + r4
+    return k3, k4
+
+
+def _nds_expected(root, metrics, longest, conf):
     """The launches one run of the plan under ``root`` implies, walked
-    operator by operator. K5: one a scan batch. A unique-build join
-    presorts its build key (live bit + lane; without the hint it sorts it
-    once more to count duplicates: live bit, null bit, lane), gathers
-    the sorted key once, and gathers its build columns into each stream
-    batch (one K4, strings included). The grouped aggregate sorts each
-    partial and the final by its keys, then gathers keys and values once
-    and the segment starts once (two K4). ORDER BY sorts once and gathers
-    once. A window (``exec/window.py``) sorts once by its partition and
-    order keys, then gathers the rows and its computed arguments in one
-    K4, and one K4 more for each lag, lead, min and max. A union runs
-    each child in turn: its batches are theirs. A string key adds its
-    ranks' passes to each sort (the longest string of its column,
-    ``longest[name]``, fixes their number). A node the plan reaches by
-    several paths (a view's scan that a CTE's two uses, or a union's two
-    sides, share) runs once a path, and its metrics sum those runs."""
+    operator by operator. K5: one a scan batch. K6: one a batch for each
+    LIKE or RLIKE a filter or project evaluates on the device (not a
+    LIKE of one literal). A join analyses its build once where it has no
+    unique hint, or has one and gathers a build string column (a sort of
+    the build's keys: live bit, null bit, lane). A unique build
+    (its ``uniqueBuild`` metric) on one fixed-width key is presorted
+    once (live bit + lane) and its sorted key gathered once; on several
+    keys or a string key each stream batch sorts both sides' keys
+    (``_union_sort``) and the build's group ids (one K3). A stream batch
+    on the staged path (its ``stagedBatches``) sorts both sides' keys and
+    the build's group ids, and gathers its output with one K4 (semi and
+    anti joins) or two; an inner or left-outer join on the fast path
+    gathers its build columns into each batch (one K4, strings
+    included). The grouped aggregate sorts each partial and the final by
+    its keys, then gathers keys and values once and the segment starts
+    once (two K4). An aggregate with an exact percentile takes the
+    single pass instead: its keyed sort and two gathers once, then a
+    percentile's sort of (dropped, group, value) and its gather (one
+    K4), with no partials. ORDER BY sorts once and gathers once. A window
+    (``exec/window.py``) sorts once by its partition and order keys,
+    then gathers the rows and its computed arguments in one K4, and one
+    K4 more for each lag, lead, min and max. A union runs each child in
+    turn: its batches are theirs. A string key adds its ranks' passes to
+    each sort (the longest string of its column, ``longest[name]``,
+    fixes their number). A node the plan reaches by several paths (a
+    view's scan that a CTE's two uses, or a union's two sides, share)
+    runs once a path, and its metrics sum those runs."""
+    from spark_rapids_tpu_torch import datatypes as dt
+    from spark_rapids_tpu_torch.config import JOIN_VERIFY_UNIQUE_HINT
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
     from spark_rapids_tpu_torch.exec.basic import (GpuFilterExec,
                                                    GpuProjectExec)
@@ -574,15 +630,24 @@ def _nds_expected(root, metrics, longest):
     from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
                                                   GpuSortExec)
     from spark_rapids_tpu_torch.exec.window import GpuWindowExec
-    from spark_rapids_tpu_torch.expr.aggregates import Max, Min
+    from spark_rapids_tpu_torch.expr.aggregates import (GROUP_VALUE_BITS,
+                                                        ApproxPercentile,
+                                                        Max, Min)
+    from spark_rapids_tpu_torch.expr.strings import Like, RegExpLike
     from spark_rapids_tpu_torch.expr.window import Lag, Lead
     from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
-    out = {"decode_batch": 0, "sort_pairs": 0, "gather_rows": 0}
+    from spark_rapids_tpu_torch.planner import _walk_expr
+    out = {"decode_batch": 0, "sort_pairs": 0, "gather_rows": 0,
+           "regex_match": 0}
     uses = _node_uses(root)
 
-    def m(node, key):
-        """The node's metric for one of its runs."""
-        total = metrics[node.node_label()][key]
+    def m(node, key, default=None):
+        """The node's metric for one of its runs (``default`` where the
+        node never set it)."""
+        node_metrics = metrics.get(node.node_label(), {})
+        if key not in node_metrics and default is not None:
+            return default
+        total = node_metrics[key]
         if total % uses[id(node)]:
             raise AssertionError(f"{node.describe()}: {key} {total} over "
                                  f"{uses[id(node)]} runs")
@@ -606,20 +671,61 @@ def _nds_expected(root, metrics, longest):
         out["sort_pairs"] += k3 * times
         out["gather_rows"] += k4 * times
 
+    def join(node):
+        keys = node.right_keys
+        single = len(keys) == 1 and not isinstance(
+            keys[0].dtype, (dt.StringType, dt.BinaryType))
+        built = m(node, "uniqueBuild", -1)
+        if built == -1:  # an empty build side: nothing ran
+            return
+        if node.analyses_build() or (
+                node.build_unique_hint and not single
+                and conf.get(JOIN_VERIFY_UNIQUE_HINT)):
+            add(*_keyed_sort(keys, longest))
+        staged = m(node, "stagedBatches", 0)
+        fast = batches(node.left) - staged
+        gathers = 0 if node.semi else 1
+        if built:
+            if single:
+                k3, k4 = _sort_launches(1 + _lane_bits(keys[0].dtype))
+                add(k3, k4 + 1)
+            else:
+                k3, k4 = _union_sort(keys, longest)
+                add(k3 + 1, k4, times=fast)
+            add(0, gathers, times=fast)
+        k3, k4 = _union_sort(keys, longest)
+        add(k3 + 1, k4 + gathers + 1, times=staged)
+
+    def aggregate(node):
+        if not node._wants_single_pass(conf):
+            k3, k4 = _keyed_sort(node.group_exprs, longest)
+            add(k3, k4 + 2, times=m(node, "numPartials") + 1)
+            return
+        if node.group_exprs:
+            k3, k4 = _keyed_sort(node.group_exprs, longest)
+            add(k3, k4 + 2)
+        for a in node.aggs:
+            if isinstance(a, ApproxPercentile):
+                k3, k4 = _sort_launches(GROUP_VALUE_BITS
+                                        + _lane_bits(a.children[0].dtype))
+                add(k3, k4 + 1)
+
     def walk(node):
         if isinstance(node, GpuFileScanExec):
             out["decode_batch"] += m(node, "scanPrograms")
+        elif isinstance(node, (GpuFilterExec, GpuProjectExec)):
+            regexes = sum(isinstance(e, (Like, RegExpLike))
+                          and e.program() is not None
+                          for root_e in node.expressions()
+                          for e in _walk_expr(root_e))
+            out["regex_match"] += regexes * batches(node.child)
         elif isinstance(node, _BaseJoinExec):
-            w = _lane_bits(node.right_keys[0].dtype)
-            if not node.build_unique_hint:
-                add(*_sort_launches(2 + w))
-            k3, k4 = _sort_launches(1 + w)
-            add(k3, k4 + 1)
-            if node.join_type in ("inner", "left_outer"):
-                add(0, batches(node.left))
+            join(node)
         elif isinstance(node, GpuHashAggregateExec) and node.group_exprs:
-            k3, k4 = _keyed_sort(node.group_exprs, longest)
-            add(k3, k4 + 2, times=m(node, "numPartials") + 1)
+            aggregate(node)
+        elif isinstance(node, GpuHashAggregateExec):
+            if node._wants_single_pass(conf):
+                aggregate(node)
         elif isinstance(node, GpuSortExec):
             k3, k4 = _keyed_sort([o.child for o in node.orders], longest)
             add(k3, k4 + 1)
@@ -806,7 +912,7 @@ def phase_nds(device):
         pp.collect(ctx)
         torch.cuda.synchronize()
         got = {c.__name__: c.launches for c in wrappers.values()}
-        want = _nds_expected(pp.root, _metrics(ctx), longest[q])
+        want = _nds_expected(pp.root, _metrics(ctx), longest[q], conf)
         log(f"[nds] {q} partitions={parts} launches {got}, the plan "
             f"implies {want}")
         if got != want:
@@ -823,6 +929,7 @@ def main():
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
+    k6, k6_err = phase_regex(device)
     launches, paths = phase_slice(device)
     join_launches = phase_join(device)
     dd_launches = phase_q6_device_decode(device, paths)
@@ -842,6 +949,7 @@ def main():
     log("[nds] " + json.dumps(nds_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
+    like = k6["q_like_item_32768"]
     log(json.dumps({"kernels": [{
         "name": "masked_product_sum (engine edition, filter_product_sum)",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
@@ -898,7 +1006,18 @@ def main():
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
         "shape": "a q6 batch: 750,152 rows, 7 groups",
-        "contract_max_rel_err": k2["contract_max_rel_err"]}]}))
+        "contract_max_rel_err": k2["contract_max_rel_err"]}, {
+        "name": "regex_match (the LIKE/RLIKE automaton)",
+        "route": "cuda", "source": K6_SOURCE, "replaces": K6_REPLACES,
+        "launches": nds_launches["q_like_p1"]["regex_match"],
+        "max_abs_err": k6_err, "ms": like["ms"],
+        "plain_ms": like["plain_ms"], "bound_ms": like["bound_ms"],
+        "bound_by": like["bound_by"], "library_ms": None,
+        "shape": "q_like's item batch: 32,768 strings, '%o%s%', "
+                 "32 positions",
+        "by_shape": k6,
+        "launches_nds": {k: v["regex_match"]
+                         for k, v in nds_launches.items()}}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -19,6 +19,19 @@ meet in ``concat_batches_bounded``. The reference's memory manager and
 its bounded rolling merge (``_merge_bounded``) wait for ROADMAP item 14:
 the port always merges in one final pass.
 
+An exact ``ApproxPercentile`` (``spark.rapids.sql.approxPercentile
+.exact``, the default) takes the reference's single pass (``:276-481``):
+every input batch is concatenated (bounded, no readback), the rows
+sorted by key and gathered once, each group's non-null values ordered
+by one more sort of ``(dropped, group, value)``
+(``expr/aggregates.value_sorted_groups``, K3), and each group's
+percentile gathered at its rank (K4); the node's other aggregates
+reduce over the same sorted segments, with no partials. The reference
+sends an input over half its memory budget to the CPU instead; that
+waits for ROADMAP items 14 and 12, and the port concatenates whatever
+comes. The sketch strategy rides the partial and final phases
+(``_wants_single_pass``).
+
 When the operators fused below the aggregate are q6's shape — a filter
 on an AND of column-vs-literal comparisons, then a project of
 ``a * b`` over float32 columns, summed — the partial pass for a whole
@@ -45,7 +58,10 @@ import torch
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch, bucket_rows, row_mask
 from ..columnar.column import GpuColumnVector, torch_dtype
-from ..expr.aggregates import GLOBAL_LANES, AggregateFunction, Sum
+from ..config import APPROX_PERCENTILE_EXACT, RapidsConf
+from ..expr.aggregates import (GLOBAL_LANES, AggregateFunction,
+                               ApproxPercentile, Sum, spark_rank0,
+                               value_sorted_groups)
 from ..expr.arithmetic import Multiply
 from ..expr.base import Alias, BoundReference, Expression, Literal, \
     bind_expr
@@ -355,7 +371,83 @@ class GpuHashAggregateExec(UnaryExec):
 
         return run
 
+    # --- the single pass (an exact percentile) ----------------------------
+
+    def _percentile_column(self, agg: ApproxPercentile,
+                           scol: GpuColumnVector, seg: torch.Tensor,
+                           sorted_live: torch.Tensor, out_cap: int,
+                           out_live: torch.Tensor) -> GpuColumnVector:
+        """Each group's value at Spark's rank ``ceil(p * n)``, gathered
+        from its sorted non-null values (``:342``): rank error 0."""
+        cap = sorted_live.shape[0]
+        perm, lo, n_g = value_sorted_groups(scol, seg, sorted_live, out_cap)
+        pos = (lo + spark_rank0(agg.percentages[0], n_g)).clamp(0, cap - 1)
+        return gather_columns([scol], perm[pos], out_live & (n_g > 0))[0]
+
+    def _single_pass(self, batch: GpuBatch, ectx) -> GpuBatch:
+        """The whole input grouped at once (``:318``)."""
+        live = batch.live_mask()
+        dev = live.device
+        val_cols = [[c.eval_gpu(batch, ectx) for c in a.children]
+                    for a in self.aggs]
+        if self.group_exprs:
+            key_cols = [normalize_float_key_col(e.eval_gpu(batch, ectx))
+                        for e in self.group_exprs]
+            skeys, svals, seg, sorted_live, num_groups, out_live = \
+                self._group_and_gather(key_cols, val_cols, live)
+            out_cap = live.shape[0]
+            out_cols = gather_columns(skeys, _segment_starts(seg), out_live)
+        else:
+            # one group: the rows stay in place, GLOBAL_LANES outputs
+            svals, sorted_live, out_cap = val_cols, live, GLOBAL_LANES
+            seg = torch.zeros(live.shape[0], dtype=torch.int32, device=dev)
+            num_groups = 1
+            out_live = row_mask(GLOBAL_LANES, 1, dev)
+            out_cols = []
+        for a, sv in zip(self.aggs, svals):
+            if isinstance(a, ApproxPercentile):
+                out_cols.append(self._percentile_column(
+                    a, sv[0], seg, sorted_live, out_cap, out_live))
+            elif self.group_exprs:
+                out_cols.append(a.evaluate_device(
+                    a.update_device(sv, seg, sorted_live, out_live)))
+            else:
+                out_cols.append(a.evaluate(a.update(sv, live)))
+        # the result's row count, read back once
+        n = int(num_groups)
+        return shrink_batch(GpuBatch(out_cols, self._schema, n),
+                            bucket_rows(n))
+
+    def _wants_single_pass(self, conf: RapidsConf) -> bool:
+        """An exact percentile takes the single pass; the sketch rides
+        the partial and final phases, unless a batch's capacity times
+        ``_MASS_SCALE`` would overflow its int64 compound keys
+        (``:441``)."""
+        for a in self.aggs:
+            if not isinstance(a, ApproxPercentile):
+                continue
+            if conf.get(APPROX_PERCENTILE_EXACT) or conf.batch_size_rows \
+                    * a._MASS_SCALE > (1 << 63) - 1:
+                return True
+        return False
+
+    def _execute_single_pass(self, ctx: ExecCtx):
+        op_time = ctx.metric(self, "opTime")
+        batches = list(fused_batches(self, ctx, metric=op_time))
+        t0 = time.perf_counter()
+        if not batches:
+            if self.group_exprs:
+                return
+            batches = [self._empty_child_batch(ctx.device)]
+        out = self._single_pass(concat_batches_bounded(batches),
+                                ctx.eval_ctx)
+        op_time.value += time.perf_counter() - t0
+        yield out
+
     def execute(self, ctx: ExecCtx):
+        if self._wants_single_pass(ctx.conf):
+            yield from self._execute_single_pass(ctx)
+            return
         op_time = ctx.metric(self, "opTime")
         if self.group_exprs:
             partials = list(fused_batches(

@@ -1,52 +1,78 @@
-"""Join operators: the shuffled hash join on a unique build side.
+"""Join operators: the shuffled hash join, staged or on a unique build.
 
 Counterpart of ``spark_rapids_tpu/exec/joins.py:46-438,491-527``
-(``_BaseJoinExec``, ``TpuShuffledHashJoinExec``), the sync-free fast
-path for ``inner``, ``left_outer``, ``left_semi`` and ``left_anti`` on a
-single fixed-width key. The build (right) side is concatenated once and
-its key presorted by **K3** (``ops/join.unique_build_probe``); each
-stream (left) batch then joins with no size readback: the output keeps
-the stream batch's capacity, the build columns are gathered into the
-match positions by one **K4** launch, and the emitted rows are the lazy
-selection mask.
+(``_BaseJoinExec``, ``TpuShuffledHashJoinExec``) for ``inner``,
+``left_outer``, ``left_semi`` and ``left_anti`` on any number of keys,
+string keys included. The build (right) side is concatenated once
+(``concat_batches_bounded``, no readback); ``_fast_build_info`` then
+decides the path once a build, as the reference does (``:275-363``):
 
-With ``build_unique_hint`` the build is trusted to have unique keys and,
-under ``spark.rapids.sql.join.verifyUniqueHint`` (default on), the
-presort's duplicate flag becomes a deferred check that raises at the
-query's download. Without the hint the build is analysed first (one
-readback per build). A build side with string columns (an inner or
-left-outer join gathers them) reads back its longest string once per
-build, as the reference's analysis does (``exec/joins.py:290-310``):
-a stream batch's gathered chars get the batch's capacity times that
-length. Where the reference would take its staged join (a
-duplicated build key, another join type, no keys) or its union lookup
-(several keys), the port raises ``NotImplementedError``: those wait for
-ROADMAP item 9.
+- **The fast path**, for a build whose keys are unique: each stream
+  batch joins with no size readback, into the stream batch's capacity,
+  the emitted rows marked by the lazy selection. A single fixed-width
+  key is presorted once by **K3** (``ops/join.unique_build_probe``) and
+  probed by binary search; several keys or a string key take
+  ``unique_union_lookup``. An inner or left-outer join gathers the build
+  columns into the match positions with one **K4** launch; a gathered
+  string column gets the batch's capacity times the build's longest
+  string, and a batch past ``_FAST_MAX_CHAR_CAP`` takes the staged path.
+- **The staged path** (``_join_batch``), for a build with a duplicated
+  key: stage A (``ops/join.join_counts``: the union sort of both sides'
+  keys on K3, the build's group order on K3) with its one readback a
+  stream batch of the output rows and of each string column's bytes
+  (``_sized_stage_a``), then the output indices and the gather, one K4
+  launch a side (``_stage_bc``).
+
+Without ``build_unique_hint`` the build is analysed first: one readback
+a build of its most duplicated key and its string columns' longest live
+strings (``ops/join.unique_build_analysis``), which also sizes the fast
+path's chars; a duplicated key takes the staged path. With the hint and
+a string column to gather the analysis runs as well, and a duplicated
+key then warns (``RuntimeWarning``) and takes the staged path, unless
+``spark.rapids.sql.join.verifyUniqueHint`` is off, which keeps the hint
+unchecked. With the hint and no string to gather nothing is read back:
+under ``verifyUniqueHint`` the build's duplicate flag becomes a deferred
+check that raises at the query's download.
+
+``right_outer`` and ``full_outer`` (the reference's build-side
+accumulation across stream batches, ``_execute_outer_build``), ``cross``
+and the nested-loop join, a condition on a join other than inner, and
+the broadcast join raise ``NotImplementedError`` naming ROADMAP item 9.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence
+import warnings
+from typing import List, Optional, Sequence
 
 import torch
 
 from .. import datatypes as dt
-from ..columnar.batch import GpuBatch, bucket_bytes
-from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
+from ..columnar.batch import GpuBatch, bucket_bytes, bucket_rows
+from ..columnar.column import GpuColumnVector, is_string_like
 from ..config import JOIN_VERIFY_UNIQUE_HINT
 from ..expr.base import Expression, bind_expr
 from ..ops.concat import concat_batches_bounded
 from ..ops.gather import gather_columns
-from ..ops.join import (JOIN_TYPES, probe_unique, unique_build_analysis,
-                        unique_build_probe)
+from ..ops.join import (JOIN_TYPES, build_dup_flag, join_counts,
+                        join_gather, join_indices, join_output_bytes,
+                        join_total, probe_unique, unique_build_analysis,
+                        unique_build_probe, unique_union_lookup)
 from ..ops.sort_keys import check_key_type
 from .base import ExecCtx, GpuExec
 from .basic import bind_all
 
 __all__ = ["GpuShuffledHashJoinExec"]
 
-_FAST_JOIN_TYPES = ("inner", "left_outer", "left_semi", "left_anti")
+_SUPPORTED_JOIN_TYPES = ("inner", "left_outer", "left_semi", "left_anti")
 _EMPTY_CAPACITY = 128
+# the most chars the fast path gathers into a string column of one batch
+# (stream capacity x the build's longest string); past it the staged
+# path's exact sizing is the better trade (the reference's)
+_FAST_MAX_CHAR_CAP = 1 << 28
+# the most chars a gathered string column may hold: its offsets and the
+# char positions of ops/strings.assemble_strings are int32
+MAX_STRING_CHARS = (1 << 31) - 1
 
 
 def _join_output_schema(left: dt.Schema, right: dt.Schema,
@@ -64,16 +90,10 @@ def _and_sel(batch: GpuBatch, mask: torch.Tensor) -> torch.Tensor:
     return mask if batch.selection is None else batch.selection & mask
 
 
-# the most chars a gathered string column may hold: its offsets and the
-# char positions of ops/strings.assemble_strings are int32
-MAX_STRING_CHARS = (1 << 31) - 1
-
-
-def _staged(what: str) -> NotImplementedError:
+def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} needs the staged join (join_counts / join_indices / "
-        "join_gather) or the union lookup, which are not ported yet "
-        "(ROADMAP item 9)")
+        f"{what} is not ported yet (ROADMAP item 9): the port joins "
+        "inner, left_outer, left_semi and left_anti on equi-keys")
 
 
 class _BaseJoinExec(GpuExec):
@@ -87,13 +107,13 @@ class _BaseJoinExec(GpuExec):
         super().__init__()
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type}")
-        if join_type not in _FAST_JOIN_TYPES or not left_keys:
-            raise _staged(f"a {join_type} join")
-        if len(left_keys) != 1 or len(right_keys) != 1:
-            raise _staged("a join on several keys")
+        if join_type not in _SUPPORTED_JOIN_TYPES:
+            raise _unported(f"a {join_type} join")
+        if not left_keys:
+            raise _unported("a join without equi-keys (the nested-loop "
+                            "join)")
         # an unchecked contract that the build keys are unique (a
-        # primary-key build side); verifyUniqueHint checks it at the
-        # download
+        # primary-key build side); verifyUniqueHint checks it
         self.build_unique_hint = build_unique_hint
         self.children = (left, right)
         self.join_type = join_type
@@ -105,9 +125,6 @@ class _BaseJoinExec(GpuExec):
                     f"join key type mismatch: {lk.dtype.simple_string()} "
                     f"vs {rk.dtype.simple_string()}")
             check_key_type(lk.dtype)
-            if is_string_like(lk.dtype):
-                raise _staged("a join on a string key (ranks over both "
-                              "sides, string_order_ranks_multi)")
         self._schema = _join_output_schema(left.output_schema,
                                            right.output_schema, join_type)
         # a condition sees both sides even when the output is left-only
@@ -116,9 +133,8 @@ class _BaseJoinExec(GpuExec):
         self.condition = None
         if condition is not None:
             if join_type != "inner":
-                raise NotImplementedError(
-                    f"non-equi condition on a {join_type} join is not on "
-                    "the device")
+                raise _unported(f"a non-equi condition on a {join_type} "
+                                "join")
             self.condition = bind_expr(condition, self._cond_schema)
 
     @property
@@ -132,6 +148,21 @@ class _BaseJoinExec(GpuExec):
     @property
     def output_schema(self):
         return self._schema
+
+    @property
+    def semi(self) -> bool:
+        """The output holds the stream's columns only."""
+        return self.join_type in ("left_semi", "left_anti")
+
+    def gathers_build_strings(self) -> bool:
+        """The output gathers a string column of the build side."""
+        return not self.semi and any(
+            is_string_like(f.dtype) for f in self.right.output_schema)
+
+    def analyses_build(self) -> bool:
+        """The build is analysed (one readback): without the hint, or
+        with it and a build string column to size."""
+        return not self.build_unique_hint or self.gathers_build_strings()
 
     def describe(self):
         c = f" cond={self.condition!r}" if self.condition is not None \
@@ -153,39 +184,108 @@ class _BaseJoinExec(GpuExec):
             return concat_batches_bounded(batches)
         if self.join_type in ("inner", "left_semi"):
             return None
-        cols = [GpuColumnVector(f.dtype, torch.zeros(
-                    _EMPTY_CAPACITY, dtype=torch_dtype(f.dtype),
-                    device=ctx.device)) for f in self.right.output_schema]
+        cols = [GpuColumnVector.nulls(f.dtype, _EMPTY_CAPACITY, ctx.device)
+                for f in self.right.output_schema]
         return GpuBatch(cols, self.right.output_schema, 0)
 
-    def _string_maxlens(self, rbatch: GpuBatch) -> list:
-        """The longest string of each build column the join gathers
-        (0 for the others): one readback, only when there is one."""
-        if self.join_type in ("left_semi", "left_anti"):
-            return []
-        strs = [c for c in rbatch.columns if c.is_string_like]
-        if not strs:
-            return [0] * len(rbatch.columns)
-        live = rbatch.live_mask()
-        found = torch.stack([
-            torch.where(live, c.lengths(), torch.zeros_like(c.lengths()))
-            .max() for c in strs]).cpu().tolist()
-        it = iter(found)
-        return [next(it) if c.is_string_like else 0
-                for c in rbatch.columns]
+    # --- the staged path --------------------------------------------------
 
-    def _probe_build(self, rbatch: GpuBatch, ctx: ExecCtx):
-        """Presort the build key once: ``(rk_sorted, perm, n_elig)``."""
+    def _stage_a(self, lbatch: GpuBatch, rbatch: GpuBatch, ectx):
+        """Stage A: the match plan, the output rows and each string
+        column's output bytes."""
+        lkeys = [k.eval_gpu(lbatch, ectx) for k in self.left_keys]
+        rkeys = [k.eval_gpu(rbatch, ectx) for k in self.right_keys]
+        plan = join_counts(lkeys, rkeys, lbatch.live_mask(),
+                           rbatch.live_mask())
+        return plan, join_total(plan, self.join_type), \
+            join_output_bytes(plan, lbatch, rbatch, self.join_type)
+
+    def _char_caps(self, nbytes: List[int], lbatch: GpuBatch,
+                   rbatch: GpuBatch) -> List[int]:
+        """Each output column's chars (0 for a fixed-width column), the
+        stream's columns first."""
+        cols = list(lbatch.columns) + ([] if self.semi
+                                       else list(rbatch.columns))
+        it = iter(nbytes)
+        return [bucket_bytes(max(next(it), 1)) if c.is_string_like else 0
+                for c in cols]
+
+    def _sized_stage_a(self, lbatch: GpuBatch, rbatch: GpuBatch,
+                       ctx: ExecCtx):
+        """Stage A and its one readback: ``(plan, total, out_cap,
+        char_caps)``."""
+        plan, total, nbytes = self._stage_a(lbatch, rbatch, ctx.eval_ctx)
+        sizes = torch.cat([total.reshape(1), nbytes]).tolist()
+        total = sizes[0]
+        char_caps = self._char_caps(sizes[1:], lbatch, rbatch)
+        if max([total] + char_caps) > MAX_STRING_CHARS:
+            raise NotImplementedError(
+                f"{self.node_label()} would emit {total} rows and up to "
+                f"{max(char_caps, default=0)} chars of a string column "
+                f"from one stream batch, past the int32 indices and "
+                f"offsets' {MAX_STRING_CHARS}; splitting the stream batch "
+                "waits for the memory manager (ROADMAP item 14)")
+        return plan, total, bucket_rows(total), char_caps
+
+    def _stage_bc(self, plan, total: int, out_cap: int,
+                  char_caps: List[int], lbatch: GpuBatch,
+                  rbatch: GpuBatch) -> GpuBatch:
+        """Stages B and C: the output indices, then the gather."""
+        lidx, ridx, lvalid, rvalid = join_indices(plan, self.join_type,
+                                                  out_cap)
+        if self.semi:
+            return GpuBatch(gather_columns(lbatch.columns, lidx, lvalid,
+                                           char_caps), self._schema, total)
+        return join_gather(lbatch, rbatch, lidx, ridx, lvalid, rvalid,
+                           total, self._schema, char_caps)
+
+    def _join_batch(self, lbatch: GpuBatch, rbatch: GpuBatch,
+                    ctx: ExecCtx) -> GpuBatch:
+        """The staged join of one stream batch: a prefix-layout output
+        sized by stage A's readback; an inner join's condition marks its
+        rows with the lazy selection."""
+        ctx.metric(self, "stagedBatches").value += 1
+        plan, total, out_cap, char_caps = self._sized_stage_a(
+            lbatch, rbatch, ctx)
+        out = self._stage_bc(plan, total, out_cap, char_caps, lbatch,
+                             rbatch)
+        if self.condition is not None:
+            pred = self.condition.eval_gpu(out, ctx.eval_ctx)
+            keep = pred.data if pred.validity is None \
+                else pred.data & pred.validity
+            out = out.with_selection(keep)
+        return out
+
+    # --- the fast path (a unique build) -----------------------------------
+
+    def _fast_build_info(self, rbatch: GpuBatch, ctx: ExecCtx):
+        """None (the staged path), or how the fast path probes this build:
+        ``{"probe": presorted key or None (the union lookup), "maxlens":
+        each build string column's longest live string}``. It costs at
+        most one readback a build."""
+        verify = ctx.conf.get(JOIN_VERIFY_UNIQUE_HINT)
         live_r = rbatch.live_mask()
-        rkey = self.right_keys[0].eval_gpu(rbatch, ctx.eval_ctx)
-        if not self.build_unique_hint:
-            max_dup = int(unique_build_analysis([rkey], live_r)[0])
-            if max_dup > 1:
-                raise _staged(f"a build side with duplicated join keys "
-                              f"(up to {max_dup} rows a key) on "
-                              f"{self.node_label()}")
-        rk_sorted, perm, n_elig, dup = unique_build_probe(rkey, live_r)
-        if self.build_unique_hint and ctx.conf.get(JOIN_VERIFY_UNIQUE_HINT):
+        rkeys = [k.eval_gpu(rbatch, ctx.eval_ctx) for k in self.right_keys]
+        maxlens: List[int] = []
+        if self.analyses_build():
+            facts = unique_build_analysis(
+                rkeys, live_r, [] if self.semi else rbatch.columns).tolist()
+            max_dup, maxlens = facts[0], facts[1:]
+            if max_dup > 1 and (verify or not self.build_unique_hint):
+                if self.build_unique_hint:
+                    warnings.warn(
+                        f"build_unique hint is FALSE on {self.node_label()}"
+                        f" (max key duplication {max_dup}); reverting to "
+                        "the staged join path", RuntimeWarning)
+                return None
+        probe, dup = None, None
+        if len(rkeys) == 1 and not rkeys[0].is_string_like:
+            rk_sorted, perm, n_elig, dup = unique_build_probe(rkeys[0],
+                                                              live_r)
+            probe = (rk_sorted, perm, n_elig)
+        if self.build_unique_hint and verify and not self.analyses_build():
+            if dup is None:
+                dup = build_dup_flag(rkeys, live_r)
             ctx.add_deferred_check(
                 dup,
                 f"build_unique hint violated on {self.node_label()}: the "
@@ -193,34 +293,58 @@ class _BaseJoinExec(GpuExec):
                 "dropped matches. Remove build_unique=True or set "
                 "spark.rapids.sql.join.verifyUniqueHint=false to accept "
                 "the hint unchecked.")
-        return rk_sorted, perm, n_elig
+        return {"probe": probe, "maxlens": maxlens}
 
-    def _join_batch(self, lbatch: GpuBatch, rbatch: GpuBatch, probe,
-                    maxlens, ectx) -> GpuBatch:
-        """One stream batch: output capacity = stream capacity, the
-        emitted rows marked by the selection."""
+    def _fast_char_caps(self, lbatch: GpuBatch, rbatch: GpuBatch,
+                        info) -> Optional[List[int]]:
+        """The gathered build columns' chars, or None when a string
+        column would pass ``_FAST_MAX_CHAR_CAP`` (the batch goes staged).
+        """
+        caps, it = [], iter(info["maxlens"])
+        for c in rbatch.columns:
+            if not c.is_string_like:
+                caps.append(0)
+                continue
+            need = lbatch.capacity * max(next(it), 1)
+            if need > _FAST_MAX_CHAR_CAP:
+                return None
+            caps.append(bucket_bytes(need))
+        return caps
+
+    def _fast_join_batch(self, lbatch: GpuBatch, rbatch: GpuBatch, info,
+                         ectx) -> Optional[GpuBatch]:
+        """One stream batch on the fast path: output capacity = stream
+        capacity, the emitted rows marked by the selection; None when its
+        chars fall outside the fast path."""
         jt = self.join_type
+        caps = [] if self.semi else self._fast_char_caps(lbatch, rbatch,
+                                                         info)
+        if caps is None:
+            return None
         live_l = lbatch.live_mask()
-        lkey = self.left_keys[0].eval_gpu(lbatch, ectx)
-        eligible_l = live_l if lkey.validity is None \
-            else live_l & lkey.validity
-        ridx, matched = probe_unique(lkey, eligible_l, *probe)
+        lkeys = [k.eval_gpu(lbatch, ectx) for k in self.left_keys]
+        eligible_l = live_l
+        for k in lkeys:
+            if k.validity is not None:
+                eligible_l = eligible_l & k.validity
+        if info["probe"] is not None:
+            ridx, matched = probe_unique(lkeys[0], eligible_l,
+                                         *info["probe"])
+        else:
+            live_r = rbatch.live_mask()
+            rkeys = [k.eval_gpu(rbatch, ectx) for k in self.right_keys]
+            eligible_r = live_r
+            for k in rkeys:
+                if k.validity is not None:
+                    eligible_r = eligible_r & k.validity
+            ridx, matched = unique_union_lookup(
+                lkeys, rkeys, live_l, live_r, eligible_l, eligible_r)
         if jt == "left_semi":
             return GpuBatch(lbatch.columns, self._schema, lbatch.row_count,
                             selection=_and_sel(lbatch, matched))
         if jt == "left_anti":
             return GpuBatch(lbatch.columns, self._schema, lbatch.row_count,
                             selection=_and_sel(lbatch, live_l & ~matched))
-        caps = [bucket_bytes(lbatch.capacity * max(m, 1))
-                if c.is_string_like else 0
-                for c, m in zip(rbatch.columns, maxlens)]
-        if max(caps, default=0) > MAX_STRING_CHARS:
-            raise NotImplementedError(
-                f"{self.node_label()} would gather {max(caps)} chars of a "
-                f"string column into one batch of {lbatch.capacity} rows, "
-                f"past the int32 offsets' {MAX_STRING_CHARS}; splitting "
-                "the stream batch waits for the memory manager (ROADMAP "
-                "item 14)")
         out_cols = list(lbatch.columns) \
             + gather_columns(rbatch.columns, ridx, matched, caps)
         if jt == "inner":
@@ -245,13 +369,17 @@ class _BaseJoinExec(GpuExec):
         if rbatch is None:
             op_time.value += time.perf_counter() - t0
             return
-        probe = self._probe_build(rbatch, ctx)
-        maxlens = self._string_maxlens(rbatch)
+        fast = self._fast_build_info(rbatch, ctx)
+        ctx.metric(self, "uniqueBuild").set(int(fast is not None))
         op_time.value += time.perf_counter() - t0
         for lbatch in self.left.execute(ctx):
             t0 = time.perf_counter()
-            out = self._join_batch(lbatch, rbatch, probe, maxlens,
-                                   ctx.eval_ctx)
+            out = None
+            if fast is not None:
+                out = self._fast_join_batch(lbatch, rbatch, fast,
+                                            ctx.eval_ctx)
+            if out is None:
+                out = self._join_batch(lbatch, rbatch, ctx)
             op_time.value += time.perf_counter() - t0
             yield out
 

@@ -1,5 +1,5 @@
-"""Aggregate functions: ``Sum``, ``Count``, ``Min``, ``Max`` and
-``Average``.
+"""Aggregate functions: ``Sum``, ``Count``, ``Min``, ``Max``,
+``Average`` and ``ApproxPercentile``.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py:41-440``: the
 update -> merge -> evaluate contract, in two forms.
@@ -20,24 +20,33 @@ integer lane (floats through the total-order bit map, so NaN is the
 largest value and -0.0 reads 0.0) with ``ops/segments`` min/max, and are
 null for a group without a non-null value. Average (``:349``) keeps a
 float64 sum and an int64 count; the final is ``sum / count``, null at
-count 0. First/Last, the variances, ApproxPercentile, the collects, Min
-and Max over strings, and the decimal forms (Sum's overflow to null,
-Average's scale + 4) wait for ROADMAP items 8 and 2.
+count 0. ApproxPercentile (``:683-900``) has the reference's two
+strategies: the exact rank over the aggregate's single pass
+(``exec/aggregate.py``), and a mergeable K-point sketch that rides the
+partial and final phases (``update_device``, ``merge_device``,
+``evaluate_device``). First/Last, the variances, the collects, a list of
+percentiles (an array result), Min and Max over strings, and the decimal
+forms (Sum's overflow to null, Average's scale + 4) wait for ROADMAP
+items 8 and 2.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import datatypes as dt
-from ..columnar.column import GpuColumnVector
+from ..columnar.batch import row_mask
+from ..columnar.column import GpuColumnVector, is_string_like
 from ..ops.segments import seg_reduce_sorted
-from ..ops.sort_keys import orderable_int
+from ..ops.sort_keys import (key_lane_bits, orderable_int, pack_words,
+                             sort_packed)
 from .base import Expression
 
 __all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max", "Average",
-           "GLOBAL_LANES"]
+           "ApproxPercentile", "GLOBAL_LANES", "group_value_order",
+           "value_sorted_groups", "spark_rank0", "GROUP_VALUE_BITS"]
 
 GLOBAL_LANES = 128
 
@@ -368,3 +377,248 @@ class Average(AggregateFunction):
 
     def evaluate_device(self, bufs):
         return self.evaluate(bufs)
+
+
+# bits of group_value_order's sort key ahead of the value lane: the
+# dropped bit and the 32-bit group id
+GROUP_VALUE_BITS = 1 + 32
+
+
+def group_value_order(lane: torch.Tensor, width: int, keep: torch.Tensor,
+                      seg: torch.Tensor) -> torch.Tensor:
+    """The permutation that orders rows by ``(dropped, group, value)``,
+    stably (K3 words, ``sort_keys.sort_packed``): the kept rows come
+    first, by group and then by the value's unsigned ``width``-bit lane
+    (the reference's sort of ``(drop, seg, lane, idx)``)."""
+    return sort_packed(pack_words([
+        ((~keep).to(torch.int64), 1), (seg.to(torch.int64), 32),
+        (lane, width)]))[1].long()
+
+
+def value_sorted_groups(col: GpuColumnVector, seg: torch.Tensor,
+                        live: torch.Tensor, out_cap: int) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(perm, lo, n)``: the rows ordered by ``(dropped, group, value)``
+    (``group_value_order``: the live non-null rows first, by group, then
+    by value), and each of ``out_cap`` groups' first position and count
+    of values in that order (the reference's ``_value_sorted_groups``,
+    ``exec/aggregate.py:276``; its kept rows are a prefix of the order,
+    so no compaction is needed)."""
+    valid = _masked(col, live)
+    lane, width = key_lane_bits(col)
+    lane = torch.where(valid, lane, torch.zeros_like(lane))
+    perm = group_value_order(lane, width, valid, seg)
+    pos = torch.arange(live.shape[0], device=live.device)
+    kseg = torch.where(pos < valid.sum(), seg[perm].to(torch.int64),
+                       torch.full((), out_cap, dtype=torch.int64,
+                                  device=live.device))
+    g = torch.arange(out_cap, dtype=torch.int64, device=live.device)
+    lo = torch.searchsorted(kseg, g, right=False)
+    return perm, lo, torch.searchsorted(kseg, g, right=True) - lo
+
+
+def spark_rank0(p: float, n: torch.Tensor) -> torch.Tensor:
+    """Spark's 0-based percentile rank, ``ceil(p * n) - 1`` clamped to
+    ``[0, n - 1]``, in float64 (a float32 product picks another row for
+    large n); ``ApproxPercentile.rank0`` on the device."""
+    r = torch.ceil(p * n.to(torch.float64)).to(torch.int64) - 1
+    return torch.minimum(r.clamp(min=0), (n.to(torch.int64) - 1)
+                         .clamp(min=0))
+
+
+class ApproxPercentile(AggregateFunction):
+    """approx_percentile(col, percentage[, accuracy]) of a number, date or
+    timestamp: the value at Spark's rank ``ceil(p * n)`` among a group's
+    non-null values.
+
+    - The exact strategy (``spark.rapids.sql.approxPercentile.exact``,
+      the default): the aggregate's single pass orders each group's
+      values and gathers the rank (``exec/aggregate.py``
+      ``_percentile_column``), rank error 0.
+    - The mergeable sketch (that conf false): a group's buffer is K
+      values at evenly spaced ranks (endpoints included, actual data
+      values) and its count; a merge weights each member's K points by
+      its count and re-extracts K ranks; the result is the point nearest
+      the rank. It rides the partial and final phases like any
+      fixed-width aggregate, with a rank error of about 1/K a merge
+      level.
+
+    A list of percentages returns an array, which the port's columns do
+    not hold yet: it raises naming ROADMAP item 2."""
+
+    # the compound key (group, mass) of the sketch's merge: a group's
+    # stride
+    _MASS_SCALE = 1 << 42
+
+    def __init__(self, child: Expression, percentage,
+                 accuracy: int = 10000):
+        self.children = (child,)
+        self.is_list = isinstance(percentage, (list, tuple))
+        ps = list(percentage) if self.is_list else [percentage]
+        for p in ps:
+            if not 0.0 <= float(p) <= 1.0:
+                raise ValueError(f"percentage {p} not in [0, 1]")
+        self.percentages = tuple(float(p) for p in ps)
+        self.accuracy = accuracy
+        # the sketch's width: sqrt(accuracy), 64 at Spark's default
+        self.K = int(min(64, max(16, round(accuracy ** 0.5))))
+
+    def validate(self):
+        t = self.children[0].dtype
+        if self.is_list:
+            raise NotImplementedError(
+                "approx_percentile with a list of percentages returns an "
+                "array, which the port's columns do not hold yet (ROADMAP "
+                "item 2)")
+        if is_string_like(t) or isinstance(t, (dt.BooleanType,
+                                               dt.NullType)):
+            raise NotImplementedError(
+                f"approx_percentile over {t.simple_string()} is not on the "
+                "device (the reference runs it on the host: the CPU "
+                "fallback, ROADMAP item 12)")
+        _check_numeric("approx_percentile", t)
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    @property
+    def buffer_fields(self):
+        t = self.children[0].dtype
+        return [dt.StructField(f"q{k}", t, True) for k in range(self.K)] \
+            + [dt.StructField("cnt", dt.INT64, True)]
+
+    @staticmethod
+    def rank0(p: float, n: int) -> int:
+        """0-based rank of percentile p among n ordered values (Spark's
+        ceil(p * n), 1-based, clamped), the one definition the device
+        and the host oracle share."""
+        return min(max(int(math.ceil(p * n)) - 1, 0), n - 1)
+
+    def cpu_agg(self, values):
+        """The percentile of Python values (None skipped; NaN largest,
+        -0.0 equal to 0.0): the tests' oracle."""
+        vals = [v for v in values if v is not None]
+
+        def key(v):
+            if isinstance(v, float):
+                return (1, 0.0) if math.isnan(v) else (0, v + 0.0)
+            return (0, v)
+        vals.sort(key=key)
+        if not vals:
+            return None
+        return vals[self.rank0(self.percentages[0], len(vals))]
+
+    # --- the mergeable sketch ---------------------------------------------
+
+    def _sketch_update(self, col: GpuColumnVector, seg: torch.Tensor,
+                       live: torch.Tensor, out_cap: int,
+                       out_live: torch.Tensor) -> List[GpuColumnVector]:
+        """K points at evenly spaced ranks of each group's sorted
+        non-null values, and the group's count (``:745``)."""
+        cap = live.shape[0]
+        perm, lo, n_g = value_sorted_groups(col, seg, live, out_cap)
+        qvalid = out_live & (n_g > 0)
+        out = []
+        for k in range(self.K):
+            r = ((n_g - 1) * k) // (self.K - 1)
+            pos = (lo + r).clamp(0, cap - 1)
+            out.append(GpuColumnVector(self.dtype, col.data[perm[pos]],
+                                       qvalid))
+        out.append(GpuColumnVector(dt.INT64, n_g, out_live))
+        return out
+
+    def _sketch_merge(self, bufs: List[GpuColumnVector], seg: torch.Tensor,
+                      live: torch.Tensor, out_cap: int,
+                      out_live: torch.Tensor) -> List[GpuColumnVector]:
+        """Each member's K points weighted by its count, sorted by group
+        and value, and K points re-extracted at evenly spaced mass ranks
+        (``:771``)."""
+        K = self.K
+        qcols, cnt = bufs[:K], bufs[K]
+        rows = live.shape[0]
+        dev = live.device
+        live_row = _masked(cnt, live) & (cnt.data > 0)
+        lanes = [key_lane_bits(q) for q in qcols]
+        width = lanes[0][1]
+        vlane = torch.stack([v for v, _ in lanes], 1).reshape(-1)
+        vorig = torch.stack([q.data for q in qcols], 1).reshape(-1)
+        seg_pt = seg.repeat_interleave(K)
+        keep = live_row.repeat_interleave(K)
+        w_pt = torch.where(live_row, cnt.data,
+                           torch.zeros_like(cnt.data)).repeat_interleave(K)
+        perm = group_value_order(vlane, width, keep, seg_pt)
+        kept = keep[perm]
+        sseg = seg_pt[perm].to(torch.int64).clamp(0, out_cap - 1)
+        sw = torch.where(kept, w_pt[perm], torch.zeros_like(w_pt))
+        # a group's mass: a scatter-add (the dropped points, sorted last
+        # by their own group ids, carry no weight)
+        totals = torch.zeros(out_cap, dtype=torch.int64, device=dev) \
+            .index_add_(0, sseg, sw)
+        starts_mass = torch.cumsum(totals, 0) - totals
+        cum_within = torch.cumsum(sw, 0) - starts_mass[sseg]
+        scale = self._MASS_SCALE
+        imax = (1 << 63) - 1
+        if out_cap * scale > imax:
+            # the largest power-of-two stride whose keys fit int64;
+            # masses clip at scale - 1 (the reference's clamp)
+            scale = 1 << max(1, (imax // out_cap).bit_length() - 1)
+        compound = torch.where(
+            kept, sseg * scale + cum_within.clamp(0, scale - 1),
+            torch.full((), imax, dtype=torch.int64, device=dev))
+        g = torch.arange(out_cap, dtype=torch.int64, device=dev)
+        qvalid = out_live & (totals > 0)
+        total_c = totals.clamp(min=1)
+        out = []
+        for k in range(K):
+            # the mass rank of fraction k / (K - 1), 1-based, kept inside
+            # the stride
+            tgt = (1 + ((total_c - 1) * k) // (K - 1)).clamp(1, scale - 1)
+            pos = torch.searchsorted(compound, g * scale + tgt,
+                                     right=False).clamp(0, rows * K - 1)
+            out.append(GpuColumnVector(self.dtype, vorig[perm[pos]],
+                                       qvalid))
+        # each member's K points weigh its full count, so the mass is K
+        # times the rows: the count lane stays a count
+        out.append(GpuColumnVector(dt.INT64, totals // K, out_live))
+        return out
+
+    def update_device(self, vals, seg, sorted_live, out_live):
+        return self._sketch_update(vals[0], seg, sorted_live,
+                                   seg.shape[0], out_live)
+
+    def merge_device(self, bufs, seg, sorted_live, out_live):
+        return self._sketch_merge(bufs, seg, sorted_live, seg.shape[0],
+                                  out_live)
+
+    def _one_group(self, live: torch.Tensor):
+        seg = torch.zeros(live.shape[0], dtype=torch.int32,
+                          device=live.device)
+        return seg, row_mask(GLOBAL_LANES, 1, live.device)
+
+    def update(self, vals, live):
+        seg, out_live = self._one_group(live)
+        return self._sketch_update(vals[0], seg, live, GLOBAL_LANES,
+                                   out_live)
+
+    def merge(self, bufs, live):
+        seg, out_live = self._one_group(live)
+        return self._sketch_merge(bufs, seg, live, GLOBAL_LANES, out_live)
+
+    def evaluate_device(self, bufs):
+        """The sketch point nearest Spark's rank: the smallest point
+        index whose summary rank ``floor((n - 1) k / (K - 1))`` reaches
+        it, in exact integer arithmetic (``:847``)."""
+        K = self.K
+        qcols, cnt = bufs[:K], bufs[K]
+        n = cnt.data
+        has = cnt.valid_mask() & (n > 0)
+        r = spark_rank0(self.percentages[0], n)
+        den = (n - 1).clamp(min=1)
+        k = ((r * (K - 1) + den - 1) // den).clamp(0, K - 1)
+        qmat = torch.stack([q.data for q in qcols], 1)
+        return GpuColumnVector(self.dtype, qmat.gather(1, k[:, None])[:, 0],
+                               has)
+
+    def evaluate(self, bufs):
+        return self.evaluate_device(bufs)

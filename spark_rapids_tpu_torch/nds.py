@@ -4,10 +4,10 @@ The port's copy of ``spark_rapids_tpu/tools/nds.py``'s ``gen_tables``
 (``:27``), ``register_frames`` (``:91``), ``build_query_sql`` and
 ``SQL_QUERIES`` (``:867``, every text, as data), plus ``write_tables``,
 the writer ``bench_nds_from_files`` uses (``bench.py:266-278``: snappy,
-row groups of 2^19), and an oracle in numpy and pyarrow for the 19
-queries the port runs from SQL (``PORTED_QUERIES``; the reference's
-oracle, ``tools/nds.py``'s ``*_pd`` functions, uses pandas, which the
-card's machine does not have).
+row groups of 2^19), and an oracle in numpy and pyarrow for the 22
+queries, all of which the port runs from SQL (``PORTED_QUERIES``; the
+reference's oracle, ``tools/nds.py``'s ``*_pd`` functions, uses pandas,
+which the card's machine does not have).
 
     from spark_rapids_tpu_torch import nds
     paths = nds.write_tables(nds.gen_tables(1 << 14), "nds_files")
@@ -18,7 +18,9 @@ card's machine does not have).
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import zlib
 from typing import Dict, List
 
@@ -404,16 +406,18 @@ ORDER BY d_year
 
 # --- oracle ------------------------------------------------------------------
 
-# the queries the port runs from SQL, and the ROADMAP item each of the
-# others waits for
+# the queries the port runs from SQL (all of them), and the ROADMAP item
+# each of the others waits for (none)
 PORTED_QUERIES = ("q3", "q42", "q52", "q55", "q96", "q_topn", "q7",
                   "q_pivot", "q_customer_age", "q_price_band", "q_cte",
                   "q_having", "q_in_between", "q_agg_expr", "q_not_or",
-                  "q_rank", "q_rownum", "q_rolling", "q_union")
-UNPORTED_QUERIES = {"q_percentile": 8, "q97": 9, "q_like": 13}
+                  "q_rank", "q_rownum", "q_rolling", "q_union",
+                  "q_percentile", "q97", "q_like")
+UNPORTED_QUERIES: Dict[str, int] = {}
 
 # the output columns holding float sums and averages (compared at a
-# relative tolerance; every other column exactly)
+# relative tolerance; every other column exactly: q_percentile's p50 is
+# one of the data's own values)
 FLOAT_COLUMNS = {"q3": ("sum_agg",), "q42": ("s",), "q52": ("ext_price",),
                  "q55": ("rev",), "q96": (), "q_topn": ("profit",),
                  "q7": ("avg_q", "avg_p"), "q_pivot": ("1", "2", "3", "4"),
@@ -421,7 +425,8 @@ FLOAT_COLUMNS = {"q3": ("sum_agg",), "q42": ("s",), "q52": ("ext_price",),
                  "q_cte": ("rev", "prev_rev"), "q_having": ("rev",),
                  "q_in_between": ("rev",), "q_agg_expr": ("bulk_share",),
                  "q_not_or": (), "q_rank": ("rev",), "q_rownum": ("rev",),
-                 "q_rolling": ("rev", "avg7"), "q_union": ("profit",)}
+                 "q_rolling": ("rev", "avg7"), "q_union": ("profit",),
+                 "q_percentile": (), "q97": (), "q_like": ("profit",)}
 
 
 def _np(table: pa.Table, name: str) -> np.ndarray:
@@ -804,6 +809,57 @@ def _q_union(tables):
                      "profit": pa.array(profit, pa.float64())})
 
 
+def _q97(tables):
+    """store_sales rows of the first half-year whose customer also bought
+    in the second (the LEFT SEMI JOIN over duplicated keys)."""
+    moy = _np(tables["date_dim"], "d_moy")
+    drow = _dim(tables, "date_dim", "d_date_sk",
+                _ss(tables, "ss_sold_date_sk"))
+    cust = _ss(tables, "ss_customer_sk")
+    hit = drow >= 0
+    first = hit & (moy[np.where(hit, drow, 0)] <= 6)
+    second = hit & (moy[np.where(hit, drow, 0)] > 6)
+    n = int(np.isin(cust[first], np.unique(cust[second])).sum())
+    return pa.table({"n_pairs": pa.array([n], pa.int64())})
+
+
+def _q_like(tables):
+    """Profit by state over items whose category matches LIKE
+    '%o%s%' (Python's ``re``, wildcards across newlines)."""
+    like = re.compile("(?s).*o.*s.*")
+    it = tables["item"]
+    keep = np.array([v is not None and like.fullmatch(v) is not None
+                     for v in it.column("i_category").to_pylist()])
+    irow = _dim(tables, "item", "i_item_sk", _ss(tables, "ss_item_sk"),
+                lambda t: keep)
+    srow = _dim(tables, "store", "s_store_sk", _ss(tables, "ss_store_sk"))
+    ok = (irow >= 0) & (srow >= 0)
+    states = np.asarray(tables["store"].column("s_state").to_pylist(),
+                        dtype=object)
+    (st,), inv = _groups([states[srow[ok]]])
+    profit = _sums(inv, _ss(tables, "ss_net_profit")[ok], len(st))
+    return pa.table({"s_state": pa.array(st.tolist(), pa.string()),
+                     "profit": pa.array(profit)})
+
+
+def _q_percentile(tables):
+    """Each state's median sale price at Spark's rank ``ceil(0.5 n)``
+    (1-based) of its sorted prices."""
+    srow = _dim(tables, "store", "s_store_sk", _ss(tables, "ss_store_sk"))
+    ok = srow >= 0
+    states = np.asarray(tables["store"].column("s_state").to_pylist(),
+                        dtype=object)
+    (st,), inv = _groups([states[srow[ok]]])
+    price = _ss(tables, "ss_sales_price")[ok]
+    p50 = []
+    for g in range(len(st)):
+        v = np.sort(price[inv == g])
+        p50.append(v[min(max(math.ceil(0.5 * len(v)) - 1, 0),
+                         len(v) - 1)])
+    return pa.table({"s_state": pa.array(st.tolist(), pa.string()),
+                     "p50": pa.array(p50, pa.float64())})
+
+
 _ORACLES = {"q3": _q3, "q42": _q42, "q52": _q52, "q55": _q55, "q96": _q96,
             "q_topn": _q_topn, "q7": _q7, "q_pivot": _q_pivot,
             "q_customer_age": _q_customer_age,
@@ -811,7 +867,8 @@ _ORACLES = {"q3": _q3, "q42": _q42, "q52": _q52, "q55": _q55, "q96": _q96,
             "q_having": _q_having, "q_in_between": _q_in_between,
             "q_agg_expr": _q_agg_expr, "q_not_or": _q_not_or,
             "q_rank": _q_rank, "q_rownum": _q_rownum,
-            "q_rolling": _q_rolling, "q_union": _q_union}
+            "q_rolling": _q_rolling, "q_union": _q_union,
+            "q97": _q97, "q_like": _q_like, "q_percentile": _q_percentile}
 
 
 def oracle(name: str, tables: Dict[str, pa.Table]) -> pa.Table:

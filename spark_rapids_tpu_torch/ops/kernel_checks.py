@@ -107,7 +107,9 @@ __all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
            "window_words", "library_sort_pairs", "SORT_BYTES_PER_PAIR",
            "time_k4", "k5_layouts", "k5_shapes_file", "nds_layouts",
            "k5_tile_layouts",
-           "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2"]
+           "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2",
+           "k6_cases", "check_k6", "time_k6", "K6_LIKE", "K6_RLIKE",
+           "K6_TEXT_ROWS"]
 
 ENGINE_RTOL = 1e-9
 CONTRACT_RTOL = 1e-3
@@ -1841,3 +1843,153 @@ def time_k2(device, reps: int = 100) -> Dict[str, float]:
     return {"ms": ms, "plain_ms": plain_ms,
             "bytes": c.bytes_read() + out_bytes, "rows": c.k1.row_count,
             "ops": c.k1.row_count * (len(c.k1.spec.leaves) + 3)}
+
+
+# --- K6 ---------------------------------------------------------------------
+
+# the generated text's pieces and their weights out of 256: ASCII words,
+# digits, spaces and newlines, and 2-, 3- and 4-byte UTF-8 characters
+_K6_TOKENS = ([bytes([c]) for c in b"abcdefghijklmnopqrstuvwxyz"]
+              + [bytes([c]) for c in b"0123456789"]
+              + [b" ", b"\n", "é".encode(), "日".encode(), "𝄞".encode()])
+_K6_WEIGHTS = [7] * 26 + [2] * 10 + [32, 8, 8, 4, 2]  # sum 256
+K6_LIKE = "%ab%c_d%"          # 44 positions: % and _ are 10 each
+K6_RLIKE = "xy|b[aeiou]+z|\\d\\d\\s\\w"
+K6_TEXT_ROWS = 1 << 20
+_NDS_CATEGORIES = ["Electronics", "Home", "Sports", "Books", "Music",
+                   "Jewelry"]  # nds.gen_tables' i_category
+
+
+def _k6_text(rng, n: int, lo: int = 20, hi: int = 120):
+    """``n`` rows of generated UTF-8 text of ``lo`` to about ``hi``
+    bytes (cut at character ends): ``(offsets int64, chars uint8)``."""
+    table = np.repeat(np.arange(len(_K6_TOKENS)), _K6_WEIGHTS)
+    lens = np.array([len(t) for t in _K6_TOKENS])
+    pieces = np.zeros((len(_K6_TOKENS), 4), np.uint8)
+    for i, t in enumerate(_K6_TOKENS):
+        pieces[i, :len(t)] = list(t)
+    want = int(n * (lo + hi) / 2 * 1.05) + hi
+    ids = table[rng.integers(0, 256, want, dtype=np.uint8)]
+    tl = lens[ids]
+    chars = pieces[ids][np.arange(4)[None, :] < tl[:, None]]
+    ends = np.cumsum(tl)
+    targets = np.cumsum(rng.integers(lo, hi + 1, n))
+    cut = np.searchsorted(ends, targets[targets <= ends[-1]])
+    offsets = np.concatenate([[0], ends[cut]])
+    return offsets, chars[:offsets[-1]]
+
+
+def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
+        -> List[Dict]:
+    """K6's inputs: ``{"name", "starts", "lengths", "validity", "chars",
+    "pattern", "prog"}``. q_like's own shape (32,768 ``i_category``
+    strings under ``'%o%s%'``, 32 positions); ``text_rows`` rows of text
+    of 20-120 bytes with multi-byte characters and newlines, 5% null,
+    under the LIKE pattern ``K6_LIKE`` and the RLIKE alternation
+    ``K6_RLIKE``; and the edges: the empty string, a null row, rows
+    whose start lies inside an inherited chars buffer (overlapping,
+    out of order), an empty chars buffer, and patterns that match
+    always or only the empty string."""
+    from . import regex
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+    def case(name, starts, lengths, validity, chars, pattern, like):
+        rx = regex.like_to_regex(pattern) if like else pattern
+        return {"name": name, "starts": t(starts, np.int32),
+                "lengths": t(lengths, np.int32),
+                "validity": None if validity is None
+                else t(validity, np.bool_),
+                "chars": t(chars, np.uint8), "pattern": pattern,
+                "prog": regex.compile_pattern(rx)}
+
+    words = [w.encode() for w in rng.choice(_NDS_CATEGORIES, NDS_ITEM_ROWS)]
+    off = np.concatenate([[0], np.cumsum([len(w) for w in words])])
+    out = [case("q_like_item_32768", off[:-1], np.diff(off), None,
+                np.frombuffer(b"".join(words), np.uint8), "%o%s%", True)]
+    off, chars = _k6_text(rng, text_rows)
+    valid = rng.random(len(off) - 1) >= 0.05
+    out += [case(f"text_like_2^{text_rows.bit_length() - 1}", off[:-1],
+                 np.diff(off), valid, chars, K6_LIKE, True),
+            case(f"text_rlike_2^{text_rows.bit_length() - 1}", off[:-1],
+                 np.diff(off), valid, chars, K6_RLIKE, False)]
+    buf = np.frombuffer("xxos\nabcxxd zo sé日 ab c\nd".encode(), np.uint8)
+    m = len(buf)
+    starts = [0, 2, 5, 3, 0, m, 9, 1, 12, 4]
+    lengths = [0, 5, 9, 4, m, 0, 8, 1, m - 12, 3]
+    valid = [True, True, True, False, True, True, True, True, True, True]
+    for pat, like in (("%o%s%", True), (K6_LIKE, True), ("%", True),
+                      ("_", True), ("^$", False), ("a*", False),
+                      ("s$", False)):
+        out.append(case(f"edges_{pat!r}", starts, lengths, valid, buf,
+                        pat, like))
+    out.append(case("edges_no_chars", [0, 0, 0], [0, 0, 0],
+                    [True, False, True], np.zeros(0, np.uint8), "^$",
+                    False))
+    return out
+
+
+def check_k6(device, cases: Optional[List[Dict]] = None) -> List[Dict]:
+    """K6 against its plain version on every ``k6_cases`` input (or
+    ``cases``), bit for bit, and q_like's case against Python's ``re``;
+    raises on the first disagreement."""
+    import re
+    from . import regex
+    out = []
+    for c in cases if cases is not None else k6_cases(device):
+        args = (c["starts"], c["lengths"], c["validity"], c["chars"],
+                c["prog"])
+        got, want = regex.regex_match(*args), regex.regex_match_torch(*args)
+        rec = {"case": c["name"], "n": c["starts"].shape[0],
+               "positions": c["prog"].n_states,
+               "matches": int(want.sum()), "equal": _same_bits(got, want),
+               "max_abs_err": _max_abs_diff([(got.to(torch.int64),
+                                              want.to(torch.int64))])}
+        if c["name"].startswith("q_like"):
+            host = bytes(c["chars"].cpu().numpy())
+            rx = re.compile(b"(?s).*o.*s.*")
+            s, n = c["starts"].cpu().numpy(), c["lengths"].cpu().numpy()
+            py = torch.tensor([rx.fullmatch(host[a:a + b]) is not None
+                               for a, b in zip(s, n)])
+            rec["equal_re"] = bool(torch.equal(got.cpu(), py))
+            rec["equal"] &= rec["equal_re"]
+        if not rec["equal"]:
+            raise AssertionError(f"K6 disagrees: {rec}")
+        out.append(rec)
+    return out
+
+
+def time_k6(device, cases: Optional[List[Dict]] = None,
+            reps: int = 20) -> Dict[str, Dict[str, float]]:
+    """Device ms of K6 and its plain version at q_like's shape and on the
+    text cases, over copies of the inputs larger than L2, in turns
+    (plain, kernel, kernel, plain), with the bytes the kernel must move:
+    each row's chars up to where it stops (``regex.regex_bytes_read``),
+    its 4 B start and 4 B length, its validity byte where there is one,
+    its 1 B result, and the tables (2,600 B)."""
+    from . import regex
+    out = {}
+    for c in cases if cases is not None else k6_cases(device):
+        if c["name"].startswith("edges"):
+            continue
+        n = c["starts"].shape[0]
+        args = (c["starts"], c["lengths"], c["validity"], c["chars"])
+        chars = regex.regex_bytes_read(*args, c["prog"])
+        nbytes = chars + n * (9 + (c["validity"] is not None)) \
+            + 8 * (256 + 64 + 5)
+
+        def fresh():
+            return tuple(None if a is None else a.clone() for a in args)
+        copies = _cycle(fresh, _copies_for(nbytes))
+        ms, plain_ms = _turns(
+            lambda a: regex.regex_match_torch(*a, c["prog"]),
+            lambda a: regex.regex_match(*a, c["prog"]), copies, reps, 2)
+        out[c["name"]] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None, "bytes": nbytes, "rows": n,
+                          "chars_read": chars,
+                          "positions": c["prog"].n_states,
+                          "pattern": c["pattern"]}
+    return out

@@ -1,0 +1,550 @@
+"""Regular expressions on the device: the host compiler and K6.
+
+Counterpart of ``spark_rapids_tpu/ops/regex.py:1-452``. The host half is
+the reference's, copied (pure Python and numpy): the restricted dialect
+(literals, escapes ``\\d \\w \\s`` and their negations, character
+classes with ranges and negation, ``.``, the anchors ``^`` and ``$``,
+the quantifiers ``* + ?`` on single atoms, top-level alternation),
+compiled into a Glushkov position automaton of at most ``_MAX_STATES``
+positions (``compile_pattern``, ``:269``), and ``like_to_regex``
+(``:347``), which turns a SQL LIKE pattern into a fully anchored pattern
+of that dialect (``%`` and ``_`` become ``[\\s\\S]``, which matches
+any whole UTF-8 character, newlines included). A pattern outside the
+dialect raises ``RegexUnsupported``.
+
+The matcher (the reference's ``regex_match_device``, ``:378``, a
+``jax.lax.while_loop`` over byte positions with an ``(n, S) @ (S, S)``
+step) is **K6**, ``csrc/regex_match.cu``: one thread a row, the active
+position set one ``uint64``, the byte classes (``acc``, 256 words) and
+the follow relation (``follow``, 64 words) in shared memory, each row
+read once through its start offset and length, and a row stops as soon
+as it has matched or no position can fire again. ``regex_match`` is its
+wrapper; ``regex_match_torch``, the reference's loop in torch (one
+``.item()`` of the longest live string, then one step a byte position),
+is its plain version, which only a CPU tensor takes. The caller masks
+validity: a null row steps as an empty one.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["RegexUnsupported", "RegexProgram", "compile_pattern",
+           "like_to_regex", "regex_match", "regex_match_torch",
+           "regex_bytes_read", "program_tables", "MAX_STATES"]
+
+_MAX_STATES = 64
+
+
+class RegexUnsupported(Exception):
+    """Pattern outside the device dialect — caller falls back to host."""
+
+
+def _class_for_escape(ch: str) -> np.ndarray:
+    m = np.zeros(256, bool)
+    if ch == "d":
+        m[ord("0"):ord("9") + 1] = True
+    elif ch == "w":
+        m[ord("0"):ord("9") + 1] = True
+        m[ord("a"):ord("z") + 1] = True
+        m[ord("A"):ord("Z") + 1] = True
+        m[ord("_")] = True
+    elif ch == "s":
+        for c in " \t\n\r\f\v":
+            m[ord(c)] = True
+    elif ch in "DWS":
+        m = ~_class_for_escape(ch.lower())
+    elif ch == "n":
+        m[ord("\n")] = True
+    elif ch == "t":
+        m[ord("\t")] = True
+    elif ch == "r":
+        m[ord("\r")] = True
+    elif ch in ".^$*+?()[]{}|\\/-":
+        m[ord(ch)] = True
+    else:
+        raise RegexUnsupported(f"escape \\{ch} not in device dialect")
+    return m
+
+
+def _parse_class(p: str, i: int) -> Tuple[np.ndarray, int]:
+    """[...] starting at p[i] == '['; returns (256-bool mask, next i)."""
+    i += 1
+    neg = i < len(p) and p[i] == "^"
+    if neg:
+        i += 1
+    m = np.zeros(256, bool)
+    first = True
+    while i < len(p) and (p[i] != "]" or first):
+        first = False
+        if p[i] == "\\":
+            if i + 1 >= len(p):
+                raise RegexUnsupported("dangling escape in class")
+            sub = _class_for_escape(p[i + 1])
+            m |= sub
+            i += 2
+            continue
+        lo = p[i]
+        if i + 2 < len(p) and p[i + 1] == "-" and p[i + 2] != "]":
+            hi = p[i + 2]
+            if ord(lo) > ord(hi):
+                raise RegexUnsupported(f"bad range {lo}-{hi}")
+            m[ord(lo):ord(hi) + 1] = True
+            i += 3
+        else:
+            m[ord(lo)] = True
+            i += 1
+    if i >= len(p):
+        raise RegexUnsupported("unterminated character class")
+    i += 1  # skip ]
+    return (~m if neg else m), i
+
+
+def _parse_branch(branch: str):
+    """-> (anchored_start, anchored_end, [(class, quant)]).
+    quant in '1?*+'."""
+    i = 0
+    anchored_start = branch.startswith("^")
+    if anchored_start:
+        i = 1
+    anchored_end = branch.endswith("$") and not branch.endswith("\\$")
+    end = len(branch) - 1 if anchored_end else len(branch)
+    atoms: List[Tuple[np.ndarray, str]] = []
+    while i < end:
+        c = branch[i]
+        if c in "(){":
+            raise RegexUnsupported(f"'{c}' (groups/bounded repeats) not "
+                                   "in device dialect")
+        if c in "^$":
+            raise RegexUnsupported("mid-pattern anchor")
+        if c == "[":
+            m, i = _parse_class(branch, i)
+        elif c == "\\":
+            if i + 1 >= end:
+                raise RegexUnsupported("dangling escape")
+            m = _class_for_escape(branch[i + 1])
+            i += 2
+        elif c == ".":
+            m = np.ones(256, bool)
+            m[ord("\n")] = False  # Java default: . excludes newline
+            i += 1
+        elif c in "*+?":
+            raise RegexUnsupported("quantifier without atom")
+        else:
+            if ord(c) > 127:
+                raise RegexUnsupported("non-ASCII pattern byte")
+            m = np.zeros(256, bool)
+            m[ord(c)] = True
+            i += 1
+        quant = "1"
+        if i < end and branch[i] in "*+?":
+            quant = branch[i]
+            i += 1
+            if i < end and branch[i] in "*+?":
+                raise RegexUnsupported("stacked quantifiers")
+        atoms.append((m, quant))
+    return anchored_start, anchored_end, atoms
+
+
+class RegexProgram:
+    """Compiled position-automaton tables (numpy, embedded as constants
+    into the device program)."""
+
+    __slots__ = ("acc", "follow", "first_anchored", "first_floating",
+                 "accept_any", "accept_end", "always_match",
+                 "empty_only_match", "n_states", "min_len",
+                 "device_tables")
+
+    def __init__(self):
+        self.n_states = 0
+        self.acc = np.zeros((256, 0), bool)
+        self.follow = np.zeros((0, 0), bool)
+        self.first_anchored = np.zeros(0, bool)
+        self.first_floating = np.zeros(0, bool)
+        self.accept_any = np.zeros(0, bool)
+        self.accept_end = np.zeros(0, bool)
+        self.always_match = False     # matches every (non-null) string
+        self.empty_only_match = False  # ^$-style: matches len==0 rows
+        self.min_len = 1  # minimal match width in bytes (replace sizing)
+        # K6's tables (program_tables) on each device, copied at the
+        # program's first launch there
+        self.device_tables = {}
+
+
+def _split_alternation(p: str) -> List[str]:
+    out, cur, i = [], [], 0
+    depth = 0
+    while i < len(p):
+        c = p[i]
+        if c == "\\":
+            cur.append(p[i:i + 2])
+            i += 2
+            continue
+        if c == "[":
+            j = i + 1
+            if j < len(p) and p[j] == "^":
+                j += 1
+            if j < len(p) and p[j] == "]":
+                j += 1
+            while j < len(p) and p[j] != "]":
+                j += 2 if p[j] == "\\" else 1
+            cur.append(p[i:j + 1])
+            i = j + 1
+            continue
+        if c == "|" and depth == 0:
+            out.append("".join(cur))
+            cur = []
+            i += 1
+            continue
+        cur.append(c)
+        i += 1
+    out.append("".join(cur))
+    return out
+
+
+class _Fragment:
+    """One atom's position-automaton fragment. ASCII-only atoms are a
+    single position; atoms that can match non-ASCII characters expand
+    into a UTF-8 character automaton (one position per byte of each
+    encoding length), so device matching is per CHARACTER, not per byte
+    (ADVICE r4 medium)."""
+
+    __slots__ = ("masks", "first", "last", "follow")
+
+    def __init__(self, masks, first, last, follow):
+        self.masks = masks      # List[np.ndarray(256, bool)] per position
+        self.first = first      # local position indices legal at start
+        self.last = last        # local position indices completing it
+        self.follow = follow    # local (i, j) internal byte transitions
+
+
+_CONT = np.zeros(256, bool)
+_CONT[0x80:0xC0] = True
+_LEAD2 = np.zeros(256, bool)
+_LEAD2[0xC2:0xE0] = True
+_LEAD3 = np.zeros(256, bool)
+_LEAD3[0xE0:0xF0] = True
+_LEAD4 = np.zeros(256, bool)
+_LEAD4[0xF0:0xF5] = True
+
+
+def _atom_fragment(m: np.ndarray) -> _Fragment:
+    """Class mask -> fragment. A mask with any char >= 0x80 means the
+    atom matches non-ASCII CHARACTERS (an ASCII pattern can only say
+    "all of them" — via `.`, negation, \\D \\W \\S or [\\s\\S]), so the
+    multi-byte branches join the automaton."""
+    if not m[128:].any():
+        return _Fragment([m], [0], [0], [])
+    ascii_m = m.copy()
+    ascii_m[128:] = False
+    masks, first, last, follow = [], [], [], []
+    if ascii_m.any():
+        masks.append(ascii_m)
+        first.append(0)
+        last.append(0)
+    b = len(masks)
+    masks += [_LEAD2, _CONT]                    # 2-byte sequence
+    first.append(b)
+    last.append(b + 1)
+    follow.append((b, b + 1))
+    b = len(masks)
+    masks += [_LEAD3, _CONT, _CONT]             # 3-byte sequence
+    first.append(b)
+    last.append(b + 2)
+    follow += [(b, b + 1), (b + 1, b + 2)]
+    b = len(masks)
+    masks += [_LEAD4, _CONT, _CONT, _CONT]      # 4-byte sequence
+    first.append(b)
+    last.append(b + 3)
+    follow += [(b, b + 1), (b + 1, b + 2), (b + 2, b + 3)]
+    return _Fragment(masks, first, last, follow)
+
+
+def compile_pattern(pattern: str) -> RegexProgram:
+    """Compile, or raise RegexUnsupported."""
+    if any(ord(c) > 127 for c in pattern):
+        raise RegexUnsupported("non-ASCII pattern")
+    prog = RegexProgram()
+    branches = [_parse_branch(b) for b in _split_alternation(pattern)]
+    frag_branches = []
+    n = 0
+    for a_start, a_end, atoms in branches:
+        frags = [( _atom_fragment(m), q) for m, q in atoms]
+        n += sum(len(f.masks) for f, _ in frags)
+        frag_branches.append((a_start, a_end, frags))
+    if n > _MAX_STATES:
+        raise RegexUnsupported(f"{n} positions > {_MAX_STATES}")
+    prog.n_states = n
+    prog.acc = np.zeros((256, n), bool)
+    prog.follow = np.zeros((n, n), bool)
+    prog.first_anchored = np.zeros(n, bool)
+    prog.first_floating = np.zeros(n, bool)
+    prog.accept_any = np.zeros(n, bool)
+    prog.accept_end = np.zeros(n, bool)
+
+    base = 0
+    branch_min = []
+    for a_start, a_end, frags in frag_branches:
+        branch_min.append(sum(1 for _, q in frags if q not in "*?"))
+        k = len(frags)
+        nullable = [q in "*?" for _, q in frags]
+        if k == 0 or all(nullable):
+            # empty-matchable branch: unanchored/half-anchored search
+            # always finds the empty match; fully anchored matches only
+            # empty strings
+            if a_start and a_end:
+                prog.empty_only_match = True
+            else:
+                prog.always_match = True
+        # global position index of each fragment's start
+        starts = []
+        b = base
+        for f, _ in frags:
+            starts.append(b)
+            b += len(f.masks)
+        for i, (f, q) in enumerate(frags):
+            s0 = starts[i]
+            for p, m in enumerate(f.masks):
+                prog.acc[:, s0 + p] = m
+            for (p, r) in f.follow:
+                prog.follow[s0 + p, s0 + r] = True
+            # firsts: everything before i nullable
+            if all(nullable[:i]):
+                tgt = prog.first_anchored if a_start \
+                    else prog.first_floating
+                for p in f.first:
+                    tgt[s0 + p] = True
+            # lasts: everything after i nullable
+            if all(nullable[i + 1:]):
+                tgt = prog.accept_end if a_end else prog.accept_any
+                for p in f.last:
+                    tgt[s0 + p] = True
+            # repetition: * and + loop last -> first
+            if q in "*+":
+                for p in f.last:
+                    for r in f.first:
+                        prog.follow[s0 + p, s0 + r] = True
+            # cross-fragment follow: j > i with the gap nullable
+            for j in range(i + 1, k):
+                if all(nullable[i + 1:j]):
+                    fj = frags[j][0]
+                    for p in f.last:
+                        for r in fj.first:
+                            prog.follow[s0 + p, starts[j] + r] = True
+                if not nullable[j]:
+                    break
+        base = b
+    prog.min_len = max(1, min(branch_min) if branch_min else 1)
+    return prog
+
+
+def like_to_regex(pattern: str, escape: str = "\\") -> str:
+    """SQL LIKE -> the device regex dialect, fully anchored. LIKE
+    wildcards match ANY character including newlines (unlike regex `.`,
+    which follows Java's no-DOTALL default), so % and _ translate to
+    the all-bytes class [\\s\\S], not dot. Raises RegexUnsupported for
+    non-ASCII."""
+    out = ["^"]
+    i = 0
+    specials = ".^$*+?()[]{}|\\/"
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape and i + 1 < len(pattern):
+            nxt = pattern[i + 1]
+            out.append("\\" + nxt if nxt in specials else nxt)
+            i += 2
+            continue
+        if c == "%":
+            out.append("[\\s\\S]*")
+        elif c == "_":
+            out.append("[\\s\\S]")
+        elif c in specials:
+            out.append("\\" + c)
+        else:
+            if ord(c) > 127:
+                raise RegexUnsupported("non-ASCII LIKE pattern")
+            out.append(c)
+        i += 1
+    out.append("$")
+    return "".join(out)
+
+
+
+MAX_STATES = _MAX_STATES
+
+
+# --- K6: the matcher -------------------------------------------------------
+
+def _bits(masks: np.ndarray) -> np.ndarray:
+    """Bool rows over positions as uint64 bit sets (bit s for position
+    s)."""
+    weights = np.uint64(1) << np.arange(masks.shape[-1], dtype=np.uint64)
+    return (masks.astype(np.uint64) * weights).sum(axis=-1,
+                                                   dtype=np.uint64)
+
+
+def program_tables(prog: RegexProgram) -> np.ndarray:
+    """The program as K6 reads it, one int64 array (uint64 bit sets):
+    ``acc[0:256]`` (the positions byte c may fire), ``follow[256:320]``
+    (the positions that may read the byte after position s), then
+    ``first_anchored``, ``first_floating``, ``accept_any``,
+    ``accept_end`` and the flags (bit 0 ``always_match``, bit 1
+    ``empty_only_match``)."""
+    out = np.zeros(256 + _MAX_STATES + 5, np.uint64)
+    out[:256] = _bits(prog.acc)
+    out[256:256 + prog.n_states] = _bits(prog.follow)
+    base = 256 + _MAX_STATES
+    out[base:base + 4] = _bits(np.stack([
+        prog.first_anchored, prog.first_floating, prog.accept_any,
+        prog.accept_end]))
+    out[base + 4] = int(prog.always_match) | (int(prog.empty_only_match)
+                                              << 1)
+    return out.view(np.int64)
+
+
+def _match_loop(starts: torch.Tensor, lengths: torch.Tensor,
+                validity: Optional[torch.Tensor], chars: torch.Tensor,
+                prog: RegexProgram) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(matched, bytes read a row)``: the reference's loop, counting
+    the bytes a row reads before it stops (matched, or no position
+    left)."""
+    dev = starts.device
+    n = starts.shape[0]
+    lens = lengths.to(torch.int64)
+    live_lens = lens if validity is None else torch.where(
+        validity, lens, torch.zeros_like(lens))
+    ccap = max(chars.shape[0], 1)
+    chars = chars if chars.shape[0] else torch.zeros(1, dtype=torch.uint8,
+                                                     device=dev)
+    acc = torch.from_numpy(prog.acc).to(dev)
+    follow = torch.from_numpy(prog.follow.astype(np.float32)).to(dev)
+    first_f = torch.from_numpy(prog.first_floating).to(dev)
+    accept_any = torch.from_numpy(prog.accept_any).to(dev)
+    accept_end = torch.from_numpy(prog.accept_end).to(dev)
+    matched = torch.full((n,), bool(prog.always_match), device=dev)
+    if prog.empty_only_match:
+        matched |= lens == 0
+    active = (torch.from_numpy(prog.first_anchored).to(dev)
+              | first_f).expand(n, prog.n_states)
+    reads = torch.zeros(n, dtype=torch.int64, device=dev)
+    s64 = starts.to(torch.int64)
+    longest = int(live_lens.max()) if n else 0
+    for j in range(longest):
+        if not (bool(active.any()) and bool((~matched).any())):
+            break
+        c = chars[(s64 + j).clamp(0, ccap - 1)].long()
+        in_row = j < live_lens
+        reads += in_row & ~matched & active.any(dim=1)
+        fired = active & acc[c] & in_row[:, None]
+        matched = matched | (fired & accept_any).any(dim=1)
+        matched = matched | ((fired & accept_end).any(dim=1)
+                             & (j == live_lens - 1))
+        active = ((fired.to(torch.float32) @ follow) > 0) | first_f
+    return matched, reads
+
+
+def regex_match_torch(starts: torch.Tensor, lengths: torch.Tensor,
+                      validity: Optional[torch.Tensor],
+                      chars: torch.Tensor,
+                      prog: RegexProgram) -> torch.Tensor:
+    """The reference's matcher in torch: ``(n,)`` bool, does ``prog``
+    match each row's bytes (search semantics). Row i is
+    ``chars[starts[i] : starts[i] + lengths[i]]``; a null row steps as
+    an empty one. One readback (the longest live string) fixes the
+    byte positions; each step gathers a byte a row, fires the positions
+    its class allows, tests the accepts, and moves along the follow
+    relation by one ``(n, S) @ (S, S)`` product."""
+    return _match_loop(starts, lengths, validity, chars, prog)[0]
+
+
+def regex_bytes_read(starts: torch.Tensor, lengths: torch.Tensor,
+                     validity: Optional[torch.Tensor], chars: torch.Tensor,
+                     prog: RegexProgram) -> int:
+    """The bytes of ``chars`` the matcher must read for these rows: each
+    row up to where it stops (the kernel's bound counts these)."""
+    return int(_match_loop(starts, lengths, validity, chars, prog)[1].sum())
+
+
+class _RegexArgs(ctypes.Structure):
+    """Mirror of ``RegexArgs`` in the CUDA source."""
+    _fields_ = [("tables", ctypes.c_void_p),
+                ("starts", ctypes.c_void_p),
+                ("lengths", ctypes.c_void_p),
+                ("validity", ctypes.c_void_p),
+                ("chars", ctypes.c_void_p),
+                ("out", ctypes.c_void_p),
+                ("n", ctypes.c_int64),
+                ("n_chars", ctypes.c_int64)]
+
+
+def _library():
+    from ._build import load
+    lib = load("regex_match")
+    if not getattr(lib, "_spark_ready", False):
+        lib.spark_regex_args_size.argtypes = []
+        lib.spark_regex_args_size.restype = ctypes.c_int
+        lib.spark_regex_launch.argtypes = [ctypes.c_void_p,
+                                           ctypes.c_void_p]
+        lib.spark_regex_launch.restype = ctypes.c_int
+        if lib.spark_regex_args_size() != ctypes.sizeof(_RegexArgs):
+            raise RuntimeError(
+                f"RegexArgs is {lib.spark_regex_args_size()} bytes in the "
+                f"CUDA source but {ctypes.sizeof(_RegexArgs)} in ctypes")
+        lib._spark_ready = True
+    return lib
+
+
+def _check_inputs(starts, lengths, validity, chars) -> None:
+    n = starts.shape[0]
+    for t, want in ((starts, torch.int32), (lengths, torch.int32),
+                    (validity, torch.bool), (chars, torch.uint8)):
+        if t is None:
+            continue
+        if t.dtype != want or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"K6 takes contiguous 1-D {want} here, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t is not chars and t.shape[0] != n:
+            raise ValueError(f"K6's row inputs must hold {n} rows, one "
+                             f"holds {t.shape[0]}")
+        if t.device != starts.device:
+            raise ValueError("K6's inputs must be on one device")
+
+
+def regex_match(starts: torch.Tensor, lengths: torch.Tensor,
+                validity: Optional[torch.Tensor], chars: torch.Tensor,
+                prog: RegexProgram) -> torch.Tensor:
+    """K6: ``(n,)`` bool, does ``prog`` match each row's bytes (search
+    semantics; rows as ``regex_match_torch`` reads them). A CPU input
+    takes the plain version; a CUDA input launches the kernel, once."""
+    from .cuda_kernels import _on_cpu
+    if _on_cpu([starts, lengths, validity, chars]):
+        return regex_match_torch(starts, lengths, validity, chars, prog)
+    _check_inputs(starts, lengths, validity, chars)
+    n = starts.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=starts.device)
+    if n == 0:
+        return out
+    tables = prog.device_tables.get(starts.device)
+    if tables is None:
+        tables = torch.from_numpy(program_tables(prog)).to(starts.device)
+        prog.device_tables[starts.device] = tables
+    args = _RegexArgs()
+    args.tables = tables.data_ptr()
+    args.starts, args.lengths = starts.data_ptr(), lengths.data_ptr()
+    args.validity = None if validity is None else validity.data_ptr()
+    args.chars = chars.data_ptr() if chars.shape[0] else None
+    args.out = out.data_ptr()
+    args.n, args.n_chars = n, chars.shape[0]
+    stream = torch.cuda.current_stream(starts.device).cuda_stream
+    err = _library().spark_regex_launch(ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"regex_match kernel launch failed: cudaError "
+                           f"{err}")
+    regex_match.launches += 1
+    return out
+
+
+regex_match.launches = 0

@@ -29,11 +29,14 @@ lowering. Responsibilities:
 Every failure raises ``SqlAnalysisError`` with a source location and a
 stable ``detail`` code (``unknown_column``, ``ambiguous_column``,
 ``unknown_function``, ``missing_aggregation``, ...). A construct whose
-expression or operator the port does not have yet (LIKE, ``||``, a
-CAST from or to string, decimal, date or timestamp, joins without
-equi-keys, SELECT without FROM) raises
+expression or operator the port does not have yet (``||``, a CAST from
+or to string, decimal, date or timestamp, joins without equi-keys,
+SELECT without FROM) raises
 ``SqlAnalysisError(..., "unsupported_feature")`` naming its ROADMAP item
-when a query reaches it; it never runs another way. UNION DISTINCT is
+when a query reaches it; a RIGHT or FULL OUTER JOIN raises
+``NotImplementedError`` naming item 9 as its join is built, and a LIKE
+pattern outside the device regex dialect at planning (item 12); none
+runs another way. UNION DISTINCT is
 outside the dialect, as in the reference (``unsupported_feature``).
 """
 from __future__ import annotations
@@ -361,7 +364,11 @@ class SqlCompiler:
         return Not(e) if node.negated else e
 
     def _c_likee(self, node: A.LikeE, rel, subst, grouped):
-        raise self.unported("LIKE (Like, ops/regex.py)", node)
+        from ..expr.predicates import Not
+        from ..expr.strings import Like
+        child = self._compile(node.operand, rel, subst, grouped)
+        e = Like(child, node.pattern, node.escape)
+        return Not(e) if node.negated else e
 
     def _c_isnulle(self, node: A.IsNullE, rel, subst, grouped):
         from ..expr.predicates import IsNotNull, IsNull

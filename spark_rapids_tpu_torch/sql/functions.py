@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/sql/functions.py``. The names are the
 reference's, so the compiler tells aggregates, window and scalar
 functions apart as the reference does; the constructors map onto the
 port's expressions. Ported: the aggregates ``sum``, ``count``, ``min``,
-``max``, ``avg`` and ``mean``; the scalar functions ``if``,
+``max``, ``avg``, ``mean`` and ``approx_percentile`` (a scalar
+percentage: a list returns an array, which raises naming ROADMAP item
+2); the scalar functions ``if``,
 ``coalesce``, ``nullif``, ``least``, ``greatest``, ``abs`` and
 ``isnan``; every window function of the reference (``row_number``,
 ``rank``, ``dense_rank``, ``percent_rank``, ``ntile``, ``lag``,
@@ -18,7 +20,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List
 
-from ..expr.aggregates import Average, Count, Max, Min, Sum
+from ..expr.aggregates import (ApproxPercentile, Average, Count, Max,
+                               Min, Sum)
 from ..expr.arithmetic import Abs
 from ..expr.conditional import Coalesce, Greatest, If, Least, NullIf
 from ..expr.predicates import IsNaN
@@ -65,8 +68,7 @@ _SCALAR_NAMES = (
     "trunc", "unix_timestamp", "from_unixtime")
 _AGG_WAITING = ("first", "last", "stddev",
                 "stddev_samp", "stddev_pop", "variance", "var_samp",
-                "var_pop", "collect_list", "collect_set",
-                "approx_percentile")
+                "var_pop", "collect_list", "collect_set")
 
 
 def _simple(cls, lo: int, hi=None):
@@ -119,6 +121,17 @@ def _build_count(node, args, sql):
     return Count(args[0])
 
 
+def _build_approx_percentile(node, args, sql):
+    _arity("approx_percentile", node, args, 2, 3, sql)
+    pct = _lit_arg("approx_percentile", node, 1, (int, float),
+                   "numeric", sql)
+    acc = 10000
+    if len(node.args) == 3:
+        acc = _lit_arg("approx_percentile", node, 2, int, "integer",
+                       sql)
+    return ApproxPercentile(args[0], pct, acc)
+
+
 SCALAR_FUNCTIONS: Dict[str, Callable] = dict(
     {n: _unported(13) for n in _SCALAR_NAMES},
     coalesce=_simple(Coalesce, 1, -1), nullif=_simple(NullIf, 2),
@@ -128,7 +141,8 @@ SCALAR_FUNCTIONS: Dict[str, Callable] = dict(
 AGGREGATE_FUNCTIONS: Dict[str, Callable] = dict(
     {n: _unported(8) for n in _AGG_WAITING},
     sum=_simple(Sum, 1), count=_build_count, min=_simple(Min, 1),
-    max=_simple(Max, 1), avg=_simple(Average, 1), mean=_simple(Average, 1))
+    max=_simple(Max, 1), avg=_simple(Average, 1), mean=_simple(Average, 1),
+    approx_percentile=_build_approx_percentile)
 WINDOW_FUNCTIONS: Dict[str, Callable] = {
     "row_number": _simple(RowNumber, 0), "rank": _simple(Rank, 0),
     "dense_rank": _simple(DenseRank, 0),

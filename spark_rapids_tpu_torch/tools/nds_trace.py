@@ -14,8 +14,9 @@ JSON line: the wall time, the device's busy time (the union of the
 intervals in which a kernel or a copy ran, so nothing counts twice) and
 its idle share, the device time and kernel launches of K3
 (``radix_histogram``, ``radix_plan``, ``radix_pass``), K4
-(``gather_rows_*``) and K5 (``k5_*``), the wrappers' launch counts in the
-traced run, and the largest other device operations. The K3 and K4
+(``gather_rows_*``), K5 (``k5_*``) and K6 (``regex_match_kernel``), the
+wrappers' launch counts in the traced run, and the largest other device
+operations. The K3 and K4
 kernels launched inside ``sort_keys.string_order_ranks_multi`` (the
 string keys' refinement passes, a ``record_function("string_ranks")``
 range) are reported apart under ``string_ranks``: a kernel counts there
@@ -45,7 +46,7 @@ _RANGE = "string_ranks"  # sort_keys.string_order_ranks_multi's range
 _WINDOW = "window"       # exec/window.GpuWindowExec's pass
 _FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
              "K4": ("gather_rows_fast", "gather_rows_any"),
-             "K5": ("k5_",)}
+             "K5": ("k5_",), "K6": ("regex_match_kernel",)}
 
 
 def _family(name: str):
@@ -63,10 +64,12 @@ def nds_paths(n_sales: int):
 
 
 def counters():
-    """The launch counters of K3, K4 and K5's wrappers."""
+    """The launch counters of K3, K4, K5 and K6's wrappers."""
     from ..ops import cuda_kernels as ck
     from ..ops.parquet_decode import decode_batch
-    return {"K3": ck.sort_pairs, "K4": ck.gather_rows, "K5": decode_batch}
+    from ..ops.regex import regex_match
+    return {"K3": ck.sort_pairs, "K4": ck.gather_rows, "K5": decode_batch,
+            "K6": regex_match}
 
 
 def _rank_share(device_events, range_name: str = _RANGE):

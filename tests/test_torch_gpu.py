@@ -7,7 +7,9 @@ against their plain versions (exactly, bit for bit; K3 also against
 through the engine with the launches its plan implies; every NDS query
 the port runs from SQL on the card against the CPU, and string ranks on
 the card against the CPU's; the window operator on the card against the
-CPU. Run on a machine with a CUDA device: ``python -m pytest
+CPU; K6 (the LIKE/RLIKE automaton) against its plain version bit for
+bit, LIKE through K6 once a batch, and the staged join on the card
+against the CPU. Run on a machine with a CUDA device: ``python -m pytest
 tests/test_torch_gpu.py``; elsewhere they skip."""
 import pytest
 import torch
@@ -312,3 +314,79 @@ def test_window_on_the_card_matches_the_cpu(cuda_device):
                        for x, y in zip(a, b)), name
         else:
             assert a == b, name
+
+
+def test_k6_matches_plain_version(cuda_device):
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    recs = kc.check_k6(cuda_device)
+    names = {r["case"] for r in recs}
+    assert {"q_like_item_32768", "text_like_2^20", "text_rlike_2^20",
+            "edges_no_chars"} <= names
+    assert all(r["equal"] for r in recs)
+    assert next(r for r in recs
+                if r["case"] == "q_like_item_32768")["equal_re"]
+
+
+def test_like_launches_k6_once_a_batch(cuda_device):
+    """A LIKE beyond the exact shape runs on K6, one launch a batch; the
+    result equals the CPU's."""
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch.exec.base import (ExecCtx,
+                                                  HostBatchSourceExec,
+                                                  collect_arrow)
+    from spark_rapids_tpu_torch.exec.basic import GpuFilterExec
+    from spark_rapids_tpu_torch.expr.strings import Like
+    from spark_rapids_tpu_torch.ops import regex
+    words = ["Electronics", "Home", "Sports", None, "", "Müsic\nos"]
+    rbs = [pa.record_batch({"s": pa.array(words * (50 + i))})
+           for i in range(3)]
+    plan = GpuFilterExec(Like(E.UnresolvedColumn("s"), "%o%s%"),
+                         HostBatchSourceExec(rbs))
+    before = regex.regex_match.launches
+    got = collect_arrow(plan, ExecCtx(device=cuda_device))
+    assert regex.regex_match.launches - before == len(rbs)
+    want = collect_arrow(plan, ExecCtx(device="cpu"))
+    assert got.column("s").to_pylist() == want.column("s").to_pylist()
+    assert got.num_rows > 0
+
+
+def test_staged_join_on_the_card_matches_the_cpu(cuda_device):
+    """A join whose build repeats its keys takes the staged path on the
+    card (two stream batches, a string key and a string payload, every
+    covered type) and gives the CPU's rows, exactly."""
+    import numpy as np
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch import expr as E
+    from spark_rapids_tpu_torch.exec.base import (ExecCtx,
+                                                  HostBatchSourceExec,
+                                                  collect_arrow)
+    from spark_rapids_tpu_torch.exec.joins import GpuShuffledHashJoinExec
+    rng = np.random.default_rng(2)
+
+    def side(n, prefix):
+        keys = rng.integers(0, 40, n)
+        return pa.record_batch({
+            f"{prefix}k": pa.array(keys.astype(np.int32),
+                                   mask=rng.random(n) < 0.1),
+            f"{prefix}s": pa.array([f"k{k % 7}" for k in keys]),
+            f"{prefix}v": pa.array(rng.normal(0, 1, n))})
+    left = [side(3000, "l"), side(2000, "l")]
+    right = [side(1500, "r")]
+    col = E.UnresolvedColumn
+    for keys in (["lk"], ["lk", "ls"]):
+        for jt in ("inner", "left_outer", "left_semi", "left_anti"):
+            plan = GpuShuffledHashJoinExec(
+                [col(k) for k in keys], [col("r" + k[1:]) for k in keys],
+                jt, HostBatchSourceExec(left), HostBatchSourceExec(right))
+            ctx = ExecCtx(device=cuda_device)
+            got = collect_arrow(plan, ctx)
+            assert ctx.metrics[plan.node_label()]["stagedBatches"].value \
+                == 2
+            want = collect_arrow(plan, ExecCtx(device="cpu"))
+            assert got.num_rows == want.num_rows > 0, (keys, jt)
+            for name in want.column_names:
+                assert got.column(name).to_pylist() \
+                    == want.column(name).to_pylist(), (keys, jt, name)

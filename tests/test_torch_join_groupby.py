@@ -250,8 +250,21 @@ def test_duplicated_build_key_with_hint_raises_at_collect():
 
 
 def test_duplicated_build_key_without_hint_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tcollect(_dup_build(hint=False), TCtx(device="cpu"))
+    """Without the hint a duplicated build key (order 11 twice, order 10
+    missing) takes the staged join: each line item meets every order of
+    its key, held to numpy at rel 1e-12 (the fast path raised, naming
+    ROADMAP item 9, until the staged join was ported)."""
+    plan = _dup_build(hint=False)
+    got = tcollect(plan, TCtx(device="cpu")).to_pydict()
+    rng = np.random.default_rng(5)
+    key = rng.integers(0, 64, 500).astype(np.int32)
+    price = rng.uniform(1, 2, 500).astype(np.float32)
+    keys = np.arange(64, dtype=np.int32)
+    keys[10] = 11
+    times = np.bincount(keys, minlength=64)[key]
+    want = float((price.astype(np.float64) * times).sum())
+    assert got["o_month"] == [1]
+    assert abs(got["revenue"][0] - want) <= 1e-12 * want
 
 
 def test_unported_joins_raise():
@@ -260,6 +273,7 @@ def test_unported_joins_raise():
     for jt in ("right_outer", "full_outer", "cross"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
             GpuShuffledHashJoinExec([tcol("a")], [tcol("a")], jt, li, li)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        GpuShuffledHashJoinExec([tcol("a"), tcol("a")],
-                                [tcol("a"), tcol("a")], "inner", li, li)
+    # several keys run since the staged join: 4 x 4 rows of one key
+    two = GpuShuffledHashJoinExec([tcol("a"), tcol("a")],
+                                  [tcol("a"), tcol("a")], "inner", li, li)
+    assert tcollect(two, TCtx(device="cpu")).num_rows == 16

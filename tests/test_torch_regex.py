@@ -1,0 +1,269 @@
+"""LIKE and RLIKE on the CPU: the port's regex compiler, its K6 plain
+version and its ``Like``/``RegExpLike`` held to the JAX package
+(``spark_rapids_tpu.ops.regex``, ``expr/strings.py``) and to Python's
+``re``.
+
+- ``compile_pattern``'s tables (``acc``, ``follow``, the four position
+  masks, the two flags, ``min_len``) equal the reference's over
+  ``tests/test_regex.py``'s patterns and a seeded fuzz corpus, and so do
+  its refusals, with the 64-position boundary (64 compile, 65 raise);
+- ``like_to_regex`` equals the reference's;
+- the plain matcher (``regex_match_torch``, and the wrapper on the CPU)
+  equals ``regex_match_device`` bit for bit on generated strings: UTF-8
+  characters of 1-4 bytes, newlines, empty rows, nulls, and rows whose
+  start lies inside an inherited chars buffer;
+- ``Like`` in every shape (exact, prefix, suffix, contains,
+  prefix-and-suffix, all, general), with ``ESCAPE`` and ``NOT LIKE``,
+  and ``RegExpLike``, through the port's project against the
+  reference's ``eval_tpu`` and against ``re`` (LIKE's wildcards across
+  newlines, ``_`` one character; RLIKE with ASCII classes). Booleans and
+  nulls exact."""
+import re
+
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+import spark_rapids_tpu.ops.regex as jrx
+from spark_rapids_tpu.columnar.column import TpuColumnVector
+from spark_rapids_tpu.exec.base import HostBatchSourceExec as JSource
+from spark_rapids_tpu.exec.base import collect_arrow as j_collect
+from spark_rapids_tpu.exec.basic import TpuProjectExec
+from spark_rapids_tpu.expr import Alias as JAlias
+from spark_rapids_tpu.expr import Not as JNot
+from spark_rapids_tpu.expr import UnresolvedColumn as jcol
+from spark_rapids_tpu.expr.strings import Like as JLike
+from spark_rapids_tpu.expr.strings import RegExpLike as JRegExpLike
+from spark_rapids_tpu_torch.exec.base import ExecCtx
+from spark_rapids_tpu_torch.exec.base import HostBatchSourceExec as TSource
+from spark_rapids_tpu_torch.exec.base import collect_arrow as t_collect
+from spark_rapids_tpu_torch.exec.basic import GpuProjectExec
+from spark_rapids_tpu_torch.expr import Alias as TAlias
+from spark_rapids_tpu_torch.expr import Not as TNot
+from spark_rapids_tpu_torch.expr import UnresolvedColumn as tcol
+from spark_rapids_tpu_torch.expr.strings import Like, RegExpLike
+from spark_rapids_tpu_torch.ops import regex as trx
+
+DIALECT_PATTERNS = [
+    "abc", "^abc", "abc$", "^abc$", "a.c", "ab*c", "ab+c", "ab?c",
+    "[abc]x", "[^abc]x", "[a-f0-9]+", "\\d+", "\\w+z", "\\s",
+    "cat|dog|bird", "^x*", "a[b-d]*e$", "^\\d\\d-\\d\\d", "x.*y", ".*",
+    "a*", "^$", "colou?r", "[A-Z][a-z]+", "end\\.$", "a|", "\\.com$",
+    "[\\s\\S]", "\\S+", "^\\W+$", "[^x]*",
+]
+REFUSED = ["(ab)+", "a{2,3}", "(?i)abc", "a(?=b)", "\\bword", "a|b|(cd)",
+           "café", "(a)", "a{2}", "a**", "[z-a]", "\\q", "*a", "[abc",
+           "a^b", "\\"]
+LIKE_PATTERNS = ["%o%s%", "a%b_c", "100\\%", "a.b", "_", "%", "%%", "",
+                 "x[y]*", "%$^%", "a|b%", "\\_%", "%\\\\%"]
+STRINGS = ["", "abc", "xabc", "abcx", "a c", "abbbc", "ac", "bx", "zx",
+           "deadbeef", "12-34x", "x123y", "cat", "hotdog", "birds",
+           "color", "colour", "Widget", "a.c", "end.", "foo.com", "aaa",
+           "cde", None, "CAT", "42", " ", "ab\ncd", "é", "aé", "日本語x",
+           "naïve", "𝄞clef", "mixé\nline", "a_c", "100%", "a%b", "xos",
+           "Sports", "Books", None, "a\nb\nc"]
+
+
+def _tables_equal(got, want):
+    for f in ("acc", "follow", "first_anchored", "first_floating",
+              "accept_any", "accept_end"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    for f in ("always_match", "empty_only_match", "n_states", "min_len"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
+@pytest.mark.parametrize("pattern", DIALECT_PATTERNS)
+def test_compiled_tables_match_the_reference(pattern):
+    _tables_equal(trx.compile_pattern(pattern), jrx.compile_pattern(pattern))
+
+
+def _fuzz_patterns(seed=5, n=80):
+    rng = np.random.default_rng(seed)
+    atoms = ["a", "b", "0", ".", "\\d", "\\w", "\\s", "\\S", "[ab]",
+             "[^a]", "[a-c0-9]", "x", "\\.", "é"]
+    out = []
+    for _ in range(n):
+        branches = []
+        for _ in range(rng.integers(1, 3)):
+            parts = ["^"] if rng.random() < 0.3 else []
+            for _ in range(rng.integers(0, 5)):
+                parts.append(atoms[rng.integers(len(atoms))]
+                             + ["", "", "*", "+", "?"][rng.integers(5)])
+            if rng.random() < 0.3:
+                parts.append("$")
+            branches.append("".join(parts))
+        out.append("|".join(branches))
+    return out
+
+
+def test_fuzz_corpus_compiles_or_refuses_like_the_reference():
+    compiled = 0
+    for pattern in _fuzz_patterns():
+        try:
+            want = jrx.compile_pattern(pattern)
+        except jrx.RegexUnsupported:
+            with pytest.raises(trx.RegexUnsupported):
+                trx.compile_pattern(pattern)
+            continue
+        _tables_equal(trx.compile_pattern(pattern), want)
+        compiled += 1
+    assert compiled > 40
+
+
+@pytest.mark.parametrize("pattern", REFUSED)
+def test_refusals_match_the_reference(pattern):
+    with pytest.raises(jrx.RegexUnsupported):
+        jrx.compile_pattern(pattern)
+    with pytest.raises(trx.RegexUnsupported):
+        trx.compile_pattern(pattern)
+
+
+def test_64_positions_compile_and_65_raise():
+    # each LIKE % is 10 positions ([\s\S]: ASCII and the 2-, 3- and
+    # 4-byte UTF-8 chains)
+    assert trx.compile_pattern(trx.like_to_regex("%o%s%")).n_states == 32
+    at_64 = trx.like_to_regex("%a%b%c%d%%")   # 6 x 10 + 4
+    assert trx.compile_pattern(at_64).n_states == trx.MAX_STATES == 64
+    assert jrx.compile_pattern(at_64).n_states == 64
+    at_65 = trx.like_to_regex("%a%b%c%d%%e")
+    for mod in (trx, jrx):
+        with pytest.raises(mod.RegexUnsupported, match="65 positions"):
+            mod.compile_pattern(at_65)
+    with pytest.raises(trx.RegexUnsupported):
+        trx.compile_pattern(trx.like_to_regex("%" * 7))
+
+
+@pytest.mark.parametrize("pattern", LIKE_PATTERNS)
+def test_like_to_regex_matches_the_reference(pattern):
+    for esc in ("\\", "!"):
+        assert trx.like_to_regex(pattern, esc) \
+            == jrx.like_to_regex(pattern, esc)
+    with pytest.raises(trx.RegexUnsupported):
+        trx.like_to_regex("%é%")
+
+
+def _py(pattern: str) -> "re.Pattern":
+    """The dialect's pattern for Python's ``re``: ``$`` is the end of the
+    string only (Java's and Python's ``$`` also match before a final
+    newline; the reference's dialect does not, and the port follows it;
+    ROADMAP section C), and the classes are ASCII."""
+    return re.compile(re.sub(r"(?<!\\)\$", r"\\Z", pattern), re.ASCII)
+
+
+def _text(seed, n):
+    """``(python strings, offsets, chars)``: UTF-8 text with 1- to 4-byte
+    characters, newlines and empty rows."""
+    rng = np.random.default_rng(seed)
+    alphabet = list("abco s.0\n") + ["é", "日", "𝄞"]
+    strs = ["".join(rng.choice(alphabet, rng.integers(0, 14)).tolist())
+            for _ in range(n)]
+    raw = [s.encode() for s in strs]
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in raw])])
+    return strs, offsets.astype(np.int32), np.frombuffer(b"".join(raw),
+                                                         np.uint8)
+
+
+MATCH_PATTERNS = ["a+b", "[ab]c*", "^c|0$", "\\d", "\\s", "a.b", "b?c",
+                  "[^a]+$", "^.$", "..", "o.*s", "\\S+", "^$", "a*"]
+
+
+@pytest.mark.parametrize("pattern", MATCH_PATTERNS)
+def test_plain_matcher_matches_the_reference(pattern):
+    """On rows inside an inherited chars buffer (the offsets start 5
+    bytes in, after bytes no row covers), with nulls."""
+    strs, offsets, chars = _text(3, 200)
+    shift = 5
+    chars = np.concatenate([np.frombuffer(b"zz\n\xc3x", np.uint8), chars])
+    offsets = offsets + shift
+    valid = np.random.default_rng(4).random(len(strs)) > 0.1
+    import jax.numpy as jnp
+    col = TpuColumnVector(None, validity=jnp.asarray(valid),
+                          offsets=jnp.asarray(offsets),
+                          chars=jnp.asarray(chars))
+    want = np.asarray(jrx.regex_match_device(col, jrx.compile_pattern(
+        pattern)))
+    prog = trx.compile_pattern(pattern)
+    starts = torch.from_numpy(offsets[:-1].copy())
+    lengths = torch.from_numpy(np.diff(offsets).astype(np.int32))
+    args = (starts, lengths, torch.from_numpy(valid),
+            torch.from_numpy(chars.copy()), prog)
+    for got in (trx.regex_match_torch(*args), trx.regex_match(*args)):
+        assert np.array_equal(got.numpy(), want), pattern
+    py = np.array([_py(pattern).search(s) is not None for s in strs])
+    assert np.array_equal(want[valid], py[valid]), pattern
+
+
+def _like_re(pattern: str, escape: str) -> "re.Pattern":
+    out, i = [], 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if c == "%" else "." if c == "_" else re.escape(c))
+        i += 1
+    return re.compile("(?s)" + "".join(out))
+
+
+LIKE_CASES = [("abc", "\\"), ("a%", "\\"), ("%c", "\\"), ("%o%", "\\"),
+              ("a%c", "\\"), ("%", "\\"), ("%o%s%", "\\"), ("a_c", "\\"),
+              ("_", "\\"), ("__", "\\"), ("%\n%", "\\"), ("a_b", "\\"),
+              ("100!%", "!"), ("a!_c", "!"), ("%!%%", "!"), ("é", "\\"),
+              ("", "\\")]
+
+
+@pytest.mark.parametrize("negate", [False, True], ids=["like", "not_like"])
+def test_like_matches_the_reference_and_re(negate):
+    rb = pa.record_batch({"s": pa.array(STRINGS, pa.string())})
+    texprs = [TAlias(Like(tcol("s"), p, e), f"m{i}")
+              for i, (p, e) in enumerate(LIKE_CASES)]
+    jexprs = [JAlias(JLike(jcol("s"), p, e), f"m{i}")
+              for i, (p, e) in enumerate(LIKE_CASES)]
+    if negate:
+        texprs = [TAlias(TNot(a.child), a.name) for a in texprs]
+        jexprs = [JAlias(JNot(a.child), a.name) for a in jexprs]
+    got = t_collect(GpuProjectExec(texprs, TSource([rb])),
+                    ExecCtx(device="cpu"))
+    want = j_collect(TpuProjectExec(jexprs, JSource([rb])))
+    for i, (p, e) in enumerate(LIKE_CASES):
+        g = got.column(f"m{i}").to_pylist()
+        assert g == want.column(f"m{i}").to_pylist(), (p, e)
+        rx = _like_re(p, e)
+        py = [None if s is None else (rx.fullmatch(s) is not None) != negate
+              for s in STRINGS]
+        assert g == py, (p, e)
+
+
+def test_rlike_matches_the_reference_and_re():
+    rb = pa.record_batch({"s": pa.array(STRINGS, pa.string())})
+    pats = DIALECT_PATTERNS
+    got = t_collect(GpuProjectExec(
+        [TAlias(RegExpLike(tcol("s"), p), f"m{i}")
+         for i, p in enumerate(pats)], TSource([rb])), ExecCtx(device="cpu"))
+    want = j_collect(TpuProjectExec(
+        [JAlias(JRegExpLike(jcol("s"), p), f"m{i}")
+         for i, p in enumerate(pats)], JSource([rb])))
+    for i, p in enumerate(pats):
+        g = got.column(f"m{i}").to_pylist()
+        assert g == want.column(f"m{i}").to_pylist(), p
+        py = [None if s is None else _py(p).search(s) is not None
+              for s in STRINGS]
+        assert g == py, p
+
+
+def test_patterns_outside_the_dialect_raise_at_planning():
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    rb = pa.record_batch({"s": pa.array(STRINGS, pa.string())})
+    for e in (Like(tcol("s"), "%é%"), RegExpLike(tcol("s"), "(ab)+"),
+              Like(tcol("s"), "%a%b%c%d%%e"), Like(tcol("s"), "日本%")):
+        plan = GpuProjectExec([TAlias(e, "m")], TSource([rb]))
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            GpuOverrides(device="cpu").apply(plan)
+    # the exact shape needs no regex: a non-ASCII literal runs
+    plan = GpuProjectExec([TAlias(Like(tcol("s"), "aé"), "m")],
+                          TSource([rb]))
+    got = GpuOverrides(device="cpu").apply(plan).collect()
+    assert got.column("m").to_pylist() == [None if s is None else s == "aé"
+                                           for s in STRINGS]

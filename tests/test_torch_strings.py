@@ -259,12 +259,14 @@ def test_projection_and_filter_share_string_buffers():
 
 def test_join_refuses_string_chars_past_int32():
     """A join whose gathered string column would pass the int32 offsets
-    (2^15 stream rows, a 64 KiB build string) raises and names its
-    ROADMAP item before it allocates the chars."""
+    raises and names its ROADMAP item before it allocates the chars:
+    2^16 stream rows, half of them matching a 64 KiB build string, 2^31
+    + 2^15 bytes by stage A's exact count (the fast path hands the batch
+    to the staged path past 2^28 chars)."""
     from spark_rapids_tpu_torch.exec.base import HostBatchSourceExec
     from spark_rapids_tpu_torch.exec.joins import GpuShuffledHashJoinExec
     from spark_rapids_tpu_torch.expr import UnresolvedColumn as col
-    n = 1 << 15
+    n = 1 << 16
     stream = HostBatchSourceExec([pa.record_batch(
         {"k": pa.array(np.arange(n, dtype=np.int64) % 2)})])
     build = HostBatchSourceExec([pa.record_batch(
