@@ -52,10 +52,12 @@ Phases, any failure exits non-zero before the result line:
      version; K6 (the regex automaton) bit for bit on q_like's item
      batch (32,768 strings, '%o%s%', also against Python's re), on 2^20
      rows of 20-120 bytes of text with multi-byte characters and
-     newlines under a LIKE pattern and an RLIKE alternation, and on the
-     edges (the empty string, a null row, rows inside an inherited chars
-     buffer, an empty buffer, always- and empty-only patterns), timed
-     beside its bound and plain version;
+     newlines under a LIKE pattern, an RLIKE alternation and an RLIKE
+     whose DFA does not fit (route B), and on the edges (the empty
+     string, a null row, rows inside an inherited chars buffer, an empty
+     buffer, always- and empty-only patterns), through every route that
+     can take each case (the DFA, the position sets), timed beside its
+     bound and plain version, each route apart;
   4. q6 SF1 (6,001,215 rows, seed 0, 8 snappy files, row groups of
      1 << 20) written to .bench_cache/lineitem_torch/, run through
      collect_arrow with device page decode off, its revenue held to a
@@ -251,9 +253,11 @@ def phase_regex(device):
         t["bound_ms"], t["bound_by"] = _bound(t["bytes"],
                                               3 * t["chars_read"])
         log(f"[k6] regex_match on {name} ({t['rows']} rows, "
-            f"{t['positions']} positions, {t['pattern']!r}): kernel "
+            f"{t['positions']} positions, {t['pattern']!r}): route "
+            f"{t['route']} (DFA states {t['dfa_states']}), kernel "
             f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, bound "
-            f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {t['bytes']} B)")
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {t['bytes']} B); "
+            f"by route {t['ms_by_route']}")
     return k6, max(r["max_abs_err"] for r in recs)
 
 
@@ -1015,6 +1019,7 @@ def main():
         "bound_by": like["bound_by"], "library_ms": None,
         "shape": "q_like's item batch: 32,768 strings, '%o%s%', "
                  "32 positions",
+        "routes": {k: v["route"] for k, v in k6.items()},
         "by_shape": k6,
         "launches_nds": {k: v["regex_match"]
                          for k, v in nds_launches.items()}}]}))

@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/columnar/arrow_bridge.py:25-180,268-296``:
 pyarrow RecordBatches are the host currency, torch tensors the device
 currency. Fixed-width types (bool, int8-int64, float32/64, date,
 timestamp) and strings/binary (Arrow's int32 offsets and bytes), with
-nulls; decimals and nested types wait (ROADMAP item 2).
+nulls, and ``NullType`` (an all-null column both ways, as the
+reference's ``:120,231``); decimals and nested types wait (ROADMAP
+item 2).
 """
 from __future__ import annotations
 
@@ -38,9 +40,12 @@ def host_lanes(arr, t: dt.DataType) \
         -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """(values in the lane dtype with nulls zero-filled, bool validity or
     None when the array has no nulls). The Arrow validity bitmap is
-    unpacked to one bool per row here, on the host."""
+    unpacked to one bool per row here, on the host. A ``NullType``
+    column is zeros, every row null."""
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
+    if isinstance(t, dt.NullType):
+        return np.zeros(len(arr), t.np_dtype), np.zeros(len(arr), np.bool_)
     torch_dtype(t)  # raises for types the device does not hold yet
     valid = None
     if arr.null_count:
@@ -119,6 +124,9 @@ def arrow_to_device(rb: pa.RecordBatch, schema: Optional[dt.Schema],
     cols = []
     for i in range(rb.num_columns):
         t = schema[i].dtype
+        if isinstance(t, dt.NullType):
+            cols.append(GpuColumnVector.nulls(t, cap, device))
+            continue
         if is_string_like(t):
             cols.append(string_column_from_host(t, rb.column(i), cap,
                                                 device))
@@ -166,6 +174,9 @@ def device_to_arrow(batch: GpuBatch) -> pa.RecordBatch:
         keep = batch.selection[:n].cpu().numpy()
     arrays = []
     for c in batch.columns:
+        if isinstance(c.dtype, dt.NullType):
+            arrays.append(pa.nulls(n if keep is None else int(keep.sum())))
+            continue
         if c.is_string_like:
             arrays.append(_string_to_arrow(c.dtype, c, n, keep))
             continue

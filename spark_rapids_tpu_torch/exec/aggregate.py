@@ -285,10 +285,7 @@ class GpuHashAggregateExec(UnaryExec):
         return GpuBatch(out, self._schema, 1)
 
     def _empty_child_batch(self, device: torch.device) -> GpuBatch:
-        cols = [GpuColumnVector(f.dtype,
-                                torch.zeros(GLOBAL_LANES,
-                                            dtype=torch_dtype(f.dtype),
-                                            device=device))
+        cols = [GpuColumnVector.nulls(f.dtype, GLOBAL_LANES, device)
                 for f in self.child.output_schema]
         return GpuBatch(cols, self.child.output_schema, 0)
 

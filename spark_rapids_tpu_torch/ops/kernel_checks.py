@@ -55,7 +55,8 @@ columns (``k5_shapes_file``), and the NDS path's own batches
 row groups of int64, int32 and float64 columns, the 32,768-row
 ``item`` and 25-row ``store`` batches with their dictionary string
 columns decoded to store indices, and the 65,536-row ``customer``
-batch); and the hand-made run tables of ``k5_tile_layouts``, which
+batch, and ``item`` with an all-null string column written PLAIN);
+and the hand-made run tables of ``k5_tile_layouts``, which
 walk its tiles at their edges (the CPU tests hold ``decode_tiles_torch``
 to the reference on the same tables). Every column is compared whole,
 a string column's offsets and chars too, and every batch read from a
@@ -87,7 +88,7 @@ import dataclasses
 import math
 import os
 import tempfile
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,7 +110,7 @@ __all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
            "k5_tile_layouts",
            "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2",
            "k6_cases", "check_k6", "time_k6", "K6_LIKE", "K6_RLIKE",
-           "K6_TEXT_ROWS"]
+           "K6_BLOWUP", "K6_TEXT_ROWS"]
 
 ENGINE_RTOL = 1e-9
 CONTRACT_RTOL = 1e-3
@@ -1276,7 +1277,10 @@ def nds_layouts(directory: str) -> Dict[str, list]:
     rows (two row groups, which the scan coalesces into one batch), and
     ``item`` (32,768 rows, ``i_category`` a dictionary string column),
     ``store`` (25 rows, ``s_state`` a dictionary string column) and
-    ``customer`` (65,536 rows) whole, every column read."""
+    ``customer`` (65,536 rows) whole, every column read; and ``item``
+    with ``i_category`` all null, written PLAIN (no dictionary), whose
+    string store holds no strings."""
+    import pyarrow as pa
     import pyarrow.parquet as pq
     from .. import nds
     from ..columnar.arrow_bridge import engine_schema
@@ -1287,8 +1291,16 @@ def nds_layouts(directory: str) -> Dict[str, list]:
         {"store_sales": tables["store_sales"].slice(0, NDS_BATCH_ROWS),
          "item": tables["item"], "store": tables["store"],
          "customer": tables["customer"]}, os.path.join(directory, "nds"))
+    item = tables["item"]
+    at = item.schema.get_field_index("i_category")
+    paths["item_null_category_plain"] = os.path.join(
+        directory, "nds", "item_null_category_plain.parquet")
+    pq.write_table(item.set_column(at, "i_category", pa.nulls(
+        item.num_rows, pa.string())), paths["item_null_category_plain"],
+        use_dictionary=False)
     out = {}
-    for name in ("store_sales", "item", "store", "customer"):
+    for name in ("store_sales", "item", "store", "customer",
+                 "item_null_category_plain"):
         path = paths[name]
         scan = GpuFileScanExec([path], schema=engine_schema(
             pq.ParquetFile(path).schema_arrow))
@@ -1855,6 +1867,9 @@ _K6_TOKENS = ([bytes([c]) for c in b"abcdefghijklmnopqrstuvwxyz"]
 _K6_WEIGHTS = [7] * 26 + [2] * 10 + [32, 8, 8, 4, 2]  # sum 256
 K6_LIKE = "%ab%c_d%"          # 44 positions: % and _ are 10 each
 K6_RLIKE = "xy|b[aeiou]+z|\\d\\d\\s\\w"
+# 17 positions whose DFA passes regex.DFA_MAX_ENTRIES (an 'a' in each of
+# the last 16 bytes gives about 2^16 states): route B
+K6_BLOWUP = "a" + "[a-z ]" * 16
 K6_TEXT_ROWS = 1 << 20
 _NDS_CATEGORIES = ["Electronics", "Home", "Sports", "Books", "Music",
                    "Jewelry"]  # nds.gen_tables' i_category
@@ -1885,8 +1900,9 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
     "pattern", "prog"}``. q_like's own shape (32,768 ``i_category``
     strings under ``'%o%s%'``, 32 positions); ``text_rows`` rows of text
     of 20-120 bytes with multi-byte characters and newlines, 5% null,
-    under the LIKE pattern ``K6_LIKE`` and the RLIKE alternation
-    ``K6_RLIKE``; and the edges: the empty string, a null row, rows
+    under the LIKE pattern ``K6_LIKE``, the RLIKE alternation
+    ``K6_RLIKE`` and the RLIKE ``K6_BLOWUP``, whose DFA does not fit
+    (route B); and the edges: the empty string, a null row, rows
     whose start lies inside an inherited chars buffer (overlapping,
     out of order), an empty chars buffer, and patterns that match
     always or only the empty string."""
@@ -1912,10 +1928,10 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
                 np.frombuffer(b"".join(words), np.uint8), "%o%s%", True)]
     off, chars = _k6_text(rng, text_rows)
     valid = rng.random(len(off) - 1) >= 0.05
-    out += [case(f"text_like_2^{text_rows.bit_length() - 1}", off[:-1],
-                 np.diff(off), valid, chars, K6_LIKE, True),
-            case(f"text_rlike_2^{text_rows.bit_length() - 1}", off[:-1],
-                 np.diff(off), valid, chars, K6_RLIKE, False)]
+    out += [case(f"text_{kind}_2^{text_rows.bit_length() - 1}", off[:-1],
+                 np.diff(off), valid, chars, pattern, kind == "like")
+            for kind, pattern in (("like", K6_LIKE), ("rlike", K6_RLIKE),
+                                  ("blowup", K6_BLOWUP))]
     buf = np.frombuffer("xxos\nabcxxd zo sé日 ab c\nd".encode(), np.uint8)
     m = len(buf)
     starts = [0, 2, 5, 3, 0, m, 9, 1, 12, 4]
@@ -1932,20 +1948,35 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
     return out
 
 
+def _k6_routes(prog) -> List[str]:
+    """Every route K6 can run ``prog`` on: the DFA where it fits, and
+    position sets."""
+    from . import regex
+    return (["dfa"] if regex.program_tables(prog)[0] == "dfa" else []) \
+        + ["positions"]
+
+
 def check_k6(device, cases: Optional[List[Dict]] = None) -> List[Dict]:
     """K6 against its plain version on every ``k6_cases`` input (or
-    ``cases``), bit for bit, and q_like's case against Python's ``re``;
-    raises on the first disagreement."""
+    ``cases``), bit for bit, on the program's route and through every
+    other route that can take the case (``_k6_routes``), and q_like's
+    case against Python's ``re``; raises on the first disagreement."""
     import re
     from . import regex
     out = []
     for c in cases if cases is not None else k6_cases(device):
         args = (c["starts"], c["lengths"], c["validity"], c["chars"],
                 c["prog"])
-        got, want = regex.regex_match(*args), regex.regex_match_torch(*args)
+        want = regex.regex_match_torch(*args)
+        got = regex.regex_match(*args)
+        by_route = {r: _same_bits(regex.regex_match(*args, route=r), want)
+                    for r in _k6_routes(c["prog"])}
         rec = {"case": c["name"], "n": c["starts"].shape[0],
                "positions": c["prog"].n_states,
-               "matches": int(want.sum()), "equal": _same_bits(got, want),
+               "route": regex.program_tables(c["prog"])[0],
+               "matches": int(want.sum()),
+               "equal": _same_bits(got, want) and all(by_route.values()),
+               "equal_by_route": by_route,
                "max_abs_err": _max_abs_diff([(got.to(torch.int64),
                                               want.to(torch.int64))])}
         if c["name"].startswith("q_like"):
@@ -1964,32 +1995,42 @@ def check_k6(device, cases: Optional[List[Dict]] = None) -> List[Dict]:
 
 def time_k6(device, cases: Optional[List[Dict]] = None,
             reps: int = 20) -> Dict[str, Dict[str, float]]:
-    """Device ms of K6 and its plain version at q_like's shape and on the
-    text cases, over copies of the inputs larger than L2, in turns
-    (plain, kernel, kernel, plain), with the bytes the kernel must move:
-    each row's chars up to where it stops (``regex.regex_bytes_read``),
-    its 4 B start and 4 B length, its validity byte where there is one,
-    its 1 B result, and the tables (2,600 B)."""
+    """Device ms of K6 (on the program's route) and its plain version at
+    q_like's shape and on the text cases, over copies of the inputs
+    larger than L2, in turns (plain, kernel, kernel, plain), and of every
+    way K6 can run the case (``ms_by_route``, ``_k6_routes``), with the
+    bytes the kernel must move: each row's chars up to where it stops
+    (``regex.regex_bytes_read``), its 4 B start and 4 B length, its
+    validity byte where there is one, its 1 B result, and the route's
+    tables."""
     from . import regex
     out = {}
     for c in cases if cases is not None else k6_cases(device):
         if c["name"].startswith("edges"):
             continue
+        prog = c["prog"]
         n = c["starts"].shape[0]
         args = (c["starts"], c["lengths"], c["validity"], c["chars"])
-        chars = regex.regex_bytes_read(*args, c["prog"])
+        chars = regex.regex_bytes_read(*args, prog)
+        route, tables = regex.program_tables(prog)
         nbytes = chars + n * (9 + (c["validity"] is not None)) \
-            + 8 * (256 + 64 + 5)
+            + len(regex._table_bytes(route, tables))
 
         def fresh():
             return tuple(None if a is None else a.clone() for a in args)
         copies = _cycle(fresh, _copies_for(nbytes))
         ms, plain_ms = _turns(
-            lambda a: regex.regex_match_torch(*a, c["prog"]),
-            lambda a: regex.regex_match(*a, c["prog"]), copies, reps, 2)
+            lambda a: regex.regex_match_torch(*a, prog),
+            lambda a: regex.regex_match(*a, prog), copies, reps, 2)
+        by_route = {r: min(_time_ms(
+            lambda a: regex.regex_match(*a, prog, route=r), copies, reps)
+            for _ in range(2)) for r in _k6_routes(prog)}
         out[c["name"]] = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": None, "bytes": nbytes, "rows": n,
-                          "chars_read": chars,
-                          "positions": c["prog"].n_states,
+                          "chars_read": chars, "route": route,
+                          "ms_by_route": by_route,
+                          "positions": prog.n_states,
+                          "dfa_states": tables.n_states
+                          if route == "dfa" else None,
                           "pattern": c["pattern"]}
     return out

@@ -398,16 +398,22 @@ class BatchLayout:
         """A decoded string column from its index stream and its staged
         store: the store's length of each valid row (null and padding
         rows 0), the offsets by a cumulative sum, the chars copied into
-        the plan's char capacity."""
+        the plan's char capacity. A store of no strings (fewer than two
+        offsets: a chunk of no rows, or all null without a dictionary)
+        gives every row start 0 and length 0."""
         cap = self.capacity
         so_off, so_n, sc_off, sc_n, char_cap = self._str[f.name]
         idx = blob[out_off:out_off + cap * 4].view(torch.int32)
         valid = None if valid_off < 0 else \
             blob[valid_off:valid_off + cap].view(torch.bool)
-        store_offs = blob[so_off:so_off + so_n * 4].view(torch.int32)
-        k = idx.long().clamp_(0, max(so_n - 2, 0))
-        starts = store_offs[k]
-        lengths = store_offs[k + 1] - starts
+        if so_n < 2:
+            starts = torch.zeros(cap, dtype=torch.int32, device=blob.device)
+            lengths = starts
+        else:
+            store_offs = blob[so_off:so_off + so_n * 4].view(torch.int32)
+            k = idx.long().clamp_(0, so_n - 2)
+            starts = store_offs[k]
+            lengths = store_offs[k + 1] - starts
         live = torch.arange(cap, device=blob.device) < self.n_rows
         if valid is not None:
             live = live & valid

@@ -14,15 +14,25 @@ dialect raises ``RegexUnsupported``.
 
 The matcher (the reference's ``regex_match_device``, ``:378``, a
 ``jax.lax.while_loop`` over byte positions with an ``(n, S) @ (S, S)``
-step) is **K6**, ``csrc/regex_match.cu``: one thread a row, the active
-position set one ``uint64``, the byte classes (``acc``, 256 words) and
-the follow relation (``follow``, 64 words) in shared memory, each row
-read once through its start offset and length, and a row stops as soon
-as it has matched or no position can fire again. ``regex_match`` is its
-wrapper; ``regex_match_torch``, the reference's loop in torch (one
-``.item()`` of the longest live string, then one step a byte position),
-is its plain version, which only a CPU tensor takes. The caller masks
-validity: a null row steps as an empty one.
+step) is **K6**, ``csrc/regex_match.cu``, one thread a row read through
+its start offset and length, each row stopping as soon as it has matched
+or no position can fire again. It has two routes, chosen by the
+program's tables alone (``program_tables``):
+
+- **A, a DFA**: ``build_dfa`` runs the subset construction over the
+  position automaton on the host, once a program: a class a byte, a
+  state a reachable active set, a 16-bit entry a (state, class) with the
+  two accept flags. A step is two shared-memory lookups, and a row is
+  read 16 bytes at a time. It is taken when the states times the
+  classes fit ``DFA_MAX_ENTRIES``;
+- **B, position sets**: the active set one ``uint64``, the byte classes
+  (``acc``) and the follow relation in shared memory, one follow lookup
+  a fired position, for a program whose DFA does not fit.
+
+``regex_match`` is its wrapper; ``regex_match_torch``, the reference's
+loop in torch (one ``.item()`` of the longest live string, then one
+step a byte position), is its plain version, which only a CPU tensor
+takes. The caller masks validity: a null row steps as an empty one.
 """
 from __future__ import annotations
 
@@ -34,7 +44,9 @@ import torch
 
 __all__ = ["RegexUnsupported", "RegexProgram", "compile_pattern",
            "like_to_regex", "regex_match", "regex_match_torch",
-           "regex_bytes_read", "program_tables", "MAX_STATES"]
+           "regex_bytes_read", "program_tables", "position_tables",
+           "build_dfa", "follow_byte_tables", "Dfa", "MAX_STATES",
+           "DFA_MAX_ENTRIES"]
 
 _MAX_STATES = 64
 
@@ -156,7 +168,7 @@ class RegexProgram:
     __slots__ = ("acc", "follow", "first_anchored", "first_floating",
                  "accept_any", "accept_end", "always_match",
                  "empty_only_match", "n_states", "min_len",
-                 "device_tables")
+                 "host_tables", "device_tables")
 
     def __init__(self):
         self.n_states = 0
@@ -169,8 +181,9 @@ class RegexProgram:
         self.always_match = False     # matches every (non-null) string
         self.empty_only_match = False  # ^$-style: matches len==0 rows
         self.min_len = 1  # minimal match width in bytes (replace sizing)
-        # K6's tables (program_tables) on each device, copied at the
-        # program's first launch there
+        # K6's route and tables (program_tables), built at the first
+        # launch, and on each device, copied at the first launch there
+        self.host_tables = None
         self.device_tables = {}
 
 
@@ -386,23 +399,124 @@ def _bits(masks: np.ndarray) -> np.ndarray:
                                                    dtype=np.uint64)
 
 
-def program_tables(prog: RegexProgram) -> np.ndarray:
-    """The program as K6 reads it, one int64 array (uint64 bit sets):
-    ``acc[0:256]`` (the positions byte c may fire), ``follow[256:320]``
-    (the positions that may read the byte after position s), then
-    ``first_anchored``, ``first_floating``, ``accept_any``,
-    ``accept_end`` and the flags (bit 0 ``always_match``, bit 1
-    ``empty_only_match``)."""
-    out = np.zeros(256 + _MAX_STATES + 5, np.uint64)
-    out[:256] = _bits(prog.acc)
-    out[256:256 + prog.n_states] = _bits(prog.follow)
-    base = 256 + _MAX_STATES
-    out[base:base + 4] = _bits(np.stack([
-        prog.first_anchored, prog.first_floating, prog.accept_any,
-        prog.accept_end]))
-    out[base + 4] = int(prog.always_match) | (int(prog.empty_only_match)
-                                              << 1)
-    return out.view(np.int64)
+# Route A's cap: the states times the classes of a DFA, 2 B an entry, so
+# its table is at most 64 KB of shared memory (with the 256-byte class
+# map): three blocks an SM fit in an H100's 228 KB. A state id has 14
+# bits, the entry's top two bits are the accept flags.
+DFA_MAX_ENTRIES = 1 << 15
+_DFA_MAX_STATES = 1 << 14
+_DFA_ANY = 1 << 14   # the byte fired an accept_any position: matched
+_DFA_END = 1 << 15   # it fired an accept_end position: matched if last
+
+
+class Dfa:
+    """A program's deterministic automaton (``build_dfa``): ``classes``
+    (256 uint8, a byte's class), ``trans`` (``n_states x n_classes``
+    uint16: the next state in the low 14 bits, ``_DFA_ANY`` and
+    ``_DFA_END`` above), the start state 0, and ``dead`` (the empty
+    active set's state, or -1)."""
+
+    __slots__ = ("classes", "trans", "n_states", "n_classes", "dead")
+
+    def __init__(self, classes, trans, dead):
+        self.classes, self.trans, self.dead = classes, trans, dead
+        self.n_states, self.n_classes = trans.shape
+
+
+def follow_byte_tables(prog: RegexProgram) -> np.ndarray:
+    """``(ceil(S / 8), 256)`` uint64: ``T[k][b]`` is the OR of
+    ``follow[8k + i]`` over the set bits ``i`` of ``b``, so the positions
+    that may follow a fired set ``f`` are the OR over ``k`` of
+    ``T[k][(f >> 8k) & 255]`` (``build_dfa`` steps every class of a state
+    at once with them)."""
+    fb = np.zeros(_MAX_STATES, np.uint64)
+    fb[:prog.n_states] = _bits(prog.follow)
+    tabs = np.zeros((max(1, -(-prog.n_states // 8)), 256), np.uint64)
+    b = np.arange(256)
+    for k in range(tabs.shape[0]):
+        for i in range(8):
+            tabs[k, (b >> i) & 1 == 1] |= fb[8 * k + i]
+    return tabs
+
+
+def _follow_of(tabs: np.ndarray, fired: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(fired)
+    for k in range(tabs.shape[0]):
+        out |= tabs[k][((fired >> np.uint64(8 * k))
+                        & np.uint64(255)).astype(np.intp)]
+    return out
+
+
+def build_dfa(prog: RegexProgram,
+              max_entries: int = DFA_MAX_ENTRIES) -> Optional[Dfa]:
+    """The subset construction over ``prog``'s position automaton, or
+    None when its states times its classes pass ``max_entries``. The
+    classes are the distinct ``acc`` rows (bytes that fire the same
+    positions); state 0 is ``first_anchored | first_floating``; from
+    active set ``a`` class ``c`` fires ``a & acc[c]`` and moves to the
+    follow set of that OR ``first_floating``. An entry whose fired set
+    meets ``accept_any`` ends the row matched, so its successor is not
+    explored (its entry holds state 0). The row stops where the state is
+    ``dead``: no position can fire again."""
+    reps, classes = np.unique(_bits(prog.acc), return_inverse=True)
+    n_cls = len(reps)
+    tabs = follow_byte_tables(prog)
+    first_f = np.uint64(_bits(prog.first_floating))
+    any_mask = np.uint64(_bits(prog.accept_any))
+    end_mask = np.uint64(_bits(prog.accept_end))
+    start = int(np.uint64(_bits(prog.first_anchored)) | first_f)
+    ids = {start: 0}
+    order = [start]
+    rows = []
+    limit = min(_DFA_MAX_STATES, max_entries // n_cls)
+    while len(rows) < len(order):
+        fired = np.uint64(order[len(rows)]) & reps
+        nxt = _follow_of(tabs, fired) | first_f
+        flags = np.where((fired & any_mask) != 0, _DFA_ANY, 0) \
+            | np.where((fired & end_mask) != 0, _DFA_END, 0)
+        row = np.zeros(n_cls, np.uint16)
+        for c in range(n_cls):
+            if flags[c] & _DFA_ANY:
+                row[c] = _DFA_ANY
+                continue
+            t = ids.setdefault(int(nxt[c]), len(order))
+            if t == len(order):
+                if t >= limit:
+                    return None
+                order.append(int(nxt[c]))
+            row[c] = t | flags[c]
+        rows.append(row)
+    return Dfa(classes.astype(np.uint8), np.stack(rows), ids.get(0, -1))
+
+
+def position_tables(prog: RegexProgram) -> np.ndarray:
+    """Route B's tables, one uint64 array: ``acc[0:256]`` (the positions
+    byte c may fire) and ``follow[256:320]`` (the positions that may read
+    the byte after position s)."""
+    follow = np.zeros(_MAX_STATES, np.uint64)
+    follow[:prog.n_states] = _bits(prog.follow)
+    return np.concatenate([_bits(prog.acc), follow])
+
+
+def program_tables(prog: RegexProgram):
+    """``(route, tables)``: the program as K6 reads it, the route chosen
+    by the size of its tables alone, built once and kept on the program.
+
+    Route ``"dfa"`` (A), where ``build_dfa`` fits ``DFA_MAX_ENTRIES``:
+    ``tables`` is the ``Dfa``; K6 stages its class map (256 B) and its
+    transitions (``n_states x n_classes`` x 2 B, at most 64 KB) in shared
+    memory, and a step is two shared lookups. Route ``"positions"`` (B),
+    otherwise: ``tables`` is ``position_tables`` (2.5 KB), and a step is
+    one ``acc`` lookup and one ``follow`` lookup a fired position; the
+    start, accept and flag masks go by value. On an H100 neither route
+    nears the bound of the bytes it reads: a step is a chain of
+    dependent shared lookups, and a warp waits for its longest row
+    (``csrc/regex_match.cu``; ``PERF.md`` section 6)."""
+    if prog.host_tables is None:
+        dfa = build_dfa(prog)
+        prog.host_tables = ("dfa", dfa) if dfa is not None \
+            else ("positions", position_tables(prog))
+    return prog.host_tables
 
 
 def _match_loop(starts: torch.Tensor, lengths: torch.Tensor,
@@ -477,7 +591,16 @@ class _RegexArgs(ctypes.Structure):
                 ("chars", ctypes.c_void_p),
                 ("out", ctypes.c_void_p),
                 ("n", ctypes.c_int64),
-                ("n_chars", ctypes.c_int64)]
+                ("n_chars", ctypes.c_int64),
+                ("table_bytes", ctypes.c_int64),
+                ("first_anchored", ctypes.c_uint64),
+                ("first_floating", ctypes.c_uint64),
+                ("accept_any", ctypes.c_uint64),
+                ("accept_end", ctypes.c_uint64),
+                ("route", ctypes.c_int32),
+                ("n_classes", ctypes.c_int32),
+                ("dead", ctypes.c_int32),
+                ("flags", ctypes.c_int32)]
 
 
 def _library():
@@ -513,12 +636,42 @@ def _check_inputs(starts, lengths, validity, chars) -> None:
             raise ValueError("K6's inputs must be on one device")
 
 
+def _table_bytes(route: str, tables) -> np.ndarray:
+    """A route's tables as the bytes K6 stages, padded to 16."""
+    if route == "dfa":
+        raw = np.concatenate([tables.classes, tables.trans.ravel().view(
+            np.uint8)])
+    else:
+        raw = tables.view(np.uint8)
+    return np.concatenate([raw, np.zeros(-len(raw) % 16, np.uint8)])
+
+
+def _device_tables(prog: RegexProgram, route: str,
+                   device: torch.device) -> torch.Tensor:
+    """The route's tables on ``device``, copied at their first launch
+    there and kept on the program (no copy a launch)."""
+    got = prog.device_tables.get((route, device))
+    if got is None:
+        chosen, tables = program_tables(prog)
+        if route != chosen:
+            if route == "dfa":
+                raise ValueError("this program's DFA passes "
+                                 f"DFA_MAX_ENTRIES ({DFA_MAX_ENTRIES})")
+            tables = position_tables(prog)
+        got = torch.from_numpy(_table_bytes(route, tables)).to(device)
+        prog.device_tables[(route, device)] = got
+    return got
+
+
 def regex_match(starts: torch.Tensor, lengths: torch.Tensor,
                 validity: Optional[torch.Tensor], chars: torch.Tensor,
-                prog: RegexProgram) -> torch.Tensor:
+                prog: RegexProgram, route: Optional[str] = None) \
+        -> torch.Tensor:
     """K6: ``(n,)`` bool, does ``prog`` match each row's bytes (search
     semantics; rows as ``regex_match_torch`` reads them). A CPU input
-    takes the plain version; a CUDA input launches the kernel, once."""
+    takes the plain version; a CUDA input launches the kernel once, on
+    the program's route (``program_tables``), or on ``route`` ("dfa" or
+    "positions") where a check names one."""
     from .cuda_kernels import _on_cpu
     if _on_cpu([starts, lengths, validity, chars]):
         return regex_match_torch(starts, lengths, validity, chars, prog)
@@ -527,17 +680,27 @@ def regex_match(starts: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty(n, dtype=torch.bool, device=starts.device)
     if n == 0:
         return out
-    tables = prog.device_tables.get(starts.device)
-    if tables is None:
-        tables = torch.from_numpy(program_tables(prog)).to(starts.device)
-        prog.device_tables[starts.device] = tables
+    route = route or program_tables(prog)[0]
+    if route not in ("dfa", "positions"):
+        raise ValueError(f"K6 has no route {route!r}")
+    tables = _device_tables(prog, route, starts.device)
     args = _RegexArgs()
-    args.tables = tables.data_ptr()
+    args.tables, args.table_bytes = tables.data_ptr(), tables.shape[0]
     args.starts, args.lengths = starts.data_ptr(), lengths.data_ptr()
     args.validity = None if validity is None else validity.data_ptr()
     args.chars = chars.data_ptr() if chars.shape[0] else None
     args.out = out.data_ptr()
     args.n, args.n_chars = n, chars.shape[0]
+    args.flags = int(prog.always_match) | (int(prog.empty_only_match) << 1)
+    if route == "dfa":
+        dfa = program_tables(prog)[1]
+        args.route, args.n_classes, args.dead = 0, dfa.n_classes, dfa.dead
+    else:
+        args.route = 1
+        args.first_anchored, args.first_floating, args.accept_any, \
+            args.accept_end = (int(_bits(m)) for m in (
+                prog.first_anchored, prog.first_floating, prog.accept_any,
+                prog.accept_end))
     stream = torch.cuda.current_stream(starts.device).cuda_stream
     err = _library().spark_regex_launch(ctypes.addressof(args), stream)
     if err != 0:

@@ -396,7 +396,8 @@ class SqlCompiler:
     def _compile_setop(self, op: A.SetOp, env: Dict) -> Rel:
         """UNION ALL, flattened: the sides' widths must agree, their types
         position by position, numeric ones widened by a ``Cast`` under a
-        project."""
+        project, and a NULL column cast to the other sides' type (as
+        Spark does; the reference refuses it)."""
         from ..exec.basic import GpuProjectExec
         from ..exec.misc import GpuUnionExec
         from ..expr.cast import Cast
@@ -427,9 +428,11 @@ class SqlCompiler:
         common = list(parts[0].schema.types)
         for p in parts[1:]:
             for i, t in enumerate(p.schema.types):
-                if t == common[i]:
+                if t == common[i] or isinstance(t, dt.NullType):
                     continue
-                if dt.is_numeric(t) and dt.is_numeric(common[i]):
+                if isinstance(common[i], dt.NullType):
+                    common[i] = t  # a NULL side adopts the other's type
+                elif dt.is_numeric(t) and dt.is_numeric(common[i]):
                     common[i] = dt.common_type(t, common[i])
                 else:
                     raise self.err(

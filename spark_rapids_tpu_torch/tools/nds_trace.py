@@ -14,7 +14,7 @@ JSON line: the wall time, the device's busy time (the union of the
 intervals in which a kernel or a copy ran, so nothing counts twice) and
 its idle share, the device time and kernel launches of K3
 (``radix_histogram``, ``radix_plan``, ``radix_pass``), K4
-(``gather_rows_*``), K5 (``k5_*``) and K6 (``regex_match_kernel``), the
+(``gather_rows_*``), K5 (``k5_*``) and K6 (``regex_match_*``), the
 wrappers' launch counts in the traced run, and the largest other device
 operations. The K3 and K4
 kernels launched inside ``sort_keys.string_order_ranks_multi`` (the
@@ -46,7 +46,7 @@ _RANGE = "string_ranks"  # sort_keys.string_order_ranks_multi's range
 _WINDOW = "window"       # exec/window.GpuWindowExec's pass
 _FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
              "K4": ("gather_rows_fast", "gather_rows_any"),
-             "K5": ("k5_",), "K6": ("regex_match_kernel",)}
+             "K5": ("k5_",), "K6": ("regex_match_",)}
 
 
 def _family(name: str):

@@ -8,8 +8,8 @@ through the engine with the launches its plan implies; every NDS query
 the port runs from SQL on the card against the CPU, and string ranks on
 the card against the CPU's; the window operator on the card against the
 CPU; K6 (the LIKE/RLIKE automaton) against its plain version bit for
-bit, LIKE through K6 once a batch, and the staged join on the card
-against the CPU. Run on a machine with a CUDA device: ``python -m pytest
+bit through each of its routes, LIKE through K6 once a batch, and the
+staged join on the card against the CPU. Run on a machine with a CUDA device: ``python -m pytest
 tests/test_torch_gpu.py``; elsewhere they skip."""
 import pytest
 import torch
@@ -317,14 +317,22 @@ def test_window_on_the_card_matches_the_cpu(cuda_device):
 
 
 def test_k6_matches_plain_version(cuda_device):
+    """Both routes bit for bit: every case whose DFA fits through the DFA
+    and through position sets, the blow-up case at 2^20 rows through
+    position sets."""
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     recs = kc.check_k6(cuda_device)
-    names = {r["case"] for r in recs}
+    by_name = {r["case"]: r for r in recs}
     assert {"q_like_item_32768", "text_like_2^20", "text_rlike_2^20",
-            "edges_no_chars"} <= names
+            "text_blowup_2^20", "edges_no_chars"} <= set(by_name)
     assert all(r["equal"] for r in recs)
-    assert next(r for r in recs
-                if r["case"] == "q_like_item_32768")["equal_re"]
+    assert by_name["q_like_item_32768"]["equal_re"]
+    both = {"dfa", "positions"}
+    for name, r in by_name.items():
+        want = both - {"dfa"} if name == "text_blowup_2^20" else both
+        assert set(r["equal_by_route"]) == want, name
+        assert r["route"] == ("positions" if name == "text_blowup_2^20"
+                              else "dfa"), name
 
 
 def test_like_launches_k6_once_a_batch(cuda_device):

@@ -38,9 +38,11 @@ SQL_MODULES = [
     "sql/errors.py", "sql/ast.py", "sql/lexer.py", "sql/parser.py",
     "sql/functions.py", "sql/compiler.py", "nds.py", "tools/nds_trace.py"]
 WINDOW_UNION_MODULES = ["expr/window.py", "exec/window.py", "exec/misc.py"]
-# the staged join, APPROX_PERCENTILE and LIKE on K6
+# the staged join, APPROX_PERCENTILE and LIKE on K6, and K6's timing
+# across trees
 JOIN_PERCENTILE_LIKE_MODULES = ["ops/regex.py", "expr/strings.py",
-                                "expr/aggregates.py", "exec/aggregate.py"]
+                                "expr/aggregates.py", "exec/aggregate.py",
+                                "tools/k6_bench.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():

@@ -1,50 +1,25 @@
-"""The NDS corpus from SQL on the CPU: all 22 queries
-(``nds.PORTED_QUERIES``: q3, q42, q52, q55, q96, q_topn, q7, q_pivot,
-q_customer_age, q_price_band, q_cte, q_having, q_in_between, q_agg_expr,
-q_not_or, q_rank, q_rownum, q_rolling, q_union, q_percentile, q97 and
-q_like) at ``spark.sql.shuffle.partitions`` 1 and 16, over Parquet
-files of ``n_sales = 1 << 14`` written to a temporary directory, held to
-the JAX package through the dual-run assert (``torch_dual_run``: names
-and Arrow types equal, ints, strings and nulls exact, floats rel 1e-9,
-row order exact where the query orders it, the scans' chunk counters
-equal) and to the port's numpy/pyarrow oracle (``nds.oracle``, the same
-tolerance), a float column that is no sum or average
-(``nds.FLOAT_COLUMNS``: q_percentile's ``p50``) exactly. SQL constructs
-the port does not run yet raise ``SqlAnalysisError
-("unsupported_feature")`` or ``NotImplementedError`` naming their ROADMAP
-item, and never run another way."""
+"""The NDS corpus from SQL on the CPU, the last queries (q_in_between,
+q_percentile, q97, q_like) at ``spark.sql.shuffle.partitions`` 1 and 16,
+each held to the JAX package through the dual-run assert and to
+``nds.oracle`` by ``nds_corpus.check_query``; an ANSI run; and the
+corpus's bounds. The other queries are in
+``tests/test_torch_nds_corpus_*.py``, one group a file
+(``nds_corpus.GROUPS``), over the same tables: ``n_sales = 1 << 14``
+written to Parquet files in a temporary directory. SQL constructs the
+port does not run yet raise ``SqlAnalysisError("unsupported_feature")``
+or ``NotImplementedError`` naming their ROADMAP item, and never run
+another way."""
 import pytest
 
+from nds_corpus import GROUPS, check_query, paths, runs, tables  # noqa: F401
 from spark_rapids_tpu_torch import nds
 from spark_rapids_tpu_torch.sql import SqlAnalysisError
-from torch_dual_run import assert_same_rows, dual_run
-
-N_SALES = 1 << 14
-RUNS = [(q, p) for q in nds.PORTED_QUERIES for p in (1, 16)]
+from torch_dual_run import dual_run
 
 
-@pytest.fixture(scope="module")
-def tables():
-    return nds.gen_tables(N_SALES)
-
-
-@pytest.fixture(scope="module")
-def paths(tables, tmp_path_factory):
-    return nds.write_tables(tables, str(tmp_path_factory.mktemp("nds")))
-
-
-@pytest.mark.parametrize("q,parts", RUNS, ids=[f"{q}-p{p}" for q, p in RUNS])
+@runs("tail")
 def test_query_matches_reference_and_oracle(paths, tables, q, parts):
-    got, ref = dual_run(nds.SQL_QUERIES[q], paths,
-                        {"spark.sql.shuffle.partitions": str(parts)})
-    assert got.num_rows > 0
-    want = nds.oracle(q, tables)
-    assert_same_rows(got, want, ordered=True, label=q)
-    for name in got.column_names:
-        if name not in nds.FLOAT_COLUMNS[q]:
-            assert got.column(name).to_pylist() \
-                == ref.column(name).to_pylist() \
-                == want.column(name).to_pylist(), (q, name)
+    check_query(paths, tables, q, parts)
 
 
 def test_ansi_mode_gives_the_reference_rows(paths):
@@ -98,3 +73,8 @@ def test_the_corpus_is_split_in_two():
     assert set(nds.PORTED_QUERIES) | set(nds.UNPORTED_QUERIES) \
         == set(nds.SQL_QUERIES)
     assert not set(nds.PORTED_QUERIES) & set(nds.UNPORTED_QUERIES)
+
+
+def test_every_ported_query_has_one_file():
+    grouped = [q for g in GROUPS.values() for q in g]
+    assert sorted(grouped) == sorted(nds.PORTED_QUERIES)

@@ -267,3 +267,139 @@ def test_patterns_outside_the_dialect_raise_at_planning():
     got = GpuOverrides(device="cpu").apply(plan).collect()
     assert got.column("m").to_pylist() == [None if s is None else s == "aé"
                                            for s in STRINGS]
+
+
+# --- K6's route tables: the DFA (route A) and the follow byte tables ------
+
+def _dfa_match(prog, starts, lengths, valid, chars) -> np.ndarray:
+    """Route A in numpy (tests only): the DFA of ``trx.program_tables``
+    stepped a byte a row as ``csrc/regex_match.cu`` steps it: state 0
+    first, a row decided by the flags before its first byte, matched on
+    an entry's any-accept bit or on its end-accept bit at the row's last
+    live byte, stopped at the dead state; bytes read at the clamped
+    position, an empty buffer as one zero byte."""
+    route, dfa = trx.program_tables(prog)
+    assert route == "dfa"
+    lens = lengths.astype(np.int64)
+    live = lens if valid is None else np.where(valid, lens, 0)
+    matched = np.full(len(lens), bool(prog.always_match))
+    if prog.empty_only_match:
+        matched |= lens == 0
+    state = np.zeros(len(lens), np.int64)
+    going = ~matched & (state != dfa.dead)
+    buf = chars if len(chars) else np.zeros(1, np.uint8)
+    for j in range(int(live.max()) if len(lens) else 0):
+        going &= j < live
+        c = buf[np.clip(starts.astype(np.int64) + j, 0, len(buf) - 1)]
+        e = dfa.trans[state, dfa.classes[c]].astype(np.int64)
+        hit = going & (((e & trx._DFA_ANY) != 0)
+                       | (((e & trx._DFA_END) != 0) & (j == live - 1)))
+        matched |= hit
+        going &= ~hit
+        state = np.where(going, e & (trx._DFA_ANY - 1), state)
+        going &= state != dfa.dead
+    return matched
+
+
+def _edge_rows():
+    """The edge rows of ``kernel_checks.k6_cases``: the empty string, a
+    null row, overlapping rows out of order inside one buffer."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    c = next(c for c in kc.k6_cases("cpu", text_rows=1 << 4)
+             if c["name"].startswith("edges_'%o%s%'"))
+    return tuple(c[k].numpy() for k in ("starts", "lengths", "validity",
+                                        "chars"))
+
+
+# every pattern this file compiles, for LIKE (ASCII, "\\" escapes) and
+# RLIKE, once each
+ROUTE_A_PATTERNS = list(dict.fromkeys(
+    [(p, False) for p in DIALECT_PATTERNS + MATCH_PATTERNS]
+    + [(p, True) for p in LIKE_PATTERNS]
+    + [(p, True) for p, e in LIKE_CASES if e == "\\" and p.isascii()]))
+
+
+@pytest.mark.parametrize(
+    "pattern,like", ROUTE_A_PATTERNS,
+    ids=[f"{'like' if k else 'rlike'}:{p!r}" for p, k in ROUTE_A_PATTERNS])
+def test_dfa_rows_match_the_reference_and_the_plain_version(pattern, like):
+    """The DFA's rows equal ``regex_match_device`` (JAX on the CPU) and
+    ``regex_match_torch`` on generated text (1- to 4-byte characters,
+    newlines, empty rows, nulls) and on ``k6_cases``' edge rows."""
+    import jax.numpy as jnp
+    rx = trx.like_to_regex(pattern) if like else pattern
+    prog, jprog = trx.compile_pattern(rx), jrx.compile_pattern(rx)
+    strs, offsets, chars = _text(6, 120)
+    valid = np.random.default_rng(7).random(len(strs)) > 0.1
+    inputs = [(offsets[:-1], np.diff(offsets).astype(np.int32), valid,
+               chars), _edge_rows()]
+    for starts, lengths, v, buf in inputs:
+        got = _dfa_match(prog, starts, lengths, v, buf)
+        plain = trx.regex_match_torch(
+            torch.from_numpy(starts.copy()), torch.from_numpy(lengths.copy()),
+            torch.from_numpy(v.copy()), torch.from_numpy(buf.copy()), prog)
+        assert np.array_equal(got, plain.numpy()), rx
+        if starts is offsets[:-1]:
+            col = TpuColumnVector(None, validity=jnp.asarray(v),
+                                  offsets=jnp.asarray(offsets),
+                                  chars=jnp.asarray(buf))
+            want = np.asarray(jrx.regex_match_device(col, jprog))
+            assert np.array_equal(got, want), rx
+
+
+def test_k6_cases_take_route_a_but_the_blowup():
+    """Every ``k6_cases`` pattern (at most 44 positions) takes the DFA,
+    except ``K6_BLOWUP``: 17 positions, but an 'a' may start a match at
+    each of the last 16 bytes, so its DFA needs a state for each subset
+    of them (about 2^16) and passes ``DFA_MAX_ENTRIES``: route B."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    routes = {}
+    for c in kc.k6_cases("cpu", text_rows=1 << 4):
+        assert c["prog"].n_states <= 44
+        routes[c["pattern"]] = trx.program_tables(c["prog"])[0]
+    assert routes.pop(kc.K6_BLOWUP) == "positions"
+    assert set(routes.values()) == {"dfa"}
+    # the corpus's and the text's LIKE patterns: small DFAs
+    for pattern, states in (("%o%s%", 22), (kc.K6_LIKE, 45)):
+        dfa = trx.build_dfa(trx.compile_pattern(trx.like_to_regex(pattern)))
+        assert dfa.n_states == states and dfa.n_classes <= 10
+
+
+@pytest.mark.parametrize("pattern", ["a" + "[ab]" * 16,
+                                     "a" + "[a-z ]" * 16])
+def test_a_blowup_pattern_passes_the_cap_and_takes_route_b(pattern):
+    prog = trx.compile_pattern(pattern)
+    assert prog.n_states == 17
+    assert trx.build_dfa(prog) is None
+    route, tables = trx.program_tables(prog)
+    assert route == "positions"
+    assert np.array_equal(tables[:256], trx._bits(prog.acc))
+    assert np.array_equal(tables[256:256 + 17], trx._bits(prog.follow))
+    assert not tables[256 + 17:].any()
+    # a cap of fewer entries than the small pattern needs: route B too
+    small = trx.compile_pattern("a[ab][ab]")
+    dfa = trx.build_dfa(small)
+    assert dfa is not None
+    assert trx.build_dfa(small, dfa.n_states * dfa.n_classes - 1) is None
+
+
+def test_follow_byte_tables_give_the_follow_sets():
+    """``T[k][b]``, ORed over the bytes of a fired set, equals the OR of
+    ``follow`` over its bits, for random sets over the fuzz corpus and
+    the 64-position pattern."""
+    rng = np.random.default_rng(11)
+    pats = _fuzz_patterns()[:40] + [trx.like_to_regex("%a%b%c%d%%")]
+    for pattern in pats:
+        try:
+            prog = trx.compile_pattern(pattern)
+        except trx.RegexUnsupported:
+            continue
+        s = prog.n_states
+        tabs = trx.follow_byte_tables(prog)
+        assert tabs.shape == (max(1, -(-s // 8)), 256)
+        bits = rng.random((50, s)) < 0.3
+        fired = trx._bits(bits) if s else np.zeros(50, np.uint64)
+        want = [np.bitwise_or.reduce(trx._bits(prog.follow[row]))
+                if row.any() else np.uint64(0) for row in bits]
+        assert np.array_equal(trx._follow_of(tabs, fired),
+                              np.array(want, np.uint64)), pattern

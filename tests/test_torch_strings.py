@@ -291,7 +291,8 @@ def test_string_gather_check_at_the_join_shape():
 def test_nds_batches_decode_to_pyarrow(tmp_path):
     """The NDS path's own batches (a 2^20-row ``store_sales`` batch of
     two row groups, the ``item`` and ``store`` batches with their
-    dictionary string columns, the ``customer`` batch), decoded by K5's
+    dictionary string columns, the ``customer`` batch, ``item`` with an
+    all-null string column written PLAIN), decoded by K5's
     plain version, equal pyarrow's reading of the same files, offsets and
     chars included."""
     from spark_rapids_tpu_torch.columnar.batch import GpuBatch

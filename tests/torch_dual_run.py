@@ -29,8 +29,10 @@ FLOAT_RTOL = 1e-9
 
 def scan_chunks(metrics) -> list:
     """Sorted ``(deviceChunks, fallbackChunks)`` of every scan, from
-    either package's ctx metrics."""
-    return sorted((m["deviceChunks"].value, m["fallbackChunks"].value)
+    either package's ctx metrics (None where a scan keeps no such
+    counter: the host-decode path)."""
+    return sorted(tuple(m[k].value if k in m else None
+                        for k in ("deviceChunks", "fallbackChunks"))
                   for label, m in metrics.items()
                   if label.startswith("FileScanExec"))
 
