@@ -1,9 +1,10 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: TPC-H q6 at SF1 from
 Parquet (host decode, then device page decode), the join + group-by
 query at the reference's full size, q6's revenue by line number at
-SF1, and the 22 NDS queries from SQL text over Parquet files
-(``nds.PORTED_QUERIES``), through ``spark_rapids_tpu_torch``, with K1 to
-K6 checked on the card.
+SF1, the 22 NDS queries from SQL text over Parquet files
+(``nds.PORTED_QUERIES``) and nine more that need outer, cross and
+nested-loop joins (``tools/nds_joins.py``), through
+``spark_rapids_tpu_torch``, with K1 to K6 checked on the card.
 
     python3 chip_smoke.py
 
@@ -98,7 +99,12 @@ Phases, any failure exits non-zero before the result line:
      counts the K3, K4, K5 and K6 launches, held to what the plan
      implies (``_nds_expected``: operator by operator, string ranks
      included);
-  9. K1's kernels a call, counted in a profiler trace of one call (1),
+  9. NDS joins from SQL: the nine texts of
+     ``spark_rapids_tpu_torch/tools/nds_joins.py`` (right and full
+     outer joins, cross joins and the nested-loop join over the same
+     files), each run as phase 8 runs a query and held to its oracle,
+     its scans to their chunks and its launches to ``_nds_expected``;
+  10. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -610,12 +616,22 @@ def _nds_expected(root, metrics, longest, conf):
     the build's group ids, and gathers its output with one K4 (semi and
     anti joins) or two; an inner or left-outer join on the fast path
     gathers its build columns into each batch (one K4, strings
-    included). The grouped aggregate sorts each partial and the final by
-    its keys, then gathers keys and values once and the segment starts
-    once (two K4). An aggregate with an exact percentile takes the
-    single pass instead: its keyed sort and two gathers once, then a
-    percentile's sort of (dropped, group, value) and its gather (one
-    K4), with no partials. ORDER BY sorts once and gathers once. A window
+    included). Right and full outer joins take the staged path for
+    every stream batch and emit the unmatched build rows as the build's
+    own columns under a selection (no launch). A join without keys (the
+    cross join) sorts nothing in stage A and gathers both sides (the
+    stream's alone for a semi or anti join), one K4 each; the
+    nested-loop join with a condition gathers both sides' pairs a stream
+    batch and emits its unmatched rows under a selection, so each of its
+    staged batches is two K4. A join's batches are its
+    ``numOutputBatches``. The grouped aggregate sorts each partial and
+    the final by its keys, then gathers keys and values once and the
+    segment starts once (two K4); a MIN or MAX sorts its values by
+    (group, value) and gathers them once more in each of those passes
+    (``ops/segments._min_max``). An aggregate with an exact percentile
+    takes the single pass instead: its keyed sort and two gathers once,
+    then a percentile's sort of (dropped, group, value) and its gather
+    (one K4), with no partials. ORDER BY sorts once and gathers once. A window
     (``exec/window.py``) sorts once by its partition and order keys,
     then gathers the rows and its computed arguments in one K4, and one
     K4 more for each lag, lead, min and max. A union runs each child in
@@ -629,7 +645,8 @@ def _nds_expected(root, metrics, longest, conf):
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
     from spark_rapids_tpu_torch.exec.basic import (GpuFilterExec,
                                                    GpuProjectExec)
-    from spark_rapids_tpu_torch.exec.joins import _BaseJoinExec
+    from spark_rapids_tpu_torch.exec.joins import (
+        GpuBroadcastNestedLoopJoinExec, _BaseJoinExec)
     from spark_rapids_tpu_torch.exec.misc import GpuUnionExec
     from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
                                                   GpuSortExec)
@@ -663,7 +680,7 @@ def _nds_expected(root, metrics, longest, conf):
         if isinstance(node, (GpuFilterExec, GpuProjectExec)):
             return batches(node.child)
         if isinstance(node, _BaseJoinExec):
-            return batches(node.left)
+            return m(node, "numOutputBatches", 0)
         if isinstance(node, (GpuHashAggregateExec, GpuSortExec,
                              GpuGlobalLimitExec, GpuWindowExec)):
             return 1
@@ -682,13 +699,20 @@ def _nds_expected(root, metrics, longest, conf):
         built = m(node, "uniqueBuild", -1)
         if built == -1:  # an empty build side: nothing ran
             return
-        if node.analyses_build() or (
-                node.build_unique_hint and not single
-                and conf.get(JOIN_VERIFY_UNIQUE_HINT)):
-            add(*_keyed_sort(keys, longest))
         staged = m(node, "stagedBatches", 0)
-        fast = batches(node.left) - staged
         gathers = 0 if node.semi else 1
+        if node.cross:
+            # stage A sorts nothing; a condition's pairs gather both
+            # sides, a semi or anti cross join without one the stream's
+            pair = node.condition is not None and isinstance(
+                node, GpuBroadcastNestedLoopJoinExec)
+            add(0, 2 if pair else gathers + 1, times=staged)
+            return
+        if not node.outer_build and (node.analyses_build() or (
+                node.build_unique_hint and not single
+                and conf.get(JOIN_VERIFY_UNIQUE_HINT))):
+            add(*_keyed_sort(keys, longest))
+        fast = batches(node.left) - staged
         if built:
             if single:
                 k3, k4 = _sort_launches(1 + _lane_bits(keys[0].dtype))
@@ -702,8 +726,14 @@ def _nds_expected(root, metrics, longest, conf):
 
     def aggregate(node):
         if not node._wants_single_pass(conf):
+            passes = m(node, "numPartials") + 1
             k3, k4 = _keyed_sort(node.group_exprs, longest)
-            add(k3, k4 + 2, times=m(node, "numPartials") + 1)
+            add(k3, k4 + 2, times=passes)
+            for a in node.aggs:
+                if isinstance(a, (Min, Max)):
+                    k3, k4 = _sort_launches(32 + _lane_bits(
+                        a.children[0].dtype))
+                    add(k3, k4 + 1, times=passes)
             return
         if node.group_exprs:
             k3, k4 = _keyed_sort(node.group_exprs, longest)
@@ -787,13 +817,11 @@ def _nds_longest(want):
             if pa.types.is_string(f.type) or pa.types.is_large_string(f.type)}
 
 
-def _check_nds(q, out, want, metrics, need_chunks):
-    """The rows against the oracle (ints and strings exact, floats rel
-    1e-9, nulls where the oracle has them, row order exact) and every
-    scan's chunk counters."""
+def _check_nds(q, out, want, metrics, need_chunks, floats):
+    """The rows against the oracle (ints and strings exact, the
+    ``floats`` columns rel 1e-9, nulls where the oracle has them, row
+    order exact) and every scan's chunk counters."""
     import math
-    from spark_rapids_tpu_torch import nds
-    floats = nds.FLOAT_COLUMNS[q]
     if out.column_names != want.column_names \
             or out.num_rows != want.num_rows or out.num_rows == 0:
         raise AssertionError(f"{q}: {out.num_rows} rows {out.column_names}"
@@ -843,26 +871,42 @@ def _scan_chunks_needed(root, chunks):
     return need
 
 
-def phase_nds(device):
+def _nds_files():
+    """The NDS tables at ``NDS_SALES`` rows, their files, and each
+    file's device chunks (row groups x columns)."""
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch import nds
-    from spark_rapids_tpu_torch.exec.base import ExecCtx
-    from spark_rapids_tpu_torch.planner import GpuOverrides
-    from spark_rapids_tpu_torch.tools.nds_trace import counters, nds_paths
+    from spark_rapids_tpu_torch.tools.nds_trace import nds_paths
 
     t0 = time.perf_counter()
     tables = nds.gen_tables(NDS_SALES)
     paths = nds_paths(NDS_SALES)
     log(f"[nds] {NDS_SALES} store_sales rows: tables and files ready in "
         f"{time.perf_counter() - t0:.3f} s")
-    # device chunks a file: its row groups x its columns
     chunks = {}
     for p in paths.values():
         md = pq.ParquetFile(p).metadata
         chunks[p] = md.num_row_groups * md.num_columns
+    return tables, paths, chunks
+
+
+def _run_sql_queries(device, tag, corpus, files):
+    """Each of ``corpus``'s queries (a module with ``QUERIES``,
+    ``SQL_QUERIES``, ``oracle`` and ``FLOAT_COLUMNS``) from SQL over the
+    NDS files: planning timed apart, at 1 partition a warm-up and 3
+    timed runs, at 16 a warm-up and one, each result held to the oracle
+    and its scans to their chunks; then one counted run each, its K3,
+    K4, K5 and K6 launches held to ``_nds_expected``."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.tools.nds_trace import counters
+
+    tables, paths, chunks = files
+    t_phase = time.perf_counter()
     plans, summary, longest = {}, {}, {}
-    for q in nds.PORTED_QUERIES:
-        want = nds.oracle(q, tables)
+    for q in corpus.QUERIES:
+        want = corpus.oracle(q, tables)
         longest[q] = _nds_longest(want)
         for parts in (1, 16):
             s = nds.session_over_files(
@@ -873,7 +917,7 @@ def phase_nds(device):
             for _ in range(3):
                 t = time.perf_counter()
                 pp = GpuOverrides(s.conf, device).apply(
-                    s.sql(nds.SQL_QUERIES[q])._node)
+                    s.sql(corpus.SQL_QUERIES[q])._node)
                 plan_times.append(time.perf_counter() - t)
             plans[q, parts] = (pp, s.conf)
 
@@ -891,20 +935,21 @@ def phase_nds(device):
             out, _, ctx = runs[0]
             metrics = _metrics(ctx)
             rel = _check_nds(q, out, want, metrics,
-                             _scan_chunks_needed(pp.root, chunks))
+                             _scan_chunks_needed(pp.root, chunks),
+                             corpus.FLOAT_COLUMNS[q])
             med = statistics.median(times)
             plan_med = statistics.median(plan_times)
             summary[f"{q}_p{parts}"] = {
                 "rows_per_s": NDS_SALES / med, "ms": med * 1e3,
                 "times_s": times, "max_rel_err": rel,
                 "plan_ms": plan_med * 1e3, "plan_times_s": plan_times}
-            log(f"[nds] {q} partitions={parts}: {NDS_SALES / med:.1f} "
+            log(f"[{tag}] {q} partitions={parts}: {NDS_SALES / med:.1f} "
                 f"rows/s, {med * 1e3:.3f} ms a query in collect (median "
                 f"of {[round(t, 6) for t in times]} s); planning "
                 f"(sql + apply) {plan_med * 1e3:.3f} ms (median of "
                 f"{[round(t, 6) for t in plan_times]} s); {out.num_rows} "
                 f"rows equal to the oracle (max rel err {rel:.3e})")
-            log(f"[nds] {q} partitions={parts} metrics "
+            log(f"[{tag}] {q} partitions={parts} metrics "
                 + json.dumps(metrics, sort_keys=True))
     # counted after every timed run: one more run each
     launches = {}
@@ -917,13 +962,30 @@ def phase_nds(device):
         torch.cuda.synchronize()
         got = {c.__name__: c.launches for c in wrappers.values()}
         want = _nds_expected(pp.root, _metrics(ctx), longest[q], conf)
-        log(f"[nds] {q} partitions={parts} launches {got}, the plan "
+        log(f"[{tag}] {q} partitions={parts} launches {got}, the plan "
             f"implies {want}")
         if got != want:
             raise AssertionError(f"{q} p{parts}: launches {got}, "
                                  f"expected {want}")
         launches[f"{q}_p{parts}"] = got
+    log(f"[{tag}] phase took {time.perf_counter() - t_phase:.3f} s")
     return summary, launches
+
+
+def phase_nds(device, files):
+    from types import SimpleNamespace
+
+    from spark_rapids_tpu_torch import nds
+    corpus = SimpleNamespace(QUERIES=nds.PORTED_QUERIES,
+                             SQL_QUERIES=nds.SQL_QUERIES,
+                             FLOAT_COLUMNS=nds.FLOAT_COLUMNS,
+                             oracle=nds.oracle)
+    return _run_sql_queries(device, "nds", corpus, files)
+
+
+def phase_nds_joins(device, files):
+    from spark_rapids_tpu_torch.tools import nds_joins
+    return _run_sql_queries(device, "nds-joins", nds_joins, files)
 
 
 def main():
@@ -938,7 +1000,9 @@ def main():
     join_launches = phase_join(device)
     dd_launches = phase_q6_device_decode(device, paths)
     ln_launches = phase_q6_by_linenumber(device)
-    nds_summary, nds_launches = phase_nds(device)
+    nds_files = _nds_files()
+    nds_summary, nds_launches = phase_nds(device, nds_files)
+    joins_summary, joins_launches = phase_nds_joins(device, nds_files)
     per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -951,6 +1015,7 @@ def main():
         f"bound_ms={c['bound_ms']!r} max_abs_err={c['max_abs_err']!r}; "
         f"not on the main path")
     log("[nds] " + json.dumps(nds_summary, sort_keys=True))
+    log("[nds-joins] " + json.dumps(joins_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -981,7 +1046,9 @@ def main():
         "shape_window": "a window sort's words, 2^15 pairs",
         "window": {k: v for k, v in k3.items() if k.startswith("window")},
         "launches_nds": {k: v["sort_pairs"]
-                         for k, v in nds_launches.items()}}, {
+                         for k, v in nds_launches.items()},
+        "launches_nds_joins": {k: v["sort_pairs"]
+                               for k, v in joins_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -991,7 +1058,9 @@ def main():
         "shape": "2^21 rows x 2 int32 columns from 2^17",
         "by_shape": k4,
         "launches_nds": {k: v["gather_rows"]
-                         for k, v in nds_launches.items()}}, {
+                         for k, v in nds_launches.items()},
+        "launches_nds_joins": {k: v["gather_rows"]
+                               for k, v in joins_launches.items()}}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -1001,7 +1070,9 @@ def main():
         "shape": "a q6 batch: 750,152 rows x 4 columns",
         "launches_q6_by_linenumber": ln_launches["decode_batch"],
         "launches_nds": {k: v["decode_batch"]
-                         for k, v in nds_launches.items()}}, {
+                         for k, v in nds_launches.items()},
+        "launches_nds_joins": {k: v["decode_batch"]
+                               for k, v in joins_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

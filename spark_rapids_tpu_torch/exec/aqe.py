@@ -17,7 +17,7 @@ map batch instead of one a partition. Batches that are not views of one
 map batch are yielded as they are.
 
 The skew split (``split_batch`` from ``memory.py``) and the join
-strategy switch (``TpuAQEJoinExec``) wait for ROADMAP items 14 and 9: a
+strategy switch (``TpuAQEJoinExec``) wait for ROADMAP items 14 and 10: a
 partition the plan marks skewed is read whole, and counted in
 ``numSkewedPartitions``.
 """

@@ -1,27 +1,51 @@
-"""Join operators: the shuffled hash join, staged or on a unique build.
+"""Join operators: the shuffled hash join (staged or on a unique build),
+the cross join and the nested-loop join.
 
-Counterpart of ``spark_rapids_tpu/exec/joins.py:46-438,491-527``
-(``_BaseJoinExec``, ``TpuShuffledHashJoinExec``) for ``inner``,
-``left_outer``, ``left_semi`` and ``left_anti`` on any number of keys,
-string keys included. The build (right) side is concatenated once
-(``concat_batches_bounded``, no readback); ``_fast_build_info`` then
-decides the path once a build, as the reference does (``:275-363``):
+Counterpart of ``spark_rapids_tpu/exec/joins.py:46-807``
+(``_BaseJoinExec``, ``TpuShuffledHashJoinExec``,
+``TpuCartesianProductExec``, ``TpuBroadcastNestedLoopJoinExec``) for
+every join type on any number of keys, string keys included. The build
+(right) side is concatenated once (``concat_batches_bounded``, no
+readback); ``_fast_build_info`` then decides the path once a build, as
+the reference does (``:275-363``):
 
-- **The fast path**, for a build whose keys are unique: each stream
-  batch joins with no size readback, into the stream batch's capacity,
-  the emitted rows marked by the lazy selection. A single fixed-width
-  key is presorted once by **K3** (``ops/join.unique_build_probe``) and
-  probed by binary search; several keys or a string key take
-  ``unique_union_lookup``. An inner or left-outer join gathers the build
-  columns into the match positions with one **K4** launch; a gathered
-  string column gets the batch's capacity times the build's longest
-  string, and a batch past ``_FAST_MAX_CHAR_CAP`` takes the staged path.
+- **The fast path**, for a build whose keys are unique, on inner,
+  left_outer, left_semi and left_anti: each stream batch joins with no
+  size readback, into the stream batch's capacity, the emitted rows
+  marked by the lazy selection. A single fixed-width key is presorted
+  once by **K3** (``ops/join.unique_build_probe``) and probed by binary
+  search; several keys or a string key take ``unique_union_lookup``. An
+  inner or left-outer join gathers the build columns into the match
+  positions with one **K4** launch; a gathered string column gets the
+  batch's capacity times the build's longest string, and a batch past
+  ``_FAST_MAX_CHAR_CAP`` takes the staged path.
 - **The staged path** (``_join_batch``), for a build with a duplicated
   key: stage A (``ops/join.join_counts``: the union sort of both sides'
   keys on K3, the build's group order on K3) with its one readback a
   stream batch of the output rows and of each string column's bytes
   (``_sized_stage_a``), then the output indices and the gather, one K4
   launch a side (``_stage_bc``).
+- **Right and full outer joins** (``_execute_outer_build``, the
+  reference's ``:529-560``) always take the staged path: each stream
+  batch joins as inner (right) or left_outer (full) while the build's
+  matched mask ORs across the batches; then the unmatched live build
+  rows go out once beside nulls of the stream side
+  (``_null_side_batch``: the build's own columns under a lazy
+  selection, where the reference runs one more staged join of an empty
+  stream batch).
+- **The cross join** (no keys, or the type ``cross``) runs the staged
+  path in cross mode: stage A reads no keys and sorts nothing
+  (``join_counts(..., cross=True)``), then the pair gather, one K4 a
+  side. Pairs past the int32 indices raise (``_sized_stage_a``, ROADMAP
+  item 14).
+- **The nested-loop join** (``GpuBroadcastNestedLoopJoinExec``) takes a
+  condition on every join type: each stream batch's pairs (the cross
+  join's stage A and gather, in the condition's schema), the condition
+  over them, then the matched masks from the pair layout
+  (``ops/join.pair_matched_stream``, ``pair_matched_build``) with no
+  scatter into one slot; unmatched rows go out beside nulls
+  (``_null_side_batch``), semi and anti joins as the stream batch under
+  a selection.
 
 Without ``build_unique_hint`` the build is analysed first: one readback
 a build of its most duplicated key and its string columns' longest live
@@ -34,10 +58,11 @@ unchecked. With the hint and no string to gather nothing is read back:
 under ``verifyUniqueHint`` the build's duplicate flag becomes a deferred
 check that raises at the query's download.
 
-``right_outer`` and ``full_outer`` (the reference's build-side
-accumulation across stream batches, ``_execute_outer_build``), ``cross``
-and the nested-loop join, a condition on a join other than inner, and
-the broadcast join raise ``NotImplementedError`` naming ROADMAP item 9.
+A condition on an outer, semi or anti equi-join raises
+``NotImplementedError`` naming ROADMAP item 12: the reference tags it
+off the device (``tpu_supported``, ``:127-131``) for its CPU fallback,
+which the port has not yet. The broadcast hash join waits for the
+adaptive join switch and the broadcast exchange (items 10 and 17).
 """
 from __future__ import annotations
 
@@ -56,15 +81,17 @@ from ..ops.concat import concat_batches_bounded
 from ..ops.gather import gather_columns
 from ..ops.join import (JOIN_TYPES, build_dup_flag, join_counts,
                         join_gather, join_indices, join_output_bytes,
-                        join_total, probe_unique, unique_build_analysis,
-                        unique_build_probe, unique_union_lookup)
+                        join_total, pair_matched_build,
+                        pair_matched_stream, probe_unique,
+                        unique_build_analysis, unique_build_probe,
+                        unique_union_lookup)
 from ..ops.sort_keys import check_key_type
 from .base import ExecCtx, GpuExec
 from .basic import bind_all
 
-__all__ = ["GpuShuffledHashJoinExec"]
+__all__ = ["GpuShuffledHashJoinExec", "GpuCartesianProductExec",
+           "GpuBroadcastNestedLoopJoinExec"]
 
-_SUPPORTED_JOIN_TYPES = ("inner", "left_outer", "left_semi", "left_anti")
 _EMPTY_CAPACITY = 128
 # the most chars the fast path gathers into a string column of one batch
 # (stream capacity x the build's longest string); past it the staged
@@ -73,16 +100,22 @@ _FAST_MAX_CHAR_CAP = 1 << 28
 # the most chars a gathered string column may hold: its offsets and the
 # char positions of ops/strings.assemble_strings are int32
 MAX_STRING_CHARS = (1 << 31) - 1
+_SEMI = ("left_semi", "left_anti")
+_OUTER_BUILD = ("right_outer", "full_outer")
 
 
 def _join_output_schema(left: dt.Schema, right: dt.Schema,
                         join_type: str) -> dt.Schema:
-    if join_type in ("left_semi", "left_anti"):
+    """The reference's (``:51-62``): a side that may be missing from an
+    output row becomes nullable."""
+    if join_type in _SEMI:
         return left
-    rf = list(right.fields)
-    if join_type == "left_outer":
+    lf, rf = list(left.fields), list(right.fields)
+    if join_type in _OUTER_BUILD:
+        lf = [dt.StructField(f.name, f.dtype, True) for f in lf]
+    if join_type in ("left_outer", "full_outer"):
         rf = [dt.StructField(f.name, f.dtype, True) for f in rf]
-    return dt.Schema(list(left.fields) + rf)
+    return dt.Schema(lf + rf)
 
 
 def _and_sel(batch: GpuBatch, mask: torch.Tensor) -> torch.Tensor:
@@ -90,14 +123,13 @@ def _and_sel(batch: GpuBatch, mask: torch.Tensor) -> torch.Tensor:
     return mask if batch.selection is None else batch.selection & mask
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item 9): the port joins "
-        "inner, left_outer, left_semi and left_anti on equi-keys")
-
-
 class _BaseJoinExec(GpuExec):
-    """Equi-join of a streamed left side against a built right side."""
+    """Equi-join of a streamed left side against a built right side; a
+    cross join where there are no keys."""
+
+    # the join types a condition may carry: a post-filter of the joined
+    # rows is right only where a failed match emits no row
+    CONDITION_JOIN_TYPES = ("inner", "cross")
 
     def __init__(self, left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
@@ -107,11 +139,13 @@ class _BaseJoinExec(GpuExec):
         super().__init__()
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type}")
-        if join_type not in _SUPPORTED_JOIN_TYPES:
-            raise _unported(f"a {join_type} join")
-        if not left_keys:
-            raise _unported("a join without equi-keys (the nested-loop "
-                            "join)")
+        if condition is not None \
+                and join_type not in self.CONDITION_JOIN_TYPES:
+            raise NotImplementedError(
+                f"a non-equi condition on a {join_type} equi-join is not "
+                "ported: the reference runs it only on its CPU fallback, "
+                "which waits for ROADMAP item 12 (a join without equi-keys "
+                "takes any condition: GpuBroadcastNestedLoopJoinExec)")
         # an unchecked contract that the build keys are unique (a
         # primary-key build side); verifyUniqueHint checks it
         self.build_unique_hint = build_unique_hint
@@ -132,9 +166,6 @@ class _BaseJoinExec(GpuExec):
                                       + list(right.output_schema.fields))
         self.condition = None
         if condition is not None:
-            if join_type != "inner":
-                raise _unported(f"a non-equi condition on a {join_type} "
-                                "join")
             self.condition = bind_expr(condition, self._cond_schema)
 
     @property
@@ -152,7 +183,17 @@ class _BaseJoinExec(GpuExec):
     @property
     def semi(self) -> bool:
         """The output holds the stream's columns only."""
-        return self.join_type in ("left_semi", "left_anti")
+        return self.join_type in _SEMI
+
+    @property
+    def cross(self) -> bool:
+        """Every live pair matches (the reference's ``_cross``)."""
+        return self.join_type == "cross" or not self.left_keys
+
+    @property
+    def outer_build(self) -> bool:
+        """The build's unmatched rows are emitted too."""
+        return self.join_type in _OUTER_BUILD
 
     def gathers_build_strings(self) -> bool:
         """The output gathers a string column of the build side."""
@@ -175,49 +216,70 @@ class _BaseJoinExec(GpuExec):
         return out + ([self.condition] if self.condition is not None
                       else [])
 
+    def _emit(self, ctx: ExecCtx, batch: GpuBatch) -> GpuBatch:
+        ctx.metric(self, "numOutputBatches").value += 1
+        return batch
+
     def _build_right(self, ctx: ExecCtx) -> Optional[GpuBatch]:
         """The build side as one batch (bounded concat, no readback), an
         empty batch where the join type still emits stream rows, or None
-        when the result is empty."""
+        when the result is empty (``:480-489``)."""
         batches = list(self.right.execute(ctx))
         if batches:
             return concat_batches_bounded(batches)
-        if self.join_type in ("inner", "left_semi"):
+        if self.join_type in ("inner", "cross", "left_semi",
+                              "right_outer"):
             return None
         cols = [GpuColumnVector.nulls(f.dtype, _EMPTY_CAPACITY, ctx.device)
                 for f in self.right.output_schema]
         return GpuBatch(cols, self.right.output_schema, 0)
 
+    def _null_side_batch(self, batch: GpuBatch, keep: torch.Tensor,
+                         stream_side: bool, ctx: ExecCtx) -> GpuBatch:
+        """``batch``'s live rows where ``keep`` beside nulls of the other
+        side, in the output schema: the batch's own columns under a lazy
+        selection, so nothing moves (the reference compacts them)."""
+        other = self.right if stream_side else self.left
+        nulls = [GpuColumnVector.nulls(f.dtype, batch.capacity, ctx.device)
+                 for f in other.output_schema]
+        cols = list(batch.columns) + nulls if stream_side \
+            else nulls + list(batch.columns)
+        return GpuBatch(cols, self._schema, batch.row_count,
+                        selection=_and_sel(batch, keep))
+
     # --- the staged path --------------------------------------------------
 
-    def _stage_a(self, lbatch: GpuBatch, rbatch: GpuBatch, ectx):
+    def _stage_a(self, lbatch: GpuBatch, rbatch: GpuBatch, ectx, jt: str):
         """Stage A: the match plan, the output rows and each string
-        column's output bytes."""
+        column's output bytes, for the join type ``jt``."""
         lkeys = [k.eval_gpu(lbatch, ectx) for k in self.left_keys]
         rkeys = [k.eval_gpu(rbatch, ectx) for k in self.right_keys]
         plan = join_counts(lkeys, rkeys, lbatch.live_mask(),
-                           rbatch.live_mask())
-        return plan, join_total(plan, self.join_type), \
-            join_output_bytes(plan, lbatch, rbatch, self.join_type)
+                           rbatch.live_mask(), cross=self.cross)
+        return plan, join_total(plan, jt), \
+            join_output_bytes(plan, lbatch, rbatch, jt)
 
-    def _char_caps(self, nbytes: List[int], lbatch: GpuBatch,
-                   rbatch: GpuBatch) -> List[int]:
+    @staticmethod
+    def _char_caps(nbytes: List[int], lbatch: GpuBatch, rbatch: GpuBatch,
+                   jt: str) -> List[int]:
         """Each output column's chars (0 for a fixed-width column), the
         stream's columns first."""
-        cols = list(lbatch.columns) + ([] if self.semi
+        cols = list(lbatch.columns) + ([] if jt in _SEMI
                                        else list(rbatch.columns))
         it = iter(nbytes)
         return [bucket_bytes(max(next(it), 1)) if c.is_string_like else 0
                 for c in cols]
 
     def _sized_stage_a(self, lbatch: GpuBatch, rbatch: GpuBatch,
-                       ctx: ExecCtx):
+                       ctx: ExecCtx, jt: str):
         """Stage A and its one readback: ``(plan, total, out_cap,
         char_caps)``."""
-        plan, total, nbytes = self._stage_a(lbatch, rbatch, ctx.eval_ctx)
+        ctx.metric(self, "stagedBatches").value += 1
+        plan, total, nbytes = self._stage_a(lbatch, rbatch, ctx.eval_ctx,
+                                            jt)
         sizes = torch.cat([total.reshape(1), nbytes]).tolist()
         total = sizes[0]
-        char_caps = self._char_caps(sizes[1:], lbatch, rbatch)
+        char_caps = self._char_caps(sizes[1:], lbatch, rbatch, jt)
         if max([total] + char_caps) > MAX_STRING_CHARS:
             raise NotImplementedError(
                 f"{self.node_label()} would emit {total} rows and up to "
@@ -227,34 +289,36 @@ class _BaseJoinExec(GpuExec):
                 "waits for the memory manager (ROADMAP item 14)")
         return plan, total, bucket_rows(total), char_caps
 
-    def _stage_bc(self, plan, total: int, out_cap: int,
-                  char_caps: List[int], lbatch: GpuBatch,
-                  rbatch: GpuBatch) -> GpuBatch:
+    @staticmethod
+    def _stage_bc(plan, jt: str, total: int, out_cap: int,
+                  char_caps: List[int], lbatch: GpuBatch, rbatch: GpuBatch,
+                  schema: dt.Schema) -> GpuBatch:
         """Stages B and C: the output indices, then the gather."""
-        lidx, ridx, lvalid, rvalid = join_indices(plan, self.join_type,
-                                                  out_cap)
-        if self.semi:
+        lidx, ridx, lvalid, rvalid = join_indices(plan, jt, out_cap)
+        if jt in _SEMI:
             return GpuBatch(gather_columns(lbatch.columns, lidx, lvalid,
-                                           char_caps), self._schema, total)
+                                           char_caps), schema, total)
         return join_gather(lbatch, rbatch, lidx, ridx, lvalid, rvalid,
-                           total, self._schema, char_caps)
+                           total, schema, char_caps)
 
     def _join_batch(self, lbatch: GpuBatch, rbatch: GpuBatch,
-                    ctx: ExecCtx) -> GpuBatch:
-        """The staged join of one stream batch: a prefix-layout output
-        sized by stage A's readback; an inner join's condition marks its
-        rows with the lazy selection."""
-        ctx.metric(self, "stagedBatches").value += 1
+                    ctx: ExecCtx, jt: Optional[str] = None):
+        """The staged join of one stream batch as ``jt`` (the exec's type
+        by default; the outer loop passes each batch's): ``(output, stage
+        A's plan)``, the output a prefix layout sized by stage A's
+        readback; an inner or cross join's condition marks its rows with
+        the lazy selection."""
+        jt = jt or self.join_type
         plan, total, out_cap, char_caps = self._sized_stage_a(
-            lbatch, rbatch, ctx)
-        out = self._stage_bc(plan, total, out_cap, char_caps, lbatch,
-                             rbatch)
+            lbatch, rbatch, ctx, jt)
+        out = self._stage_bc(plan, jt, total, out_cap, char_caps, lbatch,
+                             rbatch, self._schema)
         if self.condition is not None:
             pred = self.condition.eval_gpu(out, ctx.eval_ctx)
             keep = pred.data if pred.validity is None \
                 else pred.data & pred.validity
             out = out.with_selection(keep)
-        return out
+        return out, plan
 
     # --- the fast path (a unique build) -----------------------------------
 
@@ -369,9 +433,14 @@ class _BaseJoinExec(GpuExec):
         if rbatch is None:
             op_time.value += time.perf_counter() - t0
             return
-        fast = self._fast_build_info(rbatch, ctx)
+        fast = None
+        if not (self.cross or self.outer_build):
+            fast = self._fast_build_info(rbatch, ctx)
         ctx.metric(self, "uniqueBuild").set(int(fast is not None))
         op_time.value += time.perf_counter() - t0
+        if self.outer_build:
+            yield from self._execute_outer_build(rbatch, ctx, op_time)
+            return
         for lbatch in self.left.execute(ctx):
             t0 = time.perf_counter()
             out = None
@@ -379,12 +448,120 @@ class _BaseJoinExec(GpuExec):
                 out = self._fast_join_batch(lbatch, rbatch, fast,
                                             ctx.eval_ctx)
             if out is None:
-                out = self._join_batch(lbatch, rbatch, ctx)
+                out, _ = self._join_batch(lbatch, rbatch, ctx)
             op_time.value += time.perf_counter() - t0
-            yield out
+            yield self._emit(ctx, out)
+
+    def _execute_outer_build(self, rbatch: GpuBatch, ctx: ExecCtx,
+                             op_time):
+        """Right and full outer joins (``:529-560``): each stream batch
+        joins as inner (right) or left_outer (full) while the build's
+        matched mask ORs across the batches; then the unmatched live
+        build rows, once. With no stream batch every build row is
+        unmatched."""
+        chunk_jt = "inner" if self.join_type == "right_outer" \
+            else "left_outer"
+        matched = torch.zeros(rbatch.capacity, dtype=torch.bool,
+                              device=ctx.device)
+        for lbatch in self.left.execute(ctx):
+            t0 = time.perf_counter()
+            out, plan = self._join_batch(lbatch, rbatch, ctx, chunk_jt)
+            matched |= plan.matched_r
+            op_time.value += time.perf_counter() - t0
+            yield self._emit(ctx, out)
+        t0 = time.perf_counter()
+        out = self._null_side_batch(rbatch, ~matched, False, ctx)
+        op_time.value += time.perf_counter() - t0
+        yield self._emit(ctx, out)
 
 
 class GpuShuffledHashJoinExec(_BaseJoinExec):
     """Shuffled hash join (``GpuShuffledHashJoinExec``): the local join
     core. SQL's comma joins plan it with no exchange below, as the
     reference's compiler does."""
+
+
+class GpuCartesianProductExec(_BaseJoinExec):
+    """The cross join (``GpuCartesianProductExec``, the reference's
+    ``:671-675``): every live pair, an optional condition filtering them
+    as an inner join's does."""
+
+    def __init__(self, left: GpuExec, right: GpuExec,
+                 condition: Optional[Expression] = None):
+        super().__init__([], [], "cross", left, right, condition)
+
+
+class GpuBroadcastNestedLoopJoinExec(_BaseJoinExec):
+    """The nested-loop join (``GpuBroadcastNestedLoopJoinExec``, the
+    reference's ``:677-807``): every (stream row, build row) pair is
+    tested against the condition, for every join type. Each stream batch
+    makes its pairs by the cross join's stage A and gather in the
+    condition's schema (``_pairs``); the pairs that pass go out under a
+    selection, relabelled to the output schema's nullability, and the
+    matched masks come from the pair layout. The build's matched mask ORs
+    across stream batches for right and full outer joins. Without a
+    condition it is the cross join's staged path, for the join type
+    given."""
+
+    CONDITION_JOIN_TYPES = JOIN_TYPES
+
+    def __init__(self, join_type: str, left: GpuExec, right: GpuExec,
+                 condition: Optional[Expression] = None):
+        super().__init__([], [], join_type, left, right, condition)
+
+    def _pairs(self, lbatch: GpuBatch, rbatch: GpuBatch, ctx: ExecCtx):
+        """``(pair batch, ok, plan, pairs)``: every live pair of the
+        stream batch in the condition's schema (the cross join's stage A
+        and one K4 a side), the pairs that pass the condition, stage A's
+        plan and the pair count."""
+        plan, total, out_cap, char_caps = self._sized_stage_a(
+            lbatch, rbatch, ctx, "cross")
+        pair = self._stage_bc(plan, "cross", total, out_cap, char_caps,
+                              lbatch, rbatch, self._cond_schema)
+        pred = self.condition.eval_gpu(pair, ctx.eval_ctx)
+        ok = pair.live_mask() & pred.data
+        if pred.validity is not None:
+            ok = ok & pred.validity
+        return pair, ok, plan, total
+
+    def execute(self, ctx: ExecCtx):
+        if self.condition is None:
+            yield from super().execute(ctx)
+            return
+        jt = self.join_type
+        op_time = ctx.metric(self, "opTime")
+        t0 = time.perf_counter()
+        rbatch = self._build_right(ctx)
+        if rbatch is None:
+            op_time.value += time.perf_counter() - t0
+            return
+        ctx.metric(self, "uniqueBuild").set(0)
+        matched_r = torch.zeros(rbatch.capacity, dtype=torch.bool,
+                                device=ctx.device)
+        # the build's live rows, read once a build: the pairs' row length
+        live_r = int(rbatch.live_mask().sum()) if self.outer_build else 0
+        op_time.value += time.perf_counter() - t0
+        for lbatch in self.left.execute(ctx):
+            t0 = time.perf_counter()
+            pair, ok, plan, total = self._pairs(lbatch, rbatch, ctx)
+            outs = []
+            if not self.semi:
+                outs.append(GpuBatch(pair.columns, self._schema,
+                                     pair.row_count, selection=ok))
+            if self.outer_build:
+                matched_r |= pair_matched_build(plan, ok, total, live_r)
+            if jt in ("left_outer", "full_outer"):
+                outs.append(self._null_side_batch(
+                    lbatch, ~pair_matched_stream(plan, ok), True, ctx))
+            elif self.semi:
+                matched_l = pair_matched_stream(plan, ok)
+                keep = matched_l if jt == "left_semi" else ~matched_l
+                outs.append(GpuBatch(lbatch.columns, self._schema,
+                                     lbatch.row_count,
+                                     selection=_and_sel(lbatch, keep)))
+            op_time.value += time.perf_counter() - t0
+            for out in outs:
+                yield self._emit(ctx, out)
+        if self.outer_build:
+            yield self._emit(ctx, self._null_side_batch(rbatch, ~matched_r,
+                                                        False, ctx))

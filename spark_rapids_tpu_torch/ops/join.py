@@ -28,9 +28,17 @@ reusable sorted array in place of a hash table; several keys or a string
 key take ``unique_union_lookup``, the group ids with at most one build
 row a group.
 
-The cross join and the right-side bookkeeping of right and full outer
-joins across stream batches wait for ROADMAP item 9; ``join_total``,
-``join_output_bytes`` and ``join_indices`` carry those types' math.
+**The cross join** (``join_counts(..., cross=True)``, the reference's
+``cross`` mode) matches every live stream row with every live build row.
+It needs no group ids and no scatter into a shared slot: each live
+stream row has ``live_r.sum()`` matches, every live build row is matched
+when any stream row is live, and the build order (live rows first, in
+position order) comes from the live mask's running count. The
+nested-loop join's matched masks come from the pairs' layout
+(``pair_matched_stream``, ``pair_matched_build``). ``join_total``,
+``join_output_bytes`` and ``join_indices`` carry every type's math,
+right and full outer included; the operator ORs the build's matched mask
+across stream batches (``exec/joins.py``).
 """
 from __future__ import annotations
 
@@ -52,7 +60,8 @@ from .sort_keys import (change_flags, key_lane_bits, key_lane_width,
 
 __all__ = ["JOIN_TYPES", "union_group_ids", "JoinPlanA",
            "join_counts", "join_total", "join_output_bytes",
-           "join_indices", "join_gather", "unique_build_analysis",
+           "join_indices", "join_gather", "pair_matched_stream",
+           "pair_matched_build", "unique_build_analysis",
            "unique_build_probe", "build_dup_flag", "probe_unique",
            "unique_union_lookup"]
 
@@ -140,12 +149,49 @@ def _build_order(g_r: torch.Tensor, eligible_r: torch.Tensor, gcap: int):
     return perm_r, counts, exclusive_cumsum(counts)
 
 
+def _live_first_order(live: torch.Tensor) -> torch.Tensor:
+    """int32 permutation of the rows, the live ones first and each part
+    in position order (a stable partition by the live bit): each row's
+    place from the running counts, then one scatter onto distinct
+    places."""
+    n = live.shape[0]
+    live_pos = inclusive_int_cumsum(live) - 1
+    dead_pos = inclusive_int_cumsum(~live) - 1 + live.sum(dtype=torch.int32)
+    place = torch.where(live, live_pos, dead_pos).long()
+    perm = torch.empty(n, dtype=torch.int32, device=live.device)
+    perm[place] = torch.arange(n, dtype=torch.int32, device=live.device)
+    return perm
+
+
+def _cross_counts(live_l: torch.Tensor, live_r: torch.Tensor) -> JoinPlanA:
+    """Stage A of a cross join (the reference's ``cross=True``): one
+    group, every live row eligible. The arrays equal the reference's."""
+    nl, nr = live_l.shape[0], live_r.shape[0]
+    dev = live_l.device
+    n_l = live_l.sum(dtype=torch.int32)
+    n_r = live_r.sum(dtype=torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # group 0 starts at 0; every later group (empty) after the n_r rows
+    starts_g = torch.where(torch.arange(nl + nr, device=dev) > 0, n_r, zero)
+    return JoinPlanA(
+        g_l=torch.zeros(nl, dtype=torch.int32, device=dev),
+        g_r=torch.zeros(nr, dtype=torch.int32, device=dev),
+        matches=torch.where(live_l, n_r, zero), starts_g=starts_g,
+        perm_r=_live_first_order(live_r), eligible_l=live_l,
+        eligible_r=live_r, matched_r=live_r & (n_l > 0), live_l=live_l,
+        live_r=live_r, times_r=torch.where(live_r, n_l, zero))
+
+
 def join_counts(left_keys: Sequence[GpuColumnVector],
                 right_keys: Sequence[GpuColumnVector],
-                live_l: torch.Tensor, live_r: torch.Tensor) -> JoinPlanA:
+                live_l: torch.Tensor, live_r: torch.Tensor,
+                cross: bool = False) -> JoinPlanA:
     """Stage A (``:130``): the shared group ids, the build rows ordered
     by group (K3's stable sort of the ids, ineligible rows last) and the
-    per-row match counts of both sides."""
+    per-row match counts of both sides; with ``cross``, every live pair
+    matches (``_cross_counts``, no keys read)."""
+    if cross:
+        return _cross_counts(live_l, live_r)
     nl, nr = live_l.shape[0], live_r.shape[0]
     gcap = nl + nr
     g_l, g_r = union_group_ids(left_keys, right_keys, live_l, live_r)
@@ -337,6 +383,40 @@ def join_indices(plan: JoinPlanA, join_type: str, out_cap: int) \
     live_out = j < total
     return (lidx.to(torch.int32), ridx.to(torch.int32),
             left_valid & live_out, right_valid & live_out)
+
+
+def pair_matched_stream(plan: JoinPlanA, ok: torch.Tensor) -> torch.Tensor:
+    """Stream rows with a pair that passed (``ok``, over the output rows
+    of ``join_indices``'s layout): stream row ``i`` owns the contiguous
+    pairs ``[ends[i] - matches[i], ends[i])``, so a running count of
+    ``ok`` differenced at those edges counts its passes. The reference
+    takes a ``segment_max`` onto the pairs' stream indices (``exec/
+    joins.py:727-732``), where every dead pair lands on one row."""
+    m = plan.matches.to(torch.int64)
+    ends = torch.cumsum(m, 0)
+    passed = torch.cumsum(ok.to(torch.int64), 0)
+    zero = torch.zeros((), dtype=torch.int64, device=ok.device)
+
+    def upto(e):
+        return torch.where(e > 0, passed[(e - 1).clamp(min=0)], zero)
+
+    return upto(ends) - upto(ends - m) > 0
+
+
+def pair_matched_build(plan: JoinPlanA, ok: torch.Tensor, pairs: int,
+                       live_r: int) -> torch.Tensor:
+    """Build rows with a pair that passed, for a cross plan's pairs
+    (``pairs`` of them, ``live_r`` live build rows): every live stream
+    row meets the same live build rows in the same order (``perm_r``'s
+    first ``live_r``), so the passes are a ``(stream rows, live_r)``
+    matrix and a build row's is an ``any`` down its column, put back
+    onto the build rows by one scatter onto distinct rows."""
+    out = torch.zeros(plan.live_r.shape[0], dtype=torch.bool,
+                      device=ok.device)
+    if pairs:
+        by_place = ok[:pairs].reshape(pairs // live_r, live_r).any(0)
+        out[plan.perm_r[:live_r].long()] = by_place
+    return out
 
 
 def join_gather(left: GpuBatch, right: GpuBatch, lidx: torch.Tensor,

@@ -154,15 +154,17 @@ class DataFrame:
         name(s) both sides share, or ``(left, right)`` pairs.
         ``build_unique`` declares the right side's keys unique (checked
         at the download under ``spark.rapids.sql.join.verifyUniqueHint``).
-        A join without keys needs the nested-loop join (ROADMAP item
-        9)."""
-        from .exec.joins import GpuShuffledHashJoinExec
+        Without ``on`` the join is the nested-loop join, with
+        ``condition`` over both sides' columns or none (every pair), as
+        the reference's plan rules route it."""
+        from .exec.joins import (GpuBroadcastNestedLoopJoinExec,
+                                 GpuShuffledHashJoinExec)
         how = {"left": "left_outer", "right": "right_outer",
                "outer": "full_outer", "full": "full_outer",
                "semi": "left_semi", "anti": "left_anti"}.get(how, how)
         if on is None:
-            raise _unported("a join without equi-keys (the nested-loop "
-                            "join)", 9)
+            return DataFrame(GpuBroadcastNestedLoopJoinExec(
+                how, self._node, other._node, condition), self._session)
         if isinstance(on, str):
             on = [on]
         cs = self._session.conf.get(CASE_SENSITIVE)

@@ -11,14 +11,15 @@ lowering. Responsibilities:
   retyping, numeric widening via the session analyzer, fractional
   division);
 - lower SELECT cores into the node constructors the DataFrame API already
-  uses — Project/Filter/ShuffleExchange+HashAggregate/Sort/Limit and
-  the shuffled hash join — so SQL-originated plans flow through the
+  uses — Project/Filter/ShuffleExchange+HashAggregate/Sort/Limit, the
+  shuffled hash join and the nested-loop join — so SQL-originated plans flow through the
   same ``GpuOverrides.apply`` -> ``PhysicalPlan`` path (AQE reader,
   tagging);
 - plan comma-separated FROM lists the way real NDS queries are
   written: single-table conjuncts push down to their table, equality
   conjuncts become shuffled-hash-join keys over a greedy join order,
-  the rest stays a residual filter;
+  an item no equality reaches is cross-joined, the rest stays a
+  residual filter;
 - honor ``/*+ UNIQUE(alias...) */`` hints by setting the join's
   ``build_unique_hint`` (the session API's ``build_unique=`` analog);
 - lower window expressions into one ``GpuWindowExec`` a distinct
@@ -30,13 +31,15 @@ Every failure raises ``SqlAnalysisError`` with a source location and a
 stable ``detail`` code (``unknown_column``, ``ambiguous_column``,
 ``unknown_function``, ``missing_aggregation``, ...). A construct whose
 expression or operator the port does not have yet (``||``, a CAST from
-or to string, decimal, date or timestamp, joins without equi-keys,
-SELECT without FROM) raises
+or to string, decimal, date or timestamp, SELECT without FROM) raises
 ``SqlAnalysisError(..., "unsupported_feature")`` naming its ROADMAP item
-when a query reaches it; a RIGHT or FULL OUTER JOIN raises
-``NotImplementedError`` naming item 9 as its join is built, and a LIKE
-pattern outside the device regex dialect at planning (item 12); none
-runs another way. UNION DISTINCT is
+when a query reaches it; a non-equi condition on an outer, semi or anti
+equi-join raises ``NotImplementedError`` naming item 12 as its join is
+built, and so does a LIKE pattern outside the device regex dialect at
+planning; none runs another way. Every join type runs: equi-joins on
+the shuffled hash join, a CROSS JOIN, an ON without an equi-key and a
+comma FROM item no equality reaches on the nested-loop join
+(``GpuBroadcastNestedLoopJoinExec``), as in the reference. UNION DISTINCT is
 outside the dialect, as in the reference (``unsupported_feature``).
 """
 from __future__ import annotations
@@ -563,14 +566,16 @@ class SqlCompiler:
         return coerce_join_keys(lk, rk)
 
     def _compile_join(self, jr: A.JoinRel, env: Dict, uniq: set) -> Rel:
-        from ..exec.joins import GpuShuffledHashJoinExec
+        from ..exec.joins import (GpuBroadcastNestedLoopJoinExec,
+                                  GpuShuffledHashJoinExec)
         left = self.compile_from_item(jr.left, env, uniq)
         right = self.compile_from_item(jr.right, env, uniq)
         out_quals = left.quals if jr.kind in ("left_semi", "left_anti") \
             else left.quals + right.quals
         if jr.kind == "cross" or jr.condition is None:
-            raise self.unported("a cross join (the nested-loop join)",
-                                jr, 9)
+            node = GpuBroadcastNestedLoopJoinExec("cross", left.node,
+                                                  right.node, None)
+            return Rel(node, left.quals + right.quals)
         conjuncts = _split_and(jr.condition)
         lkeys, rkeys, residual = self._join_keys(conjuncts, left, right)
         cond = None
@@ -581,8 +586,9 @@ class SqlCompiler:
                 ast = A.Binary(op="AND", left=ast, right=c, loc=c.loc)
             cond = self.compile_expr(ast, scope)
         if not lkeys:
-            raise self.unported("a join without equi-keys (the "
-                                "nested-loop join)", jr, 9)
+            node = GpuBroadcastNestedLoopJoinExec(jr.kind, left.node,
+                                                  right.node, cond)
+            return Rel(node, out_quals)
         node = GpuShuffledHashJoinExec(
             lkeys, rkeys, jr.kind, left.node, right.node, cond,
             build_unique_hint=self._is_unique_hinted(right, uniq))
@@ -593,10 +599,12 @@ class SqlCompiler:
                             uniq: set) -> Rel:
         """Real-NDS FROM lists: ``FROM a, b, c WHERE ...``. Single-table
         conjuncts push down to their table, two-table equality
-        conjuncts drive a greedy inner-join order, the rest filters the
-        joined result."""
+        conjuncts drive a greedy inner-join order, an item no equality
+        reaches is cross-joined (the nested-loop join), and the rest
+        filters the joined result."""
         from ..exec.basic import GpuFilterExec
-        from ..exec.joins import GpuShuffledHashJoinExec
+        from ..exec.joins import (GpuBroadcastNestedLoopJoinExec,
+                                  GpuShuffledHashJoinExec)
         units = [self.compile_from_item(it, env, uniq) for it in items]
         conjuncts = _split_and(where) if where is not None else []
         edges: List[Tuple[int, int, A.Node]] = []
@@ -636,9 +644,10 @@ class SqlCompiler:
                     pick = j
                     break
             if pick is None:
-                raise self.unported(
-                    "a FROM item no WHERE equality joins (a cross join, "
-                    "the nested-loop join)", items[pending[0]], 9)
+                pick = pending[0]
+                cur = Rel(GpuBroadcastNestedLoopJoinExec(
+                    "cross", cur.node, units[pick].node, None),
+                    cur.quals + units[pick].quals)
             else:
                 lkeys, rkeys = [], []
                 rel_j = units[pick]

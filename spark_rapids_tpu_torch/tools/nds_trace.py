@@ -3,7 +3,9 @@
     python3 -m spark_rapids_tpu_torch.tools.nds_trace [--query NAME]
         [--partitions N] [--n-sales N] [--out DIR]
 
-``NAME`` is any query the port runs from SQL (``nds.PORTED_QUERIES``).
+``NAME`` is any query the port runs from SQL: the corpus
+(``nds.PORTED_QUERIES``) or the outer, cross and nested-loop join texts
+(``tools/nds_joins.QUERIES``).
 
 Writes the NDS tables as ``chip_smoke.py`` phase 8 does (``nds.gen_tables``,
 seed 42, snappy, row groups of 2^19; default 2^22 ``store_sales`` rows,
@@ -38,12 +40,14 @@ import time
 import torch
 
 from .. import nds
+from . import nds_joins
 from .join_trace import _union_us
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _RANGE = "string_ranks"  # sort_keys.string_order_ranks_multi's range
 _WINDOW = "window"       # exec/window.GpuWindowExec's pass
+_SQL = {**nds.SQL_QUERIES, **nds_joins.SQL_QUERIES}
 _FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
              "K4": ("gather_rows_fast", "gather_rows_any"),
              "K5": ("k5_",), "K6": ("regex_match_",)}
@@ -127,7 +131,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
     s = nds.session_over_files(nds_paths(n_sales), {
         "spark.sql.shuffle.partitions": str(partitions)}, device)
     pp = GpuOverrides(s.conf, device).apply(
-        s.sql(nds.SQL_QUERIES[query])._node)
+        s.sql(_SQL[query])._node)
     pp.collect(ExecCtx(s.conf, device))  # warm-up
     torch.cuda.synchronize()
     wrappers = counters()
@@ -178,7 +182,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", default="q3", choices=nds.PORTED_QUERIES)
+    ap.add_argument("--query", default="q3", choices=sorted(_SQL))
     ap.add_argument("--partitions", type=int, default=1)
     ap.add_argument("--n-sales", type=int, default=1 << 22)
     ap.add_argument("--out", default=None,

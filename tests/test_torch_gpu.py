@@ -8,8 +8,10 @@ through the engine with the launches its plan implies; every NDS query
 the port runs from SQL on the card against the CPU, and string ranks on
 the card against the CPU's; the window operator on the card against the
 CPU; K6 (the LIKE/RLIKE automaton) against its plain version bit for
-bit through each of its routes, LIKE through K6 once a batch, and the
-staged join on the card against the CPU. Run on a machine with a CUDA device: ``python -m pytest
+bit through each of its routes, LIKE through K6 once a batch, the
+staged join on the card against the CPU, and a full outer hash join and
+a full outer nested-loop join from SQL on the card against the CPU.
+Run on a machine with a CUDA device: ``python -m pytest
 tests/test_torch_gpu.py``; elsewhere they skip."""
 import pytest
 import torch
@@ -398,3 +400,28 @@ def test_staged_join_on_the_card_matches_the_cpu(cuda_device):
             for name in want.column_names:
                 assert got.column(name).to_pylist() \
                     == want.column(name).to_pylist(), (keys, jt, name)
+
+
+@pytest.mark.parametrize("q", ["q_full_halves", "q_band_full"])
+def test_outer_and_nested_loop_joins_on_the_card_match_the_cpu(
+        cuda_device, tmp_path, q):
+    """A full outer hash join (q_full_halves, its build's matched mask
+    across stream batches) and a full outer nested-loop join
+    (q_band_full) from SQL at 2^16 store_sales rows, at partitions 1 and
+    16: the card's rows equal the CPU's and the oracle's exactly (counts
+    only)."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.tools import nds_joins
+    tables = nds.gen_tables(1 << 16)
+    paths = nds.write_tables(tables, str(tmp_path))
+    want = nds_joins.oracle(q, tables)
+    for parts in (1, 16):
+        conf = {"spark.sql.shuffle.partitions": str(parts)}
+        card, cpu = (nds.session_over_files(paths, conf, dev)
+                     .sql(nds_joins.SQL_QUERIES[q]).collect()
+                     for dev in (cuda_device, "cpu"))
+        assert card.num_rows == want.num_rows > 0, (q, parts)
+        for name in want.column_names:
+            assert card.column(name).to_pylist() \
+                == cpu.column(name).to_pylist() \
+                == want.column(name).to_pylist(), (q, parts, name)

@@ -43,13 +43,17 @@ WINDOW_UNION_MODULES = ["expr/window.py", "exec/window.py", "exec/misc.py"]
 JOIN_PERCENTILE_LIKE_MODULES = ["ops/regex.py", "expr/strings.py",
                                 "expr/aggregates.py", "exec/aggregate.py",
                                 "tools/k6_bench.py"]
+# the outer, cross and nested-loop joins and their SQL texts
+OUTER_CROSS_MODULES = ["exec/joins.py", "ops/join.py",
+                       "tools/nds_joins.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 10
     for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES + SQL_MODULES \
-            + WINDOW_UNION_MODULES + JOIN_PERCENTILE_LIKE_MODULES:
+            + WINDOW_UNION_MODULES + JOIN_PERCENTILE_LIKE_MODULES \
+            + OUTER_CROSS_MODULES:
         assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:
@@ -112,7 +116,7 @@ def test_nds_trace_needs_a_card():
 def test_sql_modules_import_without_a_card():
     import importlib
     for rel in SQL_MODULES + WINDOW_UNION_MODULES \
-            + JOIN_PERCENTILE_LIKE_MODULES:
+            + JOIN_PERCENTILE_LIKE_MODULES + OUTER_CROSS_MODULES:
         importlib.import_module("spark_rapids_tpu_torch."
                                 + rel[:-3].replace("/", ".")
                                 .replace(".__init__", ""))

@@ -268,11 +268,23 @@ def test_duplicated_build_key_without_hint_is_not_implemented():
 
 
 def test_unported_joins_raise():
-    li = _torch_source({"a": np.zeros(4, np.int32)}, [("a", "INT32", False)],
-                       128)
+    """Right outer, full outer and cross raised naming ROADMAP item 9
+    until they were ported: each now gives the reference's rows (4 x 4
+    rows of one key; both sides' column is named ``a``, so the columns
+    are compared by position)."""
+    cols = {"a": np.zeros(4, np.int32)}
+    li = _torch_source(cols, [("a", "INT32", False)], 128)
+    ref = _jax_source(cols, [("a", "INT32", False)], 128)
     for jt in ("right_outer", "full_outer", "cross"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            GpuShuffledHashJoinExec([tcol("a")], [tcol("a")], jt, li, li)
+        got = tcollect(GpuShuffledHashJoinExec([tcol("a")], [tcol("a")],
+                                               jt, li, li),
+                       TCtx(device="cpu"))
+        want = jcollect(TpuShuffledHashJoinExec([jcol("a")], [jcol("a")],
+                                                jt, ref, ref), JCtx())
+        assert got.schema.types == want.schema.types, jt
+        assert [c.to_pylist() for c in got.columns] \
+            == [c.to_pylist() for c in want.columns], jt
+        assert got.num_rows == 16
     # several keys run since the staged join: 4 x 4 rows of one key
     two = GpuShuffledHashJoinExec([tcol("a"), tcol("a")],
                                   [tcol("a"), tcol("a")], "inner", li, li)
