@@ -2,8 +2,9 @@
 Parquet (host decode, then device page decode), the join + group-by
 query at the reference's full size, q6's revenue by line number at
 SF1, the 22 NDS queries from SQL text over Parquet files
-(``nds.PORTED_QUERIES``) and nine more that need outer, cross and
-nested-loop joins (``tools/nds_joins.py``), through
+(``nds.PORTED_QUERIES``), nine more that need outer, cross and
+nested-loop joins (``tools/nds_joins.py``) and eight that need the
+per-operator CPU fallback (``tools/nds_fallback.py``), through
 ``spark_rapids_tpu_torch``, with K1 to K6 checked on the card.
 
     python3 chip_smoke.py
@@ -95,16 +96,29 @@ Phases, any failure exits non-zero before the result line:
      adaptive reader). Every result is held to the numpy/pyarrow oracle
      (ints and strings exact, floats rel 1e-9, row order exact), every
      scan to deviceChunks = row groups x columns and 0 fallback chunks.
-     After the timed runs one more run of each query and partition count
-     counts the K3, K4, K5 and K6 launches, held to what the plan
-     implies (``_nds_expected``: operator by operator, string ranks
-     included);
+     The first timed run of each query and partition count also counts
+     the K3, K4, K5 and K6 launches, held to what the plan implies
+     (``_nds_expected``: operator by operator, string ranks included);
   9. NDS joins from SQL: the nine texts of
      ``spark_rapids_tpu_torch/tools/nds_joins.py`` (right and full
      outer joins, cross joins and the nested-loop join over the same
      files), each run as phase 8 runs a query and held to its oracle,
      its scans to their chunks and its launches to ``_nds_expected``;
-  10. K1's kernels a call, counted in a profiler trace of one call (1),
+     every plan of phases 4-9 has no node on the CPU
+     (``fallback_nodes() == []``);
+  10. NDS fallback: the eight texts of
+     ``spark_rapids_tpu_torch/tools/nds_fallback.py`` (non-equi
+     conditions on left outer, semi and anti equi-joins, a RANGE frame
+     over the 64-bit date key, a string lag default, a non-ASCII LIKE,
+     q3 under variableFloatAgg=false and q3 under
+     spark.rapids.sql.enabled=false), each under its conf, over the same
+     files at 1 partition (a warm-up and one timed run) and 16 (one
+     run): its rows held to its oracle, its ``fallback_nodes()`` to the
+     module's ``FALLBACK``, its device scans to their chunks, its K3, K4
+     and K5 launches to ``_nds_expected`` (a CPU island launches
+     nothing; the device subtrees under it launch as planned), and the
+     transitions' downloadTime and uploadTime printed;
+  11. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -404,8 +418,16 @@ def phase_join(device):
 def _counted_runs(plan, make_ctx, counters):
     """A warm-up, then three timed runs of ``plan``; the kernels'
     launch counts are read over the first timed run only. Returns
-    ``(result, seconds of each run, ctx of the first, launches)``."""
+    ``(result, seconds of each run, ctx of the first, launches)``. The
+    planner, under the run's conf, places no node of ``plan`` on the
+    CPU."""
     from spark_rapids_tpu_torch.exec.base import collect_arrow
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    ctx0 = make_ctx()
+    on_cpu = GpuOverrides(ctx0.conf, ctx0.device).apply(plan) \
+        .fallback_nodes()
+    if on_cpu:
+        raise AssertionError(f"nodes on the CPU: {on_cpu}")
 
     def run():
         ctx = make_ctx()
@@ -601,9 +623,15 @@ def _union_sort(keys, longest):
     return k3, k4
 
 
-def _nds_expected(root, metrics, longest, conf):
+def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     """The launches one run of the plan under ``root`` implies, walked
-    operator by operator. K5: one a scan batch. K6: one a batch for each
+    operator by operator. A node the planner placed on the CPU (the root
+    when ``root_on_device`` is false, and every node between a
+    ``HostToDeviceExec`` above and a ``DeviceToHostExec`` below)
+    launches nothing; the device subtree under a ``DeviceToHostExec``
+    launches as it would anywhere, and a ``HostToDeviceExec`` or the
+    coalesce above it yields its ``numOutputBatches``. K5: one a scan
+    batch. K6: one a batch for each
     LIKE or RLIKE a filter or project evaluates on the device (not a
     LIKE of one literal). A join analyses its build once where it has no
     unique hint, or has one and gathers a build string column (a sort of
@@ -647,9 +675,12 @@ def _nds_expected(root, metrics, longest, conf):
                                                    GpuProjectExec)
     from spark_rapids_tpu_torch.exec.joins import (
         GpuBroadcastNestedLoopJoinExec, _BaseJoinExec)
+    from spark_rapids_tpu_torch.exec.exchange import GpuCoalesceBatchesExec
     from spark_rapids_tpu_torch.exec.misc import GpuUnionExec
     from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
                                                   GpuSortExec)
+    from spark_rapids_tpu_torch.exec.transitions import (DeviceToHostExec,
+                                                         HostToDeviceExec)
     from spark_rapids_tpu_torch.exec.window import GpuWindowExec
     from spark_rapids_tpu_torch.expr.aggregates import (GROUP_VALUE_BITS,
                                                         ApproxPercentile,
@@ -686,6 +717,8 @@ def _nds_expected(root, metrics, longest, conf):
             return 1
         if isinstance(node, GpuUnionExec):
             return sum(batches(c) for c in node.children)
+        if isinstance(node, (HostToDeviceExec, GpuCoalesceBatchesExec)):
+            return m(node, "numOutputBatches", 0)
         raise AssertionError(f"no batch count for {node.describe()}")
 
     def add(k3, k4, times=1):
@@ -724,10 +757,46 @@ def _nds_expected(root, metrics, longest, conf):
         k3, k4 = _union_sort(keys, longest)
         add(k3 + 1, k4 + gathers + 1, times=staged)
 
+    def null_side_partials(node):
+        """``(partials, names)``: the aggregate's partials made from a
+        conditioned left or full outer join's unmatched-stream batches
+        (``exec/joins._execute_conditioned`` emits, a stream batch, the
+        passing pairs and then those rows beside nulls), and the build
+        side's column names, whose strings are all null there: a string
+        key among them ranks with no pass in those partials. Found down
+        a chain of one-child operators; a coalesce mixes the batches,
+        and then there are none."""
+        chain = node.child
+        exchange = None
+        while not isinstance(chain, _BaseJoinExec):
+            if len(chain.children) != 1 \
+                    or isinstance(chain, GpuCoalesceBatchesExec):
+                return 0, ()
+            if type(chain).__name__ == "GpuShuffleExchangeExec":
+                exchange = chain
+            chain = chain.children[0]
+        if chain.condition is None or chain.join_type not in (
+                "left_outer", "full_outer") or chain.cross:
+            return 0, ()
+        partials = m(node, "numPartials")
+        if exchange is not None:
+            partials, rest = divmod(
+                partials * m(chain, "stagedBatches"),
+                m(exchange, "numInputBatches"))
+            assert not rest, "partials a map batch differ"
+        else:
+            partials = m(chain, "stagedBatches")
+        return partials, tuple(chain.right.output_schema.names)
+
     def aggregate(node):
         if not node._wants_single_pass(conf):
             passes = m(node, "numPartials") + 1
             k3, k4 = _keyed_sort(node.group_exprs, longest)
+            empty, names = null_side_partials(node)
+            if empty:
+                e3, e4 = _keyed_sort(node.group_exprs, dict(
+                    longest, **{n: 0 for n in names if n in longest}))
+                add(e3 - k3, e4 - k4, times=empty)
             add(k3, k4 + 2, times=passes)
             for a in node.aggs:
                 if isinstance(a, (Min, Max)):
@@ -744,7 +813,15 @@ def _nds_expected(root, metrics, longest, conf):
                                         + _lane_bits(a.children[0].dtype))
                 add(k3, k4 + 1)
 
-    def walk(node):
+    def walk(node, on_device=True):
+        if isinstance(node, (DeviceToHostExec, HostToDeviceExec)):
+            for c in node.children:
+                walk(c, isinstance(node, DeviceToHostExec))
+            return
+        if not on_device:
+            for c in node.children:
+                walk(c, False)
+            return
         if isinstance(node, GpuFileScanExec):
             out["decode_batch"] += m(node, "scanPrograms")
         elif isinstance(node, (GpuFilterExec, GpuProjectExec)):
@@ -772,7 +849,7 @@ def _nds_expected(root, metrics, longest, conf):
         for c in node.children:
             walk(c)
 
-    walk(root)
+    walk(root, root_on_device)
     return out
 
 
@@ -844,8 +921,9 @@ def _check_nds(q, out, want, metrics, need_chunks, floats):
             if not math.isfinite(a) or rel > ENGINE_RTOL:
                 raise AssertionError(f"{q}: {c} {a!r} vs oracle {b!r} "
                                      f"(rel {rel:.3e})")
+    # a scan on the CPU keeps no chunk counters
     scans = [m for label, m in metrics.items()
-             if label.startswith("FileScanExec")]
+             if label.startswith("FileScanExec") and "deviceChunks" in m]
     got = sorted((m["deviceChunks"], m["fallbackChunks"]) for m in scans)
     need = sorted((n, 0) for n in need_chunks)
     if got != need:
@@ -853,19 +931,23 @@ def _check_nds(q, out, want, metrics, need_chunks, floats):
     return worst
 
 
-def _scan_chunks_needed(root, chunks):
-    """Device chunks each scan of the plan must read: its file's row
-    groups x columns, once a path that reaches it."""
+def _scan_chunks_needed(root, chunks, root_on_device=True):
+    """Device chunks each scan of the plan on the device must read: its
+    file's row groups x columns, once a path that reaches it."""
+    from spark_rapids_tpu_torch.exec.transitions import (DeviceToHostExec,
+                                                         HostToDeviceExec)
     from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
     need, seen = [], {}
 
-    def walk(node):
-        if isinstance(node, GpuFileScanExec):
+    def walk(node, on_device):
+        if isinstance(node, GpuFileScanExec) and on_device:
             seen.setdefault(id(node), [node, 0])[1] += 1
+        if isinstance(node, (DeviceToHostExec, HostToDeviceExec)):
+            on_device = isinstance(node, DeviceToHostExec)
         for c in node.children:
-            walk(c)
+            walk(c, on_device)
 
-    walk(root)
+    walk(root, root_on_device)
     for node, runs in seen.values():
         need.append(runs * sum(chunks[p] for p in node.paths))
     return need
@@ -890,13 +972,28 @@ def _nds_files():
     return tables, paths, chunks
 
 
-def _run_sql_queries(device, tag, corpus, files):
+def _transfer_times(metrics):
+    """The transitions' summed ``downloadTime`` and ``uploadTime`` (s)."""
+    out = {"downloadTime": 0.0, "uploadTime": 0.0}
+    for label, m in metrics.items():
+        if label.startswith(("DeviceToHostExec", "HostToDeviceExec")):
+            for k in out:
+                out[k] += m.get(k, 0.0)
+    return out
+
+
+def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
+                     warm=(True, True)):
     """Each of ``corpus``'s queries (a module with ``QUERIES``,
-    ``SQL_QUERIES``, ``oracle`` and ``FLOAT_COLUMNS``) from SQL over the
-    NDS files: planning timed apart, at 1 partition a warm-up and 3
-    timed runs, at 16 a warm-up and one, each result held to the oracle
-    and its scans to their chunks; then one counted run each, its K3,
-    K4, K5 and K6 launches held to ``_nds_expected``."""
+    ``SQL_QUERIES``, ``oracle`` and ``FLOAT_COLUMNS``, and optionally
+    ``CONF``, a query's conf, and ``FALLBACK``, its nodes on the CPU,
+    none by default) from SQL over the NDS files: planning timed apart,
+    at 1 partition a warm-up and ``timed[0]`` timed runs, at 16 a
+    warm-up and ``timed[1]`` (``warm`` turns each warm-up off), each
+    result held to the oracle, its placement to ``FALLBACK`` and its
+    device scans to their chunks, and the first timed run's K3, K4, K5
+    and K6 launches (the wrappers count them as they launch, at no cost)
+    to ``_nds_expected``."""
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
     from spark_rapids_tpu_torch.planner import GpuOverrides
@@ -904,13 +1001,15 @@ def _run_sql_queries(device, tag, corpus, files):
 
     tables, paths, chunks = files
     t_phase = time.perf_counter()
-    plans, summary, longest = {}, {}, {}
+    summary, launches = {}, {}
+    wrappers = counters()
     for q in corpus.QUERIES:
         want = corpus.oracle(q, tables)
-        longest[q] = _nds_longest(want)
-        for parts in (1, 16):
-            s = nds.session_over_files(
-                paths, {"spark.sql.shuffle.partitions": str(parts)}, device)
+        longest = _nds_longest(want)
+        for parts, n_runs, warm_up in zip((1, 16), timed, warm):
+            conf = dict(getattr(corpus, "CONF", {}).get(q, {}))
+            conf["spark.sql.shuffle.partitions"] = str(parts)
+            s = nds.session_over_files(paths, conf, device)
             # planning (GpuSession.sql + GpuOverrides.apply), timed apart
             # from the collect below
             plan_times = []
@@ -919,7 +1018,10 @@ def _run_sql_queries(device, tag, corpus, files):
                 pp = GpuOverrides(s.conf, device).apply(
                     s.sql(corpus.SQL_QUERIES[q])._node)
                 plan_times.append(time.perf_counter() - t)
-            plans[q, parts] = (pp, s.conf)
+            on_cpu = pp.fallback_nodes()
+            if on_cpu != getattr(corpus, "FALLBACK", {}).get(q, []):
+                raise AssertionError(f"{q} p{parts}: nodes on the CPU "
+                                     f"{on_cpu}")
 
             def run():
                 ctx = ExecCtx(s.conf, device)
@@ -928,46 +1030,49 @@ def _run_sql_queries(device, tag, corpus, files):
                 torch.cuda.synchronize()
                 return out, time.perf_counter() - t, ctx
 
-            run()  # warm-up
-            n_runs = 3 if parts == 1 else 1
-            runs = [run() for _ in range(n_runs)]
+            if warm_up:
+                run()
+            for c in wrappers.values():
+                c.launches = 0
+            runs = [run()]
+            got = {c.__name__: c.launches for c in wrappers.values()}
+            runs += [run() for _ in range(n_runs - 1)]
             times = [r[1] for r in runs]
             out, _, ctx = runs[0]
             metrics = _metrics(ctx)
             rel = _check_nds(q, out, want, metrics,
-                             _scan_chunks_needed(pp.root, chunks),
+                             _scan_chunks_needed(pp.root, chunks,
+                                                 pp.root_on_device),
                              corpus.FLOAT_COLUMNS[q])
             med = statistics.median(times)
             plan_med = statistics.median(plan_times)
+            moved = _transfer_times(metrics)
             summary[f"{q}_p{parts}"] = {
                 "rows_per_s": NDS_SALES / med, "ms": med * 1e3,
                 "times_s": times, "max_rel_err": rel,
-                "plan_ms": plan_med * 1e3, "plan_times_s": plan_times}
+                "plan_ms": plan_med * 1e3, "plan_times_s": plan_times,
+                "fallback_nodes": on_cpu,
+                "download_ms": moved["downloadTime"] * 1e3,
+                "upload_ms": moved["uploadTime"] * 1e3}
             log(f"[{tag}] {q} partitions={parts}: {NDS_SALES / med:.1f} "
                 f"rows/s, {med * 1e3:.3f} ms a query in collect (median "
                 f"of {[round(t, 6) for t in times]} s); planning "
                 f"(sql + apply) {plan_med * 1e3:.3f} ms (median of "
                 f"{[round(t, 6) for t in plan_times]} s); {out.num_rows} "
-                f"rows equal to the oracle (max rel err {rel:.3e})")
+                f"rows equal to the oracle (max rel err {rel:.3e}); on "
+                f"the CPU {on_cpu}, downloadTime "
+                f"{moved['downloadTime'] * 1e3:.3f} ms, uploadTime "
+                f"{moved['uploadTime'] * 1e3:.3f} ms")
             log(f"[{tag}] {q} partitions={parts} metrics "
                 + json.dumps(metrics, sort_keys=True))
-    # counted after every timed run: one more run each
-    launches = {}
-    wrappers = counters()
-    for (q, parts), (pp, conf) in plans.items():
-        ctx = ExecCtx(conf, device)
-        for c in wrappers.values():
-            c.launches = 0
-        pp.collect(ctx)
-        torch.cuda.synchronize()
-        got = {c.__name__: c.launches for c in wrappers.values()}
-        want = _nds_expected(pp.root, _metrics(ctx), longest[q], conf)
-        log(f"[{tag}] {q} partitions={parts} launches {got}, the plan "
-            f"implies {want}")
-        if got != want:
-            raise AssertionError(f"{q} p{parts}: launches {got}, "
-                                 f"expected {want}")
-        launches[f"{q}_p{parts}"] = got
+            implied = _nds_expected(pp.root, metrics, longest, s.conf,
+                                    pp.root_on_device)
+            log(f"[{tag}] {q} partitions={parts} launches {got}, the plan "
+                f"implies {implied}")
+            if got != implied:
+                raise AssertionError(f"{q} p{parts}: launches {got}, "
+                                     f"expected {implied}")
+            launches[f"{q}_p{parts}"] = got
     log(f"[{tag}] phase took {time.perf_counter() - t_phase:.3f} s")
     return summary, launches
 
@@ -988,6 +1093,15 @@ def phase_nds_joins(device, files):
     return _run_sql_queries(device, "nds-joins", nds_joins, files)
 
 
+def phase_nds_fallback(device, files):
+    """The eight fallback texts: a warm-up and one timed run at 1
+    partition, one run at 16 (a CPU island's join or scan over 2^22 rows
+    takes seconds, and the phase stays within its budget)."""
+    from spark_rapids_tpu_torch.tools import nds_fallback
+    return _run_sql_queries(device, "nds-fallback", nds_fallback, files,
+                            timed=(1, 1), warm=(True, False))
+
+
 def main():
     name, count, smi = phase_card()
     device = torch.device("cuda", 0)
@@ -1003,6 +1117,7 @@ def main():
     nds_files = _nds_files()
     nds_summary, nds_launches = phase_nds(device, nds_files)
     joins_summary, joins_launches = phase_nds_joins(device, nds_files)
+    fb_summary, fb_launches = phase_nds_fallback(device, nds_files)
     per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -1016,6 +1131,7 @@ def main():
         f"not on the main path")
     log("[nds] " + json.dumps(nds_summary, sort_keys=True))
     log("[nds-joins] " + json.dumps(joins_summary, sort_keys=True))
+    log("[nds-fallback] " + json.dumps(fb_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -1048,7 +1164,9 @@ def main():
         "launches_nds": {k: v["sort_pairs"]
                          for k, v in nds_launches.items()},
         "launches_nds_joins": {k: v["sort_pairs"]
-                               for k, v in joins_launches.items()}}, {
+                               for k, v in joins_launches.items()},
+        "launches_nds_fallback": {k: v["sort_pairs"]
+                                  for k, v in fb_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -1060,7 +1178,9 @@ def main():
         "launches_nds": {k: v["gather_rows"]
                          for k, v in nds_launches.items()},
         "launches_nds_joins": {k: v["gather_rows"]
-                               for k, v in joins_launches.items()}}, {
+                               for k, v in joins_launches.items()},
+        "launches_nds_fallback": {k: v["gather_rows"]
+                                  for k, v in fb_launches.items()}}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -1072,7 +1192,9 @@ def main():
         "launches_nds": {k: v["decode_batch"]
                          for k, v in nds_launches.items()},
         "launches_nds_joins": {k: v["decode_batch"]
-                               for k, v in joins_launches.items()}}, {
+                               for k, v in joins_launches.items()},
+        "launches_nds_fallback": {k: v["decode_batch"]
+                                  for k, v in fb_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -28,9 +28,9 @@ by one more sort of ``(dropped, group, value)``
 percentile gathered at its rank (K4); the node's other aggregates
 reduce over the same sorted segments, with no partials. The reference
 sends an input over half its memory budget to the CPU instead; that
-waits for ROADMAP items 14 and 12, and the port concatenates whatever
-comes. The sketch strategy rides the partial and final phases
-(``_wants_single_pass``).
+decision waits for the memory manager (ROADMAP item 14), and the port
+concatenates whatever comes. The sketch strategy rides the partial and
+final phases (``_wants_single_pass``).
 
 When the operators fused below the aggregate are q6's shape — a filter
 on an AND of column-vs-literal comparisons, then a project of
@@ -46,6 +46,11 @@ one for the null key, in the layout ``_partial_grouped`` gives, so the
 final merges it unchanged. K2 counts the rows whose key falls outside
 the statistics' range; the query raises at its download if there is one.
 Every other chain runs the operators' eager code.
+
+Under ``spark.rapids.sql.variableFloatAgg.enabled=false`` a node with a
+float aggregate refuses the device (``gpu_supported_conf``, the
+reference's ``:115-128``) and runs on the CPU, where its torch body on
+CPU tensors gives the same bits on every run.
 """
 from __future__ import annotations
 
@@ -58,7 +63,8 @@ import torch
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch, bucket_rows, row_mask
 from ..columnar.column import GpuColumnVector, torch_dtype
-from ..config import APPROX_PERCENTILE_EXACT, RapidsConf
+from ..config import APPROX_PERCENTILE_EXACT, VARIABLE_FLOAT_AGG, \
+    RapidsConf
 from ..expr.aggregates import (GLOBAL_LANES, AggregateFunction,
                                ApproxPercentile, Sum, spark_rank0,
                                value_sorted_groups)
@@ -216,6 +222,19 @@ class GpuHashAggregateExec(UnaryExec):
 
     def expressions(self):
         return list(self.group_exprs) + list(self.aggs)
+
+    def gpu_supported_conf(self, conf: RapidsConf) -> Optional[str]:
+        """A float aggregate's result can vary with the order of its
+        additions; under ``spark.rapids.sql.variableFloatAgg.enabled=
+        false`` the node runs on the CPU, where the same input gives the
+        same bits on every run (the reference's ``:115-128``)."""
+        if conf.get(VARIABLE_FLOAT_AGG):
+            return None
+        for a in self.aggs:
+            if a.children and dt.is_floating(a.children[0].dtype):
+                return (f"float aggregation {a.pretty_name()} disabled "
+                        "by spark.rapids.sql.variableFloatAgg.enabled")
+        return None
 
     # --- grouped phases ---------------------------------------------------
 

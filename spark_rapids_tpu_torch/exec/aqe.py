@@ -107,6 +107,10 @@ class GpuAQEShuffleReadExec(UnaryExec):
     def describe(self):
         return "AQEShuffleReadExec"
 
+    def execute_cpu(self, ctx: ExecCtx):
+        # the exchange below is on the CPU too: its partitions in order
+        yield from self.child.execute_cpu(ctx)
+
     def execute(self, ctx: ExecCtx):
         handle = self.child.materialize(ctx)
         coalesced_m = ctx.metric(self, "numCoalescedPartitions")

@@ -1,22 +1,40 @@
 """Physical operator layer.
 
 Counterpart of ``spark_rapids_tpu/exec/base.py:80-200,290-450,486-592,
-595-718``: ``GpuMetric``, a slim ``ExecCtx``, ``GpuExec`` with
-``LeafExec``/``UnaryExec``, the two batch sources, ``fused_batches`` and
-``collect_arrow``. Every operator's ``execute(ctx)`` yields device
-``GpuBatch``es on ``ctx.device``.
+595-726``: ``GpuMetric``, a slim ``ExecCtx``, ``GpuExec`` with
+``LeafExec``/``UnaryExec``, the two batch sources, ``fused_batches``,
+``collect_arrow`` and ``collect_arrow_cpu``. Every operator's
+``execute(ctx)`` yields device ``GpuBatch``es on ``ctx.device``.
+
+Every operator also has the reference's CPU path, ``execute_cpu(ctx)``,
+Arrow RecordBatches in and out, which the planner runs for an operator
+it places off the device (a CPU island, ``planner.py``). By default it
+is the operator's own torch body on CPU tensors: the children's Arrow
+batches go into CPU ``GpuBatch``es (``_HostInputExec``), ``execute``
+runs under ``ctx.host_ctx()`` (device
+``cpu``, ``EvalCtx.host`` set, the metrics and deferred checks shared),
+and each output batch comes back as Arrow with its lazy selection
+applied. Every kernel wrapper takes its plain version on a CPU tensor,
+so an island launches nothing on the card; what the device refuses runs
+its host branch under the host flag (a RANGE window offset over any key,
+a string lag default, a LIKE outside the device dialect, a condition on
+an outer, semi or anti equi-join). The sources and the scan override it
+(``HostBatchSourceExec`` yields its batches, the scan reads through
+pyarrow). The planner's gates are ``gpu_supported()`` and
+``gpu_supported_conf(conf)`` (the reference's ``tpu_supported``,
+``:333``).
 
 The slim ``ExecCtx`` carries the conf, the eval ctx, the device, the
 metrics and the deferred device checks (a flag on the device, raised at
 the query's download rather than read back when it is made). It has no
 memory manager (split-and-retry, spill), no tracer,
 no flight recorder and no per-operator metrics collector: those are
-later slices (``memory.py`` and ``obs/`` in the JAX package). The
-reference's ``execute_cpu`` oracle path waits for the planner slice.
+later slices (``memory.py`` and ``obs/`` in the JAX package).
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -32,7 +50,7 @@ from ..expr.base import EvalCtx
 
 __all__ = ["ExecCtx", "GpuMetric", "GpuExec", "LeafExec", "UnaryExec",
            "HostBatchSourceExec", "DeviceBatchSourceExec", "collect_arrow",
-           "fused_batches", "resolve_device"]
+           "collect_arrow_cpu", "fused_batches", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,6 +115,16 @@ class ExecCtx:
             m[name] = GpuMetric(name)
         return m[name]
 
+    def host_ctx(self) -> "ExecCtx":
+        """The ctx a CPU island runs under: the same conf, metrics and
+        deferred checks, device ``cpu`` and a host eval ctx."""
+        if self.device.type == "cpu" and self.eval_ctx.host:
+            return self
+        h = copy.copy(self)
+        h.device = torch.device("cpu")
+        h.eval_ctx = dataclasses.replace(self.eval_ctx, host=True)
+        return h
+
     # --- deferred device-side checks --------------------------------------
     # A predicate that lives on the device (a bool or integer scalar,
     # nonzero means violated) is recorded instead of read back, and raised
@@ -109,17 +137,26 @@ class ExecCtx:
     def discard_deferred(self) -> None:
         """Drop pending checks unread: the query failed before its
         download, and a reused ctx must not report its flags."""
-        self.deferred_checks = []
+        self.deferred_checks.clear()
 
     def check_deferred(self) -> None:
         """Read the pending checks (one copy for all) and clear them;
         raise if any is violated."""
-        checks, self.deferred_checks = self.deferred_checks, []
+        checks = list(self.deferred_checks)
+        self.deferred_checks.clear()
         if not checks:
             return
-        flags = torch.stack([f.reshape(()).to(torch.int64)
-                             for f, _ in checks]).cpu()
-        bad = [msg for (_, msg), v in zip(checks, flags.tolist()) if v]
+        # one copy a device: a CPU island's flags lie on the host
+        by_device: Dict[torch.device, List[int]] = {}
+        for i, (f, _) in enumerate(checks):
+            by_device.setdefault(f.device, []).append(i)
+        values = [0] * len(checks)
+        for idx in by_device.values():
+            flags = torch.stack([checks[i][0].reshape(()).to(torch.int64)
+                                 for i in idx]).cpu().tolist()
+            for i, v in zip(idx, flags):
+                values[i] = v
+        bad = [msg for (_, msg), v in zip(checks, values) if v]
         if bad:
             raise RuntimeError(
                 "deferred device checks failed:\n  " + "\n  ".join(bad))
@@ -163,6 +200,28 @@ class GpuExec:
 
     def execute(self, ctx: ExecCtx) -> Iterator[GpuBatch]:
         raise NotImplementedError(type(self).__name__)
+
+    def execute_cpu(self, ctx: ExecCtx) -> Iterator[pa.RecordBatch]:
+        """The CPU path (module docstring): this operator's torch body on
+        CPU tensors over its children's ``execute_cpu``, each output
+        batch downloaded to Arrow."""
+        node = self.with_new_children(
+            [_HostInputExec(c, ctx) for c in self.children])
+        node._label_id = self._label_id  # metrics under this node's label
+        for b in node.execute(ctx.host_ctx()):
+            yield device_to_arrow(b)
+
+    # --- planner hooks ------------------------------------------------------
+
+    def gpu_supported(self) -> Optional[str]:
+        """None when the device can run this operator, else the reason
+        (the reference's ``tpu_supported``)."""
+        return None
+
+    def gpu_supported_conf(self, conf: RapidsConf) -> Optional[str]:
+        """The same under the session's conf (the reference's
+        ``tpu_supported_conf``)."""
+        return None
 
     def expressions(self) -> List:
         """The operator's bound expressions, for the planner's per-
@@ -261,6 +320,26 @@ class LeafExec(GpuExec):
     children = ()
 
 
+class _HostInputExec(LeafExec):
+    """A CPU island's input: ``child.execute_cpu`` under the outer ctx
+    (a device subtree below a ``DeviceToHostExec`` runs there as
+    planned), each Arrow batch put into CPU tensors."""
+
+    def __init__(self, child: GpuExec, outer: ExecCtx):
+        super().__init__()
+        self.source = child
+        self.outer = outer
+
+    @property
+    def output_schema(self):
+        return self.source.output_schema
+
+    def execute(self, ctx):
+        schema = self.source.output_schema
+        for rb in self.source.execute_cpu(self.outer):
+            yield arrow_to_device(rb, schema, ctx.device)
+
+
 class UnaryExec(GpuExec):
     def __init__(self, child: GpuExec):
         super().__init__()
@@ -293,15 +372,22 @@ class HostBatchSourceExec(LeafExec):
     def output_schema(self):
         return self._schema
 
-    def execute(self, ctx):
-        rows = ctx.metric(self, "numOutputRows")
-        t = ctx.metric(self, "uploadTime")
+    def _normalized(self) -> Iterator[pa.RecordBatch]:
         target = arrow_schema(self._schema)
         for rb in self.batches:
             if rb.schema != target:
                 rb = pa.RecordBatch.from_arrays(
                     [rb.column(i).cast(target.field(i).type)
                      for i in range(rb.num_columns)], schema=target)
+            yield rb
+
+    def execute_cpu(self, ctx):
+        yield from self._normalized()
+
+    def execute(self, ctx):
+        rows = ctx.metric(self, "numOutputRows")
+        t = ctx.metric(self, "uploadTime")
+        for rb in self._normalized():
             t0 = time.perf_counter()
             b = arrow_to_device(rb, self._schema, ctx.device)
             t.value += time.perf_counter() - t0
@@ -324,6 +410,10 @@ class DeviceBatchSourceExec(LeafExec):
     def execute(self, ctx):
         yield from self.batches
 
+    def execute_cpu(self, ctx):
+        for b in self.batches:
+            yield device_to_arrow(b)
+
 
 def collect_arrow(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
         -> pa.Table:
@@ -332,6 +422,23 @@ def collect_arrow(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
     ctx = ctx or ExecCtx()
     try:
         batches = [device_to_arrow(b) for b in plan.execute(ctx)]
+    except BaseException:
+        ctx.discard_deferred()
+        raise
+    ctx.check_deferred()
+    return pa.Table.from_batches(batches,
+                                 schema=arrow_schema(plan.output_schema))
+
+
+def collect_arrow_cpu(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
+        -> pa.Table:
+    """Run the plan's CPU path (``execute_cpu`` at the root) and return
+    one Arrow table; device subtrees under a ``DeviceToHostExec`` run on
+    ``ctx.device``, and the deferred device checks are read at the
+    end."""
+    ctx = ctx or ExecCtx()
+    try:
+        batches = list(plan.execute_cpu(ctx))
     except BaseException:
         ctx.discard_deferred()
         raise

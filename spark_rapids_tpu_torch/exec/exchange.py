@@ -14,9 +14,16 @@ transport. The map side streams the child's batches through
   each partition's live rows on the device for the adaptive reader's
   statistics.
 
-Batches come out partition-major, in map order within a partition.
-``GpuCoalesceBatchesExec`` is not ported: the planner inserts it only
-over a CPU island, and the port has none. The broadcast exchange and the
+Batches come out partition-major, in map order within a partition. On
+the CPU the exchange runs the same body on CPU tensors
+(``GpuExec.execute_cpu``).
+
+``GpuCoalesceBatchesExec`` (``:509-576``) gathers small batches up to a
+target row count and byte size: the planner puts it over a
+``HostToDeviceExec`` whose parent is an aggregate, a join or a sort, so
+those see full batches instead of a CPU island's crumbs. On the device
+the group is one ``concat_batches_bounded`` (no readback), on the host
+one Arrow concatenation. The broadcast exchange and the
 collective transport wait for ROADMAP item 17, the host-file transports
 for item 16, range and round-robin partitioning for item 10.
 """
@@ -26,14 +33,17 @@ import itertools
 import time
 from typing import List, Optional
 
+import pyarrow as pa
 import torch
 
-from ..config import ADAPTIVE_ENABLED, SHUFFLE_MODE
+from ..config import ADAPTIVE_ENABLED, BATCH_SIZE_BYTES, SHUFFLE_MODE
+from ..ops.concat import concat_batches_bounded
 from ..shuffle.partitioner import Partitioning
 from ..shuffle.transport import LocalShuffleTransport, ShuffleTransport
 from .base import ExecCtx, GpuExec, UnaryExec, fused_batches
 
-__all__ = ["GpuShuffleExchangeExec", "ShuffleStageHandle"]
+__all__ = ["GpuShuffleExchangeExec", "ShuffleStageHandle",
+           "GpuCoalesceBatchesExec"]
 
 _shuffle_ids = itertools.count()
 
@@ -141,3 +151,54 @@ class GpuShuffleExchangeExec(UnaryExec):
                 yield from handle.read(p)
         finally:
             handle.close()
+
+
+class GpuCoalesceBatchesExec(UnaryExec):
+    """Concatenate small batches up to ``target_rows`` rows and
+    ``spark.rapids.sql.batchSizeBytes`` (module docstring)."""
+
+    def __init__(self, child: GpuExec, target_rows: int = 1 << 17):
+        super().__init__(child)
+        self.target_rows = target_rows
+
+    def describe(self):
+        return f"CoalesceBatchesExec [target={self.target_rows}]"
+
+    def _groups(self, items, rows_of, bytes_of, target_bytes: int):
+        """Runs of consecutive non-empty items within both targets."""
+        pending, rows, nbytes = [], 0, 0
+        for it in items:
+            n = rows_of(it)
+            if n == 0:
+                continue
+            b = bytes_of(it)
+            if pending and (rows + n > self.target_rows
+                            or nbytes + b > target_bytes):
+                yield pending
+                pending, rows, nbytes = [], 0, 0
+            pending.append(it)
+            rows += n
+            nbytes += b
+        if pending:
+            yield pending
+
+    def execute(self, ctx: ExecCtx):
+        concat_time = ctx.metric(self, "concatTime")
+        out_batches = ctx.metric(self, "numOutputBatches")
+        for group in self._groups(self.child.execute(ctx),
+                                  lambda b: b.row_count,
+                                  lambda b: b.device_size_bytes(),
+                                  ctx.conf.get(BATCH_SIZE_BYTES)):
+            t0 = time.perf_counter()
+            out = concat_batches_bounded(group)
+            concat_time.value += time.perf_counter() - t0
+            out_batches += 1
+            yield out
+
+    def execute_cpu(self, ctx: ExecCtx):
+        for group in self._groups(self.child.execute_cpu(ctx),
+                                  lambda rb: rb.num_rows,
+                                  lambda rb: rb.nbytes,
+                                  ctx.conf.get(BATCH_SIZE_BYTES)):
+            t = pa.Table.from_batches(group).combine_chunks()
+            yield t.to_batches()[0]

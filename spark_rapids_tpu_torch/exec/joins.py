@@ -58,11 +58,17 @@ unchecked. With the hint and no string to gather nothing is read back:
 under ``verifyUniqueHint`` the build's duplicate flag becomes a deferred
 check that raises at the query's download.
 
-A condition on an outer, semi or anti equi-join raises
-``NotImplementedError`` naming ROADMAP item 12: the reference tags it
-off the device (``tpu_supported``, ``:127-131``) for its CPU fallback,
-which the port has not yet. The broadcast hash join waits for the
-adaptive join switch and the broadcast exchange (items 10 and 17).
+A condition on an outer, semi or anti equi-join keeps the node off the
+device (``gpu_supported``, the reference's ``:127-131``), so the planner
+runs it on the CPU. There it takes the nested-loop join's shape over the
+equi-join's pairs (``_execute_conditioned``): each stream batch's
+matching pairs (stage A as an inner join and its gather, in the
+condition's schema), the condition over them, then the matched masks
+(``pair_matched_stream``; the build's by a scatter-add of the passing
+pairs onto their build rows) and the unmatched rows beside nulls, all
+on CPU tensors. Its device ``execute`` raises, a backstop behind the
+gate. The broadcast hash join waits for the adaptive join switch and
+the broadcast exchange (items 10 and 17).
 """
 from __future__ import annotations
 
@@ -139,13 +145,6 @@ class _BaseJoinExec(GpuExec):
         super().__init__()
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type}")
-        if condition is not None \
-                and join_type not in self.CONDITION_JOIN_TYPES:
-            raise NotImplementedError(
-                f"a non-equi condition on a {join_type} equi-join is not "
-                "ported: the reference runs it only on its CPU fallback, "
-                "which waits for ROADMAP item 12 (a join without equi-keys "
-                "takes any condition: GpuBroadcastNestedLoopJoinExec)")
         # an unchecked contract that the build keys are unique (a
         # primary-key build side); verifyUniqueHint checks it
         self.build_unique_hint = build_unique_hint
@@ -215,6 +214,13 @@ class _BaseJoinExec(GpuExec):
         out = list(self.left_keys) + list(self.right_keys)
         return out + ([self.condition] if self.condition is not None
                       else [])
+
+    def gpu_supported(self) -> Optional[str]:
+        if self.condition is not None \
+                and self.join_type not in self.CONDITION_JOIN_TYPES:
+            return (f"a non-equi condition on a {self.join_type} "
+                    "equi-join runs on the CPU")
+        return None
 
     def _emit(self, ctx: ExecCtx, batch: GpuBatch) -> GpuBatch:
         ctx.metric(self, "numOutputBatches").value += 1
@@ -426,7 +432,88 @@ class _BaseJoinExec(GpuExec):
         return GpuBatch(out_cols, self._schema, lbatch.row_count,
                         selection=lbatch.selection)
 
+    # --- a condition on every join type -----------------------------------
+
+    def _pairs(self, lbatch: GpuBatch, rbatch: GpuBatch, ctx: ExecCtx):
+        """``(pair batch, ok, plan, pairs, matched build rows or None)``:
+        the stream batch's pairs in the condition's schema (every live
+        pair without keys: the cross join's stage A; with keys the
+        inner join's matches), the pairs that pass the condition, stage
+        A's plan, the pair count, and with keys the build rows with a
+        passing pair."""
+        jt = "cross" if self.cross else "inner"
+        plan, total, out_cap, char_caps = self._sized_stage_a(
+            lbatch, rbatch, ctx, jt)
+        lidx, ridx, lvalid, rvalid = join_indices(plan, jt, out_cap)
+        pair = join_gather(lbatch, rbatch, lidx, ridx, lvalid, rvalid,
+                           total, self._cond_schema, char_caps)
+        pred = self.condition.eval_gpu(pair, ctx.eval_ctx)
+        ok = pair.live_mask() & pred.data
+        if pred.validity is not None:
+            ok = ok & pred.validity
+        hit_r = None
+        if not self.cross:
+            hit_r = torch.zeros(rbatch.capacity, dtype=torch.int32,
+                                device=ok.device).index_add_(
+                0, ridx.long(), ok.to(torch.int32)) > 0
+        return pair, ok, plan, total, hit_r
+
+    def _execute_conditioned(self, ctx: ExecCtx):
+        """Every join type under a condition, from each stream batch's
+        pairs (``_pairs``): the passing pairs under a selection, the
+        unmatched rows beside nulls, semi and anti joins as the stream
+        batch under a selection; the build's matched mask ORs across
+        stream batches for right and full outer joins."""
+        jt = self.join_type
+        op_time = ctx.metric(self, "opTime")
+        t0 = time.perf_counter()
+        rbatch = self._build_right(ctx)
+        if rbatch is None:
+            op_time.value += time.perf_counter() - t0
+            return
+        ctx.metric(self, "uniqueBuild").set(0)
+        matched_r = torch.zeros(rbatch.capacity, dtype=torch.bool,
+                                device=ctx.device)
+        # the build's live rows, read once a build: a cross plan's pair
+        # row length
+        live_r = int(rbatch.live_mask().sum()) \
+            if self.outer_build and self.cross else 0
+        op_time.value += time.perf_counter() - t0
+        for lbatch in self.left.execute(ctx):
+            t0 = time.perf_counter()
+            pair, ok, plan, total, hit_r = self._pairs(lbatch, rbatch, ctx)
+            outs = []
+            if not self.semi:
+                outs.append(GpuBatch(pair.columns, self._schema,
+                                     pair.row_count, selection=ok))
+            if self.outer_build:
+                matched_r |= hit_r if hit_r is not None \
+                    else pair_matched_build(plan, ok, total, live_r)
+            if jt in ("left_outer", "full_outer"):
+                outs.append(self._null_side_batch(
+                    lbatch, ~pair_matched_stream(plan, ok), True, ctx))
+            elif self.semi:
+                matched_l = pair_matched_stream(plan, ok)
+                keep = matched_l if jt == "left_semi" else ~matched_l
+                outs.append(GpuBatch(lbatch.columns, self._schema,
+                                     lbatch.row_count,
+                                     selection=_and_sel(lbatch, keep)))
+            op_time.value += time.perf_counter() - t0
+            for out in outs:
+                yield self._emit(ctx, out)
+        if self.outer_build:
+            yield self._emit(ctx, self._null_side_batch(rbatch, ~matched_r,
+                                                        False, ctx))
+
     def execute(self, ctx: ExecCtx):
+        if self.condition is not None \
+                and self.join_type not in self.CONDITION_JOIN_TYPES:
+            if not ctx.eval_ctx.host:
+                raise NotImplementedError(
+                    f"{self.node_label()}: {self.gpu_supported()}; the "
+                    "planner places it there")
+            yield from self._execute_conditioned(ctx)
+            return
         op_time = ctx.metric(self, "opTime")
         t0 = time.perf_counter()
         rbatch = self._build_right(ctx)
@@ -509,59 +596,8 @@ class GpuBroadcastNestedLoopJoinExec(_BaseJoinExec):
                  condition: Optional[Expression] = None):
         super().__init__([], [], join_type, left, right, condition)
 
-    def _pairs(self, lbatch: GpuBatch, rbatch: GpuBatch, ctx: ExecCtx):
-        """``(pair batch, ok, plan, pairs)``: every live pair of the
-        stream batch in the condition's schema (the cross join's stage A
-        and one K4 a side), the pairs that pass the condition, stage A's
-        plan and the pair count."""
-        plan, total, out_cap, char_caps = self._sized_stage_a(
-            lbatch, rbatch, ctx, "cross")
-        pair = self._stage_bc(plan, "cross", total, out_cap, char_caps,
-                              lbatch, rbatch, self._cond_schema)
-        pred = self.condition.eval_gpu(pair, ctx.eval_ctx)
-        ok = pair.live_mask() & pred.data
-        if pred.validity is not None:
-            ok = ok & pred.validity
-        return pair, ok, plan, total
-
     def execute(self, ctx: ExecCtx):
         if self.condition is None:
             yield from super().execute(ctx)
             return
-        jt = self.join_type
-        op_time = ctx.metric(self, "opTime")
-        t0 = time.perf_counter()
-        rbatch = self._build_right(ctx)
-        if rbatch is None:
-            op_time.value += time.perf_counter() - t0
-            return
-        ctx.metric(self, "uniqueBuild").set(0)
-        matched_r = torch.zeros(rbatch.capacity, dtype=torch.bool,
-                                device=ctx.device)
-        # the build's live rows, read once a build: the pairs' row length
-        live_r = int(rbatch.live_mask().sum()) if self.outer_build else 0
-        op_time.value += time.perf_counter() - t0
-        for lbatch in self.left.execute(ctx):
-            t0 = time.perf_counter()
-            pair, ok, plan, total = self._pairs(lbatch, rbatch, ctx)
-            outs = []
-            if not self.semi:
-                outs.append(GpuBatch(pair.columns, self._schema,
-                                     pair.row_count, selection=ok))
-            if self.outer_build:
-                matched_r |= pair_matched_build(plan, ok, total, live_r)
-            if jt in ("left_outer", "full_outer"):
-                outs.append(self._null_side_batch(
-                    lbatch, ~pair_matched_stream(plan, ok), True, ctx))
-            elif self.semi:
-                matched_l = pair_matched_stream(plan, ok)
-                keep = matched_l if jt == "left_semi" else ~matched_l
-                outs.append(GpuBatch(lbatch.columns, self._schema,
-                                     lbatch.row_count,
-                                     selection=_and_sel(lbatch, keep)))
-            op_time.value += time.perf_counter() - t0
-            for out in outs:
-                yield self._emit(ctx, out)
-        if self.outer_build:
-            yield self._emit(ctx, self._null_side_batch(rbatch, ~matched_r,
-                                                        False, ctx))
+        yield from self._execute_conditioned(ctx)

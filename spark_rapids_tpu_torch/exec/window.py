@@ -60,6 +60,7 @@ from ..expr.window import (DenseRank, NTile, PercentRank, Rank, RowNumber,
                            WindowExpression, _OffsetFunction)
 from ..ops.concat import concat_batches_bounded
 from ..ops.gather import gather_column, gather_columns
+from ..ops.strings import assemble_strings
 from ..ops.sort_keys import (SortSpec, change_flags, check_key_type,
                              normalize_float_key_col, orderable_int,
                              sorted_key_words)
@@ -173,6 +174,92 @@ def _sparse_argmin_query(keys, lo, hi, nonempty, cap: int,
     win = _lex_select(keys, t_lo, t_hi)
     return [torch.where(nonempty, kl[win], torch.full_like(kl, _SENTINEL))
             for kl in keys]
+
+
+def _host_range_bound(ok_col: GpuColumnVector, perm: torch.Tensor,
+                      sorted_live: torch.Tensor, seg_start: torch.Tensor,
+                      seg_end: torch.Tensor, peer_start: torch.Tensor,
+                      peer_end: torch.Tensor, order: SortOrder, delta: int,
+                      side: str) -> torch.Tensor:
+    """RANGE <delta> PRECEDING/FOLLOWING over the first order key of any
+    type and direction, on the host (the reference's CPU path,
+    ``:740-791``): the target is the row's value plus ``delta`` against
+    the direction (in float64 for a float key, exact for an integer one),
+    and the bound a ``numpy.searchsorted`` over the partition's non-null
+    values, one call a partition and side. A null row takes its peer
+    bounds. Float keys follow Spark's order: NaN is the greatest value
+    and equals NaN."""
+    cap = perm.shape[0]
+    live = sorted_live.numpy()
+    valid = ok_col.valid_mask()[perm.long()].numpy() & live
+    raw = ok_col.data[perm.long()].numpy()
+    floating = dt.is_floating(ok_col.dtype)
+    vals = raw.astype(np.float64) if floating else raw.astype(np.int64)
+    # the target a row's frame reaches, against the sort's direction
+    step = delta if order.ascending else -delta
+    if floating:
+        target = vals + float(step)
+    else:
+        # saturate instead of wrapping: past the range nothing lies
+        info = np.iinfo(np.int64)
+        target = np.where(
+            (step > 0) & (vals > info.max - step), info.max,
+            np.where((step < 0) & (vals < info.min - step), info.min,
+                     vals + step))
+    s_np, e_np = seg_start.numpy(), seg_end.numpy()
+    out = (peer_start if side == "lo" else peer_end).numpy().copy()
+    for s0 in np.unique(s_np[live]):
+        s0 = int(s0)
+        e0 = int(e_np[s0])
+        rows = np.arange(s0, e0 + 1)
+        rows = rows[valid[s0:e0 + 1]]
+        if not len(rows):
+            continue
+        v = vals[rows]
+        t = target[rows]
+        if order.ascending:
+            idx = np.searchsorted(v, t, side="left" if side == "lo"
+                                  else "right")
+            b = idx if side == "lo" else idx - 1
+        else:
+            # descending: search the reversed (ascending) values
+            rv = v[::-1]
+            idx = np.searchsorted(rv, t, side="right" if side == "lo"
+                                  else "left")
+            b = len(v) - idx if side == "lo" else len(v) - 1 - idx
+        # past either end of the non-null run: an empty side
+        pos = np.where(b < 0, rows[0] - 1,
+                       np.where(b >= len(rows), rows[-1] + 1,
+                                rows[np.clip(b, 0, len(rows) - 1)]))
+        out[rows] = pos
+    return torch.from_numpy(out).to(torch.int64).clamp(-1, cap)
+
+
+def _string_default(out: GpuColumnVector, ok: torch.Tensor,
+                    sorted_live: torch.Tensor,
+                    default: Optional[bytes]) -> GpuColumnVector:
+    """A string lag/lead: the gathered value where the offset row
+    exists, else the default string (null for a NULL default): the
+    default's bytes appended to the chars once, and each row's start
+    and length taken from one or the other."""
+    starts, lengths = out.offsets[:-1], out.offsets[1:] - out.offsets[:-1]
+    raw = default or b""
+    base = out.chars.shape[0]
+    chars = torch.cat([out.chars, torch.frombuffer(
+        bytearray(raw), dtype=torch.uint8) if raw
+        else torch.zeros(0, dtype=torch.uint8)])
+    use_default = sorted_live & ~ok
+    starts = torch.where(use_default, torch.full_like(starts, base), starts)
+    lengths = torch.where(use_default,
+                          torch.full_like(lengths, len(raw)), lengths)
+    lengths = torch.where(sorted_live, lengths, torch.zeros_like(lengths))
+    valid = out.valid_mask() & ok
+    if default is not None:
+        valid = valid | use_default
+    src = GpuColumnVector(out.dtype, None, None, None, chars)
+    return assemble_strings(src, starts.to(torch.int32),
+                            lengths.to(torch.int32), valid,
+                            int(lengths.sum()))
 
 
 class GpuWindowExec(UnaryExec):
@@ -295,18 +382,23 @@ class GpuWindowExec(UnaryExec):
             by construction, padded with INT64_MAX past them. NULL order
             values form their own band where the sort put them, and a
             null row takes its peer bounds (Spark: a null row's frame is
-            the null rows)."""
+            the null rows). Any other order key runs on the host
+            (``_host_range_bound``)."""
             ok_col = okeys[0]
             t = ok_col.dtype
             if len(okeys) != 1 or not self.orders[0].ascending \
                     or t.np_dtype is None \
                     or np.dtype(t.np_dtype).itemsize > 4 \
                     or dt.is_floating(t):
+                if ectx.host:
+                    return _host_range_bound(
+                        ok_col, perm, sorted_live, seg_start, seg_end,
+                        peer_start, peer_end, self.orders[0], delta, side)
                 raise NotImplementedError(
                     "RANGE literal offsets need one ascending integer or "
                     "date order key of at most 32 bits on the device; "
-                    "others run only in the reference's CPU path (ROADMAP "
-                    "item 12)")
+                    "others run on the CPU, where the planner places "
+                    "them")
             permi = perm.long()
             sval = ok_col.data[permi]
             snull = ~ok_col.valid_mask()[permi]
@@ -427,7 +519,14 @@ class GpuWindowExec(UnaryExec):
                 src = pos + f.direction * f.offset
                 ok = (src >= seg_start) & (src <= seg_end) & sorted_live
                 out = gather_column(scol, torch.clamp(src, 0, cap - 1), ok)
-                if f.default is not None:
+                if f.default is not None and out.is_string_like:
+                    if not ectx.host:
+                        raise NotImplementedError(
+                            "a string lag/lead default runs on the CPU, "
+                            "where the planner places it")
+                    out = _string_default(out, ok, sorted_live,
+                                          f.default.string_bytes)
+                elif f.default is not None:
                     dcol = f.default.eval_gpu(batch, ectx)
                     out = GpuColumnVector(
                         out.dtype, torch.where(ok, out.data, dcol.data),

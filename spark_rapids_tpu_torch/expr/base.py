@@ -3,9 +3,17 @@
 Counterpart of ``spark_rapids_tpu/expr/base.py:37-305``. Every
 expression evaluates eagerly over a ``GpuBatch`` with ``eval_gpu(batch,
 ctx)`` and returns a ``GpuColumnVector`` (data lane + validity lane).
-The reference's ``eval_cpu`` (the pyarrow oracle and per-expression CPU
-fallback) waits for the planner slice. A string literal evaluates to its
-bytes once a row, as the reference's does (``:186-200``).
+A string literal evaluates to its bytes once a row, as the reference's
+does (``:186-200``).
+
+The CPU path (the reference's ``eval_cpu``, ``:71,125,205,236``) is the
+same code on CPU tensors: ``eval_cpu(rb, ctx)`` puts a host Arrow batch
+into CPU tensors, runs ``eval_gpu`` under a host ``EvalCtx``
+(``host=True``) and returns an Arrow array. The host flag is set only
+inside an operator the planner placed on the CPU; an expression that the
+device refuses (a LIKE pattern outside the device regex dialect) runs
+its host branch there, and only there. ``BoundReference``, ``Literal``
+and ``Alias`` answer on Arrow directly.
 
 Expressions are constructed type-resolved: these classes require
 already-coerced children.
@@ -16,15 +24,17 @@ import dataclasses
 import datetime
 from typing import Any, Optional, Sequence, Tuple
 
+import pyarrow as pa
 import torch
 
 from .. import datatypes as dt
+from ..columnar.arrow_bridge import arrow_to_device, device_to_arrow
 from ..columnar.batch import GpuBatch
 from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
 
 __all__ = ["EvalCtx", "ExprError", "Expression", "BoundReference",
            "UnresolvedColumn", "Literal", "Alias", "bind_expr",
-           "infer_literal_type"]
+           "infer_literal_type", "column_to_arrow"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +42,9 @@ class EvalCtx:
     """Per-query evaluation context (immutable, like a conf snapshot)."""
     ansi: bool = False
     timezone: str = "UTC"
+    # evaluating inside a CPU island (an operator the planner placed off
+    # the device): the batches are CPU tensors and host-only branches run
+    host: bool = False
 
 
 class ExprError(Exception):
@@ -58,8 +71,26 @@ class Expression:
     def eval_gpu(self, batch: GpuBatch, ctx: EvalCtx) -> GpuColumnVector:
         raise NotImplementedError(type(self).__name__)
 
+    def eval_cpu(self, rb: pa.RecordBatch, ctx: EvalCtx) -> pa.Array:
+        """Spark's result over a host Arrow batch (module docstring):
+        ``eval_gpu`` on CPU tensors under a host ctx."""
+        batch = arrow_to_device(rb, None, torch.device("cpu"))
+        col = self.eval_gpu(batch, dataclasses.replace(ctx, host=True))
+        return column_to_arrow(col, rb.num_rows)
+
     def validate(self) -> None:
         """Type checks, run after binding (children types are known)."""
+
+    def gpu_supported(self) -> Optional[str]:
+        """None when the device can evaluate this node, else the reason
+        the planner gives for placing its operator on the CPU (the
+        reference's ``tpu_supported``). Children answer for
+        themselves."""
+        return None
+
+    def gpu_supported_conf(self, conf) -> Optional[str]:
+        """The same under the session's conf."""
+        return None
 
     def with_children(self, children: Sequence["Expression"]) \
             -> "Expression":
@@ -103,6 +134,10 @@ class BoundReference(Expression):
 
     def eval_gpu(self, batch, ctx):
         return batch.columns[self.ordinal]
+
+    def eval_cpu(self, rb, ctx):
+        a = rb.column(self.ordinal)
+        return a.combine_chunks() if isinstance(a, pa.ChunkedArray) else a
 
     def __repr__(self):
         return f"{self.name}#{self.ordinal}"
@@ -180,6 +215,12 @@ class Literal(Expression):
                           device=batch.device)
         return GpuColumnVector(self._dtype, data, None)
 
+    def eval_cpu(self, rb, ctx):
+        at = dt.to_arrow(self._dtype)
+        if self.value is None:
+            return pa.nulls(rb.num_rows, at)
+        return pa.array([self.value] * rb.num_rows, type=at)
+
     def __repr__(self):
         return f"lit({self.value!r})"
 
@@ -204,8 +245,17 @@ class Alias(Expression):
     def eval_gpu(self, batch, ctx):
         return self.child.eval_gpu(batch, ctx)
 
+    def eval_cpu(self, rb, ctx):
+        return self.child.eval_cpu(rb, ctx)
+
     def __repr__(self):
         return f"{self.children[0]!r} AS {self.name}"
+
+
+def column_to_arrow(col: GpuColumnVector, n: int) -> pa.Array:
+    """The first ``n`` rows of one column as an Arrow array."""
+    schema = dt.Schema([dt.StructField("c", col.dtype, True)])
+    return device_to_arrow(GpuBatch([col], schema, n)).column(0)
 
 
 def infer_literal_type(value) -> dt.DataType:

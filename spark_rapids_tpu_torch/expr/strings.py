@@ -12,22 +12,30 @@ contains and prefix-and-suffix shapes included, compiles through
 the reference's literal-fragment kernels. ``RegExpLike`` runs its
 pattern on K6 as it is. A pattern the device dialect refuses (a
 non-ASCII pattern, one over 64 positions, groups, bounded repeats)
-raises at planning (``gpu_supported``): the reference runs it on the
-host, and the port's CPU fallback waits for ROADMAP item 12. The result
-keeps the column's validity; a null row's match bit is not read.
+keeps its operator off the device (``gpu_supported``), and on the CPU
+the pattern runs through Python's ``re`` as the reference's host path
+has it (``:299,437``): LIKE translated to an anchored pattern with
+``.`` across newlines, RLIKE searched with ASCII classes, each distinct
+string of the column matched once. The result keeps the column's
+validity; a null row's match bit is not read.
 
 ``StartsWith``, ``EndsWith``, ``Contains`` and the module's other
 expressions wait for ROADMAP item 13.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
+
+import numpy as np
+import pyarrow as pa
+import torch
 
 from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector, is_string_like
 from ..ops import regex
 from ..ops.strings import compare_with_literals, string_row_parts
-from .base import Expression
+from .base import Expression, column_to_arrow
 
 __all__ = ["Like", "RegExpLike"]
 
@@ -36,6 +44,21 @@ def _match(col: GpuColumnVector, prog) -> GpuColumnVector:
     starts, lengths = string_row_parts(col)
     return GpuColumnVector(dt.BOOL, regex.regex_match(
         starts, lengths, col.validity, col.chars, prog), col.validity)
+
+
+def _host_match(col: GpuColumnVector, test) -> GpuColumnVector:
+    """A CPU column matched by ``test`` (a compiled Python pattern's
+    ``fullmatch`` or ``search``), each distinct string once."""
+    arr = column_to_arrow(col, col.capacity)
+    if pa.types.is_binary(arr.type):
+        arr = arr.cast(pa.string())
+    enc = arr.dictionary_encode()
+    hits = np.array([test(v) is not None
+                     for v in enc.dictionary.to_pylist()] + [False])
+    idx = enc.indices.fill_null(len(enc.dictionary)).to_numpy(
+        zero_copy_only=False)
+    return GpuColumnVector(dt.BOOL, torch.from_numpy(hits[idx]),
+                           col.validity)
 
 
 class _RegexPredicate(Expression):
@@ -78,8 +101,21 @@ class _RegexPredicate(Expression):
             self.program()
         except regex.RegexUnsupported as e:
             return (f"pattern {self.pattern!r} is outside the device regex "
-                    f"dialect ({e}); the reference runs it on the host, and "
-                    "the port's CPU fallback waits for ROADMAP item 12")
+                    f"dialect ({e}); it runs on the CPU")
+        return None
+
+    def _host_test(self):
+        """The host path's matcher: a compiled Python pattern's
+        ``fullmatch`` or ``search``."""
+        raise NotImplementedError
+
+    def _host_eval(self, c: GpuColumnVector,
+                   ctx) -> Optional[GpuColumnVector]:
+        """The host path's result inside a CPU island for a pattern
+        outside the device dialect, else None (the device program
+        runs)."""
+        if ctx.host and self.gpu_supported() is not None:
+            return _host_match(c, self._host_test())
         return None
 
 
@@ -120,8 +156,24 @@ class Like(_RegexPredicate):
         return regex.compile_pattern(regex.like_to_regex(self.pattern,
                                                          self.escape))
 
+    def _host_test(self):
+        out, i, p = [], 0, self.pattern
+        while i < len(p):
+            ch = p[i]
+            if ch == self.escape and i + 1 < len(p):
+                out.append(re.escape(p[i + 1]))
+                i += 2
+                continue
+            out.append(".*" if ch == "%" else "." if ch == "_"
+                       else re.escape(ch))
+            i += 1
+        return re.compile("".join(out), re.DOTALL).fullmatch
+
     def eval_gpu(self, batch, ctx):
         c = self.children[0].eval_gpu(batch, ctx)
+        host = self._host_eval(c, ctx)
+        if host is not None:
+            return host
         prog = self.program()
         if prog is not None:
             return _match(c, prog)
@@ -144,9 +196,14 @@ class RegExpLike(_RegexPredicate):
     def _compile(self):
         return regex.compile_pattern(self.pattern)
 
+    def _host_test(self):
+        # Java's \w \d \s are ASCII classes, as on the device
+        return re.compile(self.pattern, re.ASCII).search
+
     def eval_gpu(self, batch, ctx):
-        return _match(self.children[0].eval_gpu(batch, ctx),
-                      self.program())
+        c = self.children[0].eval_gpu(batch, ctx)
+        host = self._host_eval(c, ctx)
+        return host if host is not None else _match(c, self.program())
 
     def __repr__(self):
         return f"({self.children[0]!r} RLIKE {self.pattern!r})"

@@ -11,12 +11,12 @@ evaluable on its own: ``exec/window.GpuWindowExec`` computes every window
 expression of one spec in one sorted, segmented pass.
 
 ``gpu_supported`` is the reference's device gate (``tpu_supported``,
-``:247-303``). The planner reads it, and a window it refuses raises at
-planning, naming the ROADMAP item it waits for, since the port has no CPU
-fallback: the window aggregates the port does not have (First, Last, the
-variances and the collects) wait for item 8; RANGE offsets over anything
-but one ascending integer or date key of at most 32 bits run only in the
-reference's CPU path, which is item 12's remainder.
+``:247-303``). The planner reads it and places a window it refuses on
+the CPU (``exec/window.py``'s host branches): RANGE offsets over
+anything but one ascending integer or date key of at most 32 bits, and
+a lag or lead with a string default. The window aggregates the port
+does not have (First, Last, the variances and the collects) wait for
+item 8 and raise where the SQL compiler meets them.
 """
 from __future__ import annotations
 
@@ -259,8 +259,7 @@ class WindowExpression(Expression):
                     "yet (ROADMAP item 8)")
         if isinstance(f, _OffsetFunction) and f.default is not None \
                 and f.dtype.is_variable_width:
-            return ("lag/lead default over strings runs only in the "
-                    "reference's CPU path (ROADMAP item 12)")
+            return "a lag/lead default over strings runs on the CPU"
         if fr.frame_type == "range":
             bounded = [v for v in (fr.lower, fr.upper)
                        if v is not None and v != 0]
@@ -272,12 +271,10 @@ class WindowExpression(Expression):
                 # lane fits 32 bits
                 if self._n_order != 1:
                     return ("RANGE literal offsets need exactly one order "
-                            "key on the device; others run only in the "
-                            "reference's CPU path (ROADMAP item 12)")
+                            "key on the device; others run on the CPU")
                 if not self.order_specs[0][0]:
                     return ("RANGE literal offsets over a descending order "
-                            "key run only in the reference's CPU path "
-                            "(ROADMAP item 12)")
+                            "key run on the CPU")
                 ot = self.children[1 + self._n_part].dtype
                 # floats are excluded: the device would add the offset in
                 # the key's type where Spark computes in float64
@@ -287,10 +284,9 @@ class WindowExpression(Expression):
                     and not dt.is_floating(ot)
                 if not ok32:
                     return (f"RANGE literal offsets over "
-                            f"{ot.simple_string()} run only in the "
-                            "reference's CPU path (the device needs an "
-                            "integer or date order lane of at most 32 "
-                            "bits; ROADMAP item 12)")
+                            f"{ot.simple_string()} run on the CPU (the "
+                            "device needs an integer or date order lane "
+                            "of at most 32 bits)")
         return None
 
     def __repr__(self):

@@ -36,7 +36,10 @@ by its encoding before any decode, and is counted by reason
 buffers on the host path, K5's index stream into the staged string
 store on the device path (``ops/parquet_decode.BatchLayout``). Decimal
 and nested columns raise ``NotImplementedError`` (ROADMAP item 2).
-Column pruning, row-group pushdown, Hive partition columns and the
+A scan the planner places on the CPU (``execute_cpu``, the reference's
+``:1138-1163`` with ``_align``) yields pyarrow's batches in the same
+split order, cast to its schema, and touches no device. Column pruning,
+row-group pushdown, Hive partition columns and the
 ORC/CSV/JSON/Hive-text formats wait (ROADMAP items 5 and 12).
 """
 from __future__ import annotations
@@ -595,6 +598,17 @@ class GpuFileScanExec(LeafExec):
             pool.shutdown(wait=False, cancel_futures=True)
 
     # --- host decode ---------------------------------------------------------
+
+    def execute_cpu(self, ctx: ExecCtx):
+        """The CPU path (the reference's ``:1138-1141``): pyarrow's
+        decode in the reader mode's split order, each batch cast to the
+        scan's schema; nothing is decoded on the card."""
+        _check_types(self._schema)
+        rows = ctx.metric(self, "numOutputRows")
+        target = arrow_schema(self._schema)
+        for rb in self._host_batches(ctx):
+            rows += rb.num_rows
+            yield _align(rb, target)
 
     def execute(self, ctx: ExecCtx):
         _check_types(self._schema)

@@ -1,27 +1,37 @@
 """Planner: the override pass from an operator tree to a physical plan.
 
-Counterpart of ``spark_rapids_tpu/planner.py:45-160,404-540``
+Counterpart of ``spark_rapids_tpu/planner.py:45-160,201-208,404-540``
 (``NodeMeta``, ``PhysicalPlan``, ``TpuOverrides``): wrap every node in a
-``NodeMeta``, tag each bottom-up (the master switch
-``spark.rapids.sql.enabled``, the per-operator and per-expression
-switches ``spark.rapids.sql.exec.<Name>`` / ``.expression.<Name>``, and
-each expression's device gate ``gpu_supported``, the reference's
-``tpu_supported``, which names the ROADMAP item a window the device
-cannot compute waits for), then rebuild the tree with the adaptive
-reader over every shuffle exchange while ``spark.sql.adaptive.enabled``
-is on. ``PhysicalPlan.collect`` runs the root on the device and
-downloads Arrow; ``explain`` renders the placement.
+``NodeMeta`` and tag each bottom-up with the reference's gates:
 
-The port has no CPU path: a node tagged off the device raises
-``NotImplementedError`` with its reasons instead of falling back. The
-reference's per-operator CPU fallback through ``execute_cpu`` and its
-transitions are ROADMAP item 12's remainder. So is the static plan
-verifier (``analysis/plan_verifier.py``): ``spark.rapids.sql.verifyPlan``
-is not honoured yet, and its contracts (schema and nullability
-agreement, co-partitioned exchanges, well-formed AQE wrappers, the HBM
-footprint estimate, unsupported key types) are listed under item 12.
-Operator ids, the query profile and the telemetry bracket wait for
-item 15, the query lifecycle for item 14.
+- the master switch ``spark.rapids.sql.enabled``;
+- the per-operator switch ``spark.rapids.sql.exec.<Name>``;
+- the operator's own gate ``gpu_supported()`` and its conf hook
+  ``gpu_supported_conf(conf)`` (``variableFloatAgg`` on the aggregate, a
+  condition on an outer, semi or anti equi-join);
+- for every expression: ``spark.rapids.sql.expression.<Name>``, an
+  ``incompat`` expression under ``spark.rapids.sql.incompatibleOps
+  .enabled=false``, its gate ``gpu_supported()`` and conf hook.
+
+A node with a reason runs on the CPU. ``_convert`` rebuilds the tree
+with ``DeviceToHostExec`` under a CPU node over a device child and
+``HostToDeviceExec`` under a device node over a CPU child (plus a
+``GpuCoalesceBatchesExec`` where that device node is an aggregate, a
+join or a sort), and with the adaptive reader over every device shuffle
+exchange while ``spark.sql.adaptive.enabled`` is on. Placement is
+decided here and only here: nothing at run time moves an operator to the
+CPU after a kernel, a build or a launch fails.
+
+``PhysicalPlan.collect`` runs ``execute`` (device root) or
+``execute_cpu`` (CPU root) and returns Arrow; a CPU-rooted plan still
+reads the deferred checks of the device subtrees under it.
+``fallback_nodes()`` names every node placed on the CPU, and
+``explain`` renders the placement (``ALL`` or ``NOT_ON_GPU``). The
+static plan verifier (``analysis/plan_verifier.py``;
+``spark.rapids.sql.verifyPlan`` is not honoured yet) is ROADMAP item
+12's other half. Operator ids, the query profile and the telemetry
+bracket wait for item 15, the query lifecycle and the degradation
+ladder's CPU rung for item 14.
 """
 from __future__ import annotations
 
@@ -30,8 +40,11 @@ from typing import List, Optional, Sequence
 
 import pyarrow as pa
 
-from .config import ADAPTIVE_ENABLED, EXPLAIN, SQL_ENABLED, RapidsConf
-from .exec.base import ExecCtx, GpuExec, collect_arrow, resolve_device
+from .config import (ADAPTIVE_ENABLED, BATCH_SIZE_ROWS, EXPLAIN,
+                     INCOMPATIBLE_OPS, SQL_ENABLED, RapidsConf)
+from .exec.base import (ExecCtx, GpuExec, collect_arrow, collect_arrow_cpu,
+                        resolve_device)
+from .exec.transitions import DeviceToHostExec, HostToDeviceExec
 
 __all__ = ["NodeMeta", "PhysicalPlan", "GpuOverrides"]
 
@@ -41,6 +54,22 @@ def _walk_expr(expr) -> List[object]:
     for c in getattr(expr, "children", ()):
         out.extend(_walk_expr(c))
     return out
+
+
+def _expr_reasons(e, conf: RapidsConf) -> List[str]:
+    """Why one expression node keeps its operator off the device."""
+    ename = e.pretty_name()
+    if not conf.is_op_enabled("expression", ename):
+        return [f"expression {e!r} has been disabled by "
+                f"spark.rapids.sql.expression.{ename}"]
+    incompat = getattr(e, "incompat", None)
+    if incompat and not conf.get(INCOMPATIBLE_OPS):
+        return [f"expression {e!r} is incompatible ({incompat}) and "
+                "spark.rapids.sql.incompatibleOps.enabled is false"]
+    for reason in (e.gpu_supported(), e.gpu_supported_conf(conf)):
+        if reason:
+            return [f"expression {e!r}: {reason}"]
+    return []
 
 
 class NodeMeta:
@@ -63,18 +92,13 @@ class NodeMeta:
         if not conf.is_op_enabled("exec", name):
             self.reasons.append(f"the operator has been disabled by "
                                 f"spark.rapids.sql.exec.{name}")
+        for reason in (self.node.gpu_supported(),
+                       self.node.gpu_supported_conf(conf)):
+            if reason:
+                self.reasons.append(reason)
         for root in self.node.expressions():
             for e in _walk_expr(root):
-                ename = e.pretty_name()
-                if not conf.is_op_enabled("expression", ename):
-                    self.reasons.append(
-                        f"expression {e!r} has been disabled by "
-                        f"spark.rapids.sql.expression.{ename}")
-                    continue
-                gate = getattr(e, "gpu_supported", None)
-                reason = gate() if gate is not None else None
-                if reason:
-                    self.reasons.append(f"expression {e!r}: {reason}")
+                self.reasons.extend(_expr_reasons(e, conf))
 
     def explain_lines(self, mode: str, depth: int = 0) -> List[str]:
         pad = "  " * depth
@@ -90,12 +114,6 @@ class NodeMeta:
             out.extend(c.explain_lines(mode, depth + 1))
         return out
 
-    def off_device(self) -> List["NodeMeta"]:
-        out = [] if self.on_device else [self]
-        for c in self.children:
-            out.extend(c.off_device())
-        return out
-
 
 class PhysicalPlan:
     """Planner output: the rebuilt tree, its placement and the device it
@@ -109,8 +127,26 @@ class PhysicalPlan:
         self.device = device
 
     @property
+    def root_on_device(self) -> bool:
+        return self.meta.on_device
+
+    @property
     def output_schema(self):
         return self.root.output_schema
+
+    def fallback_nodes(self) -> List[str]:
+        """The pretty name of every operator placed on the CPU, in pre-
+        order (the reference's ``assert_gpu_fallback_collect`` hook)."""
+        out = []
+
+        def rec(m: NodeMeta):
+            if not m.on_device:
+                out.append(m.node.pretty_name())
+            for c in m.children:
+                rec(c)
+
+        rec(self.meta)
+        return out
 
     def explain(self, mode: Optional[str] = None) -> str:
         mode = mode or self.conf.get(EXPLAIN)
@@ -119,9 +155,12 @@ class PhysicalPlan:
         return "\n".join(self.meta.explain_lines(mode))
 
     def collect(self, ctx: Optional[ExecCtx] = None) -> pa.Table:
-        """Run the plan on its device and download one Arrow table."""
-        return collect_arrow(self.root, ctx or ExecCtx(self.conf,
-                                                       self.device))
+        """Run the plan and return one Arrow table: the root's device
+        path, or its CPU path when the planner placed it on the CPU."""
+        ctx = ctx or ExecCtx(self.conf, self.device)
+        if self.root_on_device:
+            return collect_arrow(self.root, ctx)
+        return collect_arrow_cpu(self.root, ctx)
 
 
 class GpuOverrides:
@@ -140,12 +179,27 @@ class GpuOverrides:
         meta.tag(self.conf)
 
     def _convert(self, meta: NodeMeta) -> GpuExec:
+        """Rebuild with the transitions (module docstring); the adaptive
+        reader goes over a device exchange where its consumer is on the
+        device too, as in the reference's ``_maybe_aqe``."""
+        from .exec.aggregate import GpuHashAggregateExec
         from .exec.aqe import GpuAQEShuffleReadExec
-        from .exec.exchange import GpuShuffleExchangeExec
+        from .exec.exchange import GpuCoalesceBatchesExec, \
+            GpuShuffleExchangeExec
+        from .exec.joins import _BaseJoinExec
+        from .exec.sort import GpuSortExec
+        batch_sensitive = (GpuHashAggregateExec, _BaseJoinExec, GpuSortExec)
         children = []
         for c in meta.children:
             built = self._convert(c)
-            if self.conf.get(ADAPTIVE_ENABLED) \
+            if meta.on_device and not c.on_device:
+                built = HostToDeviceExec(built)
+                if isinstance(meta.node, batch_sensitive):
+                    built = GpuCoalesceBatchesExec(
+                        built, target_rows=self.conf.get(BATCH_SIZE_ROWS))
+            elif not meta.on_device and c.on_device:
+                built = DeviceToHostExec(built)
+            if self.conf.get(ADAPTIVE_ENABLED) and c.on_device \
                     and isinstance(built, GpuShuffleExchangeExec):
                 built = GpuAQEShuffleReadExec(built)
             children.append(built)
@@ -154,15 +208,12 @@ class GpuOverrides:
     def apply(self, plan: GpuExec) -> PhysicalPlan:
         meta = self._wrap(plan)
         self._tag(meta)
-        bad = meta.off_device()
-        if bad:
-            raise NotImplementedError(
-                "the port has no CPU fallback (ROADMAP item 12): "
-                + " | ".join(f"{m.node.pretty_name()}: "
-                             + "; ".join(m.reasons) for m in bad))
         pp = PhysicalPlan(self._convert(meta), meta, self.conf, self.device)
         mode = self.conf.get(EXPLAIN)
-        if mode == "ALL":
-            # stderr: scripts that drive the engine keep stdout for results
-            print(pp.explain(mode), file=sys.stderr)
+        if mode in ("ALL", "NOT_ON_GPU"):
+            text = pp.explain(mode)
+            if text:
+                # stderr: scripts that drive the engine keep stdout for
+                # results
+                print(text, file=sys.stderr)
         return pp

@@ -33,10 +33,10 @@ stable ``detail`` code (``unknown_column``, ``ambiguous_column``,
 expression or operator the port does not have yet (``||``, a CAST from
 or to string, decimal, date or timestamp, SELECT without FROM) raises
 ``SqlAnalysisError(..., "unsupported_feature")`` naming its ROADMAP item
-when a query reaches it; a non-equi condition on an outer, semi or anti
-equi-join raises ``NotImplementedError`` naming item 12 as its join is
-built, and so does a LIKE pattern outside the device regex dialect at
-planning; none runs another way. Every join type runs: equi-joins on
+when a query reaches it. A non-equi condition on an outer, semi or
+anti equi-join and a LIKE pattern outside the device regex dialect
+compile as any other; the planner places their operators on the CPU.
+Every join type runs: equi-joins on
 the shuffled hash join, a CROSS JOIN, an ON without an equi-key and a
 comma FROM item no equality reaches on the nested-loop join
 (``GpuBroadcastNestedLoopJoinExec``), as in the reference. UNION DISTINCT is

@@ -46,6 +46,9 @@ JOIN_PERCENTILE_LIKE_MODULES = ["ops/regex.py", "expr/strings.py",
 # the outer, cross and nested-loop joins and their SQL texts
 OUTER_CROSS_MODULES = ["exec/joins.py", "ops/join.py",
                        "tools/nds_joins.py"]
+# the per-operator CPU fallback and its SQL texts
+FALLBACK_MODULES = ["exec/transitions.py", "exec/base.py", "planner.py",
+                    "io/scan.py", "tools/nds_fallback.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -53,7 +56,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(files) > 10
     for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES + SQL_MODULES \
             + WINDOW_UNION_MODULES + JOIN_PERCENTILE_LIKE_MODULES \
-            + OUTER_CROSS_MODULES:
+            + OUTER_CROSS_MODULES + FALLBACK_MODULES:
         assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:

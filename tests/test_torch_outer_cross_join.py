@@ -14,8 +14,9 @@ JAX package.
   (``tools/nds_joins.py``): q_full_halves, q_right_items, q28_buckets and
   q90_ratio at ``spark.sql.shuffle.partitions`` 1 and 16 over the NDS
   tables at 2^14 store_sales rows.
-- The refusals: a cross join past the int32 indices names ROADMAP item
-  14, a non-equi condition on an outer equi-join item 12.
+- The refusal: a cross join past the int32 indices names ROADMAP item
+  14. A non-equi condition on an outer, semi or anti equi-join runs on
+  the CPU, against the reference's CPU path.
 
 Tolerance: ints, strings and nulls exact, floats rel
 ``torch_dual_run.FLOAT_RTOL``; the row order exact against the
@@ -38,8 +39,12 @@ from spark_rapids_tpu_torch.expr import GreaterThan as TGreaterThan
 from spark_rapids_tpu_torch.expr import UnresolvedColumn as tcol
 from spark_rapids_tpu_torch.ops import join as tjoin
 
+import spark_rapids_tpu.exec.base as jbase
 from data_gen import IntegerGen, LongGen, StringGen, gen_table
-from torch_join_cases import N_SALES, check_sql, run_both
+from spark_rapids_tpu.config import RapidsConf as JConf
+from spark_rapids_tpu.expr import UnresolvedColumn as jcol
+from torch_dual_run import assert_same_rows, run_port, run_reference
+from torch_join_cases import N_SALES, check_sql, run_both, sources
 
 OUTER = ["right_outer", "full_outer"]
 
@@ -225,12 +230,25 @@ def test_cross_join_past_the_int32_indices_raises_naming_item_14():
 @pytest.mark.parametrize("jt", ["left_outer", "right_outer", "full_outer",
                                 "left_semi", "left_anti"])
 def test_condition_on_a_non_inner_equi_join_raises_naming_item_12(jt):
-    side = [gen_table([IntegerGen(), LongGen()], 10, 1, names=["k", "v"])]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        GpuShuffledHashJoinExec([tcol("k")], [tcol("k")], jt,
-                                tbase.HostBatchSourceExec(side),
-                                tbase.HostBatchSourceExec(side),
-                                TGreaterThan(tcol("v"), tcol("v")))
+    """A condition on an outer, semi or anti equi-join raised naming
+    ROADMAP item 12 until the CPU fallback was ported. The planner now
+    places the join on the CPU, where it equals the reference's CPU
+    path (duplicated and null keys, as multisets); its device path
+    still refuses it, a backstop behind the gate."""
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    gen = IntegerGen(min_val=0, max_val=12, null_frac=0.1)
+    left = _side([gen], 60, 31, ["lk", "lv"])
+    right = _side([gen], 40, 32, ["rk", "rv"])
+    build = _hash_join(jt, ["lk"], ["rk"], ("lv", "rv"))
+    (lp, lr), (rp, rr) = sources(left), sources(right)
+    pp = GpuOverrides(device="cpu").apply(build("port", lp, rp, tcol))
+    assert pp.fallback_nodes() == ["ShuffledHashJoinExec"]
+    want = jbase.collect_arrow_cpu(build("ref", lr, rr, jcol),
+                                   jbase.ExecCtx(JConf()))
+    assert_same_rows(pp.collect(), want, ordered=False, label=jt)
+    with pytest.raises(NotImplementedError, match="runs on the CPU"):
+        tbase.collect_arrow(build("port", lp, rp, tcol),
+                            tbase.ExecCtx(device="cpu"))
 
 
 # --- SQL over the NDS tables -------------------------------------------------
@@ -256,8 +274,12 @@ def test_sql_matches_reference_and_oracle(paths, tables, q, parts):
 
 
 def test_left_join_with_a_non_equi_residual_raises_naming_item_12(paths):
-    s = nds.session_over_files(paths, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        s.sql("SELECT ss_item_sk, i_brand_id FROM store_sales LEFT JOIN "
-              "item ON ss_item_sk = i_item_sk "
-              "AND ss_quantity > i_brand_id").collect()
+    """It raised naming ROADMAP item 12 until the CPU fallback was
+    ported: the join now runs on the CPU and equals the reference's
+    all-CPU rows."""
+    sql = ("SELECT ss_item_sk, i_brand_id FROM store_sales LEFT JOIN "
+           "item ON ss_item_sk = i_item_sk AND ss_quantity > i_brand_id")
+    got, _ = run_port(sql, paths)
+    want, _ = run_reference(sql, paths, {"spark.rapids.sql.enabled":
+                                         "false"})
+    assert_same_rows(got, want, ordered=False)

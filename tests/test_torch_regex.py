@@ -254,13 +254,31 @@ def test_rlike_matches_the_reference_and_re():
 
 
 def test_patterns_outside_the_dialect_raise_at_planning():
+    """They raised at planning until the CPU fallback was ported: the
+    planner now places the project on the CPU, where the pattern runs
+    through Python's ``re`` (LIKE anchored, ``.`` across newlines;
+    RLIKE searched with ASCII classes), and the device path still
+    refuses it."""
     from spark_rapids_tpu_torch.planner import GpuOverrides
     rb = pa.record_batch({"s": pa.array(STRINGS, pa.string())})
-    for e in (Like(tcol("s"), "%é%"), RegExpLike(tcol("s"), "(ab)+"),
-              Like(tcol("s"), "%a%b%c%d%%e"), Like(tcol("s"), "日本%")):
+
+    def like(p):
+        return re.compile("".join(".*" if c == "%" else "." if c == "_"
+                                  else re.escape(c) for c in p),
+                          re.DOTALL).fullmatch
+
+    for e, test in ((Like(tcol("s"), "%é%"), like("%é%")),
+                    (RegExpLike(tcol("s"), "(ab)+"),
+                     re.compile("(ab)+", re.ASCII).search),
+                    (Like(tcol("s"), "%a%b%c%d%%e"), like("%a%b%c%d%%e")),
+                    (Like(tcol("s"), "日本%"), like("日本%"))):
         plan = GpuProjectExec([TAlias(e, "m")], TSource([rb]))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            GpuOverrides(device="cpu").apply(plan)
+        pp = GpuOverrides(device="cpu").apply(plan)
+        assert pp.fallback_nodes() == ["ProjectExec"]
+        assert pp.collect().column("m").to_pylist() == [
+            None if s is None else test(s) is not None for s in STRINGS]
+        with pytest.raises(trx.RegexUnsupported):
+            t_collect(plan, ExecCtx(device="cpu"))
     # the exact shape needs no regex: a non-ASCII literal runs
     plan = GpuProjectExec([TAlias(Like(tcol("s"), "aé"), "m")],
                           TSource([rb]))

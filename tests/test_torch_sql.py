@@ -8,8 +8,8 @@ with device page decode on, over files written to ``tmp_path`` at
 against the reference's runs at the same settings: the integer columns
 and the row order equal, the float sums within rel 1e-9, and the scans'
 chunk counters equal. The numpy/pyarrow oracle
-agrees too. A query with an unported construct raises, and never runs
-another way."""
+agrees too. A query with an unported construct raises; an operator
+the conf disables runs on the CPU."""
 import math
 
 import pytest
@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.planner import GpuOverrides
 from spark_rapids_tpu_torch.session import GpuSession
 from spark_rapids_tpu_torch.sql import SqlAnalysisError, SqlParseError
 from spark_rapids_tpu_torch.sql import parse_statement as tparse
+from torch_dual_run import assert_same_rows
 
 N_SALES = 1 << 14
 RTOL = 1e-9
@@ -185,12 +186,18 @@ def test_unported_dataframe_methods_raise(paths):
             call()
 
 
-def test_a_disabled_operator_raises_instead_of_falling_back(paths):
+def test_a_disabled_operator_raises_instead_of_falling_back(paths,
+                                                            tables):
+    """It raised until the CPU fallback was ported: the disabled sort
+    now runs on the CPU between transitions, and q3 still equals its
+    oracle."""
     s = GpuSession({"spark.rapids.sql.exec.SortExec": "false"},
                    device="cpu")
     nds.register_frames(s, {k: s.read_parquet(p) for k, p in paths.items()})
-    with pytest.raises(NotImplementedError, match="SortExec"):
-        s.sql(nds.SQL_QUERIES["q3"]).collect()
+    pp = GpuOverrides(s.conf, s.device).apply(
+        s.sql(nds.SQL_QUERIES["q3"])._node)
+    assert pp.fallback_nodes() == ["SortExec"]
+    assert_same_rows(pp.collect(), nds.oracle("q3", tables), ordered=True)
 
 
 def test_dataframe_api_runs_q55(paths, tables):

@@ -14,9 +14,10 @@ takes the sparse table for both) and int64 extremes. Tolerance: ints, strings an
 exact, floats rel 1e-9 (``torch_dual_run.assert_same_rows``), the row
 order exact (both packages sort stably by partition and order keys).
 
-The gate's refusals (RANGE offsets over a 64-bit, float or descending
-order key or over two order keys; First and Last) raise and name their
-ROADMAP item instead of running another way."""
+The windows the device gate refuses (RANGE offsets over a 64-bit,
+float or descending order key or over two order keys) run on the CPU,
+held to the reference's CPU path; First and Last raise and name their
+ROADMAP item."""
 import types
 
 import numpy as np
@@ -384,10 +385,22 @@ GATED = {"int64": [("o64", True)], "float": [("f", True)],
 
 @pytest.mark.parametrize("case", sorted(GATED))
 def test_range_offsets_the_device_cannot_compute_raise(case):
-    plan = _plan(("range", -5, 5), GATED[case])
-    with pytest.raises(NotImplementedError,
-                       match=r"RANGE literal offsets.*ROADMAP item 12"):
-        GpuOverrides(device="cpu").apply(plan)
+    """They raised at planning until the CPU fallback was ported: the
+    planner now places the window on the CPU, where it equals the
+    reference's CPU path (its ``execute_cpu``), and the device path
+    still refuses the offsets."""
+    pp = GpuOverrides(device="cpu").apply(_plan(("range", -5, 5),
+                                                GATED[case]))
+    assert pp.fallback_nodes() == ["WindowExec"]
+    assert "RANGE literal offsets" in pp.explain("NOT_ON_GPU")
+    ref = REF.Window([REF.Alias(REF.WE(
+        REF.Sum(REF.col("v")), [REF.col("p")],
+        [REF.SortOrder(REF.col(c), asc) for c, asc in GATED[case]],
+        REF.WF("range", -5, 5)), "s")], REF.Source([_gate_batch()]))
+    want = jbase.collect_arrow_cpu(ref, jbase.ExecCtx())
+    assert_same_rows(pp.collect(), want, ordered=False)
+    with pytest.raises(NotImplementedError, match="RANGE literal offsets"):
+        PORT.collect(_plan(("range", -5, 5), GATED[case]))
     # the same spec with unbounded or current-row bounds runs
     ok = _plan(("range", None, 0), GATED[case])
     GpuOverrides(device="cpu").apply(ok).collect()

@@ -16,15 +16,41 @@ the same Parquet files with the same conf, the Arrow outputs compared.
 
 ``dual_run`` also holds the scans' ``deviceChunks`` and
 ``fallbackChunks`` of both runs equal.
+
+Importing the module sets two things for the test process (every
+pytest-xdist worker collects every test file, so every worker imports
+it): the JAX package's compiled programs go to a persistent compilation
+cache under the temporary directory, shared by the workers, so a
+program one file compiled (the NDS scans of the 2^14-row tables, their
+joins and exchanges, which many files run) is read back in the next;
+and torch runs one intra-op thread, so the six workers of the tier-1 run
+do not each spread their small CPU ops over every core. Neither changes
+a result: the cache is keyed by the program, and the tests' tensors are
+small.
 """
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 from typing import Dict, Optional, Tuple
 
 import pyarrow as pa
 
 FLOAT_RTOL = 1e-9
+
+
+def _test_process_settings() -> None:
+    import jax
+    import torch
+    jax.config.update("jax_compilation_cache_dir", os.path.join(
+        tempfile.gettempdir(), "spark_rapids_torch_tests_xla_cache"))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    torch.set_num_threads(1)
+
+
+_test_process_settings()
 
 
 def scan_chunks(metrics) -> list:
