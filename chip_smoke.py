@@ -4,10 +4,12 @@ query at the reference's full size, q6's revenue by line number at
 SF1, the 22 NDS queries from SQL text over Parquet files
 (``nds.PORTED_QUERIES``), nine more that need outer, cross and
 nested-loop joins (``tools/nds_joins.py``) and eight that need the
-per-operator CPU fallback (``tools/nds_fallback.py``), through
-``spark_rapids_tpu_torch``, with K1 to K6 checked on the card.
+per-operator CPU fallback (``tools/nds_fallback.py``) and five whose
+working set passes the device budget they run under
+(``tools/nds_memory.py``), through ``spark_rapids_tpu_torch``, with K1
+to K6 checked on the card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--memory-only] [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -118,11 +120,30 @@ Phases, any failure exits non-zero before the result line:
      and K5 launches to ``_nds_expected`` (a CPU island launches
      nothing; the device subtrees under it launch as planned), and the
      transitions' downloadTime and uploadTime printed;
-  11. K1's kernels a call, counted in a profiler trace of one call (1),
+  11. NDS memory: the five texts of
+     ``spark_rapids_tpu_torch/tools/nds_memory.py`` (an out-of-core
+     sort with its runs on sealed disk files, a bucketed window, a
+     bounded merge of 4M groups, the percentile's CPU reroute, q3's
+     spilled map entries) under a 64 MiB device budget at 1 and 16
+     partitions (q3 at 16), each beside the same text at the default
+     budget (which must spill nothing): rows held to the oracle, each
+     path's own figure above 0, no catalog entry or ledger byte left,
+     every spill of the sort's runs freeing at least SPILL_FREED_SHARE of
+     its bytes in torch.cuda.memory_allocated(), K3/K4/K5 launches
+     printed; the CRC32C in use and the port's own timed on 64 MiB; a
+     real torch.OutOfMemoryError (the memory fraction cut at q_pivot's
+     largest retry scope) answered by split-and-retry with the
+     unconstrained run's rows; the degradation ladder (q3 under
+     injectRetryOOM.storm: halve, spill, width1, the CPU rerun); a
+     deadline that cancels q97 mid-run and leaves no catalog entry,
+     ledger byte or spill file, and memory_allocated() within
+     CANCEL_MARGIN_BYTES of its value before (``--memory-only`` runs
+     the build and this phase alone);
+  12. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
-{"ok": true, "device": {...}}. The script imports neither jax nor the
-JAX package.
+{"ok": true, "device": {...}}; with ``--log FILE`` every line is also
+written to FILE. The script imports neither jax nor the JAX package.
 """
 import json
 import os
@@ -154,8 +175,24 @@ K6_REPLACES = "spark_rapids_tpu/ops/regex.py:378"
 K6_SOURCE = "spark_rapids_tpu_torch/csrc/regex_match.cu"
 
 
+#: with ``--log FILE``, every line the smoke prints is also written there
+_log_file = None
+
+
 def log(*a):
     print(*a, flush=True)
+    if _log_file is not None:
+        print(*a, file=_log_file, flush=True)
+
+
+def _args():
+    """``(memory_only, log path or None)`` from the command line."""
+    args = sys.argv[1:]
+    memory_only = "--memory-only" in args
+    path = None
+    if "--log" in args:
+        path = args[args.index("--log") + 1]
+    return memory_only, path
 
 
 def phase_card():
@@ -646,7 +683,9 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     gathers its build columns into each batch (one K4, strings
     included). Right and full outer joins take the staged path for
     every stream batch and emit the unmatched build rows as the build's
-    own columns under a selection (no launch). A join without keys (the
+    own columns under a selection (no launch). The adaptive reader's
+    skew split gives the aggregate over it a partial a piece
+    (``numSkewPieces.<i>``). A join without keys (the
     cross join) sorts nothing in stage A and gathers both sides (the
     stream's alone for a semi or anti join), one K4 each; the
     nested-loop join with a condition gathers both sides' pairs a stream
@@ -671,6 +710,7 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     from spark_rapids_tpu_torch import datatypes as dt
     from spark_rapids_tpu_torch.config import JOIN_VERIFY_UNIQUE_HINT
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
+    from spark_rapids_tpu_torch.exec.aqe import GpuAQEShuffleReadExec
     from spark_rapids_tpu_torch.exec.basic import (GpuFilterExec,
                                                    GpuProjectExec)
     from spark_rapids_tpu_torch.exec.joins import (
@@ -767,25 +807,38 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
         a chain of one-child operators; a coalesce mixes the batches,
         and then there are none."""
         chain = node.child
-        exchange = None
+        exchange = reader = None
         while not isinstance(chain, _BaseJoinExec):
             if len(chain.children) != 1 \
                     or isinstance(chain, GpuCoalesceBatchesExec):
                 return 0, ()
             if type(chain).__name__ == "GpuShuffleExchangeExec":
                 exchange = chain
+            if isinstance(chain, GpuAQEShuffleReadExec):
+                reader = chain
             chain = chain.children[0]
         if chain.condition is None or chain.join_type not in (
                 "left_outer", "full_outer") or chain.cross:
             return 0, ()
         partials = m(node, "numPartials")
+        staged = m(chain, "stagedBatches")
         if exchange is not None:
-            partials, rest = divmod(
-                partials * m(chain, "stagedBatches"),
-                m(exchange, "numInputBatches"))
+            # every map batch gives each partition group but a skewed
+            # one a batch, and the skewed partition its view's pieces
+            # (``numSkewPieces.<i>``: map batch i's); a stream batch's
+            # unmatched rows are its second map batch
+            pieces = {}
+            if reader is not None:
+                for key, v in metrics.get(reader.node_label(), {}).items():
+                    if key.startswith("numSkewPieces."):
+                        pieces[int(key.split(".")[1])] = v
+            per_map, rest = divmod(partials - sum(pieces.values()),
+                                   m(exchange, "numInputBatches"))
             assert not rest, "partials a map batch differ"
+            partials = per_map * staged + sum(
+                pieces.get(2 * j + 1, 0) for j in range(staged))
         else:
-            partials = m(chain, "stagedBatches")
+            partials = staged
         return partials, tuple(chain.right.output_schema.names)
 
     def aggregate(node):
@@ -1102,10 +1155,439 @@ def phase_nds_fallback(device, files):
                             timed=(1, 1), warm=(True, False))
 
 
+# --- phase 11: the memory manager and the query lifecycle -------------------
+
+#: a spill's fall in torch.cuda.memory_allocated(), as a share of the
+#: bytes the ledger credited, that the sort's runs must show
+SPILL_FREED_SHARE = 0.9
+#: how far torch.cuda.memory_allocated() may stay above its value before
+#: the cancelled query
+CANCEL_MARGIN_BYTES = 32 << 20
+#: the first retry scopes that raise an injected OOM in the ladder run
+LADDER_STORM = 16
+#: the deadline that cancels q97 mid-run (its run takes well over it)
+DEADLINE_S = 0.4
+
+
+def _rows_equal(q, out, want, floats):
+    """The rows against the oracle in order, by numpy: ints and strings
+    exact, the ``floats`` columns rel ``ENGINE_RTOL``, nulls where the
+    oracle has them."""
+    import numpy as np
+    if out.column_names != want.column_names \
+            or out.num_rows != want.num_rows or out.num_rows == 0:
+        raise AssertionError(f"{q}: {out.num_rows} rows {out.column_names}"
+                             f", oracle {want.num_rows} "
+                             f"{want.column_names}")
+    worst = 0.0
+    for c in out.column_names:
+        g, w = out.column(c), want.column(c)
+        if g.null_count != w.null_count:
+            raise AssertionError(f"{q}: {c} nulls {g.null_count} vs "
+                                 f"{w.null_count}")
+        gn = g.to_numpy(zero_copy_only=False)
+        wn = w.to_numpy(zero_copy_only=False)
+        if c not in floats:
+            if not (gn == wn).all():
+                bad = int(np.flatnonzero(gn != wn)[0])
+                raise AssertionError(f"{q}: column {c} row {bad}: "
+                                     f"{gn[bad]!r} vs oracle {wn[bad]!r}")
+            continue
+        rel = np.abs(gn - wn) / np.maximum(np.abs(wn), 1e-300)
+        worst = max(worst, float(rel.max()))
+        if not np.isfinite(gn).all() or worst > ENGINE_RTOL:
+            raise AssertionError(f"{q}: {c} rel err {worst:.3e}")
+    return worst
+
+
+def _memory_figures(mm):
+    return {k: getattr(mm, k) for k in (
+        "spill_bytes", "spill_count", "disk_spill_bytes",
+        "spill_read_bytes", "readback_count", "oom_retries",
+        "forced_spill_bytes")}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _op_metric(metrics, prefix, name):
+    return sum(m.get(name, 0) for label, m in metrics.items()
+               if label.startswith(prefix))
+
+
+def _mechanism(q, parts, metrics, mem):
+    """Each text's own figure, which must be above 0 (its path ran)."""
+    if q == "q_sales_sorted":
+        fig = {"numRuns": _op_metric(metrics, "SortExec", "numRuns"),
+               "mergeRounds": _op_metric(metrics, "SortExec",
+                                         "mergeRounds"),
+               "spillTime": _op_metric(metrics, "SortExec", "spillTime"),
+               "spill_bytes": mem["spill_bytes"],
+               "disk_spill_bytes": mem["disk_spill_bytes"],
+               "spill_read_bytes": mem["spill_read_bytes"]}
+    elif q == "q_last_purchase":
+        fig = {"windowBuckets": _op_metric(metrics, "WindowExec",
+                                           "windowBuckets"),
+               "spillTime": _op_metric(metrics, "WindowExec", "spillTime")}
+    elif q == "q_customer_items":
+        fig = {"mergeRounds": _op_metric(metrics, "HashAggregateExec",
+                                         "mergeRounds"),
+               "spillTime": _op_metric(metrics, "HashAggregateExec",
+                                       "spillTime")}
+    elif q == "q_percentile":
+        fig = {"cpuAggregate": _op_metric(metrics, "HashAggregateExec",
+                                          "cpuAggregate")}
+    else:
+        fig = {"spill_bytes": mem["spill_bytes"],
+               "readback_count": mem["readback_count"]}
+    zero = [k for k, v in fig.items() if not v > 0]
+    if zero:
+        raise AssertionError(f"{q} p{parts}: the path's figures {zero} "
+                             f"are 0: {fig}")
+    return fig
+
+
+def _spill_probe():
+    """Wrap ``SpillableBatch.spill`` to record, for every spill that
+    moved an entry off the card, the fall in memory_allocated() beside
+    the bytes the ledger credited. Returns (records, restore)."""
+    from spark_rapids_tpu_torch.memory import SpillableBatch
+    orig = SpillableBatch.spill
+    recs = []
+
+    def spill(self, *a, **kw):
+        before = torch.cuda.memory_allocated()
+        on = self.on_device
+        orig(self, *a, **kw)
+        if on and not self.on_device:
+            recs.append((before - torch.cuda.memory_allocated(),
+                         self.nbytes))
+
+    SpillableBatch.spill = spill
+
+    def restore():
+        SpillableBatch.spill = orig
+    return recs, restore
+
+
+def _crc_timing():
+    """Which CRC32C the seals use, and the port's own CRC32C timed on a
+    64 MiB payload (the size of a sort run's Arrow file here) beside
+    google_crc32c where it imports."""
+    import numpy as np
+    from spark_rapids_tpu_torch.shuffle import integrity
+    payload = np.random.default_rng(0).integers(
+        0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    t = time.perf_counter()
+    own = integrity.crc32c_numpy(payload)
+    own_s = time.perf_counter() - t
+    out = {"impl": integrity.CRC32C_IMPL, "payload_bytes": len(payload),
+           "numpy_s": own_s}
+    if integrity.CRC32C_IMPL == "google_crc32c":
+        t = time.perf_counter()
+        ref = integrity.crc32c(payload)
+        out["google_crc32c_s"] = time.perf_counter() - t
+        if ref != own:
+            raise AssertionError("the port's CRC32C disagrees with "
+                                 "google_crc32c")
+    if integrity.crc32c_numpy(b"123456789") != 0xE3069283:
+        raise AssertionError("CRC32C check value")
+    log(f"[nds-memory] CRC32C: {out['impl']} seals the spill files; the "
+        f"port's own over {len(payload)} bytes took {own_s * 1e3:.3f} ms"
+        + (f", google_crc32c {out['google_crc32c_s'] * 1e3:.3f} ms"
+           if "google_crc32c_s" in out else ""))
+    return out
+
+
+def _real_oom(device, paths, tables):
+    """q_pivot at 1 partition: every retry scope's need is measured on an
+    unconstrained run, then the run repeats with the process's memory
+    fraction cut, at the scope that needs most, to the memory reserved
+    there plus 0.6 of its need: the stage raises torch.OutOfMemoryError,
+    with_retry halves it, and the rows equal the unconstrained run's."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.memory import DeviceMemoryManager
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    q = "q_pivot"
+    # no feeder thread: nothing else allocates while the limit is cut
+    s = nds.session_over_files(paths, {"spark.sql.shuffle.partitions": "1",
+                                       "spark.rapids.sql.scan.uploadThreads":
+                                       "0"}, device)
+    pp = GpuOverrides(s.conf, device).apply(s.sql(nds.SQL_QUERIES[q])._node)
+    orig = DeviceMemoryManager.with_retry
+    total = torch.cuda.get_device_properties(device).total_memory
+    state = {"depth": 0, "calls": 0, "needs": [], "cut_at": None,
+             "cut": None}
+
+    def with_retry(self, batch, fn, depth=0, qctx=None):
+        if state["depth"]:
+            return orig(self, batch, fn, depth, qctx)
+        idx = state["calls"]
+        state["calls"] += 1
+        state["depth"] += 1
+        try:
+            if state["cut_at"] == idx:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                limit = torch.cuda.memory_reserved() \
+                    + int(0.6 * state["needs"][idx])
+                state["cut"] = limit
+                torch.cuda.set_per_process_memory_fraction(limit / total)
+                try:
+                    return orig(self, batch, fn, depth, qctx)
+                finally:
+                    torch.cuda.set_per_process_memory_fraction(1.0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = orig(self, batch, fn, depth, qctx)
+            torch.cuda.synchronize()
+            state["needs"].append(torch.cuda.max_memory_allocated() - base)
+            return out
+        finally:
+            state["depth"] -= 1
+
+    DeviceMemoryManager.with_retry = with_retry
+    try:
+        free = pp.collect(ExecCtx(s.conf, device))
+        needs = list(state["needs"])
+        state.update(calls=0, needs=needs,
+                     cut_at=max(range(len(needs)), key=needs.__getitem__))
+        ctx = ExecCtx(s.conf, device)
+        before = ctx.mm.oom_retries
+        cut = pp.collect(ctx)
+    finally:
+        DeviceMemoryManager.with_retry = orig
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    halvings = ctx.mm.oom_retries - before
+    rungs = dict(pp.last_qctx.ladder.counts)
+    if halvings < 1 or set(rungs) - {"halve"}:
+        raise AssertionError(f"{q}: under a limit of {state['cut']} bytes "
+                             f"(needs {needs}) halved {halvings} times, "
+                             f"rungs {rungs}")
+    # the halves' partials add in another order: floats rel ENGINE_RTOL
+    _rows_equal(q, cut, free, nds.FLOAT_COLUMNS[q])
+    _rows_equal(q, cut, nds.oracle(q, tables), nds.FLOAT_COLUMNS[q])
+    out = {"query": q, "stage_need_bytes": needs[state["cut_at"]],
+           "scope": state["cut_at"], "scopes": len(needs),
+           "limit_bytes": state["cut"], "halvings": halvings}
+    log(f"[nds-memory] real OOM: {q} p1, retry scope {out['scope']} of "
+        f"{out['scopes']} needs {out['stage_need_bytes']} bytes; under a "
+        f"limit of {out['limit_bytes']} reserved bytes it raised "
+        f"torch.OutOfMemoryError and was halved {halvings} time(s); rows "
+        "equal the unconstrained run's and the oracle")
+    return out
+
+
+def _ladder(device, paths, tables):
+    """q3 under injectRetryOOM.storm: halve -> spill -> width1 -> cpu,
+    the CPU rerun's rows held to the oracle."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    conf = {"spark.sql.shuffle.partitions": "1",
+            "spark.rapids.sql.test.injectRetryOOM.storm": str(LADDER_STORM)}
+    s = nds.session_over_files(paths, conf, device)
+    pp = GpuOverrides(s.conf, device).apply(s.sql(nds.SQL_QUERIES["q3"])._node)
+    ctx = ExecCtx(s.conf, device)
+    t = time.perf_counter()
+    out = pp.collect(ctx)
+    secs = time.perf_counter() - t
+    counts = dict(pp.last_qctx.ladder.counts)
+    fell = _op_metric(_metrics(ctx), pp.root.pretty_name(),
+                      "ladderCpuFallback")
+    rel = _rows_equal("q3", out, nds.oracle("q3", tables),
+                      nds.FLOAT_COLUMNS["q3"])
+    if fell != 1 or [r for r in ("halve", "spill", "width1", "cpu")
+                     if not counts.get(r)]:
+        raise AssertionError(f"ladder: rungs {counts}, ladderCpuFallback "
+                             f"{fell}")
+    log(f"[nds-memory] ladder: q3 p1 under injectRetryOOM.storm="
+        f"{LADDER_STORM}: rungs {counts}, ladderCpuFallback {fell}, "
+        f"{secs * 1e3:.3f} ms, rows equal the oracle (max rel err "
+        f"{rel:.3e})")
+    return {"rungs": counts, "ladderCpuFallback": fell, "ms": secs * 1e3}
+
+
+def _deadline(device, paths, spill_root):
+    """q97 under the memory conf (budget and a cut host tier) and a
+    deadline it cannot meet: QueryCancelled(reason="deadline") mid-run,
+    then no catalog entry, no ledger byte, no spill file, and
+    memory_allocated() back within CANCEL_MARGIN_BYTES."""
+    import gc
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.lifecycle import QueryCancelled
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.tools import nds_memory as nm
+    conf = dict(nm.conf_for("q_sales_sorted", nm.CHIP_BUDGET))
+    conf.update({"spark.sql.shuffle.partitions": "1",
+                 "spark.rapids.memory.spillDir": spill_root,
+                 "spark.rapids.query.deadline": str(DEADLINE_S)})
+    s = nds.session_over_files(paths, conf, device)
+    pp = GpuOverrides(s.conf, device).apply(s.sql(nds.SQL_QUERIES["q97"])._node)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ctx = ExecCtx(s.conf, device)
+    t = time.perf_counter()
+    try:
+        pp.collect(ctx)
+    except QueryCancelled as e:
+        reason = e.reason
+    else:
+        raise AssertionError(f"q97 finished inside a {DEADLINE_S} s "
+                             "deadline")
+    secs = time.perf_counter() - t
+    rows_read = _op_metric(_metrics(ctx), "FileScanExec", "numOutputRows")
+    gc.collect()
+    time.sleep(0.2)  # the scan's feeder lets go of what it held
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    mm = ctx.mm
+    files = []
+    if os.path.isdir(mm.spill_dir):
+        for _, _, names in os.walk(mm.spill_dir):
+            files += names
+    report = mm.leak_report()
+    ok = (reason == "deadline" and rows_read > 0
+          and report == "no leaked catalog entries"
+          and mm.device_bytes == 0 and not files
+          and after - before <= CANCEL_MARGIN_BYTES)
+    out = {"reason": reason, "ms": secs * 1e3, "rows_read": rows_read,
+           "leak_report": report, "ledger_device_bytes": mm.device_bytes,
+           "spill_files": len(files), "allocated_before": before,
+           "allocated_after": after}
+    log(f"[nds-memory] deadline: q97 cancelled [{reason}] after "
+        f"{secs * 1e3:.3f} ms with {rows_read} rows scanned; leak report "
+        f"{report!r}, ledger device bytes {mm.device_bytes}, spill files "
+        f"{len(files)}, memory_allocated {before} -> {after} (margin "
+        f"{CANCEL_MARGIN_BYTES})")
+    if not ok:
+        raise AssertionError(f"deadline: {out}")
+    return out
+
+
+def phase_nds_memory(device, files):
+    """Phase 11 (module docstring): the memory texts under their budgets
+    at 1 and 16 partitions beside the default budget, a real OOM, the
+    ladder and a deadline."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.tools import nds_memory as nm
+    from spark_rapids_tpu_torch.tools.nds_trace import counters
+
+    tables, paths, _ = files
+    t_phase = time.perf_counter()
+    spill_root = os.path.join(ROOT, ".bench_cache", "spill_torch")
+    crc = _crc_timing()
+    wrappers = counters()
+    summary, launches, shares = {}, {}, []
+    for q in nm.QUERIES:
+        want = nm.oracle(q, tables)
+        for parts in nm.PARTITIONS[q]:
+            base = {"spark.sql.shuffle.partitions": str(parts),
+                    "spark.rapids.memory.spillDir": spill_root}
+            s0 = nds.session_over_files(paths, base, device)
+            sb = nds.session_over_files(paths, dict(base, **nm.CONF[q]),
+                                        device)
+            pp0 = GpuOverrides(s0.conf, device).apply(
+                s0.sql(nm.SQL_QUERIES[q])._node)
+            pp = GpuOverrides(sb.conf, device).apply(
+                sb.sql(nm.SQL_QUERIES[q])._node)
+            # the default budget first (it warms the text up), then the
+            # cut budget, counted
+            ctx0 = ExecCtx(s0.conf, device)
+            spilled0 = ctx0.mm.spill_bytes
+            t = time.perf_counter()
+            free = pp0.collect(ctx0)
+            torch.cuda.synchronize()
+            free_s = time.perf_counter() - t
+            if ctx0.mm.spill_bytes != spilled0:
+                raise AssertionError(f"{q}: spilled at the default budget")
+            ctx = ExecCtx(sb.conf, device)
+            mem0 = _memory_figures(ctx.mm)
+            recs, restore = _spill_probe()
+            for c in wrappers.values():
+                c.launches = 0
+            try:
+                t = time.perf_counter()
+                out = pp.collect(ctx)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+            finally:
+                restore()
+            got = {k: c.launches for k, c in wrappers.items()}
+            mem = _delta(_memory_figures(ctx.mm), mem0)
+            metrics = _metrics(ctx)
+            rel = _rows_equal(q, out, want, nm.FLOAT_COLUMNS[q])
+            _rows_equal(q, free, want, nm.FLOAT_COLUMNS[q])
+            fig = _mechanism(q, parts, metrics, mem)
+            if q == "q_sales_sorted":
+                shares += [f / c for f, c in recs if c]
+            skewed = _op_metric(metrics, "AQEShuffleReadExec",
+                                "numSkewedPartitions")
+            splits = _op_metric(metrics, "AQEShuffleReadExec",
+                                "numSkewSplits")
+            if skewed and not splits:
+                raise AssertionError(f"{q} p{parts}: {skewed} skewed "
+                                     "partitions, no split")
+            leak = ctx.mm.leak_report()
+            if leak != "no leaked catalog entries" or ctx.mm.device_bytes:
+                raise AssertionError(f"{q} p{parts}: {leak}; ledger "
+                                     f"{ctx.mm.device_bytes} bytes")
+            key = f"{q}_p{parts}"
+            summary[key] = {"ms": secs * 1e3, "default_budget_ms":
+                            free_s * 1e3, "max_rel_err": rel,
+                            "budget_bytes": nm.CHIP_BUDGET, "figures": fig,
+                            "ledger": mem, "skewed_partitions": skewed,
+                            "skew_splits": splits,
+                            "spills_probed": len(recs)}
+            launches[key] = got
+            log(f"[nds-memory] {q} partitions={parts}: {secs * 1e3:.3f} ms "
+                f"under a {nm.CHIP_BUDGET}-byte budget, "
+                f"{free_s * 1e3:.3f} ms at the default; {out.num_rows} rows "
+                f"equal to the oracle (max rel err {rel:.3e}); figures "
+                f"{fig}; ledger {mem}; skewed partitions {skewed}, skew "
+                f"splits {splits}; launches {got}")
+    if not shares or min(shares) < SPILL_FREED_SHARE:
+        raise AssertionError(f"spills freed {shares} of the bytes credited"
+                             f" (at least {SPILL_FREED_SHARE} each)")
+    log(f"[nds-memory] the sort's {len(shares)} spills each freed "
+        f"{min(shares):.4f}-{max(shares):.4f} of the bytes the ledger "
+        f"credited in memory_allocated() (at least {SPILL_FREED_SHARE})")
+    if not any(v["skewed_partitions"] for v in summary.values()):
+        log("[nds-memory] no text's partition stats trip the skew rule "
+            "here: the skew split is held by the CPU tests alone "
+            "(tests/test_torch_out_of_core.py)")
+    summary["real_oom"] = _real_oom(device, paths, tables)
+    summary["ladder"] = _ladder(device, paths, tables)
+    summary["deadline"] = _deadline(device, paths, spill_root)
+    summary["crc32c"] = crc
+    summary["spill_freed_share_min"] = min(shares)
+    log(f"[nds-memory] phase took {time.perf_counter() - t_phase:.3f} s")
+    return summary, launches
+
+
 def main():
+    global _log_file
+    memory_only, log_path = _args()
+    if log_path:
+        os.makedirs(os.path.dirname(os.path.abspath(log_path)),
+                    exist_ok=True)
+        _log_file = open(log_path, "w")
     name, count, smi = phase_card()
     device = torch.device("cuda", 0)
     phase_build()
+    if memory_only:
+        # a quick check of phase 11 alone; the full run takes no argument
+        summary, _ = phase_nds_memory(device, _nds_files())
+        log("[nds-memory] " + json.dumps(summary, sort_keys=True))
+        return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
@@ -1118,6 +1600,7 @@ def main():
     nds_summary, nds_launches = phase_nds(device, nds_files)
     joins_summary, joins_launches = phase_nds_joins(device, nds_files)
     fb_summary, fb_launches = phase_nds_fallback(device, nds_files)
+    mem_summary, mem_launches = phase_nds_memory(device, nds_files)
     per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -1132,6 +1615,7 @@ def main():
     log("[nds] " + json.dumps(nds_summary, sort_keys=True))
     log("[nds-joins] " + json.dumps(joins_summary, sort_keys=True))
     log("[nds-fallback] " + json.dumps(fb_summary, sort_keys=True))
+    log("[nds-memory] " + json.dumps(mem_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -1166,7 +1650,9 @@ def main():
         "launches_nds_joins": {k: v["sort_pairs"]
                                for k, v in joins_launches.items()},
         "launches_nds_fallback": {k: v["sort_pairs"]
-                                  for k, v in fb_launches.items()}}, {
+                                  for k, v in fb_launches.items()},
+        "launches_nds_memory": {k: v["K3"]
+                                for k, v in mem_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -1180,7 +1666,9 @@ def main():
         "launches_nds_joins": {k: v["gather_rows"]
                                for k, v in joins_launches.items()},
         "launches_nds_fallback": {k: v["gather_rows"]
-                                  for k, v in fb_launches.items()}}, {
+                                  for k, v in fb_launches.items()},
+        "launches_nds_memory": {k: v["K4"]
+                                for k, v in mem_launches.items()}}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -1194,7 +1682,9 @@ def main():
         "launches_nds_joins": {k: v["decode_batch"]
                                for k, v in joins_launches.items()},
         "launches_nds_fallback": {k: v["decode_batch"]
-                                  for k, v in fb_launches.items()}}, {
+                                  for k, v in fb_launches.items()},
+        "launches_nds_memory": {k: v["K5"]
+                                for k, v in mem_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

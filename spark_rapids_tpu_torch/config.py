@@ -12,6 +12,8 @@ yet; the port's first slice reads ``batchSizeRows``,
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Any, Callable, Dict, Optional
 
 __all__ = ["ConfEntry", "RapidsConf", "register", "ENTRIES"]
@@ -161,8 +163,10 @@ HOST_SPILL_LIMIT = register(
     "Bytes of host memory usable for spilled device buffers before "
     "falling through to disk.", conv=_bytes_conv)
 SPILL_DIR = register(
-    "spark.rapids.memory.spillDir", "/tmp/rapids_tpu_spill",
-    "Base directory for disk-tier spill files. Each process spills "
+    "spark.rapids.memory.spillDir",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_spill"),
+    "Base directory for disk-tier spill files (default under the "
+    "temporary directory, $TMPDIR). Each process spills "
     "under its own incarnation namespace "
     "<host>-<pid>-<incarnation>/ so crashed processes' files are "
     "attributable and reclaimable (see memory.sweep_orphan_spill_dirs).")

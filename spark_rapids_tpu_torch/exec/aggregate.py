@@ -15,9 +15,13 @@ column rides the K4 launches as two int32 lanes (starts, lengths). A
 partial keeps its batch's capacity and marks its
 groups with a lazy selection, so no count is read back until the final
 aggregate's output, whose group count sizes the result. The partials
-meet in ``concat_batches_bounded``. The reference's memory manager and
-its bounded rolling merge (``_merge_bounded``) wait for ROADMAP item 14:
-the port always merges in one final pass.
+meet in ``concat_batches_bounded``; when their bytes pass a quarter of
+the memory manager's budget they merge in rounds first
+(``_merge_bounded``, the reference's ``:234-263,497-500``): a window of
+partials within ``budget // 4`` is concatenated and merged
+(``_merge_only``, the buffers kept unevaluated), its group count read
+back and the result cut to it, until one partial is left; the rounds'
+time is ``spillTime`` and their count ``mergeRounds``.
 
 An exact ``ApproxPercentile`` (``spark.rapids.sql.approxPercentile
 .exact``, the default) takes the reference's single pass (``:276-481``):
@@ -26,11 +30,13 @@ sorted by key and gathered once, each group's non-null values ordered
 by one more sort of ``(dropped, group, value)``
 (``expr/aggregates.value_sorted_groups``, K3), and each group's
 percentile gathered at its rank (K4); the node's other aggregates
-reduce over the same sorted segments, with no partials. The reference
-sends an input over half its memory budget to the CPU instead; that
-decision waits for the memory manager (ROADMAP item 14), and the port
-concatenates whatever comes. The sketch strategy rides the partial and
-final phases (``_wants_single_pass``).
+reduce over the same sorted segments, with no partials. The input
+batches are registered in the spill catalog as they come; once their
+bytes pass half the budget (``:383-440``), the batches so far are
+downloaded, the rest of the stream follows, and the single pass runs
+over them on CPU tensors (``cpuAggregate`` = 1), its result uploaded.
+The sketch strategy rides the partial and final phases
+(``_wants_single_pass``).
 
 When the operators fused below the aggregate are q6's shape — a filter
 on an AND of column-vs-literal comparisons, then a project of
@@ -285,6 +291,51 @@ class GpuHashAggregateExec(UnaryExec):
         return shrink_batch(GpuBatch(out_cols, self._schema, n),
                             bucket_rows(n))
 
+    def _merge_only(self, pbatch: GpuBatch) -> GpuBatch:
+        """Merge partial buffers without the final evaluate, the output
+        cut to its groups (one readback) and copied out of the merge's
+        full-capacity buffers, so it can be merged again."""
+        nkeys = len(self.group_exprs)
+        buf_cols = [pbatch.columns[lo:hi] for lo, hi in self._buf_slices]
+        skeys, sbufs, seg, sorted_live, num_groups, out_live = \
+            self._group_and_gather(pbatch.columns[:nkeys], buf_cols,
+                                   pbatch.live_mask())
+        out_cols = gather_columns(skeys, _segment_starts(seg), out_live)
+        for a, sb in zip(self.aggs, sbufs):
+            out_cols.extend(a.merge_device(sb, seg, sorted_live, out_live))
+        n = int(num_groups)
+        out = shrink_batch(GpuBatch(out_cols, self._partial_schema, n),
+                           bucket_rows(max(n, 128)))
+        return GpuBatch([GpuColumnVector(
+            c.dtype, None if c.data is None else c.data.clone(),
+            None if c.validity is None else c.validity.clone(),
+            None if c.offsets is None else c.offsets.clone(), c.chars)
+            for c in out.columns], out.schema, n)
+
+    def _merge_bounded(self, partials: List[GpuBatch],
+                       ctx: ExecCtx) -> GpuBatch:
+        """Merge the partials in rounds whose bytes fit ``budget // 4``
+        (at least two partials a round) until one is left."""
+        window = max(1, ctx.mm.budget // 4)
+        spill = ctx.metric(self, "spillTime")
+        rounds = ctx.metric(self, "mergeRounds")
+        while len(partials) > 1:
+            t0 = time.perf_counter()
+            group = [partials.pop(0)]
+            gbytes = group[0].device_size_bytes()
+            while partials:
+                nb = partials[0].device_size_bytes()
+                if len(group) >= 2 and gbytes + nb > window:
+                    break
+                group.append(partials.pop(0))
+                gbytes += nb
+            merged = self._merge_only(concat_batches_bounded(group))
+            del group
+            partials.append(merged)
+            rounds += 1
+            spill.value += time.perf_counter() - t0
+        return partials[0]
+
     def _partial(self, batch: GpuBatch, ectx) -> GpuBatch:
         live = batch.live_mask()
         cols = []
@@ -449,7 +500,14 @@ class GpuHashAggregateExec(UnaryExec):
 
     def _execute_single_pass(self, ctx: ExecCtx):
         op_time = ctx.metric(self, "opTime")
-        batches = list(fused_batches(self, ctx, metric=op_time))
+        if ctx.eval_ctx.host:
+            # a CPU run: the card's ledger does not hold these batches
+            batches = list(fused_batches(self, ctx, metric=op_time))
+        else:
+            batches, route = self._gather_within_budget(ctx, op_time)
+            if route is not None:
+                yield from self._run_cpu_route(ctx, *route)
+                return
         t0 = time.perf_counter()
         if not batches:
             if self.group_exprs:
@@ -459,6 +517,58 @@ class GpuHashAggregateExec(UnaryExec):
                                 ctx.eval_ctx)
         op_time.value += time.perf_counter() - t0
         yield out
+
+    def _gather_within_budget(self, ctx: ExecCtx, op_time):
+        """``(batches, None)``: the single pass's input, registered in the
+        spill catalog as it comes; or ``(None, (entries, stream))`` once
+        it passes ``budget // 2``: the entries so far and the rest of the
+        stream, for the CPU run."""
+        sbs, total, over = [], 0, False
+        stream = fused_batches(self, ctx, metric=op_time)
+        try:
+            for b in stream:
+                total += b.device_size_bytes()
+                sbs.append(ctx.mm.register(b))
+                if total > ctx.mm.budget // 2:
+                    over = True
+                    break
+            if not over:
+                return [sb.get() for sb in sbs], None
+        except BaseException:
+            over = False
+            raise
+        finally:
+            if not over:
+                for sb in sbs:
+                    sb.release()
+        return None, (sbs, stream)
+
+    def _run_cpu_route(self, ctx: ExecCtx, sbs, stream):
+        """The single pass over the downloaded input on CPU tensors (the
+        reference's ``_cpu_aggregate`` sink), each result uploaded."""
+        from ..columnar.arrow_bridge import arrow_to_device, device_to_arrow
+        from .base import _ArrowSourceExec
+        ctx.metric(self, "cpuAggregate").set(1)
+
+        def downloaded():
+            pending = list(sbs)
+            try:
+                while pending:
+                    rb = pending[0].get_host()
+                    pending.pop(0).release()
+                    yield rb
+                for b in stream:
+                    yield device_to_arrow(b)
+            finally:
+                for sb in pending:
+                    sb.release()
+
+        node = self.with_new_children([_ArrowSourceExec(
+            downloaded(), self.child.output_schema)])
+        node._label_id = self._label_id
+        for b in node.execute(ctx.host_ctx()):
+            yield arrow_to_device(device_to_arrow(b), self._schema,
+                                  ctx.device)
 
     def execute(self, ctx: ExecCtx):
         if self._wants_single_pass(ctx.conf):
@@ -472,7 +582,12 @@ class GpuHashAggregateExec(UnaryExec):
             if not partials:
                 return
             t0 = time.perf_counter()
-            out = self._final_grouped(concat_batches_bounded(partials))
+            if sum(p.device_size_bytes() for p in partials) \
+                    > ctx.mm.budget // 4:
+                merged = self._merge_bounded(partials, ctx)
+            else:
+                merged = concat_batches_bounded(partials)
+            out = self._final_grouped(merged)
             op_time.value += time.perf_counter() - t0
             yield out
             return

@@ -16,10 +16,16 @@ buffers, so coalescing copies nothing and the consumer sees one batch a
 map batch instead of one a partition. Batches that are not views of one
 map batch are yielded as they are.
 
-The skew split (``split_batch`` from ``memory.py``) and the join
-strategy switch (``TpuAQEJoinExec``) wait for ROADMAP items 14 and 10: a
-partition the plan marks skewed is read whole, and counted in
-``numSkewedPartitions``.
+A partition the plan marks skewed (``numSkewedPartitions``) is read
+batch by batch, and a batch over the advisory size is halved by
+``memory.split_batch`` until each piece fits, the pieces in their order
+(the reference's ``:99-140``), each halving counted in
+``numSkewSplits``. A half past the batch's row count, which holds only
+padding, is dropped (the port keeps row counts on the host; the
+reference yields it); the pieces of the partition's i-th batch (map
+batch i's view) are counted in ``numSkewPieces.<i>``. The join
+strategy switch (``TpuAQEJoinExec``) waits
+for ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -113,8 +119,10 @@ class GpuAQEShuffleReadExec(UnaryExec):
 
     def execute(self, ctx: ExecCtx):
         handle = self.child.materialize(ctx)
+        from ..memory import split_batch
         coalesced_m = ctx.metric(self, "numCoalescedPartitions")
         skewed_m = ctx.metric(self, "numSkewedPartitions")
+        skew_m = ctx.metric(self, "numSkewSplits")
         try:
             stats = handle.partition_stats()
             if stats is None:
@@ -122,8 +130,23 @@ class GpuAQEShuffleReadExec(UnaryExec):
                     yield from handle.read(p)
                 return
             conf = ctx.conf
+            advisory = conf.get(ADAPTIVE_ADVISORY_BYTES)
+
+            def halves_in_order(piece):
+                # in order: the exchange's map order within a partition
+                # survives the split
+                if piece.device_size_bytes() > advisory \
+                        and piece.capacity >= 2:
+                    skew_m.value += 1
+                    b1, b2 = split_batch(piece)
+                    yield from halves_in_order(b1)
+                    yield from halves_in_order(b2)
+                elif piece.row_count:
+                    # a half past the row count holds only padding
+                    yield piece
+
             groups = plan_partition_groups(
-                stats, conf.get(ADAPTIVE_ADVISORY_BYTES),
+                stats, advisory,
                 conf.get(ADAPTIVE_SKEW_FACTOR),
                 conf.get(ADAPTIVE_SKEW_THRESHOLD),
                 conf.get(ADAPTIVE_COALESCE))
@@ -135,6 +158,14 @@ class GpuAQEShuffleReadExec(UnaryExec):
                     continue
                 if kind == "skewed":
                     skewed_m.value += 1
+                    for i, b in enumerate(handle.read(members[0])):
+                        # the pieces of the partition's i-th batch (map
+                        # batch i's view), an account by map batch
+                        pieces = ctx.metric(self, f"numSkewPieces.{i}")
+                        for piece in halves_in_order(b):
+                            pieces += 1
+                            yield piece
+                    continue
                 for p in members:
                     yield from handle.read(p)
         finally:

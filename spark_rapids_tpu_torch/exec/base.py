@@ -24,12 +24,19 @@ pyarrow). The planner's gates are ``gpu_supported()`` and
 ``gpu_supported_conf(conf)`` (the reference's ``tpu_supported``,
 ``:333``).
 
-The slim ``ExecCtx`` carries the conf, the eval ctx, the device, the
-metrics and the deferred device checks (a flag on the device, raised at
-the query's download rather than read back when it is made). It has no
-memory manager (split-and-retry, spill), no tracer,
-no flight recorder and no per-operator metrics collector: those are
-later slices (``memory.py`` and ``obs/`` in the JAX package).
+The ``ExecCtx`` carries the conf, the eval ctx, the device, the
+metrics, the deferred device checks (a flag on the device, raised at the
+query's download rather than read back when it is made), the query's
+cleanups, the process's memory manager (``mm``, ``memory.py``: ledger,
+spill catalog, admission, split-and-retry) and the query's lifecycle
+context (``qctx``, ``lifecycle.py``), as the reference's ``:99-160``.
+Every operator's ``execute`` and ``execute_cpu`` is wrapped
+(``__init_subclass__``) with the cancellation check at each batch
+(``:212-275``); ``fused_batches`` runs each fused stage under
+``mm.with_retry`` (``:577-590``) and ``collect_arrow`` holds the
+admission slot, its wait in ``ledgerWaitTime`` (``:693-716``). The
+tracer, the flight recorder and the per-operator metrics collector are
+ROADMAP item 15.
 """
 from __future__ import annotations
 
@@ -95,10 +102,11 @@ class GpuMetric:
 
 
 class ExecCtx:
-    """Per-query execution context: conf snapshot, eval ctx, device and
-    metric sink."""
+    """Per-query execution context: conf snapshot, eval ctx, device,
+    metric sink, memory manager and lifecycle context."""
 
     def __init__(self, conf: Optional[RapidsConf] = None, device=None):
+        from ..memory import DeviceMemoryManager
         self.conf = conf or RapidsConf()
         self.device = resolve_device(device)
         self.eval_ctx = EvalCtx(
@@ -108,6 +116,12 @@ class ExecCtx:
         self.stage_fusion = self.conf.get(STAGE_FUSION)
 
         self.deferred_checks: List[Tuple[torch.Tensor, str]] = []
+        # the process's ledger for this device: concurrent queries share
+        # its slots and budget
+        self.mm = DeviceMemoryManager.shared(self.conf, self.device)
+        # set by the collect roots; the execute shims check it a batch
+        self.qctx = None
+        self._cleanups: List = []
 
     def metric(self, node: "GpuExec", name: str) -> GpuMetric:
         m = self.metrics.setdefault(node.node_label(), {})
@@ -115,14 +129,31 @@ class ExecCtx:
             m[name] = GpuMetric(name)
         return m[name]
 
+    # --- query-end cleanup ------------------------------------------------
+
+    def register_cleanup(self, fn) -> None:
+        """Run ``fn`` when the query finishes, however it finishes."""
+        self._cleanups.append(fn)
+
+    def run_cleanups(self) -> None:
+        fns, self._cleanups[:] = list(self._cleanups), []
+        for fn in fns:
+            fn()
+
     def host_ctx(self) -> "ExecCtx":
-        """The ctx a CPU island runs under: the same conf, metrics and
-        deferred checks, device ``cpu`` and a host eval ctx."""
+        """The ctx a CPU island runs under: the same conf, metrics,
+        deferred checks, cleanups and lifecycle context, device ``cpu``,
+        a host eval ctx and the host ledger (``DeviceMemoryManager
+        .host()``)."""
         if self.device.type == "cpu" and self.eval_ctx.host:
             return self
+        from ..memory import DeviceMemoryManager
         h = copy.copy(self)
         h.device = torch.device("cpu")
         h.eval_ctx = dataclasses.replace(self.eval_ctx, host=True)
+        # the card's ledger does not hold host batches: an island runs
+        # under an unbounded host ledger, with no retry and no injection
+        h.mm = DeviceMemoryManager.host()
         return h
 
     # --- deferred device-side checks --------------------------------------
@@ -162,6 +193,30 @@ class ExecCtx:
                 "deferred device checks failed:\n  " + "\n  ".join(bad))
 
 
+def _checked(fn):
+    """An operator's ``execute`` or ``execute_cpu`` with the cooperative
+    cancellation check at each batch it yields (one attribute read when
+    the query has no lifecycle context)."""
+    if getattr(fn, "_checked", False):
+        return fn
+
+    def run(self, ctx):
+        qx = getattr(ctx, "qctx", None)
+        if qx is None:
+            yield from fn(self, ctx)
+            return
+        qx.check()
+        for b in fn(self, ctx):
+            qx.check()
+            yield b
+
+    run._checked = True
+    run.__wrapped__ = fn
+    run.__doc__ = fn.__doc__
+    run.__name__ = fn.__name__
+    return run
+
+
 class GpuExec:
     """Base physical operator."""
 
@@ -172,6 +227,14 @@ class GpuExec:
     def __init__(self):
         GpuExec._label_counter += 1
         self._label_id = GpuExec._label_counter
+
+    def __init_subclass__(cls, **kw):
+        # every operator's own execute/execute_cpu gets the cancellation
+        # check, as the reference's shims (``:300-309``)
+        super().__init_subclass__(**kw)
+        for name in ("execute", "execute_cpu"):
+            if name in cls.__dict__:
+                setattr(cls, name, _checked(cls.__dict__[name]))
 
     @property
     def output_schema(self) -> dt.Schema:
@@ -302,14 +365,22 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
             metric.value += time.perf_counter() - t0
         return out
 
+    def retried(b, ectx):
+        # split-and-retry on device OOM: the stage reruns over the
+        # batch's halves, each half's result its own stream item
+        return ctx.mm.with_retry(b, lambda bb: timed(bb, ectx),
+                                 qctx=ctx.qctx)
+
     # scan-rooted splice: a leaf that decodes on the device runs the chain
-    # right after each batch's decode; it declines with None when that
-    # path is off
+    # right after each batch's decode (no split-and-retry there); it
+    # declines with None when that path is off or the ledger is past half
+    # its budget
     scan_fused = getattr(node, "fused_scan_execute", None)
     gen = None if scan_fused is None or not ctx.stage_fusion \
         else scan_fused(ctx, timed)
     if gen is None:
-        gen = (timed(b, ctx.eval_ctx) for b in node.execute(ctx))
+        gen = (out for b in node.execute(ctx)
+               for out in retried(b, ctx.eval_ctx))
     try:
         yield from gen
     finally:
@@ -338,6 +409,27 @@ class _HostInputExec(LeafExec):
         schema = self.source.output_schema
         for rb in self.source.execute_cpu(self.outer):
             yield arrow_to_device(rb, schema, ctx.device)
+
+
+class _ArrowSourceExec(LeafExec):
+    """A leaf over an iterable of Arrow batches, consumed once (an
+    operator's CPU run over input it already drew from the device)."""
+
+    def __init__(self, batches, schema: dt.Schema):
+        super().__init__()
+        self.batches = batches
+        self._schema = schema
+
+    @property
+    def output_schema(self):
+        return self._schema
+
+    def execute(self, ctx):
+        for rb in self.batches:
+            yield arrow_to_device(rb, self._schema, ctx.device)
+
+    def execute_cpu(self, ctx):
+        yield from self.batches
 
 
 class UnaryExec(GpuExec):
@@ -417,14 +509,21 @@ class DeviceBatchSourceExec(LeafExec):
 
 def collect_arrow(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
         -> pa.Table:
-    """Run the plan on the device and download the result as one Arrow
+    """Run the plan on the device under an admission slot (its wait in
+    the root's ``ledgerWaitTime``) and download the result as one Arrow
     table; the deferred device checks are read at the download."""
     ctx = ctx or ExecCtx()
     try:
-        batches = [device_to_arrow(b) for b in plan.execute(ctx)]
+        t0 = time.perf_counter()
+        with ctx.mm.task_slot(ctx.qctx):
+            ctx.metric(plan, "ledgerWaitTime").value += \
+                time.perf_counter() - t0
+            batches = [device_to_arrow(b) for b in plan.execute(ctx)]
     except BaseException:
         ctx.discard_deferred()
         raise
+    finally:
+        ctx.run_cleanups()
     ctx.check_deferred()
     return pa.Table.from_batches(batches,
                                  schema=arrow_schema(plan.output_schema))
@@ -442,6 +541,8 @@ def collect_arrow_cpu(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
     except BaseException:
         ctx.discard_deferred()
         raise
+    finally:
+        ctx.run_cleanups()
     ctx.check_deferred()
     return pa.Table.from_batches(batches,
                                  schema=arrow_schema(plan.output_schema))

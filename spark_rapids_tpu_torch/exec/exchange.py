@@ -7,12 +7,18 @@ transport. The map side streams the child's batches through
 
 - one partition (``_single_tail``, ``:196``): the batch is the
   partition, and no partition id is computed;
-- several (``_split``, ``:173``): one partition-id computation a batch
-  (Spark's Murmur3, ``ops/hash.py``), then one selection view a
-  partition that shares the batch's buffers, so an n-way split costs the
-  ids and n masks, not n compactions. With AQE on, the tail also counts
-  each partition's live rows on the device for the adaptive reader's
-  statistics.
+- several (``_split_tail``, ``:173``): one partition-id computation a
+  batch (Spark's Murmur3, ``ops/hash.py``); the batch and its ids go to
+  the transport whole (``write_unsplit``), and a read makes one selection
+  view a partition that shares the batch's buffers, so an n-way split
+  costs the ids and n masks, not n compactions. With AQE on, the tail
+  also counts each partition's live rows on the device for the adaptive
+  reader's statistics.
+
+The local transport gets the query's memory manager
+(``set_memory_manager``, the reference's ``:205-211``): each map batch is
+one ledger entry, its partition lane with it, that spills under
+pressure and comes back whole at its read.
 
 Batches come out partition-major, in map order within a partition. On
 the CPU the exchange runs the same body on CPU tensors
@@ -99,22 +105,23 @@ class GpuShuffleExchangeExec(UnaryExec):
         return batch, None, None
 
     def _split_tail(self, batch, ectx, count: bool):
-        """Partition ids once, then one selection view a partition; with
-        ``count``, each partition's live rows (a device tensor)."""
+        """Partition ids once; with ``count``, each partition's live rows
+        (a device tensor)."""
         n = self.partitioning.num_partitions
         pids = self.partitioning.partition_ids(batch, ectx)
-        views = [batch.with_selection(pids == p) for p in range(n)]
         counts = None
         if count:
             routed = torch.where(batch.live_mask(), pids.to(torch.int64),
                                  torch.full_like(pids, n, dtype=torch.int64))
             counts = torch.bincount(routed, minlength=n + 1)[:n]
-        return batch, views, counts
+        return batch, pids, counts
 
     def materialize(self, ctx: ExecCtx) -> ShuffleStageHandle:
         """The map side: write every partition of every batch, and
         return the handle the reduce side reads."""
         transport = self._resolve_transport(ctx)
+        if hasattr(transport, "set_memory_manager"):
+            transport.set_memory_manager(ctx.mm)
         record = ctx.conf.get(ADAPTIVE_ENABLED)
         n = self.partitioning.num_partitions
         sid = next(_shuffle_ids)
@@ -127,21 +134,22 @@ class GpuShuffleExchangeExec(UnaryExec):
         else:
             def tail(batch, ectx):
                 return self._split_tail(batch, ectx, record)
-        for map_id, (batch, views, counts) in enumerate(fused_batches(
-                self, ctx, tail_fn=tail,
-                metric=ctx.metric(self, "opTime"))):
-            batches_m += 1
-            t0 = time.perf_counter()
-            writer = transport.writer(sid, map_id)
-            if views is None:
-                writer.write(0, batch)
-            else:
-                for p, view in enumerate(views):
-                    writer.write(p, view)
+        try:
+            for map_id, (batch, pids, counts) in enumerate(fused_batches(
+                    self, ctx, tail_fn=tail,
+                    metric=ctx.metric(self, "opTime"))):
+                batches_m += 1
+                t0 = time.perf_counter()
+                writer = transport.writer(sid, map_id)
+                writer.write_unsplit(batch, pids)
                 if counts is not None:
                     writer.record_counts(counts, batch.device_size_bytes())
-            writer.close()
-            write_t.value += time.perf_counter() - t0
+                writer.close()
+                write_t.value += time.perf_counter() - t0
+        except BaseException:
+            # a failed or cancelled map phase leaves no ledger entry
+            transport.unregister_shuffle(sid)
+            raise
         return ShuffleStageHandle(transport, sid, n)
 
     def execute(self, ctx: ExecCtx):

@@ -226,19 +226,26 @@ class _BaseJoinExec(GpuExec):
         ctx.metric(self, "numOutputBatches").value += 1
         return batch
 
-    def _build_right(self, ctx: ExecCtx) -> Optional[GpuBatch]:
-        """The build side as one batch (bounded concat, no readback), an
-        empty batch where the join type still emits stream rows, or None
-        when the result is empty (``:480-489``)."""
+    def _build_right(self, ctx: ExecCtx):
+        """``(batch, catalog entry)``: the build side as one batch
+        (bounded concat, no readback), an empty batch where the join type
+        still emits stream rows, or ``(None, None)`` when the result is
+        empty (``:480-489``). The batch is registered in the spill
+        catalog pinned (``:445-490``), so the ledger counts it and
+        eviction never picks it; the caller releases it when the stream
+        ends."""
         batches = list(self.right.execute(ctx))
         if batches:
-            return concat_batches_bounded(batches)
-        if self.join_type in ("inner", "cross", "left_semi",
-                              "right_outer"):
-            return None
-        cols = [GpuColumnVector.nulls(f.dtype, _EMPTY_CAPACITY, ctx.device)
-                for f in self.right.output_schema]
-        return GpuBatch(cols, self.right.output_schema, 0)
+            batch = concat_batches_bounded(batches)
+        elif self.join_type in ("inner", "cross", "left_semi",
+                                "right_outer"):
+            return None, None
+        else:
+            cols = [GpuColumnVector.nulls(f.dtype, _EMPTY_CAPACITY,
+                                          ctx.device)
+                    for f in self.right.output_schema]
+            batch = GpuBatch(cols, self.right.output_schema, 0)
+        return batch, ctx.mm.register(batch, pinned=True)
 
     def _null_side_batch(self, batch: GpuBatch, keep: torch.Tensor,
                          stream_side: bool, ctx: ExecCtx) -> GpuBatch:
@@ -464,13 +471,20 @@ class _BaseJoinExec(GpuExec):
         unmatched rows beside nulls, semi and anti joins as the stream
         batch under a selection; the build's matched mask ORs across
         stream batches for right and full outer joins."""
-        jt = self.join_type
         op_time = ctx.metric(self, "opTime")
         t0 = time.perf_counter()
-        rbatch = self._build_right(ctx)
+        rbatch, rsb = self._build_right(ctx)
         if rbatch is None:
             op_time.value += time.perf_counter() - t0
             return
+        try:
+            yield from self._conditioned_stream(rbatch, ctx, op_time, t0)
+        finally:
+            rsb.release()
+
+    def _conditioned_stream(self, rbatch: GpuBatch, ctx: ExecCtx, op_time,
+                            t0: float):
+        jt = self.join_type
         ctx.metric(self, "uniqueBuild").set(0)
         matched_r = torch.zeros(rbatch.capacity, dtype=torch.bool,
                                 device=ctx.device)
@@ -516,10 +530,17 @@ class _BaseJoinExec(GpuExec):
             return
         op_time = ctx.metric(self, "opTime")
         t0 = time.perf_counter()
-        rbatch = self._build_right(ctx)
+        rbatch, rsb = self._build_right(ctx)
         if rbatch is None:
             op_time.value += time.perf_counter() - t0
             return
+        try:
+            yield from self._equi_stream(rbatch, ctx, op_time, t0)
+        finally:
+            rsb.release()
+
+    def _equi_stream(self, rbatch: GpuBatch, ctx: ExecCtx, op_time,
+                     t0: float):
         fast = None
         if not (self.cross or self.outer_build):
             fast = self._fast_build_info(rbatch, ctx)

@@ -39,9 +39,15 @@ tensors: one sorted, segmented pass a window spec.
 
 ``execute`` concatenates the child's batches (``ops/concat.py``) and makes
 one pass, inside a ``torch.profiler.record_function("window")`` range,
-which ``tools/nds_trace.py`` reads. The reference's out-of-core path
-(``_execute_bucketed``, which buckets whole partitions by hash and spills
-them) waits for the memory manager, ROADMAP item 14.
+which ``tools/nds_trace.py`` reads. When the batches hold more than half
+the memory manager's budget and the window has partition keys, it runs
+out of core instead (``_execute_bucketed``, the reference's
+``:620-681``): each row is hashed by its partition keys with Spark's
+Murmur3 (``shuffle/partitioner.HashPartitioning``, bit for bit the
+reference's) into ``max(2, ceil(total / (budget // 4)))`` buckets, each
+bucket's rows of each batch compacted on K4 and downloaded, and each
+bucket (whole partitions only) uploaded and windowed alone, in bucket
+order; its time is ``spillTime``, its bucket count ``windowBuckets``.
 """
 from __future__ import annotations
 
@@ -616,6 +622,13 @@ class GpuWindowExec(UnaryExec):
         batches = list(self.child.execute(ctx))
         if not batches:
             return
+        total = sum(b.device_size_bytes() for b in batches)
+        if self.part_exprs and len(batches) > 1 \
+                and total > ctx.mm.budget // 2:
+            # halving a batch at its midpoint would cut partitions:
+            # bucket whole partitions instead
+            yield from self._execute_bucketed(batches, total, ctx)
+            return
         op_time = ctx.metric(self, "opTime")
         t0 = time.perf_counter()
         with torch.profiler.record_function("window"):
@@ -623,3 +636,40 @@ class GpuWindowExec(UnaryExec):
                                      ctx.eval_ctx)
         op_time.value += time.perf_counter() - t0
         yield out
+
+    def _execute_bucketed(self, batches: List[GpuBatch], total: int,
+                          ctx: ExecCtx):
+        """The out-of-core window (module docstring)."""
+        import math
+        from ..columnar.arrow_bridge import arrow_to_device, device_to_arrow
+        from ..ops.gather import compact_batch
+        from ..shuffle.partitioner import HashPartitioning
+        spill = ctx.metric(self, "spillTime")
+        k = max(2, math.ceil(total / max(1, ctx.mm.budget // 4)))
+        ctx.metric(self, "windowBuckets").set(k)
+        part = HashPartitioning(self.part_exprs, k)  # bound already
+        hosts: List[List] = [[] for _ in range(k)]
+        t0 = time.perf_counter()
+        while batches:
+            b = batches.pop(0)
+            pids = part.partition_ids(b, ctx.eval_ctx)
+            for p in range(k):
+                piece = compact_batch(b, pids == p)
+                if piece.row_count:
+                    hosts[p].append(device_to_arrow(piece))
+            del b, pids
+        spill.value += time.perf_counter() - t0
+        schema = self.child.output_schema
+        for p in range(k):
+            if not hosts[p]:
+                continue
+            t0 = time.perf_counter()
+            parts = [arrow_to_device(rb, schema, ctx.device)
+                     for rb in hosts[p]]
+            hosts[p] = []
+            with torch.profiler.record_function("window"):
+                out = self._window_batch(concat_batches_bounded(parts),
+                                         ctx.eval_ctx)
+            del parts
+            spill.value += time.perf_counter() - t0
+            yield out

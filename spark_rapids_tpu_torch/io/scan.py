@@ -36,6 +36,16 @@ by its encoding before any decode, and is counted by reason
 buffers on the host path, K5's index stream into the staged string
 store on the device path (``ops/parquet_decode.BatchLayout``). Decimal
 and nested columns raise ``NotImplementedError`` (ROADMAP item 2).
+Each staged blob of the device-decode path is a pinned entry in the
+memory manager's ledger from the feeder's upload until the consumer takes
+it (the reference's ``:1000-1015``), so eviction pressure sees the
+in-flight window; an early close releases what was never taken. The
+chain splice declines (``fused_scan_execute`` returns None) while the
+ledger holds more than half its budget (``:900-908``), so the chain runs
+in ``fused_batches`` under split-and-retry; and the consumer checks the
+query's cancellation a batch (``:1025,1117``). A spill victim chosen on
+the feeder thread was made on the consumer's stream (the blob, made on
+the side stream, is pinned), so its download waits for it there.
 A scan the planner places on the CPU (``execute_cpu``, the reference's
 ``:1138-1163`` with ``_align``) yields pyarrow's batches in the same
 split order, cast to its schema, and touches no device. Column pruning,
@@ -163,6 +173,17 @@ def _host_field(col, f: dt.StructField):
     if is_string_like(f.dtype):
         return string_parts(col)
     return host_lanes(col, f.dtype)
+
+
+_STAGED_SCHEMA = dt.Schema([dt.StructField("__staged__", dt.INT8, False)])
+
+
+def _staged_batch(blob: torch.Tensor) -> GpuBatch:
+    """A staged blob as a one-column batch, the shape a ledger entry
+    takes; its bytes are the blob's."""
+    from ..columnar.column import GpuColumnVector
+    return GpuBatch([GpuColumnVector(dt.INT8, blob.view(torch.int8))],
+                    _STAGED_SCHEMA, blob.numel())
 
 
 class _StagedUpload:
@@ -492,12 +513,13 @@ class GpuFileScanExec(LeafExec):
         """Scan-rooted fusion (``exec.base.fused_batches``): batches of
         ``chain(batch, eval_ctx)``, each launched on the scan's stream
         right after the batch's K5 decode; None when the device-decode
-        path or scan fusion is off, and the caller runs the chain over
-        ``execute``. The reference also declines under memory pressure
-        (``spark_rapids_tpu/io/scan.py:906-908``); that waits for the
-        port's memory manager (ROADMAP item 14)."""
+        path or scan fusion is off, or the ledger is past half its budget
+        (the splice has no split-and-retry), and the caller runs the chain
+        over ``execute``."""
         if not self._use_device_decode(ctx.conf) \
                 or not ctx.conf.get(SCAN_STAGE_FUSION):
+            return None
+        if ctx.mm.device_bytes > ctx.mm.budget // 2:
             return None
         return self._execute_device_decode(ctx, chain)
 
@@ -549,6 +571,11 @@ class GpuFileScanExec(LeafExec):
                 topup()
                 yield item
 
+        mm = ctx.mm
+        inflight: set = set()  # ledger entries not yet handed over
+        ilock = threading.Lock()
+        closed = [False]
+
         def assemble(group):
             t0 = time.perf_counter()
             # counted before the merge: one count per planned chunk
@@ -557,21 +584,33 @@ class GpuFileScanExec(LeafExec):
             t1 = time.perf_counter()
             blob, event = uploader.stage_blob(
                 layout.prefix_bytes, layout.total_bytes, layout.fill)
-            return (blob, event, layout, dev_chunks, reasons, t1 - t0,
+            sb = mm.register(_staged_batch(blob), pinned=True)
+            with ilock:
+                if closed[0]:  # the consumer is gone: never delivered
+                    sb.release()
+                    return None
+                inflight.add(sb)
+            return (blob, event, sb, layout, dev_chunks, reasons, t1 - t0,
                     time.perf_counter() - t1)
 
         groups = self._coalesced_groups(planned(),
                                         conf.get(SCAN_COALESCE_TARGET_BYTES),
                                         max(1, conf.batch_size_rows))
         gen = pipelined_map(assemble, groups, threads=threads, window=window)
+        qx = ctx.qctx
         try:
             while True:
+                if qx is not None:
+                    qx.check()
                 t0 = time.perf_counter()
                 try:
-                    (blob, event, layout, dev_chunks, reasons, asm_s,
+                    (blob, event, sb, layout, dev_chunks, reasons, asm_s,
                      up_s) = next(gen)
                 except StopIteration:
                     break
+                with ilock:
+                    inflight.discard(sb)
+                sb.release()  # the consumer holds the blob now
                 wait_t.value += time.perf_counter() - t0
                 asm_t.value += asm_s
                 up_t.value += up_s
@@ -596,6 +635,14 @@ class GpuFileScanExec(LeafExec):
         finally:
             gen.close()
             pool.shutdown(wait=False, cancel_futures=True)
+            # an early close: release what the consumer never took (a
+            # straggler sees closed and releases its own)
+            with ilock:
+                closed[0] = True
+                leftovers = list(inflight)
+                inflight.clear()
+            for sb in leftovers:
+                sb.release()
 
     # --- host decode ---------------------------------------------------------
 

@@ -19,19 +19,28 @@ with ``DeviceToHostExec`` under a CPU node over a device child and
 ``GpuCoalesceBatchesExec`` where that device node is an aggregate, a
 join or a sort), and with the adaptive reader over every device shuffle
 exchange while ``spark.sql.adaptive.enabled`` is on. Placement is
-decided here and only here: nothing at run time moves an operator to the
-CPU after a kernel, a build or a launch fails.
+decided here: nothing at run time moves an operator to the CPU after a
+kernel, a build or a launch fails. The memory manager's two reroutes are
+the exception, and both are about memory: the degradation ladder's CPU
+rung below, and an exact percentile's input over half the budget
+(``exec/aggregate.py``).
 
-``PhysicalPlan.collect`` runs ``execute`` (device root) or
-``execute_cpu`` (CPU root) and returns Arrow; a CPU-rooted plan still
-reads the deferred checks of the device subtrees under it.
+``PhysicalPlan.collect(ctx, qctx)`` (the reference's ``:163-321``)
+gives the query a ``QueryContext`` from the conf while
+``spark.rapids.lifecycle.enabled`` is on (the default), runs
+``execute`` (device root, under the admission slot) or ``execute_cpu``
+(CPU root) and returns Arrow; a CPU-rooted plan still reads the deferred
+checks of the device subtrees under it. A ``TpuRetryOOM`` that climbed
+the whole degradation ladder reruns the plan on ``execute_cpu`` after
+dropping the aborted attempt's deferred checks and per-operator counts,
+with ``ladderCpuFallback`` set on the root; at the end the query's
+width-1 claim is cleared.
 ``fallback_nodes()`` names every node placed on the CPU, and
 ``explain`` renders the placement (``ALL`` or ``NOT_ON_GPU``). The
 static plan verifier (``analysis/plan_verifier.py``;
 ``spark.rapids.sql.verifyPlan`` is not honoured yet) is ROADMAP item
 12's other half. Operator ids, the query profile and the telemetry
-bracket wait for item 15, the query lifecycle and the degradation
-ladder's CPU rung for item 14.
+bracket wait for item 15.
 """
 from __future__ import annotations
 
@@ -42,8 +51,7 @@ import pyarrow as pa
 
 from .config import (ADAPTIVE_ENABLED, BATCH_SIZE_ROWS, EXPLAIN,
                      INCOMPATIBLE_OPS, SQL_ENABLED, RapidsConf)
-from .exec.base import (ExecCtx, GpuExec, collect_arrow, collect_arrow_cpu,
-                        resolve_device)
+from .exec.base import ExecCtx, GpuExec, resolve_device
 from .exec.transitions import DeviceToHostExec, HostToDeviceExec
 
 __all__ = ["NodeMeta", "PhysicalPlan", "GpuOverrides"]
@@ -154,13 +162,77 @@ class PhysicalPlan:
             return ""
         return "\n".join(self.meta.explain_lines(mode))
 
-    def collect(self, ctx: Optional[ExecCtx] = None) -> pa.Table:
+    def collect(self, ctx: Optional[ExecCtx] = None,
+                qctx=None) -> pa.Table:
         """Run the plan and return one Arrow table: the root's device
-        path, or its CPU path when the planner placed it on the CPU."""
+        path, or its CPU path when the planner placed it on the CPU
+        (module docstring)."""
+        from .columnar.arrow_bridge import arrow_schema
+        from .lifecycle import LIFECYCLE_ENABLED, QueryContext
         ctx = ctx or ExecCtx(self.conf, self.device)
-        if self.root_on_device:
-            return collect_arrow(self.root, ctx)
-        return collect_arrow_cpu(self.root, ctx)
+        self.last_ctx = ctx
+        if qctx is None:
+            qctx = ctx.qctx
+        if qctx is None and self.conf.get(LIFECYCLE_ENABLED):
+            qctx = QueryContext.from_conf(self.conf)
+        ctx.qctx = qctx
+        self.last_qctx = qctx
+        try:
+            if self.root_on_device:
+                rbs = self._collect_device(ctx, qctx)
+            else:
+                rbs = self._collect_cpu(ctx)
+        finally:
+            # width-1 exclusivity must not outlive the query
+            if qctx is not None:
+                ctx.mm.admission.clear_exclusive(qctx.query_id)
+        return pa.Table.from_batches(
+            rbs, schema=arrow_schema(self.root.output_schema))
+
+    def _collect_device(self, ctx: ExecCtx, qctx) -> List:
+        """The device root under the admission slot; a ladder-exhausted
+        OOM reruns the plan on its CPU path."""
+        import time
+        from .columnar.arrow_bridge import device_to_arrow
+        from .memory import TpuRetryOOM
+        try:
+            t0 = time.perf_counter()
+            with ctx.mm.task_slot(qctx):
+                ctx.metric(self.root, "ledgerWaitTime").value += \
+                    time.perf_counter() - t0
+                rbs = [device_to_arrow(b) for b in self.root.execute(ctx)]
+        except TpuRetryOOM as oom:
+            ctx.discard_deferred()
+            ctx.run_cleanups()
+            if qctx is None or not oom.ladder_exhausted:
+                raise
+            # the ladder's cpu rung (already counted by escalate): drop
+            # the aborted attempt's per-operator counts, which the CPU
+            # run counts again
+            for ms in ctx.metrics.values():
+                for name in ("numOutputRows", "numOutputBatches",
+                             "numPartials", "numInputBatches"):
+                    ms.pop(name, None)
+            ctx.metric(self.root, "ladderCpuFallback").set(1)
+            return self._collect_cpu(ctx)
+        except BaseException:
+            ctx.discard_deferred()
+            ctx.run_cleanups()
+            raise
+        ctx.run_cleanups()
+        ctx.check_deferred()
+        return rbs
+
+    def _collect_cpu(self, ctx: ExecCtx) -> List:
+        try:
+            rbs = list(self.root.execute_cpu(ctx))
+        except BaseException:
+            ctx.discard_deferred()
+            ctx.run_cleanups()
+            raise
+        ctx.run_cleanups()
+        ctx.check_deferred()
+        return rbs
 
 
 class GpuOverrides:

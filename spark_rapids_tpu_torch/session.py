@@ -11,9 +11,16 @@ A grouped aggregation is planned as Spark plans it: a hash exchange over
 ``spark.sql.shuffle.partitions`` partitions, then the aggregate. The
 analyzer widens mixed numeric operands with ``Cast`` (``_analyze``), as
 the reference's does. ``union`` is UNION ALL; ``sample``,
-``explode``, ``cache``, ``write`` and ``pivot`` raise
-``NotImplementedError`` naming their items; the process cluster, the
-query lifecycle and EXPLAIN ANALYZE wait for items 16, 14 and 15.
+``explode``, ``write`` and ``pivot`` raise ``NotImplementedError`` naming
+their items; the process cluster and EXPLAIN ANALYZE wait for items 16
+and 15.
+
+``DataFrame.cache()`` is the reference's ``TpuCacheExec`` (``:30-70``):
+the child runs once into spill-catalog entries, which later runs replay
+(uploaded again where the ledger spilled them). ``collect(qctx=...)``
+takes a ``QueryContext`` from ``GpuSession.query_context`` (a deadline,
+a tenant, a memory budget, a handle to ``cancel()``); without one the
+conf's lifecycle defaults apply (``:349-410``).
 """
 from __future__ import annotations
 
@@ -23,10 +30,76 @@ import pyarrow as pa
 
 from . import datatypes as dt
 from .config import CASE_SENSITIVE, SHUFFLE_PARTITIONS, RapidsConf
-from .exec.base import GpuExec, HostBatchSourceExec, resolve_device
+from .exec.base import (ExecCtx, GpuExec, HostBatchSourceExec, UnaryExec,
+                        resolve_device)
 from .expr.base import Expression, UnresolvedColumn, bind_expr
 
-__all__ = ["GpuSession", "DataFrame", "GroupedData"]
+__all__ = ["GpuSession", "DataFrame", "GroupedData", "GpuCacheExec"]
+
+
+class GpuCacheExec(UnaryExec):
+    """``df.cache()``: the child materializes once into spillable
+    catalog entries and every later run replays them; the CPU path
+    keeps up to ``_CPU_CACHE_LIMIT`` bytes of Arrow batches, past which
+    it runs the child again each time."""
+
+    _CPU_CACHE_LIMIT = 256 << 20
+
+    def __init__(self, child: GpuExec):
+        super().__init__(child)
+        self._entries = None   # List[SpillableBatch]
+        self._cpu_cache = None
+
+    def describe(self):
+        state = "cached" if self._entries is not None else "lazy"
+        return f"CacheExec [{state}]"
+
+    def with_new_children(self, children):
+        # the planner rebuilds the tree a plan; the cache lives on the
+        # node the DataFrame holds
+        node = super().with_new_children(children)
+        if node is not self:
+            node._owner = getattr(self, "_owner", self)
+        return node
+
+    def _state(self) -> "GpuCacheExec":
+        return getattr(self, "_owner", self)
+
+    def execute(self, ctx: ExecCtx):
+        owner = self._state()
+        if owner._entries is None:
+            entries = []
+            try:
+                for b in self.child.execute(ctx):
+                    entries.append(ctx.mm.register(b))
+            except BaseException:
+                for sb in entries:
+                    sb.release()
+                raise
+            owner._entries = entries
+            import weakref
+            for sb in entries:
+                weakref.finalize(owner, type(sb).release, sb)
+        ctx.metric(self, "cachedBatches").set(len(owner._entries))
+        for sb in owner._entries:
+            yield sb.get()
+
+    def execute_cpu(self, ctx: ExecCtx):
+        owner = self._state()
+        if owner._cpu_cache is not None:
+            yield from owner._cpu_cache
+            return
+        acc: Optional[list] = []
+        total = 0
+        for rb in self.child.execute_cpu(ctx):
+            if acc is not None:
+                total += rb.nbytes
+                acc.append(rb)
+                if total > self._CPU_CACHE_LIMIT:
+                    acc = None
+            yield rb
+        if acc is not None:
+            owner._cpu_cache = acc
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -209,14 +282,17 @@ class DataFrame:
         raise _unported("explode (TpuGenerateExec)", 13)
 
     def cache(self) -> "DataFrame":
-        raise _unported("cache (the spill catalog)", 14)
+        return DataFrame(GpuCacheExec(self._node), self._session)
 
     def write(self, path: str, fmt: str = "parquet", partition_by=None):
         raise _unported("write (io/write.py)", 13)
 
     # --- actions ----------------------------------------------------------
-    def collect(self) -> pa.Table:
-        return self._plan().collect()
+    def collect(self, qctx=None) -> pa.Table:
+        """Run and download; ``qctx`` (``GpuSession.query_context``)
+        carries the cancellation token, deadline, tenant and memory
+        budget, else the conf's lifecycle defaults apply."""
+        return self._plan().collect(qctx=qctx)
 
 
 class GpuSession:
@@ -230,6 +306,14 @@ class GpuSession:
         self.conf = conf or RapidsConf()
         self.device = resolve_device(device)
         self._tables: Dict[str, DataFrame] = {}
+
+    def query_context(self, **kw):
+        """A ``lifecycle.QueryContext`` over this session's conf;
+        ``deadline_s``, ``tenant``, ``budget_bytes`` and ``query_id``
+        override it. ``qctx.cancel()`` stops the query between batches
+        with ``QueryCancelled(reason="user")``."""
+        from .lifecycle import QueryContext
+        return QueryContext(self.conf, **kw)
 
     # --- SQL --------------------------------------------------------------
     def register_table(self, name: str, df) -> DataFrame:

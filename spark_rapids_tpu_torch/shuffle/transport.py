@@ -1,20 +1,24 @@
 """Shuffle transport interface and the in-process store.
 
-Counterpart of ``spark_rapids_tpu/shuffle/transport.py:95-250``
-(``ShuffleWriteHandle``, ``ShuffleTransport``, ``LocalShuffleTransport``):
-the seam between partition routing and how batches move. The local
-store keeps every map output on the card: a partition's entries are the
-exchange's selection views of each map batch (they share the batch's
-buffers), read back in map order.
+Counterpart of ``spark_rapids_tpu/shuffle/transport.py:55-250``
+(``FetchFailure``, ``ShuffleWriteHandle``, ``ShuffleTransport``,
+``_MapEntry``, ``LocalShuffleTransport``): the seam between partition
+routing and how batches move. The local store keeps each map batch
+whole, with its partition ids as one more int32 lane (``_MapEntry``,
+``write_unsplit``); a read makes the partition's selection view of each
+map batch in map order, sharing the batch's buffers. With a memory
+manager attached (``set_memory_manager``, as the exchange does) each map
+batch is one ledger entry, lane included, that spills to the host and
+comes back as one, so a row keeps its partition. A one-partition stage
+stores the batch as it is, with no lane.
 
 Writer-side statistics: with AQE on, the exchange hands the store each
 map batch's live rows per partition, a few int64s counted on the device
 next to the split, with no sync; ``partition_stats`` reads them all back
 in one copy at the stage boundary and spreads each map batch's bytes
 over its partitions by those counts, as the reference does
-(``_fold_pending_stats``). The reference's spill catalog
-(``set_memory_manager``) waits for ROADMAP item 14; the host-file,
-multi-threaded and collective transports wait for items 16 and 17.
+(``_fold_pending_stats``). The host-file, multi-threaded and collective
+transports wait for items 16 and 17.
 """
 from __future__ import annotations
 
@@ -24,16 +28,45 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import datatypes as dt
 from ..columnar.batch import GpuBatch
+from ..columnar.column import GpuColumnVector
 
-__all__ = ["ShuffleWriteHandle", "ShuffleTransport",
-           "LocalShuffleTransport"]
+__all__ = ["FetchFailure", "FETCH_FAILURE_KINDS", "ShuffleWriteHandle",
+           "ShuffleTransport", "LocalShuffleTransport"]
+
+FETCH_FAILURE_KINDS = ("missing", "corrupt", "torn", "io")
+
+
+class FetchFailure(RuntimeError):
+    """A shuffle block failed to fetch or verify, classified by ``kind``
+    (``missing``, ``corrupt``, ``torn`` or ``io``); ``map_task`` is the
+    committed map task's key when known (the reference's ``:55``)."""
+
+    def __init__(self, shuffle_id: int, map_task, path: str, kind: str,
+                 detail: str = ""):
+        assert kind in FETCH_FAILURE_KINDS, kind
+        self.shuffle_id = int(shuffle_id)
+        self.map_task = map_task
+        self.path = path
+        self.kind = kind
+        self.detail = detail
+        super().__init__(
+            f"shuffle {shuffle_id} fetch failure [{kind}] "
+            f"map={map_task or '?'} {path}"
+            + (f": {detail}" if detail else ""))
 
 
 class ShuffleWriteHandle:
     """Writer for one map task's output."""
 
     def write(self, partition_id: int, batch: GpuBatch) -> None:
+        raise NotImplementedError
+
+    def write_unsplit(self, batch: GpuBatch,
+                      pids: Optional[torch.Tensor]) -> None:
+        """The whole map batch with each row's partition id (None for a
+        one-partition stage)."""
         raise NotImplementedError
 
     def record_counts(self, counts: torch.Tensor, nbytes: int) -> None:
@@ -70,6 +103,43 @@ class ShuffleTransport:
         return None
 
 
+class _MapEntry:
+    """One map batch and its partition-id lane as one spillable unit:
+    the lane rides as an extra int32 column, so a spill's download
+    (which compacts the live rows) keeps each row with its partition.
+    ``view(p)`` is partition p's selection view over the shared
+    buffers."""
+
+    def __init__(self, mm, batch: GpuBatch, pids: Optional[torch.Tensor]):
+        self._schema = batch.schema
+        self._split = pids is not None
+        # the map batch's bytes, the lane left out (the stage's bytes)
+        self.nbytes = batch.device_size_bytes()
+        ext = batch
+        if self._split:
+            ext_schema = dt.Schema(
+                list(batch.schema.fields)
+                + [dt.StructField("__pid__", dt.INT32, False)])
+            pidcol = GpuColumnVector(dt.INT32, pids.to(torch.int32))
+            ext = GpuBatch(list(batch.columns) + [pidcol], ext_schema,
+                           batch.row_count, selection=batch.selection)
+        self._sb = mm.register(ext) if mm is not None else None
+        self._raw = ext if mm is None else None
+
+    def view(self, partition_id: int) -> GpuBatch:
+        b = self._sb.get() if self._sb is not None else self._raw
+        if not self._split:
+            return b
+        core = GpuBatch(b.columns[:-1], self._schema, b.row_count,
+                        selection=b.selection)
+        return core.with_selection(b.columns[-1].data == partition_id)
+
+    def release(self):
+        if self._sb is not None:
+            self._sb.release()
+        self._raw = None
+
+
 class _LocalWriter(ShuffleWriteHandle):
     def __init__(self, transport: "LocalShuffleTransport", shuffle_id: int,
                  map_id: int):
@@ -80,6 +150,11 @@ class _LocalWriter(ShuffleWriteHandle):
 
     def write(self, partition_id: int, batch: GpuBatch) -> None:
         self._transport._store(self._sid, partition_id, self._mid, batch)
+
+    def write_unsplit(self, batch: GpuBatch,
+                      pids: Optional[torch.Tensor]) -> None:
+        entry = _MapEntry(self._transport._mm, batch, pids)
+        self._transport._store(self._sid, None, self._mid, entry)
 
     def record_counts(self, counts: torch.Tensor, nbytes: int) -> None:
         self._counted = True
@@ -94,7 +169,13 @@ class LocalShuffleTransport(ShuffleTransport):
     """In-process shuffle store on the device; reads return each
     partition's batches in map order."""
 
+    def set_memory_manager(self, mm) -> None:
+        """Attach the spill catalog: later ``write_unsplit`` entries are
+        ledger entries."""
+        self._mm = mm
+
     def __init__(self):
+        self._mm = None
         # shuffle -> partition -> [(map id, batch)]
         self._shuffles: Dict[int, Dict[int, List[Tuple[int, GpuBatch]]]] \
             = {}
@@ -141,11 +222,15 @@ class LocalShuffleTransport(ShuffleTransport):
             self._stats[sid] = sizes if prev is None else prev + sizes
 
     def stage_bytes(self, shuffle_id: int) -> int:
-        """Bytes the stage's map batches hold, from capacities (no sync);
-        a map batch split into views counts once."""
+        """Bytes the stage's map batches hold, from capacities (no sync,
+        no upload of a spilled entry); a map batch split into views
+        counts once."""
         seen, total = set(), 0
-        for entries in self._shuffles.get(shuffle_id, {}).values():
+        for p, entries in self._shuffles.get(shuffle_id, {}).items():
             for _, b in entries:
+                if p is None:
+                    total += b.nbytes
+                    continue
                 key = tuple(id(c) for c in b.columns)
                 if key not in seen:
                     seen.add(key)
@@ -169,13 +254,20 @@ class LocalShuffleTransport(ShuffleTransport):
         return None
 
     def read_partition(self, shuffle_id: int, partition_id: int):
-        entries = self._shuffles.get(shuffle_id, {}).get(partition_id, [])
-        for _, batch in sorted(entries, key=lambda e: e[0]):
+        store = self._shuffles.get(shuffle_id, {})
+        for _, batch in sorted(store.get(partition_id, []),
+                               key=lambda e: e[0]):
             yield batch
+        # each view made as it is read: a spilled entry comes back only
+        # when its turn comes
+        for _, entry in sorted(store.get(None, []), key=lambda e: e[0]):
+            yield entry.view(partition_id)
 
     def unregister_shuffle(self, shuffle_id: int):
         with self._lock:
-            self._shuffles.pop(shuffle_id, None)
+            store = self._shuffles.pop(shuffle_id, None) or {}
+            for _, entry in store.get(None, []):
+                entry.release()
             self._nparts.pop(shuffle_id, None)
             self._pending.pop(shuffle_id, None)
             self._stats.pop(shuffle_id, None)

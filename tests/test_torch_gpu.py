@@ -9,8 +9,10 @@ the port runs from SQL on the card against the CPU, and string ranks on
 the card against the CPU's; the window operator on the card against the
 CPU; K6 (the LIKE/RLIKE automaton) against its plain version bit for
 bit through each of its routes, LIKE through K6 once a batch, the
-staged join on the card against the CPU, and a full outer hash join and
-a full outer nested-loop join from SQL on the card against the CPU.
+staged join on the card against the CPU, a full outer hash join and
+a full outer nested-loop join from SQL on the card against the CPU, and
+a spill round trip of a card batch that frees its bytes in
+``torch.cuda.memory_allocated()`` and brings the same rows back.
 Run on a machine with a CUDA device: ``python -m pytest
 tests/test_torch_gpu.py``; elsewhere they skip."""
 import pytest
@@ -425,3 +427,43 @@ def test_outer_and_nested_loop_joins_on_the_card_match_the_cpu(
             assert card.column(name).to_pylist() \
                 == cpu.column(name).to_pylist() \
                 == want.column(name).to_pylist(), (q, parts, name)
+
+
+def test_spill_round_trip_frees_the_card(cuda_device, tmp_path):
+    import gc
+
+    import numpy as np
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import (
+        arrow_to_device, device_to_arrow)
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.memory import DeviceMemoryManager
+    rng = np.random.default_rng(2)
+    n = 1 << 20
+    rb = pa.record_batch({
+        "a": pa.array(rng.integers(0, 1 << 40, n), pa.int64()),
+        "b": pa.array(rng.normal(size=n), pa.float64()),
+        "s": pa.array([f"k{v}" for v in rng.integers(0, 999, n)])})
+    mm = DeviceMemoryManager(RapidsConf({
+        "spark.rapids.memory.device.budgetBytes": 1 << 30,
+        "spark.rapids.memory.host.spillStorageSize": 1,
+        "spark.rapids.memory.spillDir": str(tmp_path)}), cuda_device)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sb = mm.register(arrow_to_device(rb, None, cuda_device))
+    held = torch.cuda.memory_allocated() - base
+    assert held >= sb.nbytes > 0
+    sb.spill()  # to the host, and on to a sealed disk file
+    assert sb.on_disk and mm.device_bytes == 0
+    torch.cuda.synchronize()
+    freed = base + held - torch.cuda.memory_allocated()
+    assert freed >= 0.9 * sb.nbytes
+    back = sb.get()
+    assert back.device == cuda_device
+    assert device_to_arrow(back).equals(rb)
+    sb.release()
+    del back
+    gc.collect()
+    assert mm.device_bytes == 0 and mm.disk_in_use_bytes == 0
+    assert torch.cuda.memory_allocated() <= base + (1 << 20)

@@ -49,6 +49,12 @@ OUTER_CROSS_MODULES = ["exec/joins.py", "ops/join.py",
 # the per-operator CPU fallback and its SQL texts
 FALLBACK_MODULES = ["exec/transitions.py", "exec/base.py", "planner.py",
                     "io/scan.py", "tools/nds_fallback.py"]
+# the memory manager, the query lifecycle, sealed files and the
+# out-of-core texts
+MEMORY_MODULES = ["memory.py", "lifecycle.py", "shuffle/integrity.py",
+                  "shuffle/transport.py", "exec/sort.py", "exec/window.py",
+                  "exec/aggregate.py", "exec/aqe.py", "exec/joins.py",
+                  "session.py", "tools/nds_memory.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -56,7 +62,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(files) > 10
     for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES + SQL_MODULES \
             + WINDOW_UNION_MODULES + JOIN_PERCENTILE_LIKE_MODULES \
-            + OUTER_CROSS_MODULES + FALLBACK_MODULES:
+            + OUTER_CROSS_MODULES + FALLBACK_MODULES + MEMORY_MODULES:
         assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:

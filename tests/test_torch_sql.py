@@ -179,8 +179,9 @@ def test_errors_keep_the_reference_slugs(paths):
 def test_unported_dataframe_methods_raise(paths):
     s = GpuSession(device="cpu")
     df = s.read_parquet(paths["item"])
+    # cache() is ported (the spill catalog): tests/test_torch_out_of_core.py
     for call in (lambda: df.sample(0.5),
-                 lambda: df.explode("i_category"), lambda: df.cache(),
+                 lambda: df.explode("i_category"),
                  lambda: df.write("/nonexistent")):
         with pytest.raises(NotImplementedError, match="ROADMAP item"):
             call()

@@ -78,15 +78,22 @@ def run_reference(sql: str, paths: Dict[str, str],
 
 
 def run_port(sql: str, paths: Dict[str, str],
-             conf: Optional[dict] = None) -> Tuple[pa.Table, list]:
-    """The port's rows and scan counters, on the CPU."""
+             conf: Optional[dict] = None,
+             metrics: Optional[dict] = None) -> Tuple[pa.Table, list]:
+    """The port's rows and scan counters, on the CPU; with ``metrics``
+    (a dict), the run's operator metrics too, ``{label: {name:
+    value}}``."""
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
     from spark_rapids_tpu_torch.planner import GpuOverrides
     s = nds.session_over_files(paths, conf, device="cpu")
     pp = GpuOverrides(s.conf, s.device).apply(s.sql(sql)._node)
     ctx = ExecCtx(s.conf, "cpu")
-    return pp.collect(ctx), scan_chunks(ctx.metrics)
+    out = pp.collect(ctx)
+    if metrics is not None:
+        metrics.update({label: {k: m.value for k, m in ms.items()}
+                        for label, ms in ctx.metrics.items()})
+    return out, scan_chunks(ctx.metrics)
 
 
 def is_ordered(sql: str) -> bool:
@@ -141,11 +148,14 @@ def assert_same_rows(got: pa.Table, want: pa.Table, ordered: bool,
 
 
 def dual_run(sql: str, paths: Dict[str, str],
-             conf: Optional[dict] = None) -> Tuple[pa.Table, pa.Table]:
+             conf: Optional[dict] = None,
+             port_metrics: Optional[dict] = None) \
+        -> Tuple[pa.Table, pa.Table]:
     """Run ``sql`` through both packages and hold the port to the
     reference: rows (``assert_same_rows``) and scan counters. Returns
-    ``(port's table, reference's table)``."""
-    got, got_chunks = run_port(sql, paths, conf)
+    ``(port's table, reference's table)``; ``port_metrics`` (a dict)
+    receives the port run's operator metrics."""
+    got, got_chunks = run_port(sql, paths, conf, port_metrics)
     want, want_chunks = run_reference(sql, paths, conf)
     assert_same_rows(got, want, is_ordered(sql), label=sql.strip()[:60])
     assert got_chunks == want_chunks, (got_chunks, want_chunks)
