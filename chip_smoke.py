@@ -100,7 +100,10 @@ Phases, any failure exits non-zero before the result line:
      scan to deviceChunks = row groups x columns and 0 fallback chunks.
      The first timed run of each query and partition count also counts
      the K3, K4, K5 and K6 launches, held to what the plan implies
-     (``_nds_expected``: operator by operator, string ranks included);
+     (``_nds_expected``: operator by operator, string ranks included).
+     Every run of phases 8-10 is at the default device budget and must
+     leave the memory manager's spill bytes, readbacks and OOM retries
+     where they were (``_pressure_figures``);
   9. NDS joins from SQL: the nine texts of
      ``spark_rapids_tpu_torch/tools/nds_joins.py`` (right and full
      outer joins, cross joins and the nested-loop join over the same
@@ -119,7 +122,9 @@ Phases, any failure exits non-zero before the result line:
      module's ``FALLBACK``, its device scans to their chunks, its K3, K4
      and K5 launches to ``_nds_expected`` (a CPU island launches
      nothing; the device subtrees under it launch as planned), and the
-     transitions' downloadTime and uploadTime printed;
+     transitions' downloadTime and uploadTime printed; q_outer_price at
+     16 partitions (``SKEW_WITNESS``) must show a skewed partition and a
+     skew split: the adaptive reader's skew split on the card;
   11. NDS memory: the five texts of
      ``spark_rapids_tpu_torch/tools/nds_memory.py`` (an out-of-core
      sort with its runs on sealed disk files, a bucketed window, a
@@ -128,9 +133,10 @@ Phases, any failure exits non-zero before the result line:
      partitions (q3 at 16), each beside the same text at the default
      budget (which must spill nothing): rows held to the oracle, each
      path's own figure above 0, no catalog entry or ledger byte left,
-     every spill of the sort's runs freeing at least SPILL_FREED_SHARE of
-     its bytes in torch.cuda.memory_allocated(), K3/K4/K5 launches
-     printed; the CRC32C in use and the port's own timed on 64 MiB; a
+     every spill's fall in torch.cuda.memory_allocated() as a share of
+     the bytes the ledger credited printed by the site that registered
+     the entry, and held to that site's ``SPILL_FREED_SHARES``, K3/K4/K5
+     launches printed; the CRC32C in use and the port's own timed on 64 MiB; a
      real torch.OutOfMemoryError (the memory fraction cut at q_pivot's
      largest retry scope) answered by split-and-retry with the
      unconstrained run's rows; the degradation ladder (q3 under
@@ -1078,10 +1084,16 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
 
             def run():
                 ctx = ExecCtx(s.conf, device)
+                mem0 = _pressure_figures(ctx.mm)
                 t = time.perf_counter()
                 out = pp.collect(ctx)
                 torch.cuda.synchronize()
-                return out, time.perf_counter() - t, ctx
+                secs = time.perf_counter() - t
+                moved = _delta(_pressure_figures(ctx.mm), mem0)
+                if any(moved.values()):
+                    raise AssertionError(f"{q} p{parts}: the default "
+                                         f"budget's run moved {moved}")
+                return out, secs, ctx
 
             if warm_up:
                 run()
@@ -1106,7 +1118,11 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
                 "plan_ms": plan_med * 1e3, "plan_times_s": plan_times,
                 "fallback_nodes": on_cpu,
                 "download_ms": moved["downloadTime"] * 1e3,
-                "upload_ms": moved["uploadTime"] * 1e3}
+                "upload_ms": moved["uploadTime"] * 1e3,
+                "skewed_partitions": _op_metric(
+                    metrics, "AQEShuffleReadExec", "numSkewedPartitions"),
+                "skew_splits": _op_metric(metrics, "AQEShuffleReadExec",
+                                          "numSkewSplits")}
             log(f"[{tag}] {q} partitions={parts}: {NDS_SALES / med:.1f} "
                 f"rows/s, {med * 1e3:.3f} ms a query in collect (median "
                 f"of {[round(t, 6) for t in times]} s); planning "
@@ -1149,17 +1165,40 @@ def phase_nds_joins(device, files):
 def phase_nds_fallback(device, files):
     """The eight fallback texts: a warm-up and one timed run at 1
     partition, one run at 16 (a CPU island's join or scan over 2^22 rows
-    takes seconds, and the phase stays within its budget)."""
+    takes seconds, and the phase stays within its budget). At 16
+    partitions q_outer_price's null-key partition trips the skew rule:
+    the on-card witness of the adaptive reader's skew split
+    (``SKEW_WITNESS``), held to a skewed partition and a split."""
     from spark_rapids_tpu_torch.tools import nds_fallback
-    return _run_sql_queries(device, "nds-fallback", nds_fallback, files,
-                            timed=(1, 1), warm=(True, False))
+    summary, launches = _run_sql_queries(
+        device, "nds-fallback", nds_fallback, files, timed=(1, 1),
+        warm=(True, False))
+    got = summary[SKEW_WITNESS]
+    if not (got["skewed_partitions"] > 0 and got["skew_splits"] > 0):
+        raise AssertionError(f"{SKEW_WITNESS}: {got['skewed_partitions']}"
+                             f" skewed partitions, {got['skew_splits']} "
+                             "skew splits")
+    log(f"[nds-fallback] the skew split on the card: {SKEW_WITNESS} has "
+        f"{got['skewed_partitions']} skewed partition(s) and "
+        f"{got['skew_splits']} skew splits")
+    return summary, launches
 
+
+#: phase 10's run whose partition stats trip the skew rule on the card
+SKEW_WITNESS = "q_outer_price_p16"
 
 # --- phase 11: the memory manager and the query lifecycle -------------------
 
-#: a spill's fall in torch.cuda.memory_allocated(), as a share of the
-#: bytes the ledger credited, that the sort's runs must show
-SPILL_FREED_SHARE = 0.9
+#: a spill's least fall in torch.cuda.memory_allocated(), as a share of
+#: the bytes the ledger credited, by the function that registered the
+#: entry: a sort run (its sorter drops the run before it spills it) and
+#: a shuffle map batch (the transport keeps the batch its taker still
+#: holds pinned, so the one evicted is let go). The percentile's inputs
+#: are not held to a share: they are the shuffle's map batches, or views
+#: of them, counted twice in the ledger, so of the two spills of one
+#: buffer the first frees nothing.
+SPILL_FREED_SHARES = {"sort.GpuSortExec._sort_out_of_core": 0.9,
+                      "transport._MapEntry.__init__": 0.9}
 #: how far torch.cuda.memory_allocated() may stay above its value before
 #: the cancelled query
 CANCEL_MARGIN_BYTES = 32 << 20
@@ -1198,6 +1237,13 @@ def _rows_equal(q, out, want, floats):
         if not np.isfinite(gn).all() or worst > ENGINE_RTOL:
             raise AssertionError(f"{q}: {c} rel err {worst:.3e}")
     return worst
+
+
+def _pressure_figures(mm):
+    """The manager's counts that move only under memory pressure: a
+    query at the default budget leaves them where they were."""
+    return {k: getattr(mm, k) for k in (
+        "spill_bytes", "readback_count", "oom_retries")}
 
 
 def _memory_figures(mm):
@@ -1248,27 +1294,70 @@ def _mechanism(q, parts, metrics, mem):
     return fig
 
 
+def _spill_site():
+    """The port's function that registered an entry: the first frame
+    outside ``memory.py`` (``module.qualified_name``)."""
+    f = sys._getframe(2)
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod.startswith("spark_rapids_tpu_torch") \
+                and not mod.endswith(".memory"):
+            return f"{mod.rsplit('.', 1)[-1]}.{f.f_code.co_qualname}"
+        f = f.f_back
+    return "?"
+
+
 def _spill_probe():
-    """Wrap ``SpillableBatch.spill`` to record, for every spill that
-    moved an entry off the card, the fall in memory_allocated() beside
-    the bytes the ledger credited. Returns (records, restore)."""
-    from spark_rapids_tpu_torch.memory import SpillableBatch
-    orig = SpillableBatch.spill
-    recs = []
+    """Wrap ``DeviceMemoryManager.register`` to label each entry with
+    the function that registered it, and ``SpillableBatch.spill`` to
+    record, for every spill that moved an entry off the card, ``(site,
+    first, freed, credited)``: ``first`` is whether it was the entry's
+    first spill (a re-spill follows an upload at a read), ``freed`` the
+    fall in memory_allocated(), ``credited`` the bytes the ledger
+    credited. Returns (records, restore)."""
+    from spark_rapids_tpu_torch.memory import (DeviceMemoryManager,
+                                               SpillableBatch)
+    orig_spill, orig_reg = SpillableBatch.spill, DeviceMemoryManager.register
+    recs, sites = [], {}
+
+    def register(self, batch, *a, **kw):
+        # by the batch: the registration's own eviction may spill it
+        sites[id(batch)] = _spill_site()
+        sb = orig_reg(self, batch, *a, **kw)
+        sb.probe_site = sites.pop(id(batch))
+        return sb
 
     def spill(self, *a, **kw):
         before = torch.cuda.memory_allocated()
-        on = self.on_device
-        orig(self, *a, **kw)
+        on, first = self.on_device, self.spill_count == 0
+        site = getattr(self, "probe_site", None) \
+            or sites.get(id(self._device), "?")
+        orig_spill(self, *a, **kw)
         if on and not self.on_device:
-            recs.append((before - torch.cuda.memory_allocated(),
+            recs.append((site, first,
+                         before - torch.cuda.memory_allocated(),
                          self.nbytes))
 
     SpillableBatch.spill = spill
+    DeviceMemoryManager.register = register
 
     def restore():
-        SpillableBatch.spill = orig
+        SpillableBatch.spill = orig_spill
+        DeviceMemoryManager.register = orig_reg
     return recs, restore
+
+
+def _spill_shares(recs):
+    """Each (site, first spill or re-spill) group's count and least and
+    largest share of the credited bytes that memory_allocated() gave
+    back."""
+    out = {}
+    for site, first, freed, credited in recs:
+        if credited:
+            key = f"{site}:{'first' if first else 're'}"
+            out.setdefault(key, []).append(freed / credited)
+    return {k: {"n": len(v), "min": min(v), "max": max(v)}
+            for k, v in sorted(out.items())}
 
 
 def _crc_timing():
@@ -1471,7 +1560,7 @@ def _deadline(device, paths, spill_root):
     return out
 
 
-def phase_nds_memory(device, files):
+def phase_nds_memory(device, files, skew_witness=None):
     """Phase 11 (module docstring): the memory texts under their budgets
     at 1 and 16 partitions beside the default budget, a real OOM, the
     ladder and a deadline."""
@@ -1486,7 +1575,7 @@ def phase_nds_memory(device, files):
     spill_root = os.path.join(ROOT, ".bench_cache", "spill_torch")
     crc = _crc_timing()
     wrappers = counters()
-    summary, launches, shares = {}, {}, []
+    summary, launches, sites_seen = {}, {}, set()
     for q in nm.QUERIES:
         want = nm.oracle(q, tables)
         for parts in nm.PARTITIONS[q]:
@@ -1527,8 +1616,13 @@ def phase_nds_memory(device, files):
             rel = _rows_equal(q, out, want, nm.FLOAT_COLUMNS[q])
             _rows_equal(q, free, want, nm.FLOAT_COLUMNS[q])
             fig = _mechanism(q, parts, metrics, mem)
-            if q == "q_sales_sorted":
-                shares += [f / c for f, c in recs if c]
+            by_site = _spill_shares(recs)
+            low = [(site, round(f / c, 4)) for site, _, f, c in recs
+                   if c and f / c < SPILL_FREED_SHARES.get(site, 0.0)]
+            if low:
+                raise AssertionError(f"{q} p{parts}: spills freed less "
+                                     f"than their site's share: {low}")
+            sites_seen.update(site for site, _, _, c in recs if c)
             skewed = _op_metric(metrics, "AQEShuffleReadExec",
                                 "numSkewedPartitions")
             splits = _op_metric(metrics, "AQEShuffleReadExec",
@@ -1546,7 +1640,8 @@ def phase_nds_memory(device, files):
                             "budget_bytes": nm.CHIP_BUDGET, "figures": fig,
                             "ledger": mem, "skewed_partitions": skewed,
                             "skew_splits": splits,
-                            "spills_probed": len(recs)}
+                            "spills_probed": len(recs),
+                            "spill_freed_shares": by_site}
             launches[key] = got
             log(f"[nds-memory] {q} partitions={parts}: {secs * 1e3:.3f} ms "
                 f"under a {nm.CHIP_BUDGET}-byte budget, "
@@ -1554,21 +1649,30 @@ def phase_nds_memory(device, files):
                 f"equal to the oracle (max rel err {rel:.3e}); figures "
                 f"{fig}; ledger {mem}; skewed partitions {skewed}, skew "
                 f"splits {splits}; launches {got}")
-    if not shares or min(shares) < SPILL_FREED_SHARE:
-        raise AssertionError(f"spills freed {shares} of the bytes credited"
-                             f" (at least {SPILL_FREED_SHARE} each)")
-    log(f"[nds-memory] the sort's {len(shares)} spills each freed "
-        f"{min(shares):.4f}-{max(shares):.4f} of the bytes the ledger "
-        f"credited in memory_allocated() (at least {SPILL_FREED_SHARE})")
+            log(f"[nds-memory] {q} partitions={parts} spills freed, as a "
+                "share of the bytes credited, by site: "
+                + json.dumps(by_site, sort_keys=True))
+    missing = set(SPILL_FREED_SHARES) - sites_seen
+    if missing:
+        raise AssertionError(f"no spill of an entry from {missing}")
+    log("[nds-memory] every spill from "
+        + ", ".join(f"{k} freed at least {v}" for k, v in
+                    sorted(SPILL_FREED_SHARES.items()))
+        + " of the bytes the ledger credited in memory_allocated()")
     if not any(v["skewed_partitions"] for v in summary.values()):
-        log("[nds-memory] no text's partition stats trip the skew rule "
-            "here: the skew split is held by the CPU tests alone "
+        log("[nds-memory] no text of this phase trips the skew rule; the "
+            "skew split's witness on the card is phase 10's "
+            f"{SKEW_WITNESS}"
+            + (f" ({skew_witness['skewed_partitions']} skewed partition(s)"
+               f", {skew_witness['skew_splits']} splits)"
+               if skew_witness else " (not run with --memory-only)")
+            + ", and the CPU tests hold it to the reference "
             "(tests/test_torch_out_of_core.py)")
     summary["real_oom"] = _real_oom(device, paths, tables)
     summary["ladder"] = _ladder(device, paths, tables)
     summary["deadline"] = _deadline(device, paths, spill_root)
     summary["crc32c"] = crc
-    summary["spill_freed_share_min"] = min(shares)
+    summary["spill_freed_share_floors"] = SPILL_FREED_SHARES
     log(f"[nds-memory] phase took {time.perf_counter() - t_phase:.3f} s")
     return summary, launches
 
@@ -1600,7 +1704,8 @@ def main():
     nds_summary, nds_launches = phase_nds(device, nds_files)
     joins_summary, joins_launches = phase_nds_joins(device, nds_files)
     fb_summary, fb_launches = phase_nds_fallback(device, nds_files)
-    mem_summary, mem_launches = phase_nds_memory(device, nds_files)
+    mem_summary, mem_launches = phase_nds_memory(
+        device, nds_files, fb_summary[SKEW_WITNESS])
     per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")

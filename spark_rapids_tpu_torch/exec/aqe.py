@@ -10,11 +10,12 @@ Those statistics are always free here (the local transport's writer-side
 counts), so ``spark.rapids.sql.adaptive.freeStatsOnly`` changes nothing.
 
 Where the reference concatenates a coalesced group into one batch, the
-port merges the group's views of one map batch into one view, whose
-selection is the union of theirs: the views share the map batch's
-buffers, so coalescing copies nothing and the consumer sees one batch a
-map batch instead of one a partition. Batches that are not views of one
-map batch are yielded as they are.
+port reads the group's run of adjacent partitions at once
+(``ShuffleStageHandle.read_range``): one view of each map batch whose
+selection holds the group's rows. The views share the map batch's
+buffers, so coalescing copies nothing, the consumer sees one batch a
+map batch instead of one a partition, and a spilled map batch comes
+back once for the group.
 
 A partition the plan marks skewed (``numSkewedPartitions``) is read
 batch by batch, and a batch over the advisory size is halved by
@@ -31,14 +32,12 @@ from __future__ import annotations
 
 from typing import List
 
-from ..columnar.batch import GpuBatch
 from ..config import (ADAPTIVE_ADVISORY_BYTES, ADAPTIVE_COALESCE,
                       ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_THRESHOLD)
 from .base import ExecCtx, UnaryExec
 from .exchange import GpuShuffleExchangeExec
 
-__all__ = ["GpuAQEShuffleReadExec", "plan_partition_groups",
-           "merge_views"]
+__all__ = ["GpuAQEShuffleReadExec", "plan_partition_groups"]
 
 
 def plan_partition_groups(stats: List[int], advisory: int,
@@ -72,33 +71,6 @@ def plan_partition_groups(stats: List[int], advisory: int,
     if run:
         groups.append(("coalesced" if len(run) > 1 else "plain", run))
     return groups
-
-
-def merge_views(batches: List[GpuBatch]) -> List[GpuBatch]:
-    """Views of one batch (the same column objects and row count) merged
-    into one view whose live rows are the union of theirs, in order of
-    first appearance; other batches pass through."""
-    groups: List[List[GpuBatch]] = []
-    for b in batches:
-        for g in groups:
-            h = g[0]
-            if h.row_count == b.row_count \
-                    and len(h.columns) == len(b.columns) \
-                    and all(x is y for x, y in zip(h.columns, b.columns)):
-                g.append(b)
-                break
-        else:
-            groups.append([b])
-    out = []
-    for g in groups:
-        if len(g) == 1:
-            out.append(g[0])
-            continue
-        sel = g[0].live_mask()
-        for b in g[1:]:
-            sel = sel | b.live_mask()
-        out.append(GpuBatch(g[0].columns, g[0].schema, g[0].row_count, sel))
-    return out
 
 
 class GpuAQEShuffleReadExec(UnaryExec):
@@ -153,8 +125,7 @@ class GpuAQEShuffleReadExec(UnaryExec):
             for kind, members in groups:
                 if kind == "coalesced":
                     coalesced_m.value += len(members)
-                    yield from merge_views(
-                        [b for p in members for b in handle.read(p)])
+                    yield from handle.read_range(members[0], members[-1])
                     continue
                 if kind == "skewed":
                     skewed_m.value += 1

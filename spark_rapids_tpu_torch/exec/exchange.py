@@ -67,7 +67,11 @@ class ShuffleStageHandle:
         return self.transport.partition_stats(self.sid)
 
     def read(self, p: int):
-        yield from self.transport.read_partition(self.sid, p)
+        yield from self.transport.read_partitions(self.sid, p, p)
+
+    def read_range(self, first: int, last: int):
+        """Partitions ``first`` to ``last``, a batch a map batch."""
+        yield from self.transport.read_partitions(self.sid, first, last)
 
     def close(self):
         self.transport.unregister_shuffle(self.sid)

@@ -489,14 +489,18 @@ class SpillableBatch:
                     # a failed upload must not strand its charge
                     self._mgr._uncharge(self, self.nbytes)
                     raise
-                # an upload's batch may hold fewer bytes than the one
-                # charged (a selection compacted); the ledger keeps the
-                # registered size, as the reference's does
+                # the upload holds only the live rows (a selection was
+                # compacted at the download): the ledger holds what the
+                # card holds, so a later spill credits what it frees
+                # (the reference keeps the registered size)
                 self._device = device
                 self._host = None
+                now = device.device_size_bytes()
                 with self._mgr._lock:
                     self._mgr.host_bytes -= self.host_nbytes
                     self._mgr.readback_count += 1
+                    self._mgr.device_bytes += now - self.nbytes
+                self.nbytes = now
             self._mgr._touch(self)
             return self._device
 

@@ -64,7 +64,10 @@ def _prefix_diff(v: torch.Tensor, left, right) -> torch.Tensor:
 def _blocked_float_sum(v: torch.Tensor, left, right) -> torch.Tensor:
     """Float segment sums from block-local prefixes (the reference's
     ``blocked_float_sum``): an in-block segment's rounding error scales
-    with its block, not with the whole running total."""
+    with its block, not with the whole running total. A one-row segment
+    is its row's value, exact (the reference takes the prefix
+    difference), so merging partials that hold one row a group, round
+    after round, adds no rounding."""
     n = v.shape[0]
     k = min(_BLOCK, n)
     nb = -(-n // k)
@@ -82,7 +85,9 @@ def _blocked_float_sum(v: torch.Tensor, left, right) -> torch.Tensor:
     head = t[bl] - p_before
     mid = torch.where(br - bl >= 2, bt[(br - 1).clamp(0, nb - 1)] - bt[bl],
                       zero)
-    return torch.where(bl == br, p_last - p_before, head + mid + p_last)
+    return torch.where(right - left == 1, v[l],
+                       torch.where(bl == br, p_last - p_before,
+                                   head + mid + p_last))
 
 
 def _float_sum(vals: torch.Tensor, left, right) -> torch.Tensor:

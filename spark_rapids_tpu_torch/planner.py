@@ -51,7 +51,8 @@ import pyarrow as pa
 
 from .config import (ADAPTIVE_ENABLED, BATCH_SIZE_ROWS, EXPLAIN,
                      INCOMPATIBLE_OPS, SQL_ENABLED, RapidsConf)
-from .exec.base import ExecCtx, GpuExec, resolve_device
+from .exec.base import ExecCtx, GpuExec, collect_arrow, \
+    collect_arrow_cpu, resolve_device
 from .exec.transitions import DeviceToHostExec, HostToDeviceExec
 
 __all__ = ["NodeMeta", "PhysicalPlan", "GpuOverrides"]
@@ -165,10 +166,11 @@ class PhysicalPlan:
     def collect(self, ctx: Optional[ExecCtx] = None,
                 qctx=None) -> pa.Table:
         """Run the plan and return one Arrow table: the root's device
-        path, or its CPU path when the planner placed it on the CPU
-        (module docstring)."""
-        from .columnar.arrow_bridge import arrow_schema
+        path under the admission slot, or its CPU path when the planner
+        placed it on the CPU (module docstring). A ladder-exhausted OOM
+        reruns the plan on its CPU path."""
         from .lifecycle import LIFECYCLE_ENABLED, QueryContext
+        from .memory import TpuRetryOOM
         ctx = ctx or ExecCtx(self.conf, self.device)
         self.last_ctx = ctx
         if qctx is None:
@@ -178,34 +180,13 @@ class PhysicalPlan:
         ctx.qctx = qctx
         self.last_qctx = qctx
         try:
-            if self.root_on_device:
-                rbs = self._collect_device(ctx, qctx)
-            else:
-                rbs = self._collect_cpu(ctx)
-        finally:
-            # width-1 exclusivity must not outlive the query
-            if qctx is not None:
-                ctx.mm.admission.clear_exclusive(qctx.query_id)
-        return pa.Table.from_batches(
-            rbs, schema=arrow_schema(self.root.output_schema))
-
-    def _collect_device(self, ctx: ExecCtx, qctx) -> List:
-        """The device root under the admission slot; a ladder-exhausted
-        OOM reruns the plan on its CPU path."""
-        import time
-        from .columnar.arrow_bridge import device_to_arrow
-        from .memory import TpuRetryOOM
-        try:
-            t0 = time.perf_counter()
-            with ctx.mm.task_slot(qctx):
-                ctx.metric(self.root, "ledgerWaitTime").value += \
-                    time.perf_counter() - t0
-                rbs = [device_to_arrow(b) for b in self.root.execute(ctx)]
-        except TpuRetryOOM as oom:
-            ctx.discard_deferred()
-            ctx.run_cleanups()
-            if qctx is None or not oom.ladder_exhausted:
-                raise
+            if not self.root_on_device:
+                return collect_arrow_cpu(self.root, ctx)
+            try:
+                return collect_arrow(self.root, ctx)
+            except TpuRetryOOM as oom:
+                if qctx is None or not oom.ladder_exhausted:
+                    raise
             # the ladder's cpu rung (already counted by escalate): drop
             # the aborted attempt's per-operator counts, which the CPU
             # run counts again
@@ -214,25 +195,11 @@ class PhysicalPlan:
                              "numPartials", "numInputBatches"):
                     ms.pop(name, None)
             ctx.metric(self.root, "ladderCpuFallback").set(1)
-            return self._collect_cpu(ctx)
-        except BaseException:
-            ctx.discard_deferred()
-            ctx.run_cleanups()
-            raise
-        ctx.run_cleanups()
-        ctx.check_deferred()
-        return rbs
-
-    def _collect_cpu(self, ctx: ExecCtx) -> List:
-        try:
-            rbs = list(self.root.execute_cpu(ctx))
-        except BaseException:
-            ctx.discard_deferred()
-            ctx.run_cleanups()
-            raise
-        ctx.run_cleanups()
-        ctx.check_deferred()
-        return rbs
+            return collect_arrow_cpu(self.root, ctx)
+        finally:
+            # width-1 exclusivity must not outlive the query
+            if qctx is not None:
+                ctx.mm.admission.clear_exclusive(qctx.query_id)
 
 
 class GpuOverrides:

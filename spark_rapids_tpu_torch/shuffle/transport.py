@@ -5,12 +5,22 @@ Counterpart of ``spark_rapids_tpu/shuffle/transport.py:55-250``
 ``_MapEntry``, ``LocalShuffleTransport``): the seam between partition
 routing and how batches move. The local store keeps each map batch
 whole, with its partition ids as one more int32 lane (``_MapEntry``,
-``write_unsplit``); a read makes the partition's selection view of each
+``write_unsplit``); a read of a run of adjacent partitions (one, or a
+group the adaptive reader coalesces) makes one selection view of each
 map batch in map order, sharing the batch's buffers. With a memory
 manager attached (``set_memory_manager``, as the exchange does) each map
 batch is one ledger entry, lane included, that spills to the host and
 comes back as one, so a row keeps its partition. A one-partition stage
 stores the batch as it is, with no lane.
+
+A spill frees device memory only once nobody else holds the batch, and
+the writer's loop and the reader's consumer each hold the last batch
+handed to them while they ask for the next. So the entry handed over
+last stays pinned until the next hand-over of its stage
+(``_hand_over``): the ledger evicts the one before it, which its taker
+has let go, and a spill frees what it credits. A stage's read-back
+entries are read in one pass a partition group, one upload a map batch
+each.
 
 Writer-side statistics: with AQE on, the exchange hands the store each
 map batch's live rows per partition, a few int64s counted on the device
@@ -58,10 +68,8 @@ class FetchFailure(RuntimeError):
 
 
 class ShuffleWriteHandle:
-    """Writer for one map task's output."""
-
-    def write(self, partition_id: int, batch: GpuBatch) -> None:
-        raise NotImplementedError
+    """Writer for one map task's output. The exchange hands every map
+    batch over whole, so ``write_unsplit`` is the only write."""
 
     def write_unsplit(self, batch: GpuBatch,
                       pids: Optional[torch.Tensor]) -> None:
@@ -86,8 +94,10 @@ class ShuffleTransport:
     def writer(self, shuffle_id: int, map_id: int) -> ShuffleWriteHandle:
         raise NotImplementedError
 
-    def read_partition(self, shuffle_id: int,
-                       partition_id: int) -> Iterator[GpuBatch]:
+    def read_partitions(self, shuffle_id: int, first: int,
+                        last: int) -> Iterator[GpuBatch]:
+        """Partitions ``first`` to ``last`` in map order: a batch a map
+        batch, holding those partitions' rows."""
         raise NotImplementedError
 
     def unregister_shuffle(self, shuffle_id: int) -> None:
@@ -107,8 +117,9 @@ class _MapEntry:
     """One map batch and its partition-id lane as one spillable unit:
     the lane rides as an extra int32 column, so a spill's download
     (which compacts the live rows) keeps each row with its partition.
-    ``view(p)`` is partition p's selection view over the shared
-    buffers."""
+    ``view(first, last)`` is partitions first..last's selection view
+    over the shared buffers. Registered pinned: its writer still holds
+    the batch."""
 
     def __init__(self, mm, batch: GpuBatch, pids: Optional[torch.Tensor]):
         self._schema = batch.schema
@@ -123,16 +134,28 @@ class _MapEntry:
             pidcol = GpuColumnVector(dt.INT32, pids.to(torch.int32))
             ext = GpuBatch(list(batch.columns) + [pidcol], ext_schema,
                            batch.row_count, selection=batch.selection)
-        self._sb = mm.register(ext) if mm is not None else None
+        self._sb = mm.register(ext, pinned=True) if mm is not None \
+            else None
         self._raw = ext if mm is None else None
 
-    def view(self, partition_id: int) -> GpuBatch:
+    def view(self, first: int, last: int) -> GpuBatch:
         b = self._sb.get() if self._sb is not None else self._raw
         if not self._split:
             return b
         core = GpuBatch(b.columns[:-1], self._schema, b.row_count,
                         selection=b.selection)
-        return core.with_selection(b.columns[-1].data == partition_id)
+        lane = b.columns[-1].data
+        keep = lane == first if first == last \
+            else (lane >= first) & (lane <= last)
+        return core.with_selection(keep)
+
+    def pin(self):
+        if self._sb is not None:
+            self._sb.pin()
+
+    def unpin(self):
+        if self._sb is not None:
+            self._sb.unpin()
 
     def release(self):
         if self._sb is not None:
@@ -148,13 +171,11 @@ class _LocalWriter(ShuffleWriteHandle):
         self._mid = map_id
         self._counted = False
 
-    def write(self, partition_id: int, batch: GpuBatch) -> None:
-        self._transport._store(self._sid, partition_id, self._mid, batch)
-
     def write_unsplit(self, batch: GpuBatch,
                       pids: Optional[torch.Tensor]) -> None:
         entry = _MapEntry(self._transport._mm, batch, pids)
-        self._transport._store(self._sid, None, self._mid, entry)
+        self._transport._store(self._sid, self._mid, entry)
+        self._transport._hand_over(self._sid, entry)
 
     def record_counts(self, counts: torch.Tensor, nbytes: int) -> None:
         self._counted = True
@@ -176,9 +197,10 @@ class LocalShuffleTransport(ShuffleTransport):
 
     def __init__(self):
         self._mm = None
-        # shuffle -> partition -> [(map id, batch)]
-        self._shuffles: Dict[int, Dict[int, List[Tuple[int, GpuBatch]]]] \
-            = {}
+        # shuffle -> [(map id, map entry)]
+        self._shuffles: Dict[int, List[Tuple[int, _MapEntry]]] = {}
+        # shuffle -> the entry handed over last, pinned
+        self._held: Dict[int, _MapEntry] = {}
         self._nparts: Dict[int, int] = {}
         self._pending: Dict[int, List[Tuple[torch.Tensor, int]]] = {}
         self._stats: Dict[int, np.ndarray] = {}
@@ -187,15 +209,24 @@ class LocalShuffleTransport(ShuffleTransport):
 
     def register_shuffle(self, shuffle_id: int, num_partitions: int):
         with self._lock:
-            self._shuffles.setdefault(shuffle_id, {})
+            self._shuffles.setdefault(shuffle_id, [])
             self._nparts[shuffle_id] = num_partitions
 
     def writer(self, shuffle_id: int, map_id: int) -> ShuffleWriteHandle:
         return _LocalWriter(self, shuffle_id, map_id)
 
-    def _store(self, sid: int, p: int, map_id: int, batch: GpuBatch):
+    def _store(self, sid: int, map_id: int, entry: _MapEntry):
         with self._lock:
-            self._shuffles[sid].setdefault(p, []).append((map_id, batch))
+            self._shuffles[sid].append((map_id, entry))
+
+    def _hand_over(self, sid: int, entry: _MapEntry):
+        """``entry`` (pinned by its caller) is the stage's batch now in
+        its taker's hands; unpin the one handed over before it."""
+        with self._lock:
+            prev = self._held.get(sid)
+            self._held[sid] = entry
+        if prev is not None:
+            prev.unpin()
 
     def _record_counts(self, sid: int, counts: torch.Tensor, nbytes: int):
         with self._lock:
@@ -223,19 +254,8 @@ class LocalShuffleTransport(ShuffleTransport):
 
     def stage_bytes(self, shuffle_id: int) -> int:
         """Bytes the stage's map batches hold, from capacities (no sync,
-        no upload of a spilled entry); a map batch split into views
-        counts once."""
-        seen, total = set(), 0
-        for p, entries in self._shuffles.get(shuffle_id, {}).items():
-            for _, b in entries:
-                if p is None:
-                    total += b.nbytes
-                    continue
-                key = tuple(id(c) for c in b.columns)
-                if key not in seen:
-                    seen.add(key)
-                    total += sum(c.device_size_bytes() for c in b.columns)
-        return total
+        no upload of a spilled entry)."""
+        return sum(e.nbytes for _, e in self._shuffles.get(shuffle_id, []))
 
     def partition_stats(self, shuffle_id: int) -> Optional[List[int]]:
         """Approximate bytes per partition from the writer-side counts,
@@ -253,21 +273,21 @@ class LocalShuffleTransport(ShuffleTransport):
                 return [int(v) for v in self._stats[shuffle_id]]
         return None
 
-    def read_partition(self, shuffle_id: int, partition_id: int):
-        store = self._shuffles.get(shuffle_id, {})
-        for _, batch in sorted(store.get(partition_id, []),
-                               key=lambda e: e[0]):
-            yield batch
+    def read_partitions(self, shuffle_id: int, first: int, last: int):
         # each view made as it is read: a spilled entry comes back only
         # when its turn comes
-        for _, entry in sorted(store.get(None, []), key=lambda e: e[0]):
-            yield entry.view(partition_id)
+        for _, entry in sorted(self._shuffles.get(shuffle_id, []),
+                               key=lambda e: e[0]):
+            view = entry.view(first, last)
+            entry.pin()
+            self._hand_over(shuffle_id, entry)
+            yield view
 
     def unregister_shuffle(self, shuffle_id: int):
         with self._lock:
-            store = self._shuffles.pop(shuffle_id, None) or {}
-            for _, entry in store.get(None, []):
+            for _, entry in self._shuffles.pop(shuffle_id, None) or []:
                 entry.release()
+            self._held.pop(shuffle_id, None)
             self._nparts.pop(shuffle_id, None)
             self._pending.pop(shuffle_id, None)
             self._stats.pop(shuffle_id, None)

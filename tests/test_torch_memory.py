@@ -4,7 +4,8 @@ CPU, at small sizes (64-512 rows, budgets of a few KB):
 
 - spill round trips, device -> host -> sealed disk file -> device, of
   fixed-width, string, null, ``NullType``, lazily selected and empty
-  batches, equal to the original's download;
+  batches, equal to the original's download; an upload is charged its
+  own bytes (a selection's live rows), not the registered batch's;
 - for a scripted sequence of registrations, reads, pins and releases,
   the ledger's bytes and the LRU victims each step equal the
   reference's (the batches carry nulls in every column, where the two
@@ -135,6 +136,26 @@ def test_spill_round_trip_equals_the_original(tmp_path, kind, tier):
     assert (mm.device_bytes, mm.host_bytes, mm.disk_in_use_bytes) \
         == (0, 0, 0)
     assert mm.leak_report() == "no leaked catalog entries"
+
+
+def test_an_upload_is_charged_its_own_bytes(tmp_path):
+    """A spill downloads a selection's live rows only: the upload after
+    it holds fewer bytes than the batch registered, and the ledger
+    charges, and a later spill credits, what the card holds."""
+    mm = _port_mgr(tmp_path)
+    b = _kind_batch("selected")
+    sb = mm.register(b)
+    registered = sb.nbytes
+    del b
+    sb.spill(cascade=False)
+    again = sb.get()
+    assert sb.nbytes == again.device_size_bytes() < registered
+    assert mm.device_bytes == sb.nbytes
+    spilled = mm.spill_bytes
+    del again
+    sb.spill(cascade=False)
+    assert mm.spill_bytes - spilled == sb.nbytes and mm.device_bytes == 0
+    sb.release()
 
 
 def test_host_tier_cascades_to_disk_and_back(tmp_path):
