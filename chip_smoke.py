@@ -7,9 +7,11 @@ nested-loop joins (``tools/nds_joins.py``) and eight that need the
 per-operator CPU fallback (``tools/nds_fallback.py``) and five whose
 working set passes the device budget they run under
 (``tools/nds_memory.py``), through ``spark_rapids_tpu_torch``, with K1
-to K6 checked on the card.
+to K6 checked on the card, every plan checked by the static plan
+verifier, and the per-operator metrics (EXPLAIN ANALYZE, query profiles)
+held to the runs.
 
-    python3 chip_smoke.py [--memory-only] [--log FILE]
+    python3 chip_smoke.py [--memory-only | --opm-only] [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -93,22 +95,30 @@ Phases, any failure exits non-zero before the result line:
      GpuOverrides and PhysicalPlan.collect with device page decode on: at
      spark.sql.shuffle.partitions 1 a warm-up and 3 timed runs each
      (rows/s = store_sales rows over the median wall of collect, and ms a
-     query in collect; planning, sql + apply, is timed apart), then each
-     query once more at 16 partitions (the Murmur3 exchange and the
-     adaptive reader). Every result is held to the numpy/pyarrow oracle
-     (ints and strings exact, floats rel 1e-9, row order exact), every
+     query in collect; planning, sql + apply, is timed apart), the
+     warm-up and one more run after the first timed one under
+     spark.rapids.metrics.op.enabled=false (the per-operator accounting's
+     cost, printed in phase 12), then each query once at 16 partitions
+     (the Murmur3 exchange and the adaptive reader; no warm-up there).
+     Every result is held to the numpy/pyarrow oracle (ints and strings
+     exact, floats rel 1e-9, row order exact), every
      scan to deviceChunks = row groups x columns and 0 fallback chunks.
      The first timed run of each query and partition count also counts
      the K3, K4, K5 and K6 launches, held to what the plan implies
      (``_nds_expected``: operator by operator, string ranks included).
      Every run of phases 8-10 is at the default device budget and must
      leave the memory manager's spill bytes, readbacks and OOM retries
-     where they were (``_pressure_figures``);
+     where they were (``_pressure_figures``). Phases 8-11 plan with the
+     static plan verifier on (``spark.rapids.sql.verifyPlan``, the
+     default): each prints how many plans were verified and refused and
+     the median and largest host time of ``verify_plan``, and every text
+     of phases 8-10 verifies clean;
   9. NDS joins from SQL: the nine texts of
      ``spark_rapids_tpu_torch/tools/nds_joins.py`` (right and full
      outer joins, cross joins and the nested-loop join over the same
      files), each run as phase 8 runs a query and held to its oracle,
-     its scans to their chunks and its launches to ``_nds_expected``;
+     its scans to their chunks and its launches to ``_nds_expected``
+     (at 16 partitions with no warm-up, as phase 8);
      every plan of phases 4-9 has no node on the CPU
      (``fallback_nodes() == []``);
   10. NDS fallback: the eight texts of
@@ -131,7 +141,13 @@ Phases, any failure exits non-zero before the result line:
      bounded merge of 4M groups, the percentile's CPU reroute, q3's
      spilled map entries) under a 64 MiB device budget at 1 and 16
      partitions (q3 at 16), each beside the same text at the default
-     budget (which must spill nothing): rows held to the oracle, each
+     budget (which must spill nothing), each planned first with the
+     verifier on under the cut budget, its verdict printed with its
+     reasons, its estimate and the budget: a refusal must be
+     ``hbm_over_budget`` on a node whose ``resident_footprint()`` holds
+     (q_percentile's exact single pass), and a refused text then runs
+     with spark.rapids.sql.verifyPlan=false, as the reference's would:
+     rows held to the oracle, each
      path's own figure above 0, no catalog entry or ledger byte left,
      every spill's fall in torch.cuda.memory_allocated() as a share of
      the bytes the ledger credited printed by the site that registered
@@ -145,7 +161,23 @@ Phases, any failure exits non-zero before the result line:
      ledger byte or spill file, and memory_allocated() within
      CANCEL_MARGIN_BYTES of its value before (``--memory-only`` runs
      the build and this phase alone);
-  12. K1's kernels a call, counted in a profiler trace of one call (1),
+  12. per-operator metrics at full width: q3, q97, q_rank,
+     q_full_halves and q_outer_price at 1 and 16 partitions, each run
+     once through collect and EXPLAIN ANALYZE (``explain_analyze``) with
+     spark.rapids.history.dir set to a temporary directory and under
+     torch.cuda.set_sync_debug_mode("warn"), then once with
+     spark.rapids.metrics.op.enabled=false under the same mode: the
+     rows against the oracle, the root's rows the result's, every scan's
+     rows its file's times the paths that reach it, one op id a node,
+     cpuFallback on every node of a CPU island and on no device node,
+     every device stage's opTime stamped by a CUDA event (no wall-clock
+     or wedged stamp), the fused stages' opTime at least their
+     dispatchTime, one profile a run whose device_kind is the card's
+     name, and as many synchronizing calls with the op metrics off as
+     on; the top three operators by opTime printed, and phase 8's ms a
+     query with the op metrics on and off (``--opm-only`` runs the build
+     and this phase alone, without phase 8's figures);
+  13. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}; with ``--log FILE`` every line is also
@@ -192,13 +224,13 @@ def log(*a):
 
 
 def _args():
-    """``(memory_only, log path or None)`` from the command line."""
+    """``(memory_only, opm_only, log path or None)`` from the command
+    line."""
     args = sys.argv[1:]
-    memory_only = "--memory-only" in args
     path = None
     if "--log" in args:
         path = args[args.index("--log") + 1]
-    return memory_only, path
+    return "--memory-only" in args, "--opm-only" in args, path
 
 
 def phase_card():
@@ -1031,6 +1063,48 @@ def _nds_files():
     return tables, paths, chunks
 
 
+#: each text's oracle rows, by (oracle function, text), for phase 12
+ORACLES = {}
+
+#: by phase tag: the host seconds of each verified plan's verify_plan, and
+#: the plans the verifier refused
+VERIFY_STATS = {}
+
+
+def _apply(conf, device, node, tag, verify=True):
+    """``GpuOverrides.apply``, its verifier's host time recorded under
+    ``tag``; a refusal is counted and raised (``PlanVerificationError``).
+    With ``verify`` the plan must have been verified (the conf leaves
+    spark.rapids.sql.verifyPlan on)."""
+    from spark_rapids_tpu_torch.analysis.plan_verifier import \
+        PlanVerificationError
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    st = VERIFY_STATS.setdefault(tag, {"verify_s": [], "refused": 0})
+    try:
+        pp = GpuOverrides(conf, device).apply(node)
+    except PlanVerificationError:
+        st["refused"] += 1
+        raise
+    if verify:
+        if pp.verify_report is None or not pp.verify_report.ok:
+            raise AssertionError(f"[{tag}] a plan was not verified")
+        st["verify_s"].append(pp.verify_s)
+    return pp
+
+
+def _log_verifier(tag):
+    """The phase's verifier counts and verify_plan's host times."""
+    st = VERIFY_STATS.get(tag, {"verify_s": [], "refused": 0})
+    ms = [x * 1e3 for x in st["verify_s"]]
+    out = {"verified": len(ms), "refused": st["refused"],
+           "median_ms": statistics.median(ms) if ms else None,
+           "max_ms": max(ms) if ms else None}
+    log(f"[{tag}] verifier: {out['verified']} plans verified clean, "
+        f"{out['refused']} refused; verify_plan host time median "
+        f"{out['median_ms']!r} ms, max {out['max_ms']!r} ms")
+    return out
+
+
 def _transfer_times(metrics):
     """The transitions' summed ``downloadTime`` and ``uploadTime`` (s)."""
     out = {"downloadTime": 0.0, "uploadTime": 0.0}
@@ -1042,7 +1116,7 @@ def _transfer_times(metrics):
 
 
 def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
-                     warm=(True, True)):
+                     warm=(True, True), opm_off=False):
     """Each of ``corpus``'s queries (a module with ``QUERIES``,
     ``SQL_QUERIES``, ``oracle`` and ``FLOAT_COLUMNS``, and optionally
     ``CONF``, a query's conf, and ``FALLBACK``, its nodes on the CPU,
@@ -1052,10 +1126,13 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
     result held to the oracle, its placement to ``FALLBACK`` and its
     device scans to their chunks, and the first timed run's K3, K4, K5
     and K6 launches (the wrappers count them as they launch, at no cost)
-    to ``_nds_expected``."""
+    to ``_nds_expected``. Every plan is verified clean (``_apply``). With
+    ``opm_off``, the warm-up at 1 partition runs under
+    spark.rapids.metrics.op.enabled=false and one more such run follows
+    the first timed run: the summary's ``ms_opm_off``."""
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
-    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.obs.opmetrics import OP_METRICS_ENABLED
     from spark_rapids_tpu_torch.tools.nds_trace import counters
 
     tables, paths, chunks = files
@@ -1064,6 +1141,7 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
     wrappers = counters()
     for q in corpus.QUERIES:
         want = corpus.oracle(q, tables)
+        ORACLES[(corpus.oracle, q)] = want
         longest = _nds_longest(want)
         for parts, n_runs, warm_up in zip((1, 16), timed, warm):
             conf = dict(getattr(corpus, "CONF", {}).get(q, {}))
@@ -1074,16 +1152,18 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
             plan_times = []
             for _ in range(3):
                 t = time.perf_counter()
-                pp = GpuOverrides(s.conf, device).apply(
-                    s.sql(corpus.SQL_QUERIES[q])._node)
+                pp = _apply(s.conf, device,
+                            s.sql(corpus.SQL_QUERIES[q])._node, tag)
                 plan_times.append(time.perf_counter() - t)
             on_cpu = pp.fallback_nodes()
             if on_cpu != getattr(corpus, "FALLBACK", {}).get(q, []):
                 raise AssertionError(f"{q} p{parts}: nodes on the CPU "
                                      f"{on_cpu}")
 
-            def run():
-                ctx = ExecCtx(s.conf, device)
+            def run(off=False):
+                ctx = ExecCtx(s.conf.with_settings(
+                    {OP_METRICS_ENABLED.key: "false"}) if off else s.conf,
+                    device)
                 mem0 = _pressure_figures(ctx.mm)
                 t = time.perf_counter()
                 out = pp.collect(ctx)
@@ -1095,12 +1175,14 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
                                          f"budget's run moved {moved}")
                 return out, secs, ctx
 
+            off = opm_off and parts == 1
             if warm_up:
-                run()
+                run(off=off)
             for c in wrappers.values():
                 c.launches = 0
             runs = [run()]
             got = {c.__name__: c.launches for c in wrappers.values()}
+            off_times = [run(off=True)[1]] if off else []
             runs += [run() for _ in range(n_runs - 1)]
             times = [r[1] for r in runs]
             out, _, ctx = runs[0]
@@ -1123,6 +1205,10 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
                     metrics, "AQEShuffleReadExec", "numSkewedPartitions"),
                 "skew_splits": _op_metric(metrics, "AQEShuffleReadExec",
                                           "numSkewSplits")}
+            if off_times:
+                summary[f"{q}_p{parts}"].update(
+                    ms_opm_off=statistics.median(off_times) * 1e3,
+                    times_opm_off_s=off_times)
             log(f"[{tag}] {q} partitions={parts}: {NDS_SALES / med:.1f} "
                 f"rows/s, {med * 1e3:.3f} ms a query in collect (median "
                 f"of {[round(t, 6) for t in times]} s); planning "
@@ -1142,6 +1228,7 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
                 raise AssertionError(f"{q} p{parts}: launches {got}, "
                                      f"expected {implied}")
             launches[f"{q}_p{parts}"] = got
+    summary["verifier"] = _log_verifier(tag)
     log(f"[{tag}] phase took {time.perf_counter() - t_phase:.3f} s")
     return summary, launches
 
@@ -1154,12 +1241,16 @@ def phase_nds(device, files):
                              SQL_QUERIES=nds.SQL_QUERIES,
                              FLOAT_COLUMNS=nds.FLOAT_COLUMNS,
                              oracle=nds.oracle)
-    return _run_sql_queries(device, "nds", corpus, files)
+    # no warm-up at 16 partitions: the phase's time goes to the
+    # op-metrics-off runs at 1 (phase 12's on/off figures)
+    return _run_sql_queries(device, "nds", corpus, files,
+                            warm=(True, False), opm_off=True)
 
 
 def phase_nds_joins(device, files):
     from spark_rapids_tpu_torch.tools import nds_joins
-    return _run_sql_queries(device, "nds-joins", nds_joins, files)
+    return _run_sql_queries(device, "nds-joins", nds_joins, files,
+                            warm=(True, False))
 
 
 def phase_nds_fallback(device, files):
@@ -1398,13 +1489,13 @@ def _real_oom(device, paths, tables):
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
     from spark_rapids_tpu_torch.memory import DeviceMemoryManager
-    from spark_rapids_tpu_torch.planner import GpuOverrides
     q = "q_pivot"
     # no feeder thread: nothing else allocates while the limit is cut
     s = nds.session_over_files(paths, {"spark.sql.shuffle.partitions": "1",
                                        "spark.rapids.sql.scan.uploadThreads":
                                        "0"}, device)
-    pp = GpuOverrides(s.conf, device).apply(s.sql(nds.SQL_QUERIES[q])._node)
+    pp = _apply(s.conf, device, s.sql(nds.SQL_QUERIES[q])._node,
+                "nds-memory")
     orig = DeviceMemoryManager.with_retry
     total = torch.cuda.get_device_properties(device).total_memory
     state = {"depth": 0, "calls": 0, "needs": [], "cut_at": None,
@@ -1475,11 +1566,11 @@ def _ladder(device, paths, tables):
     the CPU rerun's rows held to the oracle."""
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
-    from spark_rapids_tpu_torch.planner import GpuOverrides
     conf = {"spark.sql.shuffle.partitions": "1",
             "spark.rapids.sql.test.injectRetryOOM.storm": str(LADDER_STORM)}
     s = nds.session_over_files(paths, conf, device)
-    pp = GpuOverrides(s.conf, device).apply(s.sql(nds.SQL_QUERIES["q3"])._node)
+    pp = _apply(s.conf, device, s.sql(nds.SQL_QUERIES["q3"])._node,
+                "nds-memory")
     ctx = ExecCtx(s.conf, device)
     t = time.perf_counter()
     out = pp.collect(ctx)
@@ -1509,14 +1600,14 @@ def _deadline(device, paths, spill_root):
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
     from spark_rapids_tpu_torch.lifecycle import QueryCancelled
-    from spark_rapids_tpu_torch.planner import GpuOverrides
     from spark_rapids_tpu_torch.tools import nds_memory as nm
     conf = dict(nm.conf_for("q_sales_sorted", nm.CHIP_BUDGET))
     conf.update({"spark.sql.shuffle.partitions": "1",
                  "spark.rapids.memory.spillDir": spill_root,
                  "spark.rapids.query.deadline": str(DEADLINE_S)})
     s = nds.session_over_files(paths, conf, device)
-    pp = GpuOverrides(s.conf, device).apply(s.sql(nds.SQL_QUERIES["q97"])._node)
+    pp = _apply(s.conf, device, s.sql(nds.SQL_QUERIES["q97"])._node,
+                "nds-memory")
     gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1560,13 +1651,59 @@ def _deadline(device, paths, spill_root):
     return out
 
 
+def _find_node(root, label):
+    stack = [root]
+    while stack:
+        n = stack.pop()
+        if n.node_label() == label:
+            return n
+        stack.extend(n.children)
+    raise AssertionError(f"no node {label}")
+
+
+def _plan_under_budget(session, device, node, q, parts):
+    """Plan a memory text under its cut budget with the verifier on. A
+    refusal must name only ``hbm_over_budget``, each on a node whose
+    ``resident_footprint()`` holds; the text is then planned with
+    spark.rapids.sql.verifyPlan=false, as the reference's run would be.
+    Returns the plan and the verdict (printed)."""
+    from spark_rapids_tpu_torch.analysis.plan_verifier import (
+        PlanVerificationError, verify_plan)
+    from spark_rapids_tpu_torch.config import VERIFY_PLAN
+    try:
+        pp = _apply(session.conf, device, node, "nds-memory")
+        rep = pp.verify_report
+    except PlanVerificationError as e:
+        rep = e.report
+        pp = _apply(session.conf.with_settings({VERIFY_PLAN.key: "false"}),
+                    device, node, "nds-memory", verify=False)
+        # the same pass over the plan that runs, to find its nodes
+        again = verify_plan(pp.root, session.conf, device)
+        if rep.reasons() != ["hbm_over_budget"] \
+                or again.reasons() != ["hbm_over_budget"] \
+                or not all(_find_node(pp.root, v.op).resident_footprint()
+                           for v in again.violations):
+            raise AssertionError(f"{q} p{parts}: refused for "
+                                 f"{rep.summary()}")
+    verdict = {"ok": rep.ok, "reasons": rep.reasons(),
+               "violations": [v.to_dict() for v in rep.violations],
+               "hbm_estimate_bytes": rep.hbm_estimate_bytes,
+               "hbm_budget_bytes": rep.hbm_budget_bytes}
+    log(f"[nds-memory] {q} partitions={parts} verifier under the "
+        f"{rep.hbm_budget_bytes}-byte budget: "
+        + ("verified clean" if rep.ok else
+           f"refused {rep.reasons()} ({rep.summary()}); run with "
+           "spark.rapids.sql.verifyPlan=false")
+        + f"; estimate {rep.hbm_estimate_bytes} bytes")
+    return pp, verdict
+
+
 def phase_nds_memory(device, files, skew_witness=None):
     """Phase 11 (module docstring): the memory texts under their budgets
     at 1 and 16 partitions beside the default budget, a real OOM, the
     ladder and a deadline."""
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
-    from spark_rapids_tpu_torch.planner import GpuOverrides
     from spark_rapids_tpu_torch.tools import nds_memory as nm
     from spark_rapids_tpu_torch.tools.nds_trace import counters
 
@@ -1584,10 +1721,10 @@ def phase_nds_memory(device, files, skew_witness=None):
             s0 = nds.session_over_files(paths, base, device)
             sb = nds.session_over_files(paths, dict(base, **nm.CONF[q]),
                                         device)
-            pp0 = GpuOverrides(s0.conf, device).apply(
-                s0.sql(nm.SQL_QUERIES[q])._node)
-            pp = GpuOverrides(sb.conf, device).apply(
-                sb.sql(nm.SQL_QUERIES[q])._node)
+            pp0 = _apply(s0.conf, device, s0.sql(nm.SQL_QUERIES[q])._node,
+                         "nds-memory")
+            pp, verdict = _plan_under_budget(
+                sb, device, sb.sql(nm.SQL_QUERIES[q])._node, q, parts)
             # the default budget first (it warms the text up), then the
             # cut budget, counted
             ctx0 = ExecCtx(s0.conf, device)
@@ -1637,6 +1774,7 @@ def phase_nds_memory(device, files, skew_witness=None):
             key = f"{q}_p{parts}"
             summary[key] = {"ms": secs * 1e3, "default_budget_ms":
                             free_s * 1e3, "max_rel_err": rel,
+                            "verdict": verdict,
                             "budget_bytes": nm.CHIP_BUDGET, "figures": fig,
                             "ledger": mem, "skewed_partitions": skewed,
                             "skew_splits": splits,
@@ -1659,7 +1797,8 @@ def phase_nds_memory(device, files, skew_witness=None):
         + ", ".join(f"{k} freed at least {v}" for k, v in
                     sorted(SPILL_FREED_SHARES.items()))
         + " of the bytes the ledger credited in memory_allocated()")
-    if not any(v["skewed_partitions"] for v in summary.values()):
+    if not any(v["skewed_partitions"] for v in summary.values()
+               if "skewed_partitions" in v):
         log("[nds-memory] no text of this phase trips the skew rule; the "
             "skew split's witness on the card is phase 10's "
             f"{SKEW_WITNESS}"
@@ -1671,19 +1810,229 @@ def phase_nds_memory(device, files, skew_witness=None):
     summary["real_oom"] = _real_oom(device, paths, tables)
     summary["ladder"] = _ladder(device, paths, tables)
     summary["deadline"] = _deadline(device, paths, spill_root)
+    summary["verifier"] = _log_verifier("nds-memory")
     summary["crc32c"] = crc
     summary["spill_freed_share_floors"] = SPILL_FREED_SHARES
     log(f"[nds-memory] phase took {time.perf_counter() - t_phase:.3f} s")
     return summary, launches
 
 
+# --- phase 12: per-operator metrics ------------------------------------------
+
+#: the texts phase 12 analyses, by corpus module name
+OPM_QUERIES = (("q3", "nds"), ("q97", "nds"), ("q_rank", "nds"),
+               ("q_full_halves", "nds_joins"),
+               ("q_outer_price", "nds_fallback"))
+
+
+def _corpus_module(name):
+    import importlib
+    if name == "nds":
+        return importlib.import_module("spark_rapids_tpu_torch.nds")
+    return importlib.import_module(f"spark_rapids_tpu_torch.tools.{name}")
+
+
+def _preorder(root):
+    """Every node once, pre-order (an aliased subtree once)."""
+    out, seen = [], set()
+
+    def walk(n):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        out.append(n)
+        for c in n.children:
+            walk(c)
+
+    walk(root)
+    return out
+
+
+def _placement(root, root_on_device):
+    """Each node's side: on the device, or in a CPU island (the
+    transitions switch it)."""
+    from spark_rapids_tpu_torch.exec.transitions import (DeviceToHostExec,
+                                                         HostToDeviceExec)
+    side = {}
+
+    def walk(node, on_device):
+        side[id(node)] = on_device
+        if isinstance(node, DeviceToHostExec):
+            on_device = True
+        elif isinstance(node, HostToDeviceExec):
+            on_device = False
+        for c in node.children:
+            walk(c, on_device)
+
+    walk(root, root_on_device)
+    return side
+
+
+def _sync_calls(run):
+    """``run()`` under torch.cuda.set_sync_debug_mode("warn"): its result
+    and how many synchronizing calls it made."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
+    return out, n
+
+
+def _check_analyzed(q, parts, pp, ctx, out, files, card):
+    """Phase 12's assertions on one analysed run (module docstring)."""
+    import re
+
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.obs.opmetrics import (fold_ctx,
+                                                      read_profiles,
+                                                      top_op_sinks)
+    _, paths, _ = files
+    folded = fold_ctx(ctx)
+    nodes = _preorder(pp.root)
+    ids = [n._op_id for n in nodes]
+    if len(set(ids)) != len(ids) or None in ids:
+        raise AssertionError(f"{q} p{parts}: op ids {ids}")
+    text = pp.explain_analyze()
+    if sorted(set(int(i) for i in re.findall(r"\(op(\d+)\)", text))) \
+            != sorted(ids):
+        raise AssertionError(f"{q} p{parts}: EXPLAIN ANALYZE ids\n{text}")
+
+    def metrics(n):
+        return folded.get(f"op{n._op_id}", {}).get("metrics", {})
+
+    if metrics(pp.root).get("rows") != out.num_rows:
+        raise AssertionError(f"{q} p{parts}: root rows "
+                             f"{metrics(pp.root).get('rows')}, result "
+                             f"{out.num_rows}")
+    uses = _node_uses(pp.root)
+    for n in nodes:
+        if n.pretty_name() == "FileScanExec":
+            want = uses[id(n)] * sum(pq.ParquetFile(p).metadata.num_rows
+                                     for p in n.paths)
+            if metrics(n).get("rows") != want:
+                raise AssertionError(f"{q} p{parts}: {n.node_label()} rows "
+                                     f"{metrics(n).get('rows')}, files "
+                                     f"{want}")
+    side = _placement(pp.root, pp.root_on_device)
+    for n in nodes:
+        flagged = metrics(n).get("cpuFallback") == 1
+        if flagged == side[id(n)] and metrics(n).get("batches"):
+            raise AssertionError(f"{q} p{parts}: {n.node_label()} on the "
+                                 f"{'device' if side[id(n)] else 'CPU'}, "
+                                 f"cpuFallback {flagged}")
+    island = [n.node_label() for n in nodes if not side[id(n)]]
+    stamps = dict(ctx.opm.stamps)
+    if stamps["wall"] or stamps["wedged"] or not stamps["event"]:
+        raise AssertionError(f"{q} p{parts}: stage stamps {stamps}")
+    stage_op = sum(metrics(n).get("opTime", 0.0) for n in nodes
+                   if "dispatchTime" in metrics(n))
+    stage_disp = sum(metrics(n).get("dispatchTime", 0.0) for n in nodes)
+    if not stage_op >= stage_disp > 0:
+        raise AssertionError(f"{q} p{parts}: fused stages' opTime "
+                             f"{stage_op}, dispatchTime {stage_disp}")
+    profiles = read_profiles(pp.conf.get("spark.rapids.history.dir"))
+    if len(profiles) != 1 or profiles[0][1]["device_kind"] != card \
+            or profiles[0][0] != pp.last_profile_path:
+        raise AssertionError(f"{q} p{parts}: profiles "
+                             f"{[(p, d['device_kind']) for p, d in profiles]}")
+    top = top_op_sinks(folded, 3)
+    return {"stamps": stamps, "stage_op_ms": stage_op * 1e3,
+            "stage_dispatch_ms": stage_disp * 1e3, "island": island,
+            "top": top, "nodes": len(nodes), "text": text}
+
+
+def phase_opmetrics(device, files, card, smi, nds_summary):
+    """Phase 12 (module docstring)."""
+    import tempfile
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.obs.opmetrics import OP_METRICS_ENABLED
+    tables, paths, _ = files
+    t_phase = time.perf_counter()
+    summary = {}
+    for q, corpus_name in OPM_QUERIES:
+        corpus = _corpus_module(corpus_name)
+        want = ORACLES.get((corpus.oracle, q))
+        if want is None:
+            want = corpus.oracle(q, tables)
+        for parts in (1, 16):
+            conf = dict(getattr(corpus, "CONF", {}).get(q, {}))
+            conf["spark.sql.shuffle.partitions"] = str(parts)
+            with tempfile.TemporaryDirectory() as hist:
+                s = nds.session_over_files(
+                    paths, dict(conf, **{"spark.rapids.history.dir": hist}),
+                    device)
+                pp = _apply(s.conf, device,
+                            s.sql(corpus.SQL_QUERIES[q])._node, "opm")
+                ctx = ExecCtx(s.conf, device)
+                t = time.perf_counter()
+                out, n_on = _sync_calls(lambda: pp.collect(ctx))
+                secs = time.perf_counter() - t
+                rel = _rows_equal(q, out, want, corpus.FLOAT_COLUMNS[q])
+                rec = _check_analyzed(q, parts, pp, ctx, out, files, card)
+            s_off = nds.session_over_files(
+                paths, dict(conf, **{OP_METRICS_ENABLED.key: "false"}),
+                device)
+            pp_off = _apply(s_off.conf, device,
+                            s_off.sql(corpus.SQL_QUERIES[q])._node, "opm")
+            ctx_off = ExecCtx(s_off.conf, device)
+            out_off, n_off = _sync_calls(lambda: pp_off.collect(ctx_off))
+            _rows_equal(q, out_off, want, corpus.FLOAT_COLUMNS[q])
+            if n_on != n_off or [k for ms in ctx_off.metrics.values()
+                                 for k in ms if k in ("rows", "batches")]:
+                raise AssertionError(f"{q} p{parts}: {n_on} synchronizing "
+                                     f"calls with op metrics on, {n_off} "
+                                     "off")
+            text = rec.pop("text")
+            log(f"[opm] {q} partitions={parts}: EXPLAIN ANALYZE "
+                f"({secs * 1e3:.3f} ms in collect with the sync debug "
+                f"mode on; rows equal to the oracle, max rel err "
+                f"{rel:.3e}):\n" + text)
+            top = ", ".join(f"{t['op']} {t['time_s'] * 1e3:.3f} ms "
+                            f"({t['rows']} rows)" for t in rec["top"])
+            log(f"[opm] {q} partitions={parts}: top operators by opTime: "
+                f"{top}; fused stages' opTime {rec['stage_op_ms']:.3f} ms, "
+                f"dispatchTime {rec['stage_dispatch_ms']:.3f} ms; stage "
+                f"stamps {rec['stamps']}; CPU island {rec['island']}; "
+                f"synchronizing calls {n_on} with op metrics on, {n_off} "
+                f"off; one profile, device_kind {card!r}")
+            summary[f"{q}_p{parts}"] = dict(
+                rec, ms_sync_debug=secs * 1e3, sync_calls_on=n_on,
+                sync_calls_off=n_off, max_rel_err=rel)
+    if nds_summary is not None:
+        onoff = {q: (nds_summary[f"{q}_p1"]["ms"],
+                     nds_summary[f"{q}_p1"]["ms_opm_off"])
+                 for q in nds.PORTED_QUERIES}
+        on_total = sum(a for a, _ in onoff.values())
+        off_total = sum(b for _, b in onoff.values())
+        log(f"[opm] phase 8 at 1 partition, ms a query in collect with "
+            f"spark.rapids.metrics.op.enabled on (median of 3) / off (one "
+            f"run, after the first timed run), on {card} ({smi}): "
+            + ", ".join(f"{q} {a:.3f} / {b:.3f}"
+                        for q, (a, b) in onoff.items())
+            + f"; summed {on_total:.3f} / {off_total:.3f}")
+        summary["phase8_ms_on_off"] = onoff
+    summary["verifier"] = _log_verifier("opm")
+    log(f"[opm] phase took {time.perf_counter() - t_phase:.3f} s")
+    return summary
+
+
 def main():
     global _log_file
-    memory_only, log_path = _args()
+    memory_only, opm_only, log_path = _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
         _log_file = open(log_path, "w")
+        import atexit
+        atexit.register(_log_file.close)
     name, count, smi = phase_card()
     device = torch.device("cuda", 0)
     phase_build()
@@ -1691,6 +2040,11 @@ def main():
         # a quick check of phase 11 alone; the full run takes no argument
         summary, _ = phase_nds_memory(device, _nds_files())
         log("[nds-memory] " + json.dumps(summary, sort_keys=True))
+        return
+    if opm_only:
+        # a quick check of phase 12 alone
+        summary = phase_opmetrics(device, _nds_files(), name, smi, None)
+        log("[opm] " + json.dumps(summary, sort_keys=True))
         return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
@@ -1706,6 +2060,7 @@ def main():
     fb_summary, fb_launches = phase_nds_fallback(device, nds_files)
     mem_summary, mem_launches = phase_nds_memory(
         device, nds_files, fb_summary[SKEW_WITNESS])
+    opm_summary = phase_opmetrics(device, nds_files, name, smi, nds_summary)
     per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
@@ -1721,6 +2076,7 @@ def main():
     log("[nds-joins] " + json.dumps(joins_summary, sort_keys=True))
     log("[nds-fallback] " + json.dumps(fb_summary, sort_keys=True))
     log("[nds-memory] " + json.dumps(mem_summary, sort_keys=True))
+    log("[opm] " + json.dumps(opm_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]

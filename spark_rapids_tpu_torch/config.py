@@ -110,7 +110,7 @@ VERIFY_PLAN = register(
     "propagation, exchange co-partitioning, AQE-wrapper "
     "well-formedness, a static HBM footprint estimate vs the memory "
     "ledger budget) and rejected with a named reason instead of "
-    "failing mid-query. See spark_rapids_tpu/analysis/plan_verifier.py.")
+    "failing mid-query. See analysis/plan_verifier.py.")
 
 STAGE_FUSION = register(
     "spark.rapids.sql.stageFusion.enabled", True,

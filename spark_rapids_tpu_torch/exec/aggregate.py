@@ -229,6 +229,11 @@ class GpuHashAggregateExec(UnaryExec):
     def expressions(self):
         return list(self.group_exprs) + list(self.aggs)
 
+    def resident_footprint(self):
+        # a percentile's single pass concatenates the whole input on the
+        # device before its group sort (the reference's ``:104``)
+        return any(getattr(a, "single_pass", False) for a in self.aggs)
+
     def gpu_supported_conf(self, conf: RapidsConf) -> Optional[str]:
         """A float aggregate's result can vary with the order of its
         additions; under ``spark.rapids.sql.variableFloatAgg.enabled=

@@ -34,7 +34,7 @@ from typing import List
 
 from ..config import (ADAPTIVE_ADVISORY_BYTES, ADAPTIVE_COALESCE,
                       ADAPTIVE_SKEW_FACTOR, ADAPTIVE_SKEW_THRESHOLD)
-from .base import ExecCtx, UnaryExec
+from .base import ExecCtx, OpContract, UnaryExec
 from .exchange import GpuShuffleExchangeExec
 
 __all__ = ["GpuAQEShuffleReadExec", "plan_partition_groups"]
@@ -75,6 +75,12 @@ def plan_partition_groups(stats: List[int], advisory: int,
 
 class GpuAQEShuffleReadExec(UnaryExec):
     """Adaptive reader over a shuffle exchange (module docstring)."""
+
+    CONTRACT = OpContract(
+        schema_preserving=True,
+        wrapper_over="GpuShuffleExchangeExec",
+        notes="planner-inserted adaptive reader; only valid directly "
+              "over a shuffle exchange")
 
     def __init__(self, child: GpuShuffleExchangeExec):
         if not isinstance(child, GpuShuffleExchangeExec):

@@ -1,9 +1,9 @@
 """Physical operator layer.
 
-Counterpart of ``spark_rapids_tpu/exec/base.py:80-200,290-450,486-592,
-595-726``: ``GpuMetric``, a slim ``ExecCtx``, ``GpuExec`` with
-``LeafExec``/``UnaryExec``, the two batch sources, ``fused_batches``,
-``collect_arrow`` and ``collect_arrow_cpu``. Every operator's
+Counterpart of ``spark_rapids_tpu/exec/base.py``: ``OpContract``,
+``GpuMetric``, ``ExecCtx``, ``GpuExec`` with ``LeafExec``/``UnaryExec``,
+the two batch sources, ``fused_batches``, ``collect_arrow`` and
+``collect_arrow_cpu``. Every operator's
 ``execute(ctx)`` yields device ``GpuBatch``es on ``ctx.device``.
 
 Every operator also has the reference's CPU path, ``execute_cpu(ctx)``,
@@ -28,15 +28,27 @@ The ``ExecCtx`` carries the conf, the eval ctx, the device, the
 metrics, the deferred device checks (a flag on the device, raised at the
 query's download rather than read back when it is made), the query's
 cleanups, the process's memory manager (``mm``, ``memory.py``: ledger,
-spill catalog, admission, split-and-retry) and the query's lifecycle
-context (``qctx``, ``lifecycle.py``), as the reference's ``:99-160``.
-Every operator's ``execute`` and ``execute_cpu`` is wrapped
-(``__init_subclass__``) with the cancellation check at each batch
-(``:212-275``); ``fused_batches`` runs each fused stage under
-``mm.with_retry`` (``:577-590``) and ``collect_arrow`` holds the
-admission slot, its wait in ``ledgerWaitTime`` (``:693-716``). The
-tracer, the flight recorder and the per-operator metrics collector are
-ROADMAP item 15.
+spill catalog, admission, split-and-retry), the query's lifecycle
+context (``qctx``, ``lifecycle.py``) and the per-operator metrics
+collector (``opm``, ``obs/opmetrics.py``), as the reference's
+``:99-160``. Every operator's ``execute`` and ``execute_cpu`` is wrapped
+(``__init_subclass__``) with one shim (``:201-290``): the cancellation
+check at each batch, and rows, batches and output bytes under the node's
+label (``cpuFallback`` on the CPU path), each batch counted once where an
+``execute`` delegates to ``super()`` or runs a copy of its node.
+``fused_batches`` runs each fused stage under ``mm.with_retry``
+(``:577-590``), its launch time in ``dispatchTime`` and its ``opTime``
+to the device's completion, stamped by a CUDA event
+(``_record_stage_time``, ``:468-483``); ``collect_arrow`` holds the
+admission slot, its wait in ``ledgerWaitTime``, and finalizes the
+metrics at the download (``:693-716``).
+
+The static contract the plan verifier checks (``analysis/
+plan_verifier.py``) lives here too: ``OpContract`` and the instance
+hooks ``expected_output_schema``, ``expr_bindings``,
+``resident_footprint`` and ``static_bytes_estimate`` (``:37-78,
+336-390``), overridden by the operators that declare more. The tracer
+and the flight recorder are ROADMAP item 15's rest.
 """
 from __future__ import annotations
 
@@ -56,8 +68,9 @@ from ..config import STAGE_FUSION, RapidsConf
 from ..expr.base import EvalCtx
 
 __all__ = ["ExecCtx", "GpuMetric", "GpuExec", "LeafExec", "UnaryExec",
-           "HostBatchSourceExec", "DeviceBatchSourceExec", "collect_arrow",
-           "collect_arrow_cpu", "fused_batches", "resolve_device"]
+           "HostBatchSourceExec", "DeviceBatchSourceExec", "OpContract",
+           "collect_arrow", "collect_arrow_cpu", "fused_batches",
+           "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -79,6 +92,27 @@ def resolve_device(device=None) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class OpContract:
+    """An operator class's static contract, which the plan verifier
+    checks before execution (the reference's ``:37-78``); the checks
+    that need an instance's data are the hooks on ``GpuExec``."""
+
+    #: the output schema is the (first) child's, field for field; a
+    #: field's nullability may only widen
+    schema_preserving: bool = False
+    #: the whole input is resident on the device at once, with no
+    #: out-of-core path: the static byte estimate is held to the budget
+    resident_footprint: bool = False
+    #: children that are both shuffle exchanges agree on partitioning
+    #: scheme and partition count
+    requires_copartition: bool = False
+    #: a planner-inserted wrapper: the child's class name
+    wrapper_over: Optional[str] = None
+    #: a one-line note
+    notes: str = ""
 
 
 class GpuMetric:
@@ -107,6 +141,7 @@ class ExecCtx:
 
     def __init__(self, conf: Optional[RapidsConf] = None, device=None):
         from ..memory import DeviceMemoryManager
+        from ..obs.opmetrics import OpMetricsCollector
         self.conf = conf or RapidsConf()
         self.device = resolve_device(device)
         self.eval_ctx = EvalCtx(
@@ -114,6 +149,9 @@ class ExecCtx:
             timezone=self.conf.get("spark.sql.session.timeZone"))
         self.metrics: Dict[str, Dict[str, GpuMetric]] = {}
         self.stage_fusion = self.conf.get(STAGE_FUSION)
+        # per-operator accounting: the execute shims feed it, the
+        # collect roots finalize it at their download
+        self.opm = OpMetricsCollector(self.conf)
 
         self.deferred_checks: List[Tuple[torch.Tensor, str]] = []
         # the process's ledger for this device: concurrent queries share
@@ -142,7 +180,8 @@ class ExecCtx:
 
     def host_ctx(self) -> "ExecCtx":
         """The ctx a CPU island runs under: the same conf, metrics,
-        deferred checks, cleanups and lifecycle context, device ``cpu``,
+        metrics collector, deferred checks, cleanups and lifecycle
+        context, device ``cpu``,
         a host eval ctx and the host ledger (``DeviceMemoryManager
         .host()``)."""
         if self.device.type == "cpu" and self.eval_ctx.host:
@@ -193,24 +232,58 @@ class ExecCtx:
                 "deferred device checks failed:\n  " + "\n  ".join(bad))
 
 
-def _checked(fn):
-    """An operator's ``execute`` or ``execute_cpu`` with the cooperative
-    cancellation check at each batch it yields (one attribute read when
-    the query has no lifecycle context)."""
-    if getattr(fn, "_checked", False):
+def _shimmed(fn, cpu: bool):
+    """An operator's ``execute`` (``cpu`` False) or ``execute_cpu``
+    with the cooperative cancellation check at each batch and the
+    per-operator accounting (the reference's ``_count_execute`` and
+    ``_count_execute_cpu``): batches and rows under the node's label,
+    output bytes on the device path, ``cpuFallback`` on the CPU path. A
+    device batch's live rows under a selection stay on the device until
+    the collector's ``finalize``. When a shim of the same label is
+    already counting (an ``execute`` that delegates to ``super()``, a
+    copy of the node run inside its own execution) the inner frame
+    passes through."""
+    if getattr(fn, "_shimmed", False):
         return fn
 
     def run(self, ctx):
         qx = getattr(ctx, "qctx", None)
-        if qx is None:
-            yield from fn(self, ctx)
-            return
-        qx.check()
-        for b in fn(self, ctx):
+        opm = getattr(ctx, "opm", None)
+        claim = None
+        if opm is not None and opm.enabled and self._COUNTED:
+            claim = opm.enter(self)
+        if claim is None:
+            if qx is None:
+                yield from fn(self, ctx)
+                return
             qx.check()
-            yield b
+            for b in fn(self, ctx):
+                qx.check()
+                yield b
+            return
+        rows_m = ctx.metric(self, "rows")
+        batches_m = ctx.metric(self, "batches")
+        if cpu:
+            ctx.metric(self, "cpuFallback").set(1)
+        else:
+            bytes_m = ctx.metric(self, "outputBytes")
+        try:
+            if qx is not None:
+                qx.check()
+            for b in fn(self, ctx):
+                if qx is not None:
+                    qx.check()
+                batches_m.value += 1
+                if cpu:
+                    rows_m.value += b.num_rows
+                else:
+                    opm.count_rows(rows_m, b)
+                    bytes_m.value += b.device_size_bytes()
+                yield b
+        finally:
+            opm.exit(self, claim)
 
-    run._checked = True
+    run._shimmed = True
     run.__wrapped__ = fn
     run.__doc__ = fn.__doc__
     run.__name__ = fn.__name__
@@ -224,17 +297,24 @@ class GpuExec:
 
     _label_counter = 0
 
+    #: False on the engine's internal leaves (a CPU island's inputs),
+    #: which are not plan nodes and keep no metrics
+    _COUNTED = True
+
+    #: the class's static contract (``OpContract``); operators override
+    CONTRACT: OpContract = OpContract()
+
     def __init__(self):
         GpuExec._label_counter += 1
         self._label_id = GpuExec._label_counter
 
     def __init_subclass__(cls, **kw):
-        # every operator's own execute/execute_cpu gets the cancellation
-        # check, as the reference's shims (``:300-309``)
+        # every operator's own execute/execute_cpu gets the shim, as the
+        # reference's (``:300-309``)
         super().__init_subclass__(**kw)
-        for name in ("execute", "execute_cpu"):
+        for name, cpu in (("execute", False), ("execute_cpu", True)):
             if name in cls.__dict__:
-                setattr(cls, name, _checked(cls.__dict__[name]))
+                setattr(cls, name, _shimmed(cls.__dict__[name], cpu))
 
     @property
     def output_schema(self) -> dt.Schema:
@@ -245,8 +325,47 @@ class GpuExec:
         return n[3:] if n.startswith("Gpu") else n
 
     def node_label(self) -> str:
-        """Metric label: the class name and a process-local counter."""
+        """Metric label: ``<Op>#op<N>`` once the planner stamped a stable
+        id (``obs/opmetrics.assign_op_ids``: it survives copies, pickles
+        and runs of the plan), else the process-local counter."""
+        oid = getattr(self, "_op_id", None)
+        if oid is not None:
+            return f"{self.pretty_name()}#op{oid}"
         return f"{self.pretty_name()}#{self._label_id}"
+
+    # --- static contract (the plan verifier) --------------------------------
+
+    @classmethod
+    def contract(cls) -> OpContract:
+        return cls.CONTRACT
+
+    def expected_output_schema(self) -> Optional[dt.Schema]:
+        """The output schema derived from the current children, for an
+        operator whose cached schema depends on them (join, union,
+        window); the verifier compares it with ``output_schema``. None
+        when the schema is a function of the node's own bound
+        expressions, which ``expr_bindings`` covers."""
+        return None
+
+    def expr_bindings(self) -> Sequence[Tuple[object, dt.Schema]]:
+        """``(expression, input schema)`` pairs: the schema each bound
+        expression resolves against. By default every ``expressions()``
+        tree binds against the first child's schema."""
+        if not self.children:
+            return ()
+        schema = self.children[0].output_schema
+        return [(e, schema) for e in self.expressions()]
+
+    def resident_footprint(self) -> bool:
+        """The instance's residency, where it depends on the node's
+        functions (the aggregate's single pass)."""
+        return self.contract().resident_footprint
+
+    def static_bytes_estimate(self) -> Optional[int]:
+        """A leaf's byte estimate for the verifier's footprint pass
+        (host batches exactly, files by their sizes); None when
+        unknown."""
+        return None
 
     def device_fn(self):
         """The per-batch function ``(GpuBatch, EvalCtx) -> GpuBatch`` when
@@ -317,6 +436,25 @@ class GpuExec:
         return self.tree_string()
 
 
+def _record_stage_time(ctx: ExecCtx, metric: Optional[GpuMetric],
+                       t0: float) -> None:
+    """A fused stage's ``opTime`` from its host start ``t0`` to the
+    device's completion (the reference's ``:468-483``). On the card the
+    collector records a CUDA event after the stage's launches and its
+    watcher measures when the event completes, with no sync on this
+    thread; a CPU context, and the card with op metrics off, add the
+    wall time here."""
+    if metric is None:
+        return
+    opm = ctx.opm
+    if ctx.device.type != "cuda":
+        opm.add_wall_time(metric, t0, "cpu")
+    elif opm.enabled:
+        opm.defer_stage_time(metric, t0, ctx.device)
+    else:
+        opm.add_wall_time(metric, t0, "wall")
+
+
 def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
                   metric: Optional[GpuMetric] = None) \
         -> Iterator[GpuBatch]:
@@ -334,7 +472,12 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
     device (``fused_scan_execute``), the scan runs the chain right after
     each batch's K5 decode, on the same stream. With
     ``spark.rapids.sql.stageFusion.enabled`` off every operator runs on
-    its own."""
+    its own.
+
+    Each stage's launch time goes to the consumer's ``dispatchTime``
+    and its time to the device's completion to ``metric``
+    (``_record_stage_time``); every fused node, and a spliced scan,
+    records the consumer's id in ``fusedInto``."""
     node = consumer.children[0]
     chain = []
     if ctx.stage_fusion:
@@ -348,7 +491,11 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
     if not fns:
         yield from node.execute(ctx)
         return
+    oid = getattr(consumer, "_op_id", None) or consumer._label_id
+    for n in chain:
+        ctx.metric(n, "fusedInto").set(oid)
     ctx.metric(consumer, "fusedChainOps").set(len(fns))
+    dispatch_m = ctx.metric(consumer, "dispatchTime")
     run = None
     if tail_fn is not None:
         run = consumer.fused_chain_fn(chain, ctx)
@@ -358,18 +505,22 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
                 b = f(b, ectx)
             return b
 
-    def timed(b, ectx):
+    def spliced(b, ectx):
         t0 = time.perf_counter()
         out = run(b, ectx)
-        if metric is not None:
-            metric.value += time.perf_counter() - t0
+        dispatch_m.value += time.perf_counter() - t0
+        _record_stage_time(ctx, metric, t0)
         return out
 
     def retried(b, ectx):
         # split-and-retry on device OOM: the stage reruns over the
         # batch's halves, each half's result its own stream item
-        return ctx.mm.with_retry(b, lambda bb: timed(bb, ectx),
+        t0 = time.perf_counter()
+        outs = ctx.mm.with_retry(b, lambda bb: run(bb, ectx),
                                  qctx=ctx.qctx)
+        dispatch_m.value += time.perf_counter() - t0
+        _record_stage_time(ctx, metric, t0)
+        return outs
 
     # scan-rooted splice: a leaf that decodes on the device runs the chain
     # right after each batch's decode (no split-and-retry there); it
@@ -377,14 +528,21 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
     # its budget
     scan_fused = getattr(node, "fused_scan_execute", None)
     gen = None if scan_fused is None or not ctx.stage_fusion \
-        else scan_fused(ctx, timed)
-    if gen is None:
+        else scan_fused(ctx, spliced)
+    if gen is not None:
+        ctx.metric(node, "fusedInto").set(oid)
+    else:
         gen = (out for b in node.execute(ctx)
                for out in retried(b, ctx.eval_ctx))
     try:
         yield from gen
     finally:
         gen.close()
+
+
+# the default CPU path lives on the base class, which __init_subclass__
+# does not see: an operator that inherits it is shimmed all the same
+GpuExec.execute_cpu = _shimmed(GpuExec.execute_cpu, True)
 
 
 class LeafExec(GpuExec):
@@ -395,6 +553,8 @@ class _HostInputExec(LeafExec):
     """A CPU island's input: ``child.execute_cpu`` under the outer ctx
     (a device subtree below a ``DeviceToHostExec`` runs there as
     planned), each Arrow batch put into CPU tensors."""
+
+    _COUNTED = False
 
     def __init__(self, child: GpuExec, outer: ExecCtx):
         super().__init__()
@@ -414,6 +574,8 @@ class _HostInputExec(LeafExec):
 class _ArrowSourceExec(LeafExec):
     """A leaf over an iterable of Arrow batches, consumed once (an
     operator's CPU run over input it already drew from the device)."""
+
+    _COUNTED = False
 
     def __init__(self, batches, schema: dt.Schema):
         super().__init__()
@@ -464,6 +626,9 @@ class HostBatchSourceExec(LeafExec):
     def output_schema(self):
         return self._schema
 
+    def static_bytes_estimate(self):
+        return sum(rb.nbytes for rb in self.batches)
+
     def _normalized(self) -> Iterator[pa.RecordBatch]:
         target = arrow_schema(self._schema)
         for rb in self.batches:
@@ -499,6 +664,9 @@ class DeviceBatchSourceExec(LeafExec):
     def output_schema(self):
         return self._schema
 
+    def static_bytes_estimate(self):
+        return sum(b.device_size_bytes() for b in self.batches)
+
     def execute(self, ctx):
         yield from self.batches
 
@@ -511,7 +679,8 @@ def collect_arrow(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
         -> pa.Table:
     """Run the plan on the device under an admission slot (its wait in
     the root's ``ledgerWaitTime``) and download the result as one Arrow
-    table; the deferred device checks are read at the download."""
+    table; the deferred device checks and the per-operator metrics are
+    read at the download, and a failed run drops both."""
     ctx = ctx or ExecCtx()
     try:
         t0 = time.perf_counter()
@@ -521,10 +690,12 @@ def collect_arrow(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
             batches = [device_to_arrow(b) for b in plan.execute(ctx)]
     except BaseException:
         ctx.discard_deferred()
+        ctx.opm.discard()
         raise
     finally:
         ctx.run_cleanups()
     ctx.check_deferred()
+    ctx.opm.finalize()
     return pa.Table.from_batches(batches,
                                  schema=arrow_schema(plan.output_schema))
 
@@ -533,16 +704,18 @@ def collect_arrow_cpu(plan: GpuExec, ctx: Optional[ExecCtx] = None) \
         -> pa.Table:
     """Run the plan's CPU path (``execute_cpu`` at the root) and return
     one Arrow table; device subtrees under a ``DeviceToHostExec`` run on
-    ``ctx.device``, and the deferred device checks are read at the
-    end."""
+    ``ctx.device``, and the deferred device checks and the per-operator
+    metrics are read at the end."""
     ctx = ctx or ExecCtx()
     try:
         batches = list(plan.execute_cpu(ctx))
     except BaseException:
         ctx.discard_deferred()
+        ctx.opm.discard()
         raise
     finally:
         ctx.run_cleanups()
     ctx.check_deferred()
+    ctx.opm.finalize()
     return pa.Table.from_batches(batches,
                                  schema=arrow_schema(plan.output_schema))

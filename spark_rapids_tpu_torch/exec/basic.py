@@ -12,7 +12,7 @@ from typing import List, Sequence
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch
 from ..expr.base import Expression, bind_expr
-from .base import ExecCtx, GpuExec, UnaryExec, fused_batches
+from .base import ExecCtx, GpuExec, OpContract, UnaryExec, fused_batches
 
 __all__ = ["GpuProjectExec", "GpuFilterExec", "output_schema_for",
            "bind_all"]
@@ -64,6 +64,11 @@ class GpuProjectExec(UnaryExec):
 
 class GpuFilterExec(UnaryExec):
     """Lazy boolean filter: a selection mask plus ``validity &= keep``."""
+
+    CONTRACT = OpContract(
+        schema_preserving=True,
+        notes="output rows are a subset of the input; schema passes "
+              "through unchanged")
 
     def __init__(self, condition: Expression, child: GpuExec):
         super().__init__(child)

@@ -15,6 +15,11 @@ transport. The map side streams the child's batches through
   also counts each partition's live rows on the device for the adaptive
   reader's statistics.
 
+The map side counts the rows it partitions under the exchange's label
+for the operator metrics (the reference's ``:229-248``): the adaptive
+reader drives it through ``materialize``, which its execute shim does
+not see.
+
 The local transport gets the query's memory manager
 (``set_memory_manager``, the reference's ``:205-211``): each map batch is
 one ledger entry, its partition lane with it, that spills under
@@ -46,7 +51,7 @@ from ..config import ADAPTIVE_ENABLED, BATCH_SIZE_BYTES, SHUFFLE_MODE
 from ..ops.concat import concat_batches_bounded
 from ..shuffle.partitioner import Partitioning
 from ..shuffle.transport import LocalShuffleTransport, ShuffleTransport
-from .base import ExecCtx, GpuExec, UnaryExec, fused_batches
+from .base import ExecCtx, GpuExec, OpContract, UnaryExec, fused_batches
 
 __all__ = ["GpuShuffleExchangeExec", "ShuffleStageHandle",
            "GpuCoalesceBatchesExec"]
@@ -79,6 +84,11 @@ class ShuffleStageHandle:
 
 class GpuShuffleExchangeExec(UnaryExec):
     """Repartition the child's output by a ``Partitioning``."""
+
+
+    CONTRACT = OpContract(
+        schema_preserving=True,
+        notes="repartitions rows; partition keys must be primitive")
 
     def __init__(self, partitioning: Partitioning, child: GpuExec,
                  transport: Optional[ShuffleTransport] = None):
@@ -138,11 +148,20 @@ class GpuShuffleExchangeExec(UnaryExec):
         else:
             def tail(batch, ectx):
                 return self._split_tail(batch, ectx, record)
+        # the map side counts the rows it partitions (the reference's
+        # ``:229-248``): the adaptive reader drives the exchange through
+        # materialize, not execute, whose shim would count them; the
+        # claim keeps an execute above from counting twice
+        opm = ctx.opm
+        claim = opm.enter(self) if opm.enabled else None
+        rows_m = ctx.metric(self, "rows") if claim is not None else None
         try:
             for map_id, (batch, pids, counts) in enumerate(fused_batches(
                     self, ctx, tail_fn=tail,
                     metric=ctx.metric(self, "opTime"))):
                 batches_m += 1
+                if rows_m is not None:
+                    opm.count_rows(rows_m, batch)
                 t0 = time.perf_counter()
                 writer = transport.writer(sid, map_id)
                 writer.write_unsplit(batch, pids)
@@ -154,6 +173,9 @@ class GpuShuffleExchangeExec(UnaryExec):
             # a failed or cancelled map phase leaves no ledger entry
             transport.unregister_shuffle(sid)
             raise
+        finally:
+            if claim is not None:
+                opm.exit(self, claim)
         return ShuffleStageHandle(transport, sid, n)
 
     def execute(self, ctx: ExecCtx):
@@ -168,6 +190,11 @@ class GpuShuffleExchangeExec(UnaryExec):
 class GpuCoalesceBatchesExec(UnaryExec):
     """Concatenate small batches up to ``target_rows`` rows and
     ``spark.rapids.sql.batchSizeBytes`` (module docstring)."""
+
+
+    CONTRACT = OpContract(
+        schema_preserving=True,
+        notes="concatenates small batches; row values unchanged")
 
     def __init__(self, child: GpuExec, target_rows: int = 1 << 17):
         super().__init__(child)

@@ -92,7 +92,7 @@ from ..ops.join import (JOIN_TYPES, build_dup_flag, join_counts,
                         unique_build_analysis, unique_build_probe,
                         unique_union_lookup)
 from ..ops.sort_keys import check_key_type
-from .base import ExecCtx, GpuExec
+from .base import ExecCtx, GpuExec, OpContract
 from .basic import bind_all
 
 __all__ = ["GpuShuffledHashJoinExec", "GpuCartesianProductExec",
@@ -214,6 +214,23 @@ class _BaseJoinExec(GpuExec):
         out = list(self.left_keys) + list(self.right_keys)
         return out + ([self.condition] if self.condition is not None
                       else [])
+
+    def expected_output_schema(self):
+        return _join_output_schema(self.left.output_schema,
+                                   self.right.output_schema,
+                                   self.join_type)
+
+    def expr_bindings(self):
+        # left keys bind against the left child, right keys against the
+        # right, the condition against both sides' columns as they are
+        # now (not the cached _cond_schema)
+        out = [(k, self.left.output_schema) for k in self.left_keys]
+        out += [(k, self.right.output_schema) for k in self.right_keys]
+        if self.condition is not None:
+            cond = dt.Schema(list(self.left.output_schema.fields)
+                             + list(self.right.output_schema.fields))
+            out.append((self.condition, cond))
+        return out
 
     def gpu_supported(self) -> Optional[str]:
         if self.condition is not None \
@@ -587,6 +604,12 @@ class GpuShuffledHashJoinExec(_BaseJoinExec):
     """Shuffled hash join (``GpuShuffledHashJoinExec``): the local join
     core. SQL's comma joins plan it with no exchange below, as the
     reference's compiler does."""
+
+    CONTRACT = OpContract(
+        requires_copartition=True,
+        notes="children that are both shuffle exchanges must agree on "
+              "partitioning scheme and partition count; join keys must "
+              "be primitive")
 
 
 class GpuCartesianProductExec(_BaseJoinExec):

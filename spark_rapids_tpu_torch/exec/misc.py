@@ -41,6 +41,22 @@ class GpuUnionExec(GpuExec):
     def output_schema(self):
         return self._schema
 
+    def expected_output_schema(self):
+        # the widths and types first: a rebuilt child narrower than the
+        # first raises here, which the verifier names schema_mismatch
+        first = self.children[0].output_schema
+        for c in self.children[1:]:
+            if c.output_schema.types != first.types:
+                raise TypeError(
+                    f"union children schemas differ: {first.types} vs "
+                    f"{c.output_schema.types}")
+        return dt.Schema([
+            dt.StructField(
+                f.name, f.dtype,
+                any(c.output_schema.fields[i].nullable
+                    for c in self.children))
+            for i, f in enumerate(first.fields)])
+
     def describe(self):
         return f"UnionExec [{len(self.children)} children]"
 

@@ -43,7 +43,7 @@ from ..ops.concat import concat_batches_bounded
 from ..ops.gather import ensure_compacted, gather_batch
 from ..ops.sort_keys import (SortSpec, _key_lanes, check_key_type,
                              pack_words, sort_packed, sort_permutation)
-from .base import ExecCtx, GpuExec, UnaryExec
+from .base import ExecCtx, GpuExec, OpContract, UnaryExec
 
 __all__ = ["SortOrder", "GpuSortExec", "GpuLocalLimitExec",
            "GpuGlobalLimitExec", "sort_batch_by"]
@@ -79,6 +79,10 @@ def sort_batch_by(batch: GpuBatch, orders: Sequence[SortOrder],
 
 class GpuSortExec(UnaryExec):
     """Total sort (``global_sort``, the default) or per-batch sort."""
+
+    CONTRACT = OpContract(
+        schema_preserving=True,
+        notes="reorders rows only; sort keys must be primitive")
 
     def __init__(self, orders: Sequence[SortOrder], child: GpuExec,
                  global_sort: bool = True):
@@ -245,6 +249,9 @@ class GpuLocalLimitExec(UnaryExec):
     """Per-stream limit: each batch's row count cut to the rows still
     allowed (a batch with a selection is compacted first); the stream
     stops once the limit is reached."""
+
+    CONTRACT = OpContract(schema_preserving=True,
+                          notes="truncates the stream; schema unchanged")
 
     def __init__(self, limit: int, child: GpuExec):
         super().__init__(child)

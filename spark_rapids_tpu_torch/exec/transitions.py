@@ -12,7 +12,7 @@ from __future__ import annotations
 import time
 
 from ..columnar.arrow_bridge import arrow_to_device, device_to_arrow
-from .base import ExecCtx, UnaryExec
+from .base import ExecCtx, OpContract, UnaryExec
 
 __all__ = ["DeviceToHostExec", "HostToDeviceExec"]
 
@@ -20,6 +20,9 @@ __all__ = ["DeviceToHostExec", "HostToDeviceExec"]
 class DeviceToHostExec(UnaryExec):
     """A device child feeding a CPU island: ``execute_cpu`` downloads the
     child's batches as Arrow, each batch's lazy selection applied."""
+
+    CONTRACT = OpContract(schema_preserving=True,
+                          notes="device->host transition; values unchanged")
 
     def execute(self, ctx: ExecCtx):
         # the planner puts this node under CPU parents only: a device
@@ -43,6 +46,9 @@ class HostToDeviceExec(UnaryExec):
     """A CPU island feeding a device parent: ``execute`` uploads the
     child's Arrow batches to ``ctx.device``, string offsets and chars
     as they are."""
+
+    CONTRACT = OpContract(schema_preserving=True,
+                          notes="host->device transition; values unchanged")
 
     def execute(self, ctx: ExecCtx):
         t = ctx.metric(self, "uploadTime")

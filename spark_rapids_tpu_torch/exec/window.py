@@ -323,6 +323,11 @@ class GpuWindowExec(UnaryExec):
     def output_schema(self):
         return self._schema
 
+    def expected_output_schema(self):
+        wfields = [dt.StructField(n, we.dtype, we.nullable)
+                   for we, n in zip(self.win_exprs, self.win_names)]
+        return dt.Schema(list(self.child.output_schema.fields) + wfields)
+
     def describe(self):
         ws = "; ".join(f"{we!r} AS {n}"
                        for we, n in zip(self.win_exprs, self.win_names))

@@ -450,6 +450,11 @@ class ApproxPercentile(AggregateFunction):
     # stride
     _MASS_SCALE = 1 << 42
 
+    # the exact path's preference (the reference's ``single_pass``): the
+    # plan verifier counts the aggregate as device-resident; the exec
+    # consults the conf for the path it takes
+    single_pass = True
+
     def __init__(self, child: Expression, percentage,
                  accuracy: int = 10000):
         self.children = (child,)

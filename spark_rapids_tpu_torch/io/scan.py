@@ -46,6 +46,10 @@ in ``fused_batches`` under split-and-retry; and the consumer checks the
 query's cancellation a batch (``:1025,1117``). A spill victim chosen on
 the feeder thread was made on the consumer's stream (the blob, made on
 the side stream, is pinned), so its download waits for it there.
+A scan spliced into its consumer's stage counts its own output rows,
+batches and bytes for the operator metrics, which its execute shim
+would count on any other path; ``static_bytes_estimate`` (the files'
+sizes, the reference's ``:505``) is the plan verifier's estimate.
 A scan the planner places on the CPU (``execute_cpu``, the reference's
 ``:1138-1163`` with ``_align``) yields pyarrow's batches in the same
 split order, cast to its schema, and touches no device. Column pruning,
@@ -55,6 +59,7 @@ ORC/CSV/JSON/Hive-text formats wait (ROADMAP items 5 and 12).
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import queue
 import threading
 import time
@@ -258,6 +263,14 @@ class GpuFileScanExec(LeafExec):
     @property
     def output_schema(self):
         return self._schema
+
+    def static_bytes_estimate(self):
+        """The files' sizes: the plan verifier's estimate of the scan's
+        bytes (the reference's ``:505``)."""
+        try:
+            return sum(os.path.getsize(p) for p in self.paths)
+        except OSError:
+            return None
 
     def describe(self):
         return f"FileScanExec [parquet x{len(self.paths)}]"
@@ -540,6 +553,13 @@ class GpuFileScanExec(LeafExec):
         # K5 on the same stream
         programs_m = ctx.metric(self, "scanPrograms")
         fused_m = ctx.metric(self, "fusedDispatches")
+        # a spliced scan is not run through its execute shim: it counts
+        # its own output (the decoded batches) for the operator metrics
+        counted = chain is not None and ctx.opm.enabled
+        if counted:
+            out_rows_m = ctx.metric(self, "rows")
+            out_batches_m = ctx.metric(self, "batches")
+            out_bytes_m = ctx.metric(self, "outputBytes")
         tasks = self._device_rg_tasks(conf)
         if not tasks:
             return
@@ -627,6 +647,10 @@ class GpuFileScanExec(LeafExec):
                 decoded = bool(layout.device_names)
                 if decoded or chain is not None:
                     programs_m.value += 1
+                if counted:
+                    out_rows_m.value += layout.n_rows
+                    out_batches_m.value += 1
+                    out_bytes_m.value += batch.device_size_bytes()
                 if chain is not None:
                     if decoded:
                         fused_m.value += 1

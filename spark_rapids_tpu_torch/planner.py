@@ -25,6 +25,15 @@ the exception, and both are about memory: the degradation ladder's CPU
 rung below, and an exact percentile's input over half the budget
 (``exec/aggregate.py``).
 
+``GpuOverrides.apply`` then runs the static plan verifier on the
+rebuilt tree while ``spark.rapids.sql.verifyPlan`` is on (the default;
+``analysis/plan_verifier.py``, the reference's ``_verify``,
+``:469-483``) and raises ``PlanVerificationError``, its ``report``
+attached, before any kernel runs; the report and the verifier's host
+time stay on the plan (``verify_report``, ``verify_s``). Then it stamps
+every node with a stable pre-order operator id (``assign_op_ids``,
+``:509-511``), which the metric labels carry.
+
 ``PhysicalPlan.collect(ctx, qctx)`` (the reference's ``:163-321``)
 gives the query a ``QueryContext`` from the conf while
 ``spark.rapids.lifecycle.enabled`` is on (the default), runs
@@ -34,23 +43,25 @@ checks of the device subtrees under it. A ``TpuRetryOOM`` that climbed
 the whole degradation ladder reruns the plan on ``execute_cpu`` after
 dropping the aborted attempt's deferred checks and per-operator counts,
 with ``ladderCpuFallback`` set on the root; at the end the query's
-width-1 claim is cleared.
+width-1 claim is cleared. The run's ctx and wall time stay on the plan
+(``last_ctx``, ``last_wall_s``): ``explain_analyze()`` renders the tree
+with each operator's metrics (EXPLAIN ANALYZE, ``:359-372``), and with
+``spark.rapids.history.dir`` set each query writes one profile
+(``_write_profile``, ``:340-357``).
 ``fallback_nodes()`` names every node placed on the CPU, and
 ``explain`` renders the placement (``ALL`` or ``NOT_ON_GPU``). The
-static plan verifier (``analysis/plan_verifier.py``;
-``spark.rapids.sql.verifyPlan`` is not honoured yet) is ROADMAP item
-12's other half. Operator ids, the query profile and the telemetry
-bracket wait for item 15.
+telemetry bracket waits for ROADMAP item 15.
 """
 from __future__ import annotations
 
 import sys
+import time
 from typing import List, Optional, Sequence
 
 import pyarrow as pa
 
 from .config import (ADAPTIVE_ENABLED, BATCH_SIZE_ROWS, EXPLAIN,
-                     INCOMPATIBLE_OPS, SQL_ENABLED, RapidsConf)
+                     INCOMPATIBLE_OPS, SQL_ENABLED, VERIFY_PLAN, RapidsConf)
 from .exec.base import ExecCtx, GpuExec, collect_arrow, \
     collect_arrow_cpu, resolve_device
 from .exec.transitions import DeviceToHostExec, HostToDeviceExec
@@ -129,11 +140,17 @@ class PhysicalPlan:
     runs on."""
 
     def __init__(self, root: GpuExec, meta: NodeMeta, conf: RapidsConf,
-                 device=None):
+                 device=None, source: str = "plan"):
         self.root = root
         self.meta = meta
         self.conf = conf
         self.device = device
+        self.source = source
+        self.verify_report = None
+        self.verify_s = 0.0
+        self.last_ctx: Optional[ExecCtx] = None
+        self.last_wall_s: Optional[float] = None
+        self.last_profile_path: Optional[str] = None
 
     @property
     def root_on_device(self) -> bool:
@@ -170,7 +187,6 @@ class PhysicalPlan:
         placed it on the CPU (module docstring). A ladder-exhausted OOM
         reruns the plan on its CPU path."""
         from .lifecycle import LIFECYCLE_ENABLED, QueryContext
-        from .memory import TpuRetryOOM
         ctx = ctx or ExecCtx(self.conf, self.device)
         self.last_ctx = ctx
         if qctx is None:
@@ -179,27 +195,63 @@ class PhysicalPlan:
             qctx = QueryContext.from_conf(self.conf)
         ctx.qctx = qctx
         self.last_qctx = qctx
+        t0 = time.perf_counter()
         try:
-            if not self.root_on_device:
-                return collect_arrow_cpu(self.root, ctx)
-            try:
-                return collect_arrow(self.root, ctx)
-            except TpuRetryOOM as oom:
-                if qctx is None or not oom.ladder_exhausted:
-                    raise
-            # the ladder's cpu rung (already counted by escalate): drop
-            # the aborted attempt's per-operator counts, which the CPU
-            # run counts again
-            for ms in ctx.metrics.values():
-                for name in ("numOutputRows", "numOutputBatches",
-                             "numPartials", "numInputBatches"):
-                    ms.pop(name, None)
-            ctx.metric(self.root, "ladderCpuFallback").set(1)
-            return collect_arrow_cpu(self.root, ctx)
+            out = self._collect(ctx, qctx)
         finally:
             # width-1 exclusivity must not outlive the query
             if qctx is not None:
                 ctx.mm.admission.clear_exclusive(qctx.query_id)
+        self.last_wall_s = time.perf_counter() - t0
+        self._write_profile(ctx, self.last_wall_s)
+        return out
+
+    def _collect(self, ctx: ExecCtx, qctx) -> pa.Table:
+        from .memory import TpuRetryOOM
+        if not self.root_on_device:
+            return collect_arrow_cpu(self.root, ctx)
+        try:
+            return collect_arrow(self.root, ctx)
+        except TpuRetryOOM as oom:
+            if qctx is None or not oom.ladder_exhausted:
+                raise
+        # the ladder's cpu rung (already counted by escalate): drop the
+        # aborted attempt's per-operator counts, which the CPU run counts
+        # again (its deferred checks and row counts went at the failure)
+        for ms in ctx.metrics.values():
+            for name in ("numOutputRows", "numOutputBatches",
+                         "numPartials", "numInputBatches", "rows",
+                         "batches", "outputBytes"):
+                ms.pop(name, None)
+        ctx.metric(self.root, "ladderCpuFallback").set(1)
+        return collect_arrow_cpu(self.root, ctx)
+
+    def _write_profile(self, ctx: ExecCtx, wall_s: float) -> None:
+        """One query-profile JSON under ``spark.rapids.history.dir``
+        (nothing when it is unset); a write that fails leaves
+        ``last_profile_path`` None and the query's result stands."""
+        from .obs.opmetrics import (HISTORY_DIR, build_profile, fold_ctx,
+                                    write_profile)
+        if not self.conf.get(HISTORY_DIR):
+            return
+        doc = build_profile(
+            self.root, fold_ctx(ctx), wall_s, source=self.source,
+            cluster="local", conf=self.conf, device=ctx.device,
+            extra={"fallbacks": self.fallback_nodes()})
+        self.last_profile_path = write_profile(self.conf, doc)
+
+    def explain_analyze(self, formatted: bool = False) -> str:
+        """The EXPLAIN ANALYZE text of the last ``collect()``: the
+        executed tree, each node with its id and its rows, batches,
+        times, spill and decode counters (``obs/opmetrics.py``)."""
+        from .obs.opmetrics import fold_ctx, render_analyzed
+        ctx = self.last_ctx
+        if ctx is None:
+            return self.explain("ALL") + \
+                "\n(no metrics: run collect() first)"
+        return render_analyzed(self.root, fold_ctx(ctx),
+                               wall_s=self.last_wall_s,
+                               formatted=formatted, cluster="local")
 
 
 class GpuOverrides:
@@ -244,10 +296,34 @@ class GpuOverrides:
             children.append(built)
         return meta.node.with_new_children(children)
 
+    def _verify(self, root: GpuExec):
+        """The static contract pass over the rebuilt tree (transitions
+        and adaptive readers included): ``(report or None, host
+        seconds)``; a plan that breaks a contract raises
+        ``PlanVerificationError`` before any kernel runs."""
+        from .analysis.plan_verifier import (PlanVerificationError,
+                                             report_rejection, verify_plan)
+        if not self.conf.get(VERIFY_PLAN):
+            return None, 0.0
+        t0 = time.perf_counter()
+        report = verify_plan(root, self.conf, self.device)
+        secs = time.perf_counter() - t0
+        if not report.ok:
+            report_rejection(self.conf, report, root)
+            raise PlanVerificationError(report)
+        return report, secs
+
     def apply(self, plan: GpuExec) -> PhysicalPlan:
+        from .obs.opmetrics import assign_op_ids, plan_source
         meta = self._wrap(plan)
         self._tag(meta)
-        pp = PhysicalPlan(self._convert(meta), meta, self.conf, self.device)
+        root = self._convert(meta)
+        report, secs = self._verify(root)
+        # stable operator ids: the metric labels survive copies and runs
+        assign_op_ids(root, force=True)
+        pp = PhysicalPlan(root, meta, self.conf, self.device,
+                          source=plan_source(plan))
+        pp.verify_report, pp.verify_s = report, secs
         mode = self.conf.get(EXPLAIN)
         if mode in ("ALL", "NOT_ON_GPU"):
             text = pp.explain(mode)

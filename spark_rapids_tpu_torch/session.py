@@ -12,8 +12,9 @@ A grouped aggregation is planned as Spark plans it: a hash exchange over
 analyzer widens mixed numeric operands with ``Cast`` (``_analyze``), as
 the reference's does. ``union`` is UNION ALL; ``sample``,
 ``explode``, ``write`` and ``pivot`` raise ``NotImplementedError`` naming
-their items; the process cluster and EXPLAIN ANALYZE wait for items 16
-and 15.
+their items; the process cluster waits for item 16. ``sql("EXPLAIN
+ANALYZE [FORMATTED] ...")`` runs the query in process and returns the
+plan annotated with each operator's metrics (``:452-463``).
 
 ``DataFrame.cache()`` is the reference's ``TpuCacheExec`` (``:30-70``):
 the child runs once into spill-catalog entries, which later runs replay
@@ -30,8 +31,8 @@ import pyarrow as pa
 
 from . import datatypes as dt
 from .config import CASE_SENSITIVE, SHUFFLE_PARTITIONS, RapidsConf
-from .exec.base import (ExecCtx, GpuExec, HostBatchSourceExec, UnaryExec,
-                        resolve_device)
+from .exec.base import (ExecCtx, GpuExec, HostBatchSourceExec, OpContract,
+                        UnaryExec, resolve_device)
 from .expr.base import Expression, UnresolvedColumn, bind_expr
 
 __all__ = ["GpuSession", "DataFrame", "GroupedData", "GpuCacheExec"]
@@ -42,6 +43,10 @@ class GpuCacheExec(UnaryExec):
     catalog entries and every later run replays them; the CPU path
     keeps up to ``_CPU_CACHE_LIMIT`` bytes of Arrow batches, past which
     it runs the child again each time."""
+
+    CONTRACT = OpContract(
+        schema_preserving=True,
+        notes="materializes once into the spill catalog and replays")
 
     _CPU_CACHE_LIMIT = 256 << 20
 
@@ -338,17 +343,21 @@ class GpuSession:
     def sql(self, text: str) -> Union[DataFrame, str]:
         """Compile one SQL statement into a DataFrame over the same
         planner path. ``EXPLAIN [FORMATTED] <query>`` returns the plan's
-        text without running it; ``EXPLAIN ANALYZE`` waits for the
-        operator metrics of ROADMAP item 15. Parse and analysis errors
-        raise ``SqlParseError`` / ``SqlAnalysisError``."""
+        text without running it; ``EXPLAIN ANALYZE [FORMATTED] <query>``
+        runs the query in process and returns the executed plan with
+        each operator's rows, batches, times and counters (FORMATTED:
+        every metric). Parse and analysis errors raise
+        ``SqlParseError`` / ``SqlAnalysisError``."""
         from .sql import sql_to_plan
         node, stmt = sql_to_plan(text, self)
         if stmt.explain:
-            if stmt.analyze:
-                raise _unported("EXPLAIN ANALYZE (per-operator metrics)",
-                                15)
             from .planner import GpuOverrides
             pp = GpuOverrides(self.conf, self.device).apply(node)
+            if stmt.analyze:
+                # the process cluster's branch, which folds the workers'
+                # snapshots, comes with the cluster (ROADMAP item 16)
+                pp.collect()
+                return pp.explain_analyze(formatted=stmt.formatted)
             if stmt.formatted:
                 return pp.root.tree_string()
             return pp.explain("ALL")

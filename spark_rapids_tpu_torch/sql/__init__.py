@@ -37,4 +37,7 @@ def sql_to_plan(text: str, session):
     from .compiler import SqlCompiler
     stmt = parse_statement(text)
     rel = SqlCompiler(session, text).compile_query(stmt.query, {})
+    # the query profile labels a plan compiled from SQL source=sql
+    # (obs/opmetrics.plan_source)
+    rel.node._sql_origin = True
     return rel.node, stmt

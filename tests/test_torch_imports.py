@@ -55,6 +55,11 @@ MEMORY_MODULES = ["memory.py", "lifecycle.py", "shuffle/integrity.py",
                   "shuffle/transport.py", "exec/sort.py", "exec/window.py",
                   "exec/aggregate.py", "exec/aqe.py", "exec/joins.py",
                   "session.py", "tools/nds_memory.py"]
+# the static plan verifier and the per-operator metrics
+VERIFIER_OPMETRICS_MODULES = ["analysis/__init__.py",
+                              "analysis/plan_verifier.py",
+                              "obs/__init__.py", "obs/opmetrics.py",
+                              "exec/base.py", "planner.py", "session.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -62,7 +67,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(files) > 10
     for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES + SQL_MODULES \
             + WINDOW_UNION_MODULES + JOIN_PERCENTILE_LIKE_MODULES \
-            + OUTER_CROSS_MODULES + FALLBACK_MODULES + MEMORY_MODULES:
+            + OUTER_CROSS_MODULES + FALLBACK_MODULES + MEMORY_MODULES \
+            + VERIFIER_OPMETRICS_MODULES:
         assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:
