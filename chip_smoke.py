@@ -11,7 +11,8 @@ to K6 checked on the card, every plan checked by the static plan
 verifier, and the per-operator metrics (EXPLAIN ANALYZE, query profiles)
 held to the runs.
 
-    python3 chip_smoke.py [--memory-only | --opm-only] [--log FILE]
+    python3 chip_smoke.py [--memory-only | --opm-only | --functions-only]
+                          [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -177,7 +178,23 @@ Phases, any failure exits non-zero before the result line:
      on; the top three operators by opTime printed, and phase 8's ms a
      query with the op metrics on and off (``--opm-only`` runs the build
      and this phase alone, without phase 8's figures);
-  13. K1's kernels a call, counted in a profiler trace of one call (1),
+  13. SQL functions: the ten texts of
+     ``spark_rapids_tpu_torch/tools/nds_functions.py`` (the variances
+     and deviations, string MIN/MAX, FIRST/LAST, grouped and over a
+     window frame, and the math, string, date and cast functions of the
+     SQL registry) over the same files at 1 partition (a warm-up and a
+     timed run through ``_counted_runs``) and 16 (one run; the phase
+     stays within 90 s): each result
+     held to the module's oracle (``check``: ints, strings and dates
+     exact, floats rel 1e-9, FIRST/LAST after a join to a value of their
+     group), its ``fallback_nodes()`` to the module's ``FALLBACK`` (no
+     expression the reference places on the device runs on the CPU), its
+     ms a query and its K3, K4, K5 and K6 launches printed with the
+     card's name and power limit; after phase 14, q_fn_strings and
+     q_fn_casts traced once each (``tools/nds_trace.trace_nds``): device
+     busy time, idle share and the top five device operations
+     (``--functions-only`` runs the build and this phase alone);
+  14. K1's kernels a call, counted in a profiler trace of one call (1),
      after the timed phases, since a trace slows later launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}; with ``--log FILE`` every line is also
@@ -224,13 +241,14 @@ def log(*a):
 
 
 def _args():
-    """``(memory_only, opm_only, log path or None)`` from the command
-    line."""
+    """``(memory_only, opm_only, functions_only, log path or None)``
+    from the command line."""
     args = sys.argv[1:]
     path = None
     if "--log" in args:
         path = args[args.index("--log") + 1]
-    return "--memory-only" in args, "--opm-only" in args, path
+    return ("--memory-only" in args, "--opm-only" in args,
+            "--functions-only" in args, path)
 
 
 def phase_card():
@@ -490,33 +508,43 @@ def phase_join(device):
     return launches
 
 
-def _counted_runs(plan, make_ctx, counters):
-    """A warm-up, then three timed runs of ``plan``; the kernels'
-    launch counts are read over the first timed run only. Returns
-    ``(result, seconds of each run, ctx of the first, launches)``. The
-    planner, under the run's conf, places no node of ``plan`` on the
-    CPU."""
+def _counted_runs(plan, make_ctx, counters, placed=None, warm=True,
+                  timed=3):
+    """A warm-up (``warm``), then ``timed`` timed runs of ``plan``; the
+    kernels' launch counts are read over the first timed run only.
+    Returns ``(result, seconds of each run, ctx of the first,
+    launches)``. Without ``placed`` the planner, under the run's conf,
+    places no node of ``plan`` (an operator tree) on the CPU, and the
+    tree runs as it is; with it, ``plan`` is a planned
+    ``PhysicalPlan`` whose ``fallback_nodes()`` must be ``placed``, and
+    it runs through its ``collect``."""
     from spark_rapids_tpu_torch.exec.base import collect_arrow
     from spark_rapids_tpu_torch.planner import GpuOverrides
-    ctx0 = make_ctx()
-    on_cpu = GpuOverrides(ctx0.conf, ctx0.device).apply(plan) \
-        .fallback_nodes()
-    if on_cpu:
-        raise AssertionError(f"nodes on the CPU: {on_cpu}")
+    if placed is None:
+        ctx0 = make_ctx()
+        on_cpu = GpuOverrides(ctx0.conf, ctx0.device).apply(plan) \
+            .fallback_nodes()
+        if on_cpu:
+            raise AssertionError(f"nodes on the CPU: {on_cpu}")
+    elif plan.fallback_nodes() != list(placed):
+        raise AssertionError(f"nodes on the CPU: {plan.fallback_nodes()}, "
+                             f"expected {list(placed)}")
 
     def run():
         ctx = make_ctx()
         t = time.perf_counter()
-        out = collect_arrow(plan, ctx)
+        out = collect_arrow(plan, ctx) if placed is None \
+            else plan.collect(ctx)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t, ctx
 
-    run()  # warm-up
+    if warm:
+        run()
     for c in counters:
         c.launches = 0
     out, secs, ctx = run()
     launches = {c.__name__: c.launches for c in counters}
-    times = [secs] + [run()[1] for _ in range(2)]
+    times = [secs] + [run()[1] for _ in range(timed - 1)]
     return out, times, ctx, launches
 
 
@@ -2024,9 +2052,78 @@ def phase_opmetrics(device, files, card, smi, nds_summary):
     return summary
 
 
+# --- phase 13: the SQL function registry -------------------------------------
+
+#: the texts phase 13 traces (device busy time, top device operations)
+FUNCTIONS_TRACED = ("q_fn_strings", "q_fn_casts")
+
+
+def phase_functions(device, files, card, smi):
+    """The ten function texts at 1 and 16 partitions (module docstring,
+    phase 13)."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.tools import nds_functions as fn
+    from spark_rapids_tpu_torch.tools.nds_trace import counters
+
+    tables, paths, _ = files
+    t_phase = time.perf_counter()
+    wrappers = counters()
+    summary, launches = {}, {}
+    for q in fn.QUERIES:
+        want = fn.oracle(q, tables)
+        for parts in (1, 16):
+            conf = {"spark.sql.shuffle.partitions": str(parts)}
+            s = nds.session_over_files(paths, conf, device)
+            pp = _apply(s.conf, device, s.sql(fn.SQL_QUERIES[q])._node,
+                        "functions")
+            out, times, ctx, got = _counted_runs(
+                pp, lambda: ExecCtx(s.conf, device), wrappers.values(),
+                placed=fn.FALLBACK[q], warm=parts == 1, timed=1)
+            fn.check(q, out, tables, want)
+            med = statistics.median(times)
+            got = {k: got[c.__name__] for k, c in wrappers.items()}
+            summary[f"{q}_p{parts}"] = {
+                "ms": med * 1e3, "times_s": times, "rows": out.num_rows,
+                "launches": got, "fallback_nodes": pp.fallback_nodes()}
+            launches[f"{q}_p{parts}"] = got
+            log(f"[functions] {q} partitions={parts}: {med * 1e3:.3f} ms a "
+                f"query in collect ({[round(t, 6) for t in times]} s) on "
+                f"{card} ({smi}); "
+                f"{out.num_rows} rows equal to the oracle; launches {got}; "
+                f"on the CPU {pp.fallback_nodes()}")
+    summary["verifier"] = _log_verifier("functions")
+    took = time.perf_counter() - t_phase
+    log(f"[functions] phase took {took:.3f} s (its traces apart)")
+    summary["phase_s"] = took
+    return summary, launches
+
+
+def phase_function_traces(card, smi, summary):
+    """Phase 13's traces of ``FUNCTIONS_TRACED``, after K1's per-call
+    count: a process's earlier profiler sessions can make that short
+    trace miss its kernel."""
+    from spark_rapids_tpu_torch.tools.nds_trace import trace_nds
+    t0 = time.perf_counter()
+    for q in FUNCTIONS_TRACED:
+        tr = trace_nds(None, q, 1, NDS_SALES)
+        top = dict(list(tr["top_device_ops"].items())[:5])
+        summary[f"trace_{q}"] = {
+            "device_busy_us": tr["device_busy_us"], "wall_us": tr["wall_us"],
+            "device_idle_share": tr["device_idle_share"],
+            "top_device_ops": top, "kernels": tr["kernels"]}
+        log(f"[functions] trace {q} partitions=1 on {card} ({smi}): device "
+            f"busy {tr['device_busy_us']:.1f} us of {tr['wall_us']:.1f} us "
+            f"(idle share {tr['device_idle_share']:.4f}); top device ops "
+            + json.dumps(top, sort_keys=True))
+    took = time.perf_counter() - t0
+    log(f"[functions] traces took {took:.3f} s; phase 13 in all "
+        f"{summary['phase_s'] + took:.3f} s")
+
+
 def main():
     global _log_file
-    memory_only, opm_only, log_path = _args()
+    memory_only, opm_only, functions_only, log_path = _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
@@ -2046,6 +2143,12 @@ def main():
         summary = phase_opmetrics(device, _nds_files(), name, smi, None)
         log("[opm] " + json.dumps(summary, sort_keys=True))
         return
+    if functions_only:
+        # a quick check of phase 13 alone
+        summary, _ = phase_functions(device, _nds_files(), name, smi)
+        phase_function_traces(name, smi, summary)
+        log("[functions] " + json.dumps(summary, sort_keys=True))
+        return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
@@ -2061,7 +2164,9 @@ def main():
     mem_summary, mem_launches = phase_nds_memory(
         device, nds_files, fb_summary[SKEW_WITNESS])
     opm_summary = phase_opmetrics(device, nds_files, name, smi, nds_summary)
+    fn_summary, fn_launches = phase_functions(device, nds_files, name, smi)
     per_call = phase_k1_kernels_per_call(device)
+    phase_function_traces(name, smi, fn_summary)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]
@@ -2077,6 +2182,7 @@ def main():
     log("[nds-fallback] " + json.dumps(fb_summary, sort_keys=True))
     log("[nds-memory] " + json.dumps(mem_summary, sort_keys=True))
     log("[opm] " + json.dumps(opm_summary, sort_keys=True))
+    log("[functions] " + json.dumps(fn_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -2113,7 +2219,9 @@ def main():
         "launches_nds_fallback": {k: v["sort_pairs"]
                                   for k, v in fb_launches.items()},
         "launches_nds_memory": {k: v["K3"]
-                                for k, v in mem_launches.items()}}, {
+                                for k, v in mem_launches.items()},
+        "launches_functions": {k: v["K3"]
+                               for k, v in fn_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -2129,7 +2237,9 @@ def main():
         "launches_nds_fallback": {k: v["gather_rows"]
                                   for k, v in fb_launches.items()},
         "launches_nds_memory": {k: v["K4"]
-                                for k, v in mem_launches.items()}}, {
+                                for k, v in mem_launches.items()},
+        "launches_functions": {k: v["K4"]
+                               for k, v in fn_launches.items()}}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -2145,7 +2255,9 @@ def main():
         "launches_nds_fallback": {k: v["decode_batch"]
                                   for k, v in fb_launches.items()},
         "launches_nds_memory": {k: v["K5"]
-                                for k, v in mem_launches.items()}}, {
+                                for k, v in mem_launches.items()},
+        "launches_functions": {k: v["K5"]
+                               for k, v in fn_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -2166,7 +2278,9 @@ def main():
         "routes": {k: v["route"] for k, v in k6.items()},
         "by_shape": k6,
         "launches_nds": {k: v["regex_match"]
-                         for k, v in nds_launches.items()}}]}))
+                         for k, v in nds_launches.items()},
+        "launches_functions": {k: v["K6"]
+                               for k, v in fn_launches.items()}}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

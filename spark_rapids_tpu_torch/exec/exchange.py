@@ -27,7 +27,10 @@ pressure and comes back whole at its read.
 
 Batches come out partition-major, in map order within a partition. On
 the CPU the exchange runs the same body on CPU tensors
-(``GpuExec.execute_cpu``).
+(``GpuExec.execute_cpu``) and drops an empty partition's zero-row
+batches, as the reference's host exchange does; on the device a view
+whose partitions hold no row of its map batch still comes out (its count
+lives on the device, and reading it would be a sync a view).
 
 ``GpuCoalesceBatchesExec`` (``:509-576``) gathers small batches up to a
 target row count and byte size: the planner puts it over a
@@ -185,6 +188,16 @@ class GpuShuffleExchangeExec(UnaryExec):
                 yield from handle.read(p)
         finally:
             handle.close()
+
+    def execute_cpu(self, ctx: ExecCtx):
+        """The CPU path: the device body on CPU tensors, without the
+        zero-row batches of empty partitions, which the reference's host
+        exchange never makes (``:426-435``); one partition passes every
+        batch through, as there."""
+        n = self.partitioning.num_partitions
+        for rb in super().execute_cpu(ctx):
+            if n == 1 or rb.num_rows:
+                yield rb
 
 
 class GpuCoalesceBatchesExec(UnaryExec):

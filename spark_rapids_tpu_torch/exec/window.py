@@ -60,16 +60,18 @@ import torch
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch, row_mask
 from ..columnar.column import GpuColumnVector, torch_dtype
-from ..expr.aggregates import Average, Count, Max, Min, Sum
+from ..expr.aggregates import (Average, Count, Max, Min, Sum,
+                               _CentralMoment, _FirstLast)
 from ..expr.base import Alias, BoundReference, Expression, bind_expr
 from ..expr.window import (DenseRank, NTile, PercentRank, Rank, RowNumber,
                            WindowExpression, _OffsetFunction)
 from ..ops.concat import concat_batches_bounded
 from ..ops.gather import gather_column, gather_columns
+from ..ops.segments import seg_reduce_sorted
 from ..ops.strings import assemble_strings
 from ..ops.sort_keys import (SortSpec, change_flags, check_key_type,
                              normalize_float_key_col, orderable_int,
-                             sorted_key_words)
+                             sorted_key_words, string_order_ranks)
 from .base import ExecCtx, GpuExec, UnaryExec
 from .sort import SortOrder
 
@@ -268,6 +270,70 @@ def _string_default(out: GpuColumnVector, ok: torch.Tensor,
                             int(lengths.sum()))
 
 
+# a rows frame bounded on both sides up to this width takes its moments
+# by the exact two-pass sum over its rows
+_EXACT_FRAME_ROWS = 64
+_EPS = 2.0 ** -53
+
+
+def _segmented_cumsum(x: torch.Tensor, seg_start: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sums that restart at each partition (a
+    Hillis-Steele doubling scan): no earlier partition's values enter a
+    sum, and each sum is rounded at most ceil(log2 n) times."""
+    out = x
+    d = 1
+    n = x.shape[0]
+    while d < n:
+        prev = torch.cat([torch.zeros(d, dtype=x.dtype, device=x.device),
+                          out[:-d]])
+        out = out + torch.where(pos - d >= seg_start, prev,
+                                torch.zeros_like(prev))
+        d *= 2
+    return out
+
+
+def _frame_moment(dev: torch.Tensor, ok: torch.Tensor, fr, lo, hi,
+                  seg_start, pos, cap: int):
+    """``(count, m2)`` of each row's frame over the values ``dev``
+    (already centered by the partition's mean) where ``ok``. A rows
+    frame bounded on both sides and at most ``_EXACT_FRAME_ROWS`` wide
+    takes the two-pass sum over its rows (the reference's group-by form:
+    relative error a few ulps times the width). Any other frame takes
+    segmented running sums of d and d^2 (``_segmented_cumsum``) and
+    ``m2 = S2 - S^2 / n``, whose absolute error is at most about
+    (2 ceil(log2 n) + 4) eps times the partition's sum of d^2 up to the
+    frame's end."""
+    zero = torch.zeros((), dtype=torch.float64, device=dev.device)
+    d = torch.where(ok, dev, zero)
+    if fr.frame_type == "rows" and fr.lower is not None \
+            and fr.upper is not None \
+            and fr.upper - fr.lower + 1 <= _EXACT_FRAME_ROWS:
+        shifts = []
+        for k in range(fr.lower, fr.upper + 1):
+            j = pos + k
+            jc = j.clamp(0, cap - 1)
+            shifts.append(((j >= lo) & (j <= hi) & ok[jc], jc))
+        n = sum(m.to(torch.float64) for m, _ in shifts)
+        s = sum(torch.where(m, d[jc], zero) for m, jc in shifts)
+        mean = s / torch.where(n > 0, n, torch.ones_like(n))
+        m2 = sum(torch.where(m, (d[jc] - mean) ** 2, zero)
+                 for m, jc in shifts)
+        return n, m2
+    hic = hi.clamp(0, cap - 1)
+    before = (lo - 1).clamp(0, cap - 1)
+    has_before = lo > seg_start
+
+    def frame_sum(v):
+        c = _segmented_cumsum(v, seg_start, pos)
+        return c[hic] - torch.where(has_before, c[before], zero)
+    n = frame_sum(ok.to(torch.float64))
+    s = frame_sum(d)
+    m2 = frame_sum(d * d) - s * s / torch.where(n > 0, n,
+                                                 torch.ones_like(n))
+    return n, m2.clamp(min=0.0)
+
+
 class GpuWindowExec(UnaryExec):
     """Computes the window expressions of one partition and order spec;
     output = the child's columns (in sorted order) + one column a window
@@ -315,7 +381,8 @@ class GpuWindowExec(UnaryExec):
     def _arg_exprs(f: Expression) -> List[Expression]:
         if isinstance(f, _OffsetFunction):
             return [f.child]
-        if isinstance(f, (Count, Sum, Average, Min, Max)):
+        if isinstance(f, (Count, Sum, Average, Min, Max, _FirstLast,
+                          _CentralMoment)):
             return list(f.children)
         return []
 
@@ -607,8 +674,11 @@ class GpuWindowExec(UnaryExec):
             if isinstance(f, (Min, Max)):
                 vcol = sgather(f.children[0])
                 valid = valid_of(vcol)
-                lane = orderable_int(GpuColumnVector(vcol.dtype, vcol.data)) \
-                    .to(_I64)
+                if vcol.is_string_like:
+                    lane = string_order_ranks(vcol, valid).to(_I64)
+                else:
+                    lane = orderable_int(GpuColumnVector(vcol.dtype,
+                                                         vcol.data)).to(_I64)
                 if isinstance(f, Max):
                     lane = ~lane
                 inv, _, bt = argmin_frame(
@@ -617,9 +687,63 @@ class GpuWindowExec(UnaryExec):
                 win_cols.append(gather_column(
                     vcol, torch.clamp(bt, 0, cap - 1), found))
                 continue
+            if isinstance(f, _FirstLast):
+                vcol = sgather(f.children[0])
+                if f.ignore_nulls:
+                    # the frame's first (last) valid position: the
+                    # lexicographic minimum of (invalid, +-position)
+                    tb = -pos if f.take_last else pos
+                    inv, bt = argmin_frame(
+                        [(~valid_of(vcol)).to(_I64), tb], fr, lo, hi)
+                    at = -bt if f.take_last else bt
+                    ok = (inv == 0) & ~empty & sorted_live
+                else:
+                    at = hi if f.take_last else lo
+                    ok = ~empty & sorted_live
+                win_cols.append(gather_column(
+                    vcol, torch.clamp(at, 0, cap - 1), ok))
+                continue
+            if isinstance(f, _CentralMoment):
+                vcol = sgather(f.children[0])
+                valid = valid_of(vcol)
+                x = vcol.data.to(torch.float64)
+                finite = torch.isfinite(x)
+                # center by the partition's mean (a shift leaves a
+                # variance as it is and keeps the squares small)
+                zero = torch.zeros((), dtype=torch.float64, device=device)
+                seg_ix = torch.cumsum(part_flag.to(_I64), 0) - 1
+                fin = torch.where(valid & finite, x, zero)
+                seg_n = seg_reduce_sorted((valid & finite).to(
+                    torch.float64), seg_ix, cap, "sum")
+                seg_s = seg_reduce_sorted(fin, seg_ix, cap, "sum")
+                mu = (seg_s / torch.where(seg_n > 0, seg_n,
+                                          torch.ones_like(seg_n)))[seg_ix]
+                dev_ok = valid & finite
+                _, m2 = _frame_moment(fin - mu, dev_ok, fr, lo, hi,
+                                      seg_start, pos, cap)
+                # a frame of one value has m2 exactly 0: its lowest and
+                # highest value agree
+                lane = orderable_int(GpuColumnVector(dt.FLOAT64, fin)) \
+                    .to(_I64)
+                inv = (~dev_ok).to(_I64)
+                lo_v = argmin_frame([inv, lane, pos], fr, lo, hi)[1]
+                hi_v = argmin_frame([inv, ~lane, pos], fr, lo, hi)[1]
+                m2 = torch.where(lo_v == ~hi_v, torch.zeros_like(m2), m2)
+                # a non-finite value makes its frames NaN
+                bad = prefix_frame((valid & ~finite).to(_I64), lo, hi,
+                                   empty)
+                cnt = prefix_frame(valid.to(_I64), lo, hi, empty) \
+                    .to(torch.float64)
+                outv, defined = f.finish(cnt, m2)
+                outv = torch.where(bad > 0, torch.full_like(outv,
+                                                            float("nan")),
+                                   outv)
+                win_cols.append(GpuColumnVector(
+                    dt.FLOAT64, outv, defined & ~empty & sorted_live))
+                continue
             raise NotImplementedError(
                 f"window function {f!r} is not ported yet (ROADMAP item "
-                "8)")  # the planner's gate refuses it first
+                "2)")  # the planner's gate refuses it first
 
         return GpuBatch(sorted_cols + win_cols, self._schema, n_live)
 

@@ -24,10 +24,32 @@ count 0. ApproxPercentile (``:683-900``) has the reference's two
 strategies: the exact rank over the aggregate's single pass
 (``exec/aggregate.py``), and a mergeable K-point sketch that rides the
 partial and final phases (``update_device``, ``merge_device``,
-``evaluate_device``). First/Last, the variances, the collects, a list of
-percentiles (an array result), Min and Max over strings, and the decimal
+``evaluate_device``).
+
+Min and Max over a string order by bytes, unsigned, a shorter prefix
+first: each row's dense rank among the live non-null rows
+(``ops/sort_keys.string_order_ranks``, K3 passes) packed above its
+position reduces per segment like any integer lane, and the winning row
+is gathered (K4). The reference places them on its host path; the port
+runs them on the device.
+
+First and Last (``_FirstLast``, ``:442-509``) take the group's first or
+last row in input order (the segment sort is stable), skipping nulls
+under ``ignoreNulls``; a merge takes the first or last partial the same
+way. Over a string they run on the CPU, where the reference places them.
+
+The central moments (``_CentralMoment``, ``:510-610``: ``VarianceSamp``,
+``VariancePop``, ``StddevSamp``, ``StddevPop``) keep the reference's
+mergeable ``(n, mean, m2)`` buffers in float64: an update is two passes
+within a segment (the mean, then the centered sum of squares), a merge
+is the parallel (Chan) combination ``m2 = sum(m2_i + n_i (mean_i -
+mean)^2)``. A sample moment of one row, and any moment of no row, is
+null (Spark 3.1+). A merge in another order changes the last bits: the
+tests hold the port to the reference at rel 1e-9.
+
+The collects, a list of percentiles (an array result) and the decimal
 forms (Sum's overflow to null, Average's scale + 4) wait for ROADMAP
-items 8 and 2.
+item 2.
 """
 from __future__ import annotations
 
@@ -39,13 +61,15 @@ import torch
 from .. import datatypes as dt
 from ..columnar.batch import row_mask
 from ..columnar.column import GpuColumnVector, is_string_like
+from ..ops.gather import gather_column
 from ..ops.segments import seg_reduce_sorted
 from ..ops.sort_keys import (key_lane_bits, orderable_int, pack_words,
-                             sort_packed)
+                             sort_packed, string_order_ranks)
 from .base import Expression
 
 __all__ = ["AggregateFunction", "Sum", "Count", "Min", "Max", "Average",
-           "ApproxPercentile", "GLOBAL_LANES", "group_value_order",
+           "First", "Last", "VarianceSamp", "VariancePop", "StddevSamp",
+           "StddevPop", "ApproxPercentile", "GLOBAL_LANES", "group_value_order",
            "value_sorted_groups", "spark_rank0", "GROUP_VALUE_BITS"]
 
 GLOBAL_LANES = 128
@@ -218,6 +242,31 @@ def _check_numeric(name: str, t: dt.DataType) -> None:
             "item 8)")
 
 
+_POS_BITS = 32
+_POS_MASK = (1 << _POS_BITS) - 1
+
+
+def _rank_pos_key(col: GpuColumnVector, valid: torch.Tensor,
+                  largest: bool) -> torch.Tensor:
+    """A string row's byte-order rank above its position, as one int64
+    whose min (or max, with ``largest``) picks the smallest (largest)
+    string; rows outside ``valid`` never win."""
+    rank = string_order_ranks(col, valid).to(torch.int64)
+    if largest:
+        rank = torch.where(valid, rank, torch.full_like(rank, -1))
+    pos = torch.arange(rank.shape[0], dtype=torch.int64,
+                       device=rank.device)
+    return (rank << _POS_BITS) | pos
+
+
+def _winning_rows(col: GpuColumnVector, key: torch.Tensor,
+                  found: torch.Tensor) -> GpuColumnVector:
+    """The rows whose positions the reduced keys hold, gathered (K4)
+    under ``found``."""
+    pos = (key & _POS_MASK).clamp(0, max(col.capacity - 1, 0))
+    return gather_column(col, pos, found)
+
+
 class _MinMax(AggregateFunction):
     largest = False
 
@@ -225,7 +274,9 @@ class _MinMax(AggregateFunction):
         self.children = (child,)
 
     def validate(self):
-        _check_numeric(type(self).__name__.lower(), self.children[0].dtype)
+        t = self.children[0].dtype
+        if not is_string_like(t):
+            _check_numeric(type(self).__name__.lower(), t)
 
     @property
     def dtype(self):
@@ -262,6 +313,12 @@ class _MinMax(AggregateFunction):
 
     def _global(self, col: GpuColumnVector, live: torch.Tensor):
         valid = _masked(col, live)
+        if col.is_string_like:
+            key = _rank_pos_key(col, valid, self.largest)
+            red = key.max() if self.largest else key.min()
+            lane0 = row_mask(GLOBAL_LANES, 1, live.device)
+            return [_winning_rows(col, torch.where(
+                lane0, red, torch.zeros_like(red)), lane0 & valid.any())]
         keys = self._keys(col, valid)
         red = keys.max() if self.largest else keys.min()
         return [GpuColumnVector(
@@ -277,9 +334,13 @@ class _MinMax(AggregateFunction):
 
     def _reduce(self, col, seg, sorted_live, out_live):
         valid = _masked(col, sorted_live)
+        cnt = _seg_count(valid, seg)
+        if col.is_string_like:
+            red = seg_reduce_sorted(_rank_pos_key(col, valid, self.largest),
+                                    seg, seg.shape[0], self._kind)
+            return [_winning_rows(col, red, (cnt > 0) & out_live)]
         red = seg_reduce_sorted(self._keys(col, valid), seg, seg.shape[0],
                                 self._kind)
-        cnt = _seg_count(valid, seg)
         return [GpuColumnVector(self.dtype, self._values(red),
                                 (cnt > 0) & out_live)]
 
@@ -377,6 +438,220 @@ class Average(AggregateFunction):
 
     def evaluate_device(self, bufs):
         return self.evaluate(bufs)
+
+
+class _FirstLast(AggregateFunction):
+    """The group's first (last) row in input order; with
+    ``ignore_nulls``, its first (last) non-null one. As Spark's, the
+    buffer is the value and whether one was set, so a merge skips a
+    partial that saw no row."""
+
+    take_last = False
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        self.children = (child,)
+        self.ignore_nulls = ignore_nulls
+
+    def validate(self):
+        t = self.children[0].dtype
+        if not is_string_like(t):
+            _check_numeric(type(self).__name__.lower(), t)
+
+    def gpu_supported(self) -> Optional[str]:
+        if is_string_like(self.children[0].dtype):
+            return "first/last over strings runs on the CPU"
+        return None
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    @property
+    def buffer_fields(self):
+        return [dt.StructField("v", self.dtype, True),
+                dt.StructField("set", dt.BOOL, False)]
+
+    def _marked(self, cand: torch.Tensor) -> torch.Tensor:
+        """Each row's position where it is a candidate, else the value
+        that never wins."""
+        n = cand.shape[0]
+        pos = torch.arange(n, dtype=torch.int64, device=cand.device)
+        never = -1 if self.take_last else n
+        return torch.where(cand, pos, torch.full_like(pos, never))
+
+    @staticmethod
+    def _picked(col, picked, found):
+        idx = picked.clamp(0, max(col.capacity - 1, 0))
+        out = gather_column(col, idx, found)
+        return [out.with_validity(found & col.valid_mask()[idx]),
+                GpuColumnVector(dt.BOOL, found, None)]
+
+    def _global(self, col, cand):
+        m = self._marked(cand)
+        picked = m.max() if self.take_last else m.min()
+        lane0 = row_mask(GLOBAL_LANES, 1, cand.device)
+        idx = torch.where(lane0, picked, torch.zeros_like(picked))
+        return self._picked(col, idx, lane0 & cand.any())
+
+    def _reduce(self, col, cand, seg, out_live):
+        picked = seg_reduce_sorted(self._marked(cand), seg, seg.shape[0],
+                                   "max" if self.take_last else "min")
+        found = (_seg_count(cand, seg) > 0) & out_live
+        return self._picked(col, picked, found)
+
+    def _update_cand(self, col, live):
+        return _masked(col, live) if self.ignore_nulls else live
+
+    @staticmethod
+    def _merge_cand(bufs, live):
+        return live & bufs[1].data
+
+    def update(self, vals, live):
+        return self._global(vals[0], self._update_cand(vals[0], live))
+
+    def merge(self, bufs, live):
+        return self._global(bufs[0], self._merge_cand(bufs, live))
+
+    def update_device(self, vals, seg, sorted_live, out_live):
+        return self._reduce(vals[0], self._update_cand(vals[0], sorted_live),
+                            seg, out_live)
+
+    def merge_device(self, bufs, seg, sorted_live, out_live):
+        return self._reduce(bufs[0], self._merge_cand(bufs, sorted_live),
+                            seg, out_live)
+
+    def __repr__(self):
+        nulls = ", ignoreNulls" if self.ignore_nulls else ""
+        return f"{self.pretty_name()}({self.children[0]!r}{nulls})"
+
+
+class First(_FirstLast):
+    take_last = False
+
+
+class Last(_FirstLast):
+    take_last = True
+
+
+class _CentralMoment(AggregateFunction):
+    """Variance and standard deviation through mergeable float64
+    ``(n, mean, m2)`` buffers (module docstring)."""
+
+    sample = True
+    take_sqrt = False
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def validate(self):
+        t = self.children[0].dtype
+        _check_numeric(type(self).__name__.lower(), t)
+        if not (dt.is_integral(t) or dt.is_floating(t)):
+            raise NotImplementedError(
+                f"{type(self).__name__} over {t.simple_string()} needs a "
+                "number")
+
+    @property
+    def dtype(self):
+        return dt.FLOAT64
+
+    @property
+    def buffer_fields(self):
+        return [dt.StructField("n", dt.FLOAT64, False),
+                dt.StructField("mean", dt.FLOAT64, False),
+                dt.StructField("m2", dt.FLOAT64, False)]
+
+    @staticmethod
+    def _sum(v: torch.Tensor, seg: Optional[torch.Tensor]) -> torch.Tensor:
+        if seg is None:
+            return _lane0(v.sum(), torch.float64)
+        return seg_reduce_sorted(v, seg, seg.shape[0], "sum")
+
+    @staticmethod
+    def _at_rows(lane: torch.Tensor, seg: Optional[torch.Tensor],
+                 n: int) -> torch.Tensor:
+        """A per-group lane read back at each input row."""
+        if seg is None:
+            return lane[0].expand(n)
+        return lane[seg.long()]
+
+    @staticmethod
+    def _bufs(lanes, out_live):
+        return [GpuColumnVector(dt.FLOAT64, lane, out_live)
+                for lane in lanes]
+
+    def _update(self, col, seg, live, out_live):
+        valid = _masked(col, live)
+        zero = torch.zeros((), dtype=torch.float64, device=live.device)
+        x = torch.where(valid, col.data.to(torch.float64), zero)
+        n = self._sum(valid.to(torch.float64), seg)
+        mean = self._sum(x, seg) / torch.where(n > 0, n, torch.ones_like(n))
+        # the second pass: the exact centered sum of squares
+        d = torch.where(valid, x - self._at_rows(mean, seg, x.shape[0]),
+                        zero)
+        return self._bufs((n, mean, self._sum(d * d, seg)), out_live)
+
+    def _merge(self, bufs, seg, live, out_live):
+        nb, mb, m2b = bufs
+        ok = _masked(nb, live)
+        zero = torch.zeros((), dtype=torch.float64, device=live.device)
+        n_i = torch.where(ok, nb.data, zero)
+        mean_i = torch.where(ok, mb.data, zero)  # 0 x garbage may be NaN
+        n = self._sum(n_i, seg)
+        mean = self._sum(n_i * mean_i, seg) \
+            / torch.where(n > 0, n, torch.ones_like(n))
+        delta = mean_i - self._at_rows(mean, seg, n_i.shape[0])
+        m2 = self._sum(torch.where(ok, m2b.data + n_i * delta * delta,
+                                   zero), seg)
+        return self._bufs((n, mean, m2), out_live)
+
+    def update(self, vals, live):
+        return self._update(vals[0], None, live, None)
+
+    def merge(self, bufs, live):
+        return self._merge(bufs, None, live, None)
+
+    def update_device(self, vals, seg, sorted_live, out_live):
+        return self._update(vals[0], seg, sorted_live, out_live)
+
+    def merge_device(self, bufs, seg, sorted_live, out_live):
+        return self._merge(bufs, seg, sorted_live, out_live)
+
+    def finish(self, n: torch.Tensor, m2: torch.Tensor):
+        """``(value, defined)`` from a count and a centered sum of
+        squares: a sample moment needs two rows, a population one
+        one."""
+        m2 = m2.clamp(min=0.0)
+        floor = 1.0 if self.sample else 0.0
+        defined = n > floor
+        den = torch.where(defined, n - floor, torch.ones_like(n))
+        var = m2 / den
+        return (var.sqrt() if self.take_sqrt else var), defined
+
+    def evaluate(self, bufs):
+        n, _, m2 = bufs
+        out, defined = self.finish(n.data, m2.data)
+        return GpuColumnVector(dt.FLOAT64, out,
+                               n.valid_mask() & defined)
+
+    def evaluate_device(self, bufs):
+        return self.evaluate(bufs)
+
+
+class VarianceSamp(_CentralMoment):
+    sample, take_sqrt = True, False
+
+
+class VariancePop(_CentralMoment):
+    sample, take_sqrt = False, False
+
+
+class StddevSamp(_CentralMoment):
+    sample, take_sqrt = True, True
+
+
+class StddevPop(_CentralMoment):
+    sample, take_sqrt = False, True
 
 
 # bits of group_value_order's sort key ahead of the value lane: the

@@ -1,8 +1,9 @@
-"""Cast between the boolean, integral and float types.
+"""Cast: the numeric, string, date and timestamp pairs.
 
-Counterpart of the numeric part of ``spark_rapids_tpu/expr/cast.py:41``
-(``Cast.eval_tpu`` and ``_num_cast_tpu``), with Spark's non-ANSI rules
-as the reference's device path applies them:
+Counterpart of ``spark_rapids_tpu/expr/cast.py`` (``Cast.eval_tpu``,
+``_num_cast_tpu``, ``_from_string_tpu``, ``_to_string_tpu``, the host
+path ``eval_cpu``), with Spark's non-ANSI rules as the reference's device
+path applies them:
 
 - integer narrowing wraps two's-complement (Java's ``(int)`` of a long);
 - float -> integer is Java's narrowing (JLS 5.1.3): truncate toward
@@ -12,27 +13,51 @@ as the reference's device path applies them:
   reference, which saturates at the target's own bounds
   (``_int_bounds``, ``:36``) and makes a NaN row null
   (``ok = ~isnan(x)``);
-- integer or float -> boolean is ``x != 0``; boolean -> number is 0/1.
+- integer or float -> boolean is ``x != 0``; boolean -> number is 0/1;
+- string -> integral, float, boolean and date parse on the device
+  (``ops/string_parse.py``; an unparsable row is null);
+- integral, boolean, date and timestamp -> string format on the device
+  (``ops/numeric_format.py``);
+- date <-> timestamp (UTC), timestamp -> a number of seconds, an
+  integer of seconds -> timestamp.
 
-Under ``spark.sql.ansi.enabled`` the reference's device path gives the
-same values (its overflow checks live in its host path), and so does
-the port. Casts from or to string, decimal, date and timestamp raise
-``NotImplementedError`` naming ROADMAP item 13 (the SQL compiler raises
-``SqlAnalysisError("unsupported_feature")`` for them first): they are
-not this slice's.
+The placement is the reference's (``tpu_supported``, ``:56-85``):
+string -> timestamp parses on the host; float -> string formats on the
+host (Java's ``Double.toString``, ``_java_float_str``); under
+``spark.sql.ansi.enabled`` every string parse runs on the host, which
+raises ``ExprError`` on the first unparsable live row. ``gpu_supported``
+and ``gpu_supported_conf`` refuse those, and the planner puts their
+operator on the CPU, where ``eval_gpu`` runs under a host ctx and takes
+the host path: the reference's Python parser (``_parse_string``) and
+formatters. Casts from or to decimal raise ``NotImplementedError``
+naming ROADMAP item 2.
 """
 from __future__ import annotations
 
+import datetime
+import math
+import re
+from typing import Optional
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from .. import datatypes as dt
-from ..columnar.column import GpuColumnVector, torch_dtype
-from .base import Expression
+from ..columnar.column import GpuColumnVector, and_validity, \
+    is_string_like, torch_dtype
+from ..ops import numeric_format as nf
+from ..ops import string_parse as sp
+from .base import Expression, ExprError, column_to_arrow
+from .strings import _from_arrow
 
 __all__ = ["Cast", "cast_supported", "int_bounds"]
 
 _SIMPLE = (dt.BooleanType, dt.ByteType, dt.ShortType, dt.IntegerType,
            dt.LongType, dt.FloatType, dt.DoubleType)
+_US_PER_SECOND = 1_000_000
+_US_PER_DAY = 86400 * _US_PER_SECOND
 
 
 def int_bounds(t: dt.DataType):
@@ -41,11 +66,31 @@ def int_bounds(t: dt.DataType):
     return info.min, info.max
 
 
+def _parses_to(t: dt.DataType) -> bool:
+    return dt.is_integral(t) or dt.is_floating(t) \
+        or isinstance(t, (dt.BooleanType, dt.DateType, dt.TimestampType))
+
+
 def cast_supported(f: dt.DataType, t: dt.DataType) -> bool:
-    """The pairs this port casts: identity, a NULL literal, and any two
-    of boolean and the integral and float types."""
-    return f == t or isinstance(f, dt.NullType) or (
-        isinstance(f, _SIMPLE) and isinstance(t, _SIMPLE))
+    """The pairs this port casts: identity, a NULL literal, any two of
+    boolean and the integral and float types, a string to any of those
+    or to a date or timestamp, any of those, a date or a timestamp to a
+    string, date <-> timestamp, timestamp -> a number and an integer ->
+    timestamp."""
+    if f == t or isinstance(f, dt.NullType):
+        return True
+    if isinstance(f, _SIMPLE) and isinstance(t, _SIMPLE):
+        return True
+    if isinstance(f, dt.StringType):
+        return _parses_to(t)
+    if isinstance(t, dt.StringType):
+        return isinstance(f, _SIMPLE + (dt.DateType, dt.TimestampType))
+    if isinstance(f, dt.DateType):
+        return isinstance(t, dt.TimestampType)
+    if isinstance(f, dt.TimestampType):
+        return isinstance(t, dt.DateType) or dt.is_integral(t) \
+            or dt.is_floating(t)
+    return dt.is_integral(f) and isinstance(t, dt.TimestampType)
 
 
 def _float_to_int(x: torch.Tensor, t: dt.DataType) -> torch.Tensor:
@@ -88,10 +133,32 @@ class Cast(Expression):
     def validate(self):
         f, t = self.child.dtype, self._to
         if not cast_supported(f, t):
+            if isinstance(f, dt.DecimalType) or isinstance(t,
+                                                          dt.DecimalType):
+                raise NotImplementedError(
+                    f"cast {f.simple_string()} -> {t.simple_string()} is "
+                    "not ported yet (decimal casts, ROADMAP item 2)")
             raise NotImplementedError(
                 f"cast {f.simple_string()} -> {t.simple_string()} is not "
-                "ported yet (string, decimal, date and timestamp casts, "
-                "ROADMAP item 13)")
+                "supported")
+
+    def gpu_supported(self) -> Optional[str]:
+        f, t = self.child.dtype, self._to
+        if isinstance(f, dt.StringType) and not is_string_like(t) \
+                and not (dt.is_integral(t) or dt.is_floating(t)
+                         or isinstance(t, (dt.BooleanType, dt.DateType))):
+            return f"cast {f} -> {t} runs on host (string parsing)"
+        if isinstance(t, dt.StringType) and dt.is_floating(f):
+            return "float->string formatting runs on host (Java repr)"
+        return None
+
+    def gpu_supported_conf(self, conf) -> Optional[str]:
+        f, t = self.child.dtype, self._to
+        if conf.ansi and isinstance(f, dt.StringType) \
+                and not is_string_like(t):
+            return (f"ANSI cast {f} -> {t} raises on invalid input; "
+                    "runs on host")
+        return None
 
     def eval_gpu(self, batch, ctx):
         f, t = self.child.dtype, self._to
@@ -100,7 +167,121 @@ class Cast(Expression):
             return c
         if isinstance(f, dt.NullType):
             return GpuColumnVector.nulls(t, batch.capacity, batch.device)
+        if isinstance(f, dt.StringType):
+            if ctx.host:
+                return self._from_string_host(c, t, ctx, batch)
+            return self._from_string(c, t)
+        if isinstance(t, dt.StringType):
+            if ctx.host:
+                return self._to_string_host(c, f)
+            return self._to_string(c, f)
+        if isinstance(f, (dt.DateType, dt.TimestampType)) \
+                or isinstance(t, dt.TimestampType):
+            return GpuColumnVector(t, self._time_cast(c.data, f, t),
+                                   c.validity)
         return GpuColumnVector(t, self._num_cast(c.data, f, t), c.validity)
+
+    # --- strings ------------------------------------------------------------
+
+    @staticmethod
+    def _from_string(c: GpuColumnVector, t: dt.DataType) -> GpuColumnVector:
+        if dt.is_integral(t):
+            v, ok = sp.parse_int(c, t)
+            v = v.to(torch_dtype(t))
+        elif dt.is_floating(t):
+            v, ok = sp.parse_float(c, t)
+        elif isinstance(t, dt.BooleanType):
+            v, ok = sp.parse_bool(c)
+        elif isinstance(t, dt.DateType):
+            v, ok = sp.parse_date(c)
+        else:
+            raise NotImplementedError(
+                f"cast string -> {t.simple_string()} runs on the CPU, "
+                "where the planner places it")
+        return GpuColumnVector(t, v, and_validity(c.validity, ok))
+
+    @staticmethod
+    def _from_string_host(c, t, ctx, batch) -> GpuColumnVector:
+        """The reference's host parser, each distinct string once; under
+        ANSI an unparsable live row raises."""
+        arr = column_to_arrow(c, c.capacity)
+        vals = arr.to_pylist()
+        memo = {}
+        out = []
+        for v in vals:
+            if v is None:
+                out.append(None)
+                continue
+            if v not in memo:
+                memo[v] = _parse_string(v, t)
+            out.append(memo[v])
+        if ctx.ansi:
+            live = batch.live_mask().tolist()
+            for v, o, lv in zip(vals, out, live):
+                if lv and v is not None and o is None:
+                    raise ExprError(f"invalid input for cast to {t}: "
+                                    f"{v!r}")
+        return _from_arrow(pa.array(out, dt.to_arrow(t)), t, c.capacity,
+                           c.device)
+
+    @staticmethod
+    def _to_string(c: GpuColumnVector, f: dt.DataType) -> GpuColumnVector:
+        if dt.is_integral(f):
+            return nf.int_to_string(c)
+        if isinstance(f, dt.BooleanType):
+            return nf.bool_to_string(c)
+        if isinstance(f, dt.DateType):
+            return nf.date_to_string(c)
+        if isinstance(f, dt.TimestampType):
+            return nf.timestamp_to_string(c)
+        raise NotImplementedError(
+            f"cast {f.simple_string()} -> string runs on the CPU, where the "
+            "planner places it")
+
+    @staticmethod
+    def _to_string_host(c: GpuColumnVector, f: dt.DataType) \
+            -> GpuColumnVector:
+        """The reference's host formatting (``_to_string_cpu``)."""
+        arr = column_to_arrow(c, c.capacity)
+        if dt.is_floating(f):
+            out = pa.array([None if v is None else _java_float_str(v)
+                            for v in arr.to_pylist()], pa.string())
+        elif isinstance(f, dt.TimestampType):
+            strs = []
+            for v in arr.to_pylist():
+                if v is None:
+                    strs.append(None)
+                    continue
+                text = v.strftime("%Y-%m-%d %H:%M:%S")
+                if v.microsecond:
+                    text += "." + f"{v.microsecond:06d}".rstrip("0")
+                strs.append(text)
+            out = pa.array(strs, pa.string())
+        elif isinstance(f, dt.BooleanType):
+            out = pa.array([None if v is None else ("true" if v else
+                                                    "false")
+                            for v in arr.to_pylist()], pa.string())
+        else:
+            out = pc.cast(arr, pa.string())
+        return _from_arrow(out, dt.STRING, c.capacity, c.device)
+
+    # --- dates and timestamps -------------------------------------------------
+
+    @staticmethod
+    def _time_cast(x: torch.Tensor, f: dt.DataType,
+                   t: dt.DataType) -> torch.Tensor:
+        x = x.to(torch.int64)
+        if isinstance(f, dt.DateType):  # -> timestamp
+            return x * _US_PER_DAY
+        if isinstance(f, dt.TimestampType):
+            if isinstance(t, dt.DateType):
+                return torch.div(x, _US_PER_DAY, rounding_mode="floor") \
+                    .to(torch.int32)
+            if dt.is_floating(t):
+                return (x.to(torch.float64) / 1e6).to(torch_dtype(t))
+            return _wrap_int(torch.div(x, _US_PER_SECOND,
+                                       rounding_mode="floor"), t)
+        return x * _US_PER_SECOND  # integer seconds -> timestamp
 
     @staticmethod
     def _num_cast(x: torch.Tensor, f: dt.DataType,
@@ -117,3 +298,78 @@ class Cast(Expression):
 
     def __repr__(self):
         return f"cast({self.child!r} as {self._to.simple_string()})"
+
+
+
+def _java_float_str(v: float) -> str:
+    """Java's ``Double.toString`` as the reference's host path writes it
+    (``spark_rapids_tpu/expr/cast.py:358``)."""
+    if math.isnan(v):
+        return "NaN"
+    if math.isinf(v):
+        return "Infinity" if v > 0 else "-Infinity"
+    if v == int(v) and abs(v) < 1e16:
+        if v == 0 and math.copysign(1, v) < 0:
+            return "-0.0"
+        return f"{int(v)}.0"
+    r = repr(v)
+    if "e" in r or "E" in r:
+        m, e = r.split("e")
+        return f"{m}E{int(e)}"
+    return r
+
+
+_TS_FORMATS = ("%Y-%m-%d %H:%M:%S.%f", "%Y-%m-%d %H:%M:%S",
+               "%Y-%m-%dT%H:%M:%S.%f", "%Y-%m-%dT%H:%M:%S", "%Y-%m-%d")
+
+
+def _parse_string(s: str, t: dt.DataType):
+    """The reference's host parser (``_parse_string``): a Python value,
+    or None where Spark's non-ANSI cast gives null."""
+    s = s.strip()
+    try:
+        if isinstance(t, dt.BooleanType):
+            ls = s.lower()
+            if ls in ("t", "true", "y", "yes", "1"):
+                return True
+            if ls in ("f", "false", "n", "no", "0"):
+                return False
+            return None
+        if dt.is_integral(t):
+            m = re.fullmatch(r"([+-]?\d+)(\.\d*)?", s)
+            if m is None:
+                return None
+            v = int(m.group(1))
+            lo, hi = int_bounds(t)
+            return v if lo <= v <= hi else None
+        if dt.is_floating(t):
+            ls = s.lower()
+            if ls == "nan":
+                return float("nan")
+            if ls in ("inf", "+inf", "infinity", "+infinity"):
+                return float("inf")
+            if ls in ("-inf", "-infinity"):
+                return float("-inf")
+            if re.fullmatch(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?",
+                            s) is None:
+                return None
+            v = float(s)
+            return float(np.float32(v)) if isinstance(t, dt.FloatType) \
+                else v
+        if isinstance(t, dt.DateType):
+            m = re.fullmatch(r"(\d{4})-(\d{1,2})-(\d{1,2})([T ].*)?", s)
+            if not m:
+                return None
+            return datetime.date(int(m.group(1)), int(m.group(2)),
+                                 int(m.group(3)))
+        if isinstance(t, dt.TimestampType):
+            for fmt in _TS_FORMATS:
+                try:
+                    return datetime.datetime.strptime(s, fmt).replace(
+                        tzinfo=datetime.timezone.utc)
+                except ValueError:
+                    continue
+            return None
+    except (ValueError, OverflowError):
+        return None
+    return None

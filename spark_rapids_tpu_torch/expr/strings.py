@@ -19,8 +19,32 @@ has it (``:299,437``): LIKE translated to an anchored pattern with
 string of the column matched once. The result keeps the column's
 validity; a null row's match bit is not read.
 
-``StartsWith``, ``EndsWith``, ``Contains`` and the module's other
-expressions wait for ROADMAP item 13.
+A LIKE of the literal shapes (prefix, suffix, contains, prefix and
+suffix) compiles with ``literal_bytes``, so a non-ASCII literal matches
+its UTF-8 bytes on K6, as the reference's literal kernels do; a general
+non-ASCII pattern stays on the CPU, as there.
+
+The rest of ``spark_rapids_tpu/expr/strings.py``:
+
+- on the device: ``Length`` (characters: UTF-8 lead bytes), ``Upper``
+  and ``Lower`` (ASCII letters; the CPU path maps every character, as
+  the reference's ``pc.utf8_upper``), ``Substring`` (Spark's 1-based
+  window: bytes on the device, characters on the CPU; ``incompat``, so
+  ``spark.rapids.sql.incompatibleOps.enabled=false`` keeps it on the
+  CPU), ``ConcatStrings`` (null if any input is), ``StartsWith``,
+  ``EndsWith`` and ``Contains`` of a literal (K6, a literal past K6's
+  64 positions through ``ops/strings.literal_match_torch``), and
+  ``StringTrim``, ``StringTrimLeft``, ``StringTrimRight`` (ASCII
+  spaces);
+- on the CPU, where the reference places them: ``StringReplace``,
+  ``StringLocate``, ``StringLpad``, ``StringRpad``, ``StringRepeat``
+  and ``Reverse``, each over the column's Arrow values.
+
+Where the reference departs from Spark the port follows Spark: a
+negative start before the string's beginning eats into the length
+(``substr('abc', -5, 3)`` is ``'a'``; the reference clamps the start
+first and gives ``'abc'``). ``RegExpReplace`` and ``RegExpExtract`` wait
+for ROADMAP item 13's regex rest.
 """
 from __future__ import annotations
 
@@ -29,15 +53,24 @@ from typing import Optional
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from .. import datatypes as dt
-from ..columnar.column import GpuColumnVector, is_string_like
+from ..columnar.arrow_bridge import column_from_host, host_lanes, \
+    string_column_from_host
+from ..columnar.column import GpuColumnVector, and_validity, \
+    is_string_like
 from ..ops import regex
+from ..ops import strings as sops
 from ..ops.strings import compare_with_literals, string_row_parts
 from .base import Expression, column_to_arrow
 
-__all__ = ["Like", "RegExpLike"]
+__all__ = ["Like", "RegExpLike", "Length", "Upper", "Lower", "Substring",
+           "ConcatStrings", "StartsWith", "EndsWith", "Contains",
+           "StringTrim", "StringTrimLeft", "StringTrimRight",
+           "StringReplace", "StringLocate", "StringLpad", "StringRpad",
+           "StringRepeat", "Reverse"]
 
 
 def _match(col: GpuColumnVector, prog) -> GpuColumnVector:
@@ -153,8 +186,12 @@ class Like(_RegexPredicate):
         shape = self._simple_shape()
         if shape is not None and shape[0] == "exact":
             return None
-        return regex.compile_pattern(regex.like_to_regex(self.pattern,
-                                                         self.escape))
+        # the literal shapes take any bytes, as the reference's literal
+        # kernels; a general pattern keeps the dialect's ASCII rule
+        literal = shape is not None
+        return regex.compile_pattern(
+            regex.like_to_regex(self.pattern, self.escape, literal),
+            literal_bytes=literal)
 
     def _host_test(self):
         out, i, p = [], 0, self.pattern
@@ -207,3 +244,321 @@ class RegExpLike(_RegexPredicate):
 
     def __repr__(self):
         return f"({self.children[0]!r} RLIKE {self.pattern!r})"
+
+
+# --- the rest of the reference's string functions ---------------------------
+
+def _from_arrow(arr: pa.Array, t: dt.DataType, capacity: int,
+                device) -> GpuColumnVector:
+    """A host Arrow result as a column of ``capacity`` rows."""
+    if is_string_like(t):
+        return string_column_from_host(t, arr, capacity, device)
+    values, valid = host_lanes(arr, t)
+    return column_from_host(t, values, valid, capacity, device)
+
+
+def _host_values(col: GpuColumnVector):
+    """The column's rows as Python strings (None for null)."""
+    arr = column_to_arrow(col, col.capacity)
+    if pa.types.is_binary(arr.type):
+        arr = arr.cast(pa.string())
+    return arr
+
+
+class _StringFunction(Expression):
+    """A function of one string column."""
+
+    out_type = dt.STRING
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return self.out_type
+
+    def validate(self):
+        t = self.children[0].dtype
+        if not is_string_like(t):
+            raise TypeError(f"{type(self).__name__} needs a string, got "
+                            f"{t.simple_string()}")
+
+
+class _HostStringFunction(_StringFunction):
+    """A string function the reference runs on its host path only: the
+    planner keeps its operator on the CPU, where ``host`` maps the
+    column's Arrow values."""
+
+    host_reason = "runs on the CPU"
+
+    def gpu_supported(self) -> Optional[str]:
+        return self.host_reason
+
+    def host(self, arr: pa.Array) -> pa.Array:
+        raise NotImplementedError
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        if not ctx.host:
+            raise NotImplementedError(
+                f"{type(self).__name__} {self.host_reason}, where the "
+                "planner places it")
+        out = self.host(_host_values(c))
+        return _from_arrow(out, self.dtype, c.capacity, c.device)
+
+
+class Length(_StringFunction):
+    """char_length: UTF-8 characters, not bytes (Spark)."""
+
+    out_type = dt.INT32
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        counts = sops.utf8_lead_counts(c)
+        n = counts[c.offsets[1:].long()] - counts[c.offsets[:-1].long()]
+        return GpuColumnVector(dt.INT32, n.to(torch.int32), c.validity)
+
+
+class _CaseMap(_StringFunction):
+    """ASCII case mapping on the device (the reference's
+    ``upper_ascii_tpu``); every character on the CPU path."""
+
+    to_upper = True
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        if ctx.host:
+            arr = _host_values(c)
+            fn = pc.utf8_upper if self.to_upper else pc.utf8_lower
+            return _from_arrow(fn(arr), self.dtype, c.capacity, c.device)
+        return sops.case_map_ascii(c, self.to_upper)
+
+
+class Upper(_CaseMap):
+    to_upper = True
+
+
+class Lower(_CaseMap):
+    to_upper = False
+
+
+class Substring(Expression):
+    """substring(str, pos, len): Spark's 1-based window (module
+    docstring); bytes on the device, characters on the CPU."""
+
+    incompat = "byte-based substring differs from Spark on non-ASCII"
+
+    def __init__(self, child: Expression, pos: Expression,
+                 length: Expression):
+        self.children = (child, pos, length)
+
+    @property
+    def dtype(self):
+        return dt.STRING
+
+    def validate(self):
+        if not is_string_like(self.children[0].dtype):
+            raise TypeError("substring needs a string")
+        for c in self.children[1:]:
+            if not dt.is_integral(c.dtype):
+                raise TypeError("substring's position and length are "
+                                "integers")
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        p = self.children[1].eval_gpu(batch, ctx)
+        ln = self.children[2].eval_gpu(batch, ctx)
+        valid = and_validity(and_validity(c.validity, p.validity),
+                             ln.validity)
+        cut = sops.substring_chars if ctx.host else sops.substring_bytes
+        return cut(c, p.data, ln.data, valid)
+
+
+class ConcatStrings(Expression):
+    """concat(s1, s2, ...): null if any input is null."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self):
+        return dt.STRING
+
+    def validate(self):
+        for c in self.children:
+            if not is_string_like(c.dtype):
+                raise TypeError(f"concat needs strings, got "
+                                f"{c.dtype.simple_string()}")
+
+    def eval_gpu(self, batch, ctx):
+        cols = [c.eval_gpu(batch, ctx) for c in self.children]
+        valid = None
+        for c in cols:
+            valid = and_validity(valid, c.validity)
+        return sops.concat_strings(cols, valid)
+
+
+class _LiteralPatternMatch(_StringFunction):
+    """startswith/endswith/contains of a literal: K6 runs the literal as
+    an anchored pattern (its bytes, any of them); a literal past K6's
+    positions matches in torch on the same device."""
+
+    out_type = dt.BOOL
+    kind = ""
+
+    def __init__(self, child: Expression, pattern: str):
+        super().__init__(child)
+        self.pattern = pattern
+        self._compiled = None
+
+    def program(self):
+        """The K6 program, or None when the literal is too long for it."""
+        if self._compiled is None:
+            lit = regex.literal_regex(self.pattern)
+            text = {"prefix": "^" + lit, "suffix": lit + "$",
+                    "contains": lit}[self.kind]
+            try:
+                self._compiled = (regex.compile_pattern(
+                    text, literal_bytes=True),)
+            except regex.RegexUnsupported:
+                self._compiled = (None,)
+        return self._compiled[0]
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        prog = self.program()
+        if prog is None:
+            return GpuColumnVector(dt.BOOL, sops.literal_match_torch(
+                c, self.pattern.encode(), self.kind), c.validity)
+        return _match(c, prog)
+
+    def __repr__(self):
+        return f"{self.pretty_name()}({self.children[0]!r}, " \
+            f"{self.pattern!r})"
+
+
+class StartsWith(_LiteralPatternMatch):
+    kind = "prefix"
+
+
+class EndsWith(_LiteralPatternMatch):
+    kind = "suffix"
+
+
+class Contains(_LiteralPatternMatch):
+    kind = "contains"
+
+
+class StringTrim(_StringFunction):
+    """trim(): strips ASCII spaces (0x20), Spark's default trim."""
+
+    left = True
+    right = True
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        return sops.trim_spaces(c, self.left, self.right)
+
+
+class StringTrimLeft(StringTrim):
+    left, right = True, False
+
+
+class StringTrimRight(StringTrim):
+    left, right = False, True
+
+
+class StringReplace(_HostStringFunction):
+    """replace(str, search, replace) with literal search (host)."""
+
+    host_reason = "string replace runs on host"
+
+    def __init__(self, child: Expression, search: str, replacement: str):
+        super().__init__(child)
+        self.search = search
+        self.replacement = replacement
+
+    def host(self, arr):
+        if self.search == "":
+            return arr
+        return pc.replace_substring(arr, pattern=self.search,
+                                    replacement=self.replacement)
+
+
+class StringLocate(_HostStringFunction):
+    """locate(substr, str[, pos]): the 1-based position of the first
+    occurrence at or after character ``pos``, 0 when there is none or
+    ``pos`` is below 1 (host)."""
+
+    out_type = dt.INT32
+    host_reason = "locate runs on host"
+
+    def __init__(self, substr: str, child: Expression, pos: int = 1):
+        super().__init__(child)
+        self.substr = substr
+        self.pos = pos
+
+    def host(self, arr):
+        out = []
+        for v in arr.to_pylist():
+            if v is None:
+                out.append(None)
+            elif self.pos <= 0:
+                out.append(0)
+            else:
+                out.append(v.find(self.substr, self.pos - 1) + 1)
+        return pa.array(out, pa.int32())
+
+
+class _Pad(_HostStringFunction):
+    left = True
+    host_reason = "pad runs on host"
+
+    def __init__(self, child: Expression, length: int, pad: str = " "):
+        super().__init__(child)
+        self.length = length
+        self.pad = pad
+
+    def host(self, arr):
+        out = []
+        for v in arr.to_pylist():
+            if v is None:
+                out.append(None)
+            elif len(v) >= self.length:
+                out.append(v[:max(self.length, 0)])
+            elif not self.pad:
+                out.append(v)
+            else:
+                fill = (self.pad * self.length)[:self.length - len(v)]
+                out.append(fill + v if self.left else v + fill)
+        return pa.array(out, pa.string())
+
+
+class StringLpad(_Pad):
+    left = True
+
+
+class StringRpad(_Pad):
+    left = False
+
+
+class StringRepeat(_HostStringFunction):
+    host_reason = "repeat runs on host"
+
+    def __init__(self, child: Expression, times: int):
+        super().__init__(child)
+        self.times = times
+
+    def host(self, arr):
+        return pa.array([None if v is None else v * max(self.times, 0)
+                         for v in arr.to_pylist()], pa.string())
+
+
+class Reverse(_HostStringFunction):
+    """reverse(str): characters in reverse order (host)."""
+
+    host_reason = "reverse runs on host"
+
+    def host(self, arr):
+        return pa.array([None if v is None else v[::-1]
+                         for v in arr.to_pylist()], pa.string())

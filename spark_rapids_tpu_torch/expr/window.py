@@ -14,9 +14,9 @@ expression of one spec in one sorted, segmented pass.
 ``:247-303``). The planner reads it and places a window it refuses on
 the CPU (``exec/window.py``'s host branches): RANGE offsets over
 anything but one ascending integer or date key of at most 32 bits, and
-a lag or lead with a string default. The window aggregates the port
-does not have (First, Last, the variances and the collects) wait for
-item 8 and raise where the SQL compiler meets them.
+a lag or lead with a string default. Every aggregate of the
+reference's window set computes over a frame (First, Last and the
+central moments since item 8's rest); the collects wait for item 2.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import datatypes as dt
-from .aggregates import AggregateFunction, Average, Count, Max, Min, Sum
+from .aggregates import (AggregateFunction, Average, Count, First, Last,
+                         Max, Min, Sum, _CentralMoment)
 from .base import Expression, Literal
 
 __all__ = ["WindowFrame", "WindowExpression", "WindowFunction",
@@ -169,9 +170,10 @@ class Lead(_OffsetFunction):
     direction = 1
 
 
-# the aggregates the port computes over a frame (exec/window.py); the
-# reference also has First, Last and the central moments (ROADMAP item 8)
-_DEVICE_WINDOW_AGGS = (Sum, Count, Min, Max, Average)
+# the aggregates the port computes over a frame (exec/window.py), the
+# reference's set (``spark_rapids_tpu/expr/window.py:175``)
+_DEVICE_WINDOW_AGGS = (Sum, Count, Min, Max, Average, First, Last,
+                       _CentralMoment)
 
 
 class WindowExpression(Expression):

@@ -9,7 +9,9 @@ carries the inputs' live rows as the output's lazy selection: the
 consumers (the final aggregate's sort, the join's build presort) read
 the live mask and put the dead rows last. No row moves, no gather runs.
 A string column's chars are concatenated whole and its rows re-packed
-from their shifted starts and lengths, with no readback.
+from their shifted starts and lengths, with no readback (unless the
+chars would pass an int32 offset: then each input's chars are cut to
+its rows' bytes first).
 """
 from __future__ import annotations
 
@@ -33,12 +35,28 @@ def _padded_cat(parts: List[torch.Tensor], cap: int) -> torch.Tensor:
     return padded
 
 
+_MAX_CHARS = (1 << 31) - 1  # an int32 offset's reach
+
+
+def _compacted(col: GpuColumnVector) -> GpuColumnVector:
+    """The column with a chars buffer of exactly its rows' bytes (one
+    readback of their total)."""
+    starts, lengths = string_row_parts(col)
+    return assemble_strings(col, starts, lengths, col.validity,
+                            int(lengths.sum(dtype=torch.int64)))
+
+
 def _concat_strings(parts: List[GpuColumnVector], cap: int) \
         -> GpuColumnVector:
     """String columns end to end: the chars of every input side by side,
     each input's starts shifted by the char capacities before it (sizes
     the host knows), then the rows re-packed from their starts and
-    lengths (``ops/strings.assemble_strings``); padding rows are empty."""
+    lengths (``ops/strings.assemble_strings``); padding rows are empty.
+    Where the capacities together pass an int32 offset (partials that
+    each kept a large input's chars buffer for a few rows), each input's
+    chars are first cut to its rows' bytes, one readback an input."""
+    if sum(p.chars.shape[0] for p in parts) > _MAX_CHARS:
+        parts = [_compacted(p) for p in parts]
     starts, lengths, base = [], [], 0
     for p in parts:
         s, n = string_row_parts(p)

@@ -1905,7 +1905,10 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
     (route B); and the edges: the empty string, a null row, rows
     whose start lies inside an inherited chars buffer (overlapping,
     out of order), an empty chars buffer, and patterns that match
-    always or only the empty string."""
+    always or only the empty string; and non-ASCII literal shapes
+    (``literal_bytes``): q_fn_match's ``'%sé'`` over the categories with
+    ``é`` appended, and contains, prefix and two-character literals on
+    the edges."""
     from . import regex
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
@@ -1913,19 +1916,28 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
     def t(a, dtype):
         return torch.from_numpy(np.array(a, dtype)).to(dev)
 
-    def case(name, starts, lengths, validity, chars, pattern, like):
-        rx = regex.like_to_regex(pattern) if like else pattern
+    def case(name, starts, lengths, validity, chars, pattern, like,
+             literal=False):
+        rx = regex.like_to_regex(pattern, "\\", literal) if like \
+            else pattern
         return {"name": name, "starts": t(starts, np.int32),
                 "lengths": t(lengths, np.int32),
                 "validity": None if validity is None
                 else t(validity, np.bool_),
                 "chars": t(chars, np.uint8), "pattern": pattern,
-                "prog": regex.compile_pattern(rx)}
+                "prog": regex.compile_pattern(rx, literal_bytes=literal)}
 
     words = [w.encode() for w in rng.choice(_NDS_CATEGORIES, NDS_ITEM_ROWS)]
     off = np.concatenate([[0], np.cumsum([len(w) for w in words])])
     out = [case("q_like_item_32768", off[:-1], np.diff(off), None,
                 np.frombuffer(b"".join(words), np.uint8), "%o%s%", True)]
+    # q_fn_match's non-ASCII literal shape: LIKE '%sé' over the
+    # categories with 'é' appended (the literal's UTF-8 bytes on K6)
+    intl = [w + "é".encode() for w in words]
+    off = np.concatenate([[0], np.cumsum([len(w) for w in intl])])
+    out.append(case("q_fn_match_item_intl_32768", off[:-1], np.diff(off),
+                    None, np.frombuffer(b"".join(intl), np.uint8), "%sé",
+                    True, literal=True))
     off, chars = _k6_text(rng, text_rows)
     valid = rng.random(len(off) - 1) >= 0.05
     out += [case(f"text_{kind}_2^{text_rows.bit_length() - 1}", off[:-1],
@@ -1942,6 +1954,9 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
                       ("s$", False)):
         out.append(case(f"edges_{pat!r}", starts, lengths, valid, buf,
                         pat, like))
+    for pat in ("%é%", "sé%", "%é日%"):
+        out.append(case(f"edges_{pat!r}", starts, lengths, valid, buf, pat,
+                        True, literal=True))
     out.append(case("edges_no_chars", [0, 0, 0], [0, 0, 0],
                     [True, False, True], np.zeros(0, np.uint8), "^$",
                     False))

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 __all__ = ["RegexUnsupported", "RegexProgram", "compile_pattern",
-           "like_to_regex", "regex_match", "regex_match_torch",
+           "like_to_regex", "literal_regex", "regex_match", "regex_match_torch",
            "regex_bytes_read", "program_tables", "position_tables",
            "build_dfa", "follow_byte_tables", "Dfa", "MAX_STATES",
            "DFA_MAX_ENTRIES"]
@@ -100,6 +100,8 @@ def _parse_class(p: str, i: int) -> Tuple[np.ndarray, int]:
             i += 2
             continue
         lo = p[i]
+        if ord(lo) > 127:
+            raise RegexUnsupported("non-ASCII character class")
         if i + 2 < len(p) and p[i + 1] == "-" and p[i + 2] != "]":
             hi = p[i + 2]
             if ord(lo) > ord(hi):
@@ -115,9 +117,11 @@ def _parse_class(p: str, i: int) -> Tuple[np.ndarray, int]:
     return (~m if neg else m), i
 
 
-def _parse_branch(branch: str):
+def _parse_branch(branch: str, literal_bytes: bool = False):
     """-> (anchored_start, anchored_end, [(class, quant)]).
-    quant in '1?*+'."""
+    quant in '1?*+'. With ``literal_bytes`` a non-ASCII literal character
+    is its UTF-8 bytes, one single-byte atom each (no quantifier may
+    follow it); without, it is refused."""
     i = 0
     anchored_start = branch.startswith("^")
     if anchored_start:
@@ -147,7 +151,17 @@ def _parse_branch(branch: str):
             raise RegexUnsupported("quantifier without atom")
         else:
             if ord(c) > 127:
-                raise RegexUnsupported("non-ASCII pattern byte")
+                if not literal_bytes:
+                    raise RegexUnsupported("non-ASCII pattern byte")
+                if i + 1 < end and branch[i + 1] in "*+?":
+                    raise RegexUnsupported("quantified non-ASCII character")
+                # quant "b": one literal byte, not a character class
+                for byte in c.encode():
+                    m = np.zeros(256, bool)
+                    m[byte] = True
+                    atoms.append((m, "b"))
+                i += 1
+                continue
             m = np.zeros(256, bool)
             m[ord(c)] = True
             i += 1
@@ -276,16 +290,24 @@ def _atom_fragment(m: np.ndarray) -> _Fragment:
     return _Fragment(masks, first, last, follow)
 
 
-def compile_pattern(pattern: str) -> RegexProgram:
-    """Compile, or raise RegexUnsupported."""
-    if any(ord(c) > 127 for c in pattern):
+def compile_pattern(pattern: str,
+                    literal_bytes: bool = False) -> RegexProgram:
+    """Compile, or raise RegexUnsupported. A non-ASCII pattern is refused
+    (the reference's dialect), unless ``literal_bytes``: then a non-ASCII
+    literal character matches its UTF-8 byte sequence
+    (``_parse_branch``), which the literal shapes of LIKE and
+    ``startswith``/``endswith``/``contains`` need, as the reference's
+    literal kernels take any bytes."""
+    if not literal_bytes and any(ord(c) > 127 for c in pattern):
         raise RegexUnsupported("non-ASCII pattern")
     prog = RegexProgram()
-    branches = [_parse_branch(b) for b in _split_alternation(pattern)]
+    branches = [_parse_branch(b, literal_bytes)
+                for b in _split_alternation(pattern)]
     frag_branches = []
     n = 0
     for a_start, a_end, atoms in branches:
-        frags = [( _atom_fragment(m), q) for m, q in atoms]
+        frags = [(_Fragment([m], [0], [0], []), "1") if q == "b"
+                 else (_atom_fragment(m), q) for m, q in atoms]
         n += sum(len(f.masks) for f, _ in frags)
         frag_branches.append((a_start, a_end, frags))
     if n > _MAX_STATES:
@@ -354,12 +376,22 @@ def compile_pattern(pattern: str) -> RegexProgram:
     return prog
 
 
-def like_to_regex(pattern: str, escape: str = "\\") -> str:
+def literal_regex(text: str) -> str:
+    """A literal string in the device dialect (compile it with
+    ``literal_bytes=True`` when it holds non-ASCII characters)."""
+    specials = ".^$*+?()[]{}|\\/"
+    return "".join("\\" + c if c in specials else c for c in text)
+
+
+def like_to_regex(pattern: str, escape: str = "\\",
+                  literal_bytes: bool = False) -> str:
     """SQL LIKE -> the device regex dialect, fully anchored. LIKE
     wildcards match ANY character including newlines (unlike regex `.`,
     which follows Java's no-DOTALL default), so % and _ translate to
     the all-bytes class [\\s\\S], not dot. Raises RegexUnsupported for
-    non-ASCII."""
+    non-ASCII, as the reference does, unless ``literal_bytes``: then a
+    non-ASCII character stays a literal, for
+    ``compile_pattern(..., literal_bytes=True)``."""
     out = ["^"]
     i = 0
     specials = ".^$*+?()[]{}|\\/"
@@ -377,7 +409,7 @@ def like_to_regex(pattern: str, escape: str = "\\") -> str:
         elif c in specials:
             out.append("\\" + c)
         else:
-            if ord(c) > 127:
+            if ord(c) > 127 and not literal_bytes:
                 raise RegexUnsupported("non-ASCII LIKE pattern")
             out.append(c)
         i += 1

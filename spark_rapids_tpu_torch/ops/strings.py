@@ -1,11 +1,34 @@
 """String row gathers and comparisons over ``(offsets int32, chars
 uint8)`` columns.
 
-Counterpart of ``gather_window``, ``string_compare_tpu`` and
-``gather_strings`` (``spark_rapids_tpu/ops/strings.py:30,48,82``;
-``string_lengths``, ``:25``, is ``GpuColumnVector.lengths``); the other
-string kernels (substring, case, search, concat) wait for ROADMAP item
-13.
+Counterpart of ``spark_rapids_tpu/ops/strings.py`` (``string_lengths``,
+``:25``, is ``GpuColumnVector.lengths``): ``gather_window``,
+``string_compare``, ``gather_strings`` (``:30,48,82``), and the string
+functions of ``:122-264``, written in vectorised torch over the
+``(offsets, chars)`` layout where the reference loops over 64-byte
+windows in a ``jax.lax.while_loop``:
+
+- ``substring_bytes`` (``substring_tpu``) and ``trim_spaces`` (the
+  reference's ``expr/strings._trim_tpu``) compute each row's new start
+  and length, then ``assemble_strings`` copies the bytes (one
+  ``searchsorted`` an output byte). Their char capacity is the input's,
+  a host-known bound, so no size is read back;
+- ``case_map_ascii`` (``upper_ascii_tpu``/``lower_ascii_tpu``) maps the
+  chars buffer byte for byte;
+- ``concat_strings`` (``concat_strings_tpu``) lays the k inputs' rows
+  out as n x k pieces over their chars side by side and assembles the
+  pieces in one pass; the output's offsets are every k-th piece offset;
+- ``char_offsets`` maps a row's character indices to byte offsets
+  through a running count of UTF-8 lead bytes (``Length`` counts
+  characters with the same count);
+- ``literal_match_torch`` is ``_match_at`` and ``starts_with_tpu``,
+  ``ends_with_tpu``, ``contains_tpu`` for a literal too long for K6
+  (``expr/strings`` runs the others on K6): a prefix or suffix compares
+  one window of the literal's width a row, a search marks each byte
+  position of the whole buffer where the literal starts and counts the
+  marks inside each row by a prefix sum.
+
+None of these builds an intermediate that grows with the longest row.
 
 A comparison is unsigned and byte-wise, and a shorter prefix comes
 first. Where the reference walks 64-byte windows in a
@@ -39,7 +62,10 @@ from ..columnar.column import GpuColumnVector
 from . import cuda_kernels as ck
 
 __all__ = ["gather_window", "string_compare", "compare_with_literals",
-           "string_row_parts", "assemble_strings", "gather_strings"]
+           "string_row_parts", "assemble_strings", "gather_strings",
+           "utf8_lead_counts", "char_offsets", "substring_bytes",
+           "substring_chars", "case_map_ascii", "concat_strings",
+           "trim_spaces", "literal_match_torch"]
 
 
 def gather_window(offsets: torch.Tensor, chars: torch.Tensor, chunk: int,
@@ -148,3 +174,170 @@ def gather_strings(col: GpuColumnVector, indices: torch.Tensor,
         [starts, lengths], [col.validity, None],
         indices.to(torch.int32).contiguous(), out_live)
     return assemble_strings(col, g_starts, g_lens, valid, char_capacity)
+
+
+def _i64(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int64)
+
+
+def utf8_lead_counts(col: GpuColumnVector) -> torch.Tensor:
+    """``counts[i]``: the UTF-8 lead bytes (bytes that start a character)
+    in ``chars[:i]``, int64, one longer than the buffer."""
+    lead = (col.chars & 0xC0) != 0x80
+    out = torch.zeros(col.chars.shape[0] + 1, dtype=torch.int64,
+                      device=col.chars.device)
+    out[1:] = torch.cumsum(lead.to(torch.int64), 0)
+    return out
+
+
+def char_offsets(col: GpuColumnVector, counts: torch.Tensor,
+                 k: torch.Tensor) -> torch.Tensor:
+    """The byte offset in each row of its character ``k`` (clamped to
+    ``[0, characters]``; the row's length at its end): the first byte
+    ``p`` after which ``k + 1`` lead bytes of the row lie, less one."""
+    starts = _i64(col.offsets[:-1])
+    ends = _i64(col.offsets[1:])
+    nchar = counts[ends] - counts[starts]
+    k = torch.minimum(k.clamp(min=0), nchar)
+    target = counts[starts] + k + 1
+    p = torch.searchsorted(counts, target, right=False) - 1
+    return torch.where(k >= nchar, ends, p) - starts
+
+
+def _spark_window(pos: torch.Tensor, length: torch.Tensor,
+                  size: torch.Tensor):
+    """Spark's ``substringSQL`` window over a row of ``size`` units:
+    ``(start, count)``. A positive ``pos`` is 1-based, a negative one
+    counts from the end, 0 is the first unit; the window is ``length``
+    units from that start, clipped to the row (so a start before the row
+    eats into the length)."""
+    pos, length = _i64(pos), _i64(length)
+    start = torch.where(pos > 0, pos - 1,
+                        torch.where(pos < 0, size + pos,
+                                    torch.zeros_like(pos)))
+    end = torch.minimum(start + length.clamp(min=0), size)
+    start = start.clamp(min=0)
+    return start, (end - start).clamp(min=0)
+
+
+def substring_bytes(col: GpuColumnVector, pos: torch.Tensor,
+                    length: torch.Tensor,
+                    validity: Optional[torch.Tensor]) -> GpuColumnVector:
+    """Spark's substring in bytes (exact for ASCII; the device path)."""
+    lens = _i64(col.lengths())
+    s, n = _spark_window(pos, length, lens)
+    starts = _i64(col.offsets[:-1]) + s
+    return assemble_strings(col, starts.to(torch.int32),
+                            n.to(torch.int32), validity,
+                            col.chars.shape[0])
+
+
+def substring_chars(col: GpuColumnVector, pos: torch.Tensor,
+                    length: torch.Tensor,
+                    validity: Optional[torch.Tensor]) -> GpuColumnVector:
+    """Spark's substring in characters (the CPU path)."""
+    counts = utf8_lead_counts(col)
+    starts = _i64(col.offsets[:-1])
+    nchar = counts[_i64(col.offsets[1:])] - counts[starts]
+    s, n = _spark_window(pos, length, nchar)
+    b0 = char_offsets(col, counts, s)
+    b1 = char_offsets(col, counts, s + n)
+    return assemble_strings(col, (starts + b0).to(torch.int32),
+                            (b1 - b0).to(torch.int32), validity,
+                            col.chars.shape[0])
+
+
+def case_map_ascii(col: GpuColumnVector, upper: bool) -> GpuColumnVector:
+    """ASCII letters to upper (lower) case; every other byte as it is."""
+    c = col.chars
+    lo, hi, shift = (ord("a"), ord("z"), -32) if upper \
+        else (ord("A"), ord("Z"), 32)
+    hit = (c >= lo) & (c <= hi)
+    chars = torch.where(hit, (c.to(torch.int16) + shift).to(torch.uint8), c)
+    return GpuColumnVector(col.dtype, None, col.validity, col.offsets,
+                           chars)
+
+
+def concat_strings(cols: Sequence[GpuColumnVector],
+                   validity: Optional[torch.Tensor]) -> GpuColumnVector:
+    """Row-wise concatenation of string columns of one capacity: n x k
+    pieces over the inputs' chars side by side, assembled at once."""
+    k = len(cols)
+    base = 0
+    starts, lengths = [], []
+    for c in cols:
+        st, ln = string_row_parts(c)
+        starts.append(st + base)
+        lengths.append(ln)
+        base += c.chars.shape[0]
+    both = GpuColumnVector(cols[0].dtype, None, None, None,
+                           torch.cat([c.chars for c in cols]))
+    piece_starts = torch.stack(starts, 1).reshape(-1)
+    piece_lens = torch.stack(lengths, 1).reshape(-1)
+    pieces = assemble_strings(both, piece_starts, piece_lens, None, base)
+    return GpuColumnVector(cols[0].dtype, None, validity,
+                           pieces.offsets[::k].contiguous(), pieces.chars)
+
+
+def trim_spaces(col: GpuColumnVector, left: bool,
+                right: bool) -> GpuColumnVector:
+    """Strip ASCII spaces (0x20) from either end of each row: the first
+    and last non-space byte of a row come from running extremes over the
+    whole buffer."""
+    starts = _i64(col.offsets[:-1])
+    ends = _i64(col.offsets[1:])
+    size = col.chars.shape[0]
+    if size == 0:
+        return col
+    idx = torch.arange(size, dtype=torch.int64, device=starts.device)
+    keep = col.chars != 0x20
+    big = torch.full_like(idx, size)
+    # the next non-space byte at or after i, the last one at or before i
+    nxt = torch.flip(torch.cummin(torch.flip(torch.where(keep, idx, big),
+                                             [0]), 0).values, [0])
+    prv = torch.cummax(torch.where(keep, idx, torch.full_like(idx, -1)),
+                       0).values
+    new_s, new_e = starts, ends
+    if left:
+        new_s = torch.minimum(nxt[starts.clamp(max=size - 1)], ends)
+        new_s = torch.where(starts < ends, new_s, starts)
+    if right:
+        last = prv[(ends - 1).clamp(min=0, max=size - 1)]
+        new_e = torch.where(ends > new_s, torch.maximum(last + 1, new_s),
+                            new_s)
+    return assemble_strings(col, new_s.to(torch.int32),
+                            (new_e - new_s).to(torch.int32), col.validity,
+                            size)
+
+
+def literal_match_torch(col: GpuColumnVector, pattern: bytes,
+                        kind: str) -> torch.Tensor:
+    """Whether each row starts with (``prefix``), ends with
+    (``suffix``) or holds (``contains``) the literal's bytes."""
+    k = len(pattern)
+    n = col.capacity
+    dev = col.offsets.device
+    if k == 0:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    starts = _i64(col.offsets[:-1])
+    lens = _i64(col.lengths())
+    size = col.chars.shape[0]
+    if size == 0:
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    pat = torch.tensor(list(pattern), dtype=torch.uint8).to(dev)
+    if kind in ("prefix", "suffix"):
+        at = starts if kind == "prefix" else starts + lens - k
+        idx = (at[:, None] + torch.arange(k, device=dev)[None, :]) \
+            .clamp(0, size - 1)
+        return (lens >= k) & (col.chars[idx] == pat[None, :]).all(1)
+    hit = torch.ones(size, dtype=torch.bool, device=dev)
+    for j in range(k):
+        shifted = torch.zeros(size, dtype=torch.bool, device=dev)
+        if j < size:
+            shifted[:size - j] = col.chars[j:] == pat[j]
+        hit &= shifted
+    marks = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+    marks[1:] = torch.cumsum(hit.to(torch.int64), 0)
+    last = (starts + lens - k + 1).clamp(min=0)
+    found = marks[last.clamp(max=size)] - marks[starts.clamp(max=size)]
+    return (lens >= k) & (found > 0)

@@ -216,6 +216,7 @@ class SqlCompiler:
         from ..expr.predicates import (And, EqualNullSafe, EqualTo,
                                        GreaterThan, GreaterThanOrEqual,
                                        LessThan, LessThanOrEqual, Not, Or)
+        from ..expr.strings import ConcatStrings
         table = {
             "OR": Or, "AND": And,
             "=": EqualTo, "<=>": EqualNullSafe,
@@ -223,9 +224,8 @@ class SqlCompiler:
             ">": GreaterThan, ">=": GreaterThanOrEqual,
             "+": Add, "-": Subtract, "*": Multiply, "/": Divide,
             "%": Remainder, "DIV": IntegralDivide,
+            "||": ConcatStrings,
         }
-        if node.op == "||":
-            raise self.unported("operator || (ConcatStrings)", node)
         l, r = self._retype_nulls(
             self._kids((node.left, node.right), rel, subst, grouped))
         if node.op == "<>":
@@ -259,10 +259,14 @@ class SqlCompiler:
                 and isinstance(child.dtype, dt.NullType):
             return Literal(None, t)
         if not cast_supported(child.dtype, t):
-            raise self.unported(
-                f"CAST from {child.dtype.simple_string()} to "
-                f"{t.simple_string()} (string, decimal, date and "
-                "timestamp casts)", node)
+            if isinstance(child.dtype, dt.DecimalType) \
+                    or isinstance(t, dt.DecimalType):
+                raise self.unported(
+                    f"CAST from {child.dtype.simple_string()} to "
+                    f"{t.simple_string()} (decimal casts)", node, item=2)
+            raise self.err(
+                f"cannot cast {child.dtype.simple_string()} to "
+                f"{t.simple_string()}", node, "type_error")
         return Cast(child, t)
 
     def _parse_type(self, tn: A.TypeName) -> dt.DataType:

@@ -1,27 +1,31 @@
 """SQL function registry: name -> expression constructor.
 
-Counterpart of ``spark_rapids_tpu/sql/functions.py``. The names are the
-reference's, so the compiler tells aggregates, window and scalar
-functions apart as the reference does; the constructors map onto the
-port's expressions. Ported: the aggregates ``sum``, ``count``, ``min``,
-``max``, ``avg``, ``mean`` and ``approx_percentile`` (a scalar
-percentage: a list returns an array, which raises naming ROADMAP item
-2); the scalar functions ``if``,
-``coalesce``, ``nullif``, ``least``, ``greatest``, ``abs`` and
-``isnan``; every window function of the reference (``row_number``,
-``rank``, ``dense_rank``, ``percent_rank``, ``ntile``, ``lag``,
-``lead``). Every other name raises
-``SqlAnalysisError(..., "unsupported_feature")`` naming the ROADMAP item
-it waits for: the other aggregates item 8, the other scalar functions
-item 13. An unknown name is ``unknown_function``, as in the
+Counterpart of ``spark_rapids_tpu/sql/functions.py``: every name of the
+reference's ``_scalar_table`` (``:88-162``), ``_agg_table``
+(``:187-209``) and window table, mapped onto the port's expressions. The
+builders are the reference's, with ``_build_round`` and ``_build_log``;
+a parameter Spark requires to be a literal (the pattern of
+``startswith``/``endswith``/``contains``, ``replace``'s strings,
+``locate``'s substring and position, the pads' length and fill,
+``repeat``'s count, ``trunc``'s format, ``round``'s scale) is read from
+the literal, where the reference hands the expressions its constructors
+do not take, so its ``startswith``, ``endswith``, ``contains``,
+``replace``, ``locate``, ``lpad``, ``rpad``, ``repeat`` and ``trunc``
+fail when they run (ROADMAP "Things to know"). ``first`` and ``last``
+take Spark's optional ``ignoreNulls`` literal. ``collect_list`` and
+``collect_set`` return arrays, which the port's columns do not hold
+yet: they raise ``SqlAnalysisError(..., "unsupported_feature")`` naming
+ROADMAP item 2. An unknown name is ``unknown_function``, as in the
 reference.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
-from ..expr.aggregates import (ApproxPercentile, Average, Count, Max,
-                               Min, Sum)
+from ..expr import aggregates as G
+from ..expr import datetime as D
+from ..expr import math as M
+from ..expr import strings as S
 from ..expr.arithmetic import Abs
 from ..expr.conditional import Coalesce, Greatest, If, Least, NullIf
 from ..expr.predicates import IsNaN
@@ -49,26 +53,10 @@ def _arity(name, node, args, lo, hi=None, sql=""):
 
 def _unported(item: int) -> Callable:
     def build(node, args, sql):
-        raise _err(f"{node.name}() is not ported yet (ROADMAP item "
-                   f"{item})", node, "unsupported_feature", sql)
+        raise _err(f"{node.name}() returns an array, which the port's "
+                   f"columns do not hold yet (ROADMAP item {item})", node,
+                   "unsupported_feature", sql)
     return build
-
-
-_SCALAR_NAMES = (
-    "abs", "sqrt", "cbrt", "exp", "ln", "log", "log10", "log2", "pow",
-    "power", "sin", "cos", "tan", "asin", "acos", "atan", "atan2",
-    "floor", "ceil", "ceiling", "sign", "signum", "round", "bround",
-    "isnan", "length", "char_length", "upper", "ucase", "lower", "lcase",
-    "substring", "substr", "concat", "trim", "ltrim", "rtrim", "replace",
-    "locate", "lpad", "rpad", "repeat", "reverse", "startswith",
-    "endswith", "contains", "coalesce", "nullif", "least", "greatest",
-    "if", "year", "month", "day", "dayofmonth", "quarter", "dayofweek",
-    "weekday", "dayofyear", "last_day", "hour", "minute", "second",
-    "date_add", "date_sub", "datediff", "add_months", "months_between",
-    "trunc", "unix_timestamp", "from_unixtime")
-_AGG_WAITING = ("first", "last", "stddev",
-                "stddev_samp", "stddev_pop", "variance", "var_samp",
-                "var_pop", "collect_list", "collect_set")
 
 
 def _simple(cls, lo: int, hi=None):
@@ -114,11 +102,11 @@ def _build_offset(cls):
 
 def _build_count(node, args, sql):
     if node.star:
-        return Count()
+        return G.Count()
     _arity("count", node, args, 1, 1, sql)
     if isinstance(node.args[0], A.Lit) and node.args[0].value is not None:
         return Count()  # count(1) counts rows
-    return Count(args[0])
+    return G.Count(args[0])
 
 
 def _build_approx_percentile(node, args, sql):
@@ -129,20 +117,129 @@ def _build_approx_percentile(node, args, sql):
     if len(node.args) == 3:
         acc = _lit_arg("approx_percentile", node, 2, int, "integer",
                        sql)
-    return ApproxPercentile(args[0], pct, acc)
+    return G.ApproxPercentile(args[0], pct, acc)
 
 
-SCALAR_FUNCTIONS: Dict[str, Callable] = dict(
-    {n: _unported(13) for n in _SCALAR_NAMES},
-    coalesce=_simple(Coalesce, 1, -1), nullif=_simple(NullIf, 2),
-    least=_simple(Least, 2, -1), greatest=_simple(Greatest, 2, -1),
-    abs=_simple(Abs, 1), isnan=_simple(IsNaN, 1),
-    **{"if": _simple(If, 3)})
-AGGREGATE_FUNCTIONS: Dict[str, Callable] = dict(
-    {n: _unported(8) for n in _AGG_WAITING},
-    sum=_simple(Sum, 1), count=_build_count, min=_simple(Min, 1),
-    max=_simple(Max, 1), avg=_simple(Average, 1), mean=_simple(Average, 1),
-    approx_percentile=_build_approx_percentile)
+def _with_literals(cls, n_args, spec, lo=None):
+    """A builder of ``cls``: the arguments at the positions ``spec``
+    names are literals (``{position: (types, what)}``), the rest
+    expressions, passed in order; ``lo`` arguments at least (the rest
+    take the constructor's defaults)."""
+    def build(node, args, sql):
+        _arity(node.name, node, args, n_args if lo is None else lo, n_args,
+               sql)
+        vals = []
+        for i, a in enumerate(args):
+            if i in spec:
+                types, what = spec[i]
+                vals.append(_lit_arg(node.name, node, i, types, what, sql))
+            else:
+                vals.append(a)
+        return cls(*vals)
+    return build
+
+
+_STR = (str, "string")
+_INT = (int, "integer")
+
+
+def _build_round(half_even: bool):
+    def build(node, args, sql):
+        _arity(node.name, node, args, 1, 2, sql)
+        digits = 0
+        if len(node.args) == 2:
+            digits = _lit_arg(node.name, node, 1, int, "integer", sql)
+        return (M.BRound if half_even else M.Round)(args[0], digits)
+    return build
+
+
+def _build_log(node, args, sql):
+    _arity(node.name, node, args, 1, 1, sql)
+    return M.Log(args[0])
+
+
+def _build_locate(node, args, sql):
+    _arity("locate", node, args, 2, 3, sql)
+    sub = _lit_arg("locate", node, 0, str, "string", sql)
+    pos = 1
+    if len(node.args) == 3:
+        pos = _lit_arg("locate", node, 2, int, "integer", sql)
+    return S.StringLocate(sub, args[1], pos)
+
+
+def _build_first_last(cls):
+    def build(node, args, sql):
+        _arity(node.name, node, args, 1, 2, sql)
+        ignore = False
+        if len(node.args) == 2:
+            a = node.args[1]
+            if not isinstance(a, A.Lit) or not isinstance(a.value, bool):
+                raise _err(f"{node.name}() argument 2 must be a boolean "
+                           "literal", node, "literal_required", sql)
+            ignore = a.value
+        return cls(args[0], ignore)
+    return build
+
+
+_U = _simple
+SCALAR_FUNCTIONS: Dict[str, Callable] = {
+    "abs": _U(Abs, 1), "sqrt": _U(M.Sqrt, 1), "cbrt": _U(M.Cbrt, 1),
+    "exp": _U(M.Exp, 1), "ln": _build_log, "log": _build_log,
+    "log10": _U(M.Log10, 1), "log2": _U(M.Log2, 1),
+    "pow": _U(M.Pow, 2), "power": _U(M.Pow, 2),
+    "sin": _U(M.Sin, 1), "cos": _U(M.Cos, 1), "tan": _U(M.Tan, 1),
+    "asin": _U(M.Asin, 1), "acos": _U(M.Acos, 1), "atan": _U(M.Atan, 1),
+    "atan2": _U(M.Atan2, 2),
+    "floor": _U(M.Floor, 1), "ceil": _U(M.Ceil, 1),
+    "ceiling": _U(M.Ceil, 1),
+    "sign": _U(M.Signum, 1), "signum": _U(M.Signum, 1),
+    "round": _build_round(False), "bround": _build_round(True),
+    "isnan": _U(IsNaN, 1),
+    "length": _U(S.Length, 1), "char_length": _U(S.Length, 1),
+    "upper": _U(S.Upper, 1), "ucase": _U(S.Upper, 1),
+    "lower": _U(S.Lower, 1), "lcase": _U(S.Lower, 1),
+    "substring": _U(S.Substring, 3), "substr": _U(S.Substring, 3),
+    "concat": _U(S.ConcatStrings, 1, -1),
+    "trim": _U(S.StringTrim, 1), "ltrim": _U(S.StringTrimLeft, 1),
+    "rtrim": _U(S.StringTrimRight, 1),
+    "replace": _with_literals(S.StringReplace, 3, {1: _STR, 2: _STR}),
+    "locate": _build_locate,
+    "lpad": _with_literals(S.StringLpad, 3, {1: _INT, 2: _STR}, lo=2),
+    "rpad": _with_literals(S.StringRpad, 3, {1: _INT, 2: _STR}, lo=2),
+    "repeat": _with_literals(S.StringRepeat, 2, {1: _INT}),
+    "reverse": _U(S.Reverse, 1),
+    "startswith": _with_literals(S.StartsWith, 2, {1: _STR}),
+    "endswith": _with_literals(S.EndsWith, 2, {1: _STR}),
+    "contains": _with_literals(S.Contains, 2, {1: _STR}),
+    "coalesce": _U(Coalesce, 1, -1), "nullif": _U(NullIf, 2),
+    "least": _U(Least, 2, -1), "greatest": _U(Greatest, 2, -1),
+    "if": _U(If, 3),
+    "year": _U(D.Year, 1), "month": _U(D.Month, 1),
+    "day": _U(D.DayOfMonth, 1), "dayofmonth": _U(D.DayOfMonth, 1),
+    "quarter": _U(D.Quarter, 1), "dayofweek": _U(D.DayOfWeek, 1),
+    "weekday": _U(D.WeekDay, 1), "dayofyear": _U(D.DayOfYear, 1),
+    "last_day": _U(D.LastDay, 1),
+    "hour": _U(D.Hour, 1), "minute": _U(D.Minute, 1),
+    "second": _U(D.Second, 1),
+    "date_add": _U(D.DateAdd, 2), "date_sub": _U(D.DateSub, 2),
+    "datediff": _U(D.DateDiff, 2), "add_months": _U(D.AddMonths, 2),
+    "months_between": _U(D.MonthsBetween, 2),
+    "trunc": _with_literals(D.TruncDate, 2, {1: _STR}),
+    "unix_timestamp": _U(D.UnixTimestamp, 1),
+    "from_unixtime": _U(D.FromUnixTime, 1),
+}
+AGGREGATE_FUNCTIONS: Dict[str, Callable] = {
+    "sum": _U(G.Sum, 1), "count": _build_count,
+    "min": _U(G.Min, 1), "max": _U(G.Max, 1),
+    "avg": _U(G.Average, 1), "mean": _U(G.Average, 1),
+    "first": _build_first_last(G.First), "last": _build_first_last(G.Last),
+    "stddev": _U(G.StddevSamp, 1), "stddev_samp": _U(G.StddevSamp, 1),
+    "stddev_pop": _U(G.StddevPop, 1),
+    "variance": _U(G.VarianceSamp, 1), "var_samp": _U(G.VarianceSamp, 1),
+    "var_pop": _U(G.VariancePop, 1),
+    "collect_list": _unported(2), "collect_set": _unported(2),
+    "approx_percentile": _build_approx_percentile,
+}
 WINDOW_FUNCTIONS: Dict[str, Callable] = {
     "row_number": _simple(RowNumber, 0), "rank": _simple(Rank, 0),
     "dense_rank": _simple(DenseRank, 0),

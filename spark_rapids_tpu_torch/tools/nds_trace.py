@@ -4,8 +4,9 @@
         [--partitions N] [--n-sales N] [--out DIR]
 
 ``NAME`` is any query the port runs from SQL: the corpus
-(``nds.PORTED_QUERIES``) or the outer, cross and nested-loop join texts
-(``tools/nds_joins.QUERIES``).
+(``nds.PORTED_QUERIES``), the outer, cross and nested-loop join texts
+(``tools/nds_joins.QUERIES``) or the SQL function texts
+(``tools/nds_functions.QUERIES``).
 
 Writes the NDS tables as ``chip_smoke.py`` phase 8 does (``nds.gen_tables``,
 seed 42, snappy, row groups of 2^19; default 2^22 ``store_sales`` rows,
@@ -18,8 +19,8 @@ its idle share, the device time and kernel launches of K3
 (``radix_histogram``, ``radix_plan``, ``radix_pass``), K4
 (``gather_rows_*``), K5 (``k5_*``) and K6 (``regex_match_*``), the
 wrappers' launch counts in the traced run, and the largest other device
-operations. The K3 and K4
-kernels launched inside ``sort_keys.string_order_ranks_multi`` (the
+operations (and the largest of all, ``top_device_ops``). The K3 and
+K4 kernels launched inside ``sort_keys.string_order_ranks_multi`` (the
 string keys' refinement passes, a ``record_function("string_ranks")``
 range) are reported apart under ``string_ranks``: a kernel counts there
 when it runs within the device-side span the profiler gives that range
@@ -40,14 +41,15 @@ import time
 import torch
 
 from .. import nds
-from . import nds_joins
+from . import nds_functions, nds_joins
 from .join_trace import _union_us
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _RANGE = "string_ranks"  # sort_keys.string_order_ranks_multi's range
 _WINDOW = "window"       # exec/window.GpuWindowExec's pass
-_SQL = {**nds.SQL_QUERIES, **nds_joins.SQL_QUERIES}
+_SQL = {**nds.SQL_QUERIES, **nds_joins.SQL_QUERIES,
+        **nds_functions.SQL_QUERIES}
 _FAMILIES = {"K3": ("radix_histogram", "radix_plan", "radix_pass"),
              "K4": ("gather_rows_fast", "gather_rows_any"),
              "K5": ("k5_",), "K6": ("regex_match_",)}
@@ -177,7 +179,9 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
             "kernels": fams,
             "string_ranks": _rank_share(device_events),
             "window": _window_share(device_events),
-            "top_other_device_ops": dict(others)}
+            "top_other_device_ops": dict(others),
+            "top_device_ops": dict(sorted(
+                by_name.items(), key=lambda kv: -kv[1]["device_us"])[:12])}
 
 
 def main():

@@ -9,7 +9,9 @@ rows and ``spark.sql.shuffle.partitions`` 4:
   hand, against pyarrow): the rows, and ``fallback_nodes()`` equal to
   the reference's placement;
 - one ``spark.rapids.sql.expression.<Name>=false`` from each ``expr/``
-  module, the same way;
+  module, the same way (``math`` and ``datetime`` too, and the string
+  functions and moments of the SQL function slice, on texts the
+  reference's SQL also runs);
 - the 22 corpus texts and the nine join texts under
   ``spark.rapids.sql.enabled=false``: every node on the CPU, no device
   at all.
@@ -38,8 +40,27 @@ def paths(tmp_path_factory):
                             str(tmp_path_factory.mktemp("nds")))
 
 
+#: texts of the SQL function slice the reference's SQL also runs
+FUNCTION_TEXTS = {
+    "fn_math": "SELECT ss_store_sk, SUM(SQRT(ss_sales_price)) AS s, "
+               "SUM(FLOOR(ss_net_profit)) AS f FROM store_sales "
+               "GROUP BY ss_store_sk",
+    "fn_dates": "SELECT y, m, COUNT(*) AS n FROM (SELECT YEAR(DATE_ADD("
+                "CAST('2000-01-01' AS DATE), ss_sold_date_sk)) AS y, "
+                "MONTH(DATE_ADD(CAST('2000-01-01' AS DATE), "
+                "ss_sold_date_sk)) AS m FROM store_sales) t GROUP BY y, m",
+    "fn_strings": "SELECT SUBSTR(i_category, 1, 3) AS p, UPPER(i_category) "
+                  "AS u, COUNT(*) AS n FROM store_sales JOIN item ON "
+                  "ss_item_sk = i_item_sk GROUP BY SUBSTR(i_category, 1, "
+                  "3), UPPER(i_category)",
+    "fn_moments": "SELECT ss_store_sk, STDDEV_SAMP(ss_net_profit) AS sd "
+                  "FROM store_sales GROUP BY ss_store_sk",
+}
+
+
 def _sql(q: str) -> str:
-    return nds.SQL_QUERIES.get(q) or nds_joins.SQL_QUERIES[q]
+    return FUNCTION_TEXTS.get(q) or nds.SQL_QUERIES.get(q) \
+        or nds_joins.SQL_QUERIES[q]
 
 
 # an operator the port plans from SQL -> a text that has it
@@ -105,6 +126,13 @@ EXPRESSION_TEXTS = {
     "Like": "q_like",              # strings
     "Sum": "q3",                   # aggregates
     "Rank": "q_rank",              # window
+    "Sqrt": "fn_math",             # math
+    "Floor": "fn_math",            # math
+    "Year": "fn_dates",            # datetime
+    "DateAdd": "fn_dates",         # datetime
+    "Substring": "fn_strings",     # strings, the incompat one
+    "Upper": "fn_strings",         # strings
+    "StddevSamp": "fn_moments",    # aggregates, item 8's rest
 }
 
 
@@ -125,3 +153,14 @@ def test_every_text_with_the_gpu_disabled(paths, q):
     pp = check_text(_sql(q), paths, conf, label=q)
     assert pp.fallback_nodes() and not pp.root_on_device
     assert "will run on GPU" not in pp.explain("ALL")
+
+
+@pytest.mark.parametrize("allow", ["true", "false"])
+def test_incompatible_ops_place_substring_as_the_reference(paths, allow):
+    """``Substring`` is ``incompat`` (bytes on the device): under
+    ``spark.rapids.sql.incompatibleOps.enabled=false`` its operator runs
+    on the CPU, cutting characters, as the reference places it."""
+    conf = dict(PARTS, **{"spark.rapids.sql.incompatibleOps.enabled":
+                          allow})
+    pp = check_text(_sql("fn_strings"), paths, conf, label=allow)
+    assert bool(pp.fallback_nodes()) == (allow == "false")

@@ -5,11 +5,15 @@ shims of ``exec/base.py``) against the JAX package's, on the CPU.
   aliased subtree keeps one id.
 - EXPLAIN ANALYZE's per-operator ``rows`` and ``batches`` equal the
   reference's, node for node in pre-order, for q3, q97, q_rank and
-  q_union at 1 and 4 partitions over the same Parquet files (the
-  corpus's tables at 2^10 store_sales rows). No operator differs
-  (``DIFFERENCES`` is empty): the port's exchange counts the rows its
-  map side partitions and a scan spliced into its consumer's stage
-  counts its decoded rows, as the reference's do.
+  q_union at 1 and 4 partitions, and for the 44 texts of the plan
+  verifier's corpus at 1 and 16 partitions, over the same Parquet files
+  (the corpus's tables at 2^10 store_sales rows): rows in every run;
+  batches but for the departures ``DIFFERENCES`` lists with their
+  reasons (the adaptive reader's coalesced views, the CPU island's
+  conditioned outer join). The port's exchange counts the rows its map
+  side partitions and a scan spliced into its consumer's stage counts
+  its decoded rows, as the reference's do; the CPU exchange yields no
+  zero-row batch.
 - ``GpuSession.sql("EXPLAIN ANALYZE ...")`` returns the annotated tree:
   ids once each, the root's rows the result's.
 - A batch is counted once where an ``execute`` delegates to ``super()``
@@ -43,9 +47,28 @@ from spark_rapids_tpu_torch.session import GpuSession
 
 OPID_RE = re.compile(r"\(op(\d+)\)")
 
-#: (query, partitions, operator) -> why the port's rows or batches
-#: differ from the reference's; none does
-DIFFERENCES = {}
+_VIEWS = ("the adaptive reader reads a coalesced group's partitions as "
+          "one selection view of each map batch, sharing its buffers "
+          "(exec/aqe.py), where the reference concatenates the group into "
+          "one batch; rows are equal")
+_ISLAND_JOIN = ("the CPU island's conditioned left outer join emits a "
+                "stream batch's passing pairs, then its unmatched rows "
+                "beside nulls, as two batches (exec/joins.py "
+                "_execute_conditioned), where the reference's host join "
+                "emits one; the upload and the reader above pass them "
+                "through; rows are equal")
+
+#: (query, partitions, operator) -> why the port's batches differ from
+#: the reference's (rows never do); the zero-row batches of the CPU
+#: exchange's empty partitions are gone (``exec/exchange.py``
+#: ``execute_cpu``)
+DIFFERENCES = {
+    ("q_right_items", 16, "AQEShuffleReadExec"): _VIEWS,
+    ("q_band_full", 16, "AQEShuffleReadExec"): _VIEWS,
+    **{("q_outer_price", p, op): _ISLAND_JOIN for p in (1, 16)
+       for op in ("AQEShuffleReadExec", "HostToDeviceExec",
+                  "ShuffledHashJoinExec")},
+}
 
 
 def _session(extra=None):
@@ -134,12 +157,51 @@ RUNS = [(q, p) for q in ("q3", "q97", "q_rank", "q_union") for p in (1, 4)]
 @pytest.mark.parametrize("q,parts", RUNS, ids=[f"{q}-p{p}" for q, p in RUNS])
 def test_rows_and_batches_equal_the_reference_node_for_node(paths, q,
                                                             parts):
+    _rows_and_batches(paths, q, nds.SQL_QUERIES[q], {}, parts)
+
+
+def _corpus():
+    from test_torch_plan_verifier import CORPUS
+    return [(q, sql, conf, p) for _, q, sql, conf in CORPUS
+            for p in (1, 16)]
+
+
+CORPUS_RUNS = _corpus()
+
+
+@pytest.mark.parametrize("q,sql,conf,parts", CORPUS_RUNS,
+                         ids=[f"{q}-p{p}" for q, _, _, p in CORPUS_RUNS])
+def test_batches_over_the_verifier_corpus(paths, q, sql, conf, parts):
+    """The 44 texts of the plan verifier's corpus (the NDS corpus, the
+    join, fallback and memory texts under their confs) at 1 and 16
+    partitions: rows equal everywhere, batches equal but for
+    ``DIFFERENCES``."""
+    _rows_and_batches(paths, q, sql, conf, parts)
+
+
+def test_the_cpu_exchange_yields_no_zero_row_batch(paths):
+    from spark_rapids_tpu_torch.exec.exchange import GpuShuffleExchangeExec
+    conf = {"spark.sql.shuffle.partitions": "16",
+            "spark.rapids.sql.enabled": "false"}
+    s = nds.session_over_files(paths, conf, device="cpu")
+    pp = GpuOverrides(s.conf, s.device).apply(
+        s.sql(nds.SQL_QUERIES["q3"])._node)
+    exchanges = [n for n in _preorder(pp.root)
+                 if isinstance(n, GpuShuffleExchangeExec)]
+    assert exchanges and not pp.root_on_device
+    ctx = ExecCtx(s.conf, "cpu")
+    sizes = [rb.num_rows for rb in exchanges[0].execute_cpu(ctx)]
+    assert sizes and all(sizes), sizes
+    # 16 partitions of a few keys: some are empty, and none comes out
+    assert len(sizes) < 16
+
+
+def _rows_and_batches(paths, q, sql, conf, parts):
     from spark_rapids_tpu.obs.opmetrics import fold_ctx as jfold_ctx
     from spark_rapids_tpu.planner import TpuOverrides
     from spark_rapids_tpu.session import TpuSession
     from spark_rapids_tpu.tools import nds as jnds
-    conf = {"spark.sql.shuffle.partitions": str(parts)}
-    sql = nds.SQL_QUERIES[q]
+    conf = dict(conf, **{"spark.sql.shuffle.partitions": str(parts)})
     s = nds.session_over_files(paths, conf, device="cpu")
     pp = GpuOverrides(s.conf, s.device).apply(s.sql(sql)._node)
     out = pp.collect()
@@ -157,11 +219,12 @@ def test_rows_and_batches_equal_the_reference_node_for_node(paths, q,
     for n, jn in zip(nodes, jnodes):
         m = folded.get(f"op{n._op_id}", {}).get("metrics", {})
         jm = jfolded.get(f"op{jn._op_id}", {}).get("metrics", {})
-        got = (m.get("rows"), m.get("batches"))
-        ref = (jm.get("rows"), jm.get("batches"))
+        assert m.get("rows") == jm.get("rows"), \
+            (q, parts, n.node_label(), m.get("rows"), jm.get("rows"))
         if (q, parts, n.pretty_name()) in DIFFERENCES:
             continue
-        assert got == ref, (q, parts, n.node_label(), got, ref)
+        assert m.get("batches") == jm.get("batches"), \
+            (q, parts, n.node_label(), m.get("batches"), jm.get("batches"))
     # the root's rows are the result's, and every scan read its file
     # once a path that reaches it (a CTE's or a union's shared scans)
     root = folded[f"op{pp.root._op_id}"]["metrics"]

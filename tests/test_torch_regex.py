@@ -267,11 +267,22 @@ def test_patterns_outside_the_dialect_raise_at_planning():
                                   else re.escape(c) for c in p),
                           re.DOTALL).fullmatch
 
+    # a non-ASCII literal shape (contains, prefix) runs on the device
+    # since the SQL function slice, as the reference's literal kernels
+    # have it: K6 takes the literal's bytes
     for e, test in ((Like(tcol("s"), "%é%"), like("%é%")),
+                    (Like(tcol("s"), "日本%"), like("日本%"))):
+        plan = GpuProjectExec([TAlias(e, "m")], TSource([rb]))
+        pp = GpuOverrides(device="cpu").apply(plan)
+        assert pp.fallback_nodes() == []
+        assert pp.collect().column("m").to_pylist() == [
+            None if s is None else test(s) is not None for s in STRINGS]
+    for e, test in ((Like(tcol("s"), "%é_%"), like("%é_%")),
                     (RegExpLike(tcol("s"), "(ab)+"),
                      re.compile("(ab)+", re.ASCII).search),
                     (Like(tcol("s"), "%a%b%c%d%%e"), like("%a%b%c%d%%e")),
-                    (Like(tcol("s"), "日本%"), like("日本%"))):
+                    (RegExpLike(tcol("s"), "日本"),
+                     re.compile("日本").search)):
         plan = GpuProjectExec([TAlias(e, "m")], TSource([rb]))
         pp = GpuOverrides(device="cpu").apply(plan)
         assert pp.fallback_nodes() == ["ProjectExec"]
