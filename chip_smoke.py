@@ -190,12 +190,14 @@ Phases, any failure exits non-zero before the result line:
      group), its ``fallback_nodes()`` to the module's ``FALLBACK`` (no
      expression the reference places on the device runs on the CPU), its
      ms a query and its K3, K4, K5 and K6 launches printed with the
-     card's name and power limit; after phase 14, q_fn_strings and
-     q_fn_casts traced once each (``tools/nds_trace.trace_nds``): device
-     busy time, idle share and the top five device operations
+     card's name and power limit; then q_fn_strings and q_fn_casts
+     traced once each (``tools/nds_trace.trace_nds``): device busy time,
+     idle share and the top five device operations
      (``--functions-only`` runs the build and this phase alone);
-  14. K1's kernels a call, counted in a profiler trace of one call (1),
-     after the timed phases, since a trace slows later launches.
+  14. K1's kernels a call, counted in a profiler trace of one call (1)
+     between pad kernels (a trace after phase 13's loses its first
+     device record), after the timed phases, since a trace slows later
+     launches.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}; with ``--log FILE`` every line is also
 written to FILE. The script imports neither jax nor the JAX package.
@@ -311,8 +313,10 @@ def phase_k1_kernels_per_call(device):
     after the timed phases: a trace leaves the profiler's hooks in the
     process, which slows every later launch."""
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
-    per_call = kc.k1_kernels_per_call(device)
-    log(f"[k1] kernels a call (profiler, main batch): {per_call}")
+    trace = kc.k1_trace(device)
+    per_call = trace["k1"]
+    log(f"[k1] kernels a call (profiler, main batch): {per_call}; the "
+        f"trace kept {trace['pads']} of its 3 pad kernels")
     if per_call != 1:
         raise AssertionError(f"K1 launches {per_call} kernels a call, not 1")
     return per_call
@@ -356,7 +360,7 @@ def phase_regex(device):
     """K6 against its plain version, then timed."""
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     cases = kc.k6_cases(device)
-    recs = kc.check_k6(device, cases)
+    recs = kc.check_k6(device, cases + kc.k6_literal_cases(device))
     for rec in recs:
         log(f"[k6] {rec}")
     k6 = kc.time_k6(device, cases)
@@ -2100,9 +2104,9 @@ def phase_functions(device, files, card, smi):
 
 
 def phase_function_traces(card, smi, summary):
-    """Phase 13's traces of ``FUNCTIONS_TRACED``, after K1's per-call
-    count: a process's earlier profiler sessions can make that short
-    trace miss its kernel."""
+    """Phase 13's traces of ``FUNCTIONS_TRACED``. After them every later
+    trace in the process loses its first device record, which
+    ``kernel_checks.k1_trace`` pads against."""
     from spark_rapids_tpu_torch.tools.nds_trace import trace_nds
     t0 = time.perf_counter()
     for q in FUNCTIONS_TRACED:
@@ -2165,8 +2169,8 @@ def main():
         device, nds_files, fb_summary[SKEW_WITNESS])
     opm_summary = phase_opmetrics(device, nds_files, name, smi, nds_summary)
     fn_summary, fn_launches = phase_functions(device, nds_files, name, smi)
-    per_call = phase_k1_kernels_per_call(device)
     phase_function_traces(name, smi, fn_summary)
+    per_call = phase_k1_kernels_per_call(device)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]

@@ -80,13 +80,12 @@ from ..expr.base import Alias, BoundReference, Expression, Literal, \
 from ..expr.predicates import (And, EqualTo, GreaterThan,
                                GreaterThanOrEqual, LessThan,
                                LessThanOrEqual)
-from ..ops.concat import concat_batches_bounded
+from ..ops.concat import concat_batches_bounded, concat_string_columns
 from ..ops.cuda_kernels import (FUSED_AGG_GROUPS, MAX_LEAVES, MAX_SLOTS,
                                 FilterProductSum, Leaf,
                                 filter_product_group_sum, filter_product_sum)
 from ..ops.gather import gather_columns, shrink_batch
 from ..ops.segments import segment_starts_sorted
-from ..ops.strings import assemble_strings
 from ..ops.sort_keys import (check_key_type, normalize_float_key_col,
                              sorted_segments)
 from .base import ExecCtx, GpuExec, UnaryExec, fused_batches
@@ -178,22 +177,13 @@ def _filter_product_sum_plan(chain: Sequence[GpuExec],
 
 
 def _lane0_column(cols: List[GpuColumnVector]) -> GpuColumnVector:
-    """Lane 0 of each partial buffer, stacked into one column (a string
-    buffer's rows reassembled from the partials' chars, one after
-    another)."""
+    """Lane 0 of each partial buffer, stacked into one column (string
+    buffers through ``ops/concat.concat_string_columns``)."""
     if cols[0].is_string_like:
-        base = torch.tensor(np.cumsum([0] + [c.chars.shape[0]
-                                             for c in cols[:-1]]),
-                            dtype=torch.int32, device=cols[0].device)
-        starts = torch.cat([c.offsets[:1] for c in cols]) + base
-        lengths = torch.cat([c.offsets[1:2] - c.offsets[:1] for c in cols])
-        both = GpuColumnVector(cols[0].dtype, None, None,
-                               torch.zeros(1, dtype=torch.int32,
-                                           device=base.device),
-                               torch.cat([c.chars for c in cols]))
-        valid = torch.cat([c.valid_mask()[:1] for c in cols])
-        return assemble_strings(both, starts, lengths * valid, valid,
-                                int(both.chars.shape[0]))
+        return concat_string_columns(
+            [GpuColumnVector(c.dtype, None, c.valid_mask()[:1],
+                             c.offsets[:2], c.chars) for c in cols],
+            len(cols))
     data = torch.cat([c.data[:1] for c in cols])
     if all(c.validity is None for c in cols):
         return GpuColumnVector(cols[0].dtype, data, None)

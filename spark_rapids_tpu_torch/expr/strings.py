@@ -32,8 +32,8 @@ The rest of ``spark_rapids_tpu/expr/strings.py``:
   window: bytes on the device, characters on the CPU; ``incompat``, so
   ``spark.rapids.sql.incompatibleOps.enabled=false`` keeps it on the
   CPU), ``ConcatStrings`` (null if any input is), ``StartsWith``,
-  ``EndsWith`` and ``Contains`` of a literal (K6, a literal past K6's
-  64 positions through ``ops/strings.literal_match_torch``), and
+  ``EndsWith`` and ``Contains`` of a literal (K6; a literal past
+  ``ops/regex.LITERAL_MAX_BYTES`` on the CPU), and
   ``StringTrim``, ``StringTrimLeft``, ``StringTrimRight`` (ASCII
   spaces);
 - on the CPU, where the reference places them: ``StringReplace``,
@@ -398,39 +398,39 @@ class ConcatStrings(Expression):
         return sops.concat_strings(cols, valid)
 
 
-class _LiteralPatternMatch(_StringFunction):
-    """startswith/endswith/contains of a literal: K6 runs the literal as
-    an anchored pattern (its bytes, any of them); a literal past K6's
-    positions matches in torch on the same device."""
+class _LiteralPatternMatch(_RegexPredicate):
+    """startswith/endswith/contains of a literal: K6 runs the literal's
+    bytes, any of them (``regex.compile_literal``). A literal past
+    ``regex.LITERAL_MAX_BYTES``, or whose DFA does not fit K6, keeps
+    its operator on the CPU, where Python's ``str`` method answers."""
 
-    out_type = dt.BOOL
     kind = ""
+    method = ""
 
     def __init__(self, child: Expression, pattern: str):
         super().__init__(child)
         self.pattern = pattern
-        self._compiled = None
 
-    def program(self):
-        """The K6 program, or None when the literal is too long for it."""
-        if self._compiled is None:
-            lit = regex.literal_regex(self.pattern)
-            text = {"prefix": "^" + lit, "suffix": lit + "$",
-                    "contains": lit}[self.kind]
-            try:
-                self._compiled = (regex.compile_pattern(
-                    text, literal_bytes=True),)
-            except regex.RegexUnsupported:
-                self._compiled = (None,)
-        return self._compiled[0]
+    def _compile(self):
+        return regex.compile_literal(self.pattern, self.kind)
+
+    def gpu_supported(self) -> Optional[str]:
+        try:
+            self.program()
+        except regex.RegexUnsupported as e:
+            return (f"{self.pretty_name()} of a literal K6 cannot take "
+                    f"({e}); it runs on the CPU")
+        return None
+
+    def _host_test(self):
+        def test(s, method=self.method, lit=self.pattern):
+            return True if getattr(s, method)(lit) else None
+        return test
 
     def eval_gpu(self, batch, ctx):
         c = self.children[0].eval_gpu(batch, ctx)
-        prog = self.program()
-        if prog is None:
-            return GpuColumnVector(dt.BOOL, sops.literal_match_torch(
-                c, self.pattern.encode(), self.kind), c.validity)
-        return _match(c, prog)
+        host = self._host_eval(c, ctx)
+        return host if host is not None else _match(c, self.program())
 
     def __repr__(self):
         return f"{self.pretty_name()}({self.children[0]!r}, " \
@@ -438,15 +438,15 @@ class _LiteralPatternMatch(_StringFunction):
 
 
 class StartsWith(_LiteralPatternMatch):
-    kind = "prefix"
+    kind, method = "prefix", "startswith"
 
 
 class EndsWith(_LiteralPatternMatch):
-    kind = "suffix"
+    kind, method = "suffix", "endswith"
 
 
 class Contains(_LiteralPatternMatch):
-    kind = "contains"
+    kind, method = "contains", "__contains__"
 
 
 class StringTrim(_StringFunction):

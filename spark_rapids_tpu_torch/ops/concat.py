@@ -23,7 +23,7 @@ from ..columnar.batch import GpuBatch, bucket_rows
 from ..columnar.column import GpuColumnVector
 from .strings import assemble_strings, string_row_parts
 
-__all__ = ["concat_batches_bounded"]
+__all__ = ["concat_batches_bounded", "concat_string_columns"]
 
 
 def _padded_cat(parts: List[torch.Tensor], cap: int) -> torch.Tensor:
@@ -46,7 +46,7 @@ def _compacted(col: GpuColumnVector) -> GpuColumnVector:
                             int(lengths.sum(dtype=torch.int64)))
 
 
-def _concat_strings(parts: List[GpuColumnVector], cap: int) \
+def concat_string_columns(parts: List[GpuColumnVector], cap: int) \
         -> GpuColumnVector:
     """String columns end to end: the chars of every input side by side,
     each input's starts shifted by the char capacities before it (sizes
@@ -82,7 +82,7 @@ def concat_batches_bounded(batches: List[GpuBatch]) -> GpuBatch:
     for ci, c0 in enumerate(first.columns):
         parts = [b.columns[ci] for b in batches]
         if c0.is_string_like:
-            cols.append(_concat_strings(parts, cap))
+            cols.append(concat_string_columns(parts, cap))
             continue
         data = _padded_cat([p.data for p in parts], cap)
         validity = None

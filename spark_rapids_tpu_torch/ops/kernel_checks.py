@@ -101,7 +101,7 @@ __all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
            "k1_bound_specs", "k1_bound_columns", "check_k1_bounds",
            "time_k1",
            "time_k1_sweep", "K1_SWEEP_ROWS", "k1_geometry",
-           "k1_kernels_per_call", "ENGINE_RTOL",
+           "k1_kernels_per_call", "k1_trace", "ENGINE_RTOL",
            "CONTRACT_RTOL", "MAIN_CAPACITY", "MAIN_ROWS", "K3_SHAPES",
            "k3_cases", "check_k3", "time_k3", "k4_cases", "check_k4",
            "check_string_gather", "path_words", "string_rank_words",
@@ -109,7 +109,8 @@ __all__ = ["K1Case", "k1_base_cases", "k1_cases", "check_k1",
            "time_k4", "k5_layouts", "k5_shapes_file", "nds_layouts",
            "k5_tile_layouts",
            "check_k5", "time_k5", "k2_cases", "check_k2", "time_k2",
-           "k6_cases", "check_k6", "time_k6", "K6_LIKE", "K6_RLIKE",
+           "k6_cases", "k6_literal_cases", "check_k6", "time_k6",
+           "K6_LIKE", "K6_RLIKE",
            "K6_BLOWUP", "K6_TEXT_ROWS"]
 
 ENGINE_RTOL = 1e-9
@@ -610,27 +611,45 @@ def time_k1_sweep(device, reps: int = 100) -> Dict[str, object]:
             "bytes_per_row": 16}
 
 
-def k1_kernels_per_call(device) -> int:
+def k1_trace(device) -> Dict[str, int]:
     """Kernels one engine-edition call at the main batch launches,
-    counted from a ``torch.profiler`` trace of that call:
-    the device activities whose name holds ``fps_``, K1's kernel
-    prefix. The trace leaves the profiler's hooks in the process, which
-    slows every later launch: call it after any timing."""
+    counted from a ``torch.profiler`` trace of that call: the device
+    activities whose name holds ``fps_``, K1's kernel prefix. Once a
+    process has traced a long run, each later trace loses the device
+    record of its first kernel (on an H100: a lone K1 call traced to no
+    kernel, add-K1-K1-K1-sum to K1-K1-K1-sum), so the call sits between
+    two pad kernels before it and one after, and the count stands only
+    where the trace kept a pad on either side of K1's kernels:
+    ``{"k1": K1's kernels, "pads": the pads the trace kept, of 3}``.
+    The trace leaves the profiler's hooks in the process, which slows
+    every later launch: call it after any timing."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def kernels(fn) -> int:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize(device)
-        return sum(e.count for e in prof.key_averages() if "fps_" in e.key)
-
     case = k1_base_cases(device)[0]
+    pad = torch.zeros(1024, device=device)
     _k1_engine(case)  # warm-up: the library and the workspace
     torch.cuda.synchronize(device)
-    # a process's first trace can miss its kernels: one trace to start
-    # the tracer, then the count
-    kernels(lambda: _k1_engine(case))
-    return kernels(lambda: _k1_engine(case))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            pad.add_(1)
+        _k1_engine(case)
+        pad.add_(1)
+        torch.cuda.synchronize(device)
+    kernels = sorted((e.time_range.start, "fps_" in e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    k1 = [i for i, (_, is_k1) in enumerate(kernels) if is_k1]
+    pads = len(kernels) - len(k1)
+    if k1 and not (0 < k1[0] and k1[-1] < len(kernels) - 1) or pads < 2:
+        raise AssertionError(f"the trace lost the records around K1: "
+                             f"{len(kernels)} kernels, {pads} pads of 3")
+    return {"k1": len(k1), "pads": pads}
+
+
+def k1_kernels_per_call(device) -> int:
+    """K1's kernels a call (``k1_trace``)."""
+    return k1_trace(device)["k1"]
 
 
 # --- K3 and K4 --------------------------------------------------------------
@@ -1963,12 +1982,45 @@ def k6_cases(device, seed: int = 9, text_rows: int = K6_TEXT_ROWS) \
     return out
 
 
+def k6_literal_cases(device, seed: int = 10,
+                     text_rows: int = K6_TEXT_ROWS) -> List[Dict]:
+    """K6's long literals (``regex.compile_literal`` past 64 positions,
+    route A only), in ``k6_cases``' form: ``text_rows`` rows of
+    ``_k6_text``, half of them carrying a 116-byte literal with
+    non-ASCII bytes and borders at their start, their end or inside,
+    under the prefix, suffix and contains shapes."""
+    from . import regex
+    rng = np.random.default_rng(seed)
+    lit = "abab" * 10 + "日本é" * 5 + "abab" * 8 + "abac"
+    raw = lit.encode()
+    off, chars = _k6_text(rng, text_rows)
+    rows = [bytes(chars[a:b]) for a, b in zip(off[:-1], off[1:])]
+    where = rng.integers(0, 6, len(rows))
+    rows = [raw + r if w == 0 else r + raw if w == 1
+            else r[:len(r) // 2] + raw[:-1] + raw + r[len(r) // 2:]
+            if w == 2 else r for r, w in zip(rows, where)]
+    off = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    buf = np.frombuffer(b"".join(rows), np.uint8)
+    valid = rng.random(len(rows)) >= 0.05
+    dev = torch.device(device)
+    return [{"name": f"text_literal_{kind}_{len(raw)}B_2^"
+                     f"{text_rows.bit_length() - 1}",
+             "starts": torch.from_numpy(off[:-1].astype(np.int32)).to(dev),
+             "lengths": torch.from_numpy(np.diff(off).astype(np.int32))
+             .to(dev),
+             "validity": torch.from_numpy(valid).to(dev),
+             "chars": torch.from_numpy(buf.copy()).to(dev),
+             "pattern": f"{kind}({len(raw)} B)",
+             "prog": regex.compile_literal(lit, kind)}
+            for kind in ("prefix", "suffix", "contains")]
+
+
 def _k6_routes(prog) -> List[str]:
     """Every route K6 can run ``prog`` on: the DFA where it fits, and
-    position sets."""
+    position sets where the program has at most 64 positions."""
     from . import regex
     return (["dfa"] if regex.program_tables(prog)[0] == "dfa" else []) \
-        + ["positions"]
+        + (["positions"] if prog.n_states <= regex.MAX_STATES else [])
 
 
 def check_k6(device, cases: Optional[List[Dict]] = None) -> List[Dict]:

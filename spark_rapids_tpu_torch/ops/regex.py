@@ -29,10 +29,15 @@ program's tables alone (``program_tables``):
   (``acc``) and the follow relation in shared memory, one follow lookup
   a fired position, for a program whose DFA does not fit.
 
+``compile_literal`` gives a ``startswith``/``endswith``/``contains``
+literal past 64 bytes (up to ``LITERAL_MAX_BYTES``) no position
+automaton but its DFA, built straight from its bytes: route A only.
+
 ``regex_match`` is its wrapper; ``regex_match_torch``, the reference's
 loop in torch (one ``.item()`` of the longest live string, then one
 step a byte position), is its plain version, which only a CPU tensor
-takes. The caller masks validity: a null row steps as an empty one.
+takes (a long literal's steps its DFA). The caller masks validity: a
+null row steps as an empty one.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import numpy as np
 import torch
 
 __all__ = ["RegexUnsupported", "RegexProgram", "compile_pattern",
-           "like_to_regex", "literal_regex", "regex_match", "regex_match_torch",
+           "compile_literal", "LITERAL_MAX_BYTES", "like_to_regex",
+           "literal_regex", "regex_match", "regex_match_torch",
            "regex_bytes_read", "program_tables", "position_tables",
            "build_dfa", "follow_byte_tables", "Dfa", "MAX_STATES",
            "DFA_MAX_ENTRIES"]
@@ -126,7 +132,9 @@ def _parse_branch(branch: str, literal_bytes: bool = False):
     anchored_start = branch.startswith("^")
     if anchored_start:
         i = 1
-    anchored_end = branch.endswith("$") and not branch.endswith("\\$")
+    # a final "$" anchors unless an odd run of backslashes escapes it
+    anchored_end = branch.endswith("$") and \
+        (len(branch) - 1 - len(branch[:-1].rstrip("\\"))) % 2 == 0
     end = len(branch) - 1 if anchored_end else len(branch)
     atoms: List[Tuple[np.ndarray, str]] = []
     while i < end:
@@ -418,6 +426,39 @@ def like_to_regex(pattern: str, escape: str = "\\",
 
 
 
+#: the longest literal ``compile_literal`` takes past ``MAX_STATES``
+LITERAL_MAX_BYTES = 1024
+
+
+def compile_literal(text: str, kind: str) -> RegexProgram:
+    """``startswith`` (``kind`` "prefix"), ``endswith`` ("suffix") or
+    ``contains`` of ``text``: its UTF-8 bytes, any of them, as the
+    reference's literal kernels take them. Within ``MAX_STATES`` bytes
+    the literal compiles as a pattern. A longer one, up to
+    ``LITERAL_MAX_BYTES``, has no position automaton (``n_states`` is
+    its byte count): its one table is the DFA that ``_literal_dfa``
+    builds straight from the bytes, so it runs on route A only (route
+    B's sets are one ``uint64``). Raises RegexUnsupported past that, or
+    where the DFA passes ``DFA_MAX_ENTRIES``."""
+    lit = literal_regex(text)
+    pattern = {"prefix": "^" + lit, "suffix": lit + "$",
+               "contains": lit}[kind]
+    raw = text.encode()
+    if len(raw) <= _MAX_STATES:
+        return compile_pattern(pattern, literal_bytes=True)
+    if len(raw) > LITERAL_MAX_BYTES:
+        raise RegexUnsupported(f"a literal of {len(raw)} bytes > "
+                               f"{LITERAL_MAX_BYTES}")
+    dfa = _literal_dfa(raw, kind)
+    if dfa is None:
+        raise RegexUnsupported(f"the DFA of a {len(raw)}-byte literal "
+                               f"passes DFA_MAX_ENTRIES ({DFA_MAX_ENTRIES})")
+    prog = RegexProgram()
+    prog.n_states = len(raw)
+    prog.host_tables = ("dfa", dfa)
+    return prog
+
+
 MAX_STATES = _MAX_STATES
 
 
@@ -521,10 +562,53 @@ def build_dfa(prog: RegexProgram,
     return Dfa(classes.astype(np.uint8), np.stack(rows), ids.get(0, -1))
 
 
+def _literal_dfa(raw: bytes, kind: str,
+                 max_entries: int = DFA_MAX_ENTRIES) -> Optional[Dfa]:
+    """The DFA of a literal, as ``build_dfa`` encodes one, or None when
+    it passes ``max_entries``: a class for each distinct byte of the
+    literal and one for every other byte; state i has matched the
+    literal's first i bytes. A prefix moves to i + 1 on byte i and to
+    the dead state ``L`` on any other; a suffix or a contains follows
+    the Knuth-Morris-Pratt automaton (the subset construction of a
+    literal's position automaton is that automaton). A contains ends
+    the row matched where it reaches ``L`` (any-accept); a suffix
+    flags the entry (end-accept) and stays in state ``L``, whose row is
+    that of the literal's longest proper border."""
+    size = len(raw)
+    distinct = sorted(set(raw))
+    n_cls = len(distinct) + 1
+    n_states = size if kind == "contains" else size + 1
+    if n_states * n_cls > max_entries or n_states > _DFA_MAX_STATES \
+            or n_cls > 256:
+        return None
+    classes = np.zeros(256, np.uint8)
+    classes[distinct] = np.arange(1, n_cls)
+    lit = classes[list(raw)].astype(np.intp)
+    if kind == "prefix":
+        trans = np.full((size + 1, n_cls), size, np.int64)
+        trans[np.arange(size), lit] = np.arange(1, size + 1)
+        trans[size - 1, lit[size - 1]] = _DFA_ANY
+        return Dfa(classes, trans.astype(np.uint16), size)
+    trans = np.zeros((size + 1, n_cls), np.int64)
+    trans[0, lit[0]] = 1
+    border = 0
+    for i in range(1, size + 1):
+        trans[i] = trans[border]
+        if i < size:
+            trans[i, lit[i]] = i + 1
+            border = trans[border, lit[i]]
+    full = trans == size
+    trans[full] = _DFA_ANY if kind == "contains" else size | _DFA_END
+    return Dfa(classes, trans[:n_states].astype(np.uint16), -1)
+
+
 def position_tables(prog: RegexProgram) -> np.ndarray:
     """Route B's tables, one uint64 array: ``acc[0:256]`` (the positions
     byte c may fire) and ``follow[256:320]`` (the positions that may read
     the byte after position s)."""
+    if prog.n_states > _MAX_STATES:
+        raise ValueError(f"a program of {prog.n_states} positions has no "
+                         f"route B (at most {_MAX_STATES})")
     follow = np.zeros(_MAX_STATES, np.uint64)
     follow[:prog.n_states] = _bits(prog.follow)
     return np.concatenate([_bits(prog.acc), follow])
@@ -551,12 +635,57 @@ def program_tables(prog: RegexProgram):
     return prog.host_tables
 
 
+def _dfa_loop(starts: torch.Tensor, lengths: torch.Tensor,
+              validity: Optional[torch.Tensor], chars: torch.Tensor,
+              prog: RegexProgram) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(matched, bytes read a row)`` of a program past ``MAX_STATES``
+    positions (``compile_literal``'s long literals, whose only tables
+    are their DFA): route A stepped in torch, a byte a row a step, as
+    ``csrc/regex_match.cu`` steps it. State 0 first; a row is matched
+    at an entry's any-accept bit, or at its end-accept bit on the row's
+    last byte, and stops there or at the dead state."""
+    dev = starts.device
+    dfa = program_tables(prog)[1]
+    n = starts.shape[0]
+    lens = lengths.to(torch.int64)
+    live = lens if validity is None else torch.where(
+        validity, lens, torch.zeros_like(lens))
+    ccap = max(chars.shape[0], 1)
+    chars = chars if chars.shape[0] else torch.zeros(1, dtype=torch.uint8,
+                                                     device=dev)
+    trans = torch.from_numpy(dfa.trans.astype(np.int64)).to(dev)
+    classes = torch.from_numpy(dfa.classes.astype(np.int64)).to(dev)
+    matched = torch.full((n,), bool(prog.always_match), device=dev)
+    if prog.empty_only_match:
+        matched |= lens == 0
+    state = torch.zeros(n, dtype=torch.int64, device=dev)
+    going = ~matched & (state != dfa.dead)
+    reads = torch.zeros(n, dtype=torch.int64, device=dev)
+    s64 = starts.to(torch.int64)
+    for j in range(int(live.max()) if n else 0):
+        going &= j < live
+        if not bool(going.any()):
+            break
+        reads += going
+        e = trans[state, classes[chars[(s64 + j).clamp(0, ccap - 1)]
+                                 .long()]]
+        hit = going & (((e & _DFA_ANY) != 0)
+                       | (((e & _DFA_END) != 0) & (j == live - 1)))
+        matched |= hit
+        going &= ~hit
+        state = torch.where(going, e & (_DFA_ANY - 1), state)
+        going &= state != dfa.dead
+    return matched, reads
+
+
 def _match_loop(starts: torch.Tensor, lengths: torch.Tensor,
                 validity: Optional[torch.Tensor], chars: torch.Tensor,
                 prog: RegexProgram) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(matched, bytes read a row)``: the reference's loop, counting
     the bytes a row reads before it stops (matched, or no position
-    left)."""
+    left); ``_dfa_loop`` for a program past ``MAX_STATES`` positions."""
+    if prog.n_states > _MAX_STATES:
+        return _dfa_loop(starts, lengths, validity, chars, prog)
     dev = starts.device
     n = starts.shape[0]
     lens = lengths.to(torch.int64)
@@ -602,7 +731,8 @@ def regex_match_torch(starts: torch.Tensor, lengths: torch.Tensor,
     an empty one. One readback (the longest live string) fixes the
     byte positions; each step gathers a byte a row, fires the positions
     its class allows, tests the accepts, and moves along the follow
-    relation by one ``(n, S) @ (S, S)`` product."""
+    relation by one ``(n, S) @ (S, S)`` product. A long literal of
+    ``compile_literal`` steps its DFA instead (``_dfa_loop``)."""
     return _match_loop(starts, lengths, validity, chars, prog)[0]
 
 

@@ -20,13 +20,11 @@ windows in a ``jax.lax.while_loop``:
   pieces in one pass; the output's offsets are every k-th piece offset;
 - ``char_offsets`` maps a row's character indices to byte offsets
   through a running count of UTF-8 lead bytes (``Length`` counts
-  characters with the same count);
-- ``literal_match_torch`` is ``_match_at`` and ``starts_with_tpu``,
-  ``ends_with_tpu``, ``contains_tpu`` for a literal too long for K6
-  (``expr/strings`` runs the others on K6): a prefix or suffix compares
-  one window of the literal's width a row, a search marks each byte
-  position of the whole buffer where the literal starts and counts the
-  marks inside each row by a prefix sum.
+  characters with the same count).
+
+``_match_at``, ``starts_with_tpu``, ``ends_with_tpu`` and
+``contains_tpu`` have no counterpart here: ``expr/strings`` runs the
+three literal shapes on K6 (``ops/regex.compile_literal``).
 
 None of these builds an intermediate that grows with the longest row.
 
@@ -65,7 +63,7 @@ __all__ = ["gather_window", "string_compare", "compare_with_literals",
            "string_row_parts", "assemble_strings", "gather_strings",
            "utf8_lead_counts", "char_offsets", "substring_bytes",
            "substring_chars", "case_map_ascii", "concat_strings",
-           "trim_spaces", "literal_match_torch"]
+           "trim_spaces"]
 
 
 def gather_window(offsets: torch.Tensor, chars: torch.Tensor, chunk: int,
@@ -308,36 +306,3 @@ def trim_spaces(col: GpuColumnVector, left: bool,
     return assemble_strings(col, new_s.to(torch.int32),
                             (new_e - new_s).to(torch.int32), col.validity,
                             size)
-
-
-def literal_match_torch(col: GpuColumnVector, pattern: bytes,
-                        kind: str) -> torch.Tensor:
-    """Whether each row starts with (``prefix``), ends with
-    (``suffix``) or holds (``contains``) the literal's bytes."""
-    k = len(pattern)
-    n = col.capacity
-    dev = col.offsets.device
-    if k == 0:
-        return torch.ones(n, dtype=torch.bool, device=dev)
-    starts = _i64(col.offsets[:-1])
-    lens = _i64(col.lengths())
-    size = col.chars.shape[0]
-    if size == 0:
-        return torch.zeros(n, dtype=torch.bool, device=dev)
-    pat = torch.tensor(list(pattern), dtype=torch.uint8).to(dev)
-    if kind in ("prefix", "suffix"):
-        at = starts if kind == "prefix" else starts + lens - k
-        idx = (at[:, None] + torch.arange(k, device=dev)[None, :]) \
-            .clamp(0, size - 1)
-        return (lens >= k) & (col.chars[idx] == pat[None, :]).all(1)
-    hit = torch.ones(size, dtype=torch.bool, device=dev)
-    for j in range(k):
-        shifted = torch.zeros(size, dtype=torch.bool, device=dev)
-        if j < size:
-            shifted[:size - j] = col.chars[j:] == pat[j]
-        hit &= shifted
-    marks = torch.zeros(size + 1, dtype=torch.int64, device=dev)
-    marks[1:] = torch.cumsum(hit.to(torch.int64), 0)
-    last = (starts + lens - k + 1).clamp(min=0)
-    found = marks[last.clamp(max=size)] - marks[starts.clamp(max=size)]
-    return (lens >= k) & (found > 0)

@@ -105,7 +105,7 @@ def _build_count(node, args, sql):
         return G.Count()
     _arity("count", node, args, 1, 1, sql)
     if isinstance(node.args[0], A.Lit) and node.args[0].value is not None:
-        return Count()  # count(1) counts rows
+        return G.Count()  # count(1) counts rows
     return G.Count(args[0])
 
 

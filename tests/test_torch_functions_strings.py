@@ -7,9 +7,10 @@ Tolerance: every result is exact (strings, integers, booleans, nulls).
 
 - ``Length`` (characters), ``Upper``/``Lower`` (ASCII on the device,
   every character on the CPU path), ``ConcatStrings``, the trims and
-  ``StartsWith``/``EndsWith``/``Contains`` (K6's plain version here,
-  and the torch matcher for a literal past K6's 64 positions) against
-  the reference's ``eval_tpu``;
+  ``StartsWith``/``EndsWith``/``Contains`` (K6's plain version here:
+  the position automaton up to 64 bytes, the literal's DFA past it,
+  itself held to the position automaton on short literals) against
+  the reference's ``eval_tpu``; past ``LITERAL_MAX_BYTES`` the CPU;
 - ``Substring``: the device path cuts bytes, as the reference's
   ``eval_tpu``; the CPU path cuts characters, as its ``eval_cpu``. Where
   the reference departs from Spark (a negative start before the string
@@ -142,7 +143,7 @@ def test_substring_corners():
 
 
 LITERALS = ["", "o", "Bo", "ics", "é", "ne r", "日本", "ab" * 40 + "é",
-            "x" * 70, "a.b", "(", "%"]
+            "x" * 70, "a.b", "(", "%", "a\\", "\\$", "$"]
 
 
 @pytest.mark.parametrize("name", ["StartsWith", "EndsWith", "Contains"])
@@ -151,9 +152,9 @@ def test_literal_matches_equal_the_reference(rb, name):
         got, want = eval_both(rb, lambda c: getattr(ts, name)(c("s"), lit),
                               lambda c: getattr(js, name)(c("s"), lit))
         same(got, want)
-        # the K6 program takes every literal of at most 64 positions
+        # K6 takes every literal: past 64 positions on its DFA route
         prog = getattr(ts, name)(TLit("x"), lit).program()
-        assert (prog is None) == (len(lit.encode()) > 64), lit
+        assert prog.n_states == len(lit.encode()), lit
 
 
 HOST = [("StringReplace", ("o", "0"), ("o", "0")),
@@ -213,18 +214,87 @@ def test_non_ascii_like_placement_and_results(rb, pattern, device):
     assert js.RegExpLike(JLit("x"), "é").tpu_supported() is not None
 
 
-def test_literal_match_torch_against_python():
-    from spark_rapids_tpu_torch.columnar.column import GpuColumnVector
-    from spark_rapids_tpu_torch.ops.strings import literal_match_torch
+#: literals past K6's 64 positions, with borders (a prefix that is also
+#: a suffix) for the DFA's fall-backs, and non-ASCII bytes
+LONG_LITERALS = ["ab" * 40 + "é", "x" * 70, "abab" * 20 + "abac",
+                 "日本" * 12 + "aab" * 3, "aaab" * 17]
+
+
+def _long_rows(lit: str, rng) -> list:
+    """Rows around ``lit``: itself, with text before and after, cut by
+    one character at either end, twice over, overlapping itself, and
+    short random words."""
+    pieces = [lit, "x" + lit, lit + "é", "é" + lit + "z", lit[1:],
+              lit[:-1], lit + lit, lit[:len(lit) // 2] + lit, "", "ab",
+              lit[:-1] + lit[-1] * 2, "q" * len(lit)]
+    return [pieces[i] for i in rng.integers(0, len(pieces), 60)]
+
+
+@pytest.mark.parametrize("lit", LONG_LITERALS)
+def test_long_literals_run_on_k6_and_equal_the_reference(lit):
+    """A literal past 64 positions compiles for K6's DFA route
+    (``regex.compile_literal``), as the reference keeps any literal on
+    its device; each shape equals the reference and Python."""
+    from spark_rapids_tpu_torch.ops import regex
+    rows = _long_rows(lit, np.random.default_rng(len(lit)))
+    rb = batch({"s": (pa.string(), rows)}, seed=3)
+    for name, fn in (("StartsWith", str.startswith),
+                     ("EndsWith", str.endswith),
+                     ("Contains", str.__contains__)):
+        e = getattr(ts, name)(TLit("x"), lit)
+        assert e.gpu_supported() is None
+        assert regex.program_tables(e.program())[0] == "dfa"
+        got, want = eval_both(rb, lambda c: getattr(ts, name)(c("s"), lit),
+                              lambda c: getattr(js, name)(c("s"), lit))
+        same(got, want)
+        assert got.to_pylist() == [None if r is None else fn(r, lit)
+                                   for r in rb.column(0).to_pylist()]
+
+
+def test_a_literal_past_k6_runs_on_the_cpu():
+    """Past ``LITERAL_MAX_BYTES`` the operator stays on the CPU, where
+    Python's ``str`` methods answer (the reference keeps it on its
+    device: a departure ``ROADMAP.md`` records)."""
+    from spark_rapids_tpu_torch.ops import regex
+    lit = "ab" * (regex.LITERAL_MAX_BYTES // 2) + "c"
+    rows = ["z" + lit, lit + "z", lit, "ab", None, ""]
+    rb = batch({"s": (pa.string(), rows)}, seed=5, null_share=0.0)
+    for name, fn in (("StartsWith", str.startswith),
+                     ("EndsWith", str.endswith),
+                     ("Contains", str.__contains__)):
+        assert getattr(ts, name)(TLit("x"), lit).gpu_supported() is not None
+        got, _ = eval_both(rb, lambda c: getattr(ts, name)(c("s"), lit),
+                           None, host=True)
+        assert got.to_pylist() == [None if r is None else fn(r, lit)
+                                   for r in rows]
+
+
+@pytest.mark.parametrize("kind", ["prefix", "suffix", "contains"])
+def test_literal_dfa_equals_the_position_automaton(kind):
+    """``_literal_dfa`` (the long literals' tables), stepped by its plain
+    version, equals the position automaton's plain version on literals
+    of at most 64 bytes that both can take: borders, repeats,
+    non-ASCII bytes, over rows that hold them at every offset."""
     import torch
-    rows = ["abcabc", "", "bca", "xxabcx", "ab", "abc"]
-    raw = b"".join(r.encode() for r in rows)
-    offs = np.cumsum([0] + [len(r) for r in rows]).astype(np.int32)
-    col = GpuColumnVector(None, None, None, torch.from_numpy(offs),
-                          torch.tensor(list(raw), dtype=torch.uint8))
-    for pat in ("abc", "bc", "", "x"):
-        for kind, fn in (("prefix", str.startswith),
-                         ("suffix", str.endswith),
-                         ("contains", str.__contains__)):
-            got = literal_match_torch(col, pat.encode(), kind).tolist()
-            assert got == [fn(r, pat) for r in rows], (pat, kind)
+    from spark_rapids_tpu_torch.ops import regex
+    rng = np.random.default_rng(21)
+    lits = ["a", "aa", "aab", "abab", "abcab", "aabaab", "éé", "日a日",
+            "abacabad"] + ["".join(rng.choice(list("abé"), 9))
+                           for _ in range(12)]
+    for lit in lits:
+        rows = ["".join(rng.choice(list("abé日c"), rng.integers(0, 14)))
+                for _ in range(200)] + [lit, lit * 2, "x" + lit, ""]
+        raw = [r.encode() for r in rows]
+        offs = np.cumsum([0] + [len(r) for r in raw])
+        args = (torch.from_numpy(offs[:-1].astype(np.int32)),
+                torch.from_numpy(np.diff(offs).astype(np.int32)),
+                torch.from_numpy(np.arange(len(rows)) % 7 != 3),
+                torch.from_numpy(np.frombuffer(b"".join(raw), np.uint8)
+                                 .copy()))
+        prog = regex.compile_literal(lit, kind)
+        want = regex.regex_match_torch(*args, prog)
+        wide = regex.RegexProgram()
+        wide.n_states = regex.MAX_STATES + 1
+        wide.host_tables = ("dfa", regex._literal_dfa(lit.encode(), kind))
+        got = regex.regex_match_torch(*args, wide)
+        assert torch.equal(got, want), (lit, kind)

@@ -128,6 +128,21 @@ def test_aggregates_equal_the_reference(n_batches, grouped):
     _hold(got, want)
 
 
+def test_global_string_min_max_over_null_and_empty_partials():
+    """The global MIN/MAX of a string stacks each partial's lane 0
+    (``exec/aggregate._lane0_column``): a batch whose strings are all
+    null, one of only empty strings and one of non-ASCII strings still
+    equal the reference."""
+    rbs = _batches(3)
+    for i, vals in ((0, [None]), (1, [""]), (2, ["é", "日本", "ab"])):
+        n = rbs[i].num_rows
+        s = pa.array([vals[j % len(vals)] for j in range(n)], pa.string())
+        rbs[i] = rbs[i].set_column(3, "s", s)
+    got, want = _run_aggregates(rbs, [])
+    _hold(got, want)
+    assert got.column("mn_s").to_pylist() == [""]
+
+
 def test_moment_corners_follow_spark():
     rb = pa.record_batch({"k": pa.array([1, 2, 2, 3, 3], pa.int32()),
                           "x": pa.array([4.0, 1.0, 1.0, None, None],

@@ -21,7 +21,7 @@ probe's seven texts that only the reference ran.
   builds and runs in the port; ``collect_list``/``collect_set`` raise
   naming ROADMAP item 2.
 - MIN/MAX over a string, STDDEV, FIRST, UPPER, ROUND and CAST to string
-  equal the reference.
+  equal the reference, and so does COUNT(1).
 """
 import pyarrow as pa
 import pytest
@@ -175,6 +175,10 @@ PROBE = {
              "FROM store_sales GROUP BY ss_store_sk",
     "cast_string": "SELECT CAST(ss_quantity AS STRING) AS q, COUNT(*) AS n "
                    "FROM store_sales GROUP BY CAST(ss_quantity AS STRING)",
+    # COUNT of a literal counts rows, nulls of the other columns included
+    "count_literal": "SELECT ss_store_sk, COUNT(1) AS n, COUNT(*) AS m, "
+                     "COUNT(ss_quantity) AS q FROM store_sales "
+                     "GROUP BY ss_store_sk",
 }
 
 
@@ -184,6 +188,8 @@ def test_probe_texts_equal_the_reference(paths, name, parts):
     conf = {"spark.sql.shuffle.partitions": str(parts)}
     got, _ = dual_run(PROBE[name], paths, conf)
     assert got.num_rows > 0
+    if name == "count_literal":
+        assert got.column("n").to_pylist() == got.column("m").to_pylist()
     if name == "first":
         # one partition of one batch: the order is the file's
         t = pa.concat_tables([pa.parquet.read_table(paths["store_sales"])])
