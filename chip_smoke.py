@@ -6,13 +6,15 @@ SF1, the 22 NDS queries from SQL text over Parquet files
 nested-loop joins (``tools/nds_joins.py``) and eight that need the
 per-operator CPU fallback (``tools/nds_fallback.py``) and five whose
 working set passes the device budget they run under
-(``tools/nds_memory.py``), through ``spark_rapids_tpu_torch``, with K1
-to K6 checked on the card, every plan checked by the static plan
-verifier, and the per-operator metrics (EXPLAIN ANALYZE, query profiles)
-held to the runs.
+(``tools/nds_memory.py``), the SQL function texts
+(``tools/nds_functions.py``) and the decimal texts over TPC-DS's
+``DECIMAL(7,2)`` money columns (``tools/nds_decimals.py``), through
+``spark_rapids_tpu_torch``, with K1 to K6 checked on the card, every
+plan checked by the static plan verifier, and the per-operator metrics
+(EXPLAIN ANALYZE, query profiles) held to the runs.
 
-    python3 chip_smoke.py [--memory-only | --opm-only | --functions-only]
-                          [--log FILE]
+    python3 chip_smoke.py [--memory-only | --opm-only | --functions-only
+                           | --decimals-only] [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -190,14 +192,39 @@ Phases, any failure exits non-zero before the result line:
      group), its ``fallback_nodes()`` to the module's ``FALLBACK`` (no
      expression the reference places on the device runs on the CPU), its
      ms a query and its K3, K4, K5 and K6 launches printed with the
-     card's name and power limit; then q_fn_strings and q_fn_casts
-     traced once each (``tools/nds_trace.trace_nds``): device busy time,
-     idle share and the top five device operations
+     card's name and power limit; q_fn_strings and q_fn_casts are
+     traced once each (``tools/nds_trace.py``) after phase 15, each in
+     a process of its own (``_traced_apart``): device busy time, idle share and the top five device operations
      (``--functions-only`` runs the build and this phase alone);
-  14. K1's kernels a call, counted in a profiler trace of one call (1)
-     between pad kernels (a trace after phase 13's loses its first
-     device record), after the timed phases, since a trace slows later
-     launches.
+  14. decimals: the ten texts of
+     ``spark_rapids_tpu_torch/tools/nds_decimals.py`` (q3, q42, q52,
+     q55 and q7 as they stand, decimal keys, arithmetic, casts, a window
+     frame's sum, and three sums past 18 digits that run on the CPU)
+     over the NDS tables at 2^22 store_sales rows with the four money
+     columns as ``DECIMAL(7,2)``, written as Spark writes decimals
+     (INT32; ``.bench_cache/nds_decimal_torch_n4194304/``), at 1
+     partition (a warm-up and one timed run, no warm-up for a text with
+     a CPU island) and 16 (one run), each as
+     phase 8 runs a query (``_run_sql_queries``): rows equal to the
+     module's oracle exactly (floats rel 1e-9), ``fallback_nodes()`` to
+     its ``FALLBACK``, the device scans to their chunks, every plan
+     verified, and the K3, K4 and K5 launches to ``_nds_expected`` (a
+     decimal key is one 64-bit value lane); one text
+     (``DECIMALS_TRACED``) is traced after phase 13's traces, in a
+     process of its own: device busy time, idle share and the top five device operations
+     (``--decimals-only`` runs the build and this phase alone); phase 3
+     checks K5 on an INT32 ``DECIMAL(7,2)``
+     and an INT64 ``DECIMAL(12,2)`` row group pair with nulls
+     (``kernel_checks.decimal_layouts``, against the plain version and
+     pyarrow), K3 on a decimal key's words with negatives and nulls
+     (``decimal_words``) and K4 gathering a decimal column
+     (``decimal_gather_case``);
+  15. K1's kernels a call, counted in a profiler trace of one call (1)
+     between pad kernels. Every trace runs after the timed phases, in a
+     process of its own, so that it is the first trace of its process
+     (``_traced_apart``: within one process a trace after a long one
+     lost device records, after three every record of K1 and its pads)
+     and leaves no profiler hooks in the process that times.
 The last lines are the kernels' JSON, nvidia-smi's line, and
 {"ok": true, "device": {...}}; with ``--log FILE`` every line is also
 written to FILE. The script imports neither jax nor the JAX package.
@@ -243,14 +270,14 @@ def log(*a):
 
 
 def _args():
-    """``(memory_only, opm_only, functions_only, log path or None)``
-    from the command line."""
+    """``(memory_only, opm_only, functions_only, decimals_only, log path
+    or None)`` from the command line."""
     args = sys.argv[1:]
     path = None
     if "--log" in args:
         path = args[args.index("--log") + 1]
     return ("--memory-only" in args, "--opm-only" in args,
-            "--functions-only" in args, path)
+            "--functions-only" in args, "--decimals-only" in args, path)
 
 
 def phase_card():
@@ -308,12 +335,39 @@ def phase_kernels(device):
     return times
 
 
-def phase_k1_kernels_per_call(device):
-    """K1's kernels a call, from a profiler trace of one call. It runs
-    after the timed phases: a trace leaves the profiler's hooks in the
-    process, which slows every later launch."""
-    from spark_rapids_tpu_torch.ops import kernel_checks as kc
-    trace = kc.k1_trace(device)
+def _traced_apart(args, timeout=300):
+    """The JSON line a trace prints, run in a process of its own
+    (``python3 args...`` from the repo's root; the kernels are already
+    built): each trace is then the first in its process, whatever ran
+    before it. Within one process a trace after a long one lost device
+    records, and every trace leaves the profiler's hooks behind, which
+    slow every later launch."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable] + list(args), cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    if run.returncode != 0:
+        raise AssertionError(f"trace {args} exited {run.returncode}: "
+                             f"{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def _trace_query(query, decimals=False):
+    """``tools/nds_trace`` of ``query`` at 1 partition, in a process of
+    its own (``_traced_apart``)."""
+    return _traced_apart(
+        ["-m", "spark_rapids_tpu_torch.tools.nds_trace", "--query", query,
+         "--partitions", "1", "--n-sales", str(NDS_SALES)]
+        + (["--decimals"] if decimals else []))
+
+
+def phase_k1_kernels_per_call():
+    """K1's kernels a call, from a profiler trace of one call, in a
+    process of its own (``_traced_apart``)."""
+    trace = _traced_apart(
+        ["-c", "import json, torch; from spark_rapids_tpu_torch.ops "
+         "import kernel_checks as kc; print(json.dumps(kc.k1_trace("
+         "torch.device('cuda', 0))))"])
     per_call = trace["k1"]
     log(f"[k1] kernels a call (profiler, main batch): {per_call}; the "
         f"trace kept {trace['pads']} of its 3 pad kernels")
@@ -670,7 +724,7 @@ NDS_RANKED_ROWS = 2
 
 def _lane_bits(t):
     """Bits of a sort key's value lane (ops/sort_keys.py): a string
-    key's is its 32-bit rank."""
+    key's is its 32-bit rank, a Decimal64's its 64-bit unscaled lane."""
     import numpy as np
     from spark_rapids_tpu_torch import datatypes as dt
     if isinstance(t, (dt.StringType, dt.BinaryType)):
@@ -1148,7 +1202,7 @@ def _transfer_times(metrics):
 
 
 def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
-                     warm=(True, True), opm_off=False):
+                     warm=(True, True), opm_off=False, cold=()):
     """Each of ``corpus``'s queries (a module with ``QUERIES``,
     ``SQL_QUERIES``, ``oracle`` and ``FLOAT_COLUMNS``, and optionally
     ``CONF``, a query's conf, and ``FALLBACK``, its nodes on the CPU,
@@ -1158,7 +1212,9 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
     result held to the oracle, its placement to ``FALLBACK`` and its
     device scans to their chunks, and the first timed run's K3, K4, K5
     and K6 launches (the wrappers count them as they launch, at no cost)
-    to ``_nds_expected``. Every plan is verified clean (``_apply``). With
+    to ``_nds_expected``. Every plan is verified clean (``_apply``). The
+    queries in ``cold`` run without a warm-up (a CPU island's host pass
+    takes seconds, and nothing of it warms). With
     ``opm_off``, the warm-up at 1 partition runs under
     spark.rapids.metrics.op.enabled=false and one more such run follows
     the first timed run: the summary's ``ms_opm_off``."""
@@ -1208,7 +1264,7 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
                 return out, secs, ctx
 
             off = opm_off and parts == 1
-            if warm_up:
+            if warm_up and q not in cold:
                 run(off=off)
             for c in wrappers.values():
                 c.launches = 0
@@ -2104,13 +2160,11 @@ def phase_functions(device, files, card, smi):
 
 
 def phase_function_traces(card, smi, summary):
-    """Phase 13's traces of ``FUNCTIONS_TRACED``. After them every later
-    trace in the process loses its first device record, which
-    ``kernel_checks.k1_trace`` pads against."""
-    from spark_rapids_tpu_torch.tools.nds_trace import trace_nds
+    """Phase 13's traces of ``FUNCTIONS_TRACED``, each in a process of
+    its own (``_trace_query``)."""
     t0 = time.perf_counter()
     for q in FUNCTIONS_TRACED:
-        tr = trace_nds(None, q, 1, NDS_SALES)
+        tr = _trace_query(q)
         top = dict(list(tr["top_device_ops"].items())[:5])
         summary[f"trace_{q}"] = {
             "device_busy_us": tr["device_busy_us"], "wall_us": tr["wall_us"],
@@ -2125,9 +2179,75 @@ def phase_function_traces(card, smi, summary):
         f"{summary['phase_s'] + took:.3f} s")
 
 
+# --- phase 14: decimals -----------------------------------------------------
+
+#: the decimal text phase 14 traces
+DECIMALS_TRACED = "q_dec_arith"
+
+
+def _decimal_files():
+    """The decimal NDS tables at ``NDS_SALES`` rows, their files (written
+    once, as Spark writes decimals), and each file's chunks."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.tools import nds_decimals as nd
+    from spark_rapids_tpu_torch.tools.nds_trace import decimal_paths
+
+    t0 = time.perf_counter()
+    tables = nd.decimal_tables(nds.gen_tables(NDS_SALES))
+    paths = decimal_paths(NDS_SALES, tables)
+    log(f"[decimals] {NDS_SALES} store_sales rows with DECIMAL(7,2) money "
+        f"columns: tables and files ready in "
+        f"{time.perf_counter() - t0:.3f} s")
+    chunks = {}
+    for p in paths.values():
+        md = pq.ParquetFile(p).metadata
+        chunks[p] = md.num_row_groups * md.num_columns
+    return tables, paths, chunks
+
+
+def phase_decimals(device, card, smi):
+    """The decimal texts at 1 and 16 partitions (module docstring, phase
+    14); a text with a CPU island runs without a warm-up."""
+    from spark_rapids_tpu_torch.tools import nds_decimals as nd
+
+    t_phase = time.perf_counter()
+    files = _decimal_files()
+    summary, launches = _run_sql_queries(
+        device, "decimals", nd, files, timed=(1, 1), warm=(True, False),
+        cold=[q for q in nd.QUERIES if nd.FALLBACK[q]])
+    for k, v in summary.items():
+        if k != "verifier":
+            log(f"[decimals] {k}: {v['ms']:.3f} ms a query on {card} "
+                f"({smi})")
+    took = time.perf_counter() - t_phase
+    log(f"[decimals] phase took {took:.3f} s (its trace apart)")
+    summary["phase_s"] = took
+    return summary, launches
+
+
+def phase_decimal_trace(card, smi, summary):
+    """Phase 14's trace of ``DECIMALS_TRACED``, in a process of its own
+    (``_trace_query``)."""
+    t0 = time.perf_counter()
+    tr = _trace_query(DECIMALS_TRACED, decimals=True)
+    top = dict(list(tr["top_device_ops"].items())[:5])
+    summary[f"trace_{DECIMALS_TRACED}"] = {
+        "device_busy_us": tr["device_busy_us"], "wall_us": tr["wall_us"],
+        "device_idle_share": tr["device_idle_share"],
+        "top_device_ops": top, "kernels": tr["kernels"]}
+    log(f"[decimals] trace {DECIMALS_TRACED} partitions=1 on {card} "
+        f"({smi}): device busy {tr['device_busy_us']:.1f} us of "
+        f"{tr['wall_us']:.1f} us (idle share "
+        f"{tr['device_idle_share']:.4f}); top device ops "
+        + json.dumps(top, sort_keys=True))
+    log(f"[decimals] trace took {time.perf_counter() - t0:.3f} s")
+
+
 def main():
     global _log_file
-    memory_only, opm_only, functions_only, log_path = _args()
+    memory_only, opm_only, functions_only, decimals_only, log_path = \
+        _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
@@ -2153,6 +2273,12 @@ def main():
         phase_function_traces(name, smi, summary)
         log("[functions] " + json.dumps(summary, sort_keys=True))
         return
+    if decimals_only:
+        # a quick check of phase 14 alone
+        summary, _ = phase_decimals(device, name, smi)
+        phase_decimal_trace(name, smi, summary)
+        log("[decimals] " + json.dumps(summary, sort_keys=True))
+        return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
@@ -2169,8 +2295,11 @@ def main():
         device, nds_files, fb_summary[SKEW_WITNESS])
     opm_summary = phase_opmetrics(device, nds_files, name, smi, nds_summary)
     fn_summary, fn_launches = phase_functions(device, nds_files, name, smi)
+    dec_summary, dec_launches = phase_decimals(device, name, smi)
+    # the traces last, each in a process of its own
+    per_call = phase_k1_kernels_per_call()
     phase_function_traces(name, smi, fn_summary)
-    per_call = phase_k1_kernels_per_call(device)
+    phase_decimal_trace(name, smi, dec_summary)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]
@@ -2187,6 +2316,7 @@ def main():
     log("[nds-memory] " + json.dumps(mem_summary, sort_keys=True))
     log("[opm] " + json.dumps(opm_summary, sort_keys=True))
     log("[functions] " + json.dumps(fn_summary, sort_keys=True))
+    log("[decimals] " + json.dumps(dec_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -2225,7 +2355,9 @@ def main():
         "launches_nds_memory": {k: v["K3"]
                                 for k, v in mem_launches.items()},
         "launches_functions": {k: v["K3"]
-                               for k, v in fn_launches.items()}}, {
+                               for k, v in fn_launches.items()},
+        "launches_decimals": {k: v["sort_pairs"]
+                              for k, v in dec_launches.items()}}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -2243,7 +2375,9 @@ def main():
         "launches_nds_memory": {k: v["K4"]
                                 for k, v in mem_launches.items()},
         "launches_functions": {k: v["K4"]
-                               for k, v in fn_launches.items()}}, {
+                               for k, v in fn_launches.items()},
+        "launches_decimals": {k: v["gather_rows"]
+                              for k, v in dec_launches.items()}}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -2261,7 +2395,9 @@ def main():
         "launches_nds_memory": {k: v["K5"]
                                 for k, v in mem_launches.items()},
         "launches_functions": {k: v["K5"]
-                               for k, v in fn_launches.items()}}, {
+                               for k, v in fn_launches.items()},
+        "launches_decimals": {k: v["decode_batch"]
+                              for k, v in dec_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -5,7 +5,11 @@ pyarrow RecordBatches are the host currency, torch tensors the device
 currency. Fixed-width types (bool, int8-int64, float32/64, date,
 timestamp) and strings/binary (Arrow's int32 offsets and bytes), with
 nulls, and ``NullType`` (an all-null column both ways, as the
-reference's ``:120,231``); decimals and nested types wait (ROADMAP
+reference's ``:120,231``). A ``decimal128`` of precision <= 18 rides its
+int64 lane, the low word of Arrow's 16 bytes (``:52-58``), and comes
+back with the high word the low word's sign (``expr/base.py:323-336``);
+a wider one is two int64 words a row on the host and is never uploaded
+(``column.lane_shape`` raises for a device). Nested types wait (ROADMAP
 item 2).
 """
 from __future__ import annotations
@@ -19,11 +23,13 @@ import torch
 
 from .. import datatypes as dt
 from .batch import GpuBatch, bucket_bytes, bucket_rows
-from .column import GpuColumnVector, is_string_like, torch_dtype
+from .column import GpuColumnVector, is_string_like, lane_shape, \
+    torch_dtype
 
 __all__ = ["arrow_to_device", "device_to_arrow", "arrow_schema",
            "engine_schema", "host_lanes", "column_from_host",
-           "string_parts", "string_column_from_host"]
+           "string_parts", "string_column_from_host", "decimal_words",
+           "decimal_array"]
 
 
 def engine_schema(arrow_schema: pa.Schema) -> dt.Schema:
@@ -36,6 +42,41 @@ def arrow_schema(schema: dt.Schema) -> pa.Schema:
                       for f in schema])
 
 
+def decimal_words(arr) -> np.ndarray:
+    """A decimal array's Arrow words as int64 ``(n, 2)``, low then high,
+    nulls zero."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if not pa.types.is_decimal128(arr.type):
+        arr = arr.cast(pa.decimal128(arr.type.precision, arr.type.scale))
+    if arr.null_count:
+        arr = pc.fill_null(arr, pa.scalar(0, type=arr.type))
+    n = len(arr)
+    words = np.frombuffer(arr.buffers()[1], np.int64,
+                          count=2 * (arr.offset + n))
+    return words.reshape(-1, 2)[arr.offset:]
+
+
+def decimal_array(t: dt.DecimalType, words: np.ndarray,
+                  valid: Optional[np.ndarray]) -> pa.Array:
+    """A ``decimal128`` array from int64 lanes: ``(n,)`` unscaled values
+    (the high word the sign) or ``(n, 2)`` words."""
+    n = words.shape[0]
+    if words.ndim == 1:
+        pairs = np.empty((n, 2), np.int64)
+        pairs[:, 0] = words
+        pairs[:, 1] = words >> 63
+    else:
+        pairs = np.ascontiguousarray(words, dtype=np.int64)
+    bitmap, nulls = None, 0
+    if valid is not None and not valid.all():
+        bitmap = pa.py_buffer(np.packbits(valid, bitorder="little"))
+        nulls = int(n - valid.sum())
+    return pa.Array.from_buffers(dt.to_arrow(t), n,
+                                 [bitmap, pa.py_buffer(pairs)],
+                                 null_count=nulls)
+
+
 def host_lanes(arr, t: dt.DataType) \
         -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """(values in the lane dtype with nulls zero-filled, bool validity or
@@ -46,10 +87,14 @@ def host_lanes(arr, t: dt.DataType) \
         arr = arr.combine_chunks()
     if isinstance(t, dt.NullType):
         return np.zeros(len(arr), t.np_dtype), np.zeros(len(arr), np.bool_)
-    torch_dtype(t)  # raises for types the device does not hold yet
     valid = None
     if arr.null_count:
         valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+    if isinstance(t, dt.DecimalType):
+        words = decimal_words(arr)
+        return (words if dt.is_wide_decimal(t)
+                else np.ascontiguousarray(words[:, 0])), valid
+    torch_dtype(t)  # raises for types the device does not hold yet
     atype = arr.type
     if pa.types.is_boolean(atype):
         return pc.fill_null(arr, False).to_numpy(zero_copy_only=False), valid
@@ -103,7 +148,9 @@ def column_from_host(t: dt.DataType, values: np.ndarray,
                      device: torch.device) -> GpuColumnVector:
     """Pad host lanes to ``capacity`` and copy them to ``device``."""
     n = len(values)
-    buf = np.zeros(capacity, dtype=t.np_dtype)
+    shape, _ = lane_shape(t, capacity, device)
+    buf = np.zeros(shape, dtype=np.int64 if len(shape) == 2
+                   else t.np_dtype)
     buf[:n] = values
     data = torch.from_numpy(buf).to(device)
     validity = None
@@ -138,6 +185,8 @@ def arrow_to_device(rb: pa.RecordBatch, schema: Optional[dt.Schema],
 
 def _column_to_arrow(t: dt.DataType, values: np.ndarray,
                      valid: Optional[np.ndarray]) -> pa.Array:
+    if isinstance(t, dt.DecimalType):
+        return decimal_array(t, values, valid)
     mask = None if valid is None or valid.all() else ~valid
     if isinstance(t, dt.DateType):
         return pa.array(values, pa.int32(), mask=mask).view(pa.date32())

@@ -17,7 +17,15 @@ Layout (Arrow-compatible, the same padding as the reference,
     the mask; leaving it out lets a column without nulls cost no mask
     bytes in a kernel that reads it.
 
-Decimals and nested types wait for a later slice (ROADMAP item 2).
+  - a decimal of precision <= 18 (Decimal64, the reference's
+    ``:24-27``): ``data`` int64 ``(capacity,)``, the unscaled values.
+  - a wider decimal never gets a device layout (nor has it in the
+    reference, ``columnar/arrow_bridge.py:57-58``). On the host, where
+    the planner runs everything that holds one, it is ``data`` int64
+    ``(capacity, 2)``: Arrow's decimal128 words, low then high
+    (``wide_decimal_lanes``).
+
+Nested types wait for a later slice (ROADMAP item 2).
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from .. import datatypes as dt
 from ..datatypes import DataType
 
 __all__ = ["GpuColumnVector", "torch_dtype", "and_validity",
-           "is_string_like"]
+           "is_string_like", "lane_shape"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -45,10 +53,24 @@ _TORCH_DTYPES = {
 
 def torch_dtype(t: DataType) -> torch.dtype:
     """The torch lane dtype of a fixed-width engine type."""
+    if dt.is_wide_decimal(t):
+        raise NotImplementedError(
+            f"{t.simple_string()}: a decimal past 18 digits has no device "
+            "layout; the planner runs what holds one on the CPU")
     if t.np_dtype is None or np.dtype(t.np_dtype) not in _TORCH_DTYPES:
         raise NotImplementedError(
             f"{t.simple_string()} columns are not on the device yet")
     return _TORCH_DTYPES[np.dtype(t.np_dtype)]
+
+
+def lane_shape(t: DataType, capacity: int, device: torch.device):
+    """``(shape, torch dtype)`` of a fixed-width column's data: a wide
+    decimal's two words a row, on the host only."""
+    if dt.is_wide_decimal(t):
+        if torch.device(device).type != "cpu":
+            torch_dtype(t)  # raises: never on the device
+        return (capacity, 2), torch.int64
+    return (capacity,), torch_dtype(t)
 
 
 def is_string_like(t: DataType) -> bool:
@@ -91,9 +113,9 @@ class GpuColumnVector:
                        torch.zeros(capacity + 1, dtype=torch.int32,
                                    device=device),
                        torch.zeros(0, dtype=torch.uint8, device=device))
-        return cls(dtype,
-                   torch.zeros(capacity, dtype=torch_dtype(dtype),
-                               device=device), valid)
+        shape, lane = lane_shape(dtype, capacity, device)
+        return cls(dtype, torch.zeros(shape, dtype=lane, device=device),
+                   valid)
 
     @classmethod
     def from_string_parts(cls, dtype: DataType, offsets: np.ndarray,

@@ -6,8 +6,15 @@ knows its fixed-width device lane dtype (``np_dtype``; strings, binary
 and nested types are variable-width), its Arrow equivalent for the host
 boundary, and its Spark-facing name.
 
-Decimal: precision <= 18 is a scaled int64 lane (Decimal64); wider
-decimals use two int64 lanes (hi/lo).
+Decimal: precision <= 18 is a scaled int64 lane (Decimal64), the
+device's decimal; a wider decimal lives only on the host, as two int64
+lanes (Arrow's decimal128 words, ``columnar/column.py``). The result
+types of decimal arithmetic are Spark's ``DecimalPrecision`` rules
+(``decimal_result_type``, beside ``common_type``), with its default
+``spark.sql.decimalOperations.allowPrecisionLoss``; an integral operand
+widens as Spark's ``DecimalType.forType`` (``decimal_for``), an integer
+literal to the fewest digits that hold it (``DecimalType.fromLiteral``,
+``literal_decimal``).
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ __all__ = [
     "NULL", "BOOL", "INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
     "STRING", "BINARY", "DATE", "TIMESTAMP",
     "is_numeric", "is_integral", "is_floating", "is_nested",
-    "common_type",
+    "common_type", "is_wide_decimal", "decimal_for", "literal_decimal",
+    "decimal_result_type", "wider_decimal", "adjust_precision_scale",
 ]
 
 
@@ -313,9 +321,7 @@ def common_type(a: DataType, b: DataType) -> DataType:
         dec = a if isinstance(a, DecimalType) else b
         other = b if isinstance(a, DecimalType) else a
         if is_integral(other):
-            widths = {ByteType: 3, ShortType: 5, IntegerType: 10, LongType: 19}
-            p = widths[type(other)]
-            return common_type(dec, DecimalType(min(p, 38), 0))
+            return common_type(dec, decimal_for(other))
         return FLOAT64
     try:
         ia = _NUMERIC_ORDER.index(type(a))
@@ -324,6 +330,73 @@ def common_type(a: DataType, b: DataType) -> DataType:
         raise TypeError(f"no common type for {a} and {b}")
     # Spark promotes (long, float) -> float -> but comparisons go to double.
     return _NUMERIC_ORDER[max(ia, ib)]()
+
+
+def is_wide_decimal(t: DataType) -> bool:
+    """A decimal past the device's 18 digits (host only)."""
+    return isinstance(t, DecimalType) \
+        and t.precision > DecimalType.MAX_INT64_PRECISION
+
+
+_INTEGRAL_DIGITS = {ByteType: 3, ShortType: 5, IntegerType: 10,
+                    LongType: 20}
+
+
+def decimal_for(t: DataType) -> "DecimalType":
+    """Spark's ``DecimalType.forType``: the decimal an integral operand
+    widens to (tinyint 3, smallint 5, int 10, bigint 20 digits)."""
+    if isinstance(t, DecimalType):
+        return t
+    return DecimalType(_INTEGRAL_DIGITS[type(t)], 0)
+
+
+def literal_decimal(value: int) -> "DecimalType":
+    """Spark's ``DecimalType.fromLiteral`` for an integer literal: the
+    fewest digits that hold it, scale 0."""
+    return DecimalType(max(len(str(abs(int(value)))), 1), 0)
+
+
+def adjust_precision_scale(precision: int, scale: int) -> "DecimalType":
+    """Spark's ``DecimalType.adjustPrecisionScale`` (precision loss
+    allowed): past 38 digits the scale gives way, down to 6."""
+    if precision <= DecimalType.MAX_PRECISION:
+        return DecimalType(precision, scale)
+    int_digits = precision - scale
+    min_scale = min(scale, 6)
+    adjusted = max(DecimalType.MAX_PRECISION - int_digits, min_scale)
+    return DecimalType(DecimalType.MAX_PRECISION, adjusted)
+
+
+def decimal_result_type(op: str, a: "DecimalType",
+                        b: "DecimalType") -> "DecimalType":
+    """Spark's ``DecimalPrecision`` result type of ``a op b``: ``add``
+    and ``sub`` keep the larger scale with one more integral digit,
+    ``mul`` adds precisions and scales, ``div`` keeps at least 6
+    fraction digits, ``mod`` (``%`` and ``pmod``) the smaller integral
+    part."""
+    p1, s1, p2, s2 = a.precision, a.scale, b.precision, b.scale
+    if op in ("add", "sub"):
+        scale = max(s1, s2)
+        return adjust_precision_scale(max(p1 - s1, p2 - s2) + scale + 1,
+                                      scale)
+    if op == "mul":
+        return adjust_precision_scale(p1 + p2 + 1, s1 + s2)
+    if op == "div":
+        scale = max(6, s1 + p2 + 1)
+        return adjust_precision_scale(p1 - s1 + s2 + scale, scale)
+    if op == "mod":
+        scale = max(s1, s2)
+        return adjust_precision_scale(min(p1 - s1, p2 - s2) + scale, scale)
+    raise ValueError(op)
+
+
+def wider_decimal(a: "DecimalType", b: "DecimalType") -> "DecimalType":
+    """Spark's ``widerDecimalType``: both integral parts and the larger
+    scale (capped at 38 digits)."""
+    scale = max(a.scale, b.scale)
+    int_digits = max(a.precision - a.scale, b.precision - b.scale)
+    return DecimalType(min(int_digits + scale, DecimalType.MAX_PRECISION),
+                       min(scale, DecimalType.MAX_PRECISION))
 
 
 def from_arrow(at) -> DataType:

@@ -315,8 +315,8 @@ class _BaseJoinExec(GpuExec):
                 f"{self.node_label()} would emit {total} rows and up to "
                 f"{max(char_caps, default=0)} chars of a string column "
                 f"from one stream batch, past the int32 indices and "
-                f"offsets' {MAX_STRING_CHARS}; splitting the stream batch "
-                "waits for the memory manager (ROADMAP item 14)")
+                f"offsets' {MAX_STRING_CHARS}; the split of such a stream "
+                "batch is not ported yet (ROADMAP item 14's split)")
         return plan, total, bucket_rows(total), char_caps
 
     @staticmethod

@@ -21,7 +21,11 @@ tensors: one sorted, segmented pass a window spec.
        index arithmetic over the bounds;
      - lag and lead are clamped gathers (K4, one a function);
      - count, sum and avg over any rows or range frame are a prefix
-       difference of one ``cumsum`` over the batch;
+       difference of one ``cumsum`` over the batch; a Decimal64 sum is
+       null past its precision (the reference's ``:505-516``), and a
+       decimal sum past 18 digits or a decimal avg (on the host, where
+       the planner puts them) sums each 32-bit limb's frame in int64 and
+       joins them in Python's integers (``_decimal_frame``);
      - min and max take the frame's lexicographic argmin of (invalid
        flag, orderable value, position), then gather the value there
        (K4): a segmented running scan for frames bounded by a segment or
@@ -60,6 +64,7 @@ import torch
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch, row_mask
 from ..columnar.column import GpuColumnVector, torch_dtype
+from ..ops import decimals as dec
 from ..expr.aggregates import (Average, Count, Max, Min, Sum,
                                _CentralMoment, _FirstLast)
 from ..expr.base import Alias, BoundReference, Expression, bind_expr
@@ -182,6 +187,32 @@ def _sparse_argmin_query(keys, lo, hi, nonempty, cap: int,
     win = _lex_select(keys, t_lo, t_hi)
     return [torch.where(nonempty, kl[win], torch.full_like(kl, _SENTINEL))
             for kl in keys]
+
+
+def _decimal_frame(f, vcol: GpuColumnVector, valid: torch.Tensor,
+                   cnt: torch.Tensor, ok: torch.Tensor,
+                   prefix_frame) -> GpuColumnVector:
+    """A decimal ``SUM`` or ``AVG`` over each row's frame (the
+    reference's ``:505-516``). A Decimal64 sum is a prefix difference of
+    the int64 lane, null past the result's precision. Past 18 digits
+    (on the host, where the planner puts such a window and every decimal
+    ``AVG``) each 32-bit limb's frame sum is exact in int64 and the limbs
+    join in Python's integers; the average divides ``HALF_UP``."""
+    sum_t = f.dtype if isinstance(f, Sum) else f._sum_type
+    d = vcol.data
+    if not dt.is_wide_decimal(sum_t) and d.dim() == 1 \
+            and isinstance(f, Sum):
+        s = prefix_frame(torch.where(valid, d, torch.zeros_like(d)))
+        return GpuColumnVector(sum_t, s, ok & dec.fits(s, sum_t.precision))
+    total = dec.join_limbs([
+        prefix_frame(torch.where(valid, limb, torch.zeros_like(limb)))
+        for limb in dec.limbs(d)])
+    keep = ok.cpu().numpy() & dec.fits_ints(total, sum_t.precision)
+    sums = dec.column_from_ints(sum_t, total, keep, vcol.device)
+    if isinstance(f, Sum):
+        return sums
+    from ..expr.aggregates import _decimal_average
+    return _decimal_average(f.dtype, sums, cnt, sums.valid_mask())
 
 
 def _host_range_bound(ok_col: GpuColumnVector, perm: torch.Tensor,
@@ -650,6 +681,13 @@ class GpuWindowExec(UnaryExec):
                                     torch.where(ninf_c > 0,
                                                 torch.full_like(
                                                     s, float("-inf")), s)))
+                elif isinstance(f.children[0].dtype, dt.DecimalType):
+                    cnt = prefix_frame(valid.to(_I64), lo, hi, empty)
+                    ok = (cnt > 0) & ~empty & sorted_live
+                    win_cols.append(_decimal_frame(
+                        f, vcol, valid, cnt, ok,
+                        lambda v: prefix_frame(v, lo, hi, empty)))
+                    continue
                 else:
                     # int64 wrap-around addition is associative and
                     # invertible: prefix differences stay exact through
@@ -706,7 +744,7 @@ class GpuWindowExec(UnaryExec):
             if isinstance(f, _CentralMoment):
                 vcol = sgather(f.children[0])
                 valid = valid_of(vcol)
-                x = vcol.data.to(torch.float64)
+                x = dec.as_double(vcol)
                 finite = torch.isfinite(x)
                 # center by the partition's mean (a shift leaves a
                 # variance as it is and keeps the squares small)

@@ -47,20 +47,38 @@ mean)^2)``. A sample moment of one row, and any moment of no row, is
 null (Spark 3.1+). A merge in another order changes the last bits: the
 tests hold the port to the reference at rel 1e-9.
 
-The collects, a list of percentiles (an array result) and the decimal
-forms (Sum's overflow to null, Average's scale + 4) wait for ROADMAP
-item 2.
+Decimals (the reference's ``:134-212,348-440``). ``Sum`` of a
+``decimal(p,s)`` is a ``decimal(p+10,s)``; ``Average`` a
+``decimal(p+4,s+4)`` from a ``decimal(p+10,s)`` sum and an int64 count,
+``HALF_UP`` (``_decimal_average``). On the device a Decimal64 sum
+accumulates its int64 lanes and is null past the result's precision,
+which it can tell up to ``|sum| < 2^63``, the reference's bound
+(``_decimal_sum``). The gates are the reference's: a sum past 18 digits
+(``p > 8``) and an average whose ``10^4``-scaled sum could pass them
+(``p + 14 > 18``) run on the CPU (``gpu_supported``), and there the
+sum is exact at any width: four 32-bit limbs a row summed in int64 and
+joined in Python's integers, null past the precision. ``Min``, ``Max``,
+``First``, ``Last``, ``Count`` and ``ApproxPercentile`` take a Decimal64
+as they take a long; the moments take its value as a double, as Spark's
+implicit cast does (the reference's moments read the unscaled lane).
+``Min``, ``Max`` and ``ApproxPercentile`` of a decimal past 18 digits
+raise, naming ROADMAP item 2.
+
+The collects and a list of percentiles (an array result) wait for
+ROADMAP item 2.
 """
 from __future__ import annotations
 
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import datatypes as dt
 from ..columnar.batch import row_mask
-from ..columnar.column import GpuColumnVector, is_string_like
+from ..columnar.column import GpuColumnVector, is_string_like, lane_shape
+from ..ops import decimals as dec
 from ..ops.gather import gather_column
 from ..ops.segments import seg_reduce_sorted
 from ..ops.sort_keys import (key_lane_bits, orderable_int, pack_words,
@@ -130,26 +148,125 @@ def _seg_count(valid: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
                              "sum")
 
 
+def _limb_sums(col: GpuColumnVector, valid: torch.Tensor,
+               seg: Optional[torch.Tensor], at: torch.Tensor) -> np.ndarray:
+    """The exact sums of a decimal column's valid rows at the non-empty
+    sorted segments ``at`` (or of all of them, ``seg`` None), as Python
+    ints: each limb's prefix sum (``ops/decimals.limbs``) read at the
+    segments' edges only."""
+    if seg is not None:
+        ids = at.to(seg.dtype)
+        left = torch.searchsorted(seg, ids, right=False)
+        right = torch.searchsorted(seg, ids, right=True)
+    sums = []
+    for limb in dec.limbs(col.data):
+        v = torch.where(valid, limb, torch.zeros_like(limb))
+        if seg is None:
+            sums.append(v.sum().reshape(1))
+            continue
+        ps = torch.cumsum(v, 0)
+        before = torch.where(left > 0, ps[(left - 1).clamp(min=0)],
+                             torch.zeros_like(left, dtype=ps.dtype))
+        sums.append(ps[right - 1] - before)
+    return dec.join_limbs(sums)
+
+
+def _scatter_decimal(t: dt.DecimalType, n: int, at: torch.Tensor,
+                     values: np.ndarray, keep: np.ndarray,
+                     device) -> GpuColumnVector:
+    """A decimal column of ``n`` rows holding Python-int ``values`` at
+    the rows ``at`` (valid where ``keep``), null elsewhere."""
+    small = dec.column_from_ints(t, values, keep, device)
+    shape, lane = lane_shape(t, n, device)
+    data = torch.zeros(shape, dtype=lane, device=device)
+    valid = torch.zeros(n, dtype=torch.bool, device=device)
+    data[at] = small.data
+    valid[at] = small.validity
+    return GpuColumnVector(t, data, valid)
+
+
+def _overflowed(s: GpuColumnVector, cnt: GpuColumnVector,
+                live: torch.Tensor) -> torch.Tensor:
+    """Partials that counted rows but hold a null sum: the sum
+    overflowed, and the merged sum is null (Spark's ``isEmpty``)."""
+    return _masked(cnt, live) & (cnt.data > 0) & ~s.valid_mask()
+
+
+def _decimal_sum(t: dt.DecimalType, col: GpuColumnVector,
+                 valid: torch.Tensor, seg: Optional[torch.Tensor],
+                 out_live: Optional[torch.Tensor],
+                 lost: Optional[torch.Tensor] = None) -> GpuColumnVector:
+    """A decimal sum of ``t`` per segment (``seg`` None: one, in lane 0
+    of a ``GLOBAL_LANES`` buffer), null where no row counted, where a
+    row is ``lost`` (a merged partial that overflowed, ``_overflowed``)
+    or past ``t``'s precision (module docstring). Past 18 digits only
+    the groups (``out_live``) go through Python's integers."""
+    def count(rows):
+        return _seg_count(rows, seg) if seg is not None \
+            else _lane0(rows.sum(dtype=torch.int64), torch.int64)
+    cnt = count(valid)
+    ok = cnt > 0 if out_live is None else (cnt > 0) & out_live
+    if lost is not None:
+        ok = ok & (count(lost) == 0)
+    if not dt.is_wide_decimal(t) and not dt.is_wide_decimal(col.dtype):
+        v = torch.where(valid, col.data, torch.zeros_like(col.data))
+        s = v.sum() if seg is None \
+            else seg_reduce_sorted(v, seg, seg.shape[0], "sum")
+        if seg is None:
+            s = _lane0(s, torch.int64)
+        return GpuColumnVector(t, s, ok & dec.fits(s, t.precision))
+    at = torch.nonzero(ok).flatten()
+    sums = _limb_sums(col, valid, seg, at)
+    return _scatter_decimal(t, ok.shape[0], at, sums,
+                            dec.fits_ints(sums, t.precision), valid.device)
+
+
 class Sum(AggregateFunction):
-    """Spark sum: integral -> long (wrapping), float -> double."""
+    """Spark sum: integral -> long (wrapping), float -> double,
+    ``decimal(p,s)`` -> ``decimal(p+10,s)``, null past its precision.
+
+    Past 18 digits (on the host only) the buffer also counts its rows,
+    as Spark's ``isEmpty`` does: a partial whose sum overflowed is null
+    but not empty, and a merge with it is null. A Decimal64 sum (p <= 8)
+    keeps the reference's one buffer: its partial would need 10^10 rows
+    to pass 18 digits."""
 
     def __init__(self, child: Expression):
         self.children = (child,)
 
     def validate(self):
         t = self.children[0].dtype
-        if not (dt.is_integral(t) or dt.is_floating(t)):
+        if not dt.is_numeric(t):
             raise NotImplementedError(
                 f"sum over {t.simple_string()} is not on the device yet")
 
     @property
     def dtype(self):
-        return dt.FLOAT64 if dt.is_floating(self.children[0].dtype) \
-            else dt.INT64
+        t = self.children[0].dtype
+        if isinstance(t, dt.DecimalType):
+            return dt.DecimalType(min(t.precision + 10,
+                                      dt.DecimalType.MAX_PRECISION), t.scale)
+        return dt.FLOAT64 if dt.is_floating(t) else dt.INT64
+
+    def gpu_supported(self) -> Optional[str]:
+        if dt.is_wide_decimal(self.dtype):
+            return (f"sum result {self.dtype.simple_string()} exceeds "
+                    "device decimal")
+        return None
+
+    @property
+    def is_decimal(self) -> bool:
+        return isinstance(self.dtype, dt.DecimalType)
+
+    @property
+    def _counted(self) -> bool:
+        return dt.is_wide_decimal(self.dtype)
 
     @property
     def buffer_fields(self):
-        return [dt.StructField("sum", self.dtype, True)]
+        return [dt.StructField("sum", self.dtype, True)] + (
+            [dt.StructField("count", dt.INT64, False)] if self._counted
+            else [])
 
     def _acc(self) -> torch.dtype:
         return torch.float64 if self.dtype == dt.FLOAT64 else torch.int64
@@ -167,13 +284,33 @@ class Sum(AggregateFunction):
         return s, valid.sum(dtype=torch.int64)
 
     def update(self, vals, live):
+        if self.is_decimal:
+            valid = _masked(vals[0], live)
+            out = [_decimal_sum(self.dtype, vals[0], valid, None, None)]
+            return out + self._count(_lane0(valid.sum(dtype=torch.int64),
+                                            torch.int64), None)
         return [self.buffer(*self._sum_lanes(vals[0], live))]
 
     def merge(self, bufs, live):
-        return [self.buffer(*self._sum_lanes(bufs[0], live))]
+        if not self._counted:
+            return self.update(bufs, live)
+        cnt = torch.where(_masked(bufs[1], live), bufs[1].data,
+                          torch.zeros_like(bufs[1].data)).sum()
+        return [_decimal_sum(self.dtype, bufs[0], _masked(bufs[0], live),
+                             None, None, _overflowed(*bufs, live)),
+                GpuColumnVector(dt.INT64, _lane0(cnt, torch.int64))]
+
+    def _count(self, cnt: torch.Tensor,
+               out_live: Optional[torch.Tensor]) -> List[GpuColumnVector]:
+        """The count buffer of a sum past 18 digits, else none."""
+        return [GpuColumnVector(dt.INT64, cnt, out_live)] \
+            if self._counted else []
 
     def _seg_sum_lanes(self, col, seg, sorted_live, out_live):
         valid = _masked(col, sorted_live)
+        if self.is_decimal:
+            return [_decimal_sum(self.dtype, col, valid, seg, out_live)] \
+                + self._count(_seg_count(valid, seg), out_live)
         zero = torch.zeros((), dtype=self._acc(), device=seg.device)
         s = seg_reduce_sorted(torch.where(valid, col.data.to(self._acc()),
                                           zero), seg, seg.shape[0], "sum")
@@ -184,7 +321,15 @@ class Sum(AggregateFunction):
         return self._seg_sum_lanes(vals[0], seg, sorted_live, out_live)
 
     def merge_device(self, bufs, seg, sorted_live, out_live):
-        return self._seg_sum_lanes(bufs[0], seg, sorted_live, out_live)
+        if not self._counted:
+            return self._seg_sum_lanes(bufs[0], seg, sorted_live, out_live)
+        counts = torch.where(_masked(bufs[1], sorted_live), bufs[1].data,
+                             torch.zeros_like(bufs[1].data))
+        return [_decimal_sum(self.dtype, bufs[0],
+                             _masked(bufs[0], sorted_live), seg, out_live,
+                             _overflowed(*bufs, sorted_live)),
+                GpuColumnVector(dt.INT64, seg_reduce_sorted(
+                    counts, seg, seg.shape[0], "sum"), out_live)]
 
 
 class Count(AggregateFunction):
@@ -229,12 +374,13 @@ class Count(AggregateFunction):
             out_live)]
 
 
-def _check_numeric(name: str, t: dt.DataType) -> None:
-    if isinstance(t, dt.DecimalType):
+def _check_numeric(name: str, t: dt.DataType,
+                   wide_ok: bool = True) -> None:
+    if dt.is_wide_decimal(t) and not wide_ok:
         raise NotImplementedError(
-            f"{name} over {t.simple_string()} is not ported yet (decimal "
-            "aggregates, ROADMAP item 2)")
-    if not (dt.is_integral(t) or dt.is_floating(t)
+            f"{name} over {t.simple_string()} is not ported yet (a decimal "
+            "past 18 digits, ROADMAP item 2)")
+    if not (dt.is_numeric(t)
             or isinstance(t, (dt.BooleanType, dt.DateType,
                               dt.TimestampType))):
         raise NotImplementedError(
@@ -276,7 +422,7 @@ class _MinMax(AggregateFunction):
     def validate(self):
         t = self.children[0].dtype
         if not is_string_like(t):
-            _check_numeric(type(self).__name__.lower(), t)
+            _check_numeric(type(self).__name__.lower(), t, wide_ok=False)
 
     @property
     def dtype(self):
@@ -360,8 +506,9 @@ class Min(_MinMax):
 
 
 class Average(AggregateFunction):
-    """Spark avg over a number: a double, from a float64 sum and an int64
-    count."""
+    """Spark avg: a number -> a double, from a float64 sum and an int64
+    count; a ``decimal(p,s)`` -> a ``decimal(p+4,s+4)``, from a
+    ``decimal(p+10,s)`` sum (module docstring)."""
 
     def __init__(self, child: Expression):
         self.children = (child,)
@@ -369,18 +516,40 @@ class Average(AggregateFunction):
     def validate(self):
         t = self.children[0].dtype
         _check_numeric("avg", t)
-        if not (dt.is_integral(t) or dt.is_floating(t)):
-            raise NotImplementedError(
-                f"avg over {t.simple_string()} is not ported yet (ROADMAP "
-                "item 8)")
+
+    @property
+    def is_decimal(self) -> bool:
+        return isinstance(self.children[0].dtype, dt.DecimalType)
 
     @property
     def dtype(self):
+        t = self.children[0].dtype
+        if isinstance(t, dt.DecimalType):
+            cap = dt.DecimalType.MAX_PRECISION
+            return dt.DecimalType(min(t.precision + 4, cap),
+                                  min(t.scale + 4, cap))
+        return dt.FLOAT64
+
+    def gpu_supported(self) -> Optional[str]:
+        t = self.children[0].dtype
+        # the evaluation scales the int64 sum by 10^4 before it divides,
+        # so the sum needs p + 10 + 4 digits of headroom
+        if isinstance(t, dt.DecimalType) \
+                and t.precision + 14 > dt.DecimalType.MAX_INT64_PRECISION:
+            return "decimal average exceeds device decimal range"
+        return None
+
+    @property
+    def _sum_type(self) -> dt.DataType:
+        t = self.children[0].dtype
+        if isinstance(t, dt.DecimalType):
+            return dt.DecimalType(min(t.precision + 10,
+                                      dt.DecimalType.MAX_PRECISION), t.scale)
         return dt.FLOAT64
 
     @property
     def buffer_fields(self):
-        return [dt.StructField("sum", dt.FLOAT64, True),
+        return [dt.StructField("sum", self._sum_type, True),
                 dt.StructField("count", dt.INT64, False)]
 
     @staticmethod
@@ -391,6 +560,11 @@ class Average(AggregateFunction):
 
     def update(self, vals, live):
         valid = _masked(vals[0], live)
+        if self.is_decimal:
+            return [_decimal_sum(self._sum_type, vals[0], valid, None,
+                                 None),
+                    GpuColumnVector(dt.INT64, _lane0(
+                        valid.sum(dtype=torch.int64), torch.int64))]
         s = torch.where(valid, vals[0].data.to(torch.float64),
                         torch.zeros((), dtype=torch.float64,
                                     device=live.device)).sum()
@@ -398,12 +572,16 @@ class Average(AggregateFunction):
 
     def merge(self, bufs, live):
         svalid = _masked(bufs[0], live)
-        s = torch.where(svalid, bufs[0].data,
-                        torch.zeros((), dtype=torch.float64,
-                                    device=live.device)).sum()
         cnt = torch.where(_masked(bufs[1], live), bufs[1].data,
                           torch.zeros((), dtype=torch.int64,
                                       device=live.device)).sum()
+        if self.is_decimal:
+            return [_decimal_sum(self._sum_type, bufs[0], svalid, None,
+                                 None, _overflowed(*bufs, live)),
+                    GpuColumnVector(dt.INT64, _lane0(cnt, torch.int64))]
+        s = torch.where(svalid, bufs[0].data,
+                        torch.zeros((), dtype=torch.float64,
+                                    device=live.device)).sum()
         return self._global_bufs(s, cnt)
 
     def _seg_bufs(self, s, scnt, cnt, out_live):
@@ -412,32 +590,62 @@ class Average(AggregateFunction):
 
     def update_device(self, vals, seg, sorted_live, out_live):
         valid = _masked(vals[0], sorted_live)
+        cnt = _seg_count(valid, seg)
+        if self.is_decimal:
+            return [_decimal_sum(self._sum_type, vals[0], valid, seg,
+                                 out_live),
+                    GpuColumnVector(dt.INT64, cnt, out_live)]
         zero = torch.zeros((), dtype=torch.float64, device=seg.device)
         s = seg_reduce_sorted(torch.where(valid, vals[0].data.to(
             torch.float64), zero), seg, seg.shape[0], "sum")
-        cnt = _seg_count(valid, seg)
         return self._seg_bufs(s, cnt, cnt, out_live)
 
     def merge_device(self, bufs, seg, sorted_live, out_live):
         svalid = _masked(bufs[0], sorted_live)
-        zero = torch.zeros((), dtype=torch.float64, device=seg.device)
-        s = seg_reduce_sorted(torch.where(svalid, bufs[0].data, zero), seg,
-                              seg.shape[0], "sum")
         counts = torch.where(_masked(bufs[1], sorted_live), bufs[1].data,
                              torch.zeros((), dtype=torch.int64,
                                          device=seg.device))
         cnt = seg_reduce_sorted(counts, seg, seg.shape[0], "sum")
+        if self.is_decimal:
+            return [_decimal_sum(self._sum_type, bufs[0], svalid, seg,
+                                 out_live, _overflowed(*bufs, sorted_live)),
+                    GpuColumnVector(dt.INT64, cnt, out_live)]
+        zero = torch.zeros((), dtype=torch.float64, device=seg.device)
+        s = seg_reduce_sorted(torch.where(svalid, bufs[0].data, zero), seg,
+                              seg.shape[0], "sum")
         return self._seg_bufs(s, _seg_count(svalid, seg), cnt, out_live)
 
     def evaluate(self, bufs):
         s, cnt = bufs
         valid = s.valid_mask() & (cnt.data > 0)
+        if self.is_decimal:
+            return _decimal_average(self.dtype, s, cnt.data, valid)
         den = torch.where(cnt.data > 0, cnt.data,
                           torch.ones_like(cnt.data)).to(torch.float64)
         return GpuColumnVector(dt.FLOAT64, s.data / den, valid)
 
     def evaluate_device(self, bufs):
         return self.evaluate(bufs)
+
+
+def _decimal_average(t: dt.DecimalType, s: GpuColumnVector,
+                     cnt: torch.Tensor, valid: torch.Tensor) \
+        -> GpuColumnVector:
+    """``sum x 10^4 / count``, ``HALF_UP``, at ``t``: on the int64 lanes
+    while the scaled sum fits them (the device's gate), else over
+    Python's integers at the valid rows, null past ``t``'s precision."""
+    shift = t.scale - s.dtype.scale
+    if s.dtype.precision + shift <= dec.MAX_LANE_DIGITS \
+            and not dt.is_wide_decimal(t):
+        den = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
+        return GpuColumnVector(t, dec.div_half_up(
+            s.data * dec.POW10[shift], den), valid)
+    at = torch.nonzero(valid).flatten()
+    sums = dec.to_ints(GpuColumnVector(s.dtype, s.data[at]))
+    out = dec.div_half_up_ints(sums * dec.POW10[shift],
+                               cnt[at].cpu().numpy().astype(object))
+    return _scatter_decimal(t, valid.shape[0], at, out,
+                            dec.fits_ints(out, t.precision), s.device)
 
 
 class _FirstLast(AggregateFunction):
@@ -544,12 +752,7 @@ class _CentralMoment(AggregateFunction):
         self.children = (child,)
 
     def validate(self):
-        t = self.children[0].dtype
-        _check_numeric(type(self).__name__.lower(), t)
-        if not (dt.is_integral(t) or dt.is_floating(t)):
-            raise NotImplementedError(
-                f"{type(self).__name__} over {t.simple_string()} needs a "
-                "number")
+        _check_numeric(type(self).__name__.lower(), self.children[0].dtype)
 
     @property
     def dtype(self):
@@ -583,7 +786,7 @@ class _CentralMoment(AggregateFunction):
     def _update(self, col, seg, live, out_live):
         valid = _masked(col, live)
         zero = torch.zeros((), dtype=torch.float64, device=live.device)
-        x = torch.where(valid, col.data.to(torch.float64), zero)
+        x = torch.where(valid, dec.as_double(col), zero)
         n = self._sum(valid.to(torch.float64), seg)
         mean = self._sum(x, seg) / torch.where(n > 0, n, torch.ones_like(n))
         # the second pass: the exact centered sum of squares
@@ -756,7 +959,7 @@ class ApproxPercentile(AggregateFunction):
                 f"approx_percentile over {t.simple_string()} is not on the "
                 "device (the reference runs it on the host: the CPU "
                 "fallback, ROADMAP item 12)")
-        _check_numeric("approx_percentile", t)
+        _check_numeric("approx_percentile", t, wide_ok=False)
 
     @property
     def dtype(self):

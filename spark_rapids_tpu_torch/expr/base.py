@@ -22,8 +22,10 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import decimal
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import pyarrow as pa
 import torch
 
@@ -161,6 +163,10 @@ class UnresolvedColumn(Expression):
 def _lane_value(value, t: dt.DataType):
     if value is None:
         return None
+    if isinstance(t, dt.DecimalType):
+        # the unscaled value (the reference's ``:151-153``)
+        from ..ops.decimals import EXACT
+        return int(decimal.Decimal(value).scaleb(t.scale, EXACT))
     if isinstance(t, dt.DateType) and isinstance(value, datetime.date):
         return (value - datetime.date(1970, 1, 1)).days
     if isinstance(t, dt.TimestampType) \
@@ -210,6 +216,11 @@ class Literal(Expression):
                 if raw else torch.zeros(0, dtype=torch.uint8)
             chars = one.to(batch.device).repeat(cap)
             return GpuColumnVector(self._dtype, None, None, offsets, chars)
+        if dt.is_wide_decimal(self._dtype):
+            from ..ops.decimals import column_from_ints
+            vals = np.empty(cap, dtype=object)
+            vals[:] = self.lane_value
+            return column_from_ints(self._dtype, vals, None, batch.device)
         data = torch.full((cap,), self.lane_value,
                           dtype=torch_dtype(self._dtype),
                           device=batch.device)
@@ -267,6 +278,11 @@ def infer_literal_type(value) -> dt.DataType:
         return dt.INT32 if -(2**31) <= value < 2**31 else dt.INT64
     if isinstance(value, float):
         return dt.FLOAT64
+    if isinstance(value, decimal.Decimal):
+        # the reference's ``:245-262``: the literal's own digits and scale
+        _, digits, exp = value.as_tuple()
+        scale = max(0, -exp)
+        return dt.DecimalType(max(len(digits) + max(exp, 0), scale, 1), scale)
     if isinstance(value, datetime.datetime):
         return dt.TIMESTAMP
     if isinstance(value, datetime.date):

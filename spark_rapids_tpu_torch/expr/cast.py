@@ -29,12 +29,36 @@ raises ``ExprError`` on the first unparsable live row. ``gpu_supported``
 and ``gpu_supported_conf`` refuse those, and the planner puts their
 operator on the CPU, where ``eval_gpu`` runs under a host ctx and takes
 the host path: the reference's Python parser (``_parse_string``) and
-formatters. Casts from or to decimal raise ``NotImplementedError``
-naming ROADMAP item 2.
+formatters.
+
+Decimals (the reference's ``:132-160,207-220,244-262,456-494``), with
+Spark's rules:
+
+- decimal -> decimal rescales on the int64 lane, ``HALF_UP`` when the
+  scale falls (``ops/decimals.rescale``); a value past the target's
+  precision is null (``CAST(12345.67 AS DECIMAL(5,2))``);
+- an integer or a boolean -> decimal is null past the precision;
+- decimal -> integer truncates toward zero and, as Java's
+  ``toLong.toInt``, wraps to a narrower integer (the reference nulls
+  it); decimal -> float divides by ``10^scale`` in float64; decimal ->
+  boolean is ``x != 0``;
+- decimal -> string is Java's ``toPlainString`` on the device
+  (``ops/numeric_format.decimal_to_string``);
+- float -> decimal rounds Java's ``Double.toString`` form ``HALF_UP``
+  (Spark's ``Decimal(double)``) and string -> decimal parses as the
+  reference's host parser (``:418-425``): both run on the host, where
+  the planner places them; NaN, infinities and unparsable strings are
+  null.
+
+Under ANSI an overflow raises ``ExprError`` instead: a cast that can
+overflow runs on the host there (``gpu_supported_conf``), which checks
+the live rows. A decimal past 18 digits on either side runs on the host
+over Python's integers (``_decimal_host``).
 """
 from __future__ import annotations
 
 import datetime
+import decimal
 import math
 import re
 from typing import Optional
@@ -47,6 +71,7 @@ import torch
 from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector, and_validity, \
     is_string_like, torch_dtype
+from ..ops import decimals as dec
 from ..ops import numeric_format as nf
 from ..ops import string_parse as sp
 from .base import Expression, ExprError, column_to_arrow
@@ -73,18 +98,19 @@ def _parses_to(t: dt.DataType) -> bool:
 
 def cast_supported(f: dt.DataType, t: dt.DataType) -> bool:
     """The pairs this port casts: identity, a NULL literal, any two of
-    boolean and the integral and float types, a string to any of those
-    or to a date or timestamp, any of those, a date or a timestamp to a
-    string, date <-> timestamp, timestamp -> a number and an integer ->
-    timestamp."""
+    boolean, the integral, float and decimal types, a string to any of
+    those or to a date or timestamp, any of those, a date or a timestamp
+    to a string, date <-> timestamp, timestamp -> a number and an
+    integer -> timestamp."""
     if f == t or isinstance(f, dt.NullType):
         return True
-    if isinstance(f, _SIMPLE) and isinstance(t, _SIMPLE):
+    simple = _SIMPLE + (dt.DecimalType,)
+    if isinstance(f, simple) and isinstance(t, simple):
         return True
     if isinstance(f, dt.StringType):
-        return _parses_to(t)
+        return _parses_to(t) or isinstance(t, dt.DecimalType)
     if isinstance(t, dt.StringType):
-        return isinstance(f, _SIMPLE + (dt.DateType, dt.TimestampType))
+        return isinstance(f, simple + (dt.DateType, dt.TimestampType))
     if isinstance(f, dt.DateType):
         return isinstance(t, dt.TimestampType)
     if isinstance(f, dt.TimestampType):
@@ -132,18 +158,37 @@ class Cast(Expression):
 
     def validate(self):
         f, t = self.child.dtype, self._to
+        if dt.is_nested(f) or dt.is_nested(t):
+            raise NotImplementedError(
+                f"cast {f.simple_string()} -> {t.simple_string()} is not "
+                "ported yet (nested types, ROADMAP item 2)")
         if not cast_supported(f, t):
-            if isinstance(f, dt.DecimalType) or isinstance(t,
-                                                          dt.DecimalType):
-                raise NotImplementedError(
-                    f"cast {f.simple_string()} -> {t.simple_string()} is "
-                    "not ported yet (decimal casts, ROADMAP item 2)")
             raise NotImplementedError(
                 f"cast {f.simple_string()} -> {t.simple_string()} is not "
                 "supported")
 
+    def _may_overflow(self) -> bool:
+        """A value of the source type may not fit the target."""
+        f, t = self.child.dtype, self._to
+        if isinstance(t, dt.DecimalType):
+            if isinstance(f, dt.DecimalType):
+                return t.precision - t.scale < f.precision - f.scale \
+                    or t.scale < f.scale
+            if dt.is_integral(f):
+                return t.precision - t.scale < dt.decimal_for(f).precision
+            return isinstance(f, (dt.BooleanType, dt.StringType)) \
+                or dt.is_floating(f)
+        if isinstance(f, dt.DecimalType) and dt.is_integral(t):
+            return f.precision - f.scale > len(str(int_bounds(t)[1])) - 1
+        return False
+
     def gpu_supported(self) -> Optional[str]:
         f, t = self.child.dtype, self._to
+        if dt.is_floating(f) and isinstance(t, dt.DecimalType):
+            return ("float->decimal rounds Java's shortest decimal form; "
+                    "runs on host")
+        if isinstance(f, dt.StringType) and isinstance(t, dt.DecimalType):
+            return f"cast {f} -> {t} runs on host (string parsing)"
         if isinstance(f, dt.StringType) and not is_string_like(t) \
                 and not (dt.is_integral(t) or dt.is_floating(t)
                          or isinstance(t, (dt.BooleanType, dt.DateType))):
@@ -158,6 +203,9 @@ class Cast(Expression):
                 and not is_string_like(t):
             return (f"ANSI cast {f} -> {t} raises on invalid input; "
                     "runs on host")
+        if conf.ansi and self._may_overflow():
+            return (f"ANSI cast {f} -> {t} raises on overflow; runs on "
+                    "host")
         return None
 
     def eval_gpu(self, batch, ctx):
@@ -167,6 +215,8 @@ class Cast(Expression):
             return c
         if isinstance(f, dt.NullType):
             return GpuColumnVector.nulls(t, batch.capacity, batch.device)
+        if isinstance(f, dt.DecimalType) or isinstance(t, dt.DecimalType):
+            return self._decimal_cast(c, f, t, ctx, batch)
         if isinstance(f, dt.StringType):
             if ctx.host:
                 return self._from_string_host(c, t, ctx, batch)
@@ -265,6 +315,63 @@ class Cast(Expression):
             out = pc.cast(arr, pa.string())
         return _from_arrow(out, dt.STRING, c.capacity, c.device)
 
+    # --- decimals ---------------------------------------------------------
+
+    def _decimal_cast(self, c, f, t, ctx, batch) -> GpuColumnVector:
+        if dt.is_wide_decimal(f) or dt.is_wide_decimal(t) or (
+                ctx.host and (dt.is_floating(f) or isinstance(
+                    f, dt.StringType))):
+            return self._decimal_host(c, f, t, ctx, batch)
+        if isinstance(t, dt.StringType):
+            return nf.decimal_to_string(c, f.scale)
+        if isinstance(f, dt.StringType) or dt.is_floating(f):
+            raise NotImplementedError(
+                f"cast {f.simple_string()} -> {t.simple_string()} runs on "
+                "the CPU, where the planner places it")
+        data, ok, ansi_ok = _decimal_lanes(c.data, f, t)
+        if ansi_ok is not None and ctx.ansi and ctx.host:
+            bad = batch.live_mask() & c.valid_mask() & ~ansi_ok
+            if bool(bad.any()):
+                raise ExprError(f"cast {f.simple_string()} -> "
+                                f"{t.simple_string()} overflows (ANSI)")
+        return GpuColumnVector(t, data, and_validity(c.validity, ok))
+
+    def _decimal_host(self, c, f, t, ctx, batch) -> GpuColumnVector:
+        """Every decimal cast over Python values, once a distinct value:
+        the path of a decimal past 18 digits, a float or a string
+        source. A null result of a live, non-null row raises under
+        ANSI."""
+        if isinstance(f, dt.DecimalType):
+            arr = pa.array(dec.to_decimals(c, f.scale),
+                           pa.decimal128(dt.DecimalType.MAX_PRECISION,
+                                         f.scale))
+        else:
+            arr = column_to_arrow(c, c.capacity)
+        enc = pc.dictionary_encode(arr)
+        if isinstance(f, dt.StringType):
+            res = [_parse_decimal(v, t) for v in enc.dictionary.to_pylist()]
+        else:
+            res = [_decimal_value(v, f, t)
+                   for v in enc.dictionary.to_pylist()]
+        given = pc.is_valid(enc.indices).to_numpy(zero_copy_only=False)
+        idx = pc.fill_null(enc.indices, 0).to_numpy(zero_copy_only=False)
+        found = np.array([r is not None for r in res] + [False])[
+            np.where(given, idx, len(res))]
+        if ctx.ansi:
+            bad = batch.live_mask().cpu().numpy() & given & ~found
+            if bool(bad.any()):
+                raise ExprError(f"cast {f.simple_string()} -> "
+                                f"{t.simple_string()}: invalid or "
+                                "overflowing input (ANSI)")
+        if isinstance(t, dt.DecimalType):
+            ints = np.array([0 if r is None else
+                             int(r.scaleb(t.scale, dec.EXACT))
+                             for r in res] + [0], dtype=object)
+            return dec.column_from_ints(
+                t, ints[np.where(given, idx, len(res))], found, c.device)
+        out = pa.array(res, dt.to_arrow(t)).take(enc.indices)
+        return _from_arrow(out, t, c.capacity, c.device)
+
     # --- dates and timestamps -------------------------------------------------
 
     @staticmethod
@@ -299,6 +406,87 @@ class Cast(Expression):
     def __repr__(self):
         return f"cast({self.child!r} as {self._to.simple_string()})"
 
+
+
+def _decimal_lanes(x: torch.Tensor, f: dt.DataType, t: dt.DataType):
+    """A Decimal64 cast on int64 lanes: ``(values, null where false or
+    None, ANSI raises where false or None)`` (module docstring)."""
+    if isinstance(f, dt.DecimalType) and isinstance(t, dt.DecimalType):
+        if t.scale >= f.scale:
+            k = t.scale - f.scale
+            ok = dec.fits(x, t.precision - k)
+            v = torch.where(ok, x, torch.zeros_like(x)) * dec.POW10[k]
+            return v, ok, ok
+        v = dec.rescale(x, f.scale, t.scale)
+        ok = dec.fits(v, t.precision)
+        return v, ok, ok
+    if isinstance(f, dt.DecimalType):
+        if isinstance(t, dt.BooleanType):
+            return x != 0, None, None
+        if dt.is_floating(t):
+            return (x.to(torch.float64) / float(dec.POW10[f.scale])) \
+                .to(torch_dtype(t)), None, None
+        v = torch.div(x, dec.POW10[f.scale], rounding_mode="trunc")
+        if isinstance(t, dt.LongType):
+            return v, None, None
+        lo, hi = int_bounds(t)
+        # non-ANSI wraps, as Java's toLong.toInt; ANSI raises
+        return _wrap_int(v, t), None, (v >= lo) & (v <= hi)
+    if isinstance(f, dt.BooleanType):
+        one = dec.POW10[t.scale] if t.precision > t.scale else 0
+        ok = ~x if t.precision == t.scale else None
+        return x.to(torch.int64) * one, ok, ok
+    ok = dec.fits(x.to(torch.int64), t.precision - t.scale)
+    v = torch.where(ok, x.to(torch.int64), torch.zeros((), dtype=torch.int64,
+                                                       device=x.device))
+    return v * dec.POW10[t.scale], ok, ok
+
+
+def _decimal_value(v, f: dt.DataType, t: dt.DataType):
+    """One value of a decimal cast on the host, None where Spark's
+    non-ANSI cast gives null."""
+    if isinstance(t, dt.DecimalType):
+        if isinstance(v, float):
+            if math.isnan(v) or math.isinf(v):
+                return None
+            v = decimal.Decimal(repr(v))
+        elif isinstance(v, bool):
+            v = decimal.Decimal(int(v))
+        elif not isinstance(v, decimal.Decimal):
+            v = decimal.Decimal(v)
+        return _quantize(v, t)
+    if isinstance(t, dt.StringType):
+        return format(v, "f")
+    if isinstance(t, dt.BooleanType):
+        return v != 0
+    if dt.is_floating(t):
+        return float(v) if isinstance(t, dt.DoubleType) \
+            else float(np.float32(float(v)))
+    lo, hi = int_bounds(t)
+    bits = hi.bit_length() + 1
+    w = int(v) & ((1 << bits) - 1)  # truncated, then Java's wrap
+    return w - (1 << bits) if w > hi else w
+
+
+def _quantize(d: decimal.Decimal, t: dt.DecimalType):
+    """``d`` at ``t``'s scale, ``HALF_UP``; None past its precision."""
+    q = d.quantize(decimal.Decimal(1).scaleb(-t.scale, dec.EXACT),
+                   rounding=decimal.ROUND_HALF_UP, context=dec.EXACT)
+    unscaled = int(q.scaleb(t.scale, dec.EXACT))
+    return q if abs(unscaled) < dec.POW10[t.precision] else None
+
+
+def _parse_decimal(s: str, t: dt.DecimalType):
+    """The reference's host parse of a decimal (``:418-425``): the
+    trimmed text as a decimal, ``HALF_UP`` to the scale, None where it is
+    not a number or does not fit."""
+    try:
+        d = decimal.Decimal(s.strip())
+    except (decimal.InvalidOperation, ValueError):
+        return None
+    if not d.is_finite():
+        return None
+    return _quantize(d, t)
 
 
 def _java_float_str(v: float) -> str:

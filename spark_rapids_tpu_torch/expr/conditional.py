@@ -60,7 +60,10 @@ def _pick(cols: Sequence[GpuColumnVector], choice: torch.Tensor,
     def chain(lanes):
         out = lanes[last]
         for k in reversed(range(last)):
-            out = torch.where(choice == k, lanes[k], out)
+            pick = choice == k
+            # a wide decimal's lane is two words a row
+            pick = pick.view(-1, *[1] * (lanes[k].dim() - 1))
+            out = torch.where(pick, lanes[k], out)
         return out
 
     valid = None
@@ -192,8 +195,12 @@ class _MinMaxN(_Conditional):
     def validate(self):
         _same_types(type(self).__name__.lower(), self.values())
         t = self.dtype
+        # a Decimal64 orders as its unscaled lane once the analyzer has
+        # given every argument one type
         if not (dt.is_integral(t) or dt.is_floating(t)
-                or isinstance(t, (dt.DateType, dt.TimestampType))):
+                or isinstance(t, (dt.DateType, dt.TimestampType))
+                or (isinstance(t, dt.DecimalType)
+                    and not dt.is_wide_decimal(t))):
             raise NotImplementedError(
                 f"{type(self).__name__.lower()} over {t.simple_string()} "
                 "is not ported yet (ROADMAP item 13)")

@@ -25,8 +25,21 @@ Counterpart of ``spark_rapids_tpu/expr/math.py``, with Spark's rules:
 Where the reference departs from Spark the port follows Spark: the
 reference asserts a double input, so its SQL ``sqrt(int_col)``,
 ``pow(int_col, 2)`` and ``sign(int_col)`` fail; the port casts an
-integer or float input to double, as Spark's analyzer does. Decimal
-inputs raise ``NotImplementedError`` naming ROADMAP item 2.
+integer or float input to double, as Spark's analyzer does.
+
+Decimals (the reference's ``:140-180,242-311``): the double functions
+(``sqrt``, ``sign``, ``pow``...) take the decimal's value as a double,
+as Spark's implicit cast does (``_as_double``). ``floor`` and ``ceil``
+of a ``decimal(p,s)`` are a ``decimal(p-s+1,0)``; ``round``/``bround``
+to ``d`` digits follow Spark 3.4's ``RoundBase``: ``decimal(p-s+1+
+min(s,d), min(s,d))`` for ``d >= 0`` and ``decimal(max(p-s+1, 1-d), 0)``
+rounded to ``10^-d`` for ``d < 0``; ``abs`` keeps the type. They round
+the unscaled int64 lane exactly (``_decimal_round``); a decimal past 18
+digits rounds over Python's integers on the host. The reference gives
+``round`` the type ``decimal(p-(s-min(s,d)), min(s,d))``
+(``ROUND(decimal(7,2), 1)`` is ``decimal(6,1)`` there, ``decimal(7,1)``
+in Spark) and rounds a negative ``d`` to units; the port follows Spark
+(ROADMAP "Things to know").
 """
 from __future__ import annotations
 
@@ -34,10 +47,12 @@ import decimal
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector, and_validity, torch_dtype
+from ..ops import decimals as dec
 from .base import Expression
 
 __all__ = ["UnaryMathExpression", "Sqrt", "Cbrt", "Exp", "Expm1", "Log",
@@ -52,16 +67,63 @@ _I64_MIN = -(1 << 63)
 
 
 def _check_number(name: str, t: dt.DataType) -> None:
-    if isinstance(t, dt.DecimalType):
+    if dt.is_nested(t):
         raise NotImplementedError(
-            f"{name} over {t.simple_string()} is not ported yet (decimal "
-            "math, ROADMAP item 2)")
-    if not (dt.is_integral(t) or dt.is_floating(t)):
+            f"{name} over {t.simple_string()} is not ported yet (nested "
+            "types, ROADMAP item 2)")
+    if not dt.is_numeric(t):
         raise TypeError(f"{name} needs a number, got {t.simple_string()}")
 
 
-def _as_double(col: GpuColumnVector) -> torch.Tensor:
-    return col.data.to(_F64)
+_as_double = dec.as_double
+
+
+def _decimal_round(c: GpuColumnVector, out_t: dt.DecimalType, drop: int,
+                   back: int, mode: str) -> GpuColumnVector:
+    """The unscaled values with ``drop`` trailing digits rounded off
+    (``mode``: ``half_up``, ``half_even``, ``floor`` or ``ceil``) and
+    ``back`` zeros put back, as ``out_t``."""
+    if drop <= 0:
+        if dt.is_wide_decimal(c.dtype) or dt.is_wide_decimal(out_t):
+            return dec.column_from_ints(out_t, dec.to_ints(c), None,
+                                        c.device).with_validity(c.validity)
+        return GpuColumnVector(out_t, c.data, c.validity)
+    if dt.is_wide_decimal(c.dtype) or dt.is_wide_decimal(out_t):
+        m = dec.POW10[drop]
+        v = dec.to_ints(c)
+        q = v // m  # floor
+        if mode == "ceil":
+            q = q + (v - q * m != 0)
+        elif mode in ("half_up", "half_even"):
+            a = np.abs(v) // m
+            r2 = 2 * (np.abs(v) - a * m)
+            up = (r2 > m) | ((r2 == m) & (
+                True if mode == "half_up" else a % 2 == 1))
+            q = np.where(v < 0, -(a + up), a + up)
+        return dec.column_from_ints(out_t, q * dec.POW10[back], None,
+                                    c.device).with_validity(c.validity)
+    x = c.data
+    if drop > dec.MAX_LANE_DIGITS:
+        # |x| < 10^18: rounds to 0, floors to -1 or ceils to 1 (scaled)
+        if mode == "floor":
+            q = -(x < 0).to(torch.int64)
+        elif mode == "ceil":
+            q = (x > 0).to(torch.int64)
+        else:
+            q = torch.zeros_like(x)
+    else:
+        m = dec.POW10[drop]
+        if mode in ("floor", "ceil"):
+            q = torch.div(x, m, rounding_mode="floor")
+            if mode == "ceil":
+                q = q + (q * m != x).to(torch.int64)
+        else:
+            av = x.abs()
+            a = torch.div(av, m, rounding_mode="floor")
+            rem = av - a * m
+            q = torch.sign(x) * (a + _round_up(rem, a, m, mode == "half_even")
+                                 .to(torch.int64))
+    return GpuColumnVector(out_t, q * dec.POW10[back], c.validity)
 
 
 class UnaryMathExpression(Expression):
@@ -153,7 +215,8 @@ def saturate_to_long(x: torch.Tensor) -> torch.Tensor:
 
 
 class _FloorCeil(Expression):
-    """floor/ceil: a double to a long, an integer to itself as a long."""
+    """floor/ceil: a double to a long, an integer to itself as a long, a
+    ``decimal(p,s)`` to a ``decimal(p-s+1,0)``."""
 
     is_ceil = False
 
@@ -165,10 +228,18 @@ class _FloorCeil(Expression):
 
     @property
     def dtype(self):
+        t = self.children[0].dtype
+        if isinstance(t, dt.DecimalType):
+            return dt.DecimalType(min(t.precision - t.scale + 1,
+                                      dt.DecimalType.MAX_PRECISION), 0)
         return dt.INT64
 
     def eval_gpu(self, batch, ctx):
         c = self.children[0].eval_gpu(batch, ctx)
+        t = self.children[0].dtype
+        if isinstance(t, dt.DecimalType):
+            return _decimal_round(c, self.dtype, t.scale, 0,
+                                  "ceil" if self.is_ceil else "floor")
         if dt.is_integral(self.children[0].dtype):
             return GpuColumnVector(dt.INT64, c.data.to(torch.int64),
                                    c.validity)
@@ -234,7 +305,16 @@ class Round(Expression):
 
     @property
     def dtype(self):
-        return self.children[0].dtype
+        t = self.children[0].dtype
+        if isinstance(t, dt.DecimalType):
+            if self.digits < 0:
+                return dt.DecimalType(min(max(t.precision - t.scale + 1,
+                                              1 - self.digits),
+                                          dt.DecimalType.MAX_PRECISION), 0)
+            ns = min(t.scale, self.digits)
+            return dt.DecimalType(min(t.precision - t.scale + 1 + ns,
+                                      dt.DecimalType.MAX_PRECISION), ns)
+        return t
 
     def gpu_supported(self) -> Optional[str]:
         if dt.is_floating(self.children[0].dtype):
@@ -310,6 +390,12 @@ class Round(Expression):
     def eval_gpu(self, batch, ctx):
         c = self.children[0].eval_gpu(batch, ctx)
         t = self.dtype
+        src = self.children[0].dtype
+        if isinstance(src, dt.DecimalType):
+            d = self.digits
+            return _decimal_round(
+                c, t, src.scale - t.scale if d >= 0 else src.scale - d,
+                max(-d, 0), "half_even" if self.half_even else "half_up")
         if dt.is_integral(t):
             return self._integral(c)
         x = c.data

@@ -18,9 +18,18 @@ reference's device path. Spark semantics:
 A string compared with a non-null literal, and each string of an
 ``In`` list, is held against the literal's bytes without building the
 literal as a column (``ops/strings.compare_with_literals``).
+
+Decimals compare by their unscaled lanes once both sides share one type
+(the analyzer casts them to their wider decimal, ``session._analyze``);
+a decimal past 18 digits, on the host, by its two words
+(``ops/decimals.orderable_words``). An ``In`` over a decimal matches an
+integer or decimal item exactly at the column's scale (an item with
+more digits than the column holds matches nothing) and a float item as
+doubles, as Spark's ``InConversion`` widens them.
 """
 from __future__ import annotations
 
+import decimal
 import math
 from typing import Optional
 
@@ -28,6 +37,7 @@ import torch
 
 from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector, and_validity, is_string_like
+from ..ops import decimals as dec
 from ..ops.strings import compare_with_literals, string_compare
 from .base import Expression, Literal
 
@@ -71,7 +81,7 @@ class BinaryComparison(Expression):
         t = left.dtype
         if not (is_string_like(t) or dt.is_integral(t) or dt.is_floating(t)
                 or isinstance(t, (dt.BooleanType, dt.DateType,
-                                  dt.TimestampType))):
+                                  dt.TimestampType, dt.DecimalType))):
             raise NotImplementedError(
                 f"{t.simple_string()} comparison is not ported yet "
                 "(ROADMAP item 2)")
@@ -100,6 +110,8 @@ class BinaryComparison(Expression):
         r = right.eval_gpu(batch, ctx)
         if is_string_like(left.dtype):
             data = self._from_cmp(string_compare(l, r))
+        elif dt.is_wide_decimal(left.dtype):
+            data = self._from_cmp(_wide_compare(l, r))
         elif dt.is_floating(left.dtype):
             data = self._float_cmp(l.data, r.data)
         else:
@@ -112,6 +124,16 @@ class BinaryComparison(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} {self.symbol} {self.children[1]!r})"
+
+
+def _wide_compare(l: GpuColumnVector, r: GpuColumnVector) -> torch.Tensor:
+    """-1, 0 or 1 a row: two wide decimals of one type, by their
+    words."""
+    lh, ll = dec.orderable_words(l)
+    rh, rl = dec.orderable_words(r)
+    lt = (lh < rh) | ((lh == rh) & (ll < rl))
+    gt = (lh > rh) | ((lh == rh) & (ll > rl))
+    return gt.to(torch.int32) - lt.to(torch.int32)
 
 
 class EqualTo(BinaryComparison):
@@ -342,7 +364,8 @@ class In(Expression):
     def validate(self):
         t = self.children[0].dtype
         if not (is_string_like(t) or dt.is_integral(t) or dt.is_floating(t)
-                or isinstance(t, (dt.BooleanType, dt.DateType))):
+                or isinstance(t, (dt.BooleanType, dt.DateType,
+                                  dt.DecimalType))):
             raise NotImplementedError(
                 f"IN over {t.simple_string()} is not ported yet (ROADMAP "
                 "item 2)")
@@ -353,11 +376,15 @@ class In(Expression):
         has_null = any(v is None for v in self.items)
         m = torch.zeros(batch.capacity, dtype=torch.bool,
                         device=batch.device)
-        lits = [Literal(v, t) for v in self.items if v is not None]
-        if is_string_like(t):
+        items = [v for v in self.items if v is not None]
+        if isinstance(t, dt.DecimalType):
+            hits = _decimal_hits(c, t, items)
+        elif is_string_like(t):
             hits = [cmp == 0 for cmp in compare_with_literals(
-                c, [lit.string_bytes for lit in lits])] if lits else []
+                c, [Literal(v, t).string_bytes for v in items])] \
+                if items else []
         else:
+            lits = [Literal(v, t) for v in items]
             hits = [torch.isnan(c.data) if dt.is_floating(t)
                     and math.isnan(lit.lane_value)
                     else c.data == lit.lane_value for lit in lits]
@@ -370,3 +397,26 @@ class In(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} IN {self.items!r})"
+
+
+def _decimal_hits(c: GpuColumnVector, t: dt.DecimalType, items):
+    """Each item's matches in a decimal column (the module docstring's
+    rule)."""
+    hits = []
+    if any(isinstance(v, float) for v in items):
+        x = dec.as_double(c)
+    for v in items:
+        if isinstance(v, float):
+            hits.append(x == v)
+            continue
+        u = decimal.Decimal(v).scaleb(t.scale, dec.EXACT)
+        if u != u.to_integral_value() \
+                or abs(int(u)) >= dec.POW10[t.precision]:
+            hits.append(torch.zeros(c.capacity, dtype=torch.bool,
+                                    device=c.device))
+        elif dt.is_wide_decimal(t):
+            hits.append(torch.from_numpy(dec.to_ints(c) == int(u))
+                        .to(c.device))
+        else:
+            hits.append(c.data == int(u))
+    return hits

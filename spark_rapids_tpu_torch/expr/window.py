@@ -13,8 +13,10 @@ expression of one spec in one sorted, segmented pass.
 ``gpu_supported`` is the reference's device gate (``tpu_supported``,
 ``:247-303``). The planner reads it and places a window it refuses on
 the CPU (``exec/window.py``'s host branches): RANGE offsets over
-anything but one ascending integer or date key of at most 32 bits, and
-a lag or lead with a string default. Every aggregate of the
+anything but one ascending integer or date key of at most 32 bits, a
+lag or lead with a string default, and a decimal ``AVG`` or moment
+(``:260-263``; a decimal ``SUM`` runs on the device while its result
+keeps to 18 digits). Every aggregate of the
 reference's window set computes over a frame (First, Last and the
 central moments since item 8's rest); the collects wait for item 2.
 """
@@ -259,6 +261,10 @@ class WindowExpression(Expression):
                 and not isinstance(f, _DEVICE_WINDOW_AGGS):
             return (f"window aggregate {f.pretty_name()} is not ported "
                     "yet (ROADMAP item 8)")
+        if isinstance(f, (Average, _CentralMoment)) \
+                and isinstance(f.children[0].dtype, dt.DecimalType):
+            return (f"decimal {f.pretty_name().lower()} over a window runs "
+                    "on the CPU")
         if isinstance(f, _OffsetFunction) and f.default is not None \
                 and f.dtype.is_variable_width:
             return "a lag/lead default over strings runs on the CPU"

@@ -59,6 +59,7 @@ ORC/CSV/JSON/Hive-text formats wait (ROADMAP items 5 and 12).
 from __future__ import annotations
 
 import concurrent.futures
+import decimal
 import os
 import queue
 import threading
@@ -161,15 +162,30 @@ def _align(rb: pa.RecordBatch, target: pa.Schema) -> pa.RecordBatch:
 
 
 def _check_types(schema: dt.Schema) -> None:
-    """Raise for a field the scan cannot read yet: decimals and nested
-    types."""
+    """Raise for a field the scan cannot read yet: nested types."""
     for f in schema.fields:
-        if isinstance(f.dtype, dt.DecimalType):
+        if dt.is_nested(f.dtype):
             raise NotImplementedError(
-                f"column {f.name}: decimal columns are not ported yet "
+                f"column {f.name}: nested columns are not ported yet "
                 "(ROADMAP item 2)")
-        if not is_string_like(f.dtype):
+        if not is_string_like(f.dtype) and not isinstance(f.dtype,
+                                                          dt.DecimalType):
             torch_dtype(f.dtype)
+
+
+def _lane_stat(v, t: dt.DataType) -> Optional[int]:
+    """A row-group statistic in lane units: an integer as it is, a
+    decimal's ``decimal.Decimal`` as its unscaled value at the column's
+    scale (the reference converts a decimal's text to ``Decimal``,
+    ``:392-394``), else None."""
+    if isinstance(v, bool):
+        return None
+    if isinstance(v, int) and not isinstance(t, dt.DecimalType):
+        return v
+    if isinstance(v, decimal.Decimal) and isinstance(t, dt.DecimalType):
+        from ..ops.decimals import EXACT
+        return int(v.scaleb(t.scale, EXACT))
+    return None
 
 
 def _host_field(col, f: dt.StructField):
@@ -354,12 +370,14 @@ class GpuFileScanExec(LeafExec):
             ci = names.index(name)
             for g in range(md.num_row_groups):
                 st = md.row_group(g).column(ci).statistics
-                if st is None or not st.has_min_max \
-                        or not isinstance(st.min, int) \
-                        or not isinstance(st.max, int):
+                if st is None or not st.has_min_max:
                     return None
-                lo = st.min if lo is None else min(lo, st.min)
-                hi = st.max if hi is None else max(hi, st.max)
+                t = self._schema[name].dtype
+                smin, smax = _lane_stat(st.min, t), _lane_stat(st.max, t)
+                if smin is None or smax is None:
+                    return None
+                lo = smin if lo is None else min(lo, smin)
+                hi = smax if hi is None else max(hi, smax)
         return None if lo is None else (lo, hi)
 
     # --- device page decode ------------------------------------------------

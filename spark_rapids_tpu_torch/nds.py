@@ -111,9 +111,11 @@ def _crc(table: pa.Table) -> int:
 def write_tables(tables: Dict[str, pa.Table], directory: str,
                  row_group_size: int = ROW_GROUP_SIZE) -> Dict[str, str]:
     """One snappy Parquet file a table (``<name>.parquet``, row groups of
-    ``row_group_size``), as ``bench_nds_from_files`` writes them. Files
-    are reused only when the manifest beside them (rows and a CRC of
-    every table's buffers, the row-group size) matches."""
+    ``row_group_size``), as ``bench_nds_from_files`` writes them; a
+    decimal column of at most 18 digits is stored as INT32 or INT64, as
+    Spark writes one. Files are reused only when the manifest beside
+    them (rows and a CRC of every table's buffers, the row-group size)
+    matches."""
     import pyarrow.parquet as pq
     manifest = {"row_group_size": row_group_size,
                 "tables": {k: [t.num_rows, _crc(t)]
@@ -130,7 +132,8 @@ def write_tables(tables: Dict[str, pa.Table], directory: str,
         os.remove(manifest_path)
     for k, p in paths.items():
         pq.write_table(tables[k], p + ".tmp", row_group_size=row_group_size,
-                       compression="snappy")
+                       compression="snappy",
+                       store_decimal_as_integer=True)
         os.replace(p + ".tmp", p)
     with open(manifest_path + ".tmp", "w") as f:
         json.dump(manifest, f)

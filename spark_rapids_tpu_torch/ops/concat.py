@@ -30,7 +30,8 @@ def _padded_cat(parts: List[torch.Tensor], cap: int) -> torch.Tensor:
     out = torch.cat(parts)
     if out.shape[0] == cap:
         return out
-    padded = torch.zeros(cap, dtype=out.dtype, device=out.device)
+    padded = torch.zeros((cap,) + tuple(out.shape[1:]), dtype=out.dtype,
+                         device=out.device)
     padded[:out.shape[0]] = out
     return padded
 

@@ -70,6 +70,11 @@ def gather_columns(columns: Sequence[GpuColumnVector],
         if c.is_string_like:
             datas.extend(string_row_parts(c))
             valids.extend([c.validity, None])
+        elif c.data.dim() == 2:
+            # a wide decimal's two words (host only) ride as two columns
+            datas.extend([c.data[:, 0].contiguous(),
+                          c.data[:, 1].contiguous()])
+            valids.extend([c.validity, None])
         else:
             datas.append(c.data)
             valids.append(c.validity)
@@ -81,6 +86,10 @@ def gather_columns(columns: Sequence[GpuColumnVector],
             cap = c.chars.shape[0] if char_capacities is None \
                 else char_capacities[i]
             out.append(assemble_strings(c, gd[at], gd[at + 1], gv[at], cap))
+            at += 2
+        elif c.data.dim() == 2:
+            out.append(GpuColumnVector(
+                c.dtype, torch.stack([gd[at], gd[at + 1]], 1), gv[at]))
             at += 2
         else:
             out.append(GpuColumnVector(c.dtype, gd[at], gv[at]))

@@ -6,8 +6,11 @@ Counterpart of ``spark_rapids_tpu/ops/hash.py:34-203,285``
 ``hash_columns_device``, ``pmod``): Murmur3_x86_32 with Spark's seed 42,
 a running seed threaded through the key columns, null rows leaving the
 seed unchanged, floats hashed by their bits after ``-0.0 -> 0.0`` and
-NaN canonicalisation, 8-byte values low word first, and strings hashed
-over their bytes with Spark's sign-extended tail bytes. Partition ids
+NaN canonicalisation, 8-byte values low word first (a decimal of
+precision <= 18 as its unscaled long, ``:95,240-247``), and strings
+hashed over their bytes with Spark's sign-extended tail bytes. A wider
+decimal (host only) raises: Spark hashes its BigInteger's bytes, which
+neither package does yet. Partition ids
 are bit for bit those of the reference and of CPU Spark.
 
 torch has no uint32 add, multiply, shift or compare on the CPU (ROADMAP
@@ -93,7 +96,10 @@ def _hash_fixed(col: GpuColumnVector, seed: torch.Tensor) -> torch.Tensor:
     if isinstance(t, (dt.ByteType, dt.ShortType, dt.IntegerType,
                       dt.DateType)):
         return murmur3_int32(_u32(d.to(torch.int32)), seed)
-    if isinstance(t, (dt.LongType, dt.TimestampType)):
+    if isinstance(t, (dt.LongType, dt.TimestampType)) or (
+            isinstance(t, dt.DecimalType) and not dt.is_wide_decimal(t)):
+        # a decimal of precision <= 18 hashes as its unscaled long (Spark
+        # and the reference's ``:95,240-247``)
         return murmur3_int64(*_split64(d), seed)
     if isinstance(t, dt.FloatType):
         return murmur3_int32(_u32(_canonical(d).view(torch.int32)), seed)
@@ -101,7 +107,8 @@ def _hash_fixed(col: GpuColumnVector, seed: torch.Tensor) -> torch.Tensor:
         return murmur3_int64(*_split64(_canonical(d).view(torch.int64)),
                              seed)
     raise NotImplementedError(
-        f"hash of {t.simple_string()} is not ported yet (ROADMAP item 2)")
+        f"hash of {t.simple_string()} is not ported yet (ROADMAP item 2: "
+        "a decimal past 18 digits hashes its BigInteger's bytes in Spark)")
 
 
 def murmur3_bytes_seeded(offsets: torch.Tensor, chars: torch.Tensor,

@@ -32,12 +32,15 @@ shapes (``path_words``), at a ragged 1,000,003, on all-equal, sorted,
 reverse-sorted and heavily duplicated keys, on keys whose only varying
 bit is the sign bit or whose only varying digit is the top one, on 1-bit
 compaction keys, on month words with 90% dead rows, and with negative and
-duplicate payloads. K4 (``check_k4``/``time_k4``) runs at the path's
+duplicate payloads, and on a Decimal64 key's two words (live bit,
+null bit, the 64-bit unscaled lane) over 2^20 ``ss_net_profit`` cents
+with negatives and nulls (``decimal_words``). K4 (``check_k4``/``time_k4``) runs at the path's
 gather shapes (the probe's 2^21 rows from a 2^17-row build, the
 group-by's 2^21-row permutation), at a ragged length, and with nulls,
 dead rows, out-of-range indices, 1-, 2-, 4- and 8-byte columns mixed,
 three columns of one width (1, 2 and 8 bytes) with indices and live
-flags off alignment, and the NDS join's shape: the ``item`` build's
+flags off alignment, a Decimal64 column with nulls gathered into a
+2^20-row batch (``decimal_gather_case``), and the NDS join's shape: the ``item`` build's
 six columns, its string as starts and lengths (32,768 rows), gathered
 into a 2^20-row ``store_sales`` batch. ``check_string_gather`` holds
 ``gather_strings`` at that shape to pyarrow's ``take``. Each timing runs back to back on the device over
@@ -55,7 +58,9 @@ columns (``k5_shapes_file``), and the NDS path's own batches
 row groups of int64, int32 and float64 columns, the 32,768-row
 ``item`` and 25-row ``store`` batches with their dictionary string
 columns decoded to store indices, and the 65,536-row ``customer``
-batch, and ``item`` with an all-null string column written PLAIN);
+batch, and ``item`` with an all-null string column written PLAIN), a
+coalesced batch of ``DECIMAL(7,2)`` (INT32) and ``DECIMAL(12,2)``
+(INT64) columns with nulls and their extremes (``decimal_layouts``);
 and the hand-made run tables of ``k5_tile_layouts``, which
 walk its tiles at their edges (the CPU tests hold ``decode_tiles_torch``
 to the reference on the same tables). Every column is compared whole,
@@ -85,6 +90,7 @@ order: rel 1e-9, counts equal; its contract edition sums float32: rel
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import tempfile
@@ -615,14 +621,14 @@ def k1_trace(device) -> Dict[str, int]:
     """Kernels one engine-edition call at the main batch launches,
     counted from a ``torch.profiler`` trace of that call: the device
     activities whose name holds ``fps_``, K1's kernel prefix. Once a
-    process has traced a long run, each later trace loses the device
-    record of its first kernel (on an H100: a lone K1 call traced to no
-    kernel, add-K1-K1-K1-sum to K1-K1-K1-sum), so the call sits between
-    two pad kernels before it and one after, and the count stands only
-    where the trace kept a pad on either side of K1's kernels:
-    ``{"k1": K1's kernels, "pads": the pads the trace kept, of 3}``.
-    The trace leaves the profiler's hooks in the process, which slows
-    every later launch: call it after any timing."""
+    process has traced a long run, a later trace there loses device
+    records (on an H100: a lone K1 call traced to no kernel,
+    add-K1-K1-K1-sum to K1-K1-K1-sum), so ``chip_smoke.py`` calls this
+    in a process of its own; the call also sits between two pad kernels
+    before it and one after, and the count stands only where the trace
+    kept a pad on either side of K1's kernels: ``{"k1": K1's kernels,
+    "pads": the pads the trace kept, of 3}``. The trace leaves the
+    profiler's hooks in the process, which slows every later launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -767,6 +773,59 @@ def string_rank_words(device, n: int = NDS_BATCH_ROWS) \
 NDS_STORES, NDS_DAYS = 25, 730  # nds.gen_tables' store and date_dim
 
 
+@functools.lru_cache(maxsize=1)
+def _net_profit_cents(n_sales: int) -> np.ndarray:
+    """``ss_net_profit`` of the NDS tables at ``n_sales`` rows (seed 42)
+    as ``decimal(7,2)`` cents, made once for K3's and K4's cases."""
+    from .. import nds
+    from ..tools import nds_decimals as nd
+    return nd._cents(nd.decimal_tables(nds.gen_tables(n_sales))
+                     ["store_sales"], "ss_net_profit")
+
+
+def _decimal_cents(n: int, seed: int = 15, n_sales: int = 1 << 22):
+    """The first ``n`` of ``_net_profit_cents`` (the path's 2^22 rows by
+    default), and a validity with about 10% nulls (a seeded mask)."""
+    cents = _net_profit_cents(n_sales)[:n].copy()
+    valid = np.random.default_rng(seed).random(n) >= 0.1
+    return cents, valid
+
+
+def decimal_words(device, n: int = NDS_BATCH_ROWS,
+                  n_sales: int = 1 << 22) -> Dict[str, torch.Tensor]:
+    """The two words a sort by a Decimal64 key packs (``sort_keys.
+    _key_lanes``: the live bit, the null bit, the unscaled int64 lane
+    with its sign bit flipped), over ``_decimal_cents``: negatives,
+    nulls, every row live."""
+    from .. import datatypes as dt
+    from ..columnar.column import GpuColumnVector
+    from . import sort_keys as tsk
+    cents, valid = _decimal_cents(n, n_sales=n_sales)
+    dev = torch.device(device)
+    col = GpuColumnVector(dt.DecimalType(7, 2),
+                          torch.from_numpy(cents).to(dev),
+                          torch.from_numpy(valid).to(dev))
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    hi, lo = tsk.pack_words(tsk._key_lanes([col], [tsk.SortSpec()], live))
+    return {f"decimal_key_hi_2^{n.bit_length() - 1}": hi.contiguous(),
+            f"decimal_key_lo_2^{n.bit_length() - 1}": lo.contiguous()}
+
+
+def decimal_gather_case(device, seed: int = 16) -> Dict:
+    """K4's case for a Decimal64 column: ``_decimal_cents`` and its
+    validity gathered by random rows into a 2^20-row batch, 70% live."""
+    cents, valid = _decimal_cents(NDS_BATCH_ROWS)
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    n = NDS_BATCH_ROWS
+    return {"name": f"decimal_gather_2^{n.bit_length() - 1}",
+            "cols": [torch.from_numpy(cents).to(dev)],
+            "valids": [torch.from_numpy(valid).to(dev)],
+            "idx": torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+            .to(dev),
+            "live": torch.from_numpy(rng.random(n) < 0.7).to(dev)}
+
+
 def _window_inputs(device, seed: int = 13):
     """Columns shaped like the window inputs of phase 8 (the NDS tables
     at 2^22 rows), in their grouped aggregate's output order (sorted by
@@ -869,6 +928,8 @@ def k3_cases(device, seed: int = 1) -> List[Dict]:
               for name, words in string_rank_words(dev).items()]
     cases += [{"name": name, "keys": words, "payload": None}
               for name, words in window_words(dev).items()]
+    cases += [{"name": name, "keys": words, "payload": None}
+              for name, words in decimal_words(dev).items()]
     cases += [
         {"name": "groupby_words_2^21", "keys": t(packed(n)),
          "payload": None},
@@ -1099,7 +1160,8 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
         {"name": "window_q_rolling_2^15",
          "cols": [c.data for c in rolling["cols"]],
          "valids": [None] * 4, "idx": wperm, "live": rolling["live"]},
-    ] + [same_width(d) for d in (np.int8, np.int16, np.float64)]
+    ] + [same_width(d) for d in (np.int8, np.int16, np.float64)] + [
+        decimal_gather_case(dev)]
 
 
 def check_string_gather(device, seed: int = 6) -> Dict:
@@ -1326,6 +1388,42 @@ def nds_layouts(directory: str) -> Dict[str, list]:
         out[f"nds_{name}_batch"] = [
             (scan, lay) for lay in scan.batch_layouts(RapidsConf())]
     return out
+
+
+def decimal_layouts(directory: str, seed: int = 17) -> Dict[str, list]:
+    """``{case: [(scan, BatchLayout)]}``: a file of two row groups of
+    2^19 rows, written as Spark writes decimals (INT32 up to 9 digits,
+    INT64 up to 18): a long key, a ``DECIMAL(7,2)`` and a
+    ``DECIMAL(12,2)``, both with nulls and negatives and the extremes
+    +-(10^p - 1), coalesced into one batch."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from ..columnar.arrow_bridge import engine_schema
+    from ..config import RapidsConf
+    from ..io.scan import GpuFileScanExec
+    rng = np.random.default_rng(seed)
+    n = 1 << 20
+
+    def column(p):
+        v = rng.integers(-(10 ** p - 1), 10 ** p, n, dtype=np.int64)
+        v[:2] = (10 ** p - 1, -(10 ** p - 1))
+        words = np.empty((n, 2), np.int64)
+        words[:, 0], words[:, 1] = v, v >> 63
+        valid = rng.random(n) >= 0.1
+        return pa.Array.from_buffers(
+            pa.decimal128(p, 2), n,
+            [pa.py_buffer(np.packbits(valid, bitorder="little")),
+             pa.py_buffer(words)], null_count=int(n - valid.sum()))
+
+    path = _write(directory, "decimals.parquet", {
+        "k": pa.array(np.arange(n, dtype=np.int64)),
+        "price": column(7), "amount": column(12)},
+        row_group_size=n // 2, compression="snappy",
+        store_decimal_as_integer=True)
+    scan = GpuFileScanExec([path], schema=engine_schema(
+        pq.ParquetFile(path).schema_arrow))
+    return {"decimal_int32_int64_2^20": [
+        (scan, lay) for lay in scan.batch_layouts(RapidsConf())]}
 
 
 def k5_layouts(directory: str, seed: int = 7) -> Dict[str, list]:
@@ -1629,7 +1727,8 @@ def check_k5(device) -> List[Dict]:
     from .parquet_decode import decode_batch, decode_batch_torch
     out = []
     with tempfile.TemporaryDirectory() as d:
-        cases = list(k5_layouts(d).items()) + [
+        cases = list(k5_layouts(d).items()) \
+            + list(decimal_layouts(d).items()) + [
             (name, [(None, lay)]) for name, lay in k5_tile_layouts().items()]
         for case, items in cases:
             scan = items[0][0]

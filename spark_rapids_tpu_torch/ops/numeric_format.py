@@ -1,9 +1,9 @@
-"""Integer, boolean, date and timestamp -> string on the device.
+"""Integer, boolean, date, timestamp and decimal -> string on the device.
 
 Counterpart of ``spark_rapids_tpu/ops/numeric_format.py``
 (``int_to_string_tpu`` ``:59``, ``bool_to_string_tpu``,
 ``date_to_string_tpu`` ``:117``, ``timestamp_to_string_tpu`` ``:135``,
-``ragged_from_fixed``) in torch: each row's bytes are generated into a
+``decimal_to_string_tpu`` ``:181``, ``ragged_from_fixed``) in torch: each row's bytes are generated into a
 fixed-width window by integer arithmetic, then the windows are packed
 into the ``(offsets, chars)`` layout (``ragged_from_fixed``, one
 ``ops/strings.assemble_strings``). The output's char capacity is the
@@ -17,8 +17,11 @@ included), ``true``/``false``, ``YYYY-MM-DD`` and ``YYYY-MM-DD
 HH:MM:SS[.ffffff]`` (UTC, the fraction's trailing zeros trimmed, no
 fraction when it is zero). A year is printed with four digits, as there
 (a year past 9999 or before 1 wraps modulo 10000; Spark prints a sign
-and more digits, ROADMAP "Things to know"). Decimal -> string waits for
-ROADMAP item 2.
+and more digits, ROADMAP "Things to know"). A Decimal64 prints in plain
+notation, as Java's ``BigDecimal.toPlainString``: a sign, at least one
+integral digit, and with a scale the dot and exactly ``scale`` fraction
+digits (``decimal_to_string``); its window is the reference's widest
+form, 19 digits and 3 bytes for the sign, the dot and a leading ``0``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from .strings import assemble_strings
 
 __all__ = ["ragged_from_fixed", "int_to_string", "bool_to_string",
            "date_to_string", "timestamp_to_string",
-           "timestamp_parts_to_string"]
+           "timestamp_parts_to_string", "decimal_to_string"]
 
 _I64 = torch.int64
 _MAX_DIGITS = 19
@@ -61,15 +64,8 @@ def int_to_string(col: GpuColumnVector) -> GpuColumnVector:
     dev = v.device
     neg = v < 0
     is_min = v == -(1 << 63)
-    mag = torch.where(is_min, torch.zeros_like(v), v.abs())
-    powers = torch.tensor([10 ** (_MAX_DIGITS - 1 - i)
-                           for i in range(_MAX_DIGITS)], dtype=_I64,
-                          device=dev)
-    digs = torch.div(mag[:, None], powers[None, :],
-                     rounding_mode="floor") % 10
-    thresholds = torch.tensor([10 ** k for k in range(1, _MAX_DIGITS)],
-                              dtype=_I64, device=dev)
-    ndig = 1 + (mag[:, None] >= thresholds[None, :]).sum(1)
+    digs, ndig = _digit_matrix(torch.where(is_min, torch.zeros_like(v),
+                                           v.abs()))
     width = _MAX_DIGITS + 1
     posj = torch.arange(width, dtype=_I64, device=dev)[None, :]
     src = (_MAX_DIGITS - ndig[:, None] + posj - neg[:, None].to(_I64)) \
@@ -82,6 +78,45 @@ def int_to_string(col: GpuColumnVector) -> GpuColumnVector:
                        device=dev)
     mat = torch.where(is_min[:, None], lit[None, :], mat)
     lens = torch.where(is_min, torch.full_like(lens, 20), lens)
+    return ragged_from_fixed(mat, lens, col.validity)
+
+
+def _digit_matrix(mag: torch.Tensor):
+    """``(n, 19)`` decimal digits of non-negative int64 values, most
+    significant first, and each value's digit count (at least 1)."""
+    dev = mag.device
+    powers = torch.tensor([10 ** (_MAX_DIGITS - 1 - i)
+                           for i in range(_MAX_DIGITS)], dtype=_I64,
+                          device=dev)
+    digs = torch.div(mag[:, None], powers[None, :],
+                     rounding_mode="floor") % 10
+    thresholds = torch.tensor([10 ** k for k in range(1, _MAX_DIGITS)],
+                              dtype=_I64, device=dev)
+    return digs, 1 + (mag[:, None] >= thresholds[None, :]).sum(1)
+
+
+def decimal_to_string(col: GpuColumnVector, scale: int) -> GpuColumnVector:
+    """A Decimal64's unscaled int64 lane at ``scale`` -> its plain
+    string (module docstring); ``|v| < 10^18``, so the magnitude never
+    wraps."""
+    v = col.data.to(_I64)
+    dev = v.device
+    neg = (v < 0).to(_I64)
+    digs, ndig = _digit_matrix(v.abs())
+    int_digits = (ndig - scale).clamp(min=1)
+    shown = int_digits + scale
+    width = _MAX_DIGITS + 3
+    posj = torch.arange(width, dtype=_I64, device=dev)[None, :]
+    p = posj - neg[:, None]
+    intd = int_digits[:, None]
+    k = torch.where(p < intd, p, p - 1) if scale else p
+    src = (_MAX_DIGITS - shown[:, None] + k).clamp(0, _MAX_DIGITS - 1)
+    mat = torch.gather(digs, 1, src) + ord("0")
+    if scale:
+        mat = torch.where(p == intd, torch.full_like(mat, ord(".")), mat)
+    mat = torch.where((posj == 0) & (neg[:, None] == 1),
+                      torch.full_like(mat, ord("-")), mat)
+    lens = neg + shown + (1 if scale else 0)
     return ragged_from_fixed(mat, lens, col.validity)
 
 

@@ -37,8 +37,12 @@ of ``chip_smoke.py`` share). The passes run inside a
 ``torch.profiler.record_function("string_ranks")`` range, which
 ``tools/nds_trace.py`` reads.
 
-Nested and decimal keys raise ``NotImplementedError`` naming their
-ROADMAP item, and never fall back.
+A decimal key orders as its int64 lane (the reference's ``:81``), one
+64-bit value lane, so a Decimal64 key costs what a long key costs. A
+decimal past 18 digits, which only the host holds, is two 64-bit lanes,
+its high word then its low word (``ops/decimals.orderable_words``).
+Nested keys raise ``NotImplementedError`` naming their ROADMAP item, and
+never fall back.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import torch
 from .. import datatypes as dt
 from ..columnar.column import GpuColumnVector, is_string_like
 from . import cuda_kernels as ck
+from .decimals import orderable_words
 from .gather import inclusive_int_cumsum
 from .strings import gather_window
 
@@ -98,10 +103,11 @@ def normalize_float_key_col(col: GpuColumnVector) -> GpuColumnVector:
 
 def check_key_type(t: dt.DataType) -> None:
     """Raise for a key type the port cannot order yet."""
-    if not (isinstance(t, _FIXED_WIDTH) or is_string_like(t)):
+    if not (isinstance(t, _FIXED_WIDTH + (dt.DecimalType,))
+            or is_string_like(t)):
         raise NotImplementedError(
             f"{t.simple_string()} sort/group/join keys are not ported yet: "
-            "decimal keys wait for ROADMAP item 2, nested ones for item 8")
+            "nested ones wait for ROADMAP item 2 and item 8")
 
 
 def _check_fixed(t: dt.DataType) -> None:
@@ -109,6 +115,9 @@ def _check_fixed(t: dt.DataType) -> None:
     if is_string_like(t):
         raise TypeError("a string key orders by string_order_ranks, not "
                         "by its data lane")
+    if dt.is_wide_decimal(t):
+        raise TypeError("a decimal past 18 digits orders by its two words "
+                        "(_key_lanes), not by one lane")
 
 
 def orderable_int(col: GpuColumnVector) -> torch.Tensor:
@@ -299,18 +308,23 @@ def _key_lanes(key_cols: Sequence[GpuColumnVector],
     for col, spec in zip(key_cols, specs):
         if is_string_like(col.dtype):
             ranked = live if col.validity is None else live & col.validity
-            vals = string_order_ranks(col, ranked).to(torch.int64)
-            width = _RANK_BITS
+            parts = [(string_order_ranks(col, ranked).to(torch.int64),
+                      _RANK_BITS)]
+        elif dt.is_wide_decimal(col.dtype):
+            hi, lo = orderable_words(col)
+            parts = [(unsigned_lane(hi, 64), 64), (unsigned_lane(lo, 64), 64)]
         else:
-            vals, width = key_lane_bits(col)
-        if col.validity is not None:
-            # computed expressions leave garbage under nulls, and
-            # null == null must hold for ordering and grouping
-            vals = torch.where(col.validity, vals, torch.zeros_like(vals))
-        if not spec.ascending:
-            vals = ~vals & _mask(width)
+            parts = [key_lane_bits(col)]
         lanes.append(_null_rank_lane(col.validity, n, live.device, spec))
-        lanes.append((vals, width))
+        for vals, width in parts:
+            if col.validity is not None:
+                # computed expressions leave garbage under nulls, and
+                # null == null must hold for ordering and grouping
+                vals = torch.where(col.validity, vals,
+                                   torch.zeros_like(vals))
+            if not spec.ascending:
+                vals = ~vals & _mask(width)
+            lanes.append((vals, width))
     return lanes
 
 

@@ -11,7 +11,11 @@ Counterpart of ``spark_rapids_tpu/planner.py:45-160,201-208,404-540``
   condition on an outer, semi or anti equi-join);
 - for every expression: ``spark.rapids.sql.expression.<Name>``, an
   ``incompat`` expression under ``spark.rapids.sql.incompatibleOps
-  .enabled=false``, its gate ``gpu_supported()`` and conf hook.
+  .enabled=false``, its gate ``gpu_supported()`` and conf hook;
+- a decimal past the device's 18 digits in the operator's input or
+  output or in any of its expressions (``_wide_decimal_reason``): such a
+  decimal has no device layout, so everything that holds one runs on the
+  CPU and no transition uploads one.
 
 A node with a reason runs on the CPU. ``_convert`` rebuilds the tree
 with ``DeviceToHostExec`` under a CPU node over a device child and
@@ -60,6 +64,7 @@ from typing import List, Optional, Sequence
 
 import pyarrow as pa
 
+from . import datatypes as dt
 from .config import (ADAPTIVE_ENABLED, BATCH_SIZE_ROWS, EXPLAIN,
                      INCOMPATIBLE_OPS, SQL_ENABLED, VERIFY_PLAN, RapidsConf)
 from .exec.base import ExecCtx, GpuExec, collect_arrow, \
@@ -92,6 +97,26 @@ def _expr_reasons(e, conf: RapidsConf) -> List[str]:
     return []
 
 
+def _wide_decimal_reason(node: GpuExec) -> Optional[str]:
+    """Why a node that holds a decimal past 18 digits stays off the
+    device, or None."""
+    fields = list(node.output_schema.fields)
+    for c in node.children:
+        fields.extend(c.output_schema.fields)
+    types = [f.dtype for f in fields]
+    for root in node.expressions():
+        for e in _walk_expr(root):
+            try:
+                types.append(e.dtype)
+            except (TypeError, NotImplementedError):
+                continue
+    for t in types:
+        if dt.is_wide_decimal(t):
+            return (f"{t.simple_string()} exceeds the device's 18 decimal "
+                    "digits")
+    return None
+
+
 class NodeMeta:
     """Per-node planning state: the exec, its child metas and the
     reasons it cannot run on the device."""
@@ -113,7 +138,8 @@ class NodeMeta:
             self.reasons.append(f"the operator has been disabled by "
                                 f"spark.rapids.sql.exec.{name}")
         for reason in (self.node.gpu_supported(),
-                       self.node.gpu_supported_conf(conf)):
+                       self.node.gpu_supported_conf(conf),
+                       _wide_decimal_reason(self.node)):
             if reason:
                 self.reasons.append(reason)
         for root in self.node.expressions():

@@ -33,7 +33,7 @@ from . import datatypes as dt
 from .config import CASE_SENSITIVE, SHUFFLE_PARTITIONS, RapidsConf
 from .exec.base import (ExecCtx, GpuExec, HostBatchSourceExec, OpContract,
                         UnaryExec, resolve_device)
-from .expr.base import Expression, UnresolvedColumn, bind_expr
+from .expr.base import Expression, Literal, UnresolvedColumn, bind_expr
 
 __all__ = ["GpuSession", "DataFrame", "GroupedData", "GpuCacheExec"]
 
@@ -112,11 +112,46 @@ def _unported(what: str, item: int) -> NotImplementedError:
                                f"{item})")
 
 
+def _decimal_operand(e: Expression) -> dt.DataType:
+    """The decimal an integral operand of a decimal operation becomes:
+    an integer literal's fewest digits, else ``DecimalType.forType``."""
+    if isinstance(e, Literal) and isinstance(e.value, int) \
+            and not isinstance(e.value, bool):
+        return dt.literal_decimal(e.value)
+    return dt.decimal_for(e.dtype)
+
+
+def _coerce_decimal(node, left: Expression, right: Expression):
+    """Spark's ``DecimalPrecision`` over a decimal and another number: a
+    float side makes both double; an integral side becomes a decimal
+    (``_decimal_operand``); a comparison then casts both to their wider
+    decimal, while arithmetic keeps both (its result type is the
+    operator's, ``expr/arithmetic.py``)."""
+    from .expr.cast import Cast
+    from .expr.predicates import BinaryComparison
+    lt, rt = left.dtype, right.dtype
+    if dt.is_floating(lt) or dt.is_floating(rt):
+        targets = (dt.FLOAT64, dt.FLOAT64)
+    else:
+        targets = tuple(t if isinstance(t, dt.DecimalType)
+                        else _decimal_operand(c)
+                        for c, t in ((left, lt), (right, rt)))
+        if isinstance(node, BinaryComparison) and targets[0] != targets[1]:
+            w = dt.wider_decimal(*targets)
+            targets = (w, w)
+    new = [c if c.dtype == t else Cast(c, t)
+           for c, t in zip((left, right), targets)]
+    if new[0] is not left or new[1] is not right:
+        return node.with_children(new)
+    return node
+
+
 def _analyze(e: Expression) -> Expression:
     """The analyzer slice the typed expressions expect (the reference's
     ``_analyze``, ``session.py:89``, Catalyst's TypeCoercion): a binary
     comparison or arithmetic over two numeric types casts both to their
-    common type, and ``/`` over integral operands to double."""
+    common type, and ``/`` over integral operands to double; with a
+    decimal operand, Spark's ``DecimalPrecision`` (``_coerce_decimal``)."""
     from .expr.arithmetic import BinaryArithmetic, Divide
     from .expr.cast import Cast
     from .expr.predicates import BinaryComparison
@@ -129,6 +164,10 @@ def _analyze(e: Expression) -> Expression:
                 lt, rt = left.dtype, right.dtype
             except TypeError:
                 return node
+            if dt.is_numeric(lt) and dt.is_numeric(rt) and (
+                    isinstance(lt, dt.DecimalType)
+                    or isinstance(rt, dt.DecimalType)):
+                return _coerce_decimal(node, left, right)
             if lt == rt and not isinstance(node, Divide):
                 return node
             if dt.is_numeric(lt) and dt.is_numeric(rt):

@@ -30,10 +30,12 @@ lowering. Responsibilities:
 Every failure raises ``SqlAnalysisError`` with a source location and a
 stable ``detail`` code (``unknown_column``, ``ambiguous_column``,
 ``unknown_function``, ``missing_aggregation``, ...). A construct whose
-expression or operator the port does not have yet (``||``, a CAST from
-or to string, decimal, date or timestamp, SELECT without FROM) raises
-``SqlAnalysisError(..., "unsupported_feature")`` naming its ROADMAP item
-when a query reaches it. A non-equi condition on an outer, semi or
+expression or operator the port does not have yet (SELECT without FROM)
+raises ``SqlAnalysisError(..., "unsupported_feature")`` naming its
+ROADMAP item when a query reaches it. ``CAST(... AS DECIMAL(p,s))``
+builds the type as the reference's (``:260-263``); a number literal
+stays as the reference lexes it (``1.5`` is a double, where Spark reads
+``decimal(2,1)``; ROADMAP "Things to know"). A non-equi condition on an outer, semi or
 anti equi-join and a LIKE pattern outside the device regex dialect
 compile as any other; the planner places their operators on the CPU.
 Every join type runs: equi-joins on
@@ -259,11 +261,6 @@ class SqlCompiler:
                 and isinstance(child.dtype, dt.NullType):
             return Literal(None, t)
         if not cast_supported(child.dtype, t):
-            if isinstance(child.dtype, dt.DecimalType) \
-                    or isinstance(t, dt.DecimalType):
-                raise self.unported(
-                    f"CAST from {child.dtype.simple_string()} to "
-                    f"{t.simple_string()} (decimal casts)", node, item=2)
             raise self.err(
                 f"cannot cast {child.dtype.simple_string()} to "
                 f"{t.simple_string()}", node, "type_error")

@@ -1,12 +1,15 @@
 """Where an NDS query's time goes on the card: one traced run from SQL.
 
     python3 -m spark_rapids_tpu_torch.tools.nds_trace [--query NAME]
-        [--partitions N] [--n-sales N] [--out DIR]
+        [--partitions N] [--n-sales N] [--decimals] [--out DIR]
 
 ``NAME`` is any query the port runs from SQL: the corpus
 (``nds.PORTED_QUERIES``), the outer, cross and nested-loop join texts
-(``tools/nds_joins.QUERIES``) or the SQL function texts
-(``tools/nds_functions.QUERIES``).
+(``tools/nds_joins.QUERIES``), the SQL function texts
+(``tools/nds_functions.QUERIES``) or, with ``--decimals``, the decimal
+texts (``tools/nds_decimals.QUERIES``) over the tables whose money
+columns are ``DECIMAL(7,2)``, written as Spark writes decimals into
+``.bench_cache/nds_decimal_torch_n<N>/`` (``decimal_paths``).
 
 Writes the NDS tables as ``chip_smoke.py`` phase 8 does (``nds.gen_tables``,
 seed 42, snappy, row groups of 2^19; default 2^22 ``store_sales`` rows,
@@ -41,7 +44,7 @@ import time
 import torch
 
 from .. import nds
-from . import nds_functions, nds_joins
+from . import nds_decimals, nds_functions, nds_joins
 from .join_trace import _union_us
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -67,6 +70,16 @@ def nds_paths(n_sales: int):
     ``.bench_cache/``."""
     return nds.write_tables(nds.gen_tables(n_sales), os.path.join(
         _ROOT, ".bench_cache", f"nds_torch_n{n_sales}"))
+
+
+def decimal_paths(n_sales: int, tables=None):
+    """The decimal NDS files at ``n_sales`` rows (``nds_decimals.
+    decimal_tables``, unless the caller has made ``tables``), written
+    once under ``.bench_cache/`` with decimals as INT32/INT64."""
+    if tables is None:
+        tables = nds_decimals.decimal_tables(nds.gen_tables(n_sales))
+    return nds.write_tables(tables, os.path.join(
+        _ROOT, ".bench_cache", f"nds_decimal_torch_n{n_sales}"))
 
 
 def counters():
@@ -121,7 +134,7 @@ def _window_share(device_events, top: int = 10):
 
 
 def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
-              n_sales: int = 1 << 22) -> dict:
+              n_sales: int = 1 << 22, decimals: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("nds_trace needs a CUDA device")
     from torch.autograd import DeviceType
@@ -130,10 +143,11 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
     from ..exec.base import ExecCtx
     from ..planner import GpuOverrides
     device = torch.device("cuda", 0)
-    s = nds.session_over_files(nds_paths(n_sales), {
+    paths = decimal_paths(n_sales) if decimals else nds_paths(n_sales)
+    s = nds.session_over_files(paths, {
         "spark.sql.shuffle.partitions": str(partitions)}, device)
-    pp = GpuOverrides(s.conf, device).apply(
-        s.sql(_SQL[query])._node)
+    sql = nds_decimals.SQL_QUERIES[query] if decimals else _SQL[query]
+    pp = GpuOverrides(s.conf, device).apply(s.sql(sql)._node)
     pp.collect(ExecCtx(s.conf, device))  # warm-up
     torch.cuda.synchronize()
     wrappers = counters()
@@ -173,6 +187,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
                      if _family(k) is None),
                     key=lambda kv: -kv[1]["device_us"])[:12]
     return {"query": query, "partitions": partitions, "n_sales": n_sales,
+            "decimals": decimals,
             "rows": out.num_rows, "device": torch.cuda.get_device_name(0),
             "wall_us": wall_us, "device_busy_us": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
@@ -186,14 +201,18 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--query", default="q3", choices=sorted(_SQL))
+    ap.add_argument("--query", default="q3",
+                    choices=sorted(set(_SQL) | set(nds_decimals.QUERIES)))
     ap.add_argument("--partitions", type=int, default=1)
     ap.add_argument("--n-sales", type=int, default=1 << 22)
+    ap.add_argument("--decimals", action="store_true",
+                    help="the decimal texts over DECIMAL(7,2) money "
+                         "columns")
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome trace")
     args = ap.parse_args()
     print(json.dumps(trace_nds(args.out, args.query, args.partitions,
-                               args.n_sales)))
+                               args.n_sales, args.decimals)))
 
 
 if __name__ == "__main__":

@@ -260,11 +260,15 @@ def test_cast_every_numeric_pair_matches_reference(src):
 
 def test_unported_casts_raise_naming_their_item():
     # the string, date and timestamp casts are ported
-    # (tests/test_torch_functions_casts.py); decimals wait for item 2
+    # (tests/test_torch_functions_casts.py), the decimal ones too
+    # (tests/test_torch_decimal_expr.py); nested types wait for item 2
     for src, dst in ((tdt.DecimalType(9, 2), tdt.INT64),
                      (tdt.INT64, tdt.DecimalType(9, 2)),
                      (tdt.STRING, tdt.DecimalType(9, 2)),
                      (tdt.DecimalType(9, 2), tdt.STRING)):
+        TCast(TLit(None, src), dst).validate()
+    for src, dst in ((tdt.ArrayType(tdt.INT32), tdt.STRING),
+                     (tdt.STRING, tdt.ArrayType(tdt.INT32))):
         e = TCast(TLit(None, src), dst)
         with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
             e.validate()
@@ -367,10 +371,16 @@ def test_int64_min_division_follows_spark():
 
 
 def test_decimal_arithmetic_raises_naming_item_2():
+    """Decimal arithmetic is ported (tests/test_torch_decimal_expr.py,
+    Spark's result types); arithmetic over a nested type still raises,
+    naming item 2."""
     e = tarith.Add(TLit(None, tdt.DecimalType(9, 2)),
                    TLit(None, tdt.DecimalType(9, 2)))
+    e.validate()
+    assert e.dtype == tdt.DecimalType(10, 2)
+    arr = tdt.ArrayType(tdt.INT32)
     with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        e.validate()
+        tarith.Add(TLit(None, arr), TLit(None, arr)).validate()
 
 
 # --- predicates -----------------------------------------------------------

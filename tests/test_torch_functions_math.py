@@ -240,7 +240,13 @@ def test_integer_inputs_cast_to_double_as_spark_does(rb):
 
 
 def test_decimal_input_names_item_2():
+    """A decimal input is ported (its value as a double, as Spark's
+    implicit cast; tests/test_torch_decimal_expr.py); a nested input
+    still raises, naming item 2."""
     import spark_rapids_tpu_torch.datatypes as tdt
     from spark_rapids_tpu_torch.expr.base import Literal as TLit
+    e = tm.Sqrt(TLit(None, tdt.DecimalType(9, 2)))
+    e.validate()
+    assert e.dtype == tdt.FLOAT64
     with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        tm.Sqrt(TLit(None, tdt.DecimalType(9, 2))).validate()
+        tm.Sqrt(TLit(None, tdt.ArrayType(tdt.FLOAT64))).validate()

@@ -108,9 +108,9 @@ def test_q6_matches_host_oracle(fileset):
 
 def test_device_decode_is_refused(fileset):
     """Device page decode, the reference's default, is no longer refused:
-    it gives the host-decode revenue. Nor is a string column any more: a
-    string field the files lack reads as nulls beside the same revenue,
-    while a decimal field is still refused."""
+    it gives the host-decode revenue. Nor is a string or a decimal column
+    any more: a string or decimal field the files lack reads as nulls
+    beside the same revenue."""
     paths, want, want_rows = fileset
     ctx = TCtx(TConf(), device="cpu")
     plan = tpch.build_q6(GpuFileScanExec(paths, schema=_schema(tdt)))
@@ -128,6 +128,9 @@ def test_device_decode_is_refused(fileset):
     decimals = tdt.Schema(list(_schema(tdt).fields)
                           + [tdt.StructField("d", tdt.DecimalType(9, 2),
                                              True)])
-    with pytest.raises(NotImplementedError, match="decimal"):
-        tcollect(tpch.build_q6(GpuFileScanExec(paths, schema=decimals)),
-                 TCtx(TConf(), device="cpu"))
+    scan = tcollect(GpuFileScanExec(paths, schema=decimals),
+                    TCtx(TConf(), device="cpu"))
+    assert scan.column("d").null_count == scan.num_rows == sum(want_rows)
+    got = tcollect(tpch.build_q6(GpuFileScanExec(paths, schema=decimals)),
+                   TCtx(TConf(), device="cpu")).column("revenue")[0].as_py()
+    assert _close(got, want), (got, want)

@@ -347,7 +347,8 @@ def test_gather_columns_and_compaction_match_reference():
 
 def test_string_keys_raise_not_fall_back():
     """A string key orders by its rank lane now (the permutation matches
-    the reference's); a decimal key raises and never falls back."""
+    the reference's), and a decimal key by its int64 lane (as the
+    reference's); a nested key raises and never falls back."""
     from spark_rapids_tpu.columnar import arrow_to_device
     from spark_rapids_tpu_torch.columnar.arrow_bridge import \
         arrow_to_device as t_arrow_to_device
@@ -362,9 +363,20 @@ def test_string_keys_raise_not_fall_back():
                                torch.from_numpy(live))
     assert np.array_equal(got.numpy()[:len(words)],
                           np.asarray(want)[:len(words)])
-    col = GpuColumnVector(tdt.DecimalType(9, 2),
+    import decimal
+    dec = pa.record_batch({"d": pa.array(
+        [decimal.Decimal(v) for v in ("1.5", "-2.25", "0", "-0.01")]
+        + [None], pa.decimal128(9, 2))})
+    jd = arrow_to_device(dec).columns[0]
+    td = t_arrow_to_device(dec, None, torch.device("cpu")).columns[0]
+    live = np.arange(jd.capacity) < 5
+    want = jsk.sort_permutation([jd], [jsk.SortSpec()], jnp.asarray(live))
+    got = tsk.sort_permutation([td], [tsk.SortSpec()],
+                               torch.from_numpy(live))
+    assert np.array_equal(got.numpy()[:5], np.asarray(want)[:5])
+    col = GpuColumnVector(tdt.ArrayType(tdt.INT32),
                           torch.zeros(4, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="decimal"):
+    with pytest.raises(NotImplementedError, match="nested"):
         tsk.sort_permutation([col], [tsk.SortSpec()],
                              torch.ones(4, dtype=torch.bool))
 

@@ -126,12 +126,24 @@ def test_local_limit_over_batches_matches_reference(limit):
 def test_string_sort_keys_raise():
     """String sort keys order by their ranks now (ascending and
     descending, nulls first and last, under a lazy selection), as the
-    reference does; a decimal key still raises, naming its item."""
+    reference does, and decimal keys by their int64 lanes; a nested key
+    still raises, naming its item."""
     for order in ([("s", True, None), ("row", True, None)],
                   [("s", False, True), ("k", True, False),
                    ("row", False, None)]):
         _same(*_plans(_batches(5), order, True))
-    dec = pa.table({"d": pa.array([1, 2], pa.decimal128(5, 1))})
+    dec = pa.table({"d": pa.array([5, -2, None, 0, 5, -7],
+                                  pa.decimal128(5, 1)),
+                    "row": pa.array(np.arange(6, dtype=np.int64))})
+    for order in ([("d", True, None), ("row", True, None)],
+                  [("d", False, True), ("row", False, None)]):
+        js = JSource(dec.to_batches())
+        ts = HostBatchSourceExec(dec.to_batches())
+        _same(TpuSortExec([JOrder(jcol(c), a, nf) for c, a, nf in order],
+                          js),
+              GpuSortExec([SortOrder(tcol(c), a, nf) for c, a, nf in order],
+                          ts))
+    arr = pa.table({"a": pa.array([[1], [2]], pa.list_(pa.int32()))})
     with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        GpuSortExec([SortOrder(tcol("d"))],
-                    HostBatchSourceExec(dec.to_batches()))
+        GpuSortExec([SortOrder(tcol("a"))],
+                    HostBatchSourceExec(arr.to_batches()))

@@ -219,15 +219,24 @@ def test_scan_reads_strings_on_both_paths(files, case, device_decode):
 
 
 def test_decimal_columns_still_raise(tmp_path):
+    """Decimal columns read on both scan paths now, as pyarrow reads
+    them (tests/test_torch_decimal_columnar.py holds the counters to the
+    reference); a nested column still raises, naming item 2."""
     import decimal
     path = str(tmp_path / "dec.parquet")
-    pq.write_table(pa.table({"d": pa.array([decimal.Decimal("1.5")],
-                                           pa.decimal128(5, 1))}), path)
+    table = pa.table({"d": pa.array([decimal.Decimal("1.5"), None],
+                                    pa.decimal128(5, 1))})
+    pq.write_table(table, path)
+    nested = str(tmp_path / "nested.parquet")
+    pq.write_table(pa.table({"a": pa.array([[1, 2], None],
+                                           pa.list_(pa.int32()))}), nested)
     for dd in ("true", "false"):
         conf = RapidsConf({"spark.rapids.sql.format.parquet.deviceDecode."
                            "enabled": dd})
-        with pytest.raises(NotImplementedError):
-            collect_arrow(GpuFileScanExec([path]), ExecCtx(conf, "cpu"))
+        got = collect_arrow(GpuFileScanExec([path]), ExecCtx(conf, "cpu"))
+        assert got.equals(table)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+            collect_arrow(GpuFileScanExec([nested]), ExecCtx(conf, "cpu"))
 
 
 def test_projection_and_filter_share_string_buffers():
