@@ -7,14 +7,16 @@ nested-loop joins (``tools/nds_joins.py``) and eight that need the
 per-operator CPU fallback (``tools/nds_fallback.py``) and five whose
 working set passes the device budget they run under
 (``tools/nds_memory.py``), the SQL function texts
-(``tools/nds_functions.py``) and the decimal texts over TPC-DS's
-``DECIMAL(7,2)`` money columns (``tools/nds_decimals.py``), through
+(``tools/nds_functions.py``), the decimal texts over TPC-DS's
+``DECIMAL(7,2)`` money columns (``tools/nds_decimals.py``) and the
+nested texts over a ``ticket`` table of struct, array and map columns
+(``tools/nds_nested.py``), through
 ``spark_rapids_tpu_torch``, with K1 to K6 checked on the card, every
 plan checked by the static plan verifier, and the per-operator metrics
 (EXPLAIN ANALYZE, query profiles) held to the runs.
 
     python3 chip_smoke.py [--memory-only | --opm-only | --functions-only
-                           | --decimals-only] [--log FILE]
+                           | --decimals-only | --nested-only] [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -219,6 +221,32 @@ Phases, any failure exits non-zero before the result line:
      pyarrow), K3 on a decimal key's words with negatives and nulls
      (``decimal_words``) and K4 gathering a decimal column
      (``decimal_gather_case``);
+  16. nested types: the eight texts of
+     ``spark_rapids_tpu_torch/tools/nds_nested.py`` (an explode of
+     ``array<struct>`` joined and summed, a filter on a struct field and
+     a limit that compacts nested batches, array items, a named struct
+     and a map's keys and values downloaded, ``posexplode_outer`` of a
+     map, ``collect_list``/``collect_set`` from SQL, a list of
+     percentiles, a group-by and a sort by a struct on the CPU, and every
+     ticket column downloaded) over the ``ticket`` table made from the
+     NDS tables at 2^22 store_sales rows (about 490,000 tickets, row
+     groups of 2^16, ``.bench_cache/nds_nested_torch_n4194304/``), each
+     as phase 14 runs a text: rows equal to the oracle (floats rel
+     1e-9), ``fallback_nodes()`` to ``FALLBACK``, every plan verified,
+     the device scans to their chunks (a nested column a host chunk of
+     reason ``nested`` a row group, the flat ones on K5) and the K3, K4
+     and K5 launches to ``_nds_expected`` (an explode's two gathers, a
+     limit's compaction, a collect's sorts and gather, and one more K4 a
+     list level a nested gather moves); ``NESTED_TRACED`` is traced in a
+     process of its own after phase 14's trace (``--nested-only`` runs
+     the build and this phase alone); phase 3 checks K4 on the ticket
+     batch's compaction lanes and the lines' elements by element index
+     (``nested_k4_cases``), ``gather_columns`` on a struct, an
+     ``array<struct>``, a map, ``array<int64>``, ``array<string>`` and
+     ``array<array<int32>>`` of the tickets and the batch's compaction
+     against the same calls on CPU tensors, bit for bit
+     (``check_nested_gather``), and K3 on the compaction's words
+     (``nested_words``);
   15. K1's kernels a call, counted in a profiler trace of one call (1)
      between pad kernels. Every trace runs after the timed phases, in a
      process of its own, so that it is the first trace of its process
@@ -257,6 +285,10 @@ K5_REPLACES = "spark_rapids_tpu/io/parquet_device.py:1015"
 K5_SOURCE = "spark_rapids_tpu_torch/csrc/parquet_decode.cu"
 K6_REPLACES = "spark_rapids_tpu/ops/regex.py:378"
 K6_SOURCE = "spark_rapids_tpu_torch/csrc/regex_match.cu"
+# phase 16's traced text, and phase 3's nested shapes in the kernels' JSON
+NESTED_TRACED = "q_nest_explode"
+NESTED_K3_SHAPE = "nested_ticket_compaction_2^16"
+NESTED_K4_SHAPE = "nested_lines_elements_2^19"
 
 
 #: with ``--log FILE``, every line the smoke prints is also written there
@@ -270,14 +302,15 @@ def log(*a):
 
 
 def _args():
-    """``(memory_only, opm_only, functions_only, decimals_only, log path
-    or None)`` from the command line."""
+    """``(memory_only, opm_only, functions_only, decimals_only,
+    nested_only, log path or None)`` from the command line."""
     args = sys.argv[1:]
     path = None
     if "--log" in args:
         path = args[args.index("--log") + 1]
     return ("--memory-only" in args, "--opm-only" in args,
-            "--functions-only" in args, "--decimals-only" in args, path)
+            "--functions-only" in args, "--decimals-only" in args,
+            "--nested-only" in args, path)
 
 
 def phase_card():
@@ -444,6 +477,7 @@ def phase_sort_gather(device):
     from spark_rapids_tpu_torch.ops import kernel_checks as kc
     k3_recs, k4_recs = kc.check_k3(device), kc.check_k4(device)
     k4_recs.append(kc.check_string_gather(device))
+    k4_recs.extend(kc.check_nested_gather(device))
     for rec in k3_recs:
         log(f"[k3] {rec}")
     for rec in k4_recs:
@@ -461,7 +495,8 @@ def phase_sort_gather(device):
     k4 = kc.time_k4(device)
     for name, t in k4.items():
         t["bound_ms"], t["bound_by"] = _bound(t["bytes"], 0)
-        log(f"[k4] gather_rows at {name} ({t['rows']} rows from "
+        log(f"[k4] gather_rows at {name} ({t['rows']} rows, "
+            f"{t['live_rows']} live, reading {t['source_rows_read']} of "
             f"{t['table_rows']}): kernel {t['ms']:.6f} ms, plain "
             f"{t['plain_ms']:.6f} ms, index_select {t['library_ms']:.6f} "
             f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
@@ -734,6 +769,24 @@ def _lane_bits(t):
     return 8 * np.dtype(t.np_dtype).itemsize
 
 
+def _list_launches(t):
+    """K4 launches a gather of one column of type ``t`` adds past the
+    row launch (ops/gather._gather_elements): one an array or map level,
+    its elements' own levels after."""
+    from spark_rapids_tpu_torch import datatypes as dt
+    if isinstance(t, dt.ArrayType):
+        return 1 + _list_launches(t.element_type)
+    if isinstance(t, dt.MapType):
+        return 1 + _list_launches(t.key_type) + _list_launches(t.value_type)
+    if isinstance(t, dt.StructType):
+        return sum(_list_launches(f.dtype) for f in t.fields)
+    return 0
+
+
+def _lists(schema):
+    return sum(_list_launches(f.dtype) for f in schema.fields)
+
+
 def _sort_launches(bits):
     """K3 and K4 launches of one multi-word sort (ops/sort_keys.
     sort_packed): a K3 pass a word, and a K4 carry of the other words and
@@ -820,9 +873,15 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     segment starts once (two K4); a MIN or MAX sorts its values by
     (group, value) and gathers them once more in each of those passes
     (``ops/segments._min_max``). An aggregate with an exact percentile
-    takes the single pass instead: its keyed sort and two gathers once,
-    then a percentile's sort of (dropped, group, value) and its gather
-    (one K4), with no partials. ORDER BY sorts once and gathers once. A window
+    or a collect takes the single pass instead: its keyed sort and two
+    gathers once, then each percentile's or collect's sort of (dropped,
+    group, value), a string value's ranks included, a set's compaction
+    (one K3) and its gather (one K4), with no partials. A gather that
+    moves an array or a map adds one K4 a list level
+    (``_list_launches``): an ORDER BY's, a limit's compaction (one K3
+    and the gather, a batch under a selection: ``compactedBatches``),
+    an array item (``GetArrayItem``) a batch, and an explode's two
+    gathers a batch (the repeated columns, then the elements). ORDER BY sorts once and gathers once. A window
     (``exec/window.py``) sorts once by its partition and order keys,
     then gathers the rows and its computed arguments in one K4, and one
     K4 more for each lag, lead, min and max. A union runs each child in
@@ -840,6 +899,7 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     from spark_rapids_tpu_torch.exec.joins import (
         GpuBroadcastNestedLoopJoinExec, _BaseJoinExec)
     from spark_rapids_tpu_torch.exec.exchange import GpuCoalesceBatchesExec
+    from spark_rapids_tpu_torch.exec.generate import GpuGenerateExec
     from spark_rapids_tpu_torch.exec.misc import GpuUnionExec
     from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
                                                   GpuSortExec)
@@ -848,7 +908,8 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     from spark_rapids_tpu_torch.exec.window import GpuWindowExec
     from spark_rapids_tpu_torch.expr.aggregates import (GROUP_VALUE_BITS,
                                                         ApproxPercentile,
-                                                        Max, Min)
+                                                        Max, Min, _Collect)
+    from spark_rapids_tpu_torch.expr.complex import GetArrayItem
     from spark_rapids_tpu_torch.expr.strings import Like, RegExpLike
     from spark_rapids_tpu_torch.expr.window import Lag, Lead
     from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
@@ -872,7 +933,8 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     def batches(node):
         if isinstance(node, GpuFileScanExec):
             return m(node, "scanPrograms")
-        if isinstance(node, (GpuFilterExec, GpuProjectExec)):
+        if isinstance(node, (GpuFilterExec, GpuProjectExec,
+                             GpuGenerateExec)):
             return batches(node.child)
         if isinstance(node, _BaseJoinExec):
             return m(node, "numOutputBatches", 0)
@@ -985,10 +1047,14 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
             k3, k4 = _keyed_sort(node.group_exprs, longest)
             add(k3, k4 + 2)
         for a in node.aggs:
-            if isinstance(a, ApproxPercentile):
-                k3, k4 = _sort_launches(GROUP_VALUE_BITS
-                                        + _lane_bits(a.children[0].dtype))
-                add(k3, k4 + 1)
+            if isinstance(a, (ApproxPercentile, _Collect)):
+                vt = a.children[0].dtype
+                k3, k4 = _sort_launches(GROUP_VALUE_BITS + _lane_bits(vt))
+                if isinstance(vt, (dt.StringType, dt.BinaryType)):
+                    r3, r4 = _rank_launches(longest[a.children[0].name])
+                    k3, k4 = k3 + r3, k4 + r4
+                # a set's duplicates go by one compaction
+                add(k3 + bool(getattr(a, "dedupe", False)), k4 + 1)
 
     def walk(node, on_device=True):
         if isinstance(node, (DeviceToHostExec, HostToDeviceExec)):
@@ -1007,6 +1073,12 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
                           for root_e in node.expressions()
                           for e in _walk_expr(root_e))
             out["regex_match"] += regexes * batches(node.child)
+            # an array item is a gather of the element column
+            items = sum(1 + _list_launches(e.dtype)
+                        for root_e in node.expressions()
+                        for e in _walk_expr(root_e)
+                        if isinstance(e, GetArrayItem))
+            add(0, items, times=batches(node.child))
         elif isinstance(node, _BaseJoinExec):
             join(node)
         elif isinstance(node, GpuHashAggregateExec) and node.group_exprs:
@@ -1016,7 +1088,19 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
                 aggregate(node)
         elif isinstance(node, GpuSortExec):
             k3, k4 = _keyed_sort([o.child for o in node.orders], longest)
-            add(k3, k4 + 1)
+            add(k3, k4 + 1 + _lists(node.output_schema))
+        elif isinstance(node, GpuGlobalLimitExec):
+            # a batch under a selection is compacted: one K3 sort of its
+            # dropped bit, then its gather
+            add(1, 1 + _lists(node.output_schema),
+                times=m(node, "compactedBatches", 0))
+        elif isinstance(node, GpuGenerateExec):
+            # the repeated columns by source row, the elements by index
+            kept = node._kept_schema
+            per = (1 + _lists(kept) if kept.fields else 0) + 1 + sum(
+                _list_launches(f.dtype) for f in node.output_schema.fields[
+                    len(kept.fields) + int(node.position):])
+            add(0, per, times=batches(node.child))
         elif isinstance(node, GpuWindowExec):
             k3, k4 = _keyed_sort(node.part_exprs
                                  + [o.child for o in node.orders], longest)
@@ -1083,6 +1167,9 @@ def _check_nds(q, out, want, metrics, need_chunks, floats):
                              f"{want.column_names}")
     worst = 0.0
     for c in out.column_names:
+        if c not in floats and out.column(c).type == want.column(c).type \
+                and out.column(c).equals(want.column(c)):
+            continue
         g, w = out.column(c).to_pylist(), want.column(c).to_pylist()
         if c not in floats:
             if g != w:
@@ -1102,15 +1189,18 @@ def _check_nds(q, out, want, metrics, need_chunks, floats):
     scans = [m for label, m in metrics.items()
              if label.startswith("FileScanExec") and "deviceChunks" in m]
     got = sorted((m["deviceChunks"], m["fallbackChunks"]) for m in scans)
-    need = sorted((n, 0) for n in need_chunks)
+    need = sorted(n if isinstance(n, tuple) else (n, 0)
+                  for n in need_chunks)
     if got != need:
         raise AssertionError(f"{q}: scan chunks {got}, expected {need}")
     return worst
 
 
 def _scan_chunks_needed(root, chunks, root_on_device=True):
-    """Device chunks each scan of the plan on the device must read: its
-    file's row groups x columns, once a path that reaches it."""
+    """Chunks each scan of the plan on the device must read: its file's
+    row groups x columns, once a path that reaches it; a file whose
+    ``chunks`` entry is a pair ``(device, host)`` reads both (the nested
+    columns are host chunks)."""
     from spark_rapids_tpu_torch.exec.transitions import (DeviceToHostExec,
                                                          HostToDeviceExec)
     from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
@@ -1126,7 +1216,10 @@ def _scan_chunks_needed(root, chunks, root_on_device=True):
 
     walk(root, root_on_device)
     for node, runs in seen.values():
-        need.append(runs * sum(chunks[p] for p in node.paths))
+        per = [chunks[p] if isinstance(chunks[p], tuple) else (chunks[p], 0)
+               for p in node.paths]
+        dev, host = (runs * sum(x[i] for x in per) for i in (0, 1))
+        need.append((dev, host) if host else dev)
     return need
 
 
@@ -1240,8 +1333,9 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
             plan_times = []
             for _ in range(3):
                 t = time.perf_counter()
-                pp = _apply(s.conf, device,
-                            s.sql(corpus.SQL_QUERIES[q])._node, tag)
+                node = corpus.plan(s, q)._node if hasattr(corpus, "plan") \
+                    else s.sql(corpus.SQL_QUERIES[q])._node
+                pp = _apply(s.conf, device, node, tag)
                 plan_times.append(time.perf_counter() - t)
             on_cpu = pp.fallback_nodes()
             if on_cpu != getattr(corpus, "FALLBACK", {}).get(q, []):
@@ -2244,10 +2338,76 @@ def phase_decimal_trace(card, smi, summary):
     log(f"[decimals] trace took {time.perf_counter() - t0:.3f} s")
 
 
+def _nested_files():
+    """The NDS tables with ``ticket`` at ``NDS_SALES`` rows, their files
+    (row groups of 2^16), and each file's chunks: ``(flat columns, nested
+    columns) x row groups`` for a file with a nested column."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.tools import nds_nested as nn
+    from spark_rapids_tpu_torch.tools.nds_trace import nested_paths
+
+    t0 = time.perf_counter()
+    tables = nn.nested_tables(nds.gen_tables(NDS_SALES))
+    paths = nested_paths(NDS_SALES, tables)
+    log(f"[nested] {NDS_SALES} store_sales rows, "
+        f"{tables['ticket'].num_rows} tickets: tables and files ready in "
+        f"{time.perf_counter() - t0:.3f} s")
+    chunks = {}
+    for name, p in paths.items():
+        groups = pq.ParquetFile(p).metadata.num_row_groups
+        nested = nn.nested_columns(tables[name])
+        flat = tables[name].num_columns - nested
+        chunks[p] = (groups * flat, groups * nested) if nested \
+            else groups * flat
+    return tables, paths, chunks
+
+
+def phase_nested(device, card, smi):
+    """The nested texts at 1 and 16 partitions (module docstring, phase
+    16); a text with a CPU island runs without a warm-up."""
+    from spark_rapids_tpu_torch.tools import nds_nested as nn
+
+    t_phase = time.perf_counter()
+    files = _nested_files()
+    summary, launches = _run_sql_queries(
+        device, "nested", nn, files, timed=(1, 1), warm=(True, False),
+        cold=[q for q in nn.QUERIES if nn.FALLBACK[q]])
+    for k, v in summary.items():
+        if k != "verifier":
+            log(f"[nested] {k}: {v['ms']:.3f} ms a query on {card} "
+                f"({smi})")
+    took = time.perf_counter() - t_phase
+    log(f"[nested] phase took {took:.3f} s (its trace apart)")
+    summary["phase_s"] = took
+    return summary, launches
+
+
+def phase_nested_trace(card, smi, summary):
+    """Phase 16's trace of ``NESTED_TRACED``, in a process of its own."""
+    t0 = time.perf_counter()
+    tr = _traced_apart(
+        ["-m", "spark_rapids_tpu_torch.tools.nds_trace", "--query",
+         NESTED_TRACED, "--partitions", "1", "--n-sales", str(NDS_SALES),
+         "--nested"])
+    top = dict(list(tr["top_device_ops"].items())[:5])
+    summary[f"trace_{NESTED_TRACED}"] = {
+        "device_busy_us": tr["device_busy_us"], "wall_us": tr["wall_us"],
+        "device_idle_share": tr["device_idle_share"],
+        "top_device_ops": top, "kernels": tr["kernels"]}
+    log(f"[nested] trace {NESTED_TRACED} partitions=1 on {card} ({smi}): "
+        f"device busy {tr['device_busy_us']:.1f} us of "
+        f"{tr['wall_us']:.1f} us (idle share "
+        f"{tr['device_idle_share']:.4f}); top device ops "
+        + json.dumps(top, sort_keys=True) + "; kernels "
+        + json.dumps(tr["kernels"], sort_keys=True))
+    log(f"[nested] trace took {time.perf_counter() - t0:.3f} s")
+
+
 def main():
     global _log_file
-    memory_only, opm_only, functions_only, decimals_only, log_path = \
-        _args()
+    memory_only, opm_only, functions_only, decimals_only, nested_only, \
+        log_path = _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
@@ -2279,6 +2439,12 @@ def main():
         phase_decimal_trace(name, smi, summary)
         log("[decimals] " + json.dumps(summary, sort_keys=True))
         return
+    if nested_only:
+        # a quick check of phase 16 alone
+        summary, _ = phase_nested(device, name, smi)
+        phase_nested_trace(name, smi, summary)
+        log("[nested] " + json.dumps(summary, sort_keys=True))
+        return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
@@ -2296,10 +2462,12 @@ def main():
     opm_summary = phase_opmetrics(device, nds_files, name, smi, nds_summary)
     fn_summary, fn_launches = phase_functions(device, nds_files, name, smi)
     dec_summary, dec_launches = phase_decimals(device, name, smi)
+    nested_summary, nested_launches = phase_nested(device, name, smi)
     # the traces last, each in a process of its own
     per_call = phase_k1_kernels_per_call()
     phase_function_traces(name, smi, fn_summary)
     phase_decimal_trace(name, smi, dec_summary)
+    phase_nested_trace(name, smi, nested_summary)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]
@@ -2317,6 +2485,7 @@ def main():
     log("[opm] " + json.dumps(opm_summary, sort_keys=True))
     log("[functions] " + json.dumps(fn_summary, sort_keys=True))
     log("[decimals] " + json.dumps(dec_summary, sort_keys=True))
+    log("[nested] " + json.dumps(nested_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -2357,7 +2526,10 @@ def main():
         "launches_functions": {k: v["K3"]
                                for k, v in fn_launches.items()},
         "launches_decimals": {k: v["sort_pairs"]
-                              for k, v in dec_launches.items()}}, {
+                              for k, v in dec_launches.items()},
+        "launches_nested": {k: v["sort_pairs"]
+                            for k, v in nested_launches.items()},
+        "nested_compaction": k3[NESTED_K3_SHAPE]}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": join_launches["gather_rows"], "max_abs_err": k4_err,
@@ -2377,7 +2549,10 @@ def main():
         "launches_functions": {k: v["K4"]
                                for k, v in fn_launches.items()},
         "launches_decimals": {k: v["gather_rows"]
-                              for k, v in dec_launches.items()}}, {
+                              for k, v in dec_launches.items()},
+        "launches_nested": {k: v["gather_rows"]
+                            for k, v in nested_launches.items()},
+        "nested_elements": k4[NESTED_K4_SHAPE]}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": dd_launches["decode_batch"],
@@ -2397,7 +2572,9 @@ def main():
         "launches_functions": {k: v["K5"]
                                for k, v in fn_launches.items()},
         "launches_decimals": {k: v["decode_batch"]
-                              for k, v in dec_launches.items()}}, {
+                              for k, v in dec_launches.items()},
+        "launches_nested": {k: v["decode_batch"]
+                            for k, v in nested_launches.items()}}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -9,8 +9,12 @@ reference's ``:120,231``). A ``decimal128`` of precision <= 18 rides its
 int64 lane, the low word of Arrow's 16 bytes (``:52-58``), and comes
 back with the high word the low word's sign (``expr/base.py:323-336``);
 a wider one is two int64 words a row on the host and is never uploaded
-(``column.lane_shape`` raises for a device). Nested types wait (ROADMAP
-item 2).
+(``column.lane_shape`` raises for a device). Nested types follow the
+reference's ``:100-153,183-235``: a struct uploads its children at its
+own capacity, an array or map its offsets (rebased to 0) and the
+element window they cover, at a capacity of its own
+(``column_to_device``); the download walks the same layout back, a map
+as ``pa.map_`` and not as a list of structs (``column_to_arrow``).
 """
 from __future__ import annotations
 
@@ -23,13 +27,13 @@ import torch
 
 from .. import datatypes as dt
 from .batch import GpuBatch, bucket_bytes, bucket_rows
-from .column import GpuColumnVector, is_string_like, lane_shape, \
-    torch_dtype
+from .column import GpuColumnVector, is_list_type, is_string_like, \
+    lane_shape, torch_dtype
 
 __all__ = ["arrow_to_device", "device_to_arrow", "arrow_schema",
            "engine_schema", "host_lanes", "column_from_host",
            "string_parts", "string_column_from_host", "decimal_words",
-           "decimal_array"]
+           "decimal_array", "column_to_device", "column_to_arrow"]
 
 
 def engine_schema(arrow_schema: pa.Schema) -> dt.Schema:
@@ -161,26 +165,63 @@ def column_from_host(t: dt.DataType, values: np.ndarray,
     return GpuColumnVector(t, data, validity)
 
 
+def _validity_to_device(arr: pa.Array, capacity: int,
+                        device: torch.device) -> Optional[torch.Tensor]:
+    if not arr.null_count:
+        return None
+    vbuf = np.zeros(capacity, dtype=np.bool_)
+    vbuf[:len(arr)] = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+    return torch.from_numpy(vbuf).to(device)
+
+
+def column_to_device(arr, t: dt.DataType, capacity: int,
+                     device: torch.device) -> GpuColumnVector:
+    """One host array as a device column of ``capacity`` rows, nested
+    types recursively (module docstring)."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if isinstance(t, dt.NullType):
+        return GpuColumnVector.nulls(t, capacity, device)
+    if is_string_like(t):
+        return string_column_from_host(t, arr, capacity, device)
+    if isinstance(t, dt.StructType):
+        return GpuColumnVector(
+            t, None, _validity_to_device(arr, capacity, device),
+            children=[column_to_device(arr.field(i), f.dtype, capacity,
+                                       device)
+                      for i, f in enumerate(t.fields)])
+    if is_list_type(t):
+        if pa.types.is_large_list(arr.type):
+            arr = arr.cast(pa.list_(arr.type.value_type))
+        n = len(arr)
+        offs = arr.offsets.to_numpy().astype(np.int64)
+        start, end = (int(offs[0]), int(offs[-1])) if n else (0, 0)
+        obuf = np.empty(capacity + 1, dtype=np.int32)
+        obuf[:n + 1] = offs - start
+        obuf[n + 1:] = end - start
+        ecap = bucket_rows(end - start)
+        if isinstance(t, dt.MapType):
+            parts = [(arr.keys, t.key_type), (arr.items, t.value_type)]
+        else:
+            parts = [(arr.values, t.element_type)]
+        return GpuColumnVector(
+            t, None, _validity_to_device(arr, capacity, device),
+            torch.from_numpy(obuf).to(device),
+            children=[column_to_device(a.slice(start, end - start), et,
+                                       ecap, device) for a, et in parts])
+    values, valid = host_lanes(arr, t)
+    return column_from_host(t, values, valid, capacity, device)
+
+
 def arrow_to_device(rb: pa.RecordBatch, schema: Optional[dt.Schema],
                     device: torch.device) -> GpuBatch:
     """Copy a host RecordBatch into a padded device batch."""
     if schema is None:
         schema = engine_schema(rb.schema)
-    n = rb.num_rows
-    cap = bucket_rows(n)
-    cols = []
-    for i in range(rb.num_columns):
-        t = schema[i].dtype
-        if isinstance(t, dt.NullType):
-            cols.append(GpuColumnVector.nulls(t, cap, device))
-            continue
-        if is_string_like(t):
-            cols.append(string_column_from_host(t, rb.column(i), cap,
-                                                device))
-            continue
-        values, valid = host_lanes(rb.column(i), t)
-        cols.append(column_from_host(t, values, valid, cap, device))
-    return GpuBatch(cols, schema, n)
+    cap = bucket_rows(rb.num_rows)
+    cols = [column_to_device(rb.column(i), schema[i].dtype, cap, device)
+            for i in range(rb.num_columns)]
+    return GpuBatch(cols, schema, rb.num_rows)
 
 
 def _column_to_arrow(t: dt.DataType, values: np.ndarray,
@@ -214,6 +255,48 @@ def _string_to_arrow(t: dt.DataType, c: GpuColumnVector, n: int,
     return arr if keep is None else arr.filter(pa.array(keep))
 
 
+def _bitmap(valid: Optional[np.ndarray], n: int):
+    """``(Arrow validity buffer or None, null count)``."""
+    if valid is None or valid.all():
+        return None, 0
+    return (pa.py_buffer(np.packbits(valid, bitorder="little")),
+            int(n - valid.sum()))
+
+
+def column_to_arrow(c: GpuColumnVector, lo: int, n: int) -> pa.Array:
+    """Rows ``[lo, lo + n)`` of a device column as an Arrow array,
+    nested types recursively: an array's element window is the span its
+    offsets cover (the offsets may be absolute, ``column.slice_rows``)."""
+    t = c.dtype
+    if isinstance(t, dt.NullType):
+        return pa.nulls(n)
+    valid = None if c.validity is None else \
+        c.validity[lo:lo + n].cpu().numpy()
+    if is_string_like(t):
+        return _string_to_arrow(
+            t, GpuColumnVector(t, None, None if c.validity is None
+                               else c.validity[lo:], c.offsets[lo:],
+                               c.chars), n, None)
+    atype = dt.to_arrow(t)
+    bitmap, nulls = _bitmap(valid, n)
+    if isinstance(t, dt.StructType):
+        kids = [column_to_arrow(ch, lo, n) for ch in c.children]
+        return pa.Array.from_buffers(atype, n, [bitmap], null_count=nulls,
+                                     children=kids)
+    if is_list_type(t):
+        offs = c.offsets[lo:lo + n + 1].cpu().numpy().astype(np.int64)
+        base, end = (int(offs[0]), int(offs[-1])) if n else (0, 0)
+        kids = [column_to_arrow(ch, base, end - base) for ch in c.children]
+        obuf = pa.py_buffer((offs - base).astype(np.int32))
+        if isinstance(t, dt.MapType):
+            kids = [pa.StructArray.from_arrays(
+                kids, fields=[atype.key_field, atype.item_field])]
+        return pa.Array.from_buffers(atype, n, [bitmap, obuf],
+                                     null_count=nulls, children=kids)
+    values = c.data[lo:lo + n].cpu().numpy()
+    return _column_to_arrow(t, values, valid)
+
+
 def device_to_arrow(batch: GpuBatch) -> pa.RecordBatch:
     """Download the live rows of a batch, compacting a lazy selection on
     the host."""
@@ -228,6 +311,11 @@ def device_to_arrow(batch: GpuBatch) -> pa.RecordBatch:
             continue
         if c.is_string_like:
             arrays.append(_string_to_arrow(c.dtype, c, n, keep))
+            continue
+        if c.is_nested:
+            arr = column_to_arrow(c, 0, n)
+            arrays.append(arr if keep is None else
+                          arr.filter(pa.array(keep)))
             continue
         values = c.data[:n].cpu().numpy()
         valid = None if c.validity is None else \

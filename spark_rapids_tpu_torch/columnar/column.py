@@ -25,11 +25,21 @@ Layout (Arrow-compatible, the same padding as the reference,
     ``(capacity, 2)``: Arrow's decimal128 words, low then high
     (``wide_decimal_lanes``).
 
-Nested types wait for a later slice (ROADMAP item 2).
+Nested types (the reference's ``:34-46``, Arrow-shaped):
+  - struct: ``children``, one column a field at the struct's capacity,
+    and the struct's own ``validity``; ``data`` and ``offsets`` None.
+  - array: ``offsets`` int32 ``(capacity + 1,)`` into ``children[0]``,
+    the element column, which has a capacity of its own; an empty or
+    null row has equal offsets. The offsets may start past 0 (a view
+    that shares its elements, ``slice_rows``).
+  - map: the array layout with ``children = [keys, values]`` (shared
+    offsets).
+A string column is told from an array by its type (``is_string_like``),
+never by its offsets.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -38,7 +48,7 @@ from .. import datatypes as dt
 from ..datatypes import DataType
 
 __all__ = ["GpuColumnVector", "torch_dtype", "and_validity",
-           "is_string_like", "lane_shape"]
+           "is_string_like", "lane_shape", "is_list_type", "slice_rows"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -78,6 +88,11 @@ def is_string_like(t: DataType) -> bool:
     return isinstance(t, (dt.StringType, dt.BinaryType))
 
 
+def is_list_type(t: DataType) -> bool:
+    """Arrays and maps: the (offsets, element children) layout."""
+    return isinstance(t, (dt.ArrayType, dt.MapType))
+
+
 def and_validity(a: Optional[torch.Tensor],
                  b: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """AND of two validity masks where ``None`` means all valid."""
@@ -90,24 +105,38 @@ def and_validity(a: Optional[torch.Tensor],
 
 class GpuColumnVector:
     """One column: ``dtype``, ``data`` (fixed width) or ``offsets`` and
-    ``chars`` (strings), and ``validity``."""
+    ``chars`` (strings), ``children`` (nested types), and
+    ``validity``."""
 
-    __slots__ = ("dtype", "data", "validity", "offsets", "chars")
+    __slots__ = ("dtype", "data", "validity", "offsets", "chars",
+                 "children")
 
     def __init__(self, dtype: DataType, data: Optional[torch.Tensor],
                  validity: Optional[torch.Tensor] = None,
                  offsets: Optional[torch.Tensor] = None,
-                 chars: Optional[torch.Tensor] = None):
+                 chars: Optional[torch.Tensor] = None,
+                 children: Optional[List["GpuColumnVector"]] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.offsets = offsets
         self.chars = chars
+        self.children = children
 
     @classmethod
     def nulls(cls, dtype: DataType, capacity: int,
               device: torch.device) -> "GpuColumnVector":
         valid = torch.zeros(capacity, dtype=torch.bool, device=device)
+        if isinstance(dtype, dt.StructType):
+            return cls(dtype, None, valid, children=[
+                cls.nulls(f.dtype, capacity, device) for f in dtype.fields])
+        if is_list_type(dtype):
+            kids = [dtype.key_type, dtype.value_type] \
+                if isinstance(dtype, dt.MapType) else [dtype.element_type]
+            return cls(dtype, None, valid,
+                       torch.zeros(capacity + 1, dtype=torch.int32,
+                                   device=device),
+                       children=[cls.nulls(k, 0, device) for k in kids])
         if is_string_like(dtype):
             return cls(dtype, None, valid,
                        torch.zeros(capacity + 1, dtype=torch.int32,
@@ -145,27 +174,45 @@ class GpuColumnVector:
 
     @property
     def is_string_like(self) -> bool:
-        return self.offsets is not None
+        return is_string_like(self.dtype)
+
+    @property
+    def is_nested(self) -> bool:
+        return dt.is_nested(self.dtype)
+
+    @property
+    def is_list(self) -> bool:
+        return is_list_type(self.dtype)
 
     @property
     def capacity(self) -> int:
         if self.data is not None:
             return self.data.shape[0]
-        return self.offsets.shape[0] - 1
+        if self.offsets is not None:
+            return self.offsets.shape[0] - 1
+        if self.validity is not None:
+            return self.validity.shape[0]
+        return self.children[0].capacity  # a struct
 
     @property
     def device(self) -> torch.device:
-        return (self.data if self.data is not None
-                else self.offsets).device
+        for t in (self.data, self.offsets, self.validity):
+            if t is not None:
+                return t.device
+        return self.children[0].device
 
     def lengths(self) -> torch.Tensor:
         """Byte length of each string row (int32)."""
         return self.offsets[1:] - self.offsets[:-1]
 
     def arrays(self):
-        """The tensors backing this column."""
-        return [a for a in (self.data, self.validity, self.offsets,
-                            self.chars) if a is not None]
+        """The tensors backing this column, pre-order through its
+        children."""
+        out = [a for a in (self.data, self.validity, self.offsets,
+                           self.chars) if a is not None]
+        for ch in self.children or ():
+            out.extend(ch.arrays())
+        return out
 
     def device_size_bytes(self) -> int:
         """Bytes the column holds on the device, chars included."""
@@ -181,8 +228,34 @@ class GpuColumnVector:
     def with_validity(self, validity: Optional[torch.Tensor]) \
             -> "GpuColumnVector":
         return GpuColumnVector(self.dtype, self.data, validity,
-                               self.offsets, self.chars)
+                               self.offsets, self.chars, self.children)
+
+    def clone(self) -> "GpuColumnVector":
+        """A copy that owns its tensors, children included."""
+        def cp(t):
+            return None if t is None else t.clone()
+        return GpuColumnVector(
+            self.dtype, cp(self.data), cp(self.validity), cp(self.offsets),
+            self.chars, None if self.children is None
+            else [ch.clone() for ch in self.children])
 
     def __repr__(self):
         return (f"GpuColumnVector({self.dtype.simple_string()}, "
                 f"cap={self.capacity})")
+
+
+def slice_rows(c: GpuColumnVector, lo: int, hi: int) -> GpuColumnVector:
+    """Rows ``[lo, hi)`` of a column as a view: fixed-width lanes and
+    validity are sliced, a string's or an array's offsets too while its
+    chars or elements stay shared (the offsets are absolute), and a
+    struct's children are sliced alike (the reference's ``_shrink_col``
+    and split halves)."""
+    v = None if c.validity is None else c.validity[lo:hi]
+    if c.offsets is not None:
+        return GpuColumnVector(c.dtype, None, v, c.offsets[lo:hi + 1],
+                               c.chars, c.children)
+    if c.children is not None:
+        return GpuColumnVector(c.dtype, None, v, children=[
+            slice_rows(ch, lo, hi) for ch in c.children])
+    return GpuColumnVector(c.dtype, None if c.data is None
+                           else c.data[lo:hi], v)

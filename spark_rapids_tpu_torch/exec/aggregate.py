@@ -23,13 +23,17 @@ partials within ``budget // 4`` is concatenated and merged
 back and the result cut to it, until one partial is left; the rounds'
 time is ``spillTime`` and their count ``mergeRounds``.
 
-An exact ``ApproxPercentile`` (``spark.rapids.sql.approxPercentile
-.exact``, the default) takes the reference's single pass (``:276-481``):
+The collects, and an exact ``ApproxPercentile``
+(``spark.rapids.sql.approxPercentile.exact``, the default), take the
+reference's single pass (``:276-481``):
 every input batch is concatenated (bounded, no readback), the rows
 sorted by key and gathered once, each group's non-null values ordered
 by one more sort of ``(dropped, group, value)``
 (``expr/aggregates.value_sorted_groups``, K3), and each group's
-percentile gathered at its rank (K4); the node's other aggregates
+percentile gathered at its rank (K4), a list of them as one array a
+group; a collect's values in that order become each group's array
+(``expr/aggregates.collect_column``: a set's duplicates compacted on
+K3, the elements gathered on K4); the node's other aggregates
 reduce over the same sorted segments, with no partials. The input
 batches are registered in the spill catalog as they come; once their
 bytes pass half the budget (``:383-440``), the batches so far are
@@ -72,8 +76,9 @@ from ..columnar.column import GpuColumnVector, torch_dtype
 from ..config import APPROX_PERCENTILE_EXACT, VARIABLE_FLOAT_AGG, \
     RapidsConf
 from ..expr.aggregates import (GLOBAL_LANES, AggregateFunction,
-                               ApproxPercentile, Sum, spark_rank0,
-                               value_sorted_groups)
+                               ApproxPercentile, Sum, _Collect,
+                               collect_column, percentile_list_column,
+                               spark_rank0, value_sorted_groups)
 from ..expr.arithmetic import Multiply
 from ..expr.base import Alias, BoundReference, Expression, Literal, \
     bind_expr
@@ -240,6 +245,24 @@ class GpuHashAggregateExec(UnaryExec):
         # device before its group sort (the reference's ``:104``)
         return any(getattr(a, "single_pass", False) for a in self.aggs)
 
+    def gpu_supported(self) -> Optional[str]:
+        """Grouping by or aggregating a nested type stays on the CPU
+        (the reference's ``:129-146``); so does an aggregate's own
+        refusal (a collect of nested elements)."""
+        for e in self.group_exprs:
+            if dt.is_nested(e.dtype):
+                return (f"grouping by nested type "
+                        f"{e.dtype.simple_string()} not on device")
+        for a in self.aggs:
+            for c in a.children:
+                if dt.is_nested(c.dtype):
+                    return (f"aggregating nested type "
+                            f"{c.dtype.simple_string()} not on device")
+            r = a.gpu_supported()
+            if r:
+                return r
+        return None
+
     def gpu_supported_conf(self, conf: RapidsConf) -> Optional[str]:
         """A float aggregate's result can vary with the order of its
         additions; under ``spark.rapids.sql.variableFloatAgg.enabled=
@@ -317,11 +340,7 @@ class GpuHashAggregateExec(UnaryExec):
         n = int(num_groups)
         out = shrink_batch(GpuBatch(out_cols, self._partial_schema, n),
                            bucket_rows(max(n, 128)))
-        return GpuBatch([GpuColumnVector(
-            c.dtype, None if c.data is None else c.data.clone(),
-            None if c.validity is None else c.validity.clone(),
-            None if c.offsets is None else c.offsets.clone(), c.chars)
-            for c in out.columns], out.schema, n)
+        return GpuBatch([c.clone() for c in out.columns], out.schema, n)
 
     def _merge_bounded(self, partials: List[GpuBatch],
                        ctx: ExecCtx) -> GpuBatch:
@@ -459,8 +478,12 @@ class GpuHashAggregateExec(UnaryExec):
         from its sorted non-null values (``:342``): rank error 0."""
         cap = sorted_live.shape[0]
         perm, lo, n_g = value_sorted_groups(scol, seg, sorted_live, out_cap)
-        pos = (lo + spark_rank0(agg.percentages[0], n_g)).clamp(0, cap - 1)
-        return gather_columns([scol], perm[pos], out_live & (n_g > 0))[0]
+        picked = [perm[(lo + spark_rank0(p, n_g)).clamp(0, cap - 1)]
+                  for p in agg.percentages]
+        has_vals = out_live & (n_g > 0)
+        if agg.is_list:
+            return percentile_list_column(agg, scol, picked, has_vals)
+        return gather_columns([scol], picked[0], has_vals)[0]
 
     def _single_pass(self, batch: GpuBatch, ectx) -> GpuBatch:
         """The whole input grouped at once (``:318``)."""
@@ -486,6 +509,9 @@ class GpuHashAggregateExec(UnaryExec):
             if isinstance(a, ApproxPercentile):
                 out_cols.append(self._percentile_column(
                     a, sv[0], seg, sorted_live, out_cap, out_live))
+            elif isinstance(a, _Collect):
+                out_cols.append(collect_column(a, sv[0], seg, sorted_live,
+                                               out_cap, out_live))
             elif self.group_exprs:
                 out_cols.append(a.evaluate_device(
                     a.update_device(sv, seg, sorted_live, out_live)))
@@ -497,11 +523,13 @@ class GpuHashAggregateExec(UnaryExec):
                             bucket_rows(n))
 
     def _wants_single_pass(self, conf: RapidsConf) -> bool:
-        """An exact percentile takes the single pass; the sketch rides
-        the partial and final phases, unless a batch's capacity times
-        ``_MASS_SCALE`` would overflow its int64 compound keys
-        (``:441``)."""
+        """A collect and an exact percentile take the single pass; the
+        sketch rides the partial and final phases, unless a batch's
+        capacity times ``_MASS_SCALE`` would overflow its int64 compound
+        keys (``:441``)."""
         for a in self.aggs:
+            if isinstance(a, _Collect):
+                return True
             if not isinstance(a, ApproxPercentile):
                 continue
             if conf.get(APPROX_PERCENTILE_EXACT) or conf.batch_size_rows \

@@ -50,6 +50,7 @@ from typing import List, Optional
 import pyarrow as pa
 import torch
 
+from .. import datatypes as dt
 from ..config import ADAPTIVE_ENABLED, BATCH_SIZE_BYTES, SHUFFLE_MODE
 from ..ops.concat import concat_batches_bounded
 from ..shuffle.partitioner import Partitioning
@@ -105,6 +106,15 @@ class GpuShuffleExchangeExec(UnaryExec):
 
     def expressions(self):
         return list(getattr(self.partitioning, "key_exprs", []))
+
+    def gpu_supported(self) -> Optional[str]:
+        # a nested key hashes on the CPU (the reference's ``:136-137``);
+        # a nested payload column stays on the device
+        for e in getattr(self.partitioning, "key_exprs", []):
+            if dt.is_nested(e.dtype):
+                return (f"partitioning by nested type "
+                        f"{e.dtype.simple_string()} not on device")
+        return None
 
     def _resolve_transport(self, ctx: ExecCtx) -> ShuffleTransport:
         if self.transport is not None:

@@ -237,6 +237,13 @@ class _BaseJoinExec(GpuExec):
                 and self.join_type not in self.CONDITION_JOIN_TYPES:
             return (f"a non-equi condition on a {self.join_type} "
                     "equi-join runs on the CPU")
+        # a join's gather repeats rows, which a nested column's elements
+        # would have to be sized for (the reference's ``:134-137,698``)
+        for schema in (self.left.output_schema, self.right.output_schema):
+            for f in schema.fields:
+                if dt.is_nested(f.dtype):
+                    return (f"join over nested column {f.name} "
+                            f"({f.dtype.simple_string()}) not on device")
         return None
 
     def _emit(self, ctx: ExecCtx, batch: GpuBatch) -> GpuBatch:
@@ -440,7 +447,8 @@ class _BaseJoinExec(GpuExec):
             return GpuBatch(lbatch.columns, self._schema, lbatch.row_count,
                             selection=_and_sel(lbatch, live_l & ~matched))
         out_cols = list(lbatch.columns) \
-            + gather_columns(rbatch.columns, ridx, matched, caps)
+            + gather_columns(rbatch.columns, ridx, matched, caps,
+                             repeat=True)
         if jt == "inner":
             sel = matched
             if self.condition is not None:

@@ -37,6 +37,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from .. import datatypes as dt
 from ..columnar.batch import GpuBatch, bucket_rows
 from ..expr.base import Expression, bind_expr
 from ..ops.concat import concat_batches_bounded
@@ -102,6 +103,15 @@ class GpuSortExec(UnaryExec):
 
     def expressions(self):
         return [o.child for o in self.orders]
+
+    def gpu_supported(self) -> Optional[str]:
+        # a nested key orders on the CPU (``ops/sort_keys``; the
+        # reference's ``:143-151``)
+        for o in self.orders:
+            if dt.is_nested(o.child.dtype):
+                return (f"sorting by nested type "
+                        f"{o.child.dtype.simple_string()} not on device")
+        return None
 
     def execute(self, ctx: ExecCtx):
         op_time = ctx.metric(self, "opTime")
@@ -247,8 +257,9 @@ class GpuSortExec(UnaryExec):
 
 class GpuLocalLimitExec(UnaryExec):
     """Per-stream limit: each batch's row count cut to the rows still
-    allowed (a batch with a selection is compacted first); the stream
-    stops once the limit is reached."""
+    allowed (a batch with a selection is compacted first, counted by
+    ``compactedBatches``); the stream stops once the limit is
+    reached."""
 
     CONTRACT = OpContract(schema_preserving=True,
                           notes="truncates the stream; schema unchanged")
@@ -266,7 +277,10 @@ class GpuLocalLimitExec(UnaryExec):
         remaining = self.limit
         if remaining == 0:
             return
+        compacted = ctx.metric(self, "compactedBatches")
         for batch in self.child.execute(ctx):
+            if batch.selection is not None:
+                compacted += 1
             batch = ensure_compacted(batch)
             take = min(batch.row_count, remaining)
             remaining -= take

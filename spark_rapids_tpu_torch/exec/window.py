@@ -75,7 +75,8 @@ from ..ops.gather import gather_column, gather_columns
 from ..ops.segments import seg_reduce_sorted
 from ..ops.strings import assemble_strings
 from ..ops.sort_keys import (SortSpec, change_flags, check_key_type,
-                             normalize_float_key_col, orderable_int,
+                             key_lane_count, normalize_float_key_col,
+                             orderable_int,
                              sorted_key_words, string_order_ranks)
 from .base import ExecCtx, GpuExec, UnaryExec
 from .sort import SortOrder
@@ -447,8 +448,8 @@ class GpuWindowExec(UnaryExec):
         okeys = [o.child.eval_gpu(batch, ectx) for o in self.orders]
         specs = [SortSpec()] * len(pkeys) + [o.spec for o in self.orders]
         widths, words, perm = sorted_key_words(pkeys + okeys, specs, live)
-        # the live lane and a (null, value) pair a partition key
-        npl = 1 + 2 * len(pkeys)
+        # the live lane and each partition key's (null, value...) lanes
+        npl = 1 + sum(key_lane_count(k) for k in pkeys)
         part_flag = change_flags(words,
                                  _prefix_masks(widths, sum(widths[:npl])))
         peer_flag = change_flags(words) \

@@ -7,7 +7,10 @@ from .conditional import If, CaseWhen, Coalesce, Least, Greatest, NullIf
 from .predicates import (EqualTo, EqualNullSafe, LessThan, LessThanOrEqual,
                          GreaterThan, GreaterThanOrEqual, And, Or, Not,
                          IsNull, IsNotNull, IsNaN, In)
-from .aggregates import Sum, Count, Min, Max, Average
+from .aggregates import (Sum, Count, Min, Max, Average, CollectList,
+                         CollectSet, ApproxPercentile)
+from .complex import (GetStructField, GetArrayItem, CreateNamedStruct,
+                      Size, MapKeys, MapValues)
 
 __all__ = ["Expression", "BoundReference", "UnresolvedColumn", "Literal",
            "Alias", "EvalCtx", "ExprError", "bind_expr",
@@ -17,4 +20,6 @@ __all__ = ["Expression", "BoundReference", "UnresolvedColumn", "Literal",
            "NullIf", "EqualTo", "EqualNullSafe", "LessThan",
            "LessThanOrEqual", "GreaterThan", "GreaterThanOrEqual", "And",
            "Or", "Not", "IsNull", "IsNotNull", "IsNaN", "In", "Sum",
-           "Count", "Min", "Max", "Average"]
+           "Count", "Min", "Max", "Average", "CollectList", "CollectSet",
+           "ApproxPercentile", "GetStructField", "GetArrayItem",
+           "CreateNamedStruct", "Size", "MapKeys", "MapValues"]

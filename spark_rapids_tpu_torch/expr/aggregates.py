@@ -64,8 +64,15 @@ implicit cast does (the reference's moments read the unscaled lane).
 ``Min``, ``Max`` and ``ApproxPercentile`` of a decimal past 18 digits
 raise, naming ROADMAP item 2.
 
-The collects and a list of percentiles (an array result) wait for
-ROADMAP item 2.
+The collects (``_Collect``, ``CollectList``, ``CollectSet``, the
+reference's ``:620-680``) group values into an array. They have no
+partial buffers: the aggregate's single pass computes them over its
+whole input (``exec/aggregate.py`` ``_collect_column``), each group's
+elements in value order (the reference's, which the dual runs compare
+exactly): strings by UTF-8 bytes, NaN last, nulls skipped, never null
+(an empty array). ``collect_set`` keeps one of each value, one NaN, and
+``-0.0`` equal to ``0.0``. A list of percentiles returns an array of the
+input type, ``k`` elements a group.
 """
 from __future__ import annotations
 
@@ -873,6 +880,18 @@ def group_value_order(lane: torch.Tensor, width: int, keep: torch.Tensor,
         (lane, width)]))[1].long()
 
 
+def value_lane(col: GpuColumnVector,
+               valid: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``(lane, width)``: a value's unsigned orderable lane, a string's
+    byte-order rank among the ``valid`` rows (K3 passes), zero where not
+    ``valid``."""
+    if is_string_like(col.dtype):
+        lane, width = string_order_ranks(col, valid).to(torch.int64), 32
+    else:
+        lane, width = key_lane_bits(col)
+    return torch.where(valid, lane, torch.zeros_like(lane)), width
+
+
 def value_sorted_groups(col: GpuColumnVector, seg: torch.Tensor,
                         live: torch.Tensor, out_cap: int) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -883,8 +902,7 @@ def value_sorted_groups(col: GpuColumnVector, seg: torch.Tensor,
     ``exec/aggregate.py:276``; its kept rows are a prefix of the order,
     so no compaction is needed)."""
     valid = _masked(col, live)
-    lane, width = key_lane_bits(col)
-    lane = torch.where(valid, lane, torch.zeros_like(lane))
+    lane, width = value_lane(col, valid)
     perm = group_value_order(lane, width, valid, seg)
     pos = torch.arange(live.shape[0], device=live.device)
     kseg = torch.where(pos < valid.sum(), seg[perm].to(torch.int64),
@@ -904,6 +922,123 @@ def spark_rank0(p: float, n: torch.Tensor) -> torch.Tensor:
                          .clamp(min=0))
 
 
+class _Collect(AggregateFunction):
+    """collect_list / collect_set: each group's values as an array
+    (module docstring). ``single_pass``: no partial buffers, the
+    aggregate groups its whole input in one pass."""
+
+    single_pass = True
+    dedupe = False
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return dt.ArrayType(self.children[0].dtype)
+
+    @property
+    def nullable(self):
+        return False
+
+    @property
+    def buffer_fields(self):
+        return []
+
+    def gpu_supported(self) -> Optional[str]:
+        if dt.is_nested(self.children[0].dtype):
+            return (f"{self.pretty_name().lower()} of nested elements "
+                    "not on device")
+        return None
+
+    def cpu_agg(self, values):
+        """The collect of Python values (the reference's ``:641``): the
+        tests' oracle."""
+        vals = [v for v in values if v is not None]
+        if self.dedupe:
+            seen, out = set(), []
+            for v in vals:
+                if isinstance(v, float):
+                    k = ("fnan",) if math.isnan(v) else ("f", v + 0.0)
+                    v = float("nan") if math.isnan(v) else v + 0.0
+                else:
+                    k = ("v", v)
+                if k not in seen:
+                    seen.add(k)
+                    out.append(v)
+            vals = out
+
+        def key(v):
+            if isinstance(v, float):
+                return (1, 0.0) if math.isnan(v) else (0, v + 0.0)
+            if isinstance(v, str):
+                return v.encode()
+            return v
+        return sorted(vals, key=key)
+
+
+class CollectList(_Collect):
+    dedupe = False
+
+
+class CollectSet(_Collect):
+    dedupe = True
+
+
+def collect_column(agg: _Collect, col: GpuColumnVector, seg: torch.Tensor,
+                   live: torch.Tensor, out_cap: int,
+                   out_live: torch.Tensor) -> GpuColumnVector:
+    """The array column of a collect over rows grouped by ``seg`` (the
+    reference's ``_collect_column``, ``exec/aggregate.py:300``): one K3
+    sort by ``(dropped, group, value)`` puts each group's non-null values
+    in order, a set keeps the first of each run of equal values by a K3
+    compaction, and one K4 launch gathers the elements; each group's
+    offset is a search over the kept rows' group ids."""
+    from ..ops.gather import compaction_indices, gather_columns
+    dev = live.device
+    cap = live.shape[0]
+    valid = _masked(col, live)
+    lane, width = value_lane(col, valid)
+    perm = group_value_order(lane, width, valid, seg)
+    pos = torch.arange(cap, device=dev)
+    total = valid.sum()
+    sseg = seg[perm].to(torch.int64)
+    if agg.dedupe:
+        slane = lane[perm]
+        first = torch.ones(cap, dtype=torch.bool, device=dev)
+        first[1:] = (sseg[1:] != sseg[:-1]) | (slane[1:] != slane[:-1])
+        cidx, total = compaction_indices(first & (pos < total))
+        cidx = cidx.long()
+        perm, sseg = perm[cidx], sseg[cidx]
+    elem_live = pos < total
+    kseg = torch.where(elem_live, sseg,
+                       torch.full((), out_cap, dtype=torch.int64,
+                                  device=dev))
+    offsets = torch.searchsorted(
+        kseg, torch.arange(out_cap + 1, dtype=torch.int64, device=dev),
+        right=False).to(torch.int32)
+    elem = gather_columns([col], perm.to(torch.int32), elem_live)[0]
+    return GpuColumnVector(agg.dtype, None, out_live, offsets,
+                           children=[elem])
+
+
+def percentile_list_column(agg: "ApproxPercentile", col: GpuColumnVector,
+                           picked: List[torch.Tensor],
+                           has_vals: torch.Tensor) -> GpuColumnVector:
+    """A list of percentiles: each group's ``k`` picked rows as one
+    array, ``offsets = arange * k`` (the reference's
+    ``exec/aggregate.py:373-380``), the elements in one K4 launch."""
+    from ..ops.gather import gather_columns
+    k = len(picked)
+    out_cap = has_vals.shape[0]
+    src = torch.stack(picked, 1).reshape(-1).to(torch.int32)
+    elem = gather_columns([col], src, has_vals.repeat_interleave(k))[0]
+    offsets = torch.arange(out_cap + 1, dtype=torch.int32,
+                           device=has_vals.device) * k
+    return GpuColumnVector(agg.dtype, None, has_vals, offsets,
+                           children=[elem])
+
+
 class ApproxPercentile(AggregateFunction):
     """approx_percentile(col, percentage[, accuracy]) of a number, date or
     timestamp: the value at Spark's rank ``ceil(p * n)`` among a group's
@@ -921,8 +1056,8 @@ class ApproxPercentile(AggregateFunction):
       fixed-width aggregate, with a rank error of about 1/K a merge
       level.
 
-    A list of percentages returns an array, which the port's columns do
-    not hold yet: it raises naming ROADMAP item 2."""
+    A list of percentages returns an array of the input type, ``k``
+    elements a group (``percentile_list_column``)."""
 
     # the compound key (group, mass) of the sketch's merge: a group's
     # stride
@@ -948,11 +1083,6 @@ class ApproxPercentile(AggregateFunction):
 
     def validate(self):
         t = self.children[0].dtype
-        if self.is_list:
-            raise NotImplementedError(
-                "approx_percentile with a list of percentages returns an "
-                "array, which the port's columns do not hold yet (ROADMAP "
-                "item 2)")
         if is_string_like(t) or isinstance(t, (dt.BooleanType,
                                                dt.NullType)):
             raise NotImplementedError(
@@ -963,7 +1093,8 @@ class ApproxPercentile(AggregateFunction):
 
     @property
     def dtype(self):
-        return self.children[0].dtype
+        t = self.children[0].dtype
+        return dt.ArrayType(t) if self.is_list else t
 
     @property
     def buffer_fields(self):
@@ -990,7 +1121,8 @@ class ApproxPercentile(AggregateFunction):
         vals.sort(key=key)
         if not vals:
             return None
-        return vals[self.rank0(self.percentages[0], len(vals))]
+        out = [vals[self.rank0(p, len(vals))] for p in self.percentages]
+        return out if self.is_list else out[0]
 
     # --- the mergeable sketch ---------------------------------------------
 
@@ -1006,7 +1138,7 @@ class ApproxPercentile(AggregateFunction):
         for k in range(self.K):
             r = ((n_g - 1) * k) // (self.K - 1)
             pos = (lo + r).clamp(0, cap - 1)
-            out.append(GpuColumnVector(self.dtype, col.data[perm[pos]],
+            out.append(GpuColumnVector(self.children[0].dtype, col.data[perm[pos]],
                                        qvalid))
         out.append(GpuColumnVector(dt.INT64, n_g, out_live))
         return out
@@ -1059,7 +1191,7 @@ class ApproxPercentile(AggregateFunction):
             tgt = (1 + ((total_c - 1) * k) // (K - 1)).clamp(1, scale - 1)
             pos = torch.searchsorted(compound, g * scale + tgt,
                                      right=False).clamp(0, rows * K - 1)
-            out.append(GpuColumnVector(self.dtype, vorig[perm[pos]],
+            out.append(GpuColumnVector(self.children[0].dtype, vorig[perm[pos]],
                                        qvalid))
         # each member's K points weigh its full count, so the mass is K
         # times the rows: the count lane stays a count
@@ -1096,12 +1228,22 @@ class ApproxPercentile(AggregateFunction):
         qcols, cnt = bufs[:K], bufs[K]
         n = cnt.data
         has = cnt.valid_mask() & (n > 0)
-        r = spark_rank0(self.percentages[0], n)
         den = (n - 1).clamp(min=1)
-        k = ((r * (K - 1) + den - 1) // den).clamp(0, K - 1)
         qmat = torch.stack([q.data for q in qcols], 1)
-        return GpuColumnVector(self.dtype, qmat.gather(1, k[:, None])[:, 0],
-                               has)
+        picked = []
+        for p in self.percentages:
+            r = spark_rank0(p, n)
+            k = ((r * (K - 1) + den - 1) // den).clamp(0, K - 1)
+            picked.append(qmat.gather(1, k[:, None])[:, 0])
+        t = self.children[0].dtype
+        if not self.is_list:
+            return GpuColumnVector(t, picked[0], has)
+        k = len(picked)
+        elem = torch.stack(picked, 1).reshape(-1)
+        offsets = torch.arange(n.shape[0] + 1, dtype=torch.int32,
+                               device=n.device) * k
+        return GpuColumnVector(self.dtype, None, has, offsets, children=[
+            GpuColumnVector(t, elem, has.repeat_interleave(k))])
 
     def evaluate(self, bufs):
         return self.evaluate_device(bufs)

@@ -251,12 +251,10 @@ class WindowExpression(Expression):
         fr = self.frame
         for e in self.partition_by:
             if dt.is_nested(e.dtype):
-                return ("window partition by a nested type is not ported "
-                        "yet (ROADMAP item 2)")
+                return "window partition by nested type not on device"
         for o in self.order_by:
             if dt.is_nested(o.child.dtype):
-                return ("window order by a nested type is not ported yet "
-                        "(ROADMAP item 2)")
+                return "window order by nested type not on device"
         if isinstance(f, AggregateFunction) \
                 and not isinstance(f, _DEVICE_WINDOW_AGGS):
             return (f"window aggregate {f.pretty_name()} is not ported "

@@ -35,7 +35,14 @@ by its encoding before any decode, and is counted by reason
 (``fallbackChunks``). String columns decode on either path: pyarrow's
 buffers on the host path, K5's index stream into the staged string
 store on the device path (``ops/parquet_decode.BatchLayout``). Decimal
-and nested columns raise ``NotImplementedError`` (ROADMAP item 2).
+columns decode on both paths too. A nested column (struct, array, map;
+the reference's ``:528`` with ``io/parquet_device.py:502,624``) is a
+host chunk with reason ``nested`` in a device-decode row group:
+pyarrow decodes it and ``columnar/arrow_bridge.column_to_device``
+uploads it beside the batch's flat columns, which stay on K5 (the blob
+holds the flat columns only, ``_flat_schema``). The reference looks its
+chunks up by leaf name, misses a nested column and reads it as nulls,
+counting no chunk for it (ROADMAP queue C).
 Each staged blob of the device-decode path is a pinned entry in the
 memory manager's ledger from the feeder's upload until the consumer takes
 it (the reference's ``:1000-1015``), so eviction pressure sees the
@@ -72,10 +79,11 @@ import pyarrow.parquet as pq
 import torch
 
 from .. import datatypes as dt
-from ..columnar.arrow_bridge import (arrow_schema, engine_schema,
-                                     host_lanes, string_parts)
+from ..columnar.arrow_bridge import (arrow_schema, column_to_device,
+                                     engine_schema, host_lanes,
+                                     string_parts)
 from ..columnar.batch import GpuBatch, bucket_rows
-from ..columnar.column import is_string_like, torch_dtype
+from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
 from ..config import (MAX_PARTITION_BYTES, PARQUET_DEVICE_DECODE,
                       PARQUET_MULTITHREADED_THREADS, PARQUET_READER_TYPE,
                       SCAN_COALESCE_TARGET_BYTES, SCAN_INFLIGHT_BATCHES,
@@ -161,16 +169,24 @@ def _align(rb: pa.RecordBatch, target: pa.Schema) -> pa.RecordBatch:
     return pa.RecordBatch.from_arrays(cols, schema=target)
 
 
+def _check_type(t: dt.DataType) -> None:
+    """Raise for a type the scan cannot read (a nested type's leaves
+    checked each)."""
+    if isinstance(t, dt.StructType):
+        for f in t.fields:
+            _check_type(f.dtype)
+    elif isinstance(t, dt.ArrayType):
+        _check_type(t.element_type)
+    elif isinstance(t, dt.MapType):
+        _check_type(t.key_type)
+        _check_type(t.value_type)
+    elif not is_string_like(t) and not isinstance(t, dt.DecimalType):
+        torch_dtype(t)
+
+
 def _check_types(schema: dt.Schema) -> None:
-    """Raise for a field the scan cannot read yet: nested types."""
     for f in schema.fields:
-        if dt.is_nested(f.dtype):
-            raise NotImplementedError(
-                f"column {f.name}: nested columns are not ported yet "
-                "(ROADMAP item 2)")
-        if not is_string_like(f.dtype) and not isinstance(f.dtype,
-                                                          dt.DecimalType):
-            torch_dtype(f.dtype)
+        _check_type(f.dtype)
 
 
 def _lane_stat(v, t: dt.DataType) -> Optional[int]:
@@ -273,6 +289,9 @@ class GpuFileScanExec(LeafExec):
         if schema is None:
             schema = engine_schema(pq.ParquetFile(self.paths[0]).schema_arrow)
         self._schema = schema
+        # the fields the staged blob holds: all but the nested ones
+        self._flat_schema = dt.Schema([f for f in schema.fields
+                                       if not dt.is_nested(f.dtype)])
         self._bounds = {}
         self._pf_local = threading.local()
 
@@ -416,6 +435,11 @@ class GpuFileScanExec(LeafExec):
         reasons: List[str] = []
         with open(path, "rb") as f:
             for fld in self._schema.fields:
+                if dt.is_nested(fld.dtype):
+                    if fld.name in pf.schema_arrow.names:
+                        host_cols.append(fld.name)
+                        reasons.append("nested")
+                    continue
                 ci = name_to_ci.get(fld.name)
                 if ci is None:
                     continue  # a column the file lacks: nulls at assembly
@@ -502,7 +526,7 @@ class GpuFileScanExec(LeafExec):
         pyarrow's decode of a fallback chunk, or nulls for a column the
         file lacks."""
         host = {}
-        for f in self._schema.fields:
+        for f in self._flat_schema.fields:
             if f.name in plans:
                 continue
             idx = -1 if host_rb is None \
@@ -522,13 +546,38 @@ class GpuFileScanExec(LeafExec):
                                        else col.cast(target), f)
         return host
 
-    def _batch_layout(self, group) -> Tuple[BatchLayout, Tuple[str, ...]]:
-        """The blob layout of one coalesced group, and its fallback
-        reasons."""
+    def _batch_layout(self, group):
+        """The blob layout of one coalesced group's flat columns, its
+        fallback reasons and its pyarrow batch (the nested columns)."""
         n_rows, plans, host_rb, reasons = self._merge_planned(group)
-        return BatchLayout(self._schema, bucket_rows(max(n_rows, 1)), n_rows,
-                           plans, self._host_columns(host_rb, plans,
-                                                     n_rows)), reasons
+        return BatchLayout(self._flat_schema, bucket_rows(max(n_rows, 1)),
+                           n_rows, plans, self._host_columns(
+                               host_rb, plans, n_rows)), reasons, host_rb
+
+    def _with_nested(self, flat_cols, host_rb, capacity: int,
+                     device: torch.device):
+        """The batch's columns in schema order: the flat ones as decoded
+        or staged, each nested one uploaded from pyarrow's batch (nulls
+        where the file lacks it)."""
+        if len(self._flat_schema) == len(self._schema):
+            return flat_cols
+        it = iter(flat_cols)
+        out = []
+        for f in self._schema.fields:
+            if not dt.is_nested(f.dtype):
+                out.append(next(it))
+                continue
+            idx = -1 if host_rb is None \
+                else host_rb.schema.get_field_index(f.name)
+            if idx < 0:
+                out.append(GpuColumnVector.nulls(f.dtype, capacity, device))
+                continue
+            col = host_rb.column(idx)
+            target = dt.to_arrow(f.dtype)
+            out.append(column_to_device(
+                col if col.type == target else col.cast(target), f.dtype,
+                capacity, device))
+        return out
 
     def batch_layouts(self, conf) -> List[BatchLayout]:
         """Every batch's blob layout, as the device-decode path plans and
@@ -618,7 +667,7 @@ class GpuFileScanExec(LeafExec):
             t0 = time.perf_counter()
             # counted before the merge: one count per planned chunk
             dev_chunks = sum(len(g[1]) for g in group)
-            layout, reasons = self._batch_layout(group)
+            layout, reasons, host_rb = self._batch_layout(group)
             t1 = time.perf_counter()
             blob, event = uploader.stage_blob(
                 layout.prefix_bytes, layout.total_bytes, layout.fill)
@@ -628,8 +677,8 @@ class GpuFileScanExec(LeafExec):
                     sb.release()
                     return None
                 inflight.add(sb)
-            return (blob, event, sb, layout, dev_chunks, reasons, t1 - t0,
-                    time.perf_counter() - t1)
+            return (blob, event, sb, layout, dev_chunks, reasons, host_rb,
+                    t1 - t0, time.perf_counter() - t1)
 
         groups = self._coalesced_groups(planned(),
                                         conf.get(SCAN_COALESCE_TARGET_BYTES),
@@ -642,8 +691,8 @@ class GpuFileScanExec(LeafExec):
                     qx.check()
                 t0 = time.perf_counter()
                 try:
-                    (blob, event, sb, layout, dev_chunks, reasons, asm_s,
-                     up_s) = next(gen)
+                    (blob, event, sb, layout, dev_chunks, reasons, host_rb,
+                     asm_s, up_s) = next(gen)
                 except StopIteration:
                     break
                 with ilock:
@@ -660,8 +709,9 @@ class GpuFileScanExec(LeafExec):
                     ctx.metric(self, f"fallbackChunks.{r}").value += 1
                 rows.value += layout.n_rows
                 uploader.hand_over(blob, event)
-                batch = GpuBatch(decode_batch(blob, layout), self._schema,
-                                 layout.n_rows)
+                batch = GpuBatch(self._with_nested(
+                    decode_batch(blob, layout), host_rb, layout.capacity,
+                    ctx.device), self._schema, layout.n_rows)
                 decoded = bool(layout.device_names)
                 if decoded or chain is not None:
                     programs_m.value += 1
@@ -717,13 +767,15 @@ class GpuFileScanExec(LeafExec):
             t0 = time.perf_counter()
             rb = _align(rb, target)
             layout = BatchLayout(
-                self._schema, bucket_rows(rb.num_rows), rb.num_rows, {},
+                self._flat_schema, bucket_rows(rb.num_rows), rb.num_rows, {},
                 {f.name: _host_field(rb.column(i), f)
-                 for i, f in enumerate(self._schema.fields)})
+                 for i, f in enumerate(self._schema.fields)
+                 if not dt.is_nested(f.dtype)})
             t1 = time.perf_counter()
             blob, event = uploader.stage_blob(
                 layout.prefix_bytes, layout.total_bytes, layout.fill)
-            return blob, event, layout, t1 - t0, time.perf_counter() - t1
+            return (blob, event, layout, rb, t1 - t0,
+                    time.perf_counter() - t1)
 
         def timed_source():
             t0 = time.perf_counter()
@@ -739,7 +791,7 @@ class GpuFileScanExec(LeafExec):
             while True:
                 t0 = time.perf_counter()
                 try:
-                    blob, event, layout, asm_s, up_s = next(gen)
+                    blob, event, layout, rb, asm_s, up_s = next(gen)
                 except StopIteration:
                     break
                 wait_t.value += time.perf_counter() - t0
@@ -747,7 +799,8 @@ class GpuFileScanExec(LeafExec):
                 up_t.value += up_s
                 uploader.hand_over(blob, event)
                 rows.value += layout.n_rows
-                yield GpuBatch(layout.columns(blob), self._schema,
-                               layout.n_rows)
+                yield GpuBatch(self._with_nested(
+                    layout.columns(blob), rb, layout.capacity, ctx.device),
+                    self._schema, layout.n_rows)
         finally:
             gen.close()

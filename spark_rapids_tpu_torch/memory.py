@@ -234,12 +234,13 @@ def is_oom_error(e: BaseException) -> bool:
 def split_batch(batch):
     """Two halves of a device batch at the capacity midpoint (the
     GpuSplitAndRetryOOM halving): fixed-width lanes and the selection
-    are sliced, a string column's offsets too while its chars stay
-    shared (the offsets are absolute), and the host row count splits as
+    are sliced, a string's or an array's offsets too while its chars or
+    elements stay shared (the offsets are absolute), a struct's children
+    with its rows (``column.slice_rows``), and the host row count splits as
     ``min(rc, h)`` and ``max(rc - h, 0)``. Positional, not
     selection-aware, as the reference's."""
     from .columnar.batch import GpuBatch
-    from .columnar.column import GpuColumnVector
+    from .columnar.column import slice_rows
     cap = batch.capacity
     if cap < 2:
         raise TpuRetryOOM("cannot split a 1-row batch further")
@@ -249,17 +250,8 @@ def split_batch(batch):
     def sl(t, lo, hi):
         return None if t is None else t[lo:hi]
 
-    def halves(c):
-        if c.offsets is not None:
-            return (GpuColumnVector(c.dtype, None, sl(c.validity, 0, h),
-                                    c.offsets[:h + 1], c.chars),
-                    GpuColumnVector(c.dtype, None, sl(c.validity, h, cap),
-                                    c.offsets[h:], c.chars))
-        return (GpuColumnVector(c.dtype, c.data[:h], sl(c.validity, 0, h)),
-                GpuColumnVector(c.dtype, c.data[h:],
-                                sl(c.validity, h, cap)))
-
-    pairs = [halves(c) for c in batch.columns]
+    pairs = [(slice_rows(c, 0, h), slice_rows(c, h, cap))
+             for c in batch.columns]
     b1 = GpuBatch([p[0] for p in pairs], batch.schema, min(rc, h),
                   selection=sl(batch.selection, 0, h))
     b2 = GpuBatch([p[1] for p in pairs], batch.schema, max(rc - h, 0),

@@ -11,7 +11,11 @@ the live mask and put the dead rows last. No row moves, no gather runs.
 A string column's chars are concatenated whole and its rows re-packed
 from their shifted starts and lengths, with no readback (unless the
 chars would pass an int32 offset: then each input's chars are cut to
-its rows' bytes first).
+its rows' bytes first). A nested column concatenates level by level
+(the reference's unit mapping, ``:23-126``): a struct's children with
+the rows, an array's or a map's elements whole, side by side, and then
+its rows re-packed from their shifted starts and lengths, the elements
+moved by one K4 launch (``ops/gather._gather_elements``).
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ import torch
 
 from ..columnar.batch import GpuBatch, bucket_rows
 from ..columnar.column import GpuColumnVector
+from .gather import _gather_elements
 from .strings import assemble_strings, string_row_parts
 
-__all__ = ["concat_batches_bounded", "concat_string_columns"]
+__all__ = ["concat_batches_bounded", "concat_string_columns",
+           "concat_columns"]
 
 
 def _padded_cat(parts: List[torch.Tensor], cap: int) -> torch.Tensor:
@@ -73,6 +79,37 @@ def concat_string_columns(parts: List[GpuColumnVector], cap: int) \
                             _padded_cat(lengths, cap), validity, base)
 
 
+def concat_columns(parts: List[GpuColumnVector], cap: int) \
+        -> GpuColumnVector:
+    """Columns of one type end to end at ``cap`` rows, padding rows dead
+    (empty, invalid where any part has a validity)."""
+    c0 = parts[0]
+    if c0.is_string_like:
+        return concat_string_columns(parts, cap)
+    validity = None
+    if any(p.validity is not None for p in parts):
+        validity = _padded_cat([p.valid_mask() for p in parts], cap)
+    if c0.is_list:
+        ecap = bucket_rows(sum(p.children[0].capacity for p in parts))
+        kids = [concat_columns([p.children[k] for p in parts], ecap)
+                for k in range(len(c0.children))]
+        starts, lengths, base = [], [], 0
+        for p in parts:
+            s, n = string_row_parts(p)
+            starts.append(s + base)
+            lengths.append(n)
+            base += p.children[0].capacity
+        raw = GpuColumnVector(c0.dtype, None, None, None, children=kids)
+        return _gather_elements(raw, _padded_cat(starts, cap),
+                                _padded_cat(lengths, cap), validity, False)
+    if c0.children is not None:
+        return GpuColumnVector(c0.dtype, None, validity, children=[
+            concat_columns([p.children[k] for p in parts], cap)
+            for k in range(len(c0.children))])
+    return GpuColumnVector(c0.dtype, _padded_cat([p.data for p in parts],
+                                                 cap), validity)
+
+
 def concat_batches_bounded(batches: List[GpuBatch]) -> GpuBatch:
     """Concatenate batches of one schema without a size readback."""
     if len(batches) == 1:
@@ -81,14 +118,6 @@ def concat_batches_bounded(batches: List[GpuBatch]) -> GpuBatch:
     cap = bucket_rows(sum(b.capacity for b in batches))
     cols = []
     for ci, c0 in enumerate(first.columns):
-        parts = [b.columns[ci] for b in batches]
-        if c0.is_string_like:
-            cols.append(concat_string_columns(parts, cap))
-            continue
-        data = _padded_cat([p.data for p in parts], cap)
-        validity = None
-        if any(p.validity is not None for p in parts):
-            validity = _padded_cat([p.valid_mask() for p in parts], cap)
-        cols.append(type(c0)(c0.dtype, data, validity))
+        cols.append(concat_columns([b.columns[ci] for b in batches], cap))
     live = _padded_cat([b.live_mask() for b in batches], cap)
     return GpuBatch(cols, first.schema, cap, selection=live)

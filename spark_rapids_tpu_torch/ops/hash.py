@@ -18,7 +18,11 @@ item 1), so every uint32 value lives in the low 32 bits of an int64
 lane and each step masks with ``& 0xFFFFFFFF``: an int64 product of two
 such values may wrap, but its low 32 bits are the uint32 product. The
 string loop runs to the longest row's block count, one readback a
-string column. xxhash64 waits (ROADMAP item 10).
+string column. A struct hashes its fields in order into the running
+seed, an array its elements in order, a map each key then its value
+(Spark's ``HashExpression``): one step an element position, up to the
+longest row (one readback a column; nested keys partition on the CPU,
+where the planner places them). xxhash64 waits (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -147,11 +151,34 @@ def hash_column(col: GpuColumnVector, seed: torch.Tensor) -> torch.Tensor:
     incoming seed."""
     if col.is_string_like:
         h = murmur3_bytes_seeded(col.offsets, col.chars, seed)
+    elif col.is_list:
+        h = _hash_elements(col, seed)
+    elif col.children is not None:
+        h = seed
+        for ch in col.children:
+            h = hash_column(ch, h)
     else:
         h = _hash_fixed(col, seed)
     if col.validity is None:
         return h
     return torch.where(col.validity, h, seed)
+
+
+def _hash_elements(col: GpuColumnVector, seed: torch.Tensor) \
+        -> torch.Tensor:
+    """An array's or a map's elements folded into the running seed in
+    order, position by position."""
+    from .gather import gather_columns
+    starts = col.offsets[:-1]
+    lens = col.offsets[1:] - starts
+    h = seed
+    ecap = col.children[0].capacity
+    for k in range(int(lens.max()) if lens.numel() and ecap else 0):
+        has = lens > k
+        idx = (starts + k).clamp(0, ecap - 1).to(torch.int32)
+        for elem in gather_columns(col.children, idx, has):
+            h = hash_column(elem, h)
+    return h
 
 
 def hash_columns(cols: Sequence[GpuColumnVector]) -> torch.Tensor:

@@ -428,6 +428,8 @@ def join_gather(left: GpuBatch, right: GpuBatch, lidx: torch.Tensor,
     joins). ``char_caps`` gives each column's chars, stream side first
     (0 for fixed-width columns)."""
     nl = len(left.columns)
-    cols = gather_columns(left.columns, lidx, lvalid, char_caps[:nl]) \
-        + gather_columns(right.columns, ridx, rvalid, char_caps[nl:])
+    cols = gather_columns(left.columns, lidx, lvalid, char_caps[:nl],
+                          repeat=True) \
+        + gather_columns(right.columns, ridx, rvalid, char_caps[nl:],
+                         repeat=True)
     return GpuBatch(cols, out_schema, total)

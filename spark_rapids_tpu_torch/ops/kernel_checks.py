@@ -826,6 +826,188 @@ def decimal_gather_case(device, seed: int = 16) -> Dict:
             "live": torch.from_numpy(rng.random(n) < 0.7).to(dev)}
 
 
+# lines whose tickets make one scan batch of the nested texts (about
+# 61,000 tickets, a row group's worth)
+NESTED_SALES = 1 << 19
+_TICKETS: List = []
+
+
+def ticket_batch(device):
+    """``tools/nds_nested``'s ticket table at ``NESTED_SALES`` lines as
+    one device batch (the host table made once; each call uploads it, so
+    no case holds device memory past its use)."""
+    from ..columnar.arrow_bridge import arrow_to_device
+    if not _TICKETS:
+        from .. import nds
+        from ..tools import nds_nested as nn
+        t = nn.nested_tables(nds.gen_tables(NESTED_SALES))["ticket"]
+        _TICKETS.append(t.combine_chunks().to_batches()[0])
+    return arrow_to_device(_TICKETS[0], None, torch.device(device))
+
+
+def _column_on(col, device):
+    """A column with every tensor, children included, on ``device``."""
+    from ..columnar.column import GpuColumnVector
+
+    def mv(t):
+        return None if t is None else t.to(device)
+    return GpuColumnVector(col.dtype, mv(col.data), mv(col.validity),
+                           mv(col.offsets), mv(col.chars),
+                           None if col.children is None
+                           else [_column_on(c, device)
+                                 for c in col.children])
+
+
+def nested_columns(device) -> Dict[str, object]:
+    """The ticket batch's nested columns and three element shapes made
+    from them on the device: ``t_customer`` (a struct), ``t_lines``
+    (``array<struct>``), ``t_tags`` (a map), ``array<int64>`` (the
+    lines' item keys), ``array<string>`` (the tags' keys) and
+    ``array<array<int32>>`` (each basket's quantities in runs of up to
+    three)."""
+    import pyarrow as pa
+    from .. import datatypes as dt
+    from ..columnar.arrow_bridge import column_to_device
+    from ..columnar.column import GpuColumnVector
+    b = ticket_batch(device)
+    by = {f.name: c for f, c in zip(b.schema.fields, b.columns)}
+    lines, tags = by["t_lines"], by["t_tags"]
+    cap = b.capacity
+    offs = lines.offsets.cpu().numpy().astype(np.int64)
+    qty = lines.children[0].children[1].data.cpu().numpy()
+    runs, run_offs, outer = [], [0], [0]
+    for i in range(b.row_count):
+        q = qty[offs[i]:offs[i + 1]]
+        for s in range(0, len(q), 3):
+            runs.append(q[s:s + 3])
+            run_offs.append(run_offs[-1] + len(q[s:s + 3]))
+        outer.append(len(runs))
+    inner = pa.ListArray.from_arrays(
+        pa.array(np.asarray(run_offs, np.int32)),
+        pa.array(np.concatenate(runs) if runs else np.zeros(0, np.int32)))
+    valid = lines.valid_mask()[:b.row_count].cpu().numpy()
+    nested2 = pa.Array.from_buffers(
+        pa.list_(pa.list_(pa.int32())), b.row_count,
+        [pa.py_buffer(np.packbits(valid, bitorder="little")),
+         pa.py_buffer(np.asarray(outer, np.int32))],
+        null_count=int((~valid).sum()), children=[inner])
+    return {
+        "t_customer": by["t_customer"], "t_lines": lines, "t_tags": tags,
+        "array<int64>": GpuColumnVector(
+            dt.ArrayType(dt.INT64), None, lines.validity, lines.offsets,
+            children=[lines.children[0].children[0]]),
+        "array<string>": GpuColumnVector(
+            dt.ArrayType(dt.STRING), None, tags.validity, tags.offsets,
+            children=[tags.children[0]]),
+        "array<array<int32>>": column_to_device(
+            nested2, dt.ArrayType(dt.ArrayType(dt.INT32)), cap,
+            torch.device(device))}
+
+
+def _ticket_keep(b) -> torch.Tensor:
+    """The nested texts' filter on the ticket batch: a customer born in
+    1970 or later, among the live rows."""
+    cust = b.columns[b.schema.index_of("t_customer")]
+    by = cust.children[1].data
+    keep = (by >= 1970) & b.live_mask()
+    return keep if cust.validity is None else keep & cust.validity
+
+
+def nested_k4_cases(device, seed: int = 17) -> List[Dict]:
+    """K4's cases at the tickets' shapes, the lanes ``ops/gather`` hands
+    it: the ticket batch's compaction (its flat columns, the struct's
+    validity and children, the arrays' and the map's starts and lengths,
+    in one launch) and the lines' elements gathered by element index
+    (the second launch), with nulls and dead rows."""
+    from .gather import (_push_lanes, compaction_indices, element_rows,
+                         list_offsets)
+    b = ticket_batch(device)
+    datas, valids = [], []
+    for c in b.columns:
+        _push_lanes(c, datas, valids)
+    keep = _ticket_keep(b)
+    idx, count = compaction_indices(keep)
+    n = b.capacity
+    live = torch.arange(n, device=keep.device) < count
+    lines = b.columns[b.schema.index_of("t_lines")]
+    lens = torch.where(live, (lines.offsets[1:] - lines.offsets[:-1])
+                       [idx.long()], torch.zeros_like(idx))
+    ecap = lines.children[0].capacity
+    _, _, src, elive = element_rows(
+        list_offsets(lens), lines.offsets[:-1][idx.long()], ecap, ecap)
+    edatas, evalids = [], []
+    _push_lanes(lines.children[0], edatas, evalids)
+    rows = n.bit_length() - 1
+    return [{"name": f"nested_ticket_compaction_2^{rows}", "cols": datas,
+             "valids": valids, "idx": idx.to(torch.int32).contiguous(),
+             "live": live},
+            {"name": f"nested_lines_elements_2^{ecap.bit_length() - 1}",
+             "cols": edatas, "valids": evalids, "idx": src.contiguous(),
+             "live": elive}]
+
+
+def check_nested_gather(device, seed: int = 18) -> List[Dict]:
+    """``ops/gather.gather_columns`` on each of ``nested_columns`` (K4 on
+    the card) and the ticket batch's compaction (K3, then K4) against the
+    same calls on CPU tensors (the plain versions), every tensor of the
+    result bit for bit, children included; random rows with 70% live for
+    the columns. Raises on a disagreement."""
+    from .gather import compact_batch, gather_columns
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, col in nested_columns(device).items():
+        n = col.capacity
+        idx = rng.permutation(n).astype(np.int32)
+        live = rng.random(n) < 0.7
+        k4 = ck.gather_rows.launches
+        got = gather_columns([col], torch.from_numpy(idx).to(device),
+                             torch.from_numpy(live).to(device))[0]
+        launches = ck.gather_rows.launches - k4
+        want = gather_columns([_column_on(col, cpu)], torch.from_numpy(idx),
+                              torch.from_numpy(live))[0]
+        pairs = list(zip(got.arrays(), want.arrays()))
+        same = len(got.arrays()) == len(want.arrays()) and all(
+            _same_bits(a.cpu(), w) for a, w in pairs)
+        rec = {"case": f"nested_gather_{name}", "n": n,
+               "k4_launches": launches, "equal": same,
+               "max_abs_err": _max_abs_diff([(a.cpu(), w)
+                                             for a, w in pairs])}
+        if not same:
+            raise AssertionError(f"nested gather disagrees: {rec}")
+        out.append(rec)
+    b = ticket_batch(device)
+    keep = _ticket_keep(b)
+    k3, k4 = ck.sort_pairs.launches, ck.gather_rows.launches
+    got = compact_batch(b, keep)
+    launches = (ck.sort_pairs.launches - k3, ck.gather_rows.launches - k4)
+    bc = type(b)([_column_on(c, cpu) for c in b.columns], b.schema,
+                 b.row_count)
+    want = compact_batch(bc, keep.cpu())
+    ga = [a for c in got.columns for a in c.arrays()]
+    wa = [a for c in want.columns for a in c.arrays()]
+    same = got.row_count == want.row_count and len(ga) == len(wa) and all(
+        _same_bits(a.cpu(), w) for a, w in zip(ga, wa))
+    rec = {"case": "nested_ticket_compaction", "n": b.capacity,
+           "rows": got.row_count, "k3_launches": launches[0],
+           "k4_launches": launches[1], "equal": same,
+           "max_abs_err": _max_abs_diff([(a.cpu(), w)
+                                         for a, w in zip(ga, wa)])}
+    if not same:
+        raise AssertionError(f"nested compaction disagrees: {rec}")
+    out.append(rec)
+    return out
+
+
+def nested_words(device) -> Dict[str, torch.Tensor]:
+    """K3's words when it compacts the ticket batch: the dropped bit of
+    each row (``compaction_indices``)."""
+    b = ticket_batch(device)
+    keep = _ticket_keep(b)
+    return {f"nested_ticket_compaction_2^{b.capacity.bit_length() - 1}":
+            (~keep).to(torch.int64).contiguous()}
+
+
 def _window_inputs(device, seed: int = 13):
     """Columns shaped like the window inputs of phase 8 (the NDS tables
     at 2^22 rows), in their grouped aggregate's output order (sorted by
@@ -930,6 +1112,8 @@ def k3_cases(device, seed: int = 1) -> List[Dict]:
               for name, words in window_words(dev).items()]
     cases += [{"name": name, "keys": words, "payload": None}
               for name, words in decimal_words(dev).items()]
+    cases += [{"name": name, "keys": words, "payload": None}
+              for name, words in nested_words(dev).items()]
     cases += [
         {"name": "groupby_words_2^21", "keys": t(packed(n)),
          "payload": None},
@@ -1058,7 +1242,8 @@ def time_k3(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
                 _I64_MIN, (1 << 63) - 1, n, dtype=np.int64)).to(device),
             _copies_for(n * 8))
     for name, words in {**path_words(device), **string_rank_words(device),
-                        **window_words(device)}.items():
+                        **window_words(device),
+                        **nested_words(device)}.items():
         sets[name] = _cycle(words.clone, _copies_for(words.numel() * 8))
     out = {}
     for name, copies in sets.items():
@@ -1161,7 +1346,7 @@ def k4_cases(device, seed: int = 4) -> List[Dict]:
          "cols": [c.data for c in rolling["cols"]],
          "valids": [None] * 4, "idx": wperm, "live": rolling["live"]},
     ] + [same_width(d) for d in (np.int8, np.int16, np.float64)] + [
-        decimal_gather_case(dev)]
+        decimal_gather_case(dev)] + nested_k4_cases(dev)
 
 
 def check_string_gather(device, seed: int = 6) -> Dict:
@@ -1253,7 +1438,9 @@ def check_k4(device) -> List[Dict]:
 def time_k4(device, reps: int = 50) -> Dict[str, Dict[str, float]]:
     """Device ms of the engine edition, its plain version and
     ``torch.index_select`` of the same rows from the columns stacked (no
-    live mask, no validity), with the bytes the gather must move, at two
+    live mask, no validity), with the bytes the gather must move (a dead
+    row reads neither its index nor its source; each copy of the inputs
+    holds its own source, so the source is read from device memory), at two
     shapes of the path: the probe (2^21 rows gathering the two int32
     build columns of 2^17 rows, 90% live) and the partial aggregate's
     permutation (2^21 rows of an int32 key with validity and a float32
@@ -1261,7 +1448,9 @@ def time_k4(device, reps: int = 50) -> Dict[str, Dict[str, float]]:
     which shows how the time grows with the random sectors a row; and at
     the window's gather of q_rolling's rows (``_window_inputs``: four
     columns of 2^15 rows by a permutation of its 18,250 live rows, the
-    live prefix as the mask)."""
+    live prefix as the mask); and at the ticket lines' elements gathered
+    by element index (``nested_k4_cases``: item key, quantity, price with
+    its validity)."""
     rng = np.random.default_rng(6)
     b, n = K4_BUILD_ROWS, K4_PROBE_ROWS
 
@@ -1296,28 +1485,56 @@ def time_k4(device, reps: int = 50) -> Dict[str, Dict[str, float]]:
         lambda: t(np.r_[rng.permutation(wn),
                         np.arange(wn, wcols[0].shape[0])].astype(np.int32)),
         lambda: rolling["live"], wcols[0].shape[0])
+    # the nested texts' second launch, the ticket lines' elements by
+    # element index after the compaction: made after the other shapes
+    # are timed
+    def nested():
+        elem = nested_k4_cases(device)[1]
+        return (elem["cols"], elem["valids"], lambda: elem["idx"],
+                lambda: elem["live"], elem["idx"].shape[0])
+    shapes["nested_lines_elements_2^19"] = nested
+    def stack(cols):
+        return torch.stack([c.view(torch.int32) for c in cols
+                            if c.element_size() == 4]
+                           + [c.view(torch.int32).view(-1, 2)[:, i]
+                              for c in cols if c.element_size() == 8
+                              for i in (0, 1)], 1).contiguous()
+
+    def copy(ts):
+        return [None if x is None else x.clone() for x in ts]
+
     out = {}
-    for name, (cols, valids, make_idx, make_live, n_out) in shapes.items():
+    for name, shape in shapes.items():
+        cols, valids, make_idx, make_live, n_out = \
+            shape() if callable(shape) else shape
         rows = cols[0].shape[0]
-        stacked = torch.stack([c.view(torch.int32) for c in cols
-                               if c.element_size() == 4]
-                              + [c.view(torch.int32).view(-1, 2)[:, i]
-                                 for c in cols if c.element_size() == 8
-                                 for i in (0, 1)], 1).contiguous()
-        per_row = 4 + 1 + sum(c.element_size() for c in cols) + sum(
+        # a row's bytes, in the source and in the output alike
+        width = sum(c.element_size() for c in cols) + sum(
             1 for v in valids if v is not None)
-        items = _cycle(lambda: (make_idx(), make_live()),
-                       _copies_for(n_out * per_row))
+        # each copy holds its own source, indices and live mask, so no
+        # call finds the last one's source in L2
+        items = _cycle(lambda: (copy(cols), copy(valids), make_idx(),
+                                make_live()),
+                       _copies_for(n_out * (4 + 1 + width) + rows * width))
+        stacked = [stack(it[0]) for it in items]
         ms, plain_ms = _turns(
-            lambda it: ck.gather_rows_torch(cols, valids, *it),
-            lambda it: ck.gather_rows(cols, valids, *it), items, reps,
-            reps)
-        lib = _time_ms(lambda it: torch.index_select(stacked, 0, it[0]),
-                       items, reps)
-        source = rows * (sum(c.element_size() for c in cols)
-                         + sum(1 for v in valids if v is not None))
+            lambda it: ck.gather_rows_torch(*it),
+            lambda it: ck.gather_rows(*it), items, reps, reps)
+        lib = _time_ms(lambda i: torch.index_select(stacked[i], 0,
+                                                    items[i][2]),
+                       range(len(items)), reps)
+        # a dead row reads neither its index nor its source: the live
+        # rows read their indices, the distinct rows they name are read
+        # once, and every output row reads its live flag and is written
+        live = [it[3] for it in items]
+        n_live = sum(int(m.sum()) for m in live) / len(items)
+        distinct = sum(int(torch.unique(it[2][m]).numel())
+                       for it, m in zip(items, live)) / len(items)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-                     "bytes": n_out * per_row + source, "rows": n_out,
+                     "bytes": round(n_out * (1 + width) + n_live * 4
+                                    + distinct * width),
+                     "rows": n_out, "live_rows": round(n_live),
+                     "source_rows_read": round(distinct),
                      "table_rows": rows}
     return out
 

@@ -41,18 +41,24 @@ A decimal key orders as its int64 lane (the reference's ``:81``), one
 64-bit value lane, so a Decimal64 key costs what a long key costs. A
 decimal past 18 digits, which only the host holds, is two 64-bit lanes,
 its high word then its low word (``ops/decimals.orderable_words``).
-Nested keys raise ``NotImplementedError`` naming their ROADMAP item, and
-never fall back.
+A nested key: the planner places every operator that sorts, groups,
+joins or partitions by one on the CPU (the reference's gates). There a
+struct key orders as its fields do, one after the other, each a key of
+its own under the struct's null lane (``_struct_lanes``), and an array
+key by its dense rank among the batch's rows in Spark's order
+(``nested_key_ranks``: the reference's ``_nested_cpu_key``, elements
+then length, null first, NaN largest), which a CUDA tensor refuses.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import datatypes as dt
-from ..columnar.column import GpuColumnVector, is_string_like
+from ..columnar.column import GpuColumnVector, and_validity, is_string_like
 from . import cuda_kernels as ck
 from .decimals import orderable_words
 from .gather import inclusive_int_cumsum
@@ -64,7 +70,8 @@ __all__ = ["SortSpec", "canonicalize_floats", "normalize_float_key_col",
            "rank_pass_count", "rank_pass_words", "string_order_ranks_multi",
            "string_order_ranks", "change_flags", "sorted_key_words",
            "sort_permutation",
-           "sorted_segments", "segment_ids_for_keys"]
+           "sorted_segments", "segment_ids_for_keys", "nested_cpu_key",
+           "nested_key_ranks", "key_lane_count"]
 
 _I64_MIN = -(1 << 63)
 _I32_MAX = (1 << 31) - 1
@@ -101,17 +108,36 @@ def normalize_float_key_col(col: GpuColumnVector) -> GpuColumnVector:
                            col.validity)
 
 
+def _contains_map(t: dt.DataType) -> bool:
+    if isinstance(t, dt.MapType):
+        return True
+    if isinstance(t, dt.ArrayType):
+        return _contains_map(t.element_type)
+    if isinstance(t, dt.StructType):
+        return any(_contains_map(f.dtype) for f in t.fields)
+    return False
+
+
 def check_key_type(t: dt.DataType) -> None:
-    """Raise for a key type the port cannot order yet."""
-    if not (isinstance(t, _FIXED_WIDTH + (dt.DecimalType,))
-            or is_string_like(t)):
+    """Raise for a key type the port cannot order: a map anywhere in it
+    (Spark compares no map), or a type without a lane. A struct or array
+    key orders on the CPU (``nested_key_ranks``)."""
+    if _contains_map(t):
         raise NotImplementedError(
-            f"{t.simple_string()} sort/group/join keys are not ported yet: "
-            "nested ones wait for ROADMAP item 2 and item 8")
+            f"{t.simple_string()} keys: a map cannot be ordered, grouped "
+            "or joined on")
+    if not (isinstance(t, _FIXED_WIDTH + (dt.DecimalType,))
+            or is_string_like(t) or dt.is_nested(t)):
+        raise NotImplementedError(
+            f"{t.simple_string()} sort/group/join keys are not ported")
 
 
 def _check_fixed(t: dt.DataType) -> None:
     check_key_type(t)
+    if dt.is_nested(t):
+        raise NotImplementedError(
+            f"a nested key ({t.simple_string()}) has no device lane: it "
+            "orders by nested_key_ranks on the CPU")
     if is_string_like(t):
         raise TypeError("a string key orders by string_order_ranks, not "
                         "by its data lane")
@@ -288,6 +314,37 @@ def string_order_ranks(col: GpuColumnVector,
     return string_order_ranks_multi([col], [live])
 
 
+def nested_cpu_key(v):
+    """A Python value's comparable in Spark's order (the reference's
+    ``exec/sort.py:72``): null first, NaN largest, ``-0.0 == 0.0``, a
+    struct field by field, an array element by element and then by
+    length."""
+    if v is None:
+        return (0,)
+    if isinstance(v, dict):
+        return (1,) + tuple(nested_cpu_key(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return (1,) + tuple(nested_cpu_key(x) for x in v)
+    if isinstance(v, float):
+        return (1, (1, 0.0)) if math.isnan(v) else (1, (0, v + 0.0))
+    return (1, (0, v))
+
+
+def nested_key_ranks(col: GpuColumnVector) -> torch.Tensor:
+    """Each row's dense rank (int64) among the column's rows in Spark's
+    order, on the host: equal values rank equal, so the ranks sort and
+    group as the values do."""
+    if col.device.type != "cpu":
+        raise NotImplementedError(
+            f"a nested key ({col.dtype.simple_string()}) has no device "
+            "lane: the planner runs its operator on the CPU")
+    from ..columnar.arrow_bridge import column_to_arrow
+    keys = [nested_cpu_key(v)
+            for v in column_to_arrow(col, 0, col.capacity).to_pylist()]
+    rank = {k: i for i, k in enumerate(sorted(set(keys)))}
+    return torch.tensor([rank[k] for k in keys], dtype=torch.int64)
+
+
 def _null_rank_lane(validity, n: int, device, spec: SortSpec) \
         -> Tuple[torch.Tensor, int]:
     """Null placement, independent of direction: a one-bit lane."""
@@ -298,18 +355,55 @@ def _null_rank_lane(validity, n: int, device, spec: SortSpec) \
     return (valid if spec.nulls_first else 1 - valid), 1
 
 
+def _struct_lanes(col: GpuColumnVector, spec: SortSpec, live: torch.Tensor,
+                  outer: Optional[torch.Tensor]) \
+        -> List[Tuple[torch.Tensor, int]]:
+    """A struct key's lanes in Spark's order: its null lane by ``spec``,
+    then each field as a key of its own, a null field first (last when
+    descending, the whole comparison reversed); a null struct's field
+    lanes are all zero, so null structs tie."""
+    valid = col.valid_mask() if outer is None \
+        else col.valid_mask() & outer
+    out = [_null_rank_lane(valid, valid.shape[0], valid.device, spec)]
+    inner = SortSpec(spec.ascending, spec.ascending)
+    for ch in col.children:
+        if isinstance(ch.dtype, dt.StructType):
+            lanes = _struct_lanes(ch, inner, live, valid)
+        else:
+            field = GpuColumnVector(ch.dtype, ch.data, and_validity(
+                ch.validity, valid), ch.offsets, ch.chars, ch.children)
+            lanes = _key_lanes([field], [inner], live)[1:]
+        out.extend((torch.where(valid, v, torch.zeros_like(v)), w)
+                   for v, w in lanes)
+    return out
+
+
+def key_lane_count(col: GpuColumnVector) -> int:
+    """The lanes ``_key_lanes`` gives one key: its null lane and its
+    value lanes (a struct's for each field, a wide decimal's two)."""
+    if isinstance(col.dtype, dt.StructType):
+        return 1 + sum(key_lane_count(ch) for ch in col.children)
+    return 3 if dt.is_wide_decimal(col.dtype) else 2
+
+
 def _key_lanes(key_cols: Sequence[GpuColumnVector],
                specs: Sequence[SortSpec],
                live: torch.Tensor) -> List[Tuple[torch.Tensor, int]]:
     """Orderable lanes, most significant first: the live lane (padding
-    always last), then per key a null lane and a value lane."""
+    always last), then per key a null lane and a value lane (a struct
+    key a lane set for each field, ``_struct_lanes``)."""
     n = live.shape[0]
     lanes = [((~live).to(torch.int64), 1)]
     for col, spec in zip(key_cols, specs):
+        if isinstance(col.dtype, dt.StructType):
+            lanes.extend(_struct_lanes(col, spec, live, None))
+            continue
         if is_string_like(col.dtype):
             ranked = live if col.validity is None else live & col.validity
             parts = [(string_order_ranks(col, ranked).to(torch.int64),
                       _RANK_BITS)]
+        elif dt.is_nested(col.dtype):
+            parts = [(nested_key_ranks(col), _RANK_BITS)]
         elif dt.is_wide_decimal(col.dtype):
             hi, lo = orderable_words(col)
             parts = [(unsigned_lane(hi, 64), 64), (unsigned_lane(lo, 64), 64)]

@@ -323,7 +323,14 @@ class DataFrame:
 
     def explode(self, column, outer: bool = False,
                 position: bool = False) -> "DataFrame":
-        raise _unported("explode (TpuGenerateExec)", 13)
+        """One row an element of an array or map column (``posexplode``
+        with ``position``, ``_outer`` with ``outer``), after the other
+        columns; the element is ``col`` (a map's ``key`` and
+        ``value``), the position ``pos``."""
+        from .exec.generate import GpuGenerateExec
+        return DataFrame(GpuGenerateExec(self._bind(column), self._node,
+                                         outer=outer, position=position),
+                         self._session)
 
     def cache(self) -> "DataFrame":
         return DataFrame(GpuCacheExec(self._node), self._session)

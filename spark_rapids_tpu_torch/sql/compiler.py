@@ -49,6 +49,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import datatypes as dt
+from ..expr.aggregates import _Collect
 from ..expr.base import Alias, BoundReference, Expression, Literal
 from . import ast as A
 from . import functions as F
@@ -980,6 +981,11 @@ class SqlCompiler:
                     fn = F.build_aggregate(
                         fn_ast, args if not fn_ast.star else [],
                         self.sql)
+                    if isinstance(fn, _Collect):
+                        raise self.err(
+                            f"{fn_ast.name}() over a window is not ported "
+                            "yet (ROADMAP item 8)", fn_ast,
+                            "unsupported_feature")
                 else:
                     raise self.err(
                         f"unknown window function {fn_ast.name}()",

@@ -13,10 +13,10 @@ do not take, so its ``startswith``, ``endswith``, ``contains``,
 ``replace``, ``locate``, ``lpad``, ``rpad``, ``repeat`` and ``trunc``
 fail when they run (ROADMAP "Things to know"). ``first`` and ``last``
 take Spark's optional ``ignoreNulls`` literal. ``collect_list`` and
-``collect_set`` return arrays, which the port's columns do not hold
-yet: they raise ``SqlAnalysisError(..., "unsupported_feature")`` naming
-ROADMAP item 2. An unknown name is ``unknown_function``, as in the
-reference.
+``collect_set`` build the collects (an array result); over a window they
+raise ``SqlAnalysisError(..., "unsupported_feature")`` naming ROADMAP
+item 8 (``sql/compiler.py``). An unknown name is ``unknown_function``, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -49,14 +49,6 @@ def _arity(name, node, args, lo, hi=None, sql=""):
         want = str(lo) if lo == hi else f"{lo}..{hi}"
         raise _err(f"{name}() takes {want} argument(s), got "
                    f"{len(args)}", node, "bad_arity", sql)
-
-
-def _unported(item: int) -> Callable:
-    def build(node, args, sql):
-        raise _err(f"{node.name}() returns an array, which the port's "
-                   f"columns do not hold yet (ROADMAP item {item})", node,
-                   "unsupported_feature", sql)
-    return build
 
 
 def _simple(cls, lo: int, hi=None):
@@ -237,7 +229,8 @@ AGGREGATE_FUNCTIONS: Dict[str, Callable] = {
     "stddev_pop": _U(G.StddevPop, 1),
     "variance": _U(G.VarianceSamp, 1), "var_samp": _U(G.VarianceSamp, 1),
     "var_pop": _U(G.VariancePop, 1),
-    "collect_list": _unported(2), "collect_set": _unported(2),
+    "collect_list": _U(G.CollectList, 1),
+    "collect_set": _U(G.CollectSet, 1),
     "approx_percentile": _build_approx_percentile,
 }
 WINDOW_FUNCTIONS: Dict[str, Callable] = {

@@ -1,7 +1,8 @@
 """Where an NDS query's time goes on the card: one traced run from SQL.
 
     python3 -m spark_rapids_tpu_torch.tools.nds_trace [--query NAME]
-        [--partitions N] [--n-sales N] [--decimals] [--out DIR]
+        [--partitions N] [--n-sales N] [--decimals | --nested]
+        [--out DIR]
 
 ``NAME`` is any query the port runs from SQL: the corpus
 (``nds.PORTED_QUERIES``), the outer, cross and nested-loop join texts
@@ -9,7 +10,10 @@
 (``tools/nds_functions.QUERIES``) or, with ``--decimals``, the decimal
 texts (``tools/nds_decimals.QUERIES``) over the tables whose money
 columns are ``DECIMAL(7,2)``, written as Spark writes decimals into
-``.bench_cache/nds_decimal_torch_n<N>/`` (``decimal_paths``).
+``.bench_cache/nds_decimal_torch_n<N>/`` (``decimal_paths``) or, with
+``--nested``, the nested texts (``tools/nds_nested.QUERIES``, DataFrame
+builders or SQL) over the tables with ``ticket``, written into
+``.bench_cache/nds_nested_torch_n<N>/`` (``nested_paths``).
 
 Writes the NDS tables as ``chip_smoke.py`` phase 8 does (``nds.gen_tables``,
 seed 42, snappy, row groups of 2^19; default 2^22 ``store_sales`` rows,
@@ -44,7 +48,7 @@ import time
 import torch
 
 from .. import nds
-from . import nds_decimals, nds_functions, nds_joins
+from . import nds_decimals, nds_functions, nds_joins, nds_nested
 from .join_trace import _union_us
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -80,6 +84,16 @@ def decimal_paths(n_sales: int, tables=None):
         tables = nds_decimals.decimal_tables(nds.gen_tables(n_sales))
     return nds.write_tables(tables, os.path.join(
         _ROOT, ".bench_cache", f"nds_decimal_torch_n{n_sales}"))
+
+
+def nested_paths(n_sales: int, tables=None):
+    """The nested NDS files at ``n_sales`` rows (``nds_nested.
+    nested_tables``, unless the caller has made ``tables``), written
+    once under ``.bench_cache/`` in row groups of 2^16."""
+    if tables is None:
+        tables = nds_nested.nested_tables(nds.gen_tables(n_sales))
+    return nds_nested.write_tables(tables, os.path.join(
+        _ROOT, ".bench_cache", f"nds_nested_torch_n{n_sales}"))
 
 
 def counters():
@@ -134,7 +148,8 @@ def _window_share(device_events, top: int = 10):
 
 
 def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
-              n_sales: int = 1 << 22, decimals: bool = False) -> dict:
+              n_sales: int = 1 << 22, decimals: bool = False,
+              nested: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("nds_trace needs a CUDA device")
     from torch.autograd import DeviceType
@@ -143,11 +158,16 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
     from ..exec.base import ExecCtx
     from ..planner import GpuOverrides
     device = torch.device("cuda", 0)
-    paths = decimal_paths(n_sales) if decimals else nds_paths(n_sales)
+    paths = decimal_paths(n_sales) if decimals else nested_paths(n_sales) \
+        if nested else nds_paths(n_sales)
     s = nds.session_over_files(paths, {
         "spark.sql.shuffle.partitions": str(partitions)}, device)
-    sql = nds_decimals.SQL_QUERIES[query] if decimals else _SQL[query]
-    pp = GpuOverrides(s.conf, device).apply(s.sql(sql)._node)
+    if nested:
+        node = nds_nested.plan(s, query)._node
+    else:
+        node = s.sql(nds_decimals.SQL_QUERIES[query] if decimals
+                     else _SQL[query])._node
+    pp = GpuOverrides(s.conf, device).apply(node)
     pp.collect(ExecCtx(s.conf, device))  # warm-up
     torch.cuda.synchronize()
     wrappers = counters()
@@ -187,7 +207,7 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
                      if _family(k) is None),
                     key=lambda kv: -kv[1]["device_us"])[:12]
     return {"query": query, "partitions": partitions, "n_sales": n_sales,
-            "decimals": decimals,
+            "decimals": decimals, "nested": nested,
             "rows": out.num_rows, "device": torch.cuda.get_device_name(0),
             "wall_us": wall_us, "device_busy_us": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
@@ -202,17 +222,20 @@ def trace_nds(out_dir=None, query: str = "q3", partitions: int = 1,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--query", default="q3",
-                    choices=sorted(set(_SQL) | set(nds_decimals.QUERIES)))
+                    choices=sorted(set(_SQL) | set(nds_decimals.QUERIES)
+                                   | set(nds_nested.QUERIES)))
     ap.add_argument("--partitions", type=int, default=1)
     ap.add_argument("--n-sales", type=int, default=1 << 22)
     ap.add_argument("--decimals", action="store_true",
                     help="the decimal texts over DECIMAL(7,2) money "
                          "columns")
+    ap.add_argument("--nested", action="store_true",
+                    help="the nested texts over the ticket table")
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome trace")
     args = ap.parse_args()
     print(json.dumps(trace_nds(args.out, args.query, args.partitions,
-                               args.n_sales, args.decimals)))
+                               args.n_sales, args.decimals, args.nested)))
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@ must be exact; sums agree to rel 1e-12 (float64, another order)."""
 import numpy as np
 import pytest
 import torch
+from torch_dual_run import assert_same_rows
 
 import spark_rapids_tpu.datatypes as jdt
 import spark_rapids_tpu.expr as jexpr
@@ -96,15 +97,10 @@ def _run(pkg, build):
 
 
 def _same_columns(a, b):
-    assert a.schema.names == b.schema.names
-    assert [f.type for f in a.schema] == [f.type for f in b.schema]
-    for name in a.schema.names:
-        x, y = a.column(name), b.column(name)
-        np.testing.assert_array_equal(x.is_null().to_numpy(),
-                                      y.is_null().to_numpy(), err_msg=name)
-        np.testing.assert_array_equal(
-            x.drop_null().to_numpy(), y.drop_null().to_numpy(),
-            err_msg=name)
+    """The reference's table ``a`` against the port's ``b``: names,
+    Arrow types, nulls and every value exactly, in row order (the
+    dual-run assert with floats exact)."""
+    assert_same_rows(b, a, ordered=True, rtol=0.0)
 
 
 def _literal(pkg, value, t):

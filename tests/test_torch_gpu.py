@@ -12,7 +12,10 @@ bit through each of its routes, LIKE through K6 once a batch, the
 staged join on the card against the CPU, a full outer hash join and
 a full outer nested-loop join from SQL on the card against the CPU, and
 a spill round trip of a card batch that frees its bytes in
-``torch.cuda.memory_allocated()`` and brings the same rows back.
+``torch.cuda.memory_allocated()`` and brings the same rows back; the
+nested gathers and the ticket batch's compaction on the card against
+the same calls on CPU tensors, and the nested texts on the card against
+their oracle.
 Run on a machine with a CUDA device: ``python -m pytest
 tests/test_torch_gpu.py``; elsewhere they skip."""
 import pytest
@@ -467,3 +470,29 @@ def test_spill_round_trip_frees_the_card(cuda_device, tmp_path):
     gc.collect()
     assert mm.device_bytes == 0 and mm.disk_in_use_bytes == 0
     assert torch.cuda.memory_allocated() <= base + (1 << 20)
+
+
+def test_nested_gathers_match_their_plain_versions(cuda_device):
+    """K4 moving a struct's children and a list's elements (a second
+    launch a list level), and K3 then K4 compacting the ticket batch,
+    bit for bit against the same calls on CPU tensors."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    recs = kc.check_nested_gather(cuda_device)
+    assert all(r["equal"] for r in recs)
+    launches = {r["case"]: r["k4_launches"] for r in recs}
+    assert launches["nested_gather_t_customer"] == 1
+    assert launches["nested_gather_array<array<int32>>"] == 3
+
+
+def test_nested_texts_on_the_card_match_their_oracle(cuda_device,
+                                                     tmp_path):
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.tools import nds_nested as nn
+    tables = nn.nested_tables(nds.gen_tables(1 << 14))
+    paths = nn.write_tables(tables, str(tmp_path))
+    for q in nn.QUERIES:
+        for parts in (1, 16):
+            s = nds.session_over_files(
+                paths, {"spark.sql.shuffle.partitions": str(parts)},
+                cuda_device)
+            nn.check(q, nn.plan(s, q).collect(), tables)

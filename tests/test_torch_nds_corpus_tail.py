@@ -92,14 +92,24 @@ def test_unported_sql_raises_naming_its_item(paths, name):
 
 def test_list_percentile_raises_naming_item_2(paths):
     """A list of percentages returns an array (the SQL dialect has no
-    array literal, so it comes through the DataFrame API)."""
+    array literal, so it comes through the DataFrame API): it no longer
+    raises, and equals the reference's."""
     from spark_rapids_tpu_torch.expr import Alias, UnresolvedColumn
     from spark_rapids_tpu_torch.expr.aggregates import ApproxPercentile
     s = nds.session_over_files(paths, device="cpu")
     df = s.table("store_sales").group_by(UnresolvedColumn("ss_store_sk"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        df.agg(Alias(ApproxPercentile(UnresolvedColumn("ss_sales_price"),
-                                      [0.25, 0.5]), "p")).collect()
+    got = df.agg(Alias(ApproxPercentile(UnresolvedColumn("ss_sales_price"),
+                                        [0.25, 0.5]), "p")).collect()
+    from spark_rapids_tpu.expr import Alias as JAlias
+    from spark_rapids_tpu.expr import UnresolvedColumn as JCol
+    from spark_rapids_tpu.expr.aggregates import \
+        ApproxPercentile as JApproxPercentile
+    from spark_rapids_tpu.session import TpuSession
+    js = TpuSession()
+    want = js.read_parquet(paths["store_sales"]).group_by(
+        JCol("ss_store_sk")).agg(JAlias(JApproxPercentile(
+            JCol("ss_sales_price"), [0.25, 0.5]), "p")).collect()
+    assert_same_rows(got, want, ordered=False)
 
 
 def test_the_corpus_is_split_in_two():

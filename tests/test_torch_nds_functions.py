@@ -18,8 +18,8 @@ probe's seven texts that only the reference ran.
   (``pow(x, 2)``); those functions are held to the reference
   expression by expression in ``tests/test_torch_functions_*.py``.
 - Every name of the reference's ``_scalar_table`` and ``_agg_table``
-  builds and runs in the port; ``collect_list``/``collect_set`` raise
-  naming ROADMAP item 2.
+  builds and runs in the port; ``collect_list``/``collect_set`` build
+  and equal the reference's arrays.
 - MIN/MAX over a string, STDDEV, FIRST, UPPER, ROUND and CAST to string
   equal the reference, and so does COUNT(1).
 """
@@ -149,13 +149,18 @@ def test_every_registry_name_builds_and_runs(tables):
 
 @pytest.mark.parametrize("name", ["collect_list", "collect_set"])
 def test_collects_name_item_2(tables, name):
+    """They raised naming item 2 until the collects were ported: each
+    builds from SQL and equals the reference's array."""
+    from spark_rapids_tpu.session import TpuSession
     from spark_rapids_tpu_torch.session import GpuSession
-    from spark_rapids_tpu_torch.sql import SqlAnalysisError
+    sql = f"SELECT {name}(s_state) AS v FROM t"
     s = GpuSession(device="cpu")
     s.register_table("t", s.create_dataframe(tables["store"]))
-    with pytest.raises(SqlAnalysisError, match="ROADMAP item 2") as e:
-        s.sql(f"SELECT {name}(s_state) FROM t")
-    assert e.value.detail == "unsupported_feature"
+    js = TpuSession()
+    js.register_table("t", js.create_dataframe(tables["store"]))
+    got, want = s.sql(sql).collect(), js.sql(sql).collect()
+    assert got.schema.types == want.schema.types
+    assert got.to_pylist() == want.to_pylist() and got.num_rows == 1
 
 
 PROBE = {

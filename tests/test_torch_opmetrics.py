@@ -167,15 +167,19 @@ def _corpus():
 
 
 CORPUS_RUNS = _corpus()
+# the runs split in two halves, the other in
+# tests/test_torch_opmetrics_corpus.py: under the tier-1 run's
+# ``--dist loadfile`` one file runs on one worker
+HALVES = (CORPUS_RUNS[0::2], CORPUS_RUNS[1::2])
 
 
-@pytest.mark.parametrize("q,sql,conf,parts", CORPUS_RUNS,
-                         ids=[f"{q}-p{p}" for q, _, _, p in CORPUS_RUNS])
+@pytest.mark.parametrize("q,sql,conf,parts", HALVES[0],
+                         ids=[f"{q}-p{p}" for q, _, _, p in HALVES[0]])
 def test_batches_over_the_verifier_corpus(paths, q, sql, conf, parts):
     """The 44 texts of the plan verifier's corpus (the NDS corpus, the
     join, fallback and memory texts under their confs) at 1 and 16
     partitions: rows equal everywhere, batches equal but for
-    ``DIFFERENCES``."""
+    ``DIFFERENCES``. This file runs the first half of the runs."""
     _rows_and_batches(paths, q, sql, conf, parts)
 
 

@@ -10,7 +10,7 @@ grouped and global, an all-null group and an all-null input, strings
 refused, the sketch over several batches (grouped and global), a large
 n where a float32 ``p * n`` picks another row than Spark's float64
 rank, and ``rank0`` at its edges. A list of percentages returns an
-array, which the port's columns lack: it raises naming ROADMAP item 2.
+array of the value's type, held to the reference in both strategies.
 Every value is compared exactly (a percentile is one of the data's own
 values, ``-0.0`` keeping its sign), and the row order too (both
 packages emit groups in key order)."""
@@ -139,10 +139,20 @@ def test_strings_and_lists_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         GpuHashAggregateExec([], [TAlias(ApproxPercentile(tcol("s"), 0.5),
                                          "p")], src)
-    src = tbase.HostBatchSourceExec(_batches(GENS["double"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        GpuHashAggregateExec([], [TAlias(ApproxPercentile(
-            tcol("v"), [0.25, 0.5]), "p")], src)
+    # a list of percentages is no longer refused: an array a group, in
+    # both strategies
+    for exact in ("true", "false"):
+        for keys in (True, False):
+            got, want = run_both(_batches(GENS["double"]), [0.25, 0.5, 1.0],
+                                 keys=keys, conf={
+                                     "spark.rapids.sql.approxPercentile"
+                                     ".exact": exact})
+            assert got.schema.types == want.schema.types
+            flat = [pa.table({"p": t.column("p").combine_chunks()
+                              .flatten()}) for t in (got, want)]
+            _exact(*flat)
+            assert got.column("p").combine_chunks().value_lengths() \
+                .equals(want.column("p").combine_chunks().value_lengths())
 
 
 @pytest.mark.parametrize("keys", [True, False], ids=["grouped", "global"])

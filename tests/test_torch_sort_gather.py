@@ -348,7 +348,8 @@ def test_gather_columns_and_compaction_match_reference():
 def test_string_keys_raise_not_fall_back():
     """A string key orders by its rank lane now (the permutation matches
     the reference's), and a decimal key by its int64 lane (as the
-    reference's); a nested key raises and never falls back."""
+    reference's); a struct key orders on the CPU by its rank among the
+    rows, as the reference's CPU sort orders it (``cpu_sort_table``)."""
     from spark_rapids_tpu.columnar import arrow_to_device
     from spark_rapids_tpu_torch.columnar.arrow_bridge import \
         arrow_to_device as t_arrow_to_device
@@ -374,11 +375,23 @@ def test_string_keys_raise_not_fall_back():
     got = tsk.sort_permutation([td], [tsk.SortSpec()],
                                torch.from_numpy(live))
     assert np.array_equal(got.numpy()[:5], np.asarray(want)[:5])
-    col = GpuColumnVector(tdt.ArrayType(tdt.INT32),
-                          torch.zeros(4, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="nested"):
-        tsk.sort_permutation([col], [tsk.SortSpec()],
-                             torch.ones(4, dtype=torch.bool))
+    from spark_rapids_tpu.exec.sort import SortOrder as JOrder
+    from spark_rapids_tpu.exec.sort import cpu_sort_table
+    from spark_rapids_tpu.expr.base import BoundReference
+    st = pa.record_batch({"s": pa.array(
+        [{"a": 2, "b": "x"}, None, {"a": None, "b": "y"}, {"a": 2, "b": ""},
+         {"a": -1, "b": None}, {"a": 2, "b": "x"}],
+        pa.struct([("a", pa.int32()), ("b", pa.string())]))})
+    tcol = t_arrow_to_device(st, None, torch.device("cpu")).columns[0]
+    live = np.arange(tcol.capacity) < st.num_rows
+    got = tsk.sort_permutation([tcol], [tsk.SortSpec()],
+                               torch.from_numpy(live))
+    jtype = jdt.from_arrow(st.schema.field("s").type)
+    want = cpu_sort_table(
+        pa.table({"i": pa.array(range(st.num_rows))}), [st.column(0)],
+        [JOrder(BoundReference(0, jtype, True, "s"))])
+    assert got.numpy()[:st.num_rows].tolist() == \
+        want.column("i").to_pylist()
 
 
 def test_compact_batch_matches_reference():

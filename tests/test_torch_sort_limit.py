@@ -126,8 +126,9 @@ def test_local_limit_over_batches_matches_reference(limit):
 def test_string_sort_keys_raise():
     """String sort keys order by their ranks now (ascending and
     descending, nulls first and last, under a lazy selection), as the
-    reference does, and decimal keys by their int64 lanes; a nested key
-    still raises, naming its item."""
+    reference does, and decimal keys by their int64 lanes; an array key
+    places the sort on the CPU, as the reference's planner does, and
+    orders its rows as the reference's CPU sort does."""
     for order in ([("s", True, None), ("row", True, None)],
                   [("s", False, True), ("k", True, False),
                    ("row", False, None)]):
@@ -143,7 +144,14 @@ def test_string_sort_keys_raise():
                           js),
               GpuSortExec([SortOrder(tcol(c), a, nf) for c, a, nf in order],
                           ts))
-    arr = pa.table({"a": pa.array([[1], [2]], pa.list_(pa.int32()))})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        GpuSortExec([SortOrder(tcol("a"))],
-                    HostBatchSourceExec(arr.to_batches()))
+    from spark_rapids_tpu.planner import overrides
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    arr = pa.table({"a": pa.array([[1, 2], [2], None, [], [1], [1, None]],
+                                  pa.list_(pa.int32())),
+                    "row": pa.array(np.arange(6, dtype=np.int64))})
+    jpp = overrides(TpuSortExec([JOrder(jcol("a"))],
+                                JSource(arr.to_batches())))
+    tpp = GpuOverrides(device="cpu").apply(GpuSortExec(
+        [SortOrder(tcol("a"))], HostBatchSourceExec(arr.to_batches())))
+    assert tpp.fallback_nodes() == jpp.fallback_nodes() == ["SortExec"]
+    assert tpp.collect().equals(jpp.collect())

@@ -221,22 +221,24 @@ def test_scan_reads_strings_on_both_paths(files, case, device_decode):
 def test_decimal_columns_still_raise(tmp_path):
     """Decimal columns read on both scan paths now, as pyarrow reads
     them (tests/test_torch_decimal_columnar.py holds the counters to the
-    reference); a nested column still raises, naming item 2."""
+    reference); a nested column reads as pyarrow reads it too, a host
+    chunk of reason ``nested`` on the device-decode path
+    (tests/test_torch_nested_columns.py)."""
     import decimal
     path = str(tmp_path / "dec.parquet")
     table = pa.table({"d": pa.array([decimal.Decimal("1.5"), None],
                                     pa.decimal128(5, 1))})
     pq.write_table(table, path)
     nested = str(tmp_path / "nested.parquet")
-    pq.write_table(pa.table({"a": pa.array([[1, 2], None],
-                                           pa.list_(pa.int32()))}), nested)
+    arrays = pa.table({"a": pa.array([[1, 2], None], pa.list_(pa.int32()))})
+    pq.write_table(arrays, nested)
     for dd in ("true", "false"):
         conf = RapidsConf({"spark.rapids.sql.format.parquet.deviceDecode."
                            "enabled": dd})
         got = collect_arrow(GpuFileScanExec([path]), ExecCtx(conf, "cpu"))
         assert got.equals(table)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-            collect_arrow(GpuFileScanExec([nested]), ExecCtx(conf, "cpu"))
+        got = collect_arrow(GpuFileScanExec([nested]), ExecCtx(conf, "cpu"))
+        assert got.equals(arrays)
 
 
 def test_projection_and_filter_share_string_buffers():

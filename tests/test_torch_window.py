@@ -409,8 +409,9 @@ def test_range_offsets_the_device_cannot_compute_raise(case):
 @pytest.mark.parametrize("fn", ["first", "last"])
 def test_first_and_last_over_a_window_name_item_8(fn):
     """Item 8's window aggregates run now (the gate took First, Last
-    and the moments, ``tests/test_torch_moments.py``); the collects,
-    which return arrays, still raise, naming item 2."""
+    and the moments, ``tests/test_torch_moments.py``); the collects build
+    as aggregates now, but over a window they still raise, naming item
+    8."""
     from spark_rapids_tpu_torch.session import GpuSession
     from spark_rapids_tpu_torch.sql import SqlAnalysisError
     s = GpuSession(device="cpu")
@@ -419,7 +420,7 @@ def test_first_and_last_over_a_window_name_item_8(fn):
                 "ROWS BETWEEN 1 PRECEDING AND CURRENT ROW) AS w FROM t") \
         .collect()
     assert out.num_rows == _gate_batch().num_rows
-    with pytest.raises(SqlAnalysisError, match="ROADMAP item 2") as e:
+    with pytest.raises(SqlAnalysisError, match="ROADMAP item 8") as e:
         s.sql("SELECT collect_list(v) OVER (PARTITION BY p ORDER BY o) "
               "FROM t")
     assert e.value.detail == "unsupported_feature"

@@ -15,7 +15,12 @@ the same Parquet files with the same conf, the Arrow outputs compared.
   ORDER BY), else the rows compared as sorted multisets.
 
 ``dual_run`` also holds the scans' ``deviceChunks`` and
-``fallbackChunks`` of both runs equal.
+``fallbackChunks`` of both runs equal. ``dual_run_frames`` does the same
+for a DataFrame builder ``build(session, E)`` (``tools/nds_nested``'s
+texts), ``E`` each package's expression namespace
+(``nds_nested.namespace``), so one text runs through both packages;
+where the reference must read its files another way (``ref_conf``),
+the port's scan counters are held to ``port_chunks`` instead.
 
 Importing the module sets two things for the test process (every
 pytest-xdist worker collects every test file, so every worker imports
@@ -96,6 +101,62 @@ def run_port(sql: str, paths: Dict[str, str],
     return out, scan_chunks(ctx.metrics)
 
 
+def _reference_namespace():
+    from spark_rapids_tpu import datatypes, expr
+    from spark_rapids_tpu.expr import aggregates
+    from spark_rapids_tpu_torch.tools.nds_nested import namespace
+    return namespace(expr, aggregates, datatypes)
+
+
+def run_reference_frames(build, paths: Dict[str, str],
+                         conf: Optional[dict] = None):
+    """The JAX package's rows, scan counters and planned plan for a
+    builder."""
+    from spark_rapids_tpu.exec.base import ExecCtx
+    from spark_rapids_tpu.planner import TpuOverrides
+    from spark_rapids_tpu.session import TpuSession
+    from spark_rapids_tpu.tools import nds as jnds
+    s = TpuSession(conf=dict(conf or {}))
+    jnds.register_frames(s, {k: s.read_parquet(p) for k, p in paths.items()})
+    pp = TpuOverrides(s.conf).apply(build(s, _reference_namespace())._node)
+    ctx = ExecCtx(s.conf)
+    return pp.collect(ctx), scan_chunks(ctx.metrics), pp
+
+
+def run_port_frames(build, paths: Dict[str, str],
+                    conf: Optional[dict] = None):
+    """The port's rows, scan counters and planned plan for a builder, on
+    the CPU."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.tools.nds_nested import port_namespace
+    s = nds.session_over_files(paths, conf, device="cpu")
+    pp = GpuOverrides(s.conf, s.device).apply(
+        build(s, port_namespace())._node)
+    ctx = ExecCtx(s.conf, "cpu")
+    return pp.collect(ctx), scan_chunks(ctx.metrics), pp
+
+
+def dual_run_frames(build, paths: Dict[str, str],
+                    conf: Optional[dict] = None, ordered: bool = True,
+                    ref_conf: Optional[dict] = None,
+                    port_chunks=None, label: str = ""):
+    """``dual_run`` for a builder: rows and types held to the
+    reference's (``ordered``: the row order too), the scan counters to
+    the reference's or to ``port_chunks(port's plan)``. ``ref_conf``
+    adds settings to the reference's run only. Returns ``(port's table,
+    reference's table, port's plan, reference's plan)``."""
+    got, got_chunks, pp = run_port_frames(build, paths, conf)
+    want, want_chunks, jpp = run_reference_frames(
+        build, paths, dict(conf or {}, **(ref_conf or {})))
+    assert_same_rows(got, want, ordered, label=label)
+    need = want_chunks if port_chunks is None \
+        else sorted(port_chunks(pp))
+    assert got_chunks == need, (got_chunks, need)
+    return got, want, pp, jpp
+
+
 def is_ordered(sql: str) -> bool:
     """The query orders its output: its outermost ORDER BY."""
     from spark_rapids_tpu_torch.sql import parse_statement
@@ -115,19 +176,20 @@ def _sorted_rows(t: pa.Table):
     return sorted(rows, key=lambda r: tuple(_key(v) for v in r))
 
 
-def _same_value(a, b, is_float: bool) -> bool:
+def _same_value(a, b, is_float: bool, rtol: float = FLOAT_RTOL) -> bool:
     if a is None or b is None:
         return a is None and b is None
     if is_float:
         if math.isnan(a) or math.isnan(b):
             return math.isnan(a) and math.isnan(b)
-        return a == b or math.isclose(a, b, rel_tol=FLOAT_RTOL)
+        return a == b or math.isclose(a, b, rel_tol=rtol)
     return type(a) is type(b) and a == b
 
 
 def assert_same_rows(got: pa.Table, want: pa.Table, ordered: bool,
-                     label: str = "") -> None:
-    """The port's table against the reference's (module docstring)."""
+                     label: str = "", rtol: float = FLOAT_RTOL) -> None:
+    """The port's table against the reference's (module docstring);
+    ``rtol=0`` holds floats exactly."""
     assert got.column_names == want.column_names, \
         (label, got.column_names, want.column_names)
     assert got.schema.types == want.schema.types, \
@@ -144,7 +206,7 @@ def assert_same_rows(got: pa.Table, want: pa.Table, ordered: bool,
         g, w = _sorted_rows(got), _sorted_rows(want)
     for i, (gr, wr) in enumerate(zip(g, w)):
         for name, a, b, f in zip(got.column_names, gr, wr, floats):
-            assert _same_value(a, b, f), (label, i, name, a, b)
+            assert _same_value(a, b, f, rtol), (label, i, name, a, b)
 
 
 def dual_run(sql: str, paths: Dict[str, str],
