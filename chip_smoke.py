@@ -12,11 +12,14 @@ working set passes the device budget they run under
 nested texts over a ``ticket`` table of struct, array and map columns
 (``tools/nds_nested.py``), through
 ``spark_rapids_tpu_torch``, with K1 to K6 checked on the card, every
-plan checked by the static plan verifier, and the per-operator metrics
-(EXPLAIN ANALYZE, query profiles) held to the runs.
+plan checked by the static plan verifier, the per-operator metrics
+(EXPLAIN ANALYZE, query profiles) held to the runs, and the telemetry
+(span tracer, metrics registry, flight recorder, event log, warehouse,
+``torch.profiler`` under ``spark.rapids.profile.path``) held to them.
 
     python3 chip_smoke.py [--memory-only | --opm-only | --functions-only
-                           | --decimals-only | --nested-only] [--log FILE]
+                           | --decimals-only | --nested-only
+                           | --telemetry-only] [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -98,7 +101,7 @@ Phases, any failure exits non-zero before the result line:
      snappy, row groups of 2^19, written to
      .bench_cache/nds_torch_n4194304/), through GpuSession.sql,
      GpuOverrides and PhysicalPlan.collect with device page decode on: at
-     spark.sql.shuffle.partitions 1 a warm-up and 3 timed runs each
+     spark.sql.shuffle.partitions 1 a warm-up and 2 timed runs each
      (rows/s = store_sales rows over the median wall of collect, and ms a
      query in collect; planning, sql + apply, is timed apart), the
      warm-up and one more run after the first timed one under
@@ -247,6 +250,40 @@ Phases, any failure exits non-zero before the result line:
      against the same calls on CPU tensors, bit for bit
      (``check_nested_gather``), and K3 on the compaction's words
      (``nested_words``);
+  17. telemetry: q3, q_rank, q97 and q_like_intl (a CPU island) twice at
+     1 partition and once at 16, with the warehouse, the event log and
+     the span tracer on: rows equal to the oracle, one warehouse row a
+     collect (``device_kind`` the card's name, ``completed``, or
+     ``degraded`` for the island, as the reference classifies it; its
+     per-operator rows the folded op metrics), one trace with one
+     ``query`` span whose ``op`` spans ran every operator id, one
+     event-log line, and ``drift_report`` over the runs clean;
+     ``tools/nds_memory.py``'s q_sales_sorted under 64 MiB with its
+     first two disk writes refused (``injectDiskFull=2``) and q3
+     under ``injectRetryOOM=3``: the registry's spill, disk-spill,
+     read-back and OOM-retry deltas equal the manager's attributes, the
+     event log holds the query lines and the refused write's
+     ``disk_pressure`` line, the flight ring's memory timeline is not
+     empty and ends at 0 ledger bytes (its high water printed beside the
+     budget: the scan's pinned in-flight blobs pass it); q97 cancelled by a
+     0.4 s deadline (a ``cancelled`` row, the counter moved by one, the
+     flight events and the event-log line) and a plan the verifier
+     refuses (its ``plan_rejected`` flight event and line); five
+     interleaved off/on pairs of q6 and q3 at 1 partition, each side's
+     median and spread and the overhead, not gated, and its bound: one
+     more run of each with every flight-ring append, span, gauge sync
+     and registry update counted, times each call's host microseconds
+     (``_telemetry_unit_costs``), plus the query's timed writes (the
+     warehouse row, the Chrome trace, the event-log line), over the on
+     side's median. After phase 16's
+     trace, q6 SF1 with device decode and every sink on and
+     ``spark.rapids.profile.path`` set, in a process of its own
+     (``tools/telemetry_q6.py``): its revenue phase 6's, one ``query``
+     span and every operator id traced, the profiler trace naming as
+     many K5 and K1 kernels as the process's wrappers launched and phase
+     6 counts (8 each), 32 device chunks in the registry's delta and the
+     folded metrics (``--telemetry-only`` runs the build and this phase
+     alone, q6 held to the oracle only);
   15. K1's kernels a call, counted in a profiler trace of one call (1)
      between pad kernels. Every trace runs after the timed phases, in a
      process of its own, so that it is the first trace of its process
@@ -272,6 +309,9 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 ENGINE_RTOL = 1e-9
+#: K5's and K1's launches in one q6 SF1 query with device decode: one of
+#: each a batch (phases 6 and 17)
+Q6_DD_LAUNCHES = {"decode_batch": 8, "filter_product_sum": 8}
 # the TPU kernel K1 replaces, as file:line
 K1_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:58"
 K1_SOURCE = "spark_rapids_tpu_torch/csrc/masked_product_sum.cu"
@@ -303,14 +343,15 @@ def log(*a):
 
 def _args():
     """``(memory_only, opm_only, functions_only, decimals_only,
-    nested_only, log path or None)`` from the command line."""
+    nested_only, telemetry_only, log path or None)`` from the command
+    line."""
     args = sys.argv[1:]
     path = None
     if "--log" in args:
         path = args[args.index("--log") + 1]
     return ("--memory-only" in args, "--opm-only" in args,
             "--functions-only" in args, "--decimals-only" in args,
-            "--nested-only" in args, path)
+            "--nested-only" in args, "--telemetry-only" in args, path)
 
 
 def phase_card():
@@ -688,7 +729,7 @@ def phase_q6_device_decode(device, paths):
     _check_scan(metrics, {"deviceChunks": 32, "fallbackChunks": 0,
                           "scanPrograms": 8, "fusedDispatches": 8})
     expected = {name: 0 for name in launches}
-    expected.update(decode_batch=8, filter_product_sum=8)
+    expected.update(Q6_DD_LAUNCHES)
     log(f"[q6dd] launches in one query: {launches}")
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
@@ -697,7 +738,7 @@ def phase_q6_device_decode(device, paths):
         f"{tpch.SF1_ROWS / med:.1f} rows/s (median of "
         f"{[round(t, 6) for t in times]} s)")
     log("[q6dd] metrics " + json.dumps(metrics, sort_keys=True))
-    return launches
+    return launches, got
 
 
 def phase_q6_by_linenumber(device):
@@ -1242,8 +1283,50 @@ def _nds_files():
     return tables, paths, chunks
 
 
-#: each text's oracle rows, by (oracle function, text), for phase 12
+#: each text's oracle rows, by (oracle function, text), for phases 12
+#: and 17
 ORACLES = {}
+
+
+def _oracle(fn, q, tables):
+    """``fn(q, tables)``, computed once a run (``ORACLES``)."""
+    if (fn, q) not in ORACLES:
+        ORACLES[(fn, q)] = fn(q, tables)
+    return ORACLES[(fn, q)]
+
+
+#: the processes that compute a corpus's oracles at once: the oracles
+#: are numpy and pyarrow on the host, 5 s a text at 2^22 rows, and the
+#: card's machine has 8 cores
+ORACLE_WORKERS = 6
+#: what a forked oracle process reads: (oracle function, tables)
+_ORACLE_INPUT = None
+
+
+def _oracle_job(q):
+    fn, tables = _ORACLE_INPUT
+    return q, fn(q, tables)
+
+
+def _corpus_oracles(corpus, tables):
+    """``{q: corpus.oracle(q, tables)}`` for every text of ``corpus``,
+    computed in ``ORACLE_WORKERS`` forked processes before the phase's
+    runs (the children read the tables the fork shares, run only numpy
+    and pyarrow and never touch the card; the pool ends with the
+    call)."""
+    import multiprocessing
+    global _ORACLE_INPUT
+    t0 = time.perf_counter()
+    _ORACLE_INPUT = (corpus.oracle, tables)
+    try:
+        with multiprocessing.get_context("fork").Pool(
+                min(ORACLE_WORKERS, len(corpus.QUERIES))) as pool:
+            out = dict(pool.imap_unordered(_oracle_job, corpus.QUERIES))
+    finally:
+        _ORACLE_INPUT = None
+    log(f"[oracles] {len(out)} texts in {time.perf_counter() - t0:.3f} s "
+        f"({ORACLE_WORKERS} processes)")
+    return out
 
 #: by phase tag: the host seconds of each verified plan's verify_plan, and
 #: the plans the verifier refused
@@ -1320,8 +1403,9 @@ def _run_sql_queries(device, tag, corpus, files, timed=(3, 1),
     t_phase = time.perf_counter()
     summary, launches = {}, {}
     wrappers = counters()
+    oracles = _corpus_oracles(corpus, tables)
     for q in corpus.QUERIES:
-        want = corpus.oracle(q, tables)
+        want = oracles[q]
         ORACLES[(corpus.oracle, q)] = want
         longest = _nds_longest(want)
         for parts, n_runs, warm_up in zip((1, 16), timed, warm):
@@ -1425,14 +1509,15 @@ def phase_nds(device, files):
                              oracle=nds.oracle)
     # no warm-up at 16 partitions: the phase's time goes to the
     # op-metrics-off runs at 1 (phase 12's on/off figures)
-    return _run_sql_queries(device, "nds", corpus, files,
+    # 2 timed runs at 1 partition (3 until the smoke passed 1,050 s)
+    return _run_sql_queries(device, "nds", corpus, files, timed=(2, 1),
                             warm=(True, False), opm_off=True)
 
 
 def phase_nds_joins(device, files):
     from spark_rapids_tpu_torch.tools import nds_joins
     return _run_sql_queries(device, "nds-joins", nds_joins, files,
-                            warm=(True, False))
+                            timed=(2, 1), warm=(True, False))
 
 
 def phase_nds_fallback(device, files):
@@ -1895,8 +1980,10 @@ def phase_nds_memory(device, files, skew_witness=None):
     crc = _crc_timing()
     wrappers = counters()
     summary, launches, sites_seen = {}, {}, set()
+    for q, want in _corpus_oracles(nm, tables).items():
+        ORACLES.setdefault((nm.oracle, q), want)
     for q in nm.QUERIES:
-        want = nm.oracle(q, tables)
+        want = _oracle(nm.oracle, q, tables)
         for parts in nm.PARTITIONS[q]:
             base = {"spark.sql.shuffle.partitions": str(parts),
                     "spark.rapids.memory.spillDir": spill_root}
@@ -2195,7 +2282,7 @@ def phase_opmetrics(device, files, card, smi, nds_summary):
         on_total = sum(a for a, _ in onoff.values())
         off_total = sum(b for _, b in onoff.values())
         log(f"[opm] phase 8 at 1 partition, ms a query in collect with "
-            f"spark.rapids.metrics.op.enabled on (median of 3) / off (one "
+            f"spark.rapids.metrics.op.enabled on (median of 2) / off (one "
             f"run, after the first timed run), on {card} ({smi}): "
             + ", ".join(f"{q} {a:.3f} / {b:.3f}"
                         for q, (a, b) in onoff.items())
@@ -2224,8 +2311,9 @@ def phase_functions(device, files, card, smi):
     t_phase = time.perf_counter()
     wrappers = counters()
     summary, launches = {}, {}
+    oracles = _corpus_oracles(fn, tables)
     for q in fn.QUERIES:
-        want = fn.oracle(q, tables)
+        want = oracles[q]
         for parts in (1, 16):
             conf = {"spark.sql.shuffle.partitions": str(parts)}
             s = nds.session_over_files(paths, conf, device)
@@ -2404,10 +2492,545 @@ def phase_nested_trace(card, smi, summary):
     log(f"[nested] trace took {time.perf_counter() - t0:.3f} s")
 
 
+# --- phase 17: telemetry ----------------------------------------------------
+
+#: phase 17's NDS texts; q_like_intl holds a CPU island (nds_fallback)
+TELEMETRY_TEXTS = ("q3", "q_rank", "q97", "q_like_intl")
+#: interleaved off/on pairs of the telemetry's cost
+TELEMETRY_PAIRS = 5
+
+
+def _sample(name, label=""):
+    """One series of the port's registry: a counter's or gauge's value,
+    a histogram's count."""
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    fam = REGISTRY.snapshot().get(name)
+    if fam is None:
+        return 0
+    v = fam["samples"].get(label, 0)
+    return v["count"] if isinstance(v, dict) else v
+
+
+def _telemetry_dirs(tag):
+    """Fresh warehouse, event-log and trace directories under
+    ``.bench_cache/telemetry_torch/<tag>/``, and the conf that turns the
+    three sinks on."""
+    import shutil
+    base = os.path.join(ROOT, ".bench_cache", "telemetry_torch", tag)
+    shutil.rmtree(base, ignore_errors=True)
+    d = {k: os.path.join(base, k) for k in ("warehouse", "events", "trace")}
+    return d, {"spark.rapids.warehouse.dir": d["warehouse"],
+               "spark.rapids.eventLog.dir": d["events"],
+               "spark.rapids.trace.dir": d["trace"]}
+
+
+def _telemetry_nds(device, card, smi, files):
+    """The four texts twice at 1 partition and once at 16, every sink
+    on: rows against the oracle, one warehouse row a collect (the card's
+    ``device_kind``, its outcome, its per-operator rows the folded op
+    metrics), one trace with one ``query`` span and every operator id,
+    one event-log line; then ``drift_report`` over the runs."""
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.obs import warehouse
+    from spark_rapids_tpu_torch.obs.opmetrics import fold_ctx
+    from spark_rapids_tpu_torch.tools import nds_fallback as fb
+    from spark_rapids_tpu_torch.obs.tracer import load_chrome_trace
+    from spark_rapids_tpu_torch.tools.event_log import read_event_logs
+    from spark_rapids_tpu_torch.tools.telemetry_q6 import (plan_op_ids,
+                                                           traced_op_ids)
+    tables, paths, chunks = files
+    dirs, sinks = _telemetry_dirs("nds")
+    corpus = SimpleNamespace(SQL_QUERIES=nds.SQL_QUERIES, CONF={},
+                             FLOAT_COLUMNS=nds.FLOAT_COLUMNS,
+                             oracle=nds.oracle)
+    out_rows = {}
+    for q in TELEMETRY_TEXTS:
+        c = fb if q in fb.SQL_QUERIES else corpus
+        want = _oracle(c.oracle, q, tables)
+        # two runs at 1 partition (the drift report's pair), one at 16
+        for parts, n_runs in ((1, 2), (16, 1)):
+            conf = dict(c.CONF.get(q, {}), **sinks)
+            conf["spark.sql.shuffle.partitions"] = str(parts)
+            s = nds.session_over_files(paths, conf, device)
+            for run in range(n_runs):
+                pp = _apply(s.conf, device, s.sql(c.SQL_QUERIES[q])._node,
+                            "telemetry")
+                n_rows = len(warehouse.read_rows(dirs["warehouse"]))
+                traces = set(os.listdir(dirs["trace"])) \
+                    if os.path.isdir(dirs["trace"]) else set()
+                ctx = ExecCtx(s.conf, device)
+                t = time.perf_counter()
+                out = pp.collect(ctx)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                metrics = _metrics(ctx)
+                _check_nds(q, out, want, metrics,
+                           _scan_chunks_needed(pp.root, chunks,
+                                               pp.root_on_device),
+                           c.FLOAT_COLUMNS[q])
+                rows = warehouse.read_rows(dirs["warehouse"])
+                if len(rows) != n_rows + 1:
+                    raise AssertionError(f"{q} p{parts}: {len(rows)} "
+                                         f"warehouse rows after {n_rows}")
+                row = rows[-1]
+                outcome = "degraded" if pp.fallback_nodes() else "completed"
+                folded = {k: int(st["metrics"].get("rows", 0))
+                          for k, st in fold_ctx(ctx).items()}
+                ops = {k: v["rows"] for k, v in row["ops"].items()}
+                (new,) = set(os.listdir(dirs["trace"])) - traces
+                n_query, ran = traced_op_ids(load_chrome_trace(
+                    os.path.join(dirs["trace"], new)))
+                bad = [msg for ok, msg in (
+                    (row["device_kind"] == card, "device_kind"),
+                    (row["outcome"] == outcome, "outcome"),
+                    (ops == folded, "per-operator rows"),
+                    (n_query == 1, "query spans"),
+                    (ran == plan_op_ids(pp.root), "op spans")) if not ok]
+                if bad:
+                    raise AssertionError(
+                        f"{q} p{parts}: {bad}: row {row['device_kind']!r} "
+                        f"{row['outcome']!r} ops {ops} folded {folded}; "
+                        f"{n_query} query spans, ran {sorted(ran)} of "
+                        f"{sorted(plan_op_ids(pp.root))}")
+                out_rows[f"{q}_p{parts}_run{run}"] = {
+                    "ms": secs * 1e3, "outcome": row["outcome"],
+                    "fallback_reasons": row["fallback_reasons"],
+                    "scan": row["scan"], "fingerprint": row["fingerprint"]}
+                log(f"[telemetry] {q} partitions={parts} run {run}: "
+                    f"{secs * 1e3:.3f} ms on {card} ({smi}), rows equal to "
+                    f"the oracle; warehouse row {row['outcome']} on "
+                    f"{row['device_kind']!r}, {len(ops)} operators' rows "
+                    f"equal the folded op metrics, scan {row['scan']}; "
+                    f"trace: 1 query span, {len(ran)} operator ids")
+    lines = list(read_event_logs(dirs["events"]))
+    n_runs = len(TELEMETRY_TEXTS) * 3
+    if [e.get("type", "query") for e in lines] != ["query"] * n_runs:
+        raise AssertionError(f"event log: {len(lines)} lines for "
+                             f"{n_runs} collects")
+    report, rc = warehouse.drift_report(dirs["warehouse"])
+    log("[telemetry] drift over two runs of each text: rc "
+        f"{rc}; " + report.replace("\n", " | "))
+    if rc != 0:
+        raise AssertionError(f"drift_report rc {rc}: {report}")
+    return {"runs": out_rows, "drift_rc": rc}
+
+
+def _telemetry_memory(device, files):
+    """q_sales_sorted under 64 MiB with its first two disk writes
+    refused (``injectDiskFull=2``) and q3 under injectRetryOOM, every
+    sink on:
+    the registry's spill and OOM-retry deltas equal the manager's
+    attributes, the event log holds the query lines and the refused
+    write's ``disk_pressure`` line, and the flight ring's memory timeline
+    is not empty and ends with the ledger empty (its high water, printed
+    beside the budget, counts the scan's pinned in-flight blobs)."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.obs.recorder import RECORDER, memory_timeline
+    from spark_rapids_tpu_torch.tools import nds_memory as nm
+    from spark_rapids_tpu_torch.tools.event_log import read_event_logs
+    tables, paths, _ = files
+    fams = {"rapids_memory_spill_bytes_total": "spill_bytes",
+            "rapids_memory_disk_spill_bytes_total": "disk_spill_bytes",
+            "rapids_spill_read_bytes_total": "spill_read_bytes",
+            "rapids_memory_oom_retries_total": "oom_retries"}
+    spill_root = os.path.join(ROOT, ".bench_cache", "spill_torch")
+    out = {}
+    for case, q, extra in (
+            # the first two disk writes refused: a disk_pressure line
+            ("budget", "q_sales_sorted",
+             {"spark.rapids.memory.test.injectDiskFull": "2"}),
+            ("oom_retry", "q3",
+             {"spark.rapids.sql.test.injectRetryOOM": "3"})):
+        dirs, sinks = _telemetry_dirs(f"memory_{case}")
+        conf = dict(nm.CONF[q] if case != "oom_retry" else {}, **sinks,
+                    **extra)
+        conf.update({"spark.sql.shuffle.partitions": "1",
+                     "spark.rapids.memory.spillDir": spill_root})
+        s = nds.session_over_files(paths, conf, device)
+        pp = _apply(s.conf, device, s.sql(nm.SQL_QUERIES[q])._node,
+                    "telemetry")
+        ctx = ExecCtx(s.conf, device)
+        before = {f: _sample(f) for f in fams}
+        attrs = {a: getattr(ctx.mm, a) for a in fams.values()}
+        enospc = _sample("rapids_spill_write_failures_total", "enospc")
+        t0 = time.time()
+        t = time.perf_counter()
+        got = pp.collect(ctx)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        oracle = _oracle(nm.oracle, q, tables)
+        floats = nm.FLOAT_COLUMNS[q]
+        _rows_equal(q, got, oracle, floats)
+        deltas = {a: _sample(f) - before[f] for f, a in fams.items()}
+        moved = {a: getattr(ctx.mm, a) - v for a, v in attrs.items()}
+        lines = [e.get("type", "query")
+                 for e in read_event_logs(dirs["events"])]
+        tl = memory_timeline([e for e in RECORDER.snapshot(since=t0)
+                              if e.get("budget") == ctx.mm.budget])
+        rec = {"ms": secs * 1e3, "registry_deltas": deltas,
+               "manager_deltas": moved, "event_lines": lines,
+               "timeline_events": len(tl["events"]),
+               "high_water_bytes": tl["high_water_bytes"],
+               "budget_bytes": ctx.mm.budget,
+               "enospc": _sample("rapids_spill_write_failures_total",
+                                 "enospc") - enospc}
+        need = {"budget": moved["spill_bytes"] > 0
+                and moved["disk_spill_bytes"] > 0
+                and lines == ["disk_pressure", "query"]
+                and rec["enospc"] == ctx.mm.spill_write_failures.get(
+                    "enospc", 0) == 1,
+                "oom_retry": moved["oom_retries"] >= 1
+                and lines == ["query"]}[case]
+        # the ledger charges the scan's pinned in-flight blobs, which it
+        # cannot evict, so its high water may pass the budget (printed);
+        # every byte is released by the query's end
+        ok = (need and deltas == moved and tl["events"]
+              and tl["high_water_bytes"] > 0
+              and tl["events"][-1]["device"] == 0 == ctx.mm.device_bytes)
+        log(f"[telemetry] memory {case}: {q} {secs * 1e3:.3f} ms, rows "
+            f"equal to the oracle; registry deltas {deltas}, the "
+            f"manager's {moved}; event log {lines}; flight timeline "
+            f"{len(tl['events'])} events, high water "
+            f"{tl['high_water_bytes']} of {ctx.mm.budget} B")
+        if not ok:
+            raise AssertionError(f"memory {case}: {rec}")
+        out[case] = rec
+    return out
+
+
+def _telemetry_refusals(device, files):
+    """A deadline that cancels q97 and a plan the verifier refuses, every
+    sink on: the cancelled query's warehouse row, counter, flight events
+    and event-log line; the refusal's flight event and line."""
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.analysis.plan_verifier import \
+        PlanVerificationError
+    from spark_rapids_tpu_torch.exec.aqe import GpuAQEShuffleReadExec
+    from spark_rapids_tpu_torch.exec.base import ExecCtx, \
+        HostBatchSourceExec
+    from spark_rapids_tpu_torch.exec.exchange import GpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.lifecycle import QueryCancelled
+    from spark_rapids_tpu_torch.obs import warehouse
+    from spark_rapids_tpu_torch.obs.recorder import RECORDER
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    from spark_rapids_tpu_torch.shuffle.partitioner import \
+        SinglePartitioning
+    from spark_rapids_tpu_torch.tools.event_log import read_event_logs
+    tables, paths, _ = files
+    dirs, sinks = _telemetry_dirs("refusals")
+    conf = dict(sinks, **{"spark.sql.shuffle.partitions": "1",
+                          "spark.rapids.query.deadline": str(DEADLINE_S)})
+    s = nds.session_over_files(paths, conf, device)
+    pp = _apply(s.conf, device, s.sql(nds.SQL_QUERIES["q97"])._node,
+                "telemetry")
+    before = _sample("rapids_query_cancelled_total", "deadline")
+    t0 = time.time()
+    t = time.perf_counter()
+    try:
+        pp.collect(ExecCtx(s.conf, device))
+    except QueryCancelled as e:
+        reason = e.reason
+    else:
+        raise AssertionError(f"q97 finished inside {DEADLINE_S} s")
+    secs = time.perf_counter() - t
+    (row,) = warehouse.read_rows(dirs["warehouse"])
+    evs = [e for e in RECORDER.snapshot(since=t0)
+           if e["kind"] == "lifecycle"]
+    counted = _sample("rapids_query_cancelled_total", "deadline") - before
+    # an adaptive reader over a source, not an exchange: refused
+    # malformed_aqe_wrapper before anything runs
+    src = HostBatchSourceExec(tables["store"].to_batches())
+    bad = GpuAQEShuffleReadExec(GpuShuffleExchangeExec(
+        SinglePartitioning(), src)).with_new_children([src])
+    t1 = time.time()
+    try:
+        GpuOverrides(s.conf.with_settings(
+            {"spark.sql.adaptive.enabled": "false"}), device).apply(bad)
+    except PlanVerificationError as e:
+        refused = e.report.reasons()
+    else:
+        raise AssertionError("the verifier passed a malformed plan")
+    rejected = [e for e in RECORDER.snapshot(since=t1)
+                if e.get("ev") == "plan_rejected"]
+    lines = [e.get("type", "query") for e in read_event_logs(dirs["events"])]
+    out = {"reason": reason, "ms": secs * 1e3, "outcome": row["outcome"],
+           "cancel": row["cancel"], "counted": counted,
+           "flight": [e["ev"] for e in evs], "refused": refused,
+           "rejected_events": len(rejected), "event_lines": lines}
+    log(f"[telemetry] q97 cancelled [{reason}] after {secs * 1e3:.3f} ms: "
+        f"warehouse row {row['outcome']} {row['cancel']}, "
+        f"rapids_query_cancelled_total{{deadline}} +{counted}, flight "
+        f"{out['flight']}; the verifier refused {refused}: "
+        f"{len(rejected)} plan_rejected event(s); event log {lines}")
+    if not (reason == "deadline" and row["outcome"] == "cancelled"
+            and row["cancel"]["reason"] == "deadline" and counted == 1
+            and out["flight"] == ["cancel", "cancelled_query"]
+            and refused == ["malformed_aqe_wrapper"] and len(rejected) == 1
+            and lines == ["query_cancelled", "plan_rejected"]):
+        raise AssertionError(f"refusals: {out}")
+    return out
+
+
+def _telemetry_cost(device, card, smi, files, q6_paths):
+    """Interleaved off/on pairs of q6 (device decode) and q3 at 1
+    partition, each warm from the earlier phases: off, the flight
+    recorder off and no sink; on, the flight recorder, warehouse, tracer
+    and event log on (``bench.py``'s ``obs_overhead_frac`` pairs). Each
+    side's median and spread (max - min over the median) and the
+    overhead fraction, not gated (host noise between runs reaches tens
+    of percent)."""
+    from spark_rapids_tpu_torch import nds, tpch
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
+    from spark_rapids_tpu_torch.obs.recorder import RECORDER
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+    _, paths, _ = files
+    _, sinks = _telemetry_dirs("cost")
+    off = {"spark.rapids.flight.enabled": "false"}
+    on = dict(sinks, **{"spark.rapids.flight.enabled": "true"})
+    plans = {}
+    for side, extra in (("off", off), ("on", on)):
+        plans[("q6", side)] = GpuOverrides(RapidsConf(extra), device).apply(
+            tpch.build_q6(GpuFileScanExec(q6_paths,
+                                          schema=tpch.LINEITEM_SCHEMA)))
+        s = nds.session_over_files(
+            paths, dict(extra, **{"spark.sql.shuffle.partitions": "1"}),
+            device)
+        plans[("q3", side)] = _apply(
+            s.conf, device, s.sql(nds.SQL_QUERIES["q3"])._node, "telemetry")
+    out = {}
+    for q in ("q6", "q3"):
+        times = {"off": [], "on": []}
+        for _ in range(TELEMETRY_PAIRS):
+            for side in ("off", "on"):
+                pp = plans[(q, side)]
+                ctx = ExecCtx(pp.conf, device)
+                t = time.perf_counter()
+                pp.collect(ctx)
+                torch.cuda.synchronize()
+                times[side].append(time.perf_counter() - t)
+        rec = {}
+        for side, ts in times.items():
+            med = statistics.median(ts)
+            rec[side] = {"median_ms": med * 1e3,
+                         "spread": (max(ts) - min(ts)) / med,
+                         "times_s": ts}
+        rec["overhead_frac"] = rec["on"]["median_ms"] / \
+            rec["off"]["median_ms"] - 1.0
+        log(f"[telemetry] cost {q}: off {rec['off']['median_ms']:.3f} ms "
+            f"(spread {rec['off']['spread']:.1%}), on "
+            f"{rec['on']['median_ms']:.3f} ms (spread "
+            f"{rec['on']['spread']:.1%}), overhead "
+            f"{rec['overhead_frac']:+.2%} over {TELEMETRY_PAIRS} "
+            f"interleaved pairs on {card} ({smi})")
+        out[q] = rec
+    units = _telemetry_unit_costs(ExecCtx(plans[("q6", "on")].conf,
+                                          device).mm)
+    log(f"[telemetry] host microseconds a call on {card} ({smi})'s host: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in units.items()))
+    for q in ("q6", "q3"):
+        calls, writes_ms = _telemetry_calls(plans[(q, "on")], device)
+        events_ms = sum(calls[k] * units[k] for k in calls) / 1e3
+        bound_ms = events_ms + sum(writes_ms.values())
+        out[q].update(calls=calls, events_ms=events_ms,
+                      writes_ms=writes_ms, bound_ms=bound_ms,
+                      bound_frac=bound_ms / out[q]["on"]["median_ms"])
+        log(f"[telemetry] cost bound {q}: calls a query {calls} x the "
+            f"microseconds above = {events_ms:.6f} ms, plus the query's "
+            f"writes {({k: round(v, 6) for k, v in writes_ms.items()})} "
+            f"ms = {bound_ms:.6f} ms, {out[q]['bound_frac']:.4%} of the "
+            f"on side's median {out[q]['on']['median_ms']:.3f} ms (an "
+            f"upper bound: the gauge sets of a sync, the flight tap of a "
+            f"span and the fingerprint of an event-log line are counted "
+            f"in both rows)")
+    out["unit_us"] = units
+    RECORDER.configure(RapidsConf())
+    return out
+
+
+#: the telemetry's per-event calls, counted: key -> (module, class,
+#: method)
+TELEMETRY_SITES = {
+    "flight": ("obs.recorder", "FlightRecorder", "record"),
+    "span": ("obs.tracer", "Tracer", "_record"),
+    "sync_gauges": ("memory", "DeviceMemoryManager", "_sync_gauges"),
+    "counter": ("obs.metrics", "_Counter", "inc"),
+    "gauge_set": ("obs.metrics", "_Gauge", "set"),
+    "gauge_inc": ("obs.metrics", "_Gauge", "inc"),
+    "gauge_dec": ("obs.metrics", "_Gauge", "dec"),
+    "histogram": ("obs.metrics", "_Histogram", "observe")}
+#: its once-a-query writes, timed: key -> (module, class or None, name)
+TELEMETRY_WRITES = {
+    "attribution_begin": ("obs.attribution", "QueryAttribution", "begin"),
+    "warehouse_row": ("planner", "PhysicalPlan", "_emit_warehouse"),
+    "chrome_trace": ("obs.tracer", "Tracer", "write_chrome"),
+    "event_log": ("tools.event_log", None, "log_query_event"),
+    "fingerprint": ("tools.event_log", None, "plan_fingerprint")}
+
+
+def _telemetry_calls(pp, device):
+    """One more run of ``pp`` with each of ``TELEMETRY_SITES`` and
+    ``TELEMETRY_WRITES`` counted and timed (every thread's calls): how
+    many flight-ring appends, spans, gauge syncs and registry updates
+    one query makes, and the host milliseconds of its writes. Returns
+    ``(counts, write milliseconds)``."""
+    import importlib
+    import threading
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    sites = dict(TELEMETRY_SITES, **TELEMETRY_WRITES)
+    counts = dict.fromkeys(sites, 0)
+    secs = dict.fromkeys(sites, 0.0)
+    lock = threading.Lock()
+
+    def counting(key, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                with lock:
+                    counts[key] += 1
+                    secs[key] += dt
+        return call
+
+    saved = []
+    for k, (mod, cls, name) in sites.items():
+        owner = importlib.import_module(f"spark_rapids_tpu_torch.{mod}")
+        if cls is not None:
+            owner = getattr(owner, cls)
+        # the raw attribute (a classmethod stays one when put back)
+        raw = vars(owner)[name]
+        saved.append((owner, name, raw))
+        setattr(owner, name, counting(k, getattr(owner, name)))
+    try:
+        pp.collect(ExecCtx(pp.conf, device))
+        torch.cuda.synchronize()
+    finally:
+        for owner, name, raw in saved:
+            setattr(owner, name, raw)
+    writes_ms = {k: secs[k] * 1e3 for k in TELEMETRY_WRITES}
+    return {k: counts[k] for k in TELEMETRY_SITES}, writes_ms
+
+
+def _telemetry_unit_costs(mm, n=20000):
+    """Host microseconds a call of each of ``TELEMETRY_SITES``, the mean
+    of ``n`` calls: a flight-ring append of a memory event into a ring at
+    its default bounds, a span into a tracer (with its flight tap), the
+    manager's ``_sync_gauges``, and a labelled counter, gauge and
+    transfer histogram of a registry of its own."""
+    from spark_rapids_tpu_torch.obs import metrics
+    from spark_rapids_tpu_torch.obs.recorder import FlightRecorder
+    from spark_rapids_tpu_torch.obs.tracer import Tracer
+    reg = metrics.MetricsRegistry()
+    counter = reg.counter("cost_total", "", ("kind",))
+    gauge = reg.gauge("cost_bytes", "", ("kind",))
+    hist = reg.histogram("cost_seconds", "", ("stage",),
+                         buckets=metrics.TRANSFER_BUCKETS)
+    ring = FlightRecorder()
+    tracer = Tracer(max_spans=n)
+
+    def span():
+        with tracer.span("op", "op", args={"op_id": 1}):
+            pass
+
+    calls = {
+        "flight": lambda: ring.record("mem", ev="reserve", bytes=1 << 20,
+                                      device=1 << 24, host=0,
+                                      budget=1 << 30),
+        "span": span,
+        "sync_gauges": mm._sync_gauges,
+        "counter": lambda: counter.labels("device").inc(),
+        "gauge_set": lambda: gauge.labels("device").set(1.0),
+        "gauge_inc": lambda: gauge.labels("device").inc(),
+        "gauge_dec": lambda: gauge.labels("device").dec(),
+        "histogram": lambda: hist.labels("upload").observe(0.003)}
+    out = {}
+    for k, fn in calls.items():
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[k] = (time.perf_counter() - t) / n * 1e6
+    return out
+
+
+def phase_telemetry(device, card, smi, files, q6_paths):
+    """Phase 17 in this process (module docstring); its q6 run with the
+    profiler is ``phase_telemetry_q6``, in a process of its own."""
+    t_phase = time.perf_counter()
+    summary = {"nds": _telemetry_nds(device, card, smi, files),
+               "memory": _telemetry_memory(device, files),
+               "refusals": _telemetry_refusals(device, files),
+               "cost": _telemetry_cost(device, card, smi, files, q6_paths),
+               "verifier": _log_verifier("telemetry")}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[telemetry] phase took {summary['phase_s']:.3f} s (its q6 "
+        "profile apart)")
+    return summary
+
+
+def phase_telemetry_q6(card, smi, summary, q6_paths, revenue=None,
+                       launches=None):
+    """q6 SF1 with device decode and every sink on, ``profile.path`` set,
+    in a process of its own (``tools/telemetry_q6.py``): its revenue the
+    oracle's (and phase 6's), one ``query`` span and every operator id in
+    the trace, the profiler trace naming exactly as many K5 and K1
+    kernels as the process's wrappers launched and phase 6 counted
+    (``launches``; ``Q6_DD_LAUNCHES`` without it), the scan's 32 device
+    chunks in the registry's delta and the folded metrics."""
+    import shutil
+    from spark_rapids_tpu_torch import tpch
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, ".bench_cache", "telemetry_torch", "q6")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r = _traced_apart(["-m", "spark_rapids_tpu_torch.tools.telemetry_q6",
+                       "--out", out_dir])
+    want, _ = tpch.host_q6(q6_paths)
+    rel = abs(r["revenue"] - want) / max(1.0, abs(want))
+    wh = r["warehouse_rows"]
+    want_k = launches or Q6_DD_LAUNCHES
+    want_k = {"k1": want_k["filter_product_sum"],
+              "k5": want_k["decode_batch"]}
+    checks = {
+        "revenue": r["rows"] == 1 and rel <= ENGINE_RTOL
+        and (revenue is None or r["revenue"] == revenue),
+        "trace": r["query_spans"] == 1
+        and r["traced_op_ids"] == r["plan_op_ids"],
+        "profiler": r["profiler_kernel_launches"]
+        == r["wrapper_launches"] == want_k,
+        "chunks": r["scan_device_chunks_delta"] == 32
+        == r["folded_device_chunks"],
+        "warehouse": len(wh) == 1 and wh[0]["outcome"] == "completed"
+        and wh[0]["device_kind"] == card,
+        "event_log": r["event_lines"] == ["query"]}
+    summary["q6"] = dict(r, checks=checks, rel_err=rel,
+                         seconds=time.perf_counter() - t0)
+    log(f"[telemetry] q6 SF1 device decode, every sink on, profile.path "
+        f"set, in a process of its own on {card} ({smi}): revenue "
+        f"{r['revenue']!r} (oracle {want!r}, phase 6 {revenue!r}); "
+        f"{r['query_spans']} query span, op ids {r['traced_op_ids']} of "
+        f"{r['plan_op_ids']}; profiler kernels "
+        f"{r['profiler_kernel_launches']} (the wrappers "
+        f"{r['wrapper_launches']}, phase 6 {want_k}); device chunks "
+        f"{r['scan_device_chunks_delta']} (folded "
+        f"{r['folded_device_chunks']}); warehouse {wh}; event log "
+        f"{r['event_lines']}; {r['profiler_device_kernels']} device "
+        f"kernels in the profile; wall {r['wall_s'] * 1e3:.3f} ms with "
+        f"the profiler, the process's first query; "
+        f"{summary['q6']['seconds']:.3f} s with the process")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"telemetry q6: {failed}: {r}")
+
+
 def main():
     global _log_file
     memory_only, opm_only, functions_only, decimals_only, nested_only, \
-        log_path = _args()
+        telemetry_only, log_path = _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
@@ -2445,13 +3068,24 @@ def main():
         phase_nested_trace(name, smi, summary)
         log("[nested] " + json.dumps(summary, sort_keys=True))
         return
+    if telemetry_only:
+        # a quick check of phase 17 alone (q6 held to the oracle only)
+        from spark_rapids_tpu_torch import tpch
+        q6_paths = tpch.write_lineitem(
+            tpch.gen_lineitem(tpch.SF1_ROWS, seed=0),
+            os.path.join(ROOT, ".bench_cache", "lineitem_torch"), seed=0)
+        summary = phase_telemetry(device, name, smi, _nds_files(),
+                                  q6_paths)
+        phase_telemetry_q6(name, smi, summary, q6_paths)
+        log("[telemetry] " + json.dumps(summary, sort_keys=True))
+        return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
     k6, k6_err = phase_regex(device)
     launches, paths = phase_slice(device)
     join_launches = phase_join(device)
-    dd_launches = phase_q6_device_decode(device, paths)
+    dd_launches, dd_revenue = phase_q6_device_decode(device, paths)
     ln_launches = phase_q6_by_linenumber(device)
     nds_files = _nds_files()
     nds_summary, nds_launches = phase_nds(device, nds_files)
@@ -2463,11 +3097,14 @@ def main():
     fn_summary, fn_launches = phase_functions(device, nds_files, name, smi)
     dec_summary, dec_launches = phase_decimals(device, name, smi)
     nested_summary, nested_launches = phase_nested(device, name, smi)
+    tel_summary = phase_telemetry(device, name, smi, nds_files, paths)
     # the traces last, each in a process of its own
     per_call = phase_k1_kernels_per_call()
     phase_function_traces(name, smi, fn_summary)
     phase_decimal_trace(name, smi, dec_summary)
     phase_nested_trace(name, smi, nested_summary)
+    phase_telemetry_q6(name, smi, tel_summary, paths, dd_revenue,
+                       dd_launches)
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")]
@@ -2486,6 +3123,7 @@ def main():
     log("[functions] " + json.dumps(fn_summary, sort_keys=True))
     log("[decimals] " + json.dumps(dec_summary, sort_keys=True))
     log("[nested] " + json.dumps(nested_summary, sort_keys=True))
+    log("[telemetry] " + json.dumps(tel_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -2500,7 +3138,9 @@ def main():
         "bound_share": e["bound_ms"] / e["ms"],
         "ms_by_rows": e["ms_by_rows"],
         "empty_launch_ms": e["empty_launch_ms"],
-        "launches_q6_device_decode": dd_launches["filter_product_sum"]}, {
+        "launches_q6_device_decode": dd_launches["filter_product_sum"],
+        "launches_telemetry_q6_profiled":
+            tel_summary["q6"]["profiler_kernel_launches"]["k1"]}, {
         "name": "radix_sort (engine edition, sort_pairs)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
         "launches": join_launches["sort_pairs"], "max_abs_err": k3_err,
@@ -2574,7 +3214,9 @@ def main():
         "launches_decimals": {k: v["decode_batch"]
                               for k, v in dec_launches.items()},
         "launches_nested": {k: v["decode_batch"]
-                            for k, v in nested_launches.items()}}, {
+                            for k, v in nested_launches.items()},
+        "launches_telemetry_q6_profiled":
+            tel_summary["q6"]["profiler_kernel_launches"]["k5"]}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -30,9 +30,10 @@ reference's letter for letter):
   type, at any depth.
 
 The report is machine-readable (``VerifyReport.to_dict``); a refusal is
-visible in the raised error's ``report.to_dict()``. ``report_rejection``
-is the hook where the reference also writes the flight recorder and the
-event log, which the port does not have yet (ROADMAP items 15 and 18).
+visible in the raised error's ``report.to_dict()``, in a ``plan`` /
+``plan_rejected`` flight-recorder event and, with
+``spark.rapids.eventLog.dir`` set, in a ``plan_rejected`` event-log line
+(``report_rejection``, the reference's ``:351-366``).
 ``python -m spark_rapids_tpu_torch.analysis.plan_verifier --smoke
 [--device DEV]`` plans every text of ``nds.PORTED_QUERIES`` and requires
 each to verify clean and one seeded defect to be refused (the budget is
@@ -342,12 +343,19 @@ def verify_plan(root, conf: Optional[RapidsConf] = None,
 
 def report_rejection(conf: RapidsConf, report: VerifyReport, root,
                      query_id: str = "") -> None:
-    """Where a refusal is made visible beyond the raised error. The
-    reference writes a ``plan_rejected`` entry to its flight recorder
-    and a line to its event log here; the port has neither yet (ROADMAP
-    items 15 and 18), so the refusal is seen in the error's
-    ``report.to_dict()``."""
-    return None
+    """Make a refusal visible beyond the raised error: a
+    ``plan_rejected`` event in the always-on flight ring and a
+    ``plan_rejected`` event-log line when the event log is on."""
+    from ..obs.recorder import RECORDER
+    from ..tools.event_log import log_plan_rejected
+    RECORDER.configure(conf)
+    if RECORDER.enabled:
+        RECORDER.record(
+            "plan", ev="plan_rejected", query=query_id,
+            n_violations=len(report.violations),
+            reasons=",".join(report.reasons()),
+            detail=report.summary()[:600])
+    log_plan_rejected(conf, report, root, query_id=query_id)
 
 
 # --- smoke -------------------------------------------------------------------

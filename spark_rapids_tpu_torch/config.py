@@ -536,8 +536,10 @@ METRICS_LEVEL = register(
     "device time (slower; per-batch sync).")
 PROFILE_PATH = register(
     "spark.rapids.profile.path", "",
-    "When set, PhysicalPlan.collect wraps execution in a jax.profiler "
-    "trace written to this directory (open with TensorBoard/XProf).")
+    "When set, PhysicalPlan.collect runs under a torch.profiler "
+    "session (CPU activity, and CUDA on a CUDA device) and writes its "
+    "Chrome trace (torch-<pid>-<ms>.pt.trace.json) into this directory "
+    "(open with chrome://tracing, Perfetto or TensorBoard).")
 MEM_DEBUG = register(
     "spark.rapids.memory.gpu.debug", "NONE",
     "NONE or STDOUT: log every device buffer alloc/free.")

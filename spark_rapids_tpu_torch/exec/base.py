@@ -47,8 +47,17 @@ The static contract the plan verifier checks (``analysis/
 plan_verifier.py``) lives here too: ``OpContract`` and the instance
 hooks ``expected_output_schema``, ``expr_bindings``,
 ``resident_footprint`` and ``static_bytes_estimate`` (``:37-78,
-336-390``), overridden by the operators that declare more. The tracer
-and the flight recorder are ROADMAP item 15's rest.
+336-390``), overridden by the operators that declare more.
+
+The ctx also carries the query's span tracer (``tracer``,
+``obs/tracer.py``: ``NULL_TRACER`` unless ``spark.rapids.trace.dir`` is
+set), adopts the conf's flight-recorder bounds and starts the metrics
+endpoint when ``spark.rapids.metrics.port`` is set (``:138-160``). With
+tracing on, each operator call's shim opens an ``op`` span named by its
+label, ``op_id`` in its args, and each fused stage one a batch under
+its consumer's label, the ids of the nodes it ran in ``fused``
+(``:550,576,654``). A span lasts host time; the device's stays in
+``opTime``.
 """
 from __future__ import annotations
 
@@ -141,7 +150,10 @@ class ExecCtx:
 
     def __init__(self, conf: Optional[RapidsConf] = None, device=None):
         from ..memory import DeviceMemoryManager
+        from ..obs.metrics import maybe_start_http_server
         from ..obs.opmetrics import OpMetricsCollector
+        from ..obs.recorder import RECORDER
+        from ..obs.tracer import tracer_from_conf
         self.conf = conf or RapidsConf()
         self.device = resolve_device(device)
         self.eval_ctx = EvalCtx(
@@ -157,6 +169,11 @@ class ExecCtx:
         # the process's ledger for this device: concurrent queries share
         # its slots and budget
         self.mm = DeviceMemoryManager.shared(self.conf, self.device)
+        # span tracer (the shared no-op unless spark.rapids.trace.dir is
+        # set), the flight recorder's bounds, the /metrics endpoint
+        self.tracer = tracer_from_conf(self.conf)
+        RECORDER.configure(self.conf)
+        maybe_start_http_server(self.conf)
         # set by the collect roots; the execute shims check it a batch
         self.qctx = None
         self._cleanups: List = []
@@ -242,52 +259,65 @@ def _shimmed(fn, cpu: bool):
     the collector's ``finalize``. When a shim of the same label is
     already counting (an ``execute`` that delegates to ``super()``, a
     copy of the node run inside its own execution) the inner frame
-    passes through."""
+    passes through. With tracing on, the frame that counts (or any
+    frame, with op metrics off) runs inside the node's ``op`` span."""
     if getattr(fn, "_shimmed", False):
         return fn
 
     def run(self, ctx):
-        qx = getattr(ctx, "qctx", None)
         opm = getattr(ctx, "opm", None)
-        claim = None
-        if opm is not None and opm.enabled and self._COUNTED:
-            claim = opm.enter(self)
-        if claim is None:
-            if qx is None:
-                yield from fn(self, ctx)
-                return
-            qx.check()
-            for b in fn(self, ctx):
-                qx.check()
-                yield b
+        counting = opm is not None and opm.enabled and self._COUNTED
+        claim = opm.enter(self) if counting else None
+        tr = getattr(ctx, "tracer", None)
+        if tr is None or not tr.enabled or not self._COUNTED \
+                or (counting and claim is None):
+            yield from _counted(fn, cpu, self, ctx, opm, claim)
             return
-        rows_m = ctx.metric(self, "rows")
-        batches_m = ctx.metric(self, "batches")
-        if cpu:
-            ctx.metric(self, "cpuFallback").set(1)
-        else:
-            bytes_m = ctx.metric(self, "outputBytes")
-        try:
-            if qx is not None:
-                qx.check()
-            for b in fn(self, ctx):
-                if qx is not None:
-                    qx.check()
-                batches_m.value += 1
-                if cpu:
-                    rows_m.value += b.num_rows
-                else:
-                    opm.count_rows(rows_m, b)
-                    bytes_m.value += b.device_size_bytes()
-                yield b
-        finally:
-            opm.exit(self, claim)
+        with tr.span(self.node_label(), cat="op",
+                     args={"op_id": getattr(self, "_op_id", None)}):
+            yield from _counted(fn, cpu, self, ctx, opm, claim)
 
     run._shimmed = True
     run.__wrapped__ = fn
     run.__doc__ = fn.__doc__
     run.__name__ = fn.__name__
     return run
+
+
+def _counted(fn, cpu: bool, node, ctx, opm, claim):
+    """The shim's body: ``fn``'s batches with the cancellation check,
+    counted under ``claim`` (None: not counted)."""
+    qx = getattr(ctx, "qctx", None)
+    if claim is None:
+        if qx is None:
+            yield from fn(node, ctx)
+            return
+        qx.check()
+        for b in fn(node, ctx):
+            qx.check()
+            yield b
+        return
+    rows_m = ctx.metric(node, "rows")
+    batches_m = ctx.metric(node, "batches")
+    if cpu:
+        ctx.metric(node, "cpuFallback").set(1)
+    else:
+        bytes_m = ctx.metric(node, "outputBytes")
+    try:
+        if qx is not None:
+            qx.check()
+        for b in fn(node, ctx):
+            if qx is not None:
+                qx.check()
+            batches_m.value += 1
+            if cpu:
+                rows_m.value += b.num_rows
+            else:
+                opm.count_rows(rows_m, b)
+                bytes_m.value += b.device_size_bytes()
+            yield b
+    finally:
+        opm.exit(node, claim)
 
 
 class GpuExec:
@@ -505,21 +535,28 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
                 b = f(b, ectx)
             return b
 
+    # a stage's span: the consumer's label, the nodes it ran in "fused"
+    label = consumer.node_label()
+    span_args = {"op_id": getattr(consumer, "_op_id", None),
+                 "fused": [getattr(n, "_op_id", None) for n in chain]}
+
     def spliced(b, ectx):
-        t0 = time.perf_counter()
-        out = run(b, ectx)
-        dispatch_m.value += time.perf_counter() - t0
-        _record_stage_time(ctx, metric, t0)
+        with ctx.tracer.span(label, cat="op", args=span_args):
+            t0 = time.perf_counter()
+            out = run(b, ectx)
+            dispatch_m.value += time.perf_counter() - t0
+            _record_stage_time(ctx, metric, t0)
         return out
 
     def retried(b, ectx):
         # split-and-retry on device OOM: the stage reruns over the
         # batch's halves, each half's result its own stream item
-        t0 = time.perf_counter()
-        outs = ctx.mm.with_retry(b, lambda bb: run(bb, ectx),
-                                 qctx=ctx.qctx)
-        dispatch_m.value += time.perf_counter() - t0
-        _record_stage_time(ctx, metric, t0)
+        with ctx.tracer.span(label, cat="op", args=span_args):
+            t0 = time.perf_counter()
+            outs = ctx.mm.with_retry(b, lambda bb: run(bb, ectx),
+                                     qctx=ctx.qctx)
+            dispatch_m.value += time.perf_counter() - t0
+            _record_stage_time(ctx, metric, t0)
         return outs
 
     # scan-rooted splice: a leaf that decodes on the device runs the chain
@@ -531,6 +568,7 @@ def fused_batches(consumer: GpuExec, ctx: ExecCtx, tail_fn=None,
         else scan_fused(ctx, spliced)
     if gen is not None:
         ctx.metric(node, "fusedInto").set(oid)
+        span_args["fused"].append(getattr(node, "_op_id", None))
     else:
         gen = (out for b in node.execute(ctx)
                for out in retried(b, ctx.eval_ctx))

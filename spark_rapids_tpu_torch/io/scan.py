@@ -57,6 +57,14 @@ A scan spliced into its consumer's stage counts its own output rows,
 batches and bytes for the operator metrics, which its execute shim
 would count on any other path; ``static_bytes_estimate`` (the files'
 sizes, the reference's ``:505``) is the plan verifier's estimate.
+The registry (``obs/metrics.py``) sees every scan batch, as the
+reference's ``:59-76,1044-1047,1131-1132``: its assembly and upload
+seconds (``rapids_scan_assemble_seconds`` and
+``rapids_scan_upload_seconds``, mode ``device`` or ``arrow``) and the
+device-decode path's chunks (``rapids_scan_device_chunks_total``,
+``rapids_scan_fallback_chunks_total`` by reason), the process-wide twins
+of the query's ``assembleTime``, ``uploadTime``, ``deviceChunks`` and
+``fallbackChunks``.
 A scan the planner places on the CPU (``execute_cpu``, the reference's
 ``:1138-1163`` with ``_align``) yields pyarrow's batches in the same
 split order, cast to its schema, and touches no device. Column pruning,
@@ -90,12 +98,33 @@ from ..config import (MAX_PARTITION_BYTES, PARQUET_DEVICE_DECODE,
                       SCAN_PREFETCH_BATCHES, SCAN_STAGE_FUSION,
                       SCAN_UPLOAD_THREADS)
 from ..exec.base import ExecCtx, LeafExec
+from ..obs.metrics import REGISTRY as _METRICS, TRANSFER_BUCKETS
 from ..ops.parquet_decode import BatchLayout, decode_batch
 from ..pipeline import pipelined_map
 from .parquet_plan import (STR_EXPANSION_CAP, HostFallback,
                            merge_chunk_plans, plan_chunk)
 
 __all__ = ["FileSplit", "GpuFileScanExec", "plan_splits"]
+
+# each scan batch's transfer stages, split as the query's metrics are;
+# mode = device (K5's blob path) | arrow (host-decoded batches)
+SCAN_ASSEMBLE_SECONDS = _METRICS.histogram(
+    "rapids_scan_assemble_seconds",
+    "Host-side blob/batch assembly time per scan output batch.",
+    ("mode",), buckets=TRANSFER_BUCKETS)
+SCAN_UPLOAD_SECONDS = _METRICS.histogram(
+    "rapids_scan_upload_seconds",
+    "Host->device transfer + decode-dispatch time per scan output "
+    "batch.", ("mode",), buckets=TRANSFER_BUCKETS)
+# every column chunk the device-decode scan plans is decoded by K5 or
+# falls back to pyarrow, with its bounded reason
+SCAN_DEVICE_CHUNKS = _METRICS.counter(
+    "rapids_scan_device_chunks_total",
+    "Column chunks decoded on device by the parquet scan.")
+SCAN_FALLBACK_CHUNKS = _METRICS.counter(
+    "rapids_scan_fallback_chunks_total",
+    "Column chunks that fell back to host pyarrow decode, by bounded "
+    "reason slug.", ("reason",))
 
 class FileSplit:
     """A unit of scan work: one file, optionally restricted to a
@@ -701,12 +730,17 @@ class GpuFileScanExec(LeafExec):
                 wait_t.value += time.perf_counter() - t0
                 asm_t.value += asm_s
                 up_t.value += up_s
+                SCAN_ASSEMBLE_SECONDS.labels("device").observe(asm_s)
+                SCAN_UPLOAD_SECONDS.labels("device").observe(up_s)
                 enc_m.value += layout.encoded_bytes()
                 dec_m.value += layout.decoded_bytes()
                 dev_m.value += dev_chunks
                 fb_m.value += len(reasons)
+                if dev_chunks:
+                    SCAN_DEVICE_CHUNKS.inc(dev_chunks)
                 for r in reasons:
                     ctx.metric(self, f"fallbackChunks.{r}").value += 1
+                    SCAN_FALLBACK_CHUNKS.labels(r).inc()
                 rows.value += layout.n_rows
                 uploader.hand_over(blob, event)
                 batch = GpuBatch(self._with_nested(
@@ -797,6 +831,8 @@ class GpuFileScanExec(LeafExec):
                 wait_t.value += time.perf_counter() - t0
                 asm_t.value += asm_s
                 up_t.value += up_s
+                SCAN_ASSEMBLE_SECONDS.labels("arrow").observe(asm_s)
+                SCAN_UPLOAD_SECONDS.labels("arrow").observe(up_s)
                 uploader.hand_over(blob, event)
                 rows.value += layout.n_rows
                 yield GpuBatch(self._with_nested(

@@ -21,11 +21,16 @@ Counterpart of ``spark_rapids_tpu/lifecycle.py:56-675``:
   grants paused until the query runs alone), ``cpu`` (the collect root
   reruns the plan on ``execute_cpu``).
 
-The reference also counts each cancel reason and rung in its metrics
-registry and flight recorder (ROADMAP item 15); here the ladder's
-``counts`` and the token's ``reason`` are the record. The cluster's
-cancel marker (``read_cancel_marker``, ``for_worker``) and the
-``slow_admission`` chaos delay wait for the process cluster (item 16).
+Each cancel (by reason) and rung (by name) moves the reference's
+registry families, ``rapids_query_cancelled_total`` and
+``rapids_query_degraded_total`` (``halve`` once a query), and records a
+``lifecycle`` flight event (``cancel``, ``degrade``); admission observes
+``rapids_admission_wait_seconds`` and keeps
+``rapids_admission_queue_depth`` a tenant (``:132-151,220,400``). The
+ladder's ``counts`` and the token's ``reason`` stay as the query's own
+record. The cluster's cancel marker (``read_cancel_marker``,
+``for_worker``) and the ``slow_admission`` chaos delay wait for the
+process cluster (item 16).
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ from collections import deque
 from typing import Dict, Optional
 
 from .config import RapidsConf, _bytes_conv, register
+from .obs.metrics import REGISTRY as _METRICS
+from .obs.recorder import RECORDER as _FLIGHT
 
 __all__ = ["QueryCancelled", "CancellationToken", "QueryContext",
            "FairAdmissionController", "DegradationLadder",
@@ -103,6 +110,27 @@ LADDER_EXCLUSIVE_TIMEOUT = register(
 CANCEL_REASONS = ("user", "deadline", "budget", "admission")
 LADDER_RUNGS = ("halve", "spill", "width1", "cpu")
 
+QUERY_CANCELLED = _METRICS.counter(
+    "rapids_query_cancelled_total",
+    "Queries cancelled, classified by reason: user (explicit "
+    "cancel()), deadline (per-query wall deadline expired), budget "
+    "(per-query memory budget unsatisfiable), admission (queue-time "
+    "deadline or bounded tenant queue overflow).", ("reason",))
+QUERY_DEGRADED = _METRICS.counter(
+    "rapids_query_degraded_total",
+    "Degradation-ladder rungs entered under memory pressure: halve "
+    "(split-and-retry), spill (forced spill of spillable batches), "
+    "width1 (single-task admission), cpu (classified per-operator CPU "
+    "fallback).", ("rung",))
+ADMISSION_WAIT = _METRICS.histogram(
+    "rapids_admission_wait_seconds",
+    "Time a query waited in the fair admission queue before its slot "
+    "was granted.")
+ADMISSION_QUEUE_DEPTH = _METRICS.gauge(
+    "rapids_admission_queue_depth",
+    "Queries currently waiting for an admission slot, per tenant.",
+    ("tenant",))
+
 
 class QueryCancelled(RuntimeError):
     """A query stopped by the lifecycle layer, classified by reason
@@ -146,6 +174,9 @@ class CancellationToken:
                 return False
             self.reason = reason
             self.detail = detail
+        QUERY_CANCELLED.labels(reason).inc()
+        _FLIGHT.record("lifecycle", ev="cancel", query=self.query_id,
+                       reason=reason, detail=detail[:200])
         return True
 
     def error(self) -> QueryCancelled:
@@ -222,6 +253,8 @@ class DegradationLadder:
         self.causes = []
 
     def note_halve(self) -> None:
+        if "halve" not in self.counts:
+            QUERY_DEGRADED.labels("halve").inc()
         self.counts["halve"] = self.counts.get("halve", 0) + 1
 
     def escalate(self, cause: str = "oom") -> str:
@@ -231,6 +264,9 @@ class DegradationLadder:
         rung = LADDER_RUNGS[self._idx]
         self.counts[rung] = self.counts.get(rung, 0) + 1
         self.causes.append((rung, cause))
+        QUERY_DEGRADED.labels(rung).inc()
+        _FLIGHT.record("lifecycle", ev="degrade", rung=rung,
+                       cause=cause, query=self._qctx.query_id)
         return rung
 
 
@@ -340,6 +376,10 @@ class FairAdmissionController:
                 self._tenant_use.get(w.tenant, 0) + 1
             self._cv.notify_all()
 
+    def _queue_gauge(self, tenant: str) -> None:
+        ADMISSION_QUEUE_DEPTH.labels(tenant).set(
+            len(self._queues.get(tenant, ())))
+
     def slot(self, qctx: Optional[QueryContext] = None) -> _Slot:
         """Block until admitted (or raise the classified
         ``QueryCancelled``); use as a context manager."""
@@ -359,6 +399,7 @@ class FairAdmissionController:
                              f"tenant {tenant!r} admission queue full "
                              f"({self._max_queue} waiting)")
             q.append(w)
+            self._queue_gauge(tenant)
             self._grant_locked()
             poll_s = 0.05 if (token is not None
                               or adm_deadline is not None) else None
@@ -382,6 +423,8 @@ class FairAdmissionController:
             finally:
                 if w in q:
                     q.remove(w)
+                self._queue_gauge(tenant)
+        ADMISSION_WAIT.observe(time.monotonic() - t0)
         if qctx is not None:
             qctx.phase = "admitted"
             qctx.admission_wait_s = time.monotonic() - t0

@@ -39,12 +39,19 @@ What differs from the reference:
   the validity of a column without nulls and counts a lazy selection's
   mask, so its bytes for the same Arrow input differ from the
   reference's (``device_size_bytes`` in ``columnar/batch.py``).
-- **Counters.** Where the reference moves a metric in its registry or
-  records a flight-recorder event (ROADMAP item 15), the manager keeps
-  the count as an attribute: ``spill_bytes``, ``disk_spill_bytes``,
-  ``spill_read_bytes``, ``oom_retries``, ``forced_spill_bytes``,
-  ``spill_read_failures`` and ``spill_write_failures`` by kind. The
-  event log (``log_spill_event``) waits for item 15 too.
+- **Counters.** The reference's ten registry families move where its
+  do (``obs/metrics.py``: six ``rapids_memory_*``,
+  ``rapids_disk_spill_in_use_bytes`` and three ``rapids_spill_*``), and
+  every ledger transition publishes the gauges (``_sync_gauges``) and
+  records a ``mem`` flight event with the bytes in use after it
+  (``_flight_mem``). A refused disk write or a failed read-back writes
+  an event-log line (``tools/event_log.log_spill_event``). The manager
+  keeps its counts as attributes too (``spill_bytes``,
+  ``disk_spill_bytes``, ``spill_read_bytes``, ``oom_retries``,
+  ``forced_spill_bytes``, ``spill_read_failures`` and
+  ``spill_write_failures`` by kind): a manager's own, where the
+  registry's are the process's. The host ledger a CPU island runs under
+  (``host()``) publishes nothing: its batches are not on the device.
 
 Test injections, as in the reference: ``spark.rapids.sql.test
 .injectRetryOOM`` (the N-th retry scope raises) and ``.storm`` (the
@@ -76,6 +83,8 @@ from .config import (ALLOC_FRACTION, CONCURRENT_TPU_TASKS, DISK_ORPHAN_TTL,
 from .lifecycle import (ADMISSION_MAX_QUEUE, ADMISSION_TIMEOUT,
                         ADMISSION_WEIGHTS, LADDER_EXCLUSIVE_TIMEOUT,
                         FairAdmissionController)
+from .obs.metrics import REGISTRY as _METRICS
+from .obs.recorder import RECORDER as _FLIGHT
 
 __all__ = ["DeviceMemoryManager", "SpillableBatch", "SpillReadError",
            "TpuRetryOOM", "QueryBudgetExceeded", "DEVICE_BUDGET",
@@ -87,6 +96,55 @@ DEVICE_BUDGET = register(
     "Device memory byte budget for the spillable-batch catalog; 0 = auto "
     "(allocFraction x the device's reported memory, 6GiB on the CPU). "
     "Tests set this low to force spill.", conv=_bytes_conv)
+
+# the ledger's state (gauges: the last manager to move wins) and its
+# monotonic pressure counters, readable mid-query
+_MEM_DEVICE_IN_USE = _METRICS.gauge(
+    "rapids_memory_device_bytes_in_use",
+    "Device bytes the spillable-batch ledger currently charges "
+    "against the HBM budget.")
+_MEM_DEVICE_BUDGET = _METRICS.gauge(
+    "rapids_memory_device_budget_bytes",
+    "Device HBM budget the ledger evicts against "
+    "(spark.rapids.memory.device.budgetBytes, resolved).")
+_MEM_HOST_IN_USE = _METRICS.gauge(
+    "rapids_memory_host_bytes_in_use",
+    "Host-tier bytes held by spilled batches.")
+_MEM_SPILL_BYTES = _METRICS.counter(
+    "rapids_memory_spill_bytes_total",
+    "Total bytes ever spilled device -> host.")
+_MEM_DISK_SPILL_BYTES = _METRICS.counter(
+    "rapids_memory_disk_spill_bytes_total",
+    "Total bytes ever tiered host -> disk.")
+_MEM_OOM_RETRIES = _METRICS.counter(
+    "rapids_memory_oom_retries_total",
+    "Device OOM events answered by split-and-retry (each splits one "
+    "batch in half and reruns).")
+_DISK_IN_USE = _METRICS.gauge(
+    "rapids_disk_spill_in_use_bytes",
+    "LIVE disk-tier spill residency (bytes of committed spill files "
+    "not yet read back or released) — returns to zero when every "
+    "query's batches are released.")
+_SPILL_READ_BYTES = _METRICS.counter(
+    "rapids_spill_read_bytes_total",
+    "Total bytes read back (and CRC-verified) from the disk spill "
+    "tier. With the write counters this closes the spill byte "
+    "ledger per query for the telemetry warehouse.")
+_SPILL_READ_FAILURES = _METRICS.counter(
+    "rapids_spill_read_failures_total",
+    "Spill-file read-backs that failed verification, classified: "
+    "missing (file gone), corrupt (CRC mismatch), torn (truncated "
+    "trailer / size disagreement), io (persistently unreadable after "
+    "the bounded in-place retries).", ("kind",))
+_SPILL_WRITE_FAILURES = _METRICS.counter(
+    "rapids_spill_write_failures_total",
+    "Disk-spill writes that could not commit, classified: enospc "
+    "(the filesystem is full — real or injected), budget (the live "
+    "disk residency budget spark.rapids.memory.disk.limit could not "
+    "fit the file even after evicting old disk entries), io (any "
+    "other OSError). The batch stays host-resident in every case — "
+    "a failed spill never loses data or crashes the eviction "
+    "cascade.", ("kind",))
 
 
 class TpuRetryOOM(RuntimeError):
@@ -312,6 +370,10 @@ class SpillableBatch:
                 self._mgr.spill_bytes += self.nbytes
                 self._mgr.spill_count += 1
                 self._mgr.host_bytes += self.host_nbytes
+            if self._mgr._publish:
+                _MEM_SPILL_BYTES.inc(self.nbytes)
+            self._mgr._sync_gauges()
+            self._mgr._flight_mem("spill", self.nbytes)
             self._mgr._debug("spill", self)
         finally:
             self._state_lock.release()
@@ -377,6 +439,7 @@ class SpillableBatch:
                 if not committed:
                     with mgr._lock:
                         mgr.disk_in_use_bytes -= fsize
+                    mgr._sync_gauges()
             mgr._clear_disk_pressure()
             self._disk_path = path
             self._disk_size = fsize
@@ -385,6 +448,10 @@ class SpillableBatch:
             with mgr._lock:
                 mgr.host_bytes -= self.host_nbytes
                 mgr.disk_spill_bytes += self.host_nbytes
+            if mgr._publish:
+                _MEM_DISK_SPILL_BYTES.inc(self.host_nbytes)
+            mgr._sync_gauges()
+            mgr._flight_mem("disk_spill", self.host_nbytes)
             return True
         finally:
             self._state_lock.release()
@@ -410,6 +477,7 @@ class SpillableBatch:
             self._no_disk_until = time.monotonic() + 5.0
             with self._mgr._lock:
                 self._mgr.host_bytes += self.host_nbytes
+            self._mgr._sync_gauges()
             return freed
         finally:
             self._state_lock.release()
@@ -430,9 +498,13 @@ class SpillableBatch:
                                                           detail),
                 max_retries=mgr.disk_read_retries,
                 retry_wait_s=mgr.disk_read_wait_s,
+                on_retry=lambda n, e: mgr._flight_mem(
+                    "spill_read_retry", 0, n=n, error=str(e)[:120]),
                 missing_detail="committed spill file is gone")
             with mgr._lock:
                 mgr.spill_read_bytes += len(payload)
+            if mgr._publish:
+                _SPILL_READ_BYTES.inc(len(payload))
             table = pa.ipc.open_file(
                 pa.BufferReader(payload)).read_all().combine_chunks()
         except SpillReadError as e:
@@ -446,6 +518,7 @@ class SpillableBatch:
         with mgr._lock:
             mgr.disk_in_use_bytes -= self._disk_size
         self._disk_size = 0
+        mgr._sync_gauges()
         rbs = table.to_batches()
         if rbs:
             return rbs[0]
@@ -455,16 +528,22 @@ class SpillableBatch:
 
     def get_host(self):
         """Host Arrow view: downloaded if still on the device, read back
-        (and verified) if on disk."""
-        with self._state_lock:
-            if self._host is None and self._disk_path is not None:
-                self._host = self._read_disk()
-                with self._mgr._lock:
-                    self._mgr.host_bytes += self.host_nbytes
-            if self._host is None:
-                from .columnar.arrow_bridge import device_to_arrow
-                return device_to_arrow(self._device)
-            return self._host
+        (and verified) if on disk; a failed read-back writes its
+        event-log line here, outside the batch's own lock scope."""
+        try:
+            with self._state_lock:
+                if self._host is None and self._disk_path is not None:
+                    self._host = self._read_disk()
+                    with self._mgr._lock:
+                        self._mgr.host_bytes += self.host_nbytes
+                    self._mgr._sync_gauges()
+                if self._host is None:
+                    from .columnar.arrow_bridge import device_to_arrow
+                    return device_to_arrow(self._device)
+                return self._host
+        except SpillReadError as e:
+            self._mgr._log_spill_read_failure(e)
+            raise
 
     def get(self):
         """The device batch, uploaded again (and the ledger charged
@@ -493,6 +572,7 @@ class SpillableBatch:
                     self._mgr.readback_count += 1
                     self._mgr.device_bytes += now - self.nbytes
                 self.nbytes = now
+                self._mgr._sync_gauges()
             self._mgr._touch(self)
             return self._device
 
@@ -515,6 +595,7 @@ class SpillableBatch:
                     with self._mgr._lock:
                         self._mgr.disk_in_use_bytes -= self._disk_size
                     self._disk_size = 0
+                    self._mgr._sync_gauges()
             self._device = None
             self._host = None
 
@@ -569,12 +650,15 @@ class DeviceMemoryManager:
             if cls._host is None:
                 cls._host = cls(RapidsConf({
                     DEVICE_BUDGET.key: 1 << 62,
-                    OOM_RETRY_ENABLED.key: False}), "cpu")
+                    OOM_RETRY_ENABLED.key: False}), "cpu", publish=False)
             return cls._host
 
-    def __init__(self, conf: Optional[RapidsConf] = None, device=None):
+    def __init__(self, conf: Optional[RapidsConf] = None, device=None,
+                 publish: bool = True):
         self.conf = conf or RapidsConf()
         self.device = device
+        # False for the host ledger: no gauges, counters or flight events
+        self._publish = publish
         self.budget = resolve_device_budget(self.conf, device)
         self._lock = threading.RLock()
         self._catalog: "OrderedDict[int, SpillableBatch]" = OrderedDict()
@@ -615,6 +699,29 @@ class DeviceMemoryManager:
         self._mem_debug = self.conf.get(MEM_DEBUG) == "STDOUT"
         self._leak_debug = self.conf.get(LEAK_DEBUG)
         self._alloc_sites: dict = {}
+        if self._publish:
+            _MEM_DEVICE_BUDGET.set(self.budget)
+        self._sync_gauges()
+        self._flight_mem("budget")
+
+    def _sync_gauges(self) -> None:
+        """Publish the ledger to the registry: three attribute writes,
+        run on every transition."""
+        if not self._publish:
+            return
+        _MEM_DEVICE_IN_USE.set(self.device_bytes)
+        _MEM_HOST_IN_USE.set(self.host_bytes)
+        _DISK_IN_USE.set(self.disk_in_use_bytes)
+
+    def _flight_mem(self, ev: str, nbytes: int = 0, **extra) -> None:
+        """The flight recorder's tap: every ledger transition with the
+        bytes in use after it (the HBM timeline
+        ``obs/recorder.memory_timeline`` replays) and the budget on
+        every event (a ring scoped to a query's window keeps it)."""
+        if self._publish:
+            _FLIGHT.record("mem", ev=ev, bytes=int(nbytes),
+                           device=self.device_bytes, host=self.host_bytes,
+                           budget=self.budget, **extra)
 
     def _debug(self, event: str, sb: "SpillableBatch"):
         if self._mem_debug:
@@ -658,6 +765,8 @@ class DeviceMemoryManager:
                 self._alloc_sites[id(sb)] = "".join(
                     traceback.format_stack(limit=6)[:-1]).strip()
         self._evict_to_fit(exclude=id(sb) if pinned else None)
+        self._sync_gauges()
+        self._flight_mem("reserve", sb.nbytes)
         self._debug("register", sb)
         return sb
 
@@ -667,10 +776,14 @@ class DeviceMemoryManager:
             self._catalog[id(sb)] = sb
         # the caller holds sb's state lock: keep it out of both tiers
         self._evict_to_fit(exclude=id(sb))
+        self._sync_gauges()
+        self._flight_mem("readback", nbytes)
 
     def _uncharge(self, sb: SpillableBatch, nbytes: int):
         with self._lock:
             self.device_bytes -= nbytes
+        self._sync_gauges()
+        self._flight_mem("readback_undo", nbytes)
 
     def _touch(self, sb: SpillableBatch):
         with self._lock:
@@ -686,6 +799,8 @@ class DeviceMemoryManager:
                     self.host_bytes -= sb.host_nbytes
             self._pin_counts.pop(id(sb), None)
             self._alloc_sites.pop(id(sb), None)
+        self._sync_gauges()
+        self._flight_mem("release", sb.nbytes)
         self._debug("release", sb)
 
     def _evict_host_to_disk(self, exclude: Optional[int] = None):
@@ -716,20 +831,44 @@ class DeviceMemoryManager:
 
     def _note_disk_pressure(self, kind: str, path: str,
                             detail: str) -> None:
-        """A refused disk write: counted by kind; ``enospc`` and
-        ``budget`` open the pressure window the ladder's terminal rung
-        reads, a transient ``io`` error does not."""
-        if kind in ("enospc", "budget"):
+        """A refused disk write: counted by kind, a flight event and an
+        event-log line; ``enospc`` and ``budget`` open the pressure
+        window the ladder's terminal rung reads (the event is then
+        ``disk_pressure``), a transient ``io`` error does not
+        (``spill_write_failed``)."""
+        pressure = kind in ("enospc", "budget")
+        if pressure:
             self._disk_pressure_until = \
                 time.monotonic() + _DISK_PRESSURE_WINDOW_S
         with self._lock:
             self.spill_write_failures[kind] = \
                 self.spill_write_failures.get(kind, 0) + 1
+        ev = "disk_pressure" if pressure else "spill_write_failed"
+        if self._publish:
+            _SPILL_WRITE_FAILURES.labels(kind).inc()
+        self._flight_mem(ev, 0, fail_kind=kind, path=path,
+                         detail=detail[:160])
+        from .tools.event_log import log_spill_event
+        with contextlib.suppress(OSError):
+            log_spill_event(self.conf, ev, kind=kind, path=path,
+                            detail=detail[:300])
 
     def _note_spill_read_failure(self, e: "SpillReadError") -> None:
+        """Counted by kind and a flight event where the read failed;
+        its event-log line is ``get_host``'s."""
         with self._lock:
             self.spill_read_failures[e.kind] = \
                 self.spill_read_failures.get(e.kind, 0) + 1
+        if self._publish:
+            _SPILL_READ_FAILURES.labels(e.kind).inc()
+        self._flight_mem("spill_read_failed", 0, fail_kind=e.kind,
+                         path=e.path, detail=e.detail[:160])
+
+    def _log_spill_read_failure(self, e: "SpillReadError") -> None:
+        from .tools.event_log import log_spill_event
+        with contextlib.suppress(OSError):
+            log_spill_event(self.conf, "spill_read_failed", kind=e.kind,
+                            path=e.path, detail=e.detail[:300])
 
     def _disk_budget_admit(self, fsize: int) -> bool:
         """Reserve ``fsize`` of live disk residency under the ledger
@@ -768,6 +907,9 @@ class DeviceMemoryManager:
             if freed >= need:
                 break
             freed += sb._promote_to_host()
+        if freed:
+            self._sync_gauges()
+            self._flight_mem("disk_evict", freed)
         return freed
 
     def _maybe_inject_disk_full(self) -> None:
@@ -840,10 +982,14 @@ class DeviceMemoryManager:
                 self.device_bytes += n
             try:
                 self._evict_to_fit()
+                self._sync_gauges()
+                self._flight_mem("staging_reserve", n)
                 yield
             finally:
                 with self._lock:
                     self.device_bytes -= n
+                self._sync_gauges()
+                self._flight_mem("staging_release", n)
         return _ctx()
 
     def pin(self, sb: SpillableBatch):
@@ -884,6 +1030,7 @@ class DeviceMemoryManager:
         self._evict_host_to_disk()
         with self._lock:
             self.forced_spill_bytes += freed
+        self._flight_mem("forced_spill", freed)
         return freed
 
     # --- OOM retry --------------------------------------------------------
@@ -944,6 +1091,10 @@ class DeviceMemoryManager:
         if depth < self.max_splits and batch.capacity >= 2:
             with self._lock:
                 self.oom_retries += 1
+            if self._publish:
+                _MEM_OOM_RETRIES.inc()
+            self._flight_mem("oom_retry", batch.device_size_bytes(),
+                             depth=depth)
             if ladder is not None:
                 ladder.note_halve()
             b1, b2 = split_batch(batch)

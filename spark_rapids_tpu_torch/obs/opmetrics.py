@@ -29,15 +29,16 @@ Counterpart of ``spark_rapids_tpu/obs/opmetrics.py``:
   and ``read_task_opmetrics``, the file half of the cluster's harvest),
   **EXPLAIN ANALYZE** (``render_analyzed``) and **query profiles**
   (``build_profile``/``write_profile``/``read_profiles``: one
-  ``profile-<id>.json`` a query under ``spark.rapids.history.dir``).
+  ``profile-<id>.json`` a query under ``spark.rapids.history.dir``,
+  pruned past ``spark.rapids.trace.maxFiles``, which ``obs/tracer.py``
+  registers). ``plan_fingerprint`` lives in ``tools/event_log.py`` and
+  ``prune_oldest`` in ``obs/recorder.py``; both are importable here.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import queue
-import re
 import threading
 import time
 import uuid
@@ -46,9 +47,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..config import RapidsConf, register
+from ..tools.event_log import plan_fingerprint
+from .recorder import prune_oldest
+from .tracer import TRACE_MAX_FILES
 
 __all__ = ["OP_METRICS_ENABLED", "HISTORY_DIR", "HISTORY_ENABLED",
-           "HISTORY_MAX_FILES", "OpMetricsCollector", "assign_op_ids",
+           "OpMetricsCollector", "assign_op_ids",
            "plan_source", "snapshot_ctx", "fold_ctx", "fold_snapshots",
            "flush_task_opmetrics", "read_task_opmetrics",
            "render_analyzed", "plan_nodes", "top_op_sinks",
@@ -73,10 +77,6 @@ HISTORY_DIR = register(
     "Directory for persistent query profiles (profile-<id>.json, one "
     "per query, spark.rapids.trace.maxFiles retention). Empty disables "
     "profile history.")
-HISTORY_MAX_FILES = register(
-    "spark.rapids.trace.maxFiles", 200,
-    "On-disk retention for spark.rapids.history.dir: at write time the "
-    "oldest profiles beyond this count are pruned (atomic unlinks).")
 
 #: metric names rendered as times (seconds, shown in ms)
 _TIME_METRICS = frozenset((
@@ -521,14 +521,6 @@ def plan_nodes(root) -> List[Dict]:
 
 # --- query profiles ---------------------------------------------------------
 
-def plan_fingerprint(root) -> str:
-    """An id for the query's shape across runs: a hash of the operator
-    tree with the per-instance labels stripped (the reference's
-    ``tools/event_log.plan_fingerprint``)."""
-    text = re.sub(r"#\d+", "", root.tree_string())
-    return hashlib.sha1(text.encode()).hexdigest()[:16]
-
-
 def _device_kind(device) -> str:
     """The card's name for a CUDA context, ``cpu`` for a CPU one."""
     if device is not None and torch.device(device).type == "cuda":
@@ -566,35 +558,6 @@ def build_profile(root, folded: Dict[str, Dict], wall_s: float,
     return doc
 
 
-def prune_oldest(base_dir: str, keep: int, prefix: str = "",
-                 suffix: str = "") -> int:
-    """Unlink the oldest matching files beyond ``keep``; returns how
-    many went (a file another pruner removed first is skipped)."""
-    try:
-        names = [n for n in os.listdir(base_dir)
-                 if n.startswith(prefix) and n.endswith(suffix)]
-    except OSError:
-        return 0
-    if len(names) <= keep:
-        return 0
-    entries = []
-    for n in names:
-        p = os.path.join(base_dir, n)
-        try:
-            entries.append((os.stat(p).st_mtime, n, p))
-        except OSError:
-            continue
-    entries.sort()
-    pruned = 0
-    for _, _, p in entries[:max(0, len(entries) - keep)]:
-        try:
-            os.unlink(p)
-            pruned += 1
-        except OSError:
-            pass
-    return pruned
-
-
 def write_profile(conf: RapidsConf, doc: Dict) -> Optional[str]:
     """Commit one profile under ``spark.rapids.history.dir`` (temporary
     name, then rename) and prune past ``spark.rapids.trace.maxFiles``;
@@ -609,7 +572,7 @@ def write_profile(conf: RapidsConf, doc: Dict) -> Optional[str]:
         with open(tmp, "w") as f:
             json.dump(doc, f)
         os.replace(tmp, path)
-        prune_oldest(base, conf.get(HISTORY_MAX_FILES),
+        prune_oldest(base, conf.get(TRACE_MAX_FILES),
                      prefix="profile-", suffix=".json")
         return path
     except OSError:

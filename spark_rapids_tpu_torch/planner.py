@@ -53,11 +53,27 @@ with each operator's metrics (EXPLAIN ANALYZE, ``:359-372``), and with
 ``spark.rapids.history.dir`` set each query writes one profile
 (``_write_profile``, ``:340-357``).
 ``fallback_nodes()`` names every node placed on the CPU, and
-``explain`` renders the placement (``ALL`` or ``NOT_ON_GPU``). The
-telemetry bracket waits for ROADMAP item 15.
+``explain`` renders the placement (``ALL`` or ``NOT_ON_GPU``).
+
+The collect's telemetry bracket (the reference's ``:179-242``): the
+warehouse's ``QueryAttribution.begin``, then the ``query`` span (the
+plan's fingerprint in its args) and, with ``spark.rapids.profile.path``
+set, a ``torch.profiler`` session (CPU, and CUDA on a CUDA ctx) whose
+Chrome trace lands in that directory (``last_profiler_trace``). Every
+exit writes one warehouse row (completed, cancelled, degraded or
+failed) and the tracer's Chrome JSON (an ``OSError`` there never fails
+the query); a collect that returns observes
+``rapids_query_duration_seconds`` and writes its event-log line; a
+cancelled one writes a ``lifecycle``/``cancelled_query`` flight event and
+a ``query_cancelled`` line (``:274-320``), and the ladder's CPU rerun a
+``lifecycle``/``cpu_fallback`` event. ``GpuOverrides.apply`` records a
+``plan`` flight event with the placement's fallback reasons
+(``:518-530``).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -66,7 +82,8 @@ import pyarrow as pa
 
 from . import datatypes as dt
 from .config import (ADAPTIVE_ENABLED, BATCH_SIZE_ROWS, EXPLAIN,
-                     INCOMPATIBLE_OPS, SQL_ENABLED, VERIFY_PLAN, RapidsConf)
+                     INCOMPATIBLE_OPS, PROFILE_PATH, SQL_ENABLED,
+                     VERIFY_PLAN, RapidsConf)
 from .exec.base import ExecCtx, GpuExec, collect_arrow, \
     collect_arrow_cpu, resolve_device
 from .exec.transitions import DeviceToHostExec, HostToDeviceExec
@@ -177,6 +194,7 @@ class PhysicalPlan:
         self.last_ctx: Optional[ExecCtx] = None
         self.last_wall_s: Optional[float] = None
         self.last_profile_path: Optional[str] = None
+        self.last_profiler_trace: Optional[str] = None
 
     @property
     def root_on_device(self) -> bool:
@@ -211,8 +229,14 @@ class PhysicalPlan:
         """Run the plan and return one Arrow table: the root's device
         path under the admission slot, or its CPU path when the planner
         placed it on the CPU (module docstring). A ladder-exhausted OOM
-        reruns the plan on its CPU path."""
-        from .lifecycle import LIFECYCLE_ENABLED, QueryContext
+        reruns the plan on its CPU path. The telemetry bracket is the
+        module docstring's."""
+        from .lifecycle import LIFECYCLE_ENABLED, QueryCancelled, \
+            QueryContext
+        from .obs.attribution import QueryAttribution
+        from .obs.metrics import QUERY_DURATION
+        from .obs.tracer import TRACE_DIR
+        from .tools.event_log import log_query_event, plan_fingerprint
         ctx = ctx or ExecCtx(self.conf, self.device)
         self.last_ctx = ctx
         if qctx is None:
@@ -221,19 +245,75 @@ class PhysicalPlan:
             qctx = QueryContext.from_conf(self.conf)
         ctx.qctx = qctx
         self.last_qctx = qctx
+        attrib = QueryAttribution.begin(self.conf)
+        qspan = ctx.tracer.span(
+            "query", cat="query",
+            args={"fingerprint": plan_fingerprint(self.root)}) \
+            if ctx.tracer.enabled else contextlib.nullcontext()
         t0 = time.perf_counter()
         try:
-            out = self._collect(ctx, qctx)
+            with self._profiled(ctx), qspan:
+                out = self._collect(ctx, qctx)
+        except QueryCancelled as e:
+            self._report_cancel(e, time.perf_counter() - t0)
+            self._emit_warehouse(attrib, ctx, qctx,
+                                 time.perf_counter() - t0, error=e)
+            raise
+        except BaseException as e:
+            self._emit_warehouse(attrib, ctx, qctx,
+                                 time.perf_counter() - t0, error=e)
+            raise
         finally:
             # width-1 exclusivity must not outlive the query
             if qctx is not None:
                 ctx.mm.admission.clear_exclusive(qctx.query_id)
-        self.last_wall_s = time.perf_counter() - t0
-        self._write_profile(ctx, self.last_wall_s)
+            # a failed query's timeline is the one most wanted; a trace
+            # directory that cannot be written never fails the query
+            if ctx.tracer.enabled:
+                with contextlib.suppress(OSError):
+                    ctx.tracer.write_chrome(self.conf.get(TRACE_DIR))
+        self.last_wall_s = wall_s = time.perf_counter() - t0
+        QUERY_DURATION.labels(self.source, "local").observe(wall_s)
+        with contextlib.suppress(OSError):
+            log_query_event(self, ctx, wall_s)
+        self._write_profile(ctx, wall_s)
+        self._emit_warehouse(attrib, ctx, qctx, wall_s)
         return out
+
+    @contextlib.contextmanager
+    def _profiled(self, ctx: ExecCtx):
+        """A ``torch.profiler`` session over the run while
+        ``spark.rapids.profile.path`` is set (CPU activity, and CUDA on
+        a CUDA ctx), its Chrome trace written into that directory at the
+        end, even a failed run's; nothing otherwise (the profiler syncs
+        the device, so it runs only where it was asked for)."""
+        prof_dir = self.conf.get(PROFILE_PATH)
+        if not prof_dir:
+            yield
+            return
+        from torch import profiler as tp
+        activities = [tp.ProfilerActivity.CPU]
+        if ctx.device.type == "cuda":
+            activities.append(tp.ProfilerActivity.CUDA)
+        prof = tp.profile(activities=activities)
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            path = os.path.join(
+                prof_dir, f"torch-{os.getpid()}-"
+                f"{int(time.time() * 1000)}.pt.trace.json")
+            try:
+                os.makedirs(prof_dir, exist_ok=True)
+                prof.export_chrome_trace(path)
+                self.last_profiler_trace = path
+            except OSError:
+                self.last_profiler_trace = None
 
     def _collect(self, ctx: ExecCtx, qctx) -> pa.Table:
         from .memory import TpuRetryOOM
+        from .obs.recorder import RECORDER
         if not self.root_on_device:
             return collect_arrow_cpu(self.root, ctx)
         try:
@@ -241,9 +321,12 @@ class PhysicalPlan:
         except TpuRetryOOM as oom:
             if qctx is None or not oom.ladder_exhausted:
                 raise
+            detail = str(oom)[:200]
         # the ladder's cpu rung (already counted by escalate): drop the
         # aborted attempt's per-operator counts, which the CPU run counts
         # again (its deferred checks and row counts went at the failure)
+        RECORDER.record("lifecycle", ev="cpu_fallback",
+                        query=qctx.query_id, detail=detail)
         for ms in ctx.metrics.values():
             for name in ("numOutputRows", "numOutputBatches",
                          "numPartials", "numInputBatches", "rows",
@@ -251,6 +334,34 @@ class PhysicalPlan:
                 ms.pop(name, None)
         ctx.metric(self.root, "ladderCpuFallback").set(1)
         return collect_arrow_cpu(self.root, ctx)
+
+    def _report_cancel(self, e, wall_s: float) -> None:
+        """A cancelled query's evidence: a flight event and a
+        ``query_cancelled`` event-log line (the token counted it in
+        ``rapids_query_cancelled_total`` when it was cancelled)."""
+        from .obs.recorder import RECORDER
+        from .tools.event_log import log_query_cancelled
+        RECORDER.record("lifecycle", ev="cancelled_query",
+                        query=e.query_id, reason=e.reason,
+                        wall_s=round(wall_s, 6))
+        with contextlib.suppress(OSError):
+            log_query_cancelled(self.conf, e, wall_s, source=self.source)
+
+    def _emit_warehouse(self, attrib, ctx: ExecCtx, qctx, wall_s: float,
+                        error=None) -> None:
+        """This collect's one warehouse row: the folded per-operator
+        metrics carry the scan, fusion and row figures, the counter
+        deltas the spill bytes (``obs/attribution.py``); best effort."""
+        if attrib is None:
+            return
+        from .obs.opmetrics import fold_ctx
+        try:
+            folded = fold_ctx(ctx)
+        except Exception:  # noqa: BLE001 — a partial row beats none
+            folded = {}
+        attrib.finish(root=self.root, folded=folded, qctx=qctx,
+                      wall_s=wall_s, source=self.source, error=error,
+                      device=ctx.device)
 
     def _write_profile(self, ctx: ExecCtx, wall_s: float) -> None:
         """One query-profile JSON under ``spark.rapids.history.dir``
@@ -339,6 +450,27 @@ class GpuOverrides:
             raise PlanVerificationError(report)
         return report, secs
 
+    @staticmethod
+    def _record_fallbacks(meta: NodeMeta) -> None:
+        """One ``plan`` flight event a planned query: how many nodes
+        the placement put on the CPU and why (bounded), so an incident
+        bundle shows it without planning again."""
+        from .obs.recorder import RECORDER
+        if not RECORDER.enabled:
+            return
+        reasons = []
+
+        def rec(m: NodeMeta):
+            if not m.on_device:
+                reasons.append(f"{m.node.pretty_name()}: "
+                               + "; ".join(m.reasons)[:120])
+            for c in m.children:
+                rec(c)
+
+        rec(meta)
+        RECORDER.record("plan", n_fallbacks=len(reasons),
+                        fallbacks=" | ".join(reasons[:8])[:600])
+
     def apply(self, plan: GpuExec) -> PhysicalPlan:
         from .obs.opmetrics import assign_op_ids, plan_source
         meta = self._wrap(plan)
@@ -350,6 +482,7 @@ class GpuOverrides:
         pp = PhysicalPlan(root, meta, self.conf, self.device,
                           source=plan_source(plan))
         pp.verify_report, pp.verify_s = report, secs
+        self._record_fallbacks(meta)
         mode = self.conf.get(EXPLAIN)
         if mode in ("ALL", "NOT_ON_GPU"):
             text = pp.explain(mode)

@@ -393,9 +393,16 @@ class GpuSession:
         runs the query in process and returns the executed plan with
         each operator's rows, batches, times and counters (FORMATTED:
         every metric). Parse and analysis errors raise
-        ``SqlParseError`` / ``SqlAnalysisError``."""
-        from .sql import sql_to_plan
-        node, stmt = sql_to_plan(text, self)
+        ``SqlParseError`` / ``SqlAnalysisError`` and write one event-log
+        line (its type the error's slug) when ``spark.rapids.eventLog
+        .dir`` is set."""
+        from .sql import SqlError, sql_to_plan
+        from .tools.event_log import log_sql_error
+        try:
+            node, stmt = sql_to_plan(text, self)
+        except SqlError as e:
+            log_sql_error(self.conf, e, text)
+            raise
         if stmt.explain:
             from .planner import GpuOverrides
             pp = GpuOverrides(self.conf, self.device).apply(node)

@@ -29,9 +29,17 @@ in one copy at the stage boundary and spreads each map batch's bytes
 over its partitions by those counts, as the reference does
 (``_fold_pending_stats``). The host-file, multi-threaded and collective
 transports wait for items 16 and 17.
+
+``record_fetch_failure`` is every shuffle reader's classified-failure
+tap (the reference's ``:38-50``): ``rapids_shuffle_fetch_failures_total``
+by kind and a ``shuffle``/``fetch_failure`` flight event. The local store
+holds its batches in memory and never fails a fetch; the readers of
+sealed blocks (``shuffle/integrity.py``, the host-file transport of
+item 16) raise the ``FetchFailure`` it records.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -41,11 +49,33 @@ import torch
 from .. import datatypes as dt
 from ..columnar.batch import GpuBatch
 from ..columnar.column import GpuColumnVector
+from ..obs.metrics import REGISTRY as _METRICS
+from ..obs.recorder import RECORDER
 
 __all__ = ["FetchFailure", "FETCH_FAILURE_KINDS", "ShuffleWriteHandle",
-           "ShuffleTransport", "LocalShuffleTransport"]
+           "ShuffleTransport", "LocalShuffleTransport",
+           "SHUF_FETCH_FAILURES", "record_fetch_failure"]
 
 FETCH_FAILURE_KINDS = ("missing", "corrupt", "torn", "io")
+
+SHUF_FETCH_FAILURES = _METRICS.counter(
+    "rapids_shuffle_fetch_failures_total",
+    "Classified shuffle fetch failures by kind: missing (block or "
+    "committed map output gone), corrupt (CRC mismatch), torn "
+    "(malformed integrity footer/manifest), io (transient OSError "
+    "that survived the in-place retries).", ("kind",))
+
+
+def record_fetch_failure(ff: "FetchFailure", partition_id: int,
+                         transport: str) -> None:
+    """A classified fetch failure into the registry (by kind) and the
+    flight ring, the same shape whichever transport the bytes rode."""
+    SHUF_FETCH_FAILURES.labels(ff.kind).inc()
+    RECORDER.record("shuffle", ev="fetch_failure", sid=ff.shuffle_id,
+                    part=int(partition_id), fail_kind=ff.kind,
+                    map=str(ff.map_task or ""),
+                    path=os.path.basename(ff.path or ""),
+                    transport=transport)
 
 
 class FetchFailure(RuntimeError):

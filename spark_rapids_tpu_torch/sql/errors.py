@@ -9,8 +9,8 @@ caret-annotated snippet of the offending source line, and a finer
 ``detail`` code (``ambiguous_column``, ``unknown_function``, ...) that
 tests and log miners can match without parsing prose.
 
-The reference logs them through ``tools/event_log.py``; the port's event
-log waits for ROADMAP item 15. Copied from ``spark_rapids_tpu/sql/``.
+``GpuSession.sql`` logs them through ``tools/event_log.log_sql_error``
+(``to_dict``, one line a failure). Copied from ``spark_rapids_tpu/sql/``.
 """
 from __future__ import annotations
 

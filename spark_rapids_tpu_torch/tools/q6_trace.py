@@ -17,8 +17,8 @@ trace there. Busy time sums the device activities, so copies
 on the side stream that overlap a kernel count twice: the idle share is
 a lower bound. It needs a CUDA device.
 
-The JAX package's counterpart is its span tracer (``obs/tracer.py``); the
-port has none yet, so this script reads the profiler directly.
+The port's span tracer (``obs/tracer.py``, ``spark.rapids.trace.dir``)
+records host spans only, so this script reads the profiler directly.
 """
 from __future__ import annotations
 

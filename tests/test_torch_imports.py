@@ -60,6 +60,11 @@ VERIFIER_OPMETRICS_MODULES = ["analysis/__init__.py",
                               "analysis/plan_verifier.py",
                               "obs/__init__.py", "obs/opmetrics.py",
                               "exec/base.py", "planner.py", "session.py"]
+# the telemetry: tracer, registry, flight recorder, anomaly bundles,
+# warehouse, attribution and the event log
+TELEMETRY_MODULES = ["obs/tracer.py", "obs/metrics.py", "obs/recorder.py",
+                     "obs/anomaly.py", "obs/warehouse.py",
+                     "obs/attribution.py", "tools/event_log.py"]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -68,7 +73,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     for rel in JOIN_GROUPBY_MODULES + DECODE_MODULES + SQL_MODULES \
             + WINDOW_UNION_MODULES + JOIN_PERCENTILE_LIKE_MODULES \
             + OUTER_CROSS_MODULES + FALLBACK_MODULES + MEMORY_MODULES \
-            + VERIFIER_OPMETRICS_MODULES:
+            + VERIFIER_OPMETRICS_MODULES + TELEMETRY_MODULES:
         assert os.path.join(PORT, rel) in files, rel
     bad = []
     for path in files:
