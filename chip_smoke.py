@@ -157,8 +157,8 @@ Phases, any failure exits non-zero before the result line:
      with spark.rapids.sql.verifyPlan=false, as the reference's would:
      rows held to the oracle, each
      path's own figure above 0, no catalog entry or ledger byte left,
-     every spill's fall in torch.cuda.memory_allocated() as a share of
-     the bytes the ledger credited printed by the site that registered
+     the device storages every spill released as a share of the bytes
+     the ledger credited printed by the site that registered
      the entry, and held to that site's ``SPILL_FREED_SHARES``, K3/K4/K5
      launches printed; the CRC32C in use and the port's own timed on 64 MiB; a
      real torch.OutOfMemoryError (the memory fraction cut at q_pivot's
@@ -312,6 +312,8 @@ ENGINE_RTOL = 1e-9
 #: K5's and K1's launches in one q6 SF1 query with device decode: one of
 #: each a batch (phases 6 and 17)
 Q6_DD_LAUNCHES = {"decode_batch": 8, "filter_product_sum": 8}
+#: the device chunks of one q6 SF1 query's scan with device decode
+Q6_DD_CHUNKS = 32
 # the TPU kernel K1 replaces, as file:line
 K1_REPLACES = "spark_rapids_tpu/ops/pallas_kernels.py:58"
 K1_SOURCE = "spark_rapids_tpu_torch/csrc/masked_product_sum.cu"
@@ -343,15 +345,16 @@ def log(*a):
 
 def _args():
     """``(memory_only, opm_only, functions_only, decimals_only,
-    nested_only, telemetry_only, log path or None)`` from the command
-    line."""
+    nested_only, telemetry_only, cluster_only, log path or None)`` from
+    the command line."""
     args = sys.argv[1:]
     path = None
     if "--log" in args:
         path = args[args.index("--log") + 1]
     return ("--memory-only" in args, "--opm-only" in args,
             "--functions-only" in args, "--decimals-only" in args,
-            "--nested-only" in args, "--telemetry-only" in args, path)
+            "--nested-only" in args, "--telemetry-only" in args,
+            "--cluster-only" in args, path)
 
 
 def phase_card():
@@ -1547,8 +1550,8 @@ SKEW_WITNESS = "q_outer_price_p16"
 
 # --- phase 11: the memory manager and the query lifecycle -------------------
 
-#: a spill's least fall in torch.cuda.memory_allocated(), as a share of
-#: the bytes the ledger credited, by the function that registered the
+#: the least share of the bytes the ledger credited a spill's own device
+#: storages released (``_storage_refs``), by the function that registered the
 #: entry: a sort run (its sorter drops the run before it spills it) and
 #: a shuffle map batch (the transport keeps the batch its taker still
 #: holds pinned, so the one evicted is let go). The percentile's inputs
@@ -1665,14 +1668,40 @@ def _spill_site():
     return "?"
 
 
+def _storage_refs(batch):
+    """``{data_ptr: (weak reference, bytes)}`` of every storage a device
+    batch's tensors use (its columns, their children, its selection)."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+    out = {}
+
+    def add(t):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            st = t.untyped_storage()
+            out.setdefault(st.data_ptr(), (StorageWeakRef(st), st.nbytes()))
+
+    def col(c):
+        for t in (c.data, c.validity, c.offsets, c.chars):
+            add(t)
+        for ch in c.children or ():
+            col(ch)
+
+    for c in batch.columns:
+        col(c)
+    add(batch.selection)
+    return out
+
+
 def _spill_probe():
     """Wrap ``DeviceMemoryManager.register`` to label each entry with
     the function that registered it, and ``SpillableBatch.spill`` to
     record, for every spill that moved an entry off the card, ``(site,
     first, freed, credited)``: ``first`` is whether it was the entry's
     first spill (a re-spill follows an upload at a read), ``freed`` the
-    fall in memory_allocated(), ``credited`` the bytes the ledger
-    credited. Returns (records, restore)."""
+    bytes of the entry's own device storages that the spill released
+    (nothing else holds them: their weak references expired), where a
+    fall in memory_allocated() would also count what other threads (the
+    scan's uploads) allocate meanwhile, ``credited`` the bytes the
+    ledger credited. Returns (records, restore)."""
     from spark_rapids_tpu_torch.memory import (DeviceMemoryManager,
                                                SpillableBatch)
     orig_spill, orig_reg = SpillableBatch.spill, DeviceMemoryManager.register
@@ -1686,14 +1715,15 @@ def _spill_probe():
         return sb
 
     def spill(self, *a, **kw):
-        before = torch.cuda.memory_allocated()
         on, first = self.on_device, self.spill_count == 0
         site = getattr(self, "probe_site", None) \
             or sites.get(id(self._device), "?")
+        held = _storage_refs(self._device) if on else {}
         orig_spill(self, *a, **kw)
         if on and not self.on_device:
             recs.append((site, first,
-                         before - torch.cuda.memory_allocated(),
+                         sum(n for ref, n in held.values()
+                             if ref.expired()),
                          self.nbytes))
 
     SpillableBatch.spill = spill
@@ -1707,8 +1737,7 @@ def _spill_probe():
 
 def _spill_shares(recs):
     """Each (site, first spill or re-spill) group's count and least and
-    largest share of the credited bytes that memory_allocated() gave
-    back."""
+    largest share of the credited bytes that its storages gave back."""
     out = {}
     for site, first, freed, credited in recs:
         if credited:
@@ -3027,10 +3056,324 @@ def phase_telemetry_q6(card, smi, summary, q6_paths, revenue=None,
         raise AssertionError(f"telemetry q6: {failed}: {r}")
 
 
+# --- phase 18: the process cluster ------------------------------------------
+
+#: phase 18's texts at 16 partitions, each with its corpus module's name;
+#: q_like_intl holds a CPU island in a worker
+CLUSTER_TEXTS = (("q3", "nds"), ("q_rank", "nds"), ("q97", "nds"),
+                 ("q_like_intl", "nds_fallback"))
+#: the workers phase 18's cluster runs on the one card
+CLUSTER_WORKERS = 2
+#: the launch counters phase 18 reads a worker, by kernel
+CLUSTER_KERNELS = {"K1": "filter_product_sum",
+                   "K2": "filter_product_group_sum", "K3": "sort_pairs",
+                   "K4": "gather_rows", "K5": "decode_batch",
+                   "K6": "regex_match"}
+
+
+#: by query id, the last cluster's winning attempts (stage, task, worker,
+#: ms from claim)
+CLUSTER_TASK_MS = {}
+
+
+def _cluster_corpus(name):
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.tools import nds_fallback
+    return {"nds": nds, "nds_fallback": nds_fallback}[name]
+
+
+def _chunks_of(metrics):
+    """The device chunks of every scan of an in-process run."""
+    return sum(m.get("deviceChunks", 0) for label, m in metrics.items()
+               if label.startswith("FileScanExec"))
+
+
+def _worker_kernels(cluster):
+    """The last query's launches of each kernel, summed a worker (the
+    winning attempts')."""
+    return {w: {k: launches.get(name, 0)
+                for k, name in CLUSTER_KERNELS.items()}
+            for w, launches in sorted(cluster.kernel_launches().items())}
+
+
+def _cluster_query(cluster, pp, conf=None):
+    """One timed query on the cluster: its rows, ms, launches a worker,
+    the workers' device-chunk delta and its kernel reports; the winning
+    attempts' run times (claim to commit, a stage each) are logged."""
+    before = cluster.worker_counter("rapids_scan_device_chunks_total")
+    t = time.perf_counter()
+    out = cluster.run_query(pp, conf)
+    ms = (time.perf_counter() - t) * 1e3
+    chunks = cluster.worker_counter(
+        "rapids_scan_device_chunks_total") - before
+    tasks = [(e["stage"], e["task"], e["worker"], round(e["wall_s"] * 1e3, 3))
+             for e in cluster.last_scheduler.events
+             if e["event"] == "task_ok"]
+    log(f"[cluster] tasks (stage, task, worker, ms from claim): {tasks}")
+    CLUSTER_TASK_MS[cluster._query_seq] = tasks
+    return out, ms, _worker_kernels(cluster), chunks, \
+        list(cluster.last_kernel_reports)
+
+
+def _in_process(pp, device):
+    """One in-process run of a planned text: rows, ms, launches, metrics
+    and its per-operator rows."""
+    from spark_rapids_tpu_torch.cluster import launch_counters
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    from spark_rapids_tpu_torch.obs.opmetrics import fold_ctx
+    wrappers = launch_counters().values()
+    for c in wrappers:
+        c.launches = 0
+    ctx = ExecCtx(pp.conf, device)
+    t = time.perf_counter()
+    out = pp.collect(ctx)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {c.__name__: c.launches for c in wrappers}
+    rows = {k: int(v["metrics"]["rows"])
+            for k, v in fold_ctx(ctx).items() if "rows" in v["metrics"]}
+    return out, ms, launches, _metrics(ctx), rows
+
+
+def phase_cluster(device, card, smi, files, q6_paths, q6_launches=None):
+    """Phase 18: ``GpuProcessCluster(n_workers=2)`` on the one card
+    (module docstring)."""
+    import shutil
+    from spark_rapids_tpu_torch import nds, tpch
+    from spark_rapids_tpu_torch.cluster import GpuProcessCluster
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
+    from spark_rapids_tpu_torch.planner import GpuOverrides
+
+    tables, paths, _ = files
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        # the workers share the card with this process: give back what
+        # the earlier phases' allocator holds
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    root = os.path.join(ROOT, ".bench_cache", "cluster_torch")
+    shutil.rmtree(root, ignore_errors=True)
+    base = {"spark.rapids.metrics.enabled": "true",
+            "spark.rapids.tpu.scheduler.stageTimeout": "300"}
+    conf16 = dict(base, **{"spark.sql.shuffle.partitions": "16"})
+    summary = {"texts": {}, "workers": {}}
+    reports = []
+    t0 = time.perf_counter()
+    cluster = GpuProcessCluster(CLUSTER_WORKERS, root=root,
+                                device=device, conf=RapidsConf(base))
+    summary["start_s"] = time.perf_counter() - t0
+    try:
+        def planned(q, corpus, extra=None):
+            s = nds.session_over_files(
+                paths, dict(conf16, **getattr(corpus, "CONF", {}).get(q, {}),
+                            **(extra or {})), device)
+            return _apply(s.conf, device,
+                          s.sql(corpus.SQL_QUERIES[q])._node, "cluster")
+
+        in_proc = {}
+        for q, mod in CLUSTER_TEXTS:
+            corpus = _cluster_corpus(mod)
+            want = _oracle(corpus.oracle, q, tables)
+            floats = corpus.FLOAT_COLUMNS[q]
+            out_l, ms_l, launches_l, metrics_l, rows_l = _in_process(
+                planned(q, corpus), device)
+            _rows_equal(q, out_l, want, floats)
+            in_proc[q] = rows_l
+            out, ms, kernels, chunks, reps = _cluster_query(
+                cluster, planned(q, corpus))
+            reports += reps
+            rel = _rows_equal(q, out, want, floats)
+            want_chunks = _chunks_of(metrics_l)
+            if chunks != want_chunks:
+                raise AssertionError(f"cluster {q}: device chunks {chunks}"
+                                     f" in the workers, {want_chunks} in "
+                                     "process")
+            summary["texts"][q] = {
+                "ms": ms, "ms_in_process": ms_l, "max_rel_err": rel,
+                "kernels_by_worker": kernels, "device_chunks": chunks,
+                "launches_in_process": {
+                    k: launches_l[n] for k, n in CLUSTER_KERNELS.items()},
+                "scheduler": cluster.last_scheduler.summary()}
+            log(f"[cluster] {q} partitions=16 on {CLUSTER_WORKERS} workers:"
+                f" {ms:.3f} ms ({ms_l:.3f} in process); {out.num_rows} rows"
+                f" equal to the oracle (max rel err {rel:.3e}); launches a "
+                f"worker {kernels} (in process "
+                f"{summary['texts'][q]['launches_in_process']}); device "
+                f"chunks {chunks} (in process {want_chunks})")
+        # q3 again: the workers' second run of a text
+        out, ms, _, _, _ = _cluster_query(cluster,
+                                          planned("q3", _cluster_corpus(
+                                              "nds")))
+        q3_map_ms = [t[3] for t in CLUSTER_TASK_MS[cluster._query_seq]
+                     if t[0].startswith("map")][0]
+        summary["texts"]["q3"]["ms_second_run"] = ms
+        log(f"[cluster] q3 partitions=16, the cluster's second run: "
+            f"{ms:.3f} ms")
+        # q6: no exchange, one worker runs the whole plan (K5 and K1)
+        want_rev, _ = tpch.host_q6(q6_paths)
+        q6_conf = RapidsConf(base)
+        q6 = tpch.build_q6(GpuFileScanExec(q6_paths,
+                                           schema=tpch.LINEITEM_SCHEMA))
+        if q6_launches is None:
+            pp6 = GpuOverrides(q6_conf, device).apply(q6)
+            _, _, launches_l, metrics_l, _ = _in_process(pp6, device)
+            q6_launches = dict(launches_l, chunks=_chunks_of(metrics_l))
+        out, ms, kernels, chunks, reps = _cluster_query(cluster, q6,
+                                                        q6_conf)
+        reports += reps
+        got = out.column("revenue")[0].as_py()
+        rel = abs(got - want_rev) / max(1.0, abs(want_rev))
+        k1 = sum(k["K1"] for k in kernels.values())
+        k5 = sum(k["K5"] for k in kernels.values())
+        want_k1 = q6_launches["filter_product_sum"]
+        want_k5 = q6_launches["decode_batch"]
+        on_card = device.type == "cuda"
+        if out.num_rows != 1 or not rel <= ENGINE_RTOL or k1 != want_k1 \
+                or k5 != want_k5 or len(kernels) != 1 \
+                or chunks != q6_launches["chunks"] \
+                or (on_card and (k1, k5) != (
+                    Q6_DD_LAUNCHES["filter_product_sum"],
+                    Q6_DD_LAUNCHES["decode_batch"])):
+            raise AssertionError(
+                f"cluster q6: revenue {got!r} vs {want_rev!r}, K1 {k1} vs "
+                f"{want_k1}, K5 {k5} vs {want_k5}, workers {kernels}, "
+                f"chunks {chunks} vs {q6_launches['chunks']}")
+        summary["texts"]["q6"] = {"ms": ms, "rel_err": rel,
+                                  "kernels_by_worker": kernels,
+                                  "device_chunks": chunks}
+        log(f"[cluster] q6 SF1 (no exchange: one worker): {ms:.3f} ms; "
+            f"revenue {got!r} (oracle {want_rev!r}, rel {rel:.3e}); "
+            f"launches a worker {kernels}, K1 {k1} (in process {want_k1})"
+            f", device chunks {chunks} from the workers' registries")
+        # q3 in process over the host-file shuffle, both modes
+        nds_mod = _cluster_corpus("nds")
+        want3 = _oracle(nds_mod.oracle, "q3", tables)
+        for mode in ("HOST", "MULTITHREADED"):
+            pp = planned("q3", nds_mod, {"spark.rapids.shuffle.mode": mode})
+            out, ms, _, _, _ = _in_process(pp, device)
+            rel = _rows_equal("q3", out, want3, nds_mod.FLOAT_COLUMNS["q3"])
+            summary[f"q3_{mode.lower()}_ms"] = ms
+            log(f"[cluster] q3 in process, spark.rapids.shuffle.mode={mode}"
+                f": {ms:.3f} ms, rows equal to the oracle (max rel err "
+                f"{rel:.3e})")
+        # chaos: a crashed map task retried, corrupt map output rerun
+        for mode, what in (("crash", "workers_respawned"),
+                           ("corrupt", "stage_reruns")):
+            qid = cluster._query_seq + 1
+            conf = RapidsConf(dict(conf16, **{
+                "spark.rapids.tpu.test.injectFaults":
+                    f"{mode}:q{qid}s*m0:0"}))
+            out, ms, kernels, _, reps = _cluster_query(
+                cluster, planned("q3", nds_mod), conf)
+            reports += reps
+            _rows_equal("q3", out, want3, nds_mod.FLOAT_COLUMNS["q3"])
+            sched = cluster.last_scheduler.summary()
+            if mode == "crash" and not (sched["failures"] >= 1
+                                        and sched[what] >= 1):
+                raise AssertionError(f"cluster crash run: {sched}")
+            if mode == "corrupt" and not (sched["fetch_failures"] >= 1
+                                          and sched[what] >= 1):
+                raise AssertionError(f"cluster corrupt run: {sched}")
+            summary[f"q3_{mode}"] = {"ms": ms, "scheduler": sched}
+            log(f"[cluster] q3 with {mode} of a map task: {ms:.3f} ms, rows"
+                f" equal to the oracle; scheduler {sched}")
+        # a worker killed while its map task runs on the card: its
+        # respawned incarnation rebuilds from the files alone
+        summary["q3_kill"] = _cluster_kill_midtask(
+            cluster, planned("q3", nds_mod), want3,
+            nds_mod.FLOAT_COLUMNS["q3"], q3_map_ms / 2e3)
+        # EXPLAIN ANALYZE over the cluster against the in-process one
+        text = cluster.explain_analyze(planned("q3", nds_mod))
+        remote = {k: int(v["metrics"]["rows"])
+                  for k, v in cluster.last_opmetrics.items()
+                  if "rows" in v["metrics"]}
+        common = sorted(set(remote) & set(in_proc["q3"]))
+        diff = {k: (remote[k], in_proc["q3"][k]) for k in common
+                if remote[k] != in_proc["q3"][k]}
+        if not text.startswith("== Analyzed Physical Plan (process") \
+                or len(common) < len(remote) or diff:
+            raise AssertionError(f"cluster EXPLAIN ANALYZE: {diff}, "
+                                 f"{len(common)} of {len(remote)} ops")
+        log("[cluster] EXPLAIN ANALYZE q3 over the cluster, rows equal to "
+            f"the in-process run's on {len(common)} operators:\n" + text)
+    finally:
+        cluster.shutdown()
+    workers = {}
+    for r in reports:
+        w = workers.setdefault(r["worker"], {"names": set(), "modules": set(),
+                                             "pids": set()})
+        w["names"].add(r["device_name"])
+        w["modules"].update(r["reference_modules"])
+        w["pids"].add(r["pid"])
+    want_name = card if device.type == "cuda" else "cpu"
+    bad = {k: v for k, v in workers.items()
+           if v["names"] != {want_name} or v["modules"]}
+    if bad or sorted(workers) != list(range(CLUSTER_WORKERS)):
+        raise AssertionError(f"cluster workers: {workers}")
+    summary["workers"] = {w: {"device_names": sorted(v["names"]),
+                              "processes": len(v["pids"])}
+                          for w, v in workers.items()}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] every worker ran on {want_name} ({smi}) and loaded no "
+        f"jax: {summary['workers']}; the cluster started in "
+        f"{summary['start_s']:.3f} s; phase took {summary['phase_s']:.3f} s")
+    return summary
+
+
+def _cluster_kill_midtask(cluster, pp, want, floats, after_s):
+    """Run ``pp`` on the cluster and kill the worker of its first map
+    attempt ``after_s`` seconds after the claim (half the same task's
+    time in a clean run: mid-task), and the query must still equal the
+    oracle, through a respawn and a retry."""
+    import threading
+    qid = cluster._query_seq + 1
+    tasks = os.path.join(cluster.root, "tasks")
+    killed = []
+
+    def killer():
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 120 and not killed:
+            for n in os.listdir(tasks):
+                if n.startswith(f"q{qid}s") and n.endswith(".task.claim"):
+                    time.sleep(after_s)
+                    w = int(n.split(".w")[1].split(".")[0])
+                    cluster.pool.kill(w)
+                    killed.append((n, w))
+                    return
+            time.sleep(0.01)
+
+    th = threading.Thread(target=killer, daemon=True)
+    th.start()
+    t = time.perf_counter()
+    out = cluster.run_query(pp)
+    ms = (time.perf_counter() - t) * 1e3
+    th.join(timeout=5)
+    _rows_equal("q3", out, want, floats)
+    sched = cluster.last_scheduler.summary()
+    died = [e for e in cluster.last_scheduler.events
+            if e["event"] == "task_failed" and "died" in e["reason"]]
+    if not killed or not died or sched["workers_respawned"] < 1:
+        raise AssertionError(f"cluster kill run: killed {killed}, "
+                             f"{sched}")
+    log(f"[cluster] q3 with its map task's worker killed {after_s:.3f} s "
+        f"after the claim ({killed[0][0]}): {ms:.3f} ms, rows equal to the "
+        f"oracle; scheduler {sched}")
+    return {"ms": ms, "scheduler": sched, "killed": killed[0][0]}
+
+
+def _cluster_launches(summary, kernel):
+    """``{text: launches}`` of one of phase 18's kernels, summed over the
+    workers."""
+    return {q: sum(k[kernel] for k in t["kernels_by_worker"].values())
+            for q, t in summary["texts"].items()}
+
+
 def main():
     global _log_file
     memory_only, opm_only, functions_only, decimals_only, nested_only, \
-        telemetry_only, log_path = _args()
+        telemetry_only, cluster_only, log_path = _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
@@ -3079,6 +3422,15 @@ def main():
         phase_telemetry_q6(name, smi, summary, q6_paths)
         log("[telemetry] " + json.dumps(summary, sort_keys=True))
         return
+    if cluster_only:
+        # a quick check of phase 18 alone
+        from spark_rapids_tpu_torch import tpch
+        q6_paths = tpch.write_lineitem(
+            tpch.gen_lineitem(tpch.SF1_ROWS, seed=0),
+            os.path.join(ROOT, ".bench_cache", "lineitem_torch"), seed=0)
+        summary = phase_cluster(device, name, smi, _nds_files(), q6_paths)
+        log("[cluster] " + json.dumps(summary, sort_keys=True))
+        return
     times = phase_kernels(device)
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
@@ -3098,6 +3450,9 @@ def main():
     dec_summary, dec_launches = phase_decimals(device, name, smi)
     nested_summary, nested_launches = phase_nested(device, name, smi)
     tel_summary = phase_telemetry(device, name, smi, nds_files, paths)
+    cluster_summary = phase_cluster(
+        device, name, smi, nds_files, paths,
+        dict(dd_launches, chunks=Q6_DD_CHUNKS))
     # the traces last, each in a process of its own
     per_call = phase_k1_kernels_per_call()
     phase_function_traces(name, smi, fn_summary)
@@ -3124,6 +3479,7 @@ def main():
     log("[decimals] " + json.dumps(dec_summary, sort_keys=True))
     log("[nested] " + json.dumps(nested_summary, sort_keys=True))
     log("[telemetry] " + json.dumps(tel_summary, sort_keys=True))
+    log("[cluster] " + json.dumps(cluster_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
@@ -3140,7 +3496,8 @@ def main():
         "empty_launch_ms": e["empty_launch_ms"],
         "launches_q6_device_decode": dd_launches["filter_product_sum"],
         "launches_telemetry_q6_profiled":
-            tel_summary["q6"]["profiler_kernel_launches"]["k1"]}, {
+            tel_summary["q6"]["profiler_kernel_launches"]["k1"],
+        "launches_cluster": _cluster_launches(cluster_summary, "K1")}, {
         "name": "radix_sort (engine edition, sort_pairs)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
         "launches": join_launches["sort_pairs"], "max_abs_err": k3_err,
@@ -3169,6 +3526,7 @@ def main():
                               for k, v in dec_launches.items()},
         "launches_nested": {k: v["sort_pairs"]
                             for k, v in nested_launches.items()},
+        "launches_cluster": _cluster_launches(cluster_summary, "K3"),
         "nested_compaction": k3[NESTED_K3_SHAPE]}, {
         "name": "gather (engine edition, gather_rows)",
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
@@ -3192,6 +3550,7 @@ def main():
                               for k, v in dec_launches.items()},
         "launches_nested": {k: v["gather_rows"]
                             for k, v in nested_launches.items()},
+        "launches_cluster": _cluster_launches(cluster_summary, "K4"),
         "nested_elements": k4[NESTED_K4_SHAPE]}, {
         "name": "parquet_decode (decode_batch)",
         "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
@@ -3216,7 +3575,8 @@ def main():
         "launches_nested": {k: v["decode_batch"]
                             for k, v in nested_launches.items()},
         "launches_telemetry_q6_profiled":
-            tel_summary["q6"]["profiler_kernel_launches"]["k5"]}, {
+            tel_summary["q6"]["profiler_kernel_launches"]["k5"],
+        "launches_cluster": _cluster_launches(cluster_summary, "K5")}, {
         "name": "fused_filter_agg (engine edition, "
                 "filter_product_group_sum)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -3225,7 +3585,8 @@ def main():
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
         "shape": "a q6 batch: 750,152 rows, 7 groups",
-        "contract_max_rel_err": k2["contract_max_rel_err"]}, {
+        "contract_max_rel_err": k2["contract_max_rel_err"],
+        "launches_cluster": _cluster_launches(cluster_summary, "K2")}, {
         "name": "regex_match (the LIKE/RLIKE automaton)",
         "route": "cuda", "source": K6_SOURCE, "replaces": K6_REPLACES,
         "launches": nds_launches["q_like_p1"]["regex_match"],
@@ -3239,7 +3600,8 @@ def main():
         "launches_nds": {k: v["regex_match"]
                          for k, v in nds_launches.items()},
         "launches_functions": {k: v["K6"]
-                               for k, v in fn_launches.items()}}]}))
+                               for k, v in fn_launches.items()},
+        "launches_cluster": _cluster_launches(cluster_summary, "K6")}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -37,9 +37,11 @@ target row count and byte size: the planner puts it over a
 ``HostToDeviceExec`` whose parent is an aggregate, a join or a sort, so
 those see full batches instead of a CPU island's crumbs. On the device
 the group is one ``concat_batches_bounded`` (no readback), on the host
-one Arrow concatenation. The broadcast exchange and the
-collective transport wait for ROADMAP item 17, the host-file transports
-for item 16, range and round-robin partitioning for item 10.
+one Arrow concatenation. ``spark.rapids.shuffle.mode`` picks the transport: ``LOCAL`` (the
+store above), ``HOST`` and ``MULTITHREADED`` (the host-file shuffle,
+``shuffle/host.py``). The broadcast exchange and the collective
+transport (``ICI``) wait for ROADMAP item 17, range and round-robin
+partitioning for item 10.
 """
 from __future__ import annotations
 
@@ -117,15 +119,28 @@ class GpuShuffleExchangeExec(UnaryExec):
         return None
 
     def _resolve_transport(self, ctx: ExecCtx) -> ShuffleTransport:
+        """The exchange's own transport, else one from
+        ``spark.rapids.shuffle.mode`` (the reference's ``:105-125``): the
+        local store, or the host-file shuffle (``HOST`` writes on the
+        map side's thread, ``MULTITHREADED`` on a pool), closed with the
+        query."""
         if self.transport is not None:
             return self.transport
         mode = ctx.conf.get(SHUFFLE_MODE)
-        if mode != "LOCAL":
+        if mode == "LOCAL":
+            return LocalShuffleTransport()
+        if mode in ("HOST", "MULTITHREADED"):
+            from ..shuffle.host import HostShuffleTransport
+            t = HostShuffleTransport(
+                ctx.conf, threads=0 if mode == "HOST" else None,
+                device=ctx.device)
+            ctx.register_cleanup(t.close)
+            return t
+        if mode == "ICI":
             raise NotImplementedError(
-                f"spark.rapids.shuffle.mode={mode} is not ported yet: the "
-                "host-file shuffle waits for ROADMAP item 16, the "
-                "collective one for item 17")
-        return LocalShuffleTransport()
+                "spark.rapids.shuffle.mode=ICI is not ported yet: the "
+                "collective shuffle over NCCL waits for ROADMAP item 17")
+        raise ValueError(f"unknown shuffle mode {mode!r}")
 
     def _single_tail(self, batch, ectx):
         """One partition: the whole batch, no ids."""

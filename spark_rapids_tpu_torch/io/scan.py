@@ -324,6 +324,17 @@ class GpuFileScanExec(LeafExec):
         self._bounds = {}
         self._pf_local = threading.local()
 
+    def __getstate__(self):
+        # the per-thread open files are per-run state: a plan that goes
+        # into a cluster task's pickle, or a deep copy, opens its own
+        state = dict(self.__dict__)
+        state.pop("_pf_local", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._pf_local = threading.local()
+
     @property
     def output_schema(self):
         return self._schema

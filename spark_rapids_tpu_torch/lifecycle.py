@@ -28,12 +28,24 @@ registry families, ``rapids_query_cancelled_total`` and
 ``rapids_admission_wait_seconds`` and keeps
 ``rapids_admission_queue_depth`` a tenant (``:132-151,220,400``). The
 ladder's ``counts`` and the token's ``reason`` stay as the query's own
-record. The cluster's cancel marker (``read_cancel_marker``,
-``for_worker``) and the ``slow_admission`` chaos delay wait for the
-process cluster (item 16).
+record.
+
+The process cluster's half (the reference's ``:255-353,626-634``): a
+task payload carries ``QueryContext.worker_payload`` (the query id,
+tenant, wall-clock deadline and the rendezvous cancel marker's path);
+the worker rebuilds a token with ``QueryContext.for_worker`` that polls
+the marker between batches (``poll``, at most every 50 ms; a stat per
+batch would dominate small stages) and honours the deadline on the wall
+clock, without counting the cancel again (the driver's token counts it
+once). ``read_cancel_marker`` reads the marker's reason and detail. The
+driver waits up to ``spark.rapids.query.cancel.joinTimeout`` for its
+claimed attempts to settle after it publishes the marker. A
+``slow_admission`` chaos rule (``scheduler/chaos.py``) delays a matching
+query's admission, the delay counting as queue time.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 import uuid
@@ -46,7 +58,8 @@ from .obs.recorder import RECORDER as _FLIGHT
 
 __all__ = ["QueryCancelled", "CancellationToken", "QueryContext",
            "FairAdmissionController", "DegradationLadder",
-           "CANCEL_REASONS", "LADDER_RUNGS", "LIFECYCLE_ENABLED"]
+           "CANCEL_REASONS", "LADDER_RUNGS", "LIFECYCLE_ENABLED",
+           "CANCEL_JOIN_TIMEOUT", "read_cancel_marker"]
 
 # --- conf -------------------------------------------------------------------
 
@@ -95,6 +108,12 @@ ADMISSION_WEIGHTS = register(
     "Per-tenant admission weights, 'tenantA:3,tenantB:1' — slots are "
     "granted to the waiting tenant with the lowest in-use/weight "
     "ratio. Unlisted tenants weigh 1.")
+CANCEL_JOIN_TIMEOUT = register(
+    "spark.rapids.query.cancel.joinTimeout", 5.0,
+    "Bounded reap on the cluster cancel path: after the driver "
+    "publishes the cancel marker it waits up to this long for "
+    "claimed in-flight attempts to observe it (between batches) and "
+    "settle before the classified QueryCancelled is raised.")
 LADDER_ENABLED = register(
     "spark.rapids.query.degradation.enabled", True,
     "Memory-pressure degradation ladder: when split-and-retry's "
@@ -109,6 +128,9 @@ LADDER_EXCLUSIVE_TIMEOUT = register(
 
 CANCEL_REASONS = ("user", "deadline", "budget", "admission")
 LADDER_RUNGS = ("halve", "spill", "width1", "cpu")
+
+#: seconds between a cluster worker's stats of the cancel marker
+_MARKER_POLL_S = 0.05
 
 QUERY_CANCELLED = _METRICS.counter(
     "rapids_query_cancelled_total",
@@ -149,16 +171,28 @@ class QueryCancelled(RuntimeError):
 class CancellationToken:
     """First-cancel-wins classified cancellation flag; ``check()`` is
     the cooperative call (one attribute read and, with a deadline, one
-    clock read when nothing is cancelled)."""
+    clock read when nothing is cancelled). A cluster worker's token
+    also polls the driver's cancel marker (``cancel_file``) and holds a
+    wall-clock deadline (``deadline_wall``: the processes' monotonic
+    clocks do not compare)."""
 
-    def __init__(self, query_id: str = "", deadline_s: float = 0.0):
+    def __init__(self, query_id: str = "", deadline_s: float = 0.0,
+                 deadline_wall: float = 0.0,
+                 cancel_file: Optional[str] = None,
+                 count_metric: bool = True):
         self.query_id = query_id
         self.reason: Optional[str] = None
         self.detail = ""
+        # a worker's token does not count: the query's one count is the
+        # driver's
+        self._count_metric = count_metric
         self._lock = threading.Lock()
         self._deadline_s = deadline_s
         self._deadline_mono = (time.monotonic() + deadline_s
                                if deadline_s > 0 else 0.0)
+        self._deadline_wall = deadline_wall
+        self._cancel_file = cancel_file
+        self._next_poll = 0.0
 
     @property
     def cancelled(self) -> bool:
@@ -174,7 +208,8 @@ class CancellationToken:
                 return False
             self.reason = reason
             self.detail = detail
-        QUERY_CANCELLED.labels(reason).inc()
+        if self._count_metric:
+            QUERY_CANCELLED.labels(reason).inc()
         _FLIGHT.record("lifecycle", ev="cancel", query=self.query_id,
                        reason=reason, detail=detail[:200])
         return True
@@ -183,19 +218,54 @@ class CancellationToken:
         return QueryCancelled(self.reason or "user", self.detail,
                               self.query_id)
 
-    def poll(self) -> Optional[str]:
-        """The cancel reason or None; enforces the deadline."""
+    def poll_local(self) -> Optional[str]:
+        """The cancel reason or None, enforcing the deadlines, with no
+        file read (for callers that hold a lock)."""
         if self.reason is not None:
             return self.reason
         if self._deadline_mono and time.monotonic() > self._deadline_mono:
             self.cancel("deadline",
                         f"deadline exceeded ({self._deadline_s}s)")
+        elif self._deadline_wall and time.time() > self._deadline_wall:
+            self.cancel("deadline", "deadline exceeded (wall)")
+        return self.reason
+
+    def poll(self) -> Optional[str]:
+        """The cancel reason or None; enforces the deadlines and, at most
+        every ``_MARKER_POLL_S``, reads the cancel marker."""
+        if self.poll_local() is not None:
+            return self.reason
+        if self._cancel_file is not None:
+            now = time.monotonic()
+            if now >= self._next_poll:
+                self._next_poll = now + _MARKER_POLL_S
+                if os.path.exists(self._cancel_file):
+                    self.cancel(*read_cancel_marker(self._cancel_file))
         return self.reason
 
     def check(self) -> None:
         """Raise the classified ``QueryCancelled`` once cancelled."""
         if self.poll() is not None:
             raise self.error()
+
+
+def read_cancel_marker(path: str) -> tuple:
+    """``(reason, detail)`` of a rendezvous cancel marker: its first
+    word is the reason when it is one, the rest the detail; anything
+    else reads as ``user``."""
+    reason, detail = "user", "cancel marker observed"
+    try:
+        with open(path) as f:
+            head = f.read(600).strip()
+    except OSError:
+        return reason, detail
+    if head:
+        parts = head.split(" ", 1)
+        if parts[0] in CANCEL_REASONS:
+            reason = parts[0]
+            if len(parts) > 1:
+                detail = parts[1]
+    return reason, detail
 
 
 class QueryContext:
@@ -229,6 +299,33 @@ class QueryContext:
     def from_conf(cls, conf: RapidsConf,
                   query_id: Optional[str] = None) -> "QueryContext":
         return cls(conf, query_id=query_id)
+
+    @classmethod
+    def for_worker(cls, payload: Dict,
+                   conf: RapidsConf) -> Optional["QueryContext"]:
+        """A cluster worker's context from its task payload: a token
+        that polls the driver's cancel marker and holds the wall-clock
+        deadline; no ladder (a worker's OOM past split-and-retry stays
+        a retryable task failure)."""
+        lc = payload.get("lifecycle")
+        if not lc:
+            return None
+        token = CancellationToken(
+            lc.get("query_id", ""),
+            deadline_wall=lc.get("deadline_wall", 0.0),
+            cancel_file=lc.get("cancel_path"), count_metric=False)
+        qx = cls(conf, query_id=lc.get("query_id"),
+                 tenant=lc.get("tenant"), deadline_s=0.0, token=token)
+        qx.ladder = None
+        return qx
+
+    def worker_payload(self, cancel_path: str) -> Dict:
+        """The picklable part of this context a task payload carries."""
+        wall = time.time() + max(
+            0.0, self.token._deadline_mono - time.monotonic()) \
+            if self.token._deadline_mono else 0.0
+        return {"query_id": self.query_id, "tenant": self.tenant,
+                "cancel_path": cancel_path, "deadline_wall": wall}
 
     def cancel(self, detail: str = "user requested") -> bool:
         return self.token.cancel("user", detail)
@@ -339,6 +436,8 @@ class FairAdmissionController:
         self._timeout = conf.get(ADMISSION_TIMEOUT)
         self.in_use = 0
         self._exclusive: Optional[str] = None
+        from .config import INJECT_FAULTS
+        self._chaos_spec = str(conf.get(INJECT_FAULTS) or "")
 
     def snapshot(self) -> Dict:
         with self._cv:
@@ -389,6 +488,12 @@ class FairAdmissionController:
         t0 = time.monotonic()
         adm_deadline = t0 + self._timeout \
             if qctx is not None and self._timeout > 0 else None
+        # the chaos delay counts as queue time: that is its point
+        self._maybe_chaos_delay(qid)
+        if adm_deadline is not None and time.monotonic() > adm_deadline:
+            self._reject(token,
+                         f"no admission slot within {self._timeout}s "
+                         f"(tenant {tenant!r})")
         w = _Waiter(tenant, qid)
         if qctx is not None:
             qctx.phase = "queued"
@@ -405,7 +510,7 @@ class FairAdmissionController:
                               or adm_deadline is not None) else None
             try:
                 while not w.granted:
-                    if token is not None and token.poll() is not None:
+                    if token is not None and token.poll_local() is not None:
                         raise token.error()
                     if adm_deadline is not None \
                             and time.monotonic() > adm_deadline:
@@ -450,6 +555,17 @@ class FairAdmissionController:
         with self._cv:
             self._release_locked(slot.tenant, slot.query_id)
 
+    def _maybe_chaos_delay(self, query_id: str) -> None:
+        """A ``slow_admission`` rule matching this query delays its
+        admission by its seconds (default 2)."""
+        if "slow_admission" not in self._chaos_spec:
+            return
+        from .scheduler.chaos import find_rule
+        rule = find_rule(self._chaos_spec, -1, query_id or "?", 0,
+                         modes=("slow_admission",))
+        if rule is not None:
+            time.sleep(rule.arg(2.0))
+
     def clear_exclusive(self, query_id: str) -> None:
         """Drop width-1 exclusivity held by this query; the collect
         root calls it at query end."""
@@ -470,7 +586,7 @@ class FairAdmissionController:
             while self._exclusive is not None \
                     and self._exclusive != qctx.query_id \
                     and time.monotonic() < deadline:
-                if qctx.token.poll() is not None:
+                if qctx.token.poll_local() is not None:
                     return
                 self._cv.wait(timeout=0.05)
             if self._exclusive is None:
@@ -478,6 +594,6 @@ class FairAdmissionController:
             elif self._exclusive != qctx.query_id:
                 return  # still contended past the bound: retry anyway
             while self.in_use > 1 and time.monotonic() < deadline:
-                if qctx.token.poll() is not None:
+                if qctx.token.poll_local() is not None:
                     break
                 self._cv.wait(timeout=0.05)

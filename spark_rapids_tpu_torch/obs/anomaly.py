@@ -1,7 +1,7 @@
 """Anomaly triggers and incident bundles for the flight recorder.
 
 Counterpart of ``spark_rapids_tpu/obs/anomaly.py``, as functions over
-event lists; the process cluster (ROADMAP item 16) calls them:
+event lists; the process cluster (``cluster.py``) calls them:
 
 - ``AnomalyDetector.check_task``: after a task attempt, over the ring's
   events since it started: a failure, refused disk-spill writes

@@ -13,8 +13,9 @@ Where each field comes from, so nothing is counted twice:
 
 * bytes by transport and spill bytes: registry counter deltas (this
   process's, plus the process cluster's workers' flushed snapshots,
-  ROADMAP item 16; the host-file and collective transports' byte
-  families come with items 16 and 17, so those slots read 0 today);
+  ``cluster.py``; the host-file transport's byte families move with
+  ``shuffle/host.py``, the collective one's come with ROADMAP item 17,
+  so those slots read 0 today);
 * gang collective bytes and epochs: the worker rings' ``mesh_epoch``
   events (item 17; empty until then);
 * scan chunks, fused dispatches, scan programs, per-operator rows and

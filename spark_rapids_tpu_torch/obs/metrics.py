@@ -11,10 +11,12 @@ any moment, not only from a finished query's record:
 - recording is attribute arithmetic under one short lock, always on;
   the exporters are what the conf gates: ``spark.rapids.metrics.port``
   serves ``/metrics`` (Prometheus text) and ``/status`` (JSON) on
-  ``127.0.0.1``; the worker snapshot files (``flush_worker_metrics``,
-  ``read_worker_metrics``) and ``render_merged_snapshots``, which renders
-  them with a ``proc`` label each, wait for the process cluster (ROADMAP
-  item 16), which registers the key that turns the flush on.
+  ``127.0.0.1``; ``spark.rapids.metrics.enabled`` makes each process
+  cluster worker rewrite its registry's snapshot after every task
+  (``flush_worker_metrics``), which the driver reads
+  (``read_worker_metrics``) into ``GpuProcessCluster.prometheus_text``
+  through ``render_merged_snapshots`` (a ``proc`` label each) and into
+  the warehouse row's byte and spill deltas.
 
 The families and where they move: ``rapids_query_duration_seconds``
 (``planner.py``), ``rapids_memory_*``, ``rapids_disk_spill_in_use_bytes``
@@ -35,7 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..config import register
 
-__all__ = ["METRICS_PORT", "MetricsRegistry",
+__all__ = ["METRICS_ENABLED", "METRICS_PORT", "MetricsRegistry",
            "REGISTRY", "QUERY_DURATION", "dump_prometheus",
            "maybe_start_http_server", "render_snapshot",
            "render_merged_snapshots", "DEFAULT_BUCKETS",
@@ -43,6 +45,12 @@ __all__ = ["METRICS_PORT", "MetricsRegistry",
            "clear_status_provider", "flush_worker_metrics",
            "read_worker_metrics"]
 
+METRICS_ENABLED = register(
+    "spark.rapids.metrics.enabled", False,
+    "Flush each cluster worker's metrics registry through the "
+    "filesystem rendezvous (root/metrics/w<K>.json, rewritten after "
+    "every task) so GpuProcessCluster.prometheus_text() can serve a "
+    "driver-side aggregate with per-process 'proc' labels.")
 METRICS_PORT = register(
     "spark.rapids.metrics.port", 0,
     "When > 0, serve this process's metrics registry as Prometheus "

@@ -19,8 +19,8 @@ The file half is here too: a worker's ring flushed to
 ``read_worker_rings``), a failed task's ``<task>.flight.json`` dumps
 (``read_flight_dumps``), and incident bundles written atomically under
 ``spark.rapids.flight.dir`` with write-time retention
-(``write_incident_bundle``, ``prune_oldest``). The process cluster, which
-calls them, is ROADMAP item 16.
+(``write_incident_bundle``, ``prune_oldest``). The process cluster
+(``cluster.py``) calls them.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ the plan's fingerprint), and every operator's execute shim
 label and carrying its stable ``op_id``. Spans nest through a
 thread-local stack; ``emit`` records a span whose extent is known after
 the fact, and ``absorb`` merges spans another process serialized (the
-process cluster's workers, ROADMAP item 16). ``write_chrome`` writes one
+process cluster's workers, ``cluster.py``). ``write_chrome`` writes one
 Chrome ``trace_event`` JSON a query under ``spark.rapids.trace.dir``
 (chrome://tracing or Perfetto), with write-time retention.
 

@@ -59,12 +59,18 @@ WAREHOUSE_SEGMENT_ROWS = register(
 DRIFT_BYTES_TOLERANCE = 0.25
 DRIFT_VARIANT_BOUND = 8
 
+STATUS_ROWS = register(
+    "spark.rapids.warehouse.statusRows", 5,
+    "How many most-recent warehouse rows the /status endpoint "
+    "embeds (query id, tenant, outcome, wall seconds).")
+
 #: bump when row fields change shape incompatibly
 ROW_VERSION = 1
 
 __all__ = [
     "WAREHOUSE_DIR", "WAREHOUSE_MAX_FILES", "WAREHOUSE_SEGMENT_ROWS",
-    "DRIFT_BYTES_TOLERANCE", "DRIFT_VARIANT_BOUND", "ROW_VERSION",
+    "DRIFT_BYTES_TOLERANCE", "DRIFT_VARIANT_BOUND", "STATUS_ROWS",
+    "ROW_VERSION",
     "WarehouseReadError", "warehouse_dir", "append_row", "read_rows",
     "tail_rows", "render_warehouse", "drift_report",
 ]

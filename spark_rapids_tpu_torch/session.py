@@ -12,9 +12,10 @@ A grouped aggregation is planned as Spark plans it: a hash exchange over
 analyzer widens mixed numeric operands with ``Cast`` (``_analyze``), as
 the reference's does. ``union`` is UNION ALL; ``sample``,
 ``explode``, ``write`` and ``pivot`` raise ``NotImplementedError`` naming
-their items; the process cluster waits for item 16. ``sql("EXPLAIN
-ANALYZE [FORMATTED] ...")`` runs the query in process and returns the
-plan annotated with each operator's metrics (``:452-463``).
+their items. ``sql("EXPLAIN ANALYZE [FORMATTED] ...")`` runs the query
+in process, or across an attached ``GpuProcessCluster``'s workers
+(``set_cluster``), and returns the plan annotated with each operator's
+metrics, folded over the workers on the cluster (``:389-394,452-463``).
 
 ``DataFrame.cache()`` is the reference's ``TpuCacheExec`` (``:30-70``):
 the child runs once into spill-catalog entries, which later runs replay
@@ -357,6 +358,12 @@ class GpuSession:
         self.conf = conf or RapidsConf()
         self.device = resolve_device(device)
         self._tables: Dict[str, DataFrame] = {}
+        self._cluster = None  # set_cluster: EXPLAIN ANALYZE's target
+
+    def set_cluster(self, cluster) -> None:
+        """Attach a ``GpuProcessCluster``: ``EXPLAIN ANALYZE`` then runs
+        across its workers (None detaches)."""
+        self._cluster = cluster
 
     def query_context(self, **kw):
         """A ``lifecycle.QueryContext`` over this session's conf;
@@ -407,8 +414,9 @@ class GpuSession:
             from .planner import GpuOverrides
             pp = GpuOverrides(self.conf, self.device).apply(node)
             if stmt.analyze:
-                # the process cluster's branch, which folds the workers'
-                # snapshots, comes with the cluster (ROADMAP item 16)
+                if self._cluster is not None:
+                    return self._cluster.explain_analyze(
+                        pp, formatted=stmt.formatted)
                 pp.collect()
                 return pp.explain_analyze(formatted=stmt.formatted)
             if stmt.formatted:

@@ -27,15 +27,16 @@ map batch's live rows per partition, a few int64s counted on the device
 next to the split, with no sync; ``partition_stats`` reads them all back
 in one copy at the stage boundary and spreads each map batch's bytes
 over its partitions by those counts, as the reference does
-(``_fold_pending_stats``). The host-file, multi-threaded and collective
-transports wait for items 16 and 17.
+(``_fold_pending_stats``). The host-file and multi-threaded transports
+are ``shuffle/host.py``; the collective one waits for item 17.
 
 ``record_fetch_failure`` is every shuffle reader's classified-failure
 tap (the reference's ``:38-50``): ``rapids_shuffle_fetch_failures_total``
 by kind and a ``shuffle``/``fetch_failure`` flight event. The local store
 holds its batches in memory and never fails a fetch; the readers of
-sealed blocks (``shuffle/integrity.py``, the host-file transport of
-item 16) raise the ``FetchFailure`` it records.
+sealed blocks (``shuffle/integrity.py``, the host-file transport
+``shuffle/host.py`` and the cluster's reader) raise the ``FetchFailure``
+it records.
 """
 from __future__ import annotations
 

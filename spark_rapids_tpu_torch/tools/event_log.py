@@ -11,7 +11,7 @@ each: ``plan_rejected`` (the plan verifier refused the plan),
 ``query_cancelled`` (the lifecycle layer stopped the query) and the
 spill tier's ``disk_pressure``, ``spill_write_failed`` and
 ``spill_read_failed`` (``memory.py``). ``log_scheduler_events`` is the
-process cluster's (ROADMAP item 16) and needs only an object with the
+process cluster's (``cluster.py``) and needs only an object with the
 scheduler's ``summary()`` and ``events``.
 
 One file a process and directory (``app-<pid>-<ms>.jsonl``), append
