@@ -19,7 +19,8 @@ plan checked by the static plan verifier, the per-operator metrics
 
     python3 chip_smoke.py [--memory-only | --opm-only | --functions-only
                            | --decimals-only | --nested-only
-                           | --telemetry-only] [--log FILE]
+                           | --telemetry-only | --cluster-only
+                           | --dataframe-only] [--log FILE]
 
 Phases, any failure exits non-zero before the result line:
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -101,7 +102,7 @@ Phases, any failure exits non-zero before the result line:
      snappy, row groups of 2^19, written to
      .bench_cache/nds_torch_n4194304/), through GpuSession.sql,
      GpuOverrides and PhysicalPlan.collect with device page decode on: at
-     spark.sql.shuffle.partitions 1 a warm-up and 2 timed runs each
+     spark.sql.shuffle.partitions 1 a warm-up and 1 timed run each
      (rows/s = store_sales rows over the median wall of collect, and ms a
      query in collect; planning, sql + apply, is timed apart), the
      warm-up and one more run after the first timed one under
@@ -284,6 +285,29 @@ Phases, any failure exits non-zero before the result line:
      6 counts (8 each), 32 device chunks in the registry's delta and the
      folded metrics (``--telemetry-only`` runs the build and this phase
      alone, q6 held to the oracle only);
+  19. the DataFrame API's rest (``tools/nds_dataframe.py``) over the
+     phase 8 files at 1 and 16 partitions, one timed run each: ROLLUP
+     through Expand (3 x 2^22 rows), ``sample(0.1, seed=7)``, a pivot
+     with inferred values, ``hash``/``xxhash64`` of four columns of the
+     store_sales x item join (every row compared), three
+     ``regexp_replace``/``regexp_extract`` columns, and four write/read
+     round trips (store_sales to Parquet partitioned by ``ss_store_sk``,
+     read back with its Hive column; a quarter of the join to ORC, CSV
+     and Hive text): each result held to its numpy, pyarrow or ``re``
+     oracle, every plan verified, the device scans to their chunks and
+     the K3, K4, K5, K7 and K8 launches to ``_nds_expected`` (one K7 a
+     string column an ``XxHash64`` hashes a batch, one K8 a regex
+     expression a batch), each text's ms and the phase's seconds
+     printed (``--dataframe-only`` runs the build and this phase
+     alone); phase 3 checks K7 (``xxhash64.cu``) over 2^20 strings of
+     0-100 bytes after an int, a long, a double and a ``decimal(12,2)``
+     column, with nulls, and its edges, bit for bit against its plain
+     version and on 2^16 rows against the numpy host copy, and K8
+     (``regex_spans.cu``) over 2^20 text rows under a class run, a
+     bounded repeat, 60 positions and an end anchor, and its edges (a
+     row starting at the buffer's end), with ``first_only`` off and on,
+     every output bit for bit; each timed beside its bound and plain
+     version;
   15. K1's kernels a call, counted in a profiler trace of one call (1)
      between pad kernels. Every trace runs after the timed phases, in a
      process of its own, so that it is the first trace of its process
@@ -327,6 +351,11 @@ K5_REPLACES = "spark_rapids_tpu/io/parquet_device.py:1015"
 K5_SOURCE = "spark_rapids_tpu_torch/csrc/parquet_decode.cu"
 K6_REPLACES = "spark_rapids_tpu/ops/regex.py:378"
 K6_SOURCE = "spark_rapids_tpu_torch/csrc/regex_match.cu"
+K7_REPLACES = "spark_rapids_tpu/ops/hash.py:363"
+K7_SOURCE = "spark_rapids_tpu_torch/csrc/xxhash64.cu"
+K8_REPLACES = "spark_rapids_tpu/ops/regex.py:475"
+K8_SOURCE = "spark_rapids_tpu_torch/csrc/regex_spans.cu"
+K8_MAIN_ROWS_LOG2 = 20  # phase 3's K8 text rows, kernel_checks.K8_TEXT_ROWS
 # phase 16's traced text, and phase 3's nested shapes in the kernels' JSON
 NESTED_TRACED = "q_nest_explode"
 NESTED_K3_SHAPE = "nested_ticket_compaction_2^16"
@@ -345,8 +374,8 @@ def log(*a):
 
 def _args():
     """``(memory_only, opm_only, functions_only, decimals_only,
-    nested_only, telemetry_only, cluster_only, log path or None)`` from
-    the command line."""
+    nested_only, telemetry_only, cluster_only, dataframe_only, log path
+    or None)`` from the command line."""
     args = sys.argv[1:]
     path = None
     if "--log" in args:
@@ -354,7 +383,7 @@ def _args():
     return ("--memory-only" in args, "--opm-only" in args,
             "--functions-only" in args, "--decimals-only" in args,
             "--nested-only" in args, "--telemetry-only" in args,
-            "--cluster-only" in args, path)
+            "--cluster-only" in args, "--dataframe-only" in args, path)
 
 
 def phase_card():
@@ -507,6 +536,40 @@ def phase_regex(device):
             f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {t['bytes']} B); "
             f"by route {t['ms_by_route']}")
     return k6, max(r["max_abs_err"] for r in recs)
+
+
+def phase_hash_spans(device):
+    """K7 and K8 against their plain versions, then timed."""
+    from spark_rapids_tpu_torch.ops import kernel_checks as kc
+    k7_cases = kc.k7_cases(device)
+    k7_recs = kc.check_k7(device, k7_cases)
+    for rec in k7_recs:
+        log(f"[k7] {rec}")
+    k7 = kc.time_k7(device, k7_cases[0])
+    # operations: some 10 integer steps an 8-byte word (multiplies,
+    # rotates, adds, xors) and 30 a row (the merge, tails and avalanche),
+    # counted at the float32 rate; the bytes bound it
+    chars = k7["bytes"] - 4 * (k7["rows"] + 1) - 17 * k7["rows"]
+    k7["bound_ms"], k7["bound_by"] = _bound(
+        k7["bytes"], 10 * chars // 8 + 30 * k7["rows"])
+    k7["max_abs_err"] = max(r["max_abs_err"] for r in k7_recs)
+    log(f"[k7] xxhash64_strings on {k7['case']} ({k7['rows']} rows): "
+        f"kernel {k7['ms']:.6f} ms, plain {k7['plain_ms']:.6f} ms, bound "
+        f"{k7['bound_ms']:.6f} ms ({k7['bound_by']}, {k7['bytes']} B)")
+    k8_cases = kc.k8_cases(device)
+    recs = kc.check_k8(device, k8_cases)
+    for rec in recs:
+        log(f"[k8] {rec}")
+    k8 = kc.time_k8(device, k8_cases)
+    for name, t in k8.items():
+        # operations: at least three a byte (the class lookup's AND, the
+        # accept test, a follow step); the bytes bound it
+        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], 3 * t["bytes"])
+        log(f"[k8] find_spans on {name} ({t['rows']} rows, "
+            f"{t['positions']} positions, {t['pattern'][:40]!r}): kernel "
+            f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {t['bytes']} B)")
+    return k7, k8, max(r["max_abs_err"] for r in recs)
 
 
 def _bound(nbytes, ops):
@@ -933,7 +996,13 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
     each sort (the longest string of its column, ``longest[name]``,
     fixes their number). A node the plan reaches by several paths (a
     view's scan that a CTE's two uses, or a union's two sides, share)
-    runs once a path, and its metrics sum those runs."""
+    runs once a path, and its metrics sum those runs. K7: one a batch
+    for each string column an ``XxHash64`` of a filter, project or
+    Expand hashes on the device; K8: one a batch for each
+    ``RegExpReplace`` or ``RegExpExtract`` there. Expand yields a batch
+    a projection list an input batch, or one an input batch where it
+    ran inside a fused stage (its ``fusedInto``), and a sample a batch
+    an input batch: neither launches a kernel of its own."""
     from spark_rapids_tpu_torch import datatypes as dt
     from spark_rapids_tpu_torch.config import JOIN_VERIFY_UNIQUE_HINT
     from spark_rapids_tpu_torch.exec.aggregate import GpuHashAggregateExec
@@ -944,7 +1013,9 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
         GpuBroadcastNestedLoopJoinExec, _BaseJoinExec)
     from spark_rapids_tpu_torch.exec.exchange import GpuCoalesceBatchesExec
     from spark_rapids_tpu_torch.exec.generate import GpuGenerateExec
-    from spark_rapids_tpu_torch.exec.misc import GpuUnionExec
+    from spark_rapids_tpu_torch.exec.misc import (GpuExpandExec,
+                                                  GpuSampleExec,
+                                                  GpuUnionExec)
     from spark_rapids_tpu_torch.exec.sort import (GpuGlobalLimitExec,
                                                   GpuSortExec)
     from spark_rapids_tpu_torch.exec.transitions import (DeviceToHostExec,
@@ -954,12 +1025,14 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
                                                         ApproxPercentile,
                                                         Max, Min, _Collect)
     from spark_rapids_tpu_torch.expr.complex import GetArrayItem
-    from spark_rapids_tpu_torch.expr.strings import Like, RegExpLike
+    from spark_rapids_tpu_torch.expr.hashes import XxHash64
+    from spark_rapids_tpu_torch.expr.strings import (Like, RegExpLike,
+                                                     _SpanFunction)
     from spark_rapids_tpu_torch.expr.window import Lag, Lead
     from spark_rapids_tpu_torch.io.scan import GpuFileScanExec
     from spark_rapids_tpu_torch.planner import _walk_expr
     out = {"decode_batch": 0, "sort_pairs": 0, "gather_rows": 0,
-           "regex_match": 0}
+           "regex_match": 0, "xxhash64_strings": 0, "find_spans": 0}
     uses = _node_uses(root)
 
     def m(node, key, default=None):
@@ -976,10 +1049,16 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
 
     def batches(node):
         if isinstance(node, GpuFileScanExec):
-            return m(node, "scanPrograms")
+            # the device-decode path counts its batches; the host path's
+            # are the operator metrics'
+            return m(node, "scanPrograms", 0) or m(node, "batches", 0)
         if isinstance(node, (GpuFilterExec, GpuProjectExec,
-                             GpuGenerateExec)):
+                             GpuGenerateExec, GpuSampleExec)):
             return batches(node.child)
+        if isinstance(node, GpuExpandExec):
+            fused = "fusedInto" in metrics.get(node.node_label(), {})
+            return batches(node.child) * (1 if fused
+                                          else len(node.projections))
         if isinstance(node, _BaseJoinExec):
             return m(node, "numOutputBatches", 0)
         if isinstance(node, (GpuHashAggregateExec, GpuSortExec,
@@ -1109,8 +1188,18 @@ def _nds_expected(root, metrics, longest, conf, root_on_device=True):
             for c in node.children:
                 walk(c, False)
             return
+        if isinstance(node, (GpuFilterExec, GpuProjectExec,
+                             GpuExpandExec)):
+            exprs = [e for root_e in node.expressions()
+                     for e in _walk_expr(root_e)]
+            out["xxhash64_strings"] += batches(node.child) * sum(
+                isinstance(c.dtype, (dt.StringType, dt.BinaryType))
+                for e in exprs if isinstance(e, XxHash64)
+                for c in e.children)
+            out["find_spans"] += batches(node.child) * sum(
+                isinstance(e, _SpanFunction) for e in exprs)
         if isinstance(node, GpuFileScanExec):
-            out["decode_batch"] += m(node, "scanPrograms")
+            out["decode_batch"] += m(node, "scanPrograms", 0)
         elif isinstance(node, (GpuFilterExec, GpuProjectExec)):
             regexes = sum(isinstance(e, (Like, RegExpLike))
                           and e.program() is not None
@@ -1229,7 +1318,14 @@ def _check_nds(q, out, want, metrics, need_chunks, floats):
             if not math.isfinite(a) or rel > ENGINE_RTOL:
                 raise AssertionError(f"{q}: {c} {a!r} vs oracle {b!r} "
                                      f"(rel {rel:.3e})")
-    # a scan on the CPU keeps no chunk counters
+    _check_chunks(q, metrics, need_chunks)
+    return worst
+
+
+def _check_chunks(q, metrics, need_chunks):
+    """Every device scan's ``(deviceChunks, fallbackChunks)`` against
+    ``need_chunks`` (``_scan_chunks_needed``); a scan on the CPU keeps no
+    chunk counters."""
     scans = [m for label, m in metrics.items()
              if label.startswith("FileScanExec") and "deviceChunks" in m]
     got = sorted((m["deviceChunks"], m["fallbackChunks"]) for m in scans)
@@ -1237,7 +1333,6 @@ def _check_nds(q, out, want, metrics, need_chunks, floats):
                   for n in need_chunks)
     if got != need:
         raise AssertionError(f"{q}: scan chunks {got}, expected {need}")
-    return worst
 
 
 def _scan_chunks_needed(root, chunks, root_on_device=True):
@@ -1351,10 +1446,17 @@ def _apply(conf, device, node, tag, verify=True):
         st["refused"] += 1
         raise
     if verify:
-        if pp.verify_report is None or not pp.verify_report.ok:
-            raise AssertionError(f"[{tag}] a plan was not verified")
-        st["verify_s"].append(pp.verify_s)
+        _verified(pp, tag)
     return pp
+
+
+def _verified(pp, tag):
+    """A planned plan must have been verified clean; its verifier's host
+    time is recorded under ``tag``."""
+    if pp.verify_report is None or not pp.verify_report.ok:
+        raise AssertionError(f"[{tag}] a plan was not verified")
+    VERIFY_STATS.setdefault(tag, {"verify_s": [], "refused": 0})[
+        "verify_s"].append(pp.verify_s)
 
 
 def _log_verifier(tag):
@@ -1512,15 +1614,16 @@ def phase_nds(device, files):
                              oracle=nds.oracle)
     # no warm-up at 16 partitions: the phase's time goes to the
     # op-metrics-off runs at 1 (phase 12's on/off figures)
-    # 2 timed runs at 1 partition (3 until the smoke passed 1,050 s)
-    return _run_sql_queries(device, "nds", corpus, files, timed=(2, 1),
+    # 1 timed run at 1 partition (3, then 2, until the smoke passed
+    # 1,050 s each time)
+    return _run_sql_queries(device, "nds", corpus, files, timed=(1, 1),
                             warm=(True, False), opm_off=True)
 
 
 def phase_nds_joins(device, files):
     from spark_rapids_tpu_torch.tools import nds_joins
     return _run_sql_queries(device, "nds-joins", nds_joins, files,
-                            timed=(2, 1), warm=(True, False))
+                            timed=(1, 1), warm=(True, False))
 
 
 def phase_nds_fallback(device, files):
@@ -3370,10 +3473,151 @@ def _cluster_launches(summary, kernel):
             for q, t in summary["texts"].items()}
 
 
+# --- phase 19: the DataFrame API's rest ----------------------------------------
+
+def _counted(run, device, counters):
+    """``run()`` timed, its launches counted: ``(its result, seconds,
+    launches)``."""
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    out = run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    return out, secs, {c.__name__: c.launches for c in counters}
+
+
+def _implied(pp, ctx, want_longest):
+    """The launches a run of ``pp`` under ``ctx`` implies."""
+    return _nds_expected(pp.root, _metrics(ctx), want_longest, pp.conf,
+                         pp.root_on_device)
+
+
+def _dataframe_run(pp, device, want_longest, counters):
+    """One counted, timed collect of a planned plan: ``(rows, seconds,
+    ctx, launches, the launches the plan implies)``."""
+    from spark_rapids_tpu_torch.exec.base import ExecCtx
+    ctx = ExecCtx(pp.conf, device)
+    out, secs, got = _counted(lambda: pp.collect(ctx), device, counters)
+    return out, secs, ctx, got, _implied(pp, ctx, want_longest)
+
+
+def _dataframe_chunks(q, pp, ctx, chunks):
+    """The device scans' chunk counters against their files'."""
+    _check_chunks(q, _metrics(ctx), _scan_chunks_needed(
+        pp.root, chunks, pp.root_on_device))
+
+
+def _file_chunks(files):
+    """A written Parquet file's device chunks: row groups x columns."""
+    import pyarrow.parquet as pq
+    out = {}
+    for f in files:
+        md = pq.ParquetFile(f).metadata
+        out[f] = md.num_row_groups * md.num_columns
+    return out
+
+
+def phase_dataframe(device, files, card, smi):
+    """Phase 19 (module docstring): ``tools/nds_dataframe``'s texts and
+    round trips at 1 and 16 partitions, one timed run each."""
+    import shutil
+    from spark_rapids_tpu_torch import nds
+    from spark_rapids_tpu_torch.tools import nds_dataframe as ndf
+    from spark_rapids_tpu_torch.tools.nds_trace import counters
+
+    tables, paths, chunks = files
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, ".bench_cache", "dataframe_torch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    E = ndf.port_namespace()
+    wrappers = list(counters().values())
+    names = {c.__name__: k for k, c in counters().items()}
+    t0 = time.perf_counter()
+    oracles = {q: ndf.oracle(q, tables) for q in ndf.TEXTS}
+    oracles.update({k: ndf.roundtrip_oracle(k, tables, out_dir)
+                    for k in ndf.ROUNDTRIPS})
+    log(f"[dataframe] oracles in {time.perf_counter() - t0:.3f} s")
+    summary, launches = {}, {}
+
+    def record(key, secs, got, implied, extra):
+        if got != implied:
+            raise AssertionError(f"{key}: launches {got}, the plan "
+                                 f"implies {implied}")
+        by_kernel = {names[k]: v for k, v in got.items()}
+        summary[key] = dict(extra, ms=secs * 1e3, launches=by_kernel)
+        launches[key] = got
+        log(f"[dataframe] {key}: {secs * 1e3:.3f} ms on {card} ({smi}); "
+            f"launches {by_kernel} as the plan implies; "
+            + json.dumps(extra, sort_keys=True))
+
+    for parts in (1, 16):
+        conf = {"spark.sql.shuffle.partitions": str(parts)}
+        for q in ndf.TEXTS:
+            s = nds.session_over_files(paths, conf, device)
+            want = oracles[q]
+            t = time.perf_counter()
+            pp = _apply(s.conf, device, ndf.BUILDERS[q](s, E)._node,
+                        "dataframe")
+            plan_s = time.perf_counter() - t
+            if pp.fallback_nodes():
+                raise AssertionError(f"{q}: nodes on the CPU "
+                                     f"{pp.fallback_nodes()}")
+            out, secs, ctx, got, implied = _dataframe_run(
+                pp, device, _nds_longest(want), wrappers)
+            rel = ndf.check(q, out, want)
+            _dataframe_chunks(q, pp, ctx, chunks)
+            record(f"{q}_p{parts}", secs, got, implied,
+                   {"rows": out.num_rows, "max_rel_err": rel,
+                    "plan_ms": plan_s * 1e3})
+        for k in ndf.ROUNDTRIPS:
+            s = nds.session_over_files(paths, conf, device)
+            src, fmt, part_by = ndf.roundtrip_source(k, s, E)
+            where = os.path.join(out_dir, f"{k}_p{parts}")
+            # the user's entry point; its plan stays on the DataFrame
+            written, w_secs, w_got = _counted(
+                lambda: src.write(where, fmt, partition_by=part_by),
+                device, wrappers)
+            pp = src.last_write_plan
+            _verified(pp, "dataframe")
+            w_ctx = pp.last_ctx
+            w_implied = _implied(pp, w_ctx, {})
+            _dataframe_chunks(k, pp, w_ctx, chunks)
+            write_time = _op_metric(_metrics(w_ctx), "FileWriteExec",
+                                    "writeTime")
+            rpp = _apply(s.conf, device, ndf.roundtrip_read(
+                k, s, written, src.schema)._node, "dataframe")
+            out, r_secs, r_ctx, r_got, r_implied = _dataframe_run(
+                rpp, device, {}, wrappers)
+            if fmt == "parquet":  # the other formats upload Arrow
+                _dataframe_chunks(k, rpp, r_ctx, _file_chunks(written))
+            rel = ndf.check(k, out, oracles[k], keys=out.column_names)
+            got = {n: w_got[n] + r_got[n] for n in w_got}
+            implied = {n: w_implied[n] + r_implied[n] for n in w_implied}
+            record(f"{k}_p{parts}", w_secs + r_secs, got, implied,
+                   {"rows": out.num_rows, "files": len(written),
+                    "write_ms": w_secs * 1e3, "read_ms": r_secs * 1e3,
+                    "writeTime_ms": write_time * 1e3,
+                    "max_rel_err": rel})
+    for parts in (1, 16):
+        if not (launches[f"df_hash_p{parts}"]["xxhash64_strings"]
+                and launches[f"df_regex_p{parts}"]["find_spans"]):
+            raise AssertionError(f"K7 or K8 not launched at {parts} "
+                                 "partitions")
+    summary["verifier"] = _log_verifier("dataframe")
+    took = time.perf_counter() - t_phase
+    summary["phase_s"] = took
+    log(f"[dataframe] phase took {took:.3f} s")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return summary, launches
+
+
 def main():
     global _log_file
     memory_only, opm_only, functions_only, decimals_only, nested_only, \
-        telemetry_only, cluster_only, log_path = _args()
+        telemetry_only, cluster_only, dataframe_only, log_path = _args()
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
@@ -3422,6 +3666,11 @@ def main():
         phase_telemetry_q6(name, smi, summary, q6_paths)
         log("[telemetry] " + json.dumps(summary, sort_keys=True))
         return
+    if dataframe_only:
+        # a quick check of phase 19 alone
+        summary, _ = phase_dataframe(device, _nds_files(), name, smi)
+        log("[dataframe] " + json.dumps(summary, sort_keys=True))
+        return
     if cluster_only:
         # a quick check of phase 18 alone
         from spark_rapids_tpu_torch import tpch
@@ -3435,6 +3684,7 @@ def main():
     k3, k4, (k3_err, k4_err) = phase_sort_gather(device)
     k5, k2 = phase_decode_group(device)
     k6, k6_err = phase_regex(device)
+    k7, k8, k8_err = phase_hash_spans(device)
     launches, paths = phase_slice(device)
     join_launches = phase_join(device)
     dd_launches, dd_revenue = phase_q6_device_decode(device, paths)
@@ -3453,6 +3703,7 @@ def main():
     cluster_summary = phase_cluster(
         device, name, smi, nds_files, paths,
         dict(dd_launches, chunks=Q6_DD_CHUNKS))
+    df_summary, df_launches = phase_dataframe(device, nds_files, name, smi)
     # the traces last, each in a process of its own
     per_call = phase_k1_kernels_per_call()
     phase_function_traces(name, smi, fn_summary)
@@ -3480,7 +3731,9 @@ def main():
     log("[nested] " + json.dumps(nested_summary, sort_keys=True))
     log("[telemetry] " + json.dumps(tel_summary, sort_keys=True))
     log("[cluster] " + json.dumps(cluster_summary, sort_keys=True))
+    log("[dataframe] " + json.dumps(df_summary, sort_keys=True))
     main_sort = k3["partial_2^21"]
+    span_main = k8[f"text_0_2^{K8_MAIN_ROWS_LOG2}"]
     probe = k4["probe_2^21_from_2^17"]
     like = k6["q_like_item_32768"]
     log(json.dumps({"kernels": [{
@@ -3601,7 +3854,27 @@ def main():
                          for k, v in nds_launches.items()},
         "launches_functions": {k: v["K6"]
                                for k, v in fn_launches.items()},
-        "launches_cluster": _cluster_launches(cluster_summary, "K6")}]}))
+        "launches_cluster": _cluster_launches(cluster_summary, "K6")}, {
+        "name": "xxhash64 (xxhash64_strings)",
+        "route": "cuda", "source": K7_SOURCE, "replaces": K7_REPLACES,
+        "launches": df_launches["df_hash_p1"]["xxhash64_strings"],
+        "max_abs_err": k7["max_abs_err"], "ms": k7["ms"],
+        "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"],
+        "bound_by": k7["bound_by"], "library_ms": None,
+        "shape": "2^20 strings of 0-100 bytes after four fixed columns",
+        "launches_dataframe": {k: v["xxhash64_strings"]
+                               for k, v in df_launches.items()}}, {
+        "name": "regex_spans (find_spans)",
+        "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
+        "launches": df_launches["df_regex_p1"]["find_spans"],
+        "max_abs_err": k8_err, "ms": span_main["ms"],
+        "plain_ms": span_main["plain_ms"],
+        "bound_ms": span_main["bound_ms"],
+        "bound_by": span_main["bound_by"], "library_ms": None,
+        "shape": "2^20 text rows of 20-120 bytes, '[aeiou]+'",
+        "by_shape": k8,
+        "launches_dataframe": {k: v["find_spans"]
+                               for k, v in df_launches.items()}}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -354,11 +354,13 @@ _TASK_KINDS = {"map": _run_map_task, "collect": _run_collect_task}
 def launch_counters() -> Dict[str, object]:
     """Every kernel wrapper's launch counter, by wrapper name."""
     from .ops import cuda_kernels as ck
+    from .ops.hash import xxhash64_strings
     from .ops.parquet_decode import decode_batch
-    from .ops.regex import regex_match
+    from .ops.regex import find_spans, regex_match
     fns = (decode_batch, ck.filter_product_sum, ck.masked_product_sum,
            ck.filter_product_group_sum, ck.fused_filter_agg, ck.sort_pairs,
-           ck.sort_keys, ck.gather_rows, ck.gather, regex_match)
+           ck.sort_keys, ck.gather_rows, ck.gather, regex_match,
+           xxhash64_strings, find_spans)
     return {f.__name__: f for f in fns}
 
 

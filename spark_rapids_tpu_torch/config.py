@@ -291,6 +291,17 @@ JSON_ENABLED = register(
 ORC_ENABLED = register(
     "spark.rapids.sql.format.orc.enabled", True,
     "Enable accelerated ORC reads/writes.")
+HIVE_TEXT_ENABLED = register(
+    "spark.rapids.sql.format.hiveText.enabled", True,
+    "Enable accelerated Hive text-serde reads/writes (LazySimpleSerDe "
+    "defaults: \\x01 delimiter, \\N nulls).")
+#: each scan format's enable key (a disabled format scans on the CPU)
+FORMAT_CONF = {"parquet": PARQUET_ENABLED, "orc": ORC_ENABLED,
+               "csv": CSV_ENABLED, "json": JSON_ENABLED,
+               "hivetext": HIVE_TEXT_ENABLED}
+PARQUET_COMPRESSION = register(
+    "spark.sql.parquet.compression.codec", "snappy",
+    "Compression codec for Parquet writes: none, snappy, zstd, lz4, gzip.")
 MAX_PARTITION_BYTES = register(
     "spark.sql.files.maxPartitionBytes", 128 << 20,
     "Split files into partitions of at most this many bytes.",

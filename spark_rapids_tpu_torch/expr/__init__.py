@@ -11,6 +11,8 @@ from .aggregates import (Sum, Count, Min, Max, Average, CollectList,
                          CollectSet, ApproxPercentile)
 from .complex import (GetStructField, GetArrayItem, CreateNamedStruct,
                       Size, MapKeys, MapValues)
+from .hashes import Murmur3Hash, XxHash64
+from .strings import RegExpReplace, RegExpExtract
 
 __all__ = ["Expression", "BoundReference", "UnresolvedColumn", "Literal",
            "Alias", "EvalCtx", "ExprError", "bind_expr",
@@ -22,4 +24,5 @@ __all__ = ["Expression", "BoundReference", "UnresolvedColumn", "Literal",
            "Or", "Not", "IsNull", "IsNotNull", "IsNaN", "In", "Sum",
            "Count", "Min", "Max", "Average", "CollectList", "CollectSet",
            "ApproxPercentile", "GetStructField", "GetArrayItem",
-           "CreateNamedStruct", "Size", "MapKeys", "MapValues"]
+           "CreateNamedStruct", "Size", "MapKeys", "MapValues",
+           "Murmur3Hash", "XxHash64", "RegExpReplace", "RegExpExtract"]

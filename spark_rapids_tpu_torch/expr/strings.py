@@ -43,8 +43,18 @@ The rest of ``spark_rapids_tpu/expr/strings.py``:
 Where the reference departs from Spark the port follows Spark: a
 negative start before the string's beginning eats into the length
 (``substr('abc', -5, 3)`` is ``'a'``; the reference clamps the start
-first and gives ``'abc'``). ``RegExpReplace`` and ``RegExpExtract`` wait
-for ROADMAP item 13's regex rest.
+first and gives ``'abc'``).
+
+``RegExpReplace`` and ``RegExpExtract`` (the reference's ``:447,496``)
+find each row's leftmost-longest spans on **K8**
+(``ops/regex.find_spans``) and assemble the result in torch, under the
+reference's gates: a pattern with alternation or one that can match the
+empty string (``compile_replace_pattern``), a replacement holding ``$``
+or a backslash, and an extract group other than 0 or the whole
+pattern's ``(X)`` keep their operator on the CPU. A CPU operator runs
+every pattern through Python's ``re`` with ``re.ASCII`` (Java's
+classes), ``$n`` becoming ``\\n``, each distinct string once, as the
+reference's ``eval_cpu`` does.
 """
 from __future__ import annotations
 
@@ -70,7 +80,7 @@ __all__ = ["Like", "RegExpLike", "Length", "Upper", "Lower", "Substring",
            "ConcatStrings", "StartsWith", "EndsWith", "Contains",
            "StringTrim", "StringTrimLeft", "StringTrimRight",
            "StringReplace", "StringLocate", "StringLpad", "StringRpad",
-           "StringRepeat", "Reverse"]
+           "StringRepeat", "Reverse", "RegExpReplace", "RegExpExtract"]
 
 
 def _match(col: GpuColumnVector, prog) -> GpuColumnVector:
@@ -562,3 +572,124 @@ class Reverse(_HostStringFunction):
     def host(self, arr):
         return pa.array([None if v is None else v[::-1]
                          for v in arr.to_pylist()], pa.string())
+
+
+# --- regexp_replace and regexp_extract: K8's spans ---------------------------
+
+class _SpanFunction(_StringFunction):
+    """A string function over a pattern's spans (``ops/regex``), K8 on
+    the device; a pattern the gates refuse keeps its operator on the
+    CPU. On the CPU ``host`` runs Python's ``re``, for any pattern."""
+
+    def __init__(self, child: Expression, pattern: str):
+        super().__init__(child)
+        self.pattern = pattern
+        self._compiled = None
+
+    def _compile(self):
+        """``(program, None)`` or ``(None, reason)``."""
+        raise NotImplementedError
+
+    def program(self):
+        if self._compiled is None:
+            self._compiled = self._compile()
+        return self._compiled[0]
+
+    #: the SQL name the refusal's reason gives, as the reference's
+    sql_name = ""
+
+    def gpu_supported(self) -> Optional[str]:
+        self.program()
+        why = self._compiled[1]
+        return None if why is None else \
+            f"{self.sql_name} {self.pattern!r}: {why}"
+
+    def host(self, values):
+        raise NotImplementedError
+
+    def device(self, c: GpuColumnVector, prog) -> GpuColumnVector:
+        raise NotImplementedError
+
+    def eval_gpu(self, batch, ctx):
+        c = self.children[0].eval_gpu(batch, ctx)
+        if not ctx.host:
+            why = self.gpu_supported()
+            if why is not None:
+                raise NotImplementedError(f"{why}, where the planner "
+                                          "places it")
+            return self.device(c, self.program())
+        # the CPU path is Python's re whatever the pattern, as the
+        # reference's eval_cpu (its $ also matches before a final \n)
+        arr = _host_values(c)
+        enc = arr.dictionary_encode()
+        out = pa.array([self.host(v) for v in enc.dictionary.to_pylist()],
+                       pa.string()).take(enc.indices)
+        return _from_arrow(out, self.dtype, c.capacity, c.device)
+
+    def __repr__(self):
+        return f"{self.pretty_name()}({self.children[0]!r}, " \
+            f"{self.pattern!r})"
+
+
+class RegExpReplace(_SpanFunction):
+    """``regexp_replace``: every non-overlapping match replaced by a
+    literal; a ``$`` group or backslash replacement on the CPU."""
+
+    sql_name = "regexp_replace"
+
+    def __init__(self, child: Expression, pattern: str, replacement: str):
+        super().__init__(child, pattern)
+        self.replacement = replacement
+
+    def _compile(self):
+        prog, why = regex.compile_replace_pattern(self.pattern)
+        if why is None and ("$" in self.replacement
+                            or "\\" in self.replacement):
+            return None, "$group / escape replacements run on host"
+        return prog, why
+
+    def host(self, v):
+        rx = re.compile(self.pattern, re.ASCII)
+        return rx.sub(re.sub(r"\$(\d)", r"\\\1", self.replacement), v)
+
+    def device(self, c, prog):
+        return regex.regex_replace(c, prog, self.replacement.encode())
+
+
+class RegExpExtract(_SpanFunction):
+    """``regexp_extract``: the first match's group, '' where none. On
+    the device for group 0 and for a whole-pattern group ``(X)`` with
+    group 1, the dialect having no inner groups."""
+
+    sql_name = "regexp_extract"
+
+    def __init__(self, child: Expression, pattern: str, group: int = 1):
+        super().__init__(child, pattern)
+        self.group = group
+
+    def _effective_pattern(self) -> Optional[str]:
+        p = self.pattern
+        if self.group == 0:
+            return p
+        if self.group == 1 and len(p) >= 2 and p[0] == "(" \
+                and p[-1] == ")" and p[-2] != "\\" \
+                and "(" not in p[1:-1] and ")" not in p[1:-1]:
+            return p[1:-1]  # (X) with group 1 is the whole match of X
+        return None
+
+    def _compile(self):
+        eff = self._effective_pattern()
+        if eff is None:
+            return None, (f"capture group {self.group} needs group "
+                          "tracking; runs on host")
+        return regex.compile_replace_pattern(eff)
+
+    def host(self, v):
+        m = re.compile(self.pattern, re.ASCII).search(v)
+        if m is None:
+            return ""
+        g = m.group(self.group)
+        return g if g is not None else ""
+
+    def device(self, c, prog):
+        return regex.regex_extract(c, prog)

@@ -67,9 +67,23 @@ of the query's ``assembleTime``, ``uploadTime``, ``deviceChunks`` and
 ``fallbackChunks``.
 A scan the planner places on the CPU (``execute_cpu``, the reference's
 ``:1138-1163`` with ``_align``) yields pyarrow's batches in the same
-split order, cast to its schema, and touches no device. Column pruning,
-row-group pushdown, Hive partition columns and the
-ORC/CSV/JSON/Hive-text formats wait (ROADMAP items 5 and 12).
+split order, cast to its schema, and touches no device.
+
+The scan's rest (the reference's ``:92-435,445-478``): the constructor
+takes ``fmt`` (``parquet``, ``orc``, ``csv``, ``json``, ``hivetext``),
+``columns`` (the columns read), ``pushdown`` (an expression whose simple
+conjuncts prune Parquet row groups by their footer statistics,
+``_simple_conjuncts`` and ``_rg_may_match``, on both decode paths; the
+filter above still runs) and ``conf``. Paths below their common
+directory that hold ``key=value`` components add Hive partition columns
+(``_hive_partition_values``, typed by the strict ``_INT_RE`` and
+``_FLOAT_RE``), a constant a file: on the device-decode path they ride
+the staged blob beside the host-decoded columns. ORC, CSV and JSON
+decode through pyarrow, and Hive text (LazySimpleSerDe's defaults,
+``_decode_hive_text``) through Python, under an explicit schema; their
+batches upload as the Parquet host path's do. K5 decodes Parquet only.
+A format whose ``spark.rapids.sql.format.<fmt>.enabled`` is off scans
+on the CPU (``gpu_supported_conf``).
 """
 from __future__ import annotations
 
@@ -77,12 +91,14 @@ import concurrent.futures
 import decimal
 import os
 import queue
+import re
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import pyarrow.parquet as pq
 import torch
 
@@ -92,11 +108,12 @@ from ..columnar.arrow_bridge import (arrow_schema, column_to_device,
                                      string_parts)
 from ..columnar.batch import GpuBatch, bucket_rows
 from ..columnar.column import GpuColumnVector, is_string_like, torch_dtype
-from ..config import (MAX_PARTITION_BYTES, PARQUET_DEVICE_DECODE,
+from ..config import (FORMAT_CONF, MAX_PARTITION_BYTES,
+                      PARQUET_DEVICE_DECODE,
                       PARQUET_MULTITHREADED_THREADS, PARQUET_READER_TYPE,
                       SCAN_COALESCE_TARGET_BYTES, SCAN_INFLIGHT_BATCHES,
                       SCAN_PREFETCH_BATCHES, SCAN_STAGE_FUSION,
-                      SCAN_UPLOAD_THREADS)
+                      SCAN_UPLOAD_THREADS, RapidsConf)
 from ..exec.base import ExecCtx, LeafExec
 from ..obs.metrics import REGISTRY as _METRICS, TRANSFER_BUCKETS
 from ..ops.parquet_decode import BatchLayout, decode_batch
@@ -143,11 +160,15 @@ class FileSplit:
         return f"FileSplit({self.path}{rg})"
 
 
-def plan_splits(paths: Sequence[str],
+def plan_splits(paths: Sequence[str], fmt: str,
                 max_partition_bytes: int) -> List[FileSplit]:
-    """Row-group-aligned split planning for Parquet."""
+    """Row-group-aligned split planning for Parquet; whole files
+    otherwise."""
     splits: List[FileSplit] = []
     for path in paths:
+        if fmt != "parquet":
+            splits.append(FileSplit(path))
+            continue
         md = pq.ParquetFile(path).metadata
         cur: List[int] = []
         cur_bytes = 0
@@ -163,18 +184,385 @@ def plan_splits(paths: Sequence[str],
     return splits
 
 
-def _decode_split(split: FileSplit,
-                  batch_rows: int) -> List[pa.RecordBatch]:
-    """Host decode of one split into RecordBatches of at most
-    ``batch_rows`` rows."""
-    f = pq.ParquetFile(split.path)
-    groups = split.row_groups
+# strict numeric forms only: Python's float() and int() take 'nan', 'inf'
+# and '1_0', which Spark and LazySimpleSerDe read as a string or a null;
+# partition values and Hive text fields share them
+_INT_FORM = r"[+-]?\d+"
+_FLOAT_FORM = r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?"
+_INT_RE = re.compile(_INT_FORM + r"\Z")
+_FLOAT_RE = re.compile(_FLOAT_FORM + r"\Z")
+
+
+# --- row-group pruning --------------------------------------------------------
+
+def _simple_conjuncts(expr) -> List[Tuple[str, str, object]]:
+    """The ``(column, op, literal)`` conjuncts of ``expr`` that row-group
+    statistics can test; anything else is not pushed."""
+    from ..expr.base import BoundReference, Literal, UnresolvedColumn
+    from ..expr.predicates import (And, EqualTo, GreaterThan,
+                                   GreaterThanOrEqual, LessThan,
+                                   LessThanOrEqual)
+    ops = {EqualTo: "=", LessThan: "<", LessThanOrEqual: "<=",
+           GreaterThan: ">", GreaterThanOrEqual: ">="}
+    flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
+    out: List[Tuple[str, str, object]] = []
+
+    def colname(e):
+        if isinstance(e, (UnresolvedColumn, BoundReference)):
+            return e.name
+        return None
+
+    def rec(e):
+        if isinstance(e, And):
+            rec(e.children[0])
+            rec(e.children[1])
+            return
+        op = ops.get(type(e))
+        if op is None:
+            return
+        left, right = e.children
+        if colname(left) is not None and isinstance(right, Literal):
+            out.append((colname(left), op, right.value))
+        elif colname(right) is not None and isinstance(left, Literal):
+            out.append((colname(right), flip[op], left.value))
+
+    rec(expr)
+    return out
+
+
+def _rg_may_match(md, rg: int, name_to_idx, conjuncts) -> bool:
+    """False only where the footer's statistics prove no row of the row
+    group passes."""
+    row_group = md.row_group(rg)
+    for name, op, lit in conjuncts:
+        ci = name_to_idx.get(name)
+        if ci is None:
+            continue
+        stats = row_group.column(ci).statistics
+        if stats is None or not stats.has_min_max:
+            continue
+        lo, hi = stats.min, stats.max
+        try:
+            if op == "=" and (lit < lo or lit > hi):
+                return False
+            if op in ("<", "<=") and not (lo < lit or
+                                          (op == "<=" and lo <= lit)):
+                return False
+            if op in (">", ">=") and not (hi > lit or
+                                          (op == ">=" and hi >= lit)):
+                return False
+        except TypeError:  # incomparable statistics
+            continue
+    return True
+
+
+def _pruned_groups(path: str, groups: Optional[List[int]],
+                   conjuncts) -> List[int]:
+    """The split's row groups that may hold a passing row."""
+    md = pq.ParquetFile(path).metadata
     if groups is None:
-        groups = list(range(f.metadata.num_row_groups))
-    if not groups:
+        groups = list(range(md.num_row_groups))
+    if not conjuncts:
+        return groups
+    name_to_idx = {md.schema.column(i).name: i
+                   for i in range(md.num_columns)}
+    return [g for g in groups
+            if _rg_may_match(md, g, name_to_idx, conjuncts)]
+
+
+# --- Hive partition columns ---------------------------------------------------
+
+_HIVE_NULL = "__HIVE_DEFAULT_PARTITION__"
+
+
+def _hive_partition_values(paths: Sequence[str]):
+    """``({path: {key: typed value}}, Schema of the partition columns)``
+    from the ``key=value`` components of the paths below their common
+    directory (Spark's basePath-relative discovery: a prefix every file
+    shares is not a partition), or ``({}, None)``. A column is int64
+    where every value is an integer, float64 where a float, else a
+    string; ``__HIVE_DEFAULT_PARTITION__`` is null."""
+    import urllib.parse
+    if len(paths) < 2:
+        base = os.path.dirname(paths[0]) if paths else ""
+    else:
+        base = os.path.commonpath([os.path.dirname(p) for p in paths])
+    raw: dict = {}
+    keys: List[str] = []
+    for p in paths:
+        vals = {}
+        for comp in os.path.relpath(os.path.dirname(p), base).split(os.sep):
+            k, eq, v = comp.partition("=")
+            if not eq or not k:
+                continue
+            vals[k] = urllib.parse.unquote(v)
+            if k not in keys:
+                keys.append(k)
+        raw[p] = vals
+    if not keys:
+        return {}, None
+
+    def infer(vals):
+        nonnull = [v for v in vals if v is not None and v != _HIVE_NULL]
+        for t, conv, pat in ((dt.INT64, int, _INT_RE),
+                             (dt.FLOAT64, float, _FLOAT_RE)):
+            if all(pat.match(v) for v in nonnull):
+                return t, conv
+        return dt.STRING, str
+
+    fields, convs = [], {}
+    for k in keys:
+        t, conv = infer([raw[p].get(k) for p in paths])
+        fields.append(dt.StructField(k, t, True))
+        convs[k] = conv
+    typed = {p: {k: (None if raw[p].get(k) in (None, _HIVE_NULL)
+                     else convs[k](raw[p][k])) for k in keys}
+             for p in paths}
+    return typed, dt.Schema(fields)
+
+
+def _partition_arrays(part_vals, part_schema, n: int) -> List[pa.Array]:
+    return [pa.array([(part_vals or {}).get(f.name)] * n,
+                     type=dt.to_arrow(f.dtype)) for f in part_schema.fields]
+
+
+def _attach_partition_columns(rbs: List[pa.RecordBatch], part_vals,
+                              part_schema) -> List[pa.RecordBatch]:
+    """The split's batches with its constant partition columns after
+    the file's."""
+    if part_schema is None:
+        return rbs
+    names = part_schema.names
+    return [pa.RecordBatch.from_arrays(
+        list(rb.columns) + _partition_arrays(part_vals, part_schema,
+                                             rb.num_rows),
+        names=list(rb.schema.names) + names) for rb in rbs]
+
+
+# --- host decode --------------------------------------------------------------
+
+def _decode_split(split: FileSplit, fmt: str, columns, batch_rows: int,
+                  conjuncts, schema=None) -> List[pa.RecordBatch]:
+    """Host decode of one split into RecordBatches of at most
+    ``batch_rows`` rows; ``schema`` names and types a Hive text file's
+    fields (the format has no header)."""
+    if fmt == "parquet":
+        groups = _pruned_groups(split.path, split.row_groups, conjuncts)
+        if not groups:
+            return []
+        f = pq.ParquetFile(split.path)
+        return [rb for rb in f.iter_batches(batch_size=batch_rows,
+                                            row_groups=groups,
+                                            columns=columns)
+                if rb.num_rows]
+    if fmt == "hivetext":
+        return _decode_hive_text(split.path, columns, batch_rows, schema)
+    if fmt == "orc":
+        from pyarrow import orc
+        table = orc.ORCFile(split.path).read(columns=columns)
+    elif fmt == "csv":
+        from pyarrow import csv
+        table = csv.read_csv(split.path)
+        if columns:
+            table = table.select(columns)
+    elif fmt == "json":
+        from pyarrow import json as pj
+        table = pj.read_json(split.path)
+        if columns:
+            table = table.select(columns)
+    else:
+        raise ValueError(f"unknown scan format {fmt!r}")
+    return [rb for rb in table.combine_chunks().to_batches(
+        max_chunksize=batch_rows) if rb.num_rows]
+
+
+def _hive_unescape(tok: str):
+    if tok == "\\N":
+        return None
+    if "\\" not in tok:
+        return tok
+    out, i = [], 0
+    while i < len(tok):
+        ch = tok[i]
+        if ch == "\\" and i + 1 < len(tok):
+            out.append({"n": "\n", "r": "\r"}.get(tok[i + 1], tok[i + 1]))
+            i += 2
+        else:
+            out.append(ch)
+            i += 1
+    return "".join(out)
+
+
+def _hive_split_row(line: str) -> List[str]:
+    """A line's fields at each unescaped \\x01."""
+    if "\\" not in line:
+        return line.split("\x01")
+    toks, cur, i = [], [], 0
+    while i < len(line):
+        ch = line[i]
+        if ch == "\\" and i + 1 < len(line):
+            cur.append(line[i:i + 2])
+            i += 2
+            continue
+        if ch == "\x01":
+            toks.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+        i += 1
+    toks.append("".join(cur))
+    return toks
+
+
+def _hive_date(v: str):
+    import datetime
+    y, m, d = v.split("-")
+    return datetime.date(int(y), int(m), int(d))
+
+
+def _hive_timestamp(v: str):
+    import datetime
+    ts = datetime.datetime.fromisoformat(v)
+    return ts if ts.tzinfo is not None \
+        else ts.replace(tzinfo=datetime.timezone.utc)
+
+
+def _hive_converter(t: dt.DataType):
+    """A field's text read as ``t`` in Python: raises ValueError (or
+    returns None) where the serde reads a null, as for a malformed
+    number."""
+    import base64
+    if dt.is_integral(t):
+        return lambda v: int(v) if _INT_RE.match(v) else None
+    if dt.is_floating(t):
+        return lambda v: float(v) if _FLOAT_RE.match(v) else None
+    if isinstance(t, dt.DateType):
+        return _hive_date
+    if isinstance(t, dt.TimestampType):
+        return _hive_timestamp
+    if isinstance(t, dt.DecimalType):
+        return decimal.Decimal
+    if isinstance(t, dt.BinaryType):
+        return base64.b64decode  # Hive's Base64 binary
+    raise TypeError(f"no Hive text converter for {t}")
+
+
+def _only_null_escapes(data: bytes) -> bool:
+    """Whether every backslash of ``data`` opens a \\N that is a whole
+    field: after a delimiter, a line's start or the file's, and before a
+    delimiter, a line's end or the file's."""
+    raw = np.frombuffer(data, np.uint8)
+    at = np.flatnonzero(raw == ord("\\"))
+    if not len(at):
+        return True
+    padded = np.concatenate([[10], raw, [10, 10]])  # the file's ends
+    before, n_at, after = padded[at], padded[at + 2], padded[at + 3]
+    return bool((n_at == ord("N")).all() & np.isin(before, (1, 10)).all()
+                & np.isin(after, (1, 10, 13)).all())
+
+
+def _hive_arrow_column(col: pa.Array, t: dt.DataType) -> pa.Array:
+    """A column of unescaped field texts (null for \\N) read as ``t``,
+    the one converter of both ways of splitting a file: strings as they
+    are, booleans and ASCII numbers through pyarrow's compute under the
+    strict forms, every other value by ``_hive_converter``; a malformed
+    value is null."""
+    if not isinstance(col, pa.Array):
+        col = col.combine_chunks()
+    target = dt.to_arrow(t)
+    if is_string_like(t) and not isinstance(t, dt.BinaryType):
+        return col.cast(target)
+    if isinstance(t, dt.BooleanType):
+        return pc.equal(pc.utf8_lower(col), "true")
+    numeric = dt.is_integral(t) or dt.is_floating(t)
+    # RE2's \d is ASCII and Python's is not: a column holding another
+    # digit is read value by value, as int() and float() read it
+    if numeric and pc.all(pc.string_is_ascii(col)).as_py() is not False:
+        form = _INT_FORM if dt.is_integral(t) else _FLOAT_FORM
+        ok = pc.match_substring_regex(col, f"^(?:{form})$")
+        kept = pc.replace_substring_regex(
+            pc.if_else(ok, col, pa.scalar(None, pa.string())), r"^\+", "")
+        if dt.is_integral(t):
+            return kept.cast(target)
+        return kept.cast(pa.float64()).cast(target, safe=False)
+    conv, out = _hive_converter(t), []
+    for v in col.to_pylist():
+        if v is not None:
+            try:
+                v = conv(v)
+            except (ValueError, TypeError, ArithmeticError):
+                v = None
+        out.append(v)
+    return pa.array(out, type=target)
+
+
+def _hive_text_arrow(data: bytes, all_names, names, schema,
+                     batch_rows: int) -> Optional[List[pa.RecordBatch]]:
+    """The file through pyarrow's CSV reader where that reads what the
+    serde does: every backslash opens a whole-field \\N, every \\r
+    ends a line before its \\n, no line is empty, and every row has
+    every field. None where it cannot (then ``_decode_hive_text`` walks
+    the lines)."""
+    from pyarrow import csv
+    lines = b"\n" + data.replace(b"\r\n", b"\n")
+    if b"\r" in lines or b"\n\n" in lines or not _only_null_escapes(data):
+        return None  # a bare \r, an empty line (one field) or an escape
+    try:
+        table = csv.read_csv(
+            pa.py_buffer(data),
+            read_options=csv.ReadOptions(column_names=all_names),
+            parse_options=csv.ParseOptions(
+                delimiter="\x01", quote_char=False, escape_char=False,
+                ignore_empty_lines=False),
+            convert_options=csv.ConvertOptions(
+                column_types={n: pa.string() for n in all_names},
+                null_values=["\\N"], strings_can_be_null=True,
+                include_columns=names))
+    except pa.ArrowInvalid:  # a row of another width
+        return None
+    table = pa.table([_hive_arrow_column(table.column(n), schema[n].dtype)
+                      for n in names], names=names).combine_chunks()
+    return [rb for rb in table.to_batches(max_chunksize=batch_rows)
+            if rb.num_rows]
+
+
+def _decode_hive_text(path: str, columns, batch_rows: int,
+                      schema) -> List[pa.RecordBatch]:
+    """A Hive LazySimpleSerDe text file (the GpuHiveTextFileFormat
+    analog): \\x01 between fields, \\N for null, the serde's
+    escapes, no header; ``schema`` names and types the fields. Rows end
+    at \\n alone (a bare \\r may sit inside an escaped field); one \\r
+    before it is the terminator's. A file without escapes is split into
+    fields by pyarrow (``_hive_text_arrow``), any other line by line;
+    both read the fields through ``_hive_arrow_column``."""
+    if schema is None:
+        raise ValueError("hivetext scans need an explicit schema= "
+                         "(the format has no header)")
+    all_names = [f.name for f in schema.fields]
+    names = [n for n in all_names if columns is None or n in columns]
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if not data:
         return []
-    return [rb for rb in f.iter_batches(batch_size=batch_rows,
-                                        row_groups=groups) if rb.num_rows]
+    fast = _hive_text_arrow(data, all_names, names, schema, batch_rows)
+    if fast is not None:
+        return fast
+    lines = data.decode("utf-8").split("\n")
+    if lines and lines[-1] == "":
+        lines.pop()  # the last row's terminator
+    out: List[pa.RecordBatch] = []
+    for lo in range(0, len(lines), batch_rows):
+        rows = [_hive_split_row(ln[:-1] if ln.endswith("\r") else ln)
+                for ln in lines[lo:lo + batch_rows]]
+        arrays = []
+        for name in names:
+            fi = all_names.index(name)
+            texts = [_hive_unescape(r[fi]) if fi < len(r) else None
+                     for r in rows]
+            arrays.append(_hive_arrow_column(pa.array(texts, pa.string()),
+                                             schema[name].dtype))
+        out.append(pa.RecordBatch.from_arrays(arrays, names=names))
+    return out
 
 
 def _concat(rbs: List[pa.RecordBatch]) -> pa.RecordBatch:
@@ -305,18 +693,41 @@ class _StagedUpload:
 
 
 class GpuFileScanExec(LeafExec):
-    """Leaf scan over Parquet files (the GpuBatchScanExec analog)."""
+    """Leaf scan over files (the GpuBatchScanExec analog): ``fmt`` one of
+    ``_FORMATS``; ``pushdown`` an expression whose simple conjuncts prune
+    Parquet row groups (the filter above still runs)."""
 
-    def __init__(self, paths: Sequence[str],
-                 schema: Optional[dt.Schema] = None):
+    def __init__(self, paths: Sequence[str], fmt: str = "parquet",
+                 schema: Optional[dt.Schema] = None,
+                 columns: Optional[List[str]] = None, pushdown=None,
+                 conf: Optional[RapidsConf] = None):
         super().__init__()
         if isinstance(paths, str):
             paths = [paths]
         if not paths:
             raise ValueError("scan needs at least one file")
+        if fmt not in FORMAT_CONF:
+            raise ValueError(f"unknown scan format {fmt!r}")
         self.paths = list(paths)
+        self.fmt = fmt
+        self.columns = columns
+        self.pushdown = pushdown
+        self._conjuncts = _simple_conjuncts(pushdown) \
+            if pushdown is not None else []
+        self._max_partition_bytes = None if conf is None \
+            else conf.get(MAX_PARTITION_BYTES)
+        self._part_values, self._part_schema = _hive_partition_values(
+            self.paths)
         if schema is None:
-            schema = engine_schema(pq.ParquetFile(self.paths[0]).schema_arrow)
+            schema = self._infer_schema()
+            if self._part_schema is not None:
+                schema = dt.Schema(list(schema.fields)
+                                   + list(self._part_schema.fields))
+        elif self._part_schema is not None:
+            # an explicit schema takes only the partition columns it names
+            kept = [f for f in self._part_schema.fields
+                    if f.name in set(schema.names)]
+            self._part_schema = dt.Schema(kept) if kept else None
         self._schema = schema
         # the fields the staged blob holds: all but the nested ones
         self._flat_schema = dt.Schema([f for f in schema.fields
@@ -335,6 +746,28 @@ class GpuFileScanExec(LeafExec):
         self.__dict__.update(state)
         self._pf_local = threading.local()
 
+    def _infer_schema(self) -> dt.Schema:
+        """The first file's schema (a CSV or JSON file is read for it)."""
+        if self.fmt == "parquet":
+            asch = pq.ParquetFile(self.paths[0]).schema_arrow
+        elif self.fmt == "orc":
+            from pyarrow import orc
+            asch = orc.ORCFile(self.paths[0]).schema
+        elif self.fmt == "hivetext":
+            raise ValueError("hivetext scans need an explicit schema= "
+                             "(the format has no header)")
+        else:
+            rbs = _decode_split(FileSplit(self.paths[0]), self.fmt,
+                                self.columns, 1 << 16, [])
+            if not rbs:
+                raise ValueError(
+                    f"cannot infer schema from empty {self.fmt} file "
+                    f"{self.paths[0]}: pass schema=")
+            asch = rbs[0].schema
+        if self.columns:
+            asch = pa.schema([asch.field(c) for c in self.columns])
+        return engine_schema(asch)
+
     @property
     def output_schema(self):
         return self._schema
@@ -348,20 +781,45 @@ class GpuFileScanExec(LeafExec):
             return None
 
     def describe(self):
-        return f"FileScanExec [parquet x{len(self.paths)}]"
+        return (f"FileScanExec [{self.fmt} x{len(self.paths)}"
+                + (f" pushdown={self._conjuncts}" if self._conjuncts
+                   else "") + "]")
 
     def pretty_name(self):
         return "FileScanExec"
 
+    def gpu_supported_conf(self, conf: RapidsConf) -> Optional[str]:
+        entry = FORMAT_CONF[self.fmt]
+        if not conf.get(entry):
+            return f"the {self.fmt} scan is disabled by {entry.key}"
+        return None
+
+    def expressions(self):
+        return [self.pushdown] if self.pushdown is not None else []
+
+    def _splits(self, conf) -> List[FileSplit]:
+        return plan_splits(self.paths, self.fmt,
+                           self._max_partition_bytes
+                           or conf.get(MAX_PARTITION_BYTES))
+
+    def _decode_with_parts(self, split: FileSplit,
+                           batch_rows: int) -> List[pa.RecordBatch]:
+        rbs = _decode_split(split, self.fmt, self.columns, batch_rows,
+                            self._conjuncts, schema=self._schema)
+        return _attach_partition_columns(
+            rbs, self._part_values.get(split.path), self._part_schema)
+
     def _host_batches(self, ctx: ExecCtx) -> Iterator[pa.RecordBatch]:
-        """Decoded host batches in split order, per the reader mode."""
+        """Decoded host batches in split order, per the reader mode (a
+        format other than Parquet reads MULTITHREADED)."""
         conf = ctx.conf
-        mode = conf.get(PARQUET_READER_TYPE)
+        mode = conf.get(PARQUET_READER_TYPE) if self.fmt == "parquet" \
+            else "MULTITHREADED"
         batch_rows = conf.batch_size_rows
-        splits = plan_splits(self.paths, conf.get(MAX_PARTITION_BYTES))
+        splits = self._splits(conf)
         if mode == "PERFILE" or len(splits) <= 1:
             for s in splits:
-                yield from _decode_split(s, batch_rows)
+                yield from self._decode_with_parts(s, batch_rows)
             return
         # MULTITHREADED / COALESCING: a pool decodes splits ahead; results
         # are consumed in split order so the output is deterministic
@@ -375,7 +833,8 @@ class GpuFileScanExec(LeafExec):
                 for s in splits:
                     if stop.is_set():
                         return
-                    futures.put(pool.submit(_decode_split, s, batch_rows))
+                    futures.put(pool.submit(self._decode_with_parts, s,
+                                            batch_rows))
                 futures.put(None)
 
             feeder = threading.Thread(target=submit_all, daemon=True)
@@ -420,6 +879,8 @@ class GpuFileScanExec(LeafExec):
         return self._bounds[name]
 
     def _read_bounds(self, name: str) -> Optional[Tuple[int, int]]:
+        if self.fmt != "parquet":
+            return None
         lo = hi = None
         for path in self.paths:
             md = pq.ParquetFile(path).metadata
@@ -442,13 +903,15 @@ class GpuFileScanExec(LeafExec):
     # --- device page decode ------------------------------------------------
 
     def _use_device_decode(self, conf) -> bool:
-        return (conf.get(PARQUET_DEVICE_DECODE)
+        return (self.fmt == "parquet" and conf.get(PARQUET_DEVICE_DECODE)
                 and conf.get(PARQUET_READER_TYPE) != "COALESCING")
 
     def _device_rg_tasks(self, conf) -> List[Tuple[str, int]]:
-        """(path, row group) work list, in split order."""
-        return [(s.path, g) for s in plan_splits(
-            self.paths, conf.get(MAX_PARTITION_BYTES)) for g in s.row_groups]
+        """(path, row group) work list, in split order, the row groups
+        the pushdown rules out dropped."""
+        return [(s.path, g) for s in self._splits(conf)
+                for g in _pruned_groups(s.path, s.row_groups,
+                                        self._conjuncts)]
 
     def _thread_pf(self, path: str) -> "pq.ParquetFile":
         """Per-(thread, path) ParquetFile: one footer parse per pool
@@ -495,6 +958,15 @@ class GpuFileScanExec(LeafExec):
             t = pf.read_row_group(g, columns=host_cols)
             host_rb = t.combine_chunks().to_batches()[0] if t.num_rows \
                 else None
+        if self._part_schema is not None and rg.num_rows:
+            # the file's partition values, a constant a column, staged
+            # beside the host-decoded columns
+            parts = _partition_arrays(self._part_values.get(path),
+                                      self._part_schema, rg.num_rows)
+            host_rb = pa.RecordBatch.from_arrays(
+                ([] if host_rb is None else list(host_rb.columns)) + parts,
+                names=([] if host_rb is None else host_rb.schema.names)
+                + self._part_schema.names)
         return rg.num_rows, plans, host_rb, tuple(reasons)
 
     @staticmethod

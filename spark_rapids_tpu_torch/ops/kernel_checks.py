@@ -2417,3 +2417,256 @@ def time_k6(device, cases: Optional[List[Dict]] = None,
                           if route == "dfa" else None,
                           "pattern": c["pattern"]}
     return out
+
+
+# --- K7: xxhash64 over strings ------------------------------------------------
+
+K7_ROWS = 1 << 20
+K7_ORACLE_ROWS = 1 << 16  # the rows also held to the numpy host copy
+
+
+def _string_parts(rng, n: int, lo: int, hi: int):
+    """``n`` random byte strings of ``lo`` to ``hi`` bytes: ``(offsets
+    int32, chars uint8)``."""
+    lens = rng.integers(lo, hi + 1, n)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return offsets, rng.integers(0, 256, int(offsets[-1]), dtype=np.uint8)
+
+
+def k7_cases(device, seed: int = 19, rows: int = K7_ROWS) -> List[Dict]:
+    """K7's inputs: ``{"name", "offsets", "chars", "validity", "fixed"}``,
+    ``fixed`` the columns hashed before the strings (their running hash
+    is the string step's seed). ``rows`` strings of 0-100 bytes (under
+    and over the 32-byte stripe), 5% null, after an int, a long, a
+    double (with -0.0 and NaN) and a ``decimal(12,2)`` column, each with
+    nulls; and the edges: lengths 0-70 around the stripe and the 8- and
+    4-byte tails, rows inside an inherited buffer (the first offset past
+    0) at every alignment, every row null, and an empty buffer."""
+    from .. import datatypes as dt
+    from ..columnar.column import GpuColumnVector
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    def fixed(n):
+        d = rng.normal(size=n)
+        d[rng.random(n) < 0.01] = -0.0
+        d[rng.random(n) < 0.01] = np.nan
+        cols = [(dt.INT32, rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                 .astype(np.int32)),
+                (dt.INT64, rng.integers(-2**63, 2**63 - 1, n,
+                                        dtype=np.int64)),
+                (dt.FLOAT64, d),
+                (dt.DecimalType(12, 2), rng.integers(-10**12 + 1, 10**12,
+                                                     n, dtype=np.int64))]
+        return [GpuColumnVector(ty, t(v), t(rng.random(n) >= 0.05))
+                for ty, v in cols]
+
+    off, chars = _string_parts(rng, rows, 0, 100)
+    out = [{"name": f"strings_0_100B_2^{rows.bit_length() - 1}",
+            "offsets": t(off), "chars": t(chars),
+            "validity": t(rng.random(rows) >= 0.05), "fixed": fixed(rows)}]
+    lens = np.tile(np.arange(71), 9)
+    for shift in range(9):
+        offs = shift + np.concatenate([[0], np.cumsum(lens)])
+        buf = rng.integers(0, 256, int(offs[-1]) + 5, dtype=np.uint8)
+        out.append({"name": f"edges_lengths_0_70_from_{shift}",
+                    "offsets": t(offs, np.int32), "chars": t(buf),
+                    "validity": None, "fixed": fixed(len(lens))})
+    off, chars = _string_parts(rng, 100, 0, 40)
+    out.append({"name": "edges_all_null", "offsets": t(off),
+                "chars": t(chars), "validity": t(np.zeros(100, np.bool_)),
+                "fixed": fixed(100)})
+    out.append({"name": "edges_no_chars", "offsets": t(np.zeros(4,
+                                                                np.int32)),
+                "chars": t(np.zeros(0, np.uint8)),
+                "validity": t([True, False, True], np.bool_),
+                "fixed": fixed(3)})
+    return out
+
+
+def _k7_seed(case) -> torch.Tensor:
+    from .hash import XXSEED, xxhash64_column
+    n = case["offsets"].shape[0] - 1
+    h = torch.full((n,), XXSEED, dtype=torch.int64,
+                   device=case["offsets"].device)
+    for c in case["fixed"]:
+        h = xxhash64_column(c, h)
+    return h
+
+
+def _k7_host(case, rows: int) -> np.ndarray:
+    """The numpy host copy (``hash.xxhash64_columns_numpy``) of the
+    case's first ``rows`` rows: its columns, then the strings."""
+    from .. import datatypes as dt
+    from ..expr.base import column_to_arrow
+    from ..columnar.column import GpuColumnVector
+    from .hash import xxhash64_columns_numpy
+    col = GpuColumnVector(dt.BINARY, None, case["validity"],
+                          case["offsets"], case["chars"])
+    cols = case["fixed"] + [col]
+    arrays = [column_to_arrow(c, c.capacity).slice(0, rows) for c in cols]
+    return xxhash64_columns_numpy(arrays, [c.dtype for c in cols], rows)
+
+
+def check_k7(device, cases: Optional[List[Dict]] = None) -> List[Dict]:
+    """K7 against its plain version on every ``k7_cases`` input, bit for
+    bit, each chained after its fixed columns, and the chain's first
+    ``K7_ORACLE_ROWS`` rows (every row of an edge case) against the
+    numpy host copy; raises on the first disagreement."""
+    from .hash import xxhash64_strings, xxhash64_strings_torch
+    out = []
+    for c in cases if cases is not None else k7_cases(device):
+        seed = _k7_seed(c)
+        args = (c["offsets"], c["chars"], seed, c["validity"])
+        want = xxhash64_strings_torch(*args)
+        got = xxhash64_strings(*args)
+        rows = min(K7_ORACLE_ROWS, got.shape[0])
+        host = torch.from_numpy(_k7_host(c, rows))
+        rec = {"case": c["name"], "n": got.shape[0],
+               "equal": _same_bits(got, want),
+               "equal_host": _same_bits(got[:rows].cpu(), host),
+               "host_rows": rows,
+               "max_abs_err": _max_abs_diff([(got, want),
+                                             (got[:rows].cpu(), host)])}
+        rec["equal"] &= rec["equal_host"]
+        if not rec["equal"]:
+            raise AssertionError(f"K7 disagrees: {rec}")
+        out.append(rec)
+    return out
+
+
+def time_k7(device, case: Optional[Dict] = None,
+            reps: int = 50) -> Dict[str, float]:
+    """Device ms of K7 and its plain version on the main case, over
+    copies of the inputs larger than L2, in turns, with the bytes a call
+    must move: the offsets (4 B a row and one more), each row's bytes,
+    the 8 B seed in, the validity byte and the 8 B hash out."""
+    from .hash import xxhash64_strings, xxhash64_strings_torch
+    c = case if case is not None else k7_cases(device)[0]
+    n = c["offsets"].shape[0] - 1
+    seed = _k7_seed(c)
+    nbytes = 4 * (n + 1) + int(c["offsets"][-1] - c["offsets"][0]) \
+        + n * (8 + 8 + (c["validity"] is not None))
+    args = (c["offsets"], c["chars"], seed, c["validity"])
+
+    def fresh():
+        return tuple(None if a is None else a.clone() for a in args)
+    copies = _cycle(fresh, _copies_for(nbytes))
+    ms, plain_ms = _turns(lambda a: xxhash64_strings_torch(*a),
+                          lambda a: xxhash64_strings(*a), copies, reps, 3)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bytes": nbytes, "rows": n, "case": c["name"]}
+
+
+# --- K8: the regex span finder ------------------------------------------------
+
+K8_TEXT_ROWS = 1 << 20
+#: a class run, a bounded repeat, one of 60 positions, one that matches
+#: at a row's last byte (an end anchor)
+K8_PATTERNS = ("[aeiou]+", "\\d\\d?\\d?", "[a-z ]" * 60, "[a-z]+$")
+
+
+def k8_cases(device, seed: int = 20,
+             text_rows: int = K8_TEXT_ROWS) -> List[Dict]:
+    """K8's inputs: ``{"name", "offsets", "chars", "validity", "pattern",
+    "prog"}``: ``text_rows`` rows of ``_k6_text`` (20-120 bytes with
+    multi-byte characters and newlines, 5% null) under each of
+    ``K8_PATTERNS``; and the edges: empty rows between others and at the
+    buffer's end (a row starting at the chars' capacity), a null row
+    with bytes, rows inside an inherited buffer, an empty buffer, and an
+    anchored pattern."""
+    from . import regex
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+    def case(name, offsets, validity, chars, pattern):
+        prog, why = regex.compile_replace_pattern(pattern)
+        if prog is None:
+            raise ValueError(f"{pattern!r}: {why}")
+        return {"name": name, "offsets": t(offsets, np.int32),
+                "validity": None if validity is None
+                else t(validity, np.bool_), "chars": t(chars, np.uint8),
+                "pattern": pattern, "prog": prog}
+
+    off, chars = _k6_text(rng, text_rows)
+    valid = rng.random(len(off) - 1) >= 0.05
+    out = [case(f"text_{i}_2^{text_rows.bit_length() - 1}", off, valid,
+                chars, p) for i, p in enumerate(K8_PATTERNS)]
+    buf = np.frombuffer("aeixo 12 zoo\nuu 345 é日 ab ba".encode(),
+                        np.uint8)
+    m = len(buf)
+    offs = [2, 2, 7, 13, 13, 20, m - 4, m, m]
+    valid = [True, True, False, True, True, True, True, True]
+    for p in ("[aeiou]+", "\\d\\d?\\d?", "[a-z]+$", "^[ax]+", "o"):
+        out.append(case(f"edges_{p!r}", offs, valid, buf, p))
+    out.append(case("edges_no_chars", [0, 0, 0], [True, False],
+                    np.zeros(0, np.uint8), "[aeiou]+"))
+    return out
+
+
+def _k8_same(got, want) -> bool:
+    return all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+def check_k8(device, cases: Optional[List[Dict]] = None) -> List[Dict]:
+    """K8 against its plain version on every ``k8_cases`` input, with
+    ``first_only`` off and on, all five outputs bit for bit; raises on
+    the first disagreement."""
+    from . import regex
+    out = []
+    for c in cases if cases is not None else k8_cases(device):
+        args = (c["offsets"], c["chars"], c["validity"], c["prog"])
+        for first_only in (False, True):
+            want = regex.find_spans_torch(*args, first_only)
+            got = regex.find_spans(*args, first_only)
+            rec = {"case": c["name"], "first_only": first_only,
+                   "n": c["offsets"].shape[0] - 1,
+                   "positions": c["prog"].n_states,
+                   "spans": int(want[2].sum()),
+                   "equal": _k8_same(got, want),
+                   "max_abs_err": _max_abs_diff([
+                       (g.to(torch.int64), w.to(torch.int64))
+                       for g, w in zip(got, want)])}
+            if not rec["equal"]:
+                raise AssertionError(f"K8 disagrees: {rec}")
+            out.append(rec)
+    return out
+
+
+def time_k8(device, cases: Optional[List[Dict]] = None,
+            reps: int = 20) -> Dict[str, Dict[str, float]]:
+    """Device ms of K8 and its plain version on each text case (not the
+    edges), ``first_only`` off, over copies of the inputs larger than
+    L2, in turns, with the bytes the function must move: the offsets,
+    each row's bytes once (a row of 20-120 B fits on chip, so a design
+    may read it once, though this kernel's two phases read it twice),
+    both byte lanes written, the validity byte and 12 B a row out."""
+    from . import regex
+    out = {}
+    for c in cases if cases is not None else k8_cases(device):
+        if c["name"].startswith("edges"):
+            continue
+        n = c["offsets"].shape[0] - 1
+        live = int(c["offsets"][-1] - c["offsets"][0])
+        nbytes = 4 * (n + 1) + live + 2 * c["chars"].shape[0] \
+            + n * (12 + (c["validity"] is not None))
+        args = (c["offsets"], c["chars"], c["validity"])
+        prog = c["prog"]
+
+        def fresh():
+            return tuple(None if a is None else a.clone() for a in args)
+        copies = _cycle(fresh, _copies_for(nbytes))
+        ms, plain_ms = _turns(lambda a: regex.find_spans_torch(*a, prog),
+                              lambda a: regex.find_spans(*a, prog),
+                              copies, reps, 1)
+        out[c["name"]] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None, "bytes": nbytes, "rows": n,
+                          "positions": prog.n_states,
+                          "pattern": c["pattern"]}
+    return out

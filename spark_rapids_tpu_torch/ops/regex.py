@@ -38,6 +38,20 @@ loop in torch (one ``.item()`` of the longest live string, then one
 step a byte position), is its plain version, which only a CPU tensor
 takes (a long literal's steps its DFA). The caller masks validity: a
 null row steps as an empty one.
+
+The spans (the reference's ``:453-702``) carry ``regexp_replace`` and
+``regexp_extract``: each row's non-overlapping leftmost-longest match
+spans. ``compile_replace_pattern`` sends a pattern with alternation
+(leftmost-first in Java) or one that can match the empty string to the
+CPU, as the reference does. The finder is **K8**
+(``csrc/regex_spans.cu``, one thread a row, on route B's position sets):
+``find_spans`` is its wrapper and ``find_spans_torch``, the reference's
+two phases in torch (``regex_find_spans_device``, ``:475``: a backward
+walk over every row finding the positions where a match can start,
+then a forward walk committing each row's greedy spans), its plain
+version. ``regex_replace`` and ``regex_extract`` assemble the output
+strings from the spans in torch (``:568-702``), the same code on either
+device.
 """
 from __future__ import annotations
 
@@ -52,7 +66,10 @@ __all__ = ["RegexUnsupported", "RegexProgram", "compile_pattern",
            "literal_regex", "regex_match", "regex_match_torch",
            "regex_bytes_read", "program_tables", "position_tables",
            "build_dfa", "follow_byte_tables", "Dfa", "MAX_STATES",
-           "DFA_MAX_ENTRIES"]
+           "DFA_MAX_ENTRIES", "compile_replace_pattern",
+           "replace_program_supported", "follow_t_byte_tables",
+           "span_tables", "find_spans", "find_spans_torch",
+           "replace_char_cap", "regex_replace", "regex_extract"]
 
 _MAX_STATES = 64
 
@@ -512,6 +529,17 @@ def follow_byte_tables(prog: RegexProgram) -> np.ndarray:
     return tabs
 
 
+def follow_t_byte_tables(prog: RegexProgram) -> np.ndarray:
+    """``follow_byte_tables`` of the transposed relation: ``T[k][b]`` is
+    the OR over the set bits ``i`` of ``b`` of the positions ``p`` whose
+    follow set holds ``8k + i``, so the positions that can step into a
+    set ``r`` are the OR over ``k`` of ``T[k][(r >> 8k) & 255]`` (K8's
+    backward walk)."""
+    t = RegexProgram()
+    t.n_states, t.follow = prog.n_states, prog.follow.T
+    return follow_byte_tables(t)
+
+
 def _follow_of(tabs: np.ndarray, fired: np.ndarray) -> np.ndarray:
     out = np.zeros_like(fired)
     for k in range(tabs.shape[0]):
@@ -873,3 +901,337 @@ def regex_match(starts: torch.Tensor, lengths: torch.Tensor,
 
 
 regex_match.launches = 0
+
+
+# --- spans: regexp_replace and regexp_extract -------------------------------
+# Leftmost-longest equals Java's leftmost-greedy for the dialect restricted
+# to a single branch; alternation is leftmost-first in Java ('a|ab' on
+# "ab" picks 'a'), so a pattern with branches runs on the CPU. A pattern
+# that can match the empty string does too: Java finds an empty match at
+# every position, and the spans are at least a byte wide.
+
+def compile_replace_pattern(pattern: str):
+    """``(program, None)`` where the spans are exact for ``pattern``, else
+    ``(None, reason)``: one compilation, which the caller keeps."""
+    try:
+        prog = compile_pattern(pattern)
+    except RegexUnsupported as e:
+        return None, str(e)
+    if len(_split_alternation(pattern)) > 1:
+        return None, ("alternation is leftmost-first in Java but "
+                      "leftmost-longest on device; runs on host")
+    if prog.always_match or prog.empty_only_match:
+        return None, "pattern can match the empty string; runs on host"
+    return prog, None
+
+
+def replace_program_supported(pattern: str) -> Optional[str]:
+    """None where the spans are exact for ``pattern``, else the reason
+    it runs on the CPU."""
+    return compile_replace_pattern(pattern)[1]
+
+
+def span_tables(prog: RegexProgram) -> np.ndarray:
+    """K8's tables, one uint64 array: ``acc[0:256]``, then the follow
+    byte tables and the transposed ones (``K = ceil(S / 8)`` tables of
+    256 each)."""
+    return np.concatenate([_bits(prog.acc),
+                           follow_byte_tables(prog).ravel(),
+                           follow_t_byte_tables(prog).ravel()])
+
+
+def _span_masks(prog: RegexProgram):
+    first = prog.first_anchored | prog.first_floating
+    anchored = bool(prog.first_anchored.any()) \
+        and not prog.first_floating.any()
+    return first, anchored
+
+
+def find_spans_torch(offsets: torch.Tensor, chars: torch.Tensor,
+                     validity: Optional[torch.Tensor], prog: RegexProgram,
+                     first_only: bool = False):
+    """K8's function in plain PyTorch, the reference's two phases:
+    ``(in_match, match_start, n_matches, first_s, first_e)``, two bool
+    lanes over ``chars`` (the byte is inside a span, it starts one), each
+    row's span count, and its first span row-relative (-1, -1 where none);
+    with ``first_only`` a row stops after its first span. A null row has
+    none."""
+    dev = offsets.device
+    n = offsets.shape[0] - 1
+    starts = offsets[:-1].to(torch.int64)
+    lens = offsets[1:].to(torch.int64) - starts
+    live = lens if validity is None else torch.where(
+        validity, lens, torch.zeros_like(lens))
+    ccap = max(chars.shape[0], 1)
+    chars = chars if chars.shape[0] else torch.zeros(1, dtype=torch.uint8,
+                                                     device=dev)
+    first_np, anchored = _span_masks(prog)
+    acc = torch.from_numpy(prog.acc).to(dev)
+    follow = torch.from_numpy(prog.follow.astype(np.float32)).to(dev)
+    follow_t = follow.t().contiguous()
+    first = torch.from_numpy(first_np).to(dev)
+    accept_any = torch.from_numpy(prog.accept_any).to(dev)
+    accept_end = torch.from_numpy(prog.accept_end).to(dev)
+    longest = int(live.max()) if n else 0
+    # phase 1: R[j], the positions that, reading byte j, can begin a
+    # suffix that reaches an accept; a match starts at j where R[j]
+    # meets the first positions
+    can_start = torch.zeros(ccap + 1, dtype=torch.bool, device=dev)
+    r_next = torch.zeros(n, prog.n_states, dtype=torch.bool, device=dev)
+    for j in range(longest - 1, -1, -1):
+        pos = (starts + j).clamp(0, ccap - 1)
+        in_row = j < live
+        acc_here = accept_any[None, :] \
+            | (accept_end[None, :] & (j == live - 1)[:, None])
+        cont = (r_next.to(torch.float32) @ follow_t) > 0
+        r = acc[chars[pos].long()] & in_row[:, None] & (acc_here | cont)
+        hit = (r & first[None, :]).any(dim=1) & in_row
+        if anchored:
+            hit &= j == 0
+        can_start[torch.where(hit, pos, ccap)] = True
+        r_next = r
+    can_start = can_start[:ccap]
+    # phase 2: each row walks forward; at a start it runs the automaton
+    # from the first positions, keeping the last accept, and commits the
+    # span where the automaton dies or the row ends, then goes on from
+    # the span's end (or one past a start that found none)
+    j = torch.zeros(n, dtype=torch.int64, device=dev)
+    matching = torch.zeros(n, dtype=torch.bool, device=dev)
+    mstart = torch.zeros(n, dtype=torch.int64, device=dev)
+    last_end = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    active = torch.zeros(n, prog.n_states, dtype=torch.bool, device=dev)
+    n_matches = torch.zeros(n, dtype=torch.int32, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    first_s = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    first_e = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    delta = torch.zeros(ccap + 1, dtype=torch.int32, device=dev)
+    span_first = torch.zeros(ccap + 1, dtype=torch.bool, device=dev)
+    while bool((j < live).any()):
+        pos = (starts + j).clamp(0, ccap - 1)
+        in_row = (j < live) & ~done
+        start_here = can_start[pos] & in_row & ~matching
+        active = torch.where(start_here[:, None], first[None, :], active)
+        matching = matching | start_here
+        mstart = torch.where(start_here, j, mstart)
+        last_end = torch.where(start_here, -1, last_end)
+        fired = active & acc[chars[pos].long()] & (matching & in_row)[:, None]
+        at_last = j == live - 1
+        accepts = fired & (accept_any[None, :]
+                           | (accept_end[None, :] & at_last[:, None]))
+        last_end = torch.where(matching & accepts.any(dim=1), j + 1,
+                               last_end)
+        nxt = (fired.to(torch.float32) @ follow) > 0
+        alive = nxt.any(dim=1) & (j + 1 < live)
+        commit = matching & in_row & ~alive
+        have = commit & (last_end > mstart)
+        delta.index_add_(0, torch.where(have, starts + mstart, ccap),
+                         torch.ones(n, dtype=torch.int32, device=dev))
+        delta.index_add_(0, torch.where(have, (starts + last_end).clamp(
+            max=ccap), ccap), torch.full((n,), -1, dtype=torch.int32,
+                                         device=dev))
+        span_first[torch.where(have, starts + mstart, ccap)] = True
+        is_first = have & (n_matches == 0)
+        first_s = torch.where(is_first, mstart.to(torch.int32), first_s)
+        first_e = torch.where(is_first, last_end.to(torch.int32), first_e)
+        n_matches = n_matches + have.to(torch.int32)
+        if first_only:
+            done = done | have
+        j = torch.where(in_row & commit,
+                        torch.where(have, last_end, mstart + 1), j + 1)
+        matching = matching & ~commit
+        active = nxt
+    # the spans are disjoint and inside their rows: +1 at a span's start
+    # and -1 at its end, summed, is the in-span mask
+    in_match = torch.cumsum(delta[:ccap], 0) > 0
+    return (in_match, span_first[:ccap], n_matches, first_s, first_e)
+
+
+class _SpanArgs(ctypes.Structure):
+    """Mirror of ``SpanArgs`` in ``csrc/regex_spans.cu``."""
+    _fields_ = [("tables", ctypes.c_void_p),
+                ("offsets", ctypes.c_void_p),
+                ("validity", ctypes.c_void_p),
+                ("chars", ctypes.c_void_p),
+                ("in_match", ctypes.c_void_p),
+                ("match_start", ctypes.c_void_p),
+                ("n_matches", ctypes.c_void_p),
+                ("first_s", ctypes.c_void_p),
+                ("first_e", ctypes.c_void_p),
+                ("n", ctypes.c_int64),
+                ("n_chars", ctypes.c_int64),
+                ("first", ctypes.c_uint64),
+                ("accept_any", ctypes.c_uint64),
+                ("accept_end", ctypes.c_uint64),
+                ("n_tables", ctypes.c_int32),
+                ("anchored", ctypes.c_int32),
+                ("first_only", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
+
+def _span_library():
+    from ._build import load
+    lib = load("regex_spans")
+    if not getattr(lib, "_spark_ready", False):
+        lib.spark_spans_args_size.argtypes = []
+        lib.spark_spans_args_size.restype = ctypes.c_int
+        lib.spark_spans_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.spark_spans_launch.restype = ctypes.c_int
+        if lib.spark_spans_args_size() != ctypes.sizeof(_SpanArgs):
+            raise RuntimeError(
+                f"SpanArgs is {lib.spark_spans_args_size()} bytes in the "
+                f"CUDA source but {ctypes.sizeof(_SpanArgs)} in ctypes")
+        lib._spark_ready = True
+    return lib
+
+
+def find_spans(offsets: torch.Tensor, chars: torch.Tensor,
+               validity: Optional[torch.Tensor], prog: RegexProgram,
+               first_only: bool = False):
+    """K8: each row's non-overlapping leftmost-longest spans of ``prog``,
+    as ``find_spans_torch`` returns them. A CPU input takes the plain
+    version; a CUDA input launches the kernel once."""
+    from .cuda_kernels import _on_cpu
+    if _on_cpu([offsets, chars, validity]):
+        return find_spans_torch(offsets, chars, validity, prog, first_only)
+    if prog.n_states > _MAX_STATES:
+        raise ValueError(f"K8 takes at most {_MAX_STATES} positions")
+    for t, want in ((offsets, torch.int32), (chars, torch.uint8),
+                    (validity, torch.bool)):
+        if t is None:
+            continue
+        if t.dtype != want or t.dim() != 1 or t.device != offsets.device:
+            raise ValueError(f"K8 takes 1-D {want} on one device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    dev = offsets.device
+    n = offsets.shape[0] - 1
+    if validity is not None and validity.shape[0] != n:
+        raise ValueError(f"K8's validity must hold {n} rows")
+    offsets, chars = offsets.contiguous(), chars.contiguous()
+    validity = None if validity is None else validity.contiguous()
+    ccap = max(chars.shape[0], 1)
+    in_match = torch.zeros(ccap, dtype=torch.bool, device=dev)
+    match_start = torch.zeros(ccap, dtype=torch.bool, device=dev)
+    n_matches = torch.zeros(n, dtype=torch.int32, device=dev)
+    first_s = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    first_e = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return in_match, match_start, n_matches, first_s, first_e
+    tables = prog.device_tables.get(("spans", dev))
+    if tables is None:
+        tables = torch.from_numpy(span_tables(prog).view(np.int64)).to(dev)
+        prog.device_tables[("spans", dev)] = tables
+    first, anchored = _span_masks(prog)
+    args = _SpanArgs()
+    args.tables = tables.data_ptr()
+    args.offsets = offsets.data_ptr()
+    args.validity = None if validity is None else validity.data_ptr()
+    args.chars = chars.data_ptr() if chars.shape[0] else None
+    args.in_match, args.match_start = in_match.data_ptr(), \
+        match_start.data_ptr()
+    args.n_matches, args.first_s, args.first_e = n_matches.data_ptr(), \
+        first_s.data_ptr(), first_e.data_ptr()
+    args.n, args.n_chars = n, chars.shape[0]
+    args.first, args.accept_any, args.accept_end = (
+        int(_bits(m)) for m in (first, prog.accept_any, prog.accept_end))
+    args.n_tables = max(1, -(-prog.n_states // 8))
+    args.anchored, args.first_only = int(anchored), int(first_only)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _span_library().spark_spans_launch(ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"regex span kernel launch failed: cudaError "
+                           f"{err}")
+    find_spans.launches += 1
+    return in_match, match_start, n_matches, first_s, first_e
+
+
+find_spans.launches = 0
+
+
+def replace_char_cap(col, prog: RegexProgram, repl_len: int) -> int:
+    """The replaced column's chars capacity without a readback: the
+    unmatched bytes plus ``repl_len`` a match, the matches at most the
+    chars over the pattern's shortest match (the reference's
+    ``:664``)."""
+    from ..columnar.batch import bucket_bytes
+    ccap = max(int(col.chars.shape[0]), 1)
+    return bucket_bytes(ccap + (ccap // max(prog.min_len, 1)) * repl_len
+                        + 16)
+
+
+def _row_of_chars(offsets: torch.Tensor, size: int) -> torch.Tensor:
+    """Each position's row under monotone ``offsets``, clamped to the
+    rows."""
+    n = offsets.shape[0] - 1
+    i = torch.arange(size, dtype=offsets.dtype, device=offsets.device)
+    return (torch.searchsorted(offsets, i, right=True) - 1).clamp(
+        0, max(n - 1, 0))
+
+
+def regex_replace(col, prog: RegexProgram, repl: bytes,
+                  char_cap: Optional[int] = None):
+    """``regexp_replace`` with a literal replacement: every span of each
+    row replaced by ``repl`` (the reference's ``regex_replace_device``,
+    ``:568``), a string column of ``char_cap`` bytes
+    (``replace_char_cap`` by default)."""
+    from ..columnar.column import GpuColumnVector
+    if char_cap is None:
+        char_cap = replace_char_cap(col, prog, len(repl))
+    offs = col.offsets
+    dev = offs.device
+    n = offs.shape[0] - 1
+    in_match, mstart, _, _, _ = find_spans(offs, col.chars, col.validity,
+                                           prog)
+    ccap = in_match.shape[0]
+    chars = col.chars if col.chars.shape[0] else torch.zeros(
+        1, dtype=torch.uint8, device=dev)
+    lr = len(repl)
+    i = torch.arange(ccap, dtype=torch.int64, device=dev)
+    in_rows = (i >= offs[0].to(torch.int64)) & (i < offs[n].to(torch.int64)) \
+        if n > 0 else torch.zeros(ccap, dtype=torch.bool, device=dev)
+    contrib = torch.where(~in_match, 1, torch.where(mstart, lr, 0))
+    contrib = torch.where(in_rows, contrib, 0)
+    ends = torch.cumsum(contrib, 0)
+    out_off = ends - contrib
+    total = ends[-1:]
+    # a row starting at the buffer's end (every byte before it taken)
+    # begins at the total, not at the clamped last position's offset
+    row_starts = offs[:-1].to(torch.int64)
+    row_out = torch.where(row_starts >= ccap, total,
+                          out_off[row_starts.clamp(0, ccap - 1)])
+    new_offsets = torch.cat([row_out, total]).to(torch.int32)
+    out = torch.zeros(char_cap + 1, dtype=torch.uint8, device=dev)
+    keep = ~in_match & in_rows
+    out[torch.where(keep, out_off, char_cap)] = chars[:ccap]
+    if lr:
+        at = torch.where(mstart & in_rows, out_off, char_cap)
+        for k, b in enumerate(repl):
+            out[torch.where(at < char_cap, at + k, char_cap)] = b
+    return GpuColumnVector(col.dtype, None, col.validity, new_offsets,
+                           out[:char_cap])
+
+
+def regex_extract(col, prog: RegexProgram):
+    """``regexp_extract`` of the whole match: each row's first span, ''
+    where there is none, the column's validity kept (the reference's
+    ``regex_extract_device``, ``:672``)."""
+    from ..columnar.column import GpuColumnVector
+    offs = col.offsets
+    dev = offs.device
+    n = offs.shape[0] - 1
+    _, _, _, first_s, first_e = find_spans(offs, col.chars, col.validity,
+                                           prog, first_only=True)
+    ccap = max(col.chars.shape[0], 1)
+    chars = col.chars if col.chars.shape[0] else torch.zeros(
+        1, dtype=torch.uint8, device=dev)
+    out_len = torch.where(first_e > first_s, first_e - first_s, 0)
+    new_offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                             torch.cumsum(out_len.to(torch.int64), 0)])
+    row = _row_of_chars(new_offsets, ccap)
+    i = torch.arange(ccap, dtype=torch.int64, device=dev)
+    src = offs[:-1].to(torch.int64)[row] + first_s.to(torch.int64)[row] \
+        + (i - new_offsets[:-1][row]) if n > 0 else i
+    live = i < new_offsets[-1]
+    out = torch.where(live, chars[src.clamp(0, ccap - 1)],
+                      torch.zeros((), dtype=torch.uint8, device=dev))
+    return GpuColumnVector(col.dtype, None, col.validity,
+                           new_offsets.to(torch.int32), out)

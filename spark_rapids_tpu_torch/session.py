@@ -10,9 +10,15 @@ plan runs on the session's device (``cuda:0`` unless the caller passes
 A grouped aggregation is planned as Spark plans it: a hash exchange over
 ``spark.sql.shuffle.partitions`` partitions, then the aggregate. The
 analyzer widens mixed numeric operands with ``Cast`` (``_analyze``), as
-the reference's does. ``union`` is UNION ALL; ``sample``,
-``explode``, ``write`` and ``pivot`` raise ``NotImplementedError`` naming
-their items. ``sql("EXPLAIN ANALYZE [FORMATTED] ...")`` runs the query
+the reference's does. ``union`` is UNION ALL; ``sample`` keeps a hash
+of each row's global position under the fraction (``GpuSampleExec``);
+``group_by(...).pivot(col[, values])`` rewrites each aggregate into one
+``If``-masked aggregate a pivot value (Spark's analyzer rewrite), running
+one query first for the distinct values when none are given; ``write``
+and ``write_parquet`` run ``GpuFileWriteExec`` through the planner and
+return the files; ``read_parquet``, ``read_csv``, ``read_json`` and
+``read_orc`` (and ``_read`` for Hive text under an explicit schema)
+build the file scan. ``sql("EXPLAIN ANALYZE [FORMATTED] ...")`` runs the query
 in process, or across an attached ``GpuProcessCluster``'s workers
 (``set_cluster``), and returns the plan annotated with each operator's
 metrics, folded over the workers on the cluster (``:389-394,452-463``).
@@ -36,7 +42,8 @@ from .exec.base import (ExecCtx, GpuExec, HostBatchSourceExec, OpContract,
                         UnaryExec, resolve_device)
 from .expr.base import Expression, Literal, UnresolvedColumn, bind_expr
 
-__all__ = ["GpuSession", "DataFrame", "GroupedData", "GpuCacheExec"]
+__all__ = ["GpuSession", "DataFrame", "GroupedData", "PivotedData",
+           "GpuCacheExec"]
 
 
 class GpuCacheExec(UnaryExec):
@@ -106,11 +113,6 @@ class GpuCacheExec(UnaryExec):
             yield rb
         if acc is not None:
             owner._cpu_cache = acc
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item "
-                               f"{item})")
 
 
 def _decimal_operand(e: Expression) -> dt.DataType:
@@ -223,8 +225,61 @@ class GroupedData:
         return DataFrame(GpuHashAggregateExec(self._keys, list(agg_exprs),
                                               child), df._session)
 
-    def pivot(self, pivot_col, values=None):
-        raise _unported("pivot (PivotedData)", 13)
+    def pivot(self, pivot_col, values=None) -> "PivotedData":
+        """Spark's pivot, rewritten into one conditional aggregate a pivot
+        value (``PivotedData.agg``); with ``values`` None the distinct
+        non-null values are collected first, sorted (one more query)."""
+        pe = self._df._bind(pivot_col)
+        if values is None:
+            from .expr.aggregates import Count
+            from .expr.base import Alias
+            distinct = GroupedData(self._df, [pe]).agg(
+                Alias(Count(), "__n__")).collect()
+            values = sorted(v for v in distinct.column(0).to_pylist()
+                            if v is not None)
+        return PivotedData(self._df, self._keys, pe, list(values))
+
+
+class PivotedData:
+    def __init__(self, df: "DataFrame", keys, pivot_expr, values):
+        self._df = df
+        self._keys = keys
+        self._pivot = pivot_expr
+        self._values = values
+
+    def agg(self, *agg_exprs) -> "DataFrame":
+        """One output column a (pivot value, aggregate): each aggregate's
+        inputs masked to its value by ``If``, ``count(*)`` counting the
+        rows of the value. One aggregate names its columns by the value
+        alone, several by ``value_aggname``, as Spark does."""
+        import copy
+        from .expr.aggregates import AggregateFunction
+        from .expr.base import Alias
+        from .expr.conditional import If
+        from .expr.predicates import EqualTo
+        out = []
+        multi = len(agg_exprs) > 1
+        for v in self._values:
+            cond = EqualTo(self._pivot, Literal(v, self._pivot.dtype))
+            for e in agg_exprs:
+                if isinstance(e, Alias):
+                    fn, nm = e.child, e.name
+                else:
+                    fn, nm = e, e.pretty_name().lower()
+                if not isinstance(fn, AggregateFunction):
+                    raise TypeError(f"pivot agg must be an aggregate: "
+                                    f"{e!r}")
+                if fn.children:
+                    # bound first: the null literal takes the child's type
+                    clone = copy.copy(fn)
+                    clone.children = tuple(
+                        If(cond, c, Literal(None, c.dtype))
+                        for c in (self._df._bind(c) for c in fn.children))
+                else:
+                    clone = type(fn)(If(cond, Literal(1, dt.INT32),
+                                        Literal(None, dt.INT32)))
+                out.append(Alias(clone, f"{v}_{nm}" if multi else str(v)))
+        return GroupedData(self._df, self._keys).agg(*out)
 
 
 class DataFrame:
@@ -320,7 +375,9 @@ class DataFrame:
                          self._session)
 
     def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
-        raise _unported("sample (TpuSampleExec)", 13)
+        from .exec.misc import GpuSampleExec
+        return DataFrame(GpuSampleExec(fraction, seed, self._node),
+                         self._session)
 
     def explode(self, column, outer: bool = False,
                 position: bool = False) -> "DataFrame":
@@ -336,8 +393,24 @@ class DataFrame:
     def cache(self) -> "DataFrame":
         return DataFrame(GpuCacheExec(self._node), self._session)
 
-    def write(self, path: str, fmt: str = "parquet", partition_by=None):
-        raise _unported("write (io/write.py)", 13)
+    def write(self, path: str, fmt: str = "parquet",
+              partition_by=None) -> List[str]:
+        """Write through ``GpuFileWriteExec`` (planned and run now);
+        returns the part files. The planned write stays as
+        ``last_write_plan``: its ``last_ctx`` holds the run's metrics,
+        the writer's ``writeTime`` among them."""
+        from .io.write import GpuFileWriteExec
+        node = GpuFileWriteExec(self._node, path, fmt,
+                                partition_by=partition_by,
+                                conf=self._session.conf)
+        from .planner import GpuOverrides
+        self.last_write_plan = GpuOverrides(
+            self._session.conf, self._session.device).apply(node)
+        self.last_write_plan.collect()
+        return list(node.written_files)
+
+    def write_parquet(self, path: str, **kw) -> List[str]:
+        return self.write(path, "parquet", **kw)
 
     # --- actions ----------------------------------------------------------
     def collect(self, qctx=None) -> pa.Table:
@@ -441,6 +514,21 @@ class GpuSession:
         return DataFrame(HostBatchSourceExec(
             rbs, schema=engine_schema(schema)), self)
 
-    def read_parquet(self, paths, schema=None) -> DataFrame:
+    def _read(self, paths, fmt: str, schema=None) -> DataFrame:
         from .io.scan import GpuFileScanExec
-        return DataFrame(GpuFileScanExec(paths, schema=schema), self)
+        if isinstance(paths, str):
+            paths = [paths]
+        return DataFrame(GpuFileScanExec(paths, fmt=fmt, schema=schema,
+                                         conf=self.conf), self)
+
+    def read_parquet(self, paths, schema=None) -> DataFrame:
+        return self._read(paths, "parquet", schema)
+
+    def read_csv(self, paths, schema=None) -> DataFrame:
+        return self._read(paths, "csv", schema)
+
+    def read_json(self, paths, schema=None) -> DataFrame:
+        return self._read(paths, "json", schema)
+
+    def read_orc(self, paths, schema=None) -> DataFrame:
+        return self._read(paths, "orc", schema)

@@ -97,12 +97,13 @@ def nested_paths(n_sales: int, tables=None):
 
 
 def counters():
-    """The launch counters of K3, K4, K5 and K6's wrappers."""
+    """The launch counters of K3, K4, K5, K6, K7 and K8's wrappers."""
     from ..ops import cuda_kernels as ck
+    from ..ops.hash import xxhash64_strings
     from ..ops.parquet_decode import decode_batch
-    from ..ops.regex import regex_match
+    from ..ops.regex import find_spans, regex_match
     return {"K3": ck.sort_pairs, "K4": ck.gather_rows, "K5": decode_batch,
-            "K6": regex_match}
+            "K6": regex_match, "K7": xxhash64_strings, "K8": find_spans}
 
 
 def _rank_share(device_events, range_name: str = _RANGE):

@@ -176,16 +176,21 @@ def test_errors_keep_the_reference_slugs(paths):
     assert got.num_rows == 200 * 730
 
 
-def test_unported_dataframe_methods_raise(paths):
+def test_unported_dataframe_methods_raise(paths, tmp_path):
     s = GpuSession(device="cpu")
     df = s.read_parquet(paths["item"])
     # cache() is ported (the spill catalog): tests/test_torch_out_of_core.py;
     # explode too (tests/test_torch_nested_exprs.py), which refuses a
-    # string column as the reference's does
-    for call in (lambda: df.sample(0.5),
-                 lambda: df.write("/nonexistent")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            call()
+    # string column as the reference's does; sample and write raised
+    # naming ROADMAP item 13 until they were ported: they run now, held
+    # to the reference (tests/test_torch_expand_sample.py,
+    # tests/test_torch_write_read.py)
+    from spark_rapids_tpu.session import TpuSession
+    ref = TpuSession().read_parquet(paths["item"])
+    assert df.sample(0.5, seed=3).collect().equals(
+        ref.sample(0.5, seed=3).collect())
+    files = df.write(str(tmp_path / "out"))
+    assert s.read_parquet(files).collect().equals(df.collect())
     with pytest.raises(TypeError, match="array/map"):
         df.explode("i_category")
 

@@ -109,31 +109,32 @@ def _reference_namespace():
 
 
 def run_reference_frames(build, paths: Dict[str, str],
-                         conf: Optional[dict] = None):
+                         conf: Optional[dict] = None, namespace=None):
     """The JAX package's rows, scan counters and planned plan for a
-    builder."""
+    builder (``namespace``: its ``E``, ``nds_nested``'s by default)."""
     from spark_rapids_tpu.exec.base import ExecCtx
     from spark_rapids_tpu.planner import TpuOverrides
     from spark_rapids_tpu.session import TpuSession
     from spark_rapids_tpu.tools import nds as jnds
     s = TpuSession(conf=dict(conf or {}))
     jnds.register_frames(s, {k: s.read_parquet(p) for k, p in paths.items()})
-    pp = TpuOverrides(s.conf).apply(build(s, _reference_namespace())._node)
+    pp = TpuOverrides(s.conf).apply(
+        build(s, namespace or _reference_namespace())._node)
     ctx = ExecCtx(s.conf)
     return pp.collect(ctx), scan_chunks(ctx.metrics), pp
 
 
 def run_port_frames(build, paths: Dict[str, str],
-                    conf: Optional[dict] = None):
+                    conf: Optional[dict] = None, namespace=None):
     """The port's rows, scan counters and planned plan for a builder, on
-    the CPU."""
+    the CPU (``namespace``: its ``E``, ``nds_nested``'s by default)."""
     from spark_rapids_tpu_torch import nds
     from spark_rapids_tpu_torch.exec.base import ExecCtx
     from spark_rapids_tpu_torch.planner import GpuOverrides
     from spark_rapids_tpu_torch.tools.nds_nested import port_namespace
     s = nds.session_over_files(paths, conf, device="cpu")
     pp = GpuOverrides(s.conf, s.device).apply(
-        build(s, port_namespace())._node)
+        build(s, namespace or port_namespace())._node)
     ctx = ExecCtx(s.conf, "cpu")
     return pp.collect(ctx), scan_chunks(ctx.metrics), pp
 
@@ -141,15 +142,18 @@ def run_port_frames(build, paths: Dict[str, str],
 def dual_run_frames(build, paths: Dict[str, str],
                     conf: Optional[dict] = None, ordered: bool = True,
                     ref_conf: Optional[dict] = None,
-                    port_chunks=None, label: str = ""):
+                    port_chunks=None, label: str = "", namespaces=None):
     """``dual_run`` for a builder: rows and types held to the
     reference's (``ordered``: the row order too), the scan counters to
     the reference's or to ``port_chunks(port's plan)``. ``ref_conf``
-    adds settings to the reference's run only. Returns ``(port's table,
-    reference's table, port's plan, reference's plan)``."""
-    got, got_chunks, pp = run_port_frames(build, paths, conf)
+    adds settings to the reference's run only; ``namespaces`` is
+    ``(port's E, reference's E)`` where the builder needs other names
+    than ``nds_nested``'s. Returns ``(port's table, reference's table,
+    port's plan, reference's plan)``."""
+    port_ns, ref_ns = namespaces or (None, None)
+    got, got_chunks, pp = run_port_frames(build, paths, conf, port_ns)
     want, want_chunks, jpp = run_reference_frames(
-        build, paths, dict(conf or {}, **(ref_conf or {})))
+        build, paths, dict(conf or {}, **(ref_conf or {})), ref_ns)
     assert_same_rows(got, want, ordered, label=label)
     need = want_chunks if port_chunks is None \
         else sorted(port_chunks(pp))
